@@ -1,0 +1,91 @@
+"""Execution planner for the Fourier ops (port of ``repro.core.fft.planner``,
+legacy mode).
+
+Given (n, batch) it decides the kernel configuration that executes on the
+card: radix (2 or 4), rows per CTA, and whether a row stays in shared
+memory or runs its sweeps on a device-memory scratch. Only the local tier
+exists in this package: the distributed four-step tiers, the exact (NTT)
+tier and the cost-model auto mode raise and name the slice that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.kernels.fft import plan_batch_block, resident
+from repro_torch.kernels.polymul import (default_complex_block,
+                                         default_real_block)
+
+#: Where the tiers this package does not run yet are ported.
+_EXACT_SLICE = "the exact-tier slice (polymul-mod on the NTT kernels)"
+_DIST_SLICE = "the multi-device slice (the distributed four-step tiers)"
+_AUTO_SLICE = "the cost-model slice (the PIM model and planner auto mode)"
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTPlan:
+    tier: str           # "local" (the only tier this package runs)
+    radix: int          # 2 or 4
+    block_b: int        # rows per CTA at most (a cap; fitted to each batch)
+    #: real-Hermitian route: the two-for-one packed rfft kernel and the
+    #: paired-inverse real product, with the doubled block the halved
+    #: working set buys.
+    real: bool = False
+    #: fused-product route (polymul kernels): both operands' spectra share
+    #: the CTA, so half the rows per CTA of the transform route.
+    product: bool = False
+    #: True when a row (a row pair on the real route) stays in shared memory
+    #: for every sweep; False when the kernel stages its sweeps through a
+    #: device-memory scratch.
+    resident: bool = True
+
+    def describe(self) -> str:
+        kind = {(False, False): "FFT",
+                (True, False): "real-packed FFT (two-for-one Hermitian)",
+                (False, True): "fused complex product",
+                (True, True): "fused real product (paired inverse)",
+                }[(self.real, self.product)]
+        where = ("shared-memory resident" if self.resident
+                 else "staged through device memory")
+        return (f"local CUDA {kind} kernel, radix-{self.radix}, "
+                f"{self.block_b} rows per CTA ({where})")
+
+
+def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
+         real: bool = False, product: bool = False,
+         workload: str | None = None) -> FFTPlan:
+    """Execution plan for a batch of n-point transforms.
+
+    ``real=True`` plans the two-for-one packed kernels; ``product=True`` the
+    fused products, which hold both operands' spectra and so take half the
+    rows per CTA and reach shared-memory residency at half the n. Radix 4
+    whenever n >= 4, as in the reference planner.
+
+    Raises ValueError on a non-power-of-two n, a negative batch,
+    ``exact`` with ``real``, and on what this package does not run yet:
+    ``exact=True``, ``model_shards > 1`` and ``workload=``.
+    """
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"n={n} must be a power of two")
+    if batch < 0:
+        raise ValueError(f"batch={batch} must be non-negative")
+    if exact and real:
+        raise ValueError("exact (mod-q) and real (Hermitian) tiers are "
+                         "mutually exclusive")
+    if exact:
+        raise ValueError(f"exact (NTT) tier not yet ported; it comes with "
+                         f"{_EXACT_SLICE}")
+    if model_shards != 1:
+        raise ValueError(f"model_shards={model_shards}: distributed tier not "
+                         f"yet ported; it comes with {_DIST_SLICE}")
+    if workload is not None:
+        raise ValueError(f"workload={workload!r}: auto planning not yet "
+                         f"ported; it comes with {_AUTO_SLICE}")
+    radix = 4 if (n.bit_length() - 1) >= 2 else 2
+    if product:
+        block = default_real_block(n) if real else default_complex_block(n)
+    else:
+        block = plan_batch_block(n, real=real)
+    # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
+    return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
+                   product=product,
+                   resident=resident(n, real=real, product=product))

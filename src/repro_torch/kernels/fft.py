@@ -1,0 +1,398 @@
+"""Batched Stockham FFT and two-for-one real FFT (port of ``repro.kernels.fft``).
+
+Each public ``*_planes`` function is a wrapper: for tensors on the card it
+launches its hand-written CUDA kernel (``csrc/stockham.cu``), for tensors on
+the CPU it runs the plain PyTorch version beside it, which performs the same
+sweeps, twiddles, split and packing as torch ops. Any other device raises.
+
+Complex data is carried as split fp32 planes (B, n). Stockham invariant: the
+state of a row is A(L, r) with L * r = n, and column q of A is the length-L
+FFT of x[q :: r]; no bit-reversal permutation is ever applied.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+
+def _log2(n: int) -> int:
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"n={n} must be a power of two")
+    return n.bit_length() - 1
+
+
+def twiddle_table(n: int, *, inverse: bool = False
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Master twiddle table W[k] = exp(sign * 2 pi i k / n), k < n, fp32 planes.
+
+    Every stage's twiddles are strided slices of this one table (stage L
+    uses W[:: n/(2L)][:L]). Angles are computed in float64 from exact
+    integer exponents and rounded once to fp32.
+    """
+    k = np.arange(n, dtype=np.float64)
+    sign = 1.0 if inverse else -1.0
+    ang = sign * 2.0 * np.pi * k / n
+    return (np.cos(ang).astype(np.float32)[None, :],
+            np.sin(ang).astype(np.float32)[None, :])
+
+
+@functools.lru_cache(maxsize=64)
+def device_twiddles(n: int, inverse: bool, device: torch.device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``twiddle_table`` as (1, n) fp32 tensors on ``device``, cached so a
+    served batch does not copy the table to the card again."""
+    wr, wi = twiddle_table(n, inverse=inverse)
+    return (torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device))
+
+
+# ---------------------------------------------------------------------------
+# Plain Stockham sweeps (the dataflow every kernel in csrc/stockham.cu runs)
+# ---------------------------------------------------------------------------
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _mul_i(r, i, sign: float):
+    """(r + i j) * (sign * j):  sign=-1 -> multiply by -i, sign=+1 -> by +i."""
+    if sign < 0:
+        return i, -r
+    return -i, r
+
+
+def _radix2_stage(yr, yi, wr, wi, L, r, n):
+    """One Stockham radix-2 sweep: (B, L, r) -> (B, 2L, r/2)."""
+    half = r // 2
+    er, ei = yr[:, :, :half], yi[:, :, :half]
+    orr, oii = yr[:, :, half:], yi[:, :, half:]
+    stride = n // (2 * L)
+    twr = wr[:, 0:L * stride:stride][:, :, None]   # (1, L, 1)
+    twi = wi[:, 0:L * stride:stride][:, :, None]
+    tr, ti = _cmul(twr, twi, orr, oii)
+    outr = torch.cat([er + tr, er - tr], dim=1)
+    outi = torch.cat([ei + ti, ei - ti], dim=1)
+    return outr, outi
+
+
+def _radix4_stage(yr, yi, wr, wi, L, r, n, sign: float):
+    """One Stockham radix-4 sweep: (B, L, r) -> (B, 4L, r/4).
+
+    U[l + m L'] = sum_j w4^{jm} T_j,  T_j = W_n^{j l (n/4L)} E_j[l],
+    with E_j = A[:, :, j*r/4 : (j+1)*r/4] and L' = 4L blocks concatenated.
+    """
+    q = r // 4
+    s = n // (4 * L)
+    e = [(yr[:, :, j * q:(j + 1) * q], yi[:, :, j * q:(j + 1) * q])
+         for j in range(4)]
+    t = [e[0]]
+    for j in (1, 2, 3):
+        twr = wr[:, 0:L * j * s:j * s][:, :, None]
+        twi = wi[:, 0:L * j * s:j * s][:, :, None]
+        t.append(_cmul(twr, twi, e[j][0], e[j][1]))
+    (t0r, t0i), (t1r, t1i), (t2r, t2i), (t3r, t3i) = t
+    a_r, a_i = t0r + t2r, t0i + t2i      # T0 + T2
+    b_r, b_i = t0r - t2r, t0i - t2i      # T0 - T2
+    c_r, c_i = t1r + t3r, t1i + t3i      # T1 + T3
+    d_r, d_i = t1r - t3r, t1i - t3i      # T1 - T3
+    id_r, id_i = _mul_i(d_r, d_i, sign)  # (+-i)(T1 - T3)
+    outr = torch.cat([a_r + c_r, b_r + id_r, a_r - c_r, b_r - id_r], dim=1)
+    outi = torch.cat([a_i + c_i, b_i + id_i, a_i - c_i, b_i - id_i], dim=1)
+    return outr, outi
+
+
+def stockham_stages(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int):
+    """Run all Stockham sweeps on (B, n) planes; the inverse scales by 1/n.
+
+    wr, wi: (1, n) fp32 master table (already conjugated for inverse).
+    Radix 4 runs one radix-2 sweep first when log2 n is odd.
+    """
+    sign = 1.0 if inverse else -1.0
+    b = xr.shape[0]
+    yr = xr.reshape(b, 1, n)
+    yi = xi.reshape(b, 1, n)
+    L, r = 1, n
+    if radix == 4 and _log2(n) % 2 == 1:
+        yr, yi = _radix2_stage(yr, yi, wr, wi, L, r, n)
+        L, r = 2 * L, r // 2
+    while r > 1:
+        if radix == 4 and r % 4 == 0:
+            yr, yi = _radix4_stage(yr, yi, wr, wi, L, r, n, sign)
+            L, r = 4 * L, r // 4
+        else:
+            yr, yi = _radix2_stage(yr, yi, wr, wi, L, r, n)
+            L, r = 2 * L, r // 2
+    yr = yr.reshape(b, n)
+    yi = yi.reshape(b, n)
+    if inverse:
+        yr, yi = yr * (1.0 / n), yi * (1.0 / n)
+    return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# Shared-memory planning: rows per CTA, and whether they stay on chip.
+#
+# A CTA keeps its rows in two ping-pong buffers, so a complex row costs 16n
+# bytes of shared memory and a real row (half of a packed complex row) 8n.
+# The products hold both operands' spectra: twice that.
+# ---------------------------------------------------------------------------
+
+#: Shared memory one CTA may opt into on Hopper (227 KB).
+SMEM_MAX_BYTES = 232448
+#: Budget for the planned batch block: the per-CTA limit that needs no
+#: opt-in, so CTAs of short rows stay small and several share an SM.
+SMEM_BLOCK_BUDGET = 48 * 1024
+#: Most rows one CTA holds (twice that in real mode).
+MAX_BLOCK = 1024
+_BUFFERS = 2
+
+
+def smem_bytes(n: int, block: int, *, real: bool = False,
+               product: bool = False) -> int:
+    """Shared memory of a CTA holding ``block`` rows of n points."""
+    per_row = (1 if real else 2) * n * 4 * _BUFFERS
+    return block * per_row * (2 if product else 1)
+
+
+def plan_batch_block(n: int, *, real: bool = False) -> int:
+    """Largest power-of-two batch block whose working set fits the block
+    budget (at least one row, or one row pair in real mode).
+
+    ``real=True`` is the two-for-one packed mode: two real rows share one
+    complex working row, so the per-row footprint halves and both the
+    derived block and its cap double.
+    """
+    per_row = smem_bytes(n, 1, real=real)
+    max_block = 2 * MAX_BLOCK if real else MAX_BLOCK
+    blk = SMEM_BLOCK_BUDGET // per_row
+    blk = max(2 if real else 1, min(max_block, blk))
+    return 1 << (blk.bit_length() - 1)
+
+
+def _fit_block(blk: int, batch: int, *, even: bool = False) -> int:
+    """Shrink a planned batch block to the actual batch (next power of two
+    >= batch), so a small batch runs in fewer, fuller CTAs: the planned
+    block is a cap, not a minimum. ``even=True`` keeps the two-for-one
+    pairing invariant."""
+    cap = 1 << max(0, batch - 1).bit_length()
+    blk = min(blk, max(1, cap))
+    return max(2, blk) if even else blk
+
+
+def cta_rows(n: int, batch: int, block: int, *, real: bool = False,
+             product: bool = False) -> tuple[int, bool]:
+    """(rows per CTA, staged) for a launch.
+
+    ``block`` is a cap: it shrinks to the batch, then halves while the CTA's
+    working set exceeds ``SMEM_MAX_BYTES``. When even the least block (one
+    row, or one row pair in real mode) does not fit, ``staged`` is True and
+    the kernel runs the same sweeps on a device-memory scratch.
+    """
+    if block < 1 or (real and block % 2):
+        raise ValueError(f"block={block}: need a block >= 1"
+                         + (", even for two-for-one packing" if real else ""))
+    least = 2 if real else 1
+    blk = _fit_block(block, batch, even=real)
+    while blk > least and smem_bytes(n, blk, real=real,
+                                     product=product) > SMEM_MAX_BYTES:
+        blk //= 2
+    return blk, smem_bytes(n, blk, real=real, product=product) > SMEM_MAX_BYTES
+
+
+def resident(n: int, *, real: bool = False, product: bool = False) -> bool:
+    """Whether a row (a row pair in real mode) stays in shared memory."""
+    least = 2 if real else 1
+    return smem_bytes(n, least, real=real, product=product) <= SMEM_MAX_BYTES
+
+
+# ---------------------------------------------------------------------------
+# Real-input fast path: two-for-one packed rfft (paper Eq. (10)).
+#
+# Packed-Nyquist layout of a real row's spectrum (n/2 complex bins):
+#   P[0] = X[0].re + i * X[n/2].re     (DC and Nyquist are both real)
+#   P[k] = X[k]                        (1 <= k < n/2)
+# ---------------------------------------------------------------------------
+
+def _roll1(x):
+    """roll(x, 1) along the last axis."""
+    return torch.cat([x[..., -1:], x[..., :-1]], dim=-1)
+
+
+def _reverse_mod_n(xr, xi):
+    """(Z_k) -> (Z_{n-k}), indices mod n: flip then rotate so k=0 stays."""
+    return _roll1(torch.flip(xr, dims=[-1])), _roll1(torch.flip(xi, dims=[-1]))
+
+
+def hermitian_split(zr, zi):
+    """Split Z = FFT(a + i b) of two real rows into their spectra (Eq. (10)).
+
+    A_k = (Z_k + conj(Z_{n-k})) / 2,  B_k = -i (Z_k - conj(Z_{n-k})) / 2.
+    The results are EXACTLY Hermitian in fp32 (each component of A_{n-k} is
+    the same float expression as +-A_k's), which is what lets the paired
+    inverse in kernels/polymul.py split two real products per transform.
+    """
+    zrr, zri = _reverse_mod_n(zr, zi)
+    ar = 0.5 * (zrr + zr)
+    ai = 0.5 * (-zri + zi)
+    br = 0.5 * (zri + zi)
+    bi = 0.5 * (zrr - zr)
+    return ar, ai, br, bi
+
+
+def _pack_half(sr, si, nh: int):
+    """Full Hermitian spectrum planes (B, n) -> packed-Nyquist (B, nh)."""
+    pr = sr[:, :nh]
+    pi = torch.cat([sr[:, nh:nh + 1], si[:, 1:nh]], dim=1)
+    return pr, pi
+
+
+def _unpack_full(pr, pi, n: int):
+    """Packed-Nyquist half-spectrum (B, n/2) -> full Hermitian planes (B, n).
+
+    Mirror bins k in (n/2, n) are conj(P[n-k]); DC/Nyquist imag parts are
+    structurally zero. The inverse real FFT's plain version is built on it;
+    that op lands with its kernel (the reference's ``_irfft_kernel``).
+    """
+    zero = torch.zeros_like(pr[:, :1])
+    head_i = torch.cat([zero, pi[:, 1:]], dim=1)          # im, bins < n/2
+    tail_r = torch.flip(pr[:, 1:], dims=[1])              # re, bins > n/2
+    tail_i = -torch.flip(pi[:, 1:], dims=[1])
+    fr = torch.cat([pr, pi[:, :1], tail_r], dim=1)        # Nyquist at n/2
+    fi = torch.cat([head_i, zero, tail_i], dim=1)
+    return fr, fi
+
+
+# ---------------------------------------------------------------------------
+# Plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+def check_planes(name: str, *planes: torch.Tensor) -> tuple[int, int]:
+    """Raise unless the planes are what the kernels take: 2-D fp32, one
+    shape, contiguous, on the CPU or one CUDA device. Returns (B, n)."""
+    ref = planes[0]
+    if ref.ndim != 2:
+        raise ValueError(f"{name}: expected (batch, n) planes, got "
+                         f"shape {tuple(ref.shape)}")
+    for p in planes:
+        if p.device != ref.device:
+            raise ValueError(f"{name}: planes on {p.device} and {ref.device}")
+        if p.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32 planes, got {p.dtype}")
+        if p.shape != ref.shape:
+            raise ValueError(f"{name}: plane shapes {tuple(p.shape)} and "
+                             f"{tuple(ref.shape)} differ")
+        if not p.is_contiguous():
+            raise ValueError(f"{name}: planes must be contiguous")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+    b, n = ref.shape
+    _log2(n)
+    return b, n
+
+
+def check_radix(radix: int) -> None:
+    if radix not in (2, 4):
+        raise ValueError(f"radix={radix}: the kernels run radix 2 or 4")
+
+
+def scratch_for(n: int, batch: int, rows: int, staged: bool,
+                device: torch.device, *, real: bool = False,
+                product: bool = False) -> torch.Tensor | None:
+    """Device-memory ping-pong buffers for a staged launch (one slice per
+    CTA); None when the rows stay in shared memory."""
+    if not staged:
+        return None
+    grid = -(-batch // rows)
+    floats = grid * smem_bytes(n, rows, real=real, product=product) // 4
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def fft_planes_plain(xr, xi, *, inverse: bool = False, radix: int = 2):
+    """Plain version of ``fft_planes``: the same sweeps as torch ops."""
+    n = xr.shape[1]
+    wr, wi = device_twiddles(n, inverse, xr.device)
+    return stockham_stages(xr, xi, wr, wi, n=n, inverse=inverse, radix=radix)
+
+
+def fft_planes(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
+               radix: int = 2, block_b: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched FFT (or inverse FFT, scaled by 1/n) on split planes (B, n).
+
+    On the card: kernel ``fft_kernel``, ``block_b`` rows per CTA at most
+    (default ``plan_batch_block``), fitted to the batch. Replaces
+    ``repro/kernels/fft.py::fft_planes``.
+    """
+    b, n = check_planes("fft_planes", xr, xi)
+    check_radix(radix)
+    if xr.device.type == "cpu":
+        return fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
+    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n))
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if b == 0:
+        return yr, yi
+    with torch.cuda.device(xr.device):
+        wr, wi = device_twiddles(n, inverse, xr.device)
+        scratch = scratch_for(n, b, rows, staged, xr.device)
+        _build.launch("stockham_fft", "fft_planes", ptr(xr), ptr(xi),
+                      ptr(yr), ptr(yi), ptr(wr), ptr(wi), ptr(scratch),
+                      b, _log2(n), radix, int(inverse), rows)
+    return yr, yi
+
+
+def rfft_planes_plain(x, *, radix: int = 2):
+    """Plain version of ``rfft_planes``: pairs rows (2j, 2j+1) as a + ib,
+    padding an odd batch with one zero row."""
+    b, n = x.shape
+    nh = n // 2
+    if b % 2:
+        x = torch.cat([x, torch.zeros_like(x[:1])])
+    bp = x.shape[0]
+    z = x.reshape(bp // 2, 2, n)
+    wr, wi = device_twiddles(n, False, x.device)
+    zr, zi = stockham_stages(z[:, 0, :], z[:, 1, :], wr, wi, n=n,
+                             inverse=False, radix=radix)
+    ar, ai, br, bi = hermitian_split(zr, zi)
+    par, pai = _pack_half(ar, ai, nh)
+    pbr, pbi = _pack_half(br, bi, nh)
+    yr = torch.stack([par, pbr], dim=1).reshape(bp, nh)
+    yi = torch.stack([pai, pbi], dim=1).reshape(bp, nh)
+    return yr[:b], yi[:b]
+
+
+def rfft_planes(x: torch.Tensor, *, radix: int = 2,
+                block_b: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed half-spectrum FFT of real rows: (B, n) -> planes (B, n//2).
+
+    On the card: kernel ``rfft_kernel``, an even number of rows per CTA
+    (default ``plan_batch_block(n, real=True)``); an odd batch pairs its
+    last row with a zero row. Replaces
+    ``repro/kernels/fft.py::rfft_planes``.
+    """
+    b, n = check_planes("rfft_planes", x)
+    if n < 2:
+        raise ValueError(f"rfft_planes: n={n} must be >= 2")
+    check_radix(radix)
+    if x.device.type == "cpu":
+        return rfft_planes_plain(x, radix=radix)
+    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n, real=True),
+                            real=True)
+    yr = torch.empty((b, n // 2), dtype=x.dtype, device=x.device)
+    yi = torch.empty_like(yr)
+    if b == 0:
+        return yr, yi
+    with torch.cuda.device(x.device):
+        wr, wi = device_twiddles(n, False, x.device)
+        scratch = scratch_for(n, b, rows, staged, x.device, real=True)
+        _build.launch("stockham_rfft", "rfft_planes", ptr(x), ptr(yr),
+                      ptr(yi), ptr(wr), ptr(wi), ptr(scratch), b, _log2(n),
+                      radix, rows)
+    return yr, yi

@@ -1,0 +1,416 @@
+"""Op-dispatch registry for serving (port of ``repro.launch.ops``).
+
+Every transform endpoint this package serves is described once here as an
+:class:`OpSpec` and resolved into a :class:`BoundOp` (plan + route + batch
+fn + payload conventions) by ``OpSpec.bind``. ``launch/serve.py`` and
+``launch/engine.py`` dispatch through this table, never through per-op
+branches.
+
+The OpSpec contract:
+
+  * ``arity``            -- payload operands per request (1 = transform,
+                            2 = product); the engine stacks them host-side.
+  * ``bind(n, ctx)``     -- validate the ``(op, n, modulus_bits,
+                            model_shards)`` combination, raising
+                            :class:`OpConfigError` with the registry's own
+                            message, and build the executable route: plan,
+                            route tag, batch fn, device.
+  * ``warmup`` payload   -- one request of zeros in the payload dtype.
+  * ``random_payload``   -- the traffic generator the producers draw from.
+  * ``verify``           -- a numpy-oracle check of one served result.
+
+This package serves the float ops ``fft``, ``rfft``, ``polymul`` and
+``polymul-real`` on the local tier. Knobs an op does not consume are
+rejected by ``bind`` (strict mode) or stripped by ``OpSpec.narrow`` (the
+mixed engine).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import fft as fft_core
+
+
+#: Torch dtypes of the payload dtypes, for the pinned staging buffers.
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.complex64): torch.complex64}
+
+
+class OpConfigError(ValueError):
+    """Invalid (op, n, modulus_bits, model_shards) combination, raised at
+    registry-validation time with a message that names the offending
+    knob."""
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device a serve entry point runs on: CUDA unless the caller asks
+    for the CPU. Raises when CUDA is wanted and absent: the service never
+    moves to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {dev}: the service runs on cuda or cpu")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to serve on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class OpContext:
+    """Process-level route parameterization shared by every op of a serve
+    process (CLI flags); ``OpSpec.narrow`` strips the knobs an op ignores."""
+    modulus_bits: int | None = None
+    model_shards: int = 1
+
+
+@dataclasses.dataclass
+class BoundOp:
+    """A resolved (op, n): everything an executor needs.
+
+    ``fn`` takes the stacked operand tensors (``stack``'s output, one per
+    operand) at ANY batch size: tail batches run at their actual size, the
+    kernels fit their block to the batch instead of padding.
+    """
+    spec: "OpSpec"
+    n: int
+    plan: fft_core.FFTPlan
+    route: str
+    fn: Callable[..., torch.Tensor]
+    payload_dtype: Any              # numpy dtype
+    device: torch.device
+
+    @property
+    def key(self) -> tuple[str, int]:
+        return (self.spec.name, self.n)
+
+    def stack(self, payloads: Sequence[Any]) -> tuple[torch.Tensor, ...]:
+        """Host-side batch assembly: per-request payloads -> the operand
+        tensors ``fn`` consumes, on the bound device, at the list's actual
+        length. For the card the rows are stacked into pinned host memory
+        and copied without blocking the host, so the copy queues on the
+        stream behind the batch in flight instead of waiting for it."""
+        cols = ([payloads] if self.spec.arity == 1 else
+                [[p[i] for p in payloads] for i in range(self.spec.arity)])
+        return tuple(self._column(c) for c in cols)
+
+    def _column(self, rows: Sequence[Any]) -> torch.Tensor:
+        rows = [np.asarray(r, self.payload_dtype) for r in rows]
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.stack(rows))
+        host = torch.empty((len(rows), self.n), pin_memory=True,
+                           dtype=_TORCH_DTYPES[np.dtype(self.payload_dtype)])
+        np.stack(rows, out=host.numpy())
+        return host.to(self.device, non_blocking=True)
+
+    def execute(self, payloads: Sequence[Any]) -> torch.Tensor:
+        """Dispatch one batch (asynchronous on the card)."""
+        return self.fn(*self.stack(payloads))
+
+    @staticmethod
+    def to_host(out: torch.Tensor) -> torch.Tensor:
+        """Start the copy of a dispatched batch to the host. From the card
+        it goes into pinned memory without blocking the host, ordered on
+        the stream after the batch's kernels: read it only once the stream
+        has passed that point. A CPU batch is returned as it is."""
+        if out.device.type == "cpu":
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return host
+
+    @staticmethod
+    def to_numpy(out: torch.Tensor) -> np.ndarray:
+        """Materialize a dispatched batch on the host (waits for it)."""
+        return out.cpu().numpy()
+
+    def warmup(self, batch: int) -> None:
+        """Run the route as the engine serves it at one batch size, two
+        batches queued at once (deploy warmup: builds and loads the
+        kernels, fills the twiddle caches, and leaves the pinned host
+        buffers and device memory of that batch size cached, as one batch
+        in flight needs them)."""
+        payloads = [self.spec.warmup_payload(self)] * batch
+        for _ in range(2):
+            self.to_host(self.execute(payloads))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def random_payload(self, rng: np.random.Generator):
+        return self.spec.random_payload(self, rng)
+
+    def verify(self, payload, result: np.ndarray) -> None:
+        self.spec.verify(self, payload, result)
+
+    def check_payload(self, payload) -> None:
+        """Admission guard: reject non-finite operands with an
+        :class:`OpConfigError` BEFORE they join a batch -- a NaN poisons
+        every row it batches with."""
+        operands = (payload,) if self.spec.arity == 1 else tuple(payload)
+        for i, op in enumerate(operands):
+            if not np.isfinite(np.asarray(op)).all():
+                raise OpConfigError(
+                    f"op {self.spec.name!r}: operand {i} contains "
+                    f"non-finite values (NaN/Inf) -- rejected at submit "
+                    f"(it would poison the whole batch)")
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """Registry entry: the full contract of one serveable op."""
+    name: str
+    arity: int
+    summary: str
+    uses_modulus_bits: bool
+    uses_model_shards: bool
+    _validate: Callable[["OpSpec", int, OpContext], None]
+    _bind: Callable[["OpSpec", int, int, torch.device], BoundOp]
+    warmup_payload: Callable[[BoundOp], Any]
+    random_payload: Callable[[BoundOp, np.random.Generator], Any]
+    verify: Callable[[BoundOp, Any, np.ndarray], None]
+
+    def validate(self, n: int, ctx: OpContext = OpContext()) -> None:
+        """Raise :class:`OpConfigError` unless (n, ctx) is serveable."""
+        if ctx.modulus_bits is not None and not self.uses_modulus_bits:
+            raise OpConfigError(
+                f"--modulus-bits applies to "
+                f"{', '.join(ops_using('modulus_bits'))}; "
+                f"op {self.name!r} has no modular route")
+        if ctx.model_shards != 1 and not self.uses_model_shards:
+            raise OpConfigError(
+                f"--model-shards applies to "
+                f"{', '.join(ops_using('model_shards'))}; "
+                f"op {self.name!r} has no distributed route")
+        self._validate(self, n, ctx)
+
+    def narrow(self, ctx: OpContext) -> OpContext:
+        """Strip the knobs this op ignores: the mixed engine resolves one
+        process-level context against ops with different routes."""
+        return OpContext(
+            modulus_bits=ctx.modulus_bits if self.uses_modulus_bits else None,
+            model_shards=ctx.model_shards if self.uses_model_shards else 1)
+
+    def bind(self, n: int, ctx: OpContext = OpContext(), *, batch: int = 0,
+             strict: bool = True,
+             device: str | torch.device | None = None) -> BoundOp:
+        """Validate and resolve the executable route on ``device`` (CUDA
+        unless the caller passes the CPU).
+
+        ``strict=True`` (the single-op CLI path) rejects knobs this op does
+        not consume; ``strict=False`` narrows them away first (the mixed
+        engine's per-bucket bind).
+        """
+        if not strict:
+            ctx = self.narrow(ctx)
+        self.validate(n, ctx)
+        return self._bind(self, n, batch, resolve_device(device))
+
+
+_REGISTRY: dict[str, OpSpec] = {}
+
+#: Ops of the reference registry that consume a knob but are served by a
+#: later slice of this package; the knob messages name them as the
+#: reference registry does.
+_LATER_KNOB_USERS = {"modulus_bits": ("polymul-mod",),
+                     "model_shards": ("polymul-mod",)}
+
+
+def register_op(**kw) -> OpSpec:
+    spec = OpSpec(**kw)
+    if spec.name in _REGISTRY:
+        raise ValueError(f"op {spec.name!r} already registered")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def op_names() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def get_op(name: str) -> OpSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise OpConfigError(
+            f"unknown op {name!r}; registered: {', '.join(_REGISTRY)}"
+        ) from None
+
+
+def ops_using(knob: str) -> tuple[str, ...]:
+    flag = {"modulus_bits": "uses_modulus_bits",
+            "model_shards": "uses_model_shards"}[knob]
+    served = tuple(s.name for s in _REGISTRY.values() if getattr(s, flag))
+    return served + _LATER_KNOB_USERS[knob]
+
+
+def cli_help() -> str:
+    """--op help text, derived from the registry."""
+    return "; ".join(f"{s.name}: {s.summary}" for s in _REGISTRY.values())
+
+
+def cli_knob_help(knob: str, base: str) -> str:
+    return f"{base} (applies to: {', '.join(ops_using(knob))})"
+
+
+# ---------------------------------------------------------------------------
+# Shared payload / verification helpers
+# ---------------------------------------------------------------------------
+
+def _rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    scale = max(1.0, float(np.max(np.abs(want))))
+    return float(np.max(np.abs(np.asarray(got) - want))) / scale
+
+
+def _float_verify(want_of: Callable[..., np.ndarray], tol: float,
+                  bound: BoundOp, payload, result: np.ndarray) -> None:
+    want = want_of(payload) if bound.spec.arity == 1 else want_of(*payload)
+    err = _rel_err(result, want)
+    if not err < tol:
+        raise AssertionError(f"{bound.spec.name} route {bound.route} "
+                             f"diverged from the numpy oracle: rel err "
+                             f"{err:.2e} >= {tol}")
+
+
+def _zeros(bound: BoundOp):
+    z = np.zeros(bound.n, bound.payload_dtype)
+    return z if bound.spec.arity == 1 else (z,) * bound.spec.arity
+
+
+def _cnormal(rng: np.random.Generator, n: int) -> np.ndarray:
+    return (rng.standard_normal(n)
+            + 1j * rng.standard_normal(n)).astype(np.complex64)
+
+
+def _circular_real(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.fft.ifft(np.fft.fft(a) * np.fft.fft(b)).real
+
+
+def _circular_complex(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.fft.ifft(np.fft.fft(a) * np.fft.fft(b))
+
+
+def _local_only(spec: OpSpec, n: int, ctx: OpContext) -> None:
+    pass
+
+
+def _plan_or_config_error(**kw) -> fft_core.FFTPlan:
+    """Run the planner, lifting its ValueError into the registry's own
+    error type so callers see one failure surface."""
+    try:
+        return fft_core.plan(**kw)
+    except ValueError as e:
+        raise OpConfigError(str(e)) from e
+
+
+# ---------------------------------------------------------------------------
+# fft -- complex transform endpoint
+# ---------------------------------------------------------------------------
+
+def _bind_fft(spec: OpSpec, n: int, batch: int,
+              device: torch.device) -> BoundOp:
+    plan = _plan_or_config_error(n=n, batch=batch)
+    return BoundOp(spec=spec, n=n, plan=plan, route="fft",
+                   fn=lambda x: fft_core.fft(x, radix=plan.radix,
+                                             block_b=plan.block_b),
+                   payload_dtype=np.complex64, device=device)
+
+
+register_op(
+    name="fft", arity=1,
+    summary="batched complex FFT (local CUDA tier)",
+    uses_modulus_bits=False, uses_model_shards=False,
+    _validate=_local_only, _bind=_bind_fft,
+    warmup_payload=_zeros,
+    random_payload=lambda b, rng: _cnormal(rng, b.n),
+    verify=functools.partial(_float_verify, np.fft.fft, 1e-3),
+)
+
+
+# ---------------------------------------------------------------------------
+# rfft -- real-Hermitian half-spectrum endpoint (two-for-one packed kernel)
+# ---------------------------------------------------------------------------
+
+def _bind_rfft(spec: OpSpec, n: int, batch: int,
+               device: torch.device) -> BoundOp:
+    plan = _plan_or_config_error(n=n, batch=batch, real=True)
+    return BoundOp(spec=spec, n=n, plan=plan, route="rfft-real",
+                   fn=lambda x: fft_core.rfft(x, radix=plan.radix,
+                                              block_b=plan.block_b),
+                   payload_dtype=np.float32, device=device)
+
+
+register_op(
+    name="rfft", arity=1,
+    summary="real-input half-spectrum FFT (two-for-one Hermitian packing)",
+    uses_modulus_bits=False, uses_model_shards=False,
+    _validate=_local_only, _bind=_bind_rfft,
+    warmup_payload=_zeros,
+    random_payload=lambda b, rng: rng.standard_normal(b.n).astype(np.float32),
+    verify=functools.partial(_float_verify, np.fft.rfft, 1e-3),
+)
+
+
+# ---------------------------------------------------------------------------
+# polymul -- complex circular product (three-transform kernel)
+# ---------------------------------------------------------------------------
+
+def _bind_polymul(spec: OpSpec, n: int, batch: int,
+                  device: torch.device) -> BoundOp:
+    plan = _plan_or_config_error(n=n, batch=batch, product=True)
+    return BoundOp(
+        spec=spec, n=n, plan=plan, route="polymul",
+        fn=lambda a, b: fft_core.polymul(a, b, mode="circular",
+                                         radix=plan.radix,
+                                         block_b=plan.block_b),
+        payload_dtype=np.complex64, device=device)
+
+
+register_op(
+    name="polymul", arity=2,
+    summary="complex circular polynomial product (convolution theorem)",
+    uses_modulus_bits=False, uses_model_shards=False,
+    _validate=_local_only, _bind=_bind_polymul,
+    warmup_payload=_zeros,
+    random_payload=lambda b, rng: (_cnormal(rng, b.n), _cnormal(rng, b.n)),
+    verify=functools.partial(_float_verify, _circular_complex, 1e-3),
+)
+
+
+# ---------------------------------------------------------------------------
+# polymul-real -- paired-inverse real product. Its distributed four-step
+# route (model_shards > 1) comes with a later slice.
+# ---------------------------------------------------------------------------
+
+def _validate_polymul_real(spec: OpSpec, n: int, ctx: OpContext) -> None:
+    if ctx.model_shards > 1:
+        _plan_or_config_error(n=n, batch=0, real=True, product=True,
+                              model_shards=ctx.model_shards)
+
+
+def _bind_polymul_real(spec: OpSpec, n: int, batch: int,
+                       device: torch.device) -> BoundOp:
+    plan = _plan_or_config_error(n=n, batch=batch, real=True, product=True)
+    return BoundOp(
+        spec=spec, n=n, plan=plan, route="polymul-real-packed",
+        fn=lambda a, b: fft_core.polymul_real(a, b, mode="circular",
+                                              radix=plan.radix,
+                                              block_b=plan.block_b),
+        payload_dtype=np.float32, device=device)
+
+
+register_op(
+    name="polymul-real", arity=2,
+    summary="real circular product via the paired-inverse Hermitian fast "
+            "path",
+    uses_modulus_bits=False, uses_model_shards=True,
+    _validate=_validate_polymul_real, _bind=_bind_polymul_real,
+    warmup_payload=_zeros,
+    random_payload=lambda b, rng: (
+        rng.standard_normal(b.n).astype(np.float32),
+        rng.standard_normal(b.n).astype(np.float32)),
+    verify=functools.partial(_float_verify, _circular_real, 1e-3),
+)

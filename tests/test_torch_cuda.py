@@ -1,0 +1,145 @@
+"""The port's CUDA kernels on the card (skipped on hosts without one).
+
+This file imports no JAX, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Each kernel is held against its plain PyTorch version on the same card
+tensors, and the wrapper must count exactly one launch. Tolerances: fft
+and rfft rtol 1e-4, atol 1e-4 * sqrt(n); the products rtol 1e-3,
+atol 1e-4 * n (the reference tests' bounds). The kernels are built with
+-fmad=false and perform the plain versions' fp32 operations in the same
+order, so on the card they agree far inside these bounds.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import polymul as tpoly
+from repro_torch.launch import engine, serve
+
+pytestmark = pytest.mark.cuda
+
+NS = [2, 8, 4096, 8192, 65536]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; a CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _planes(rng, batch, n, k, device):
+    return [torch.from_numpy(rng.standard_normal((batch, n)).astype(
+        np.float32)).to(device) for _ in range(k)]
+
+
+def _close(got, want, rtol, atol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+
+
+def _launched(name, fn):
+    before = _build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_kernel_matches_plain(cuda, rng, n, radix, inverse):
+    xr, xi = _planes(rng, 5, n, 2, cuda)
+    got = _launched("fft_planes", lambda: tfft.fft_planes(
+        xr, xi, inverse=inverse, radix=radix))
+    scale = n if inverse else 1
+    _close([g * scale for g in got],
+           [w * scale for w in tfft.fft_planes_plain(xr, xi, inverse=inverse,
+                                                     radix=radix)],
+           1e-4, 1e-4 * np.sqrt(n))
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("radix", [2, 4])
+def test_rfft_kernel_matches_plain(cuda, rng, n, radix):
+    (x,) = _planes(rng, 5, n, 1, cuda)
+    got = _launched("rfft_planes", lambda: tfft.rfft_planes(x, radix=radix))
+    _close(got, tfft.rfft_planes_plain(x, radix=radix), 1e-4,
+           1e-4 * np.sqrt(n))
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("radix", [2, 4])
+def test_polymul_kernels_match_plain(cuda, rng, n, radix):
+    ar, ai, br, bi = _planes(rng, 5, n, 4, cuda)
+    got = _launched("polymul_complex_planes",
+                    lambda: tpoly.polymul_complex_planes(ar, ai, br, bi,
+                                                         radix=radix))
+    _close(got, tpoly.polymul_complex_planes_plain(ar, ai, br, bi,
+                                                   radix=radix),
+           1e-3, 1e-4 * n)
+    got = _launched("polymul_real_planes",
+                    lambda: tpoly.polymul_real_planes(ar, br, radix=radix))
+    _close([got], [tpoly.polymul_real_planes_plain(ar, br, radix=radix)],
+           1e-3, 1e-4 * n)
+
+
+@pytest.mark.parametrize("op", ["fft", "rfft", "polymul", "polymul-real"])
+def test_service_on_card_matches_cpu(cuda, rng, op):
+    """The same payloads served on the card and on the CPU: each result
+    within the op's tolerance of the other, and the card's kernels ran."""
+    n, cap, total = 4096, 4, 6
+    on_card = serve.FFTService(n, cap, op, device="cuda")
+    on_cpu = serve.FFTService(n, cap, op, device="cpu")
+    payloads = [on_card.bound.random_payload(rng) for _ in range(total)]
+    _build.reset_launches()
+    for svc in (on_card, on_cpu):
+        for rid, p in enumerate(payloads):
+            svc.submit(rid, p)
+        assert svc.run(total)["served"] == total
+    assert sum(_build.LAUNCHES.values()) == 2      # batches [4, 2]
+    tol = (dict(rtol=1e-3, atol=1e-4 * n) if op.startswith("polymul")
+           else dict(rtol=1e-4, atol=1e-4 * np.sqrt(n)))
+    for rid, p in enumerate(payloads):
+        np.testing.assert_allclose(on_card.results[rid], on_cpu.results[rid],
+                                   **tol)
+        on_card.bound.verify(p, on_card.results[rid])
+
+
+def test_engine_copies_results_back_without_blocking(cuda, rng):
+    """A dispatched batch's results go to pinned host memory, and the event
+    the engine waits on comes after that copy: once it has passed, the
+    buffer holds exactly what a direct, synchronous dispatch returns."""
+    svc = serve.FFTService(4096, 4, "polymul-real", device="cuda")
+    payloads = [svc.bound.random_payload(rng) for _ in range(3)]
+    flight = svc.engine._dispatch(
+        svc.bound.key, [engine._Request(i, p, 0.0)
+                        for i, p in enumerate(payloads)])
+    assert flight.host.is_pinned() and flight.done is not None
+    flight.done.synchronize()
+    np.testing.assert_array_equal(
+        flight.host.numpy(), svc.bound.to_numpy(svc.bound.execute(payloads)))
+
+
+@pytest.mark.parametrize("name,block", [
+    ("fft_planes", 1), ("rfft_planes", 2), ("polymul_complex_planes", 1),
+    ("polymul_real_planes", 2)])
+@pytest.mark.parametrize("staged", [False, True])
+def test_occupancy_matches_launch_configuration(cuda, name, block, staged):
+    """The occupancy query reports the launchers' own configuration at
+    n = 4096: one thread per radix-4 butterfly of the CTA's rows (at most
+    1024), 16 bytes of shared memory per point of each complex row it
+    holds (none when staged), and at least one CTA per SM."""
+    slots = {"fft_planes": block, "rfft_planes": block // 2,
+             "polymul_complex_planes": 2 * block,
+             "polymul_real_planes": block}[name]
+    occ = _build.occupancy(name, 12, block, staged)
+    assert occ["threads"] == min(1024, slots * 4096 // 4)
+    assert occ["smem_bytes"] == (0 if staged else 16 * 4096 * slots)
+    assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1

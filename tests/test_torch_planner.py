@@ -1,0 +1,83 @@
+"""The port's planner (``repro_torch.core.fft.planner``) against the
+reference planner's legacy mode (``repro.core.fft.planner``).
+
+The plan's ``tier``, ``radix`` and ``real`` fields must equal the
+reference's, field by field. ``block_b`` is re-derived for Hopper shared
+memory and so differs from the reference's VMEM block on purpose; the
+tests pin the port's own rule instead. Plans are exact values, so every
+comparison is ``==``.
+"""
+import pytest
+
+from repro.core import fft as jcore
+from repro_torch.core import fft as tcore
+from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import polymul as tpoly
+
+NS = [2, 4, 8, 64, 1024, 4096, 8192, 65536, 262144]
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("product", [False, True])
+def test_plan_fields_match_reference(n, real, product):
+    """The reference planner has no product flag: its plan for a product
+    is the transform plan, so both port plans are held against it."""
+    got = tcore.plan(n, 64, real=real, product=product)
+    want = jcore.plan(n, 64, real=real)
+    assert (got.tier, got.radix, got.real) == \
+        (want.tier, want.radix, want.real)
+    assert got.product == product
+
+
+@pytest.mark.parametrize("n", NS)
+def test_plan_block_and_residency_are_the_hopper_rule(n):
+    assert tcore.plan(n, 8).block_b == tfft.plan_batch_block(n)
+    assert tcore.plan(n, 8, real=True).block_b == \
+        tfft.plan_batch_block(n, real=True)
+    assert tcore.plan(n, 8, product=True).block_b == \
+        tpoly.default_complex_block(n)
+    assert tcore.plan(n, 8, real=True, product=True).block_b == \
+        tpoly.default_real_block(n)
+    assert tcore.plan(n, 8).resident == (n <= 8192)
+    assert tcore.plan(n, 8, real=True).resident == (n <= 8192)
+    assert tcore.plan(n, 8, product=True).resident == (n <= 4096)
+    assert tcore.plan(n, 8, real=True, product=True).resident == (n <= 4096)
+
+
+def test_plan_describes_what_executes():
+    assert "shared-memory resident" in tcore.plan(4096, 8).describe()
+    assert "staged through device memory" in \
+        tcore.plan(65536, 8).describe()
+    assert "radix-4" in tcore.plan(4096, 8).describe()
+    assert "paired inverse" in \
+        tcore.plan(64, 8, real=True, product=True).describe()
+
+
+@pytest.mark.parametrize("bad", [48, 0, -8, 1536])
+def test_plan_rejects_non_power_of_two_like_reference(bad):
+    for planner in (tcore.plan, jcore.plan):
+        with pytest.raises(ValueError):
+            planner(bad, batch=8)
+
+
+def test_plan_rejects_negative_batch_and_exact_real():
+    for planner in (tcore.plan, jcore.plan):
+        with pytest.raises(ValueError):
+            planner(1024, batch=-1)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            planner(1024, batch=8, exact=True, real=True)
+
+
+@pytest.mark.parametrize("kw,slice_name", [
+    ({"exact": True}, "exact-tier slice"),
+    ({"model_shards": 4}, "multi-device slice"),
+    ({"workload": "fft"}, "cost-model slice"),
+])
+def test_unported_tiers_name_their_slice(kw, slice_name):
+    """The reference plans these; the port raises and names the slice that
+    will port them."""
+    jcore.plan(1024, 8, **kw)
+    with pytest.raises(ValueError, match="not yet ported") as exc:
+        tcore.plan(1024, 8, **kw)
+    assert slice_name in str(exc.value)

@@ -1,0 +1,307 @@
+"""The port's serve layer (``repro_torch.launch``: registry, engine,
+service, CLI) on the CPU, against the reference ``repro.launch``.
+
+Tolerances: engine vs direct dispatch in the port is bitwise (the same
+kernels on the same batches); the port's service vs the reference's
+service on the same payloads is within the op's tolerance -- fft/rfft
+rtol 1e-4, atol 1e-4 * sqrt(n), products rtol 1e-3, atol 1e-4 * n (the
+reference tests' bounds; the reference serves its XLA Stockham at radix 2
+with fp32 phases, the port its kernels at the plan's radix 4).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import ops as jops_registry
+from repro.launch import serve as jserve
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as tkops
+from repro_torch.launch import ops as op_registry
+from repro_torch.launch import serve
+from repro_torch.launch.engine import Backpressure, ServeEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPS = ("fft", "rfft", "polymul", "polymul-real")
+
+
+def _tol(op, n):
+    if op.startswith("polymul"):
+        return dict(rtol=1e-3, atol=1e-4 * n)
+    return dict(rtol=1e-4, atol=1e-4 * np.sqrt(n))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    return env
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+def test_registry_serves_the_float_ops_without_a_ladder():
+    assert op_registry.op_names() == OPS
+    for name in OPS:
+        assert name in op_registry.cli_help()
+    from repro import analysis
+    launch_dir = os.path.dirname(op_registry.__file__)
+    res = analysis.analyze_paths([launch_dir])
+    assert [f for f in res.findings if f.rule == "dispatch-ladder"] == []
+    # knob applicability reads as in the reference registry
+    for knob in ("modulus_bits", "model_shards"):
+        assert op_registry.ops_using(knob) == jops_registry.ops_using(knob)
+
+
+@pytest.mark.parametrize("op,kw", [
+    ("fft", {"modulus_bits": 40}), ("rfft", {"modulus_bits": 40}),
+    ("polymul", {"modulus_bits": 40}), ("polymul-real", {"modulus_bits": 30}),
+    ("fft", {"model_shards": 4}), ("rfft", {"model_shards": 4}),
+    ("polymul", {"model_shards": 2})])
+def test_foreign_knob_messages_match_reference(op, kw):
+    with pytest.raises(jops_registry.OpConfigError) as want:
+        jops_registry.get_op(op).bind(64, jops_registry.OpContext(**kw))
+    with pytest.raises(op_registry.OpConfigError) as got:
+        op_registry.get_op(op).bind(64, op_registry.OpContext(**kw),
+                                    device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_unknown_op_and_unported_routes_are_config_errors():
+    with pytest.raises(op_registry.OpConfigError):
+        op_registry.get_op("polymul-mod")
+    with pytest.raises(op_registry.OpConfigError,
+                       match="distributed tier not yet ported"):
+        op_registry.get_op("polymul-real").bind(
+            1024, op_registry.OpContext(model_shards=8), device="cpu")
+    ctx = op_registry.OpContext(modulus_bits=100, model_shards=8)
+    assert op_registry.get_op("fft").narrow(ctx) == op_registry.OpContext()
+    assert op_registry.get_op("polymul-real").narrow(ctx) == \
+        op_registry.OpContext(model_shards=8)
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_bind_passes_the_plan_into_the_kernel(op, monkeypatch):
+    """The bound fn hands plan.radix and plan.block_b to the kernel
+    wrapper (the reference binds drop both)."""
+    seen = []
+    for mod, name in ((tkops._kfft, "fft_planes"),
+                      (tkops._kfft, "rfft_planes"),
+                      (tkops._kpoly, "polymul_complex_planes"),
+                      (tkops._kpoly, "polymul_real_planes")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, **kw):
+            seen.append((kw["radix"], kw["block_b"]))
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    svc = serve.FFTService(256, 8, op, device="cpu")
+    svc.warmup()
+    assert seen and set(seen) == {(svc.plan.radix, svc.plan.block_b)}
+    assert svc.plan.radix == 4
+
+
+# ---------------------------------------------------------------------------
+# Engine parity and scheduling
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", OPS)
+def test_engine_matches_direct_dispatch(op, rng):
+    """Served through the engine == the direct BoundOp call on the same
+    batches (batches [4, 2]: the tail runs at its actual size); bitwise."""
+    n, cap, total = 64, 4, 6
+    svc = serve.FFTService(n, cap, op, device="cpu")
+    payloads = [svc.bound.random_payload(rng) for _ in range(total)]
+    for rid, p in enumerate(payloads):
+        svc.submit(rid, p)
+    stats = svc.run(total)
+    assert stats["served"] == total
+    assert stats["buckets"][f"{op}/n={n}"]["batch_sizes"] == [4, 2]
+    direct = [svc.bound.to_numpy(svc.bound.execute(payloads[:4])),
+              svc.bound.to_numpy(svc.bound.execute(payloads[4:]))]
+    flat = [row for arr in direct for row in arr]
+    for rid in range(total):
+        np.testing.assert_array_equal(svc.results[rid], flat[rid])
+        svc.bound.verify(payloads[rid], svc.results[rid])
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_service_matches_reference_service(op, rng):
+    """The port's FFTService and the reference's FFTService, fed the same
+    payloads, serve results within the op's tolerance."""
+    n, cap, total = 256, 4, 5
+    port = serve.FFTService(n, cap, op, device="cpu")
+    ref = jserve.FFTService(n, cap, op)
+    payloads = [port.bound.random_payload(rng) for _ in range(total)]
+    for svc in (port, ref):
+        for rid, p in enumerate(payloads):
+            svc.submit(rid, p)
+        assert svc.run(total)["served"] == total
+    for rid in range(total):
+        assert port.results[rid].shape == ref.results[rid].shape
+        assert port.results[rid].dtype == ref.results[rid].dtype
+        np.testing.assert_allclose(port.results[rid], ref.results[rid],
+                                   **_tol(op, n))
+
+
+def test_mixed_stream_bucketing(rng):
+    """One engine, four ops x two lengths interleaved: every request lands
+    in its bucket, keeps its bucket's shape and passes its oracle."""
+    engine = ServeEngine(max_batch=4, max_pending=64, device="cpu")
+    combos = [(op, n) for op in OPS for n in (64, 128)]
+    for op, n in combos:
+        engine.register(op, n)
+    engine.warmup()
+    kept = {}
+    for rid in range(24):
+        op, n = combos[rid % len(combos)]
+        p = engine.bound(op, n).random_payload(rng)
+        kept[rid] = (op, n, p)
+        engine.submit(op, n, p, rid=rid)
+    stats = engine.run(24)
+    assert stats["served"] == 24 and len(stats["buckets"]) == len(combos)
+    for b in stats["buckets"].values():
+        assert all(1 <= s <= 4 for s in b["batch_sizes"])
+        assert 0 < b["utilization"] <= 1.0
+    for rid, (op, n, p) in kept.items():
+        engine.bound(op, n).verify(p, engine.results[rid])
+        width = n // 2 + 1 if op == "rfft" else n
+        assert engine.results[rid].shape == (width,)
+
+
+def test_tail_batch_runs_at_actual_size(rng):
+    engine = ServeEngine(max_batch=8, max_pending=64, device="cpu")
+    engine.register("rfft", 64)
+    for rid in range(11):
+        engine.submit("rfft", 64,
+                      rng.standard_normal(64).astype(np.float32), rid=rid)
+    stats = engine.run(11)
+    b = stats["buckets"]["rfft/n=64"]
+    assert b["batch_sizes"] == [8, 3]
+    assert abs(b["utilization"] - 11 / 16) < 1e-12
+
+
+def test_backpressure_bounded_queue(rng):
+    engine = ServeEngine(max_batch=4, max_pending=3, device="cpu")
+    x = (rng.standard_normal(64) + 0j).astype(np.complex64)
+    for rid in range(3):
+        engine.submit("fft", 64, x, rid=rid)
+    with pytest.raises(Backpressure):
+        engine.submit("fft", 64, x, rid=99, block=False)
+    with pytest.raises(Backpressure):
+        engine.submit("fft", 64, x, rid=99, timeout=0.05)
+    assert engine.run(3)["served"] == 3          # draining frees the queue
+    engine.submit("fft", 64, x, rid=3, block=False)
+    assert engine.run(4)["served"] == 4
+
+
+def test_latency_percentiles_monotone_and_nan_rejected(rng):
+    engine = ServeEngine(max_batch=4, device="cpu")
+    for rid in range(10):
+        engine.submit("fft", 64, (rng.standard_normal(64)
+                                  + 0j).astype(np.complex64), rid=rid)
+    stats = engine.run(10)
+    lat = stats["latency_ms"]
+    assert 0 < lat["p50"] <= lat["p90"] <= lat["p99"] <= lat["max"]
+    assert stats["compute_throughput_per_s"] >= stats["throughput_per_s"] > 0
+    bad = np.full(64, np.nan, np.complex64)
+    with pytest.raises(op_registry.OpConfigError, match="non-finite"):
+        engine.submit("fft", 64, bad)
+
+
+def test_cpu_serving_launches_no_kernel(rng):
+    _build.reset_launches()
+    serve.main(["--service", "engine", "--ops", ",".join(OPS), "--ns", "32",
+                "--batch", "2", "--requests", "8", "--device", "cpu"])
+    assert set(_build.LAUNCHES.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# Device choice: CUDA unless the caller asks for the CPU, never a fallback
+# ---------------------------------------------------------------------------
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.FFTService(64, 4, "fft")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(max_batch=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        op_registry.get_op("rfft").bind(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--n", "64", "--requests", "2", "--batch", "2"])
+    # asking for the CPU works on the same host
+    assert serve.FFTService(64, 4, "fft", device="cpu").bound.device.type \
+        == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# CLI and import hygiene (subprocesses)
+# ---------------------------------------------------------------------------
+
+def test_cli_engine_on_cpu_subprocess():
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--service",
+         "engine", "--ops", ",".join(OPS), "--ns", "64,128", "--batch", "4",
+         "--requests", "24", "--device", "cpu"],
+        capture_output=True, text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[serve:engine] buckets=8 device=cpu served=24" in res.stdout
+
+
+def test_cli_exits_with_registry_validation_error(capsys):
+    for argv in (["--op", "fft", "--modulus-bits", "40"],
+                 ["--op", "polymul-real", "--model-shards", "8"],
+                 ["--service", "engine", "--ops", "fft,nope", "--ns", "64"]):
+        with pytest.raises(SystemExit) as exc:
+            serve.main(argv + ["--device", "cpu"])
+        assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "has no modular route" in err
+    assert "distributed tier not yet ported" in err
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    """Static check of every import statement, including those inside
+    functions, in the port's sources and in chip_smoke.py."""
+    import ast
+    import pathlib
+    root = pathlib.Path(REPO)
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path.name, m) for m in names
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert len(files) >= 15 and bad == []
+
+
+def test_port_never_imports_jax_or_the_reference():
+    """Import every module of the port in a fresh interpreter: neither
+    jax nor any module of the reference package may be loaded."""
+    prog = (
+        "import pkgutil, sys, importlib\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('modules', sum(k.startswith('repro_torch') "
+        "for k in sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 14
