@@ -6,31 +6,46 @@ Run from the repository root, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. Build: compile ``kernels/csrc/stockham.cu`` with nvcc into ``build/``
+  1. Build: compile ``kernels/csrc/stockham.cu`` and ``kernels/csrc/ntt.cu``
+     with nvcc into ``build/``, one nvcc per source, both started together,
      and print the build time, the card's name and its power limit.
-  2. Kernels vs plain: each of the four kernels against its plain PyTorch
-     version on the card and against float64 numpy.fft, radix 2 and 4,
-     n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
+  2. Kernels vs plain: each of the five float kernels against its plain
+     PyTorch version on the card and against float64 numpy.fft, radix 2 and
+     4, n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
      batches including 1, and the serve batch with the planner's block at
-     the serve lengths, with the reference tests' tolerances.
+     the serve lengths, with the reference tests' tolerances; the rfft ->
+     irfft round trip too. Then the three NTT kernels against their plain
+     versions and the ported numpy reference, bit for bit (``==``): forward
+     and inverse NTT, cyclic and negacyclic products, n = 2 .. 2^19
+     (resident and staged), batches 1, 2, 5 and a capped block, and the
+     serve batch with the planner's block; the RNS kernel at k = 9
+     (109-bit Q) and at k = 1.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
-     requests each), then one mixed ``ServeEngine`` over all four ops and
-     both lengths. Every served result is checked against the registry's
-     numpy oracle, and the launch counters, zeroed just before this phase,
-     must show one kernel launch per dispatched batch besides the
-     warmups' launches.
-     A separate traced run per op and length then gives the card's idle
-     share during serving, and the kernels and copies each served batch
-     puts on the card besides its Stockham kernel.
-  4. Timings at the serve shapes: kernel, plain version and the PyTorch
-     library call (cuFFT) on the same inputs -- device time per call from
-     torch.profiler (the run fails if the trace holds none), with the
-     CUDA-event wall time per call beside it -- held against the least
-     time the card could take (bytes over 3.35 TB/s or operations over
-     67 TFLOP/s fp32, the H100 SXM data sheet); the kernel must agree
-     with its plain version within phase 2's tolerance. Each kernel's
-     launch configuration and the CTAs an SM holds come from the CUDA
-     occupancy API.
+     requests each), ``polymul-mod`` single-limb at both lengths and RNS at
+     n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
+     all five ops and both lengths. Every served result is checked against
+     the registry's numpy oracle (bit for bit for ``polymul-mod``), and the
+     launch counters, zeroed just before this phase, must show one kernel
+     launch per dispatched batch of the kernel's route besides the warmups'
+     launches. Then the library path, counters zeroed again: the rfft ->
+     irfft round trip through ``core.fft`` and the NTT -> inverse NTT round
+     trip through ``kernels.ntt.ntt_batched`` at the serve shapes.
+     A separate traced run per serve cell then gives the card's idle share
+     during serving, and the kernels and copies each served batch puts on
+     the card besides its own kernel.
+  4. Timings at the serve shapes: kernel, plain version and, where one
+     exists, the PyTorch library call on the same inputs -- device time per
+     call from torch.profiler, for a kernel the mean over the launches
+     the trace holds (the trace drops some; one without device time is
+     taken again, and the run fails if five in a row hold none), with
+     the CUDA-event wall time per call beside it -- held against the least
+     time the card could take: bytes over 3.35 TB/s, or operations over
+     67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels and
+     over the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
+     kernels; each kernel must agree with its plain version within phase
+     2's tolerance (exactly, for the NTT kernels). Each kernel's launch
+     configuration and the CTAs an SM holds come from the CUDA occupancy
+     API.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -39,6 +54,8 @@ and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import math
 import os
@@ -54,20 +71,51 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, fp32 without tensor cores
+#: 32-bit integer operations per second. The data sheet's 67 TFLOP/s fp32 is
+#: 132 SMs x 128 fp32 lanes x 2 (fused multiply-add) x 1.98 GHz; a Hopper SM
+#: retires 64 32-bit integer adds, compares or multiplies per clock (the
+#: CUDA programming guide's throughput table for compute capability 9.0),
+#: so 132 x 64 x 1.98e9.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: 32-bit integer operations of the NTT arithmetic (csrc/ntt.cu): a
+#: Montgomery multiply is two multiplies for the 64-bit product, one for m,
+#: one high-half multiply, two adds and a compare for the carry, a compare
+#: and a subtract; a radix-2 butterfly is one of those plus a modular add
+#: and subtract (3 each); the reduction of an input word on load counts 1.
+MONT_OPS = 9
+BUTTERFLY_OPS = MONT_OPS + 6
 SERVE_NS = (4096, 65536)
 SERVE_BATCH = 64
 SERVE_REQUESTS = 256
 ENGINE_REQUESTS = 512
+#: the RNS cell: the largest log Q the HomomorphicEncryption.org standard
+#: allows at n = 4096 for 128-bit security; 9 limbs of 30 bits cover it
+RNS_N, RNS_BITS = 4096, 109
 OPS = ("fft", "rfft", "polymul", "polymul-real")
-SOURCE = "src/repro_torch/kernels/csrc/stockham.cu"
-#: wrapper -> (op it serves, TPU kernel it replaces)
+#: serve cells: (op, n, modulus_bits)
+SERVE_CELLS = ([(op, n, None) for op in OPS + ("polymul-mod",)
+                for n in SERVE_NS] + [("polymul-mod", RNS_N, RNS_BITS)])
+STOCKHAM = "src/repro_torch/kernels/csrc/stockham.cu"
+NTT = "src/repro_torch/kernels/csrc/ntt.cu"
+#: wrapper -> (serve route that launches it, or None for the library path;
+#: source; TPU kernel it replaces)
 KERNELS = {
-    "fft_planes": ("fft", "src/repro/kernels/fft.py:146"),
-    "rfft_planes": ("rfft", "src/repro/kernels/fft.py:260"),
-    "polymul_complex_planes": ("polymul", "src/repro/kernels/polymul.py:33"),
-    "polymul_real_planes": ("polymul-real",
+    "fft_planes": ("fft", STOCKHAM, "src/repro/kernels/fft.py:146"),
+    "rfft_planes": ("rfft-real", STOCKHAM, "src/repro/kernels/fft.py:260"),
+    "polymul_complex_planes": ("polymul", STOCKHAM,
+                               "src/repro/kernels/polymul.py:33"),
+    "polymul_real_planes": ("polymul-real-packed", STOCKHAM,
                             "src/repro/kernels/polymul.py:52"),
+    "irfft_planes": (None, STOCKHAM, "src/repro/kernels/fft.py:275"),
+    "ntt_polymul": ("polymul-mod-single", NTT,
+                    "src/repro/kernels/ntt.py:179"),
+    "rns_ntt_polymul": ("polymul-mod-rns", NTT,
+                        "src/repro/kernels/ntt.py:142"),
+    "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
+FLOAT_KERNELS = ("fft_planes", "rfft_planes", "polymul_complex_planes",
+                 "polymul_real_planes", "irfft_planes")
+NTT_KERNELS = ("ntt_polymul", "rns_ntt_polymul", "ntt_batched")
 
 
 def tolerance(name: str, n: int) -> dict[str, float]:
@@ -83,15 +131,16 @@ def blocks(core_fft, n: int, b: int, cap) -> dict[str, int | None]:
     the planner's block at batch b (what the serve path passes), or a cap
     (doubled for the two-for-one kernels, which take rows in pairs)."""
     if cap == "plan":
+        real = core_fft.plan(n, b, real=True).block_b
         return {"fft_planes": core_fft.plan(n, b).block_b,
-                "rfft_planes": core_fft.plan(n, b, real=True).block_b,
+                "rfft_planes": real, "irfft_planes": real,
                 "polymul_complex_planes":
                     core_fft.plan(n, b, product=True).block_b,
                 "polymul_real_planes":
                     core_fft.plan(n, b, real=True, product=True).block_b}
-    paired = ("rfft_planes", "polymul_real_planes")
+    paired = ("rfft_planes", "irfft_planes", "polymul_real_planes")
     return {name: cap and (2 * cap if name in paired else cap)
-            for name in KERNELS}
+            for name in FLOAT_KERNELS}
 
 
 def card_line() -> str:
@@ -106,10 +155,11 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
-    """Sweep every kernel; returns the worst |kernel - plain| per kernel."""
+    """Sweep every float kernel; returns the worst |kernel - plain| per
+    kernel."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    worst = dict.fromkeys(KERNELS, 0.0)
+    worst = dict.fromkeys(FLOAT_KERNELS, 0.0)
 
     def close(name, got, plain, want, rtol, atol):
         got = np.asarray(got)
@@ -162,6 +212,21 @@ def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
                 pr, pi = kfft.rfft_planes_plain(tr, radix=radix)
                 close("rfft_planes", torch.cat([yr, yi], 1).cpu(),
                       torch.cat([pr, pi], 1).cpu().numpy(), want, **tol)
+                # irfft of the kernel's packed planes, against its plain
+                # version and numpy.fft.irfft of the same half spectrum,
+                # and the round trip at the reference's bound
+                got = kfft.irfft_planes(yr, yi, radix=radix,
+                                        block_b=blk["irfft_planes"])
+                half = np.zeros((b, n // 2 + 1), np.complex128)
+                half[:, :n // 2] = cplx(yr, yi)
+                half[:, 0] = yr[:, 0].cpu().numpy()
+                half[:, n // 2] = yi[:, 0].cpu().numpy()
+                close("irfft_planes", got.cpu(),
+                      kfft.irfft_planes_plain(yr, yi, radix=radix).cpu()
+                      .numpy(), np.fft.irfft(half, n=n), **tol)
+                np.testing.assert_allclose(got.cpu().numpy(), xr, rtol=1e-4,
+                                           atol=1e-4 * n,
+                                           err_msg="rfft -> irfft")
                 # complex product, operands (x, conj-swapped x)
                 got = cplx(*kpoly.polymul_complex_planes(
                     tr, ti, ti, tr, radix=radix,
@@ -187,16 +252,108 @@ def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
     return worst
 
 
+def check_ntt_kernels(torch, kntt, ntt_core, core_fft) -> dict[str, int]:
+    """Sweep the three NTT kernels: each result must equal its plain
+    version and the numpy reference bit for bit. Returns the worst
+    |kernel - plain| per kernel (0 when exact)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    worst = dict.fromkeys(NTT_KERNELS, 0)
+
+    def exact(name, got, plain, want):
+        diff = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max())
+        worst[name] = max(worst[name], diff)
+        if diff or not (kntt.residues_to_numpy(got) == want).all():
+            raise SystemExit(f"{name}: kernel, plain version and numpy "
+                             f"reference differ (max |kernel - plain| "
+                             f"{diff}, shape {tuple(got.shape)})")
+
+    def words(shape, q):
+        host = rng.integers(0, q, shape).astype(np.uint32)
+        return host, torch.from_numpy(host).to(dev)
+
+    for log2n in range(1, 20):
+        n = 1 << log2n
+        p = ntt_core.NTTParams.make(n)
+        # (batch, block cap): None is the wrapper's default, "plan" the
+        # planner's block at the serve batch; the capped odd batch leaves
+        # a partly filled last CTA. The longest rows run at batch 1.
+        cases = [(1, None), (2, None), (5, None), (5, 2)]
+        if n > 4096:
+            cases = [(1, None), (3, None)] if n < 1 << 19 else [(1, None)]
+        if n in SERVE_NS:
+            cases.append((SERVE_BATCH, "plan"))
+        for b, cap in cases:
+            block = core_fft.plan(n, b, exact=True).block_b \
+                if cap == "plan" else cap
+            xa, ta = words((b, n), p.q)
+            xb, tb = words((b, n), p.q)
+            for inverse in (False, True):
+                got = kntt.ntt_batched(ta, p, inverse=inverse, block_b=block)
+                exact("ntt_batched", got,
+                      kntt.ntt_batched_plain(ta, p, inverse=inverse),
+                      (ntt_core.intt if inverse else ntt_core.ntt)(xa, p))
+            for neg in (True, False):
+                got = kntt.ntt_polymul(ta, tb, p, negacyclic=neg,
+                                       block_b=block)
+                fn = (ntt_core.negacyclic_polymul if neg
+                      else ntt_core.cyclic_polymul)
+                exact("ntt_polymul", got,
+                      kntt.ntt_polymul_plain(ta, tb, p, negacyclic=neg),
+                      fn(xa, xb, p))
+        print(f"[ntt] n=2^{log2n:<2d} batches {sorted({c[0] for c in cases})}"
+              f" resident={kntt.ntt_resident(n, product=False)}/"
+              f"{kntt.ntt_resident(n)} forward, inverse, cyclic and "
+              f"negacyclic == plain == numpy reference", flush=True)
+    # RNS: k = 9 limbs (the serve cell, resident), one limb, and a staged
+    # multi-limb case
+    for n, kw, cases in ((RNS_N, {"modulus_bits": RNS_BITS},
+                          [(1, None), (5, 2), (SERVE_BATCH, "plan")]),
+                         (256, {"modulus": 17}, [(3, None)]),
+                         (65536, {"modulus_bits": 40}, [(2, None)])):
+        r = ntt_core.RNSParams.make(n, **kw)
+        for b, cap in cases:
+            block = core_fft.plan(n, b, exact=True).block_b \
+                if cap == "plan" else cap
+            a = np.stack([ntt_core.random_poly(rng, n, r.modulus)
+                          for _ in range(b)])
+            bb = np.stack([ntt_core.random_poly(rng, n, r.modulus)
+                           for _ in range(b)])
+            ta, tb = (torch.from_numpy(ntt_core.to_rns(v, r).astype(
+                np.uint32)).to(dev) for v in (a, bb))
+            for neg in (True, False):
+                got = kntt.rns_ntt_polymul(ta, tb, r, negacyclic=neg,
+                                           block_b=block)
+                plain = kntt.rns_ntt_polymul_plain(ta, tb, r, negacyclic=neg)
+                fn = (ntt_core.negacyclic_polymul if neg
+                      else ntt_core.cyclic_polymul)
+                limbs = np.stack([fn(ta[i].cpu().numpy(), tb[i].cpu().numpy(),
+                                     lp) for i, lp in enumerate(r.limbs)])
+                exact("rns_ntt_polymul", got, plain, limbs)
+                if (ntt_core.crt_to_modulus(kntt.residues_to_numpy(got), r)
+                        != ntt_core.rns_polymul_reference(
+                            a, bb, r, negacyclic=neg)).any():
+                    raise SystemExit(f"rns_ntt_polymul n={n} {kw}: CRT of "
+                                     f"the kernel's limbs is not the "
+                                     f"reference product mod Q")
+        print(f"[ntt] rns n={n} k={r.k} ({kw}) batches "
+              f"{[c[0] for c in cases]} resident={kntt.ntt_resident(n)} "
+              f"== plain == numpy reference, CRT == reference mod Q",
+              flush=True)
+    torch.cuda.synchronize()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serve path
 # ---------------------------------------------------------------------------
 
 def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
-    """Drive FFTService per op and length, then one mixed engine; verify
-    every result. Returns the batches each op dispatched while serving,
-    and the launches each kernel made in the warmups, for the
-    launch-counter check."""
-    expected = dict.fromkeys(OPS, 0)
+    """Drive FFTService per serve cell, then one mixed engine; verify every
+    result. Returns the batches each route dispatched while serving, and
+    the launches each kernel made in the warmups, for the launch-counter
+    check."""
+    expected: dict[str, int] = {}
     warm = dict.fromkeys(KERNELS, 0)
 
     def warmup(eng):
@@ -211,28 +368,29 @@ def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
         for rid, (op, n, payload) in kept.items():
             eng.bound(op, n).verify(payload, eng.results[rid])
         for b in stats["buckets"].values():
-            expected[b["op"]] += b["batches"]
+            expected[b["route"]] = expected.get(b["route"], 0) + b["batches"]
         return stats
 
-    for op in OPS:
-        for n in SERVE_NS:
-            svc = serve.FFTService(n, SERVE_BATCH, op, device="cuda")
-            warmup(svc.engine)
-            stats = drain(svc.engine, [(op, n)], SERVE_REQUESTS, n)
-            lat = stats["latency_ms"]
-            print(f"[serve] op={op} n={n} batch={SERVE_BATCH} "
-                  f"requests={stats['served']} verified=all "
-                  f"{stats['throughput_per_s']:.1f} req/s "
-                  f"p50={lat['p50']:.3f}ms p99={lat['p99']:.3f}ms "
-                  f"[{svc.plan.describe()}]", flush=True)
+    for op, n, bits in SERVE_CELLS:
+        svc = serve.FFTService(n, SERVE_BATCH, op, modulus_bits=bits,
+                               device="cuda")
+        warmup(svc.engine)
+        stats = drain(svc.engine, [(op, n)], SERVE_REQUESTS, n)
+        lat = stats["latency_ms"]
+        print(f"[serve] op={op} n={n} modulus_bits={bits} route={svc.route} "
+              f"batch={SERVE_BATCH} requests={stats['served']} verified=all "
+              f"{stats['throughput_per_s']:.1f} req/s "
+              f"p50={lat['p50']:.3f}ms p99={lat['p99']:.3f}ms "
+              f"[{svc.plan.describe()}]", flush=True)
     eng = engine_mod.ServeEngine(max_batch=SERVE_BATCH, device="cuda")
-    combos = [(op, n) for op in OPS for n in SERVE_NS]
+    ops = OPS + ("polymul-mod",)
+    combos = [(op, n) for op in ops for n in SERVE_NS]
     for op, n in combos:
         eng.register(op, n)
     warmup(eng)
     stats = drain(eng, combos, ENGINE_REQUESTS, 1)
     lat = stats["latency_ms"]
-    print(f"[serve] engine ops={','.join(OPS)} ns={SERVE_NS} "
+    print(f"[serve] engine ops={','.join(ops)} ns={SERVE_NS} "
           f"requests={stats['served']} verified=all "
           f"{stats['throughput_per_s']:.1f} req/s p50={lat['p50']:.3f}ms "
           f"p99={lat['p99']:.3f}ms buckets={len(stats['buckets'])}",
@@ -240,58 +398,83 @@ def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
     return expected, warm
 
 
-#: Device-side names of the four kernels in a profiler trace.
-STOCKHAM_KERNEL = re.compile(
-    r"(^|::)(fft|rfft|polymul_complex|polymul_real)_kernel\b")
+def library_phase(torch, core_fft, kntt, ntt_core) -> None:
+    """The library path at the serve shapes: the rfft -> irfft round trip
+    through ``core.fft`` (the reference tests' round-trip bound) and the
+    NTT -> inverse NTT round trip through ``ntt_batched`` (exact)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for n in SERVE_NS:
+        x = torch.from_numpy(rng.standard_normal((SERVE_BATCH, n)).astype(
+            np.float32)).to(dev)
+        back = core_fft.irfft(core_fft.rfft(x, packed=True), packed=True)
+        np.testing.assert_allclose(back.cpu().numpy(), x.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4 * n,
+                                   err_msg=f"rfft -> irfft n={n}")
+        p = ntt_core.NTTParams.make(n)
+        r = torch.from_numpy(rng.integers(0, p.q, (SERVE_BATCH, n)).astype(
+            np.uint32)).to(dev)
+        back = kntt.ntt_batched(kntt.ntt_batched(r, p), p, inverse=True)
+        if not torch.equal(back, r.view(torch.int32)):
+            raise SystemExit(f"ntt_batched round trip n={n} is not exact")
+        print(f"[library] n={n} batch={SERVE_BATCH}: core.fft rfft -> irfft "
+              f"within rtol 1e-4, atol 1e-4 n; ntt_batched forward -> "
+              f"inverse exact", flush=True)
+    torch.cuda.synchronize()
+
+
+#: Device-side names of the serve routes' own kernels in a profiler trace.
+ROUTE_KERNEL = re.compile(
+    r"(^|::)(fft|rfft|polymul_complex|polymul_real|ntt_polymul|"
+    r"rns_ntt_polymul)_kernel\b")
 
 
 def idle_shares(torch, serve, card: str) -> dict:
-    """A separate traced run per op and length (profiler on, so its
-    req/s is not the measured one): the share of the serve loop's wall
-    time during which no kernel or copy ran on the card, and what each
-    served batch put on the card: Stockham kernels, the other kernels
-    (splitting complex batches into planes, joining and repacking the
-    results) and copies, with their device time."""
+    """A separate traced run per serve cell (profiler on, so its req/s is
+    not the measured one): the share of the serve loop's wall time during
+    which no kernel or copy ran on the card, and what each served batch put
+    on the card: the route's own kernel, the other kernels (splitting
+    complex batches into planes, joining and repacking the results) and
+    copies, with their device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     traced = {}
-    for op in OPS:
-        for n in SERVE_NS:
-            svc = serve.FFTService(n, SERVE_BATCH, op, device="cuda")
-            svc.warmup()
+    for op, n, bits in SERVE_CELLS:
+        svc = serve.FFTService(n, SERVE_BATCH, op, modulus_bits=bits,
+                               device="cuda")
+        svc.warmup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, stats = serve.produce(svc.engine, [(op, n)], SERVE_REQUESTS,
+                                     np.random.default_rng(n))
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                _, stats = serve.produce(svc.engine, [(op, n)],
-                                         SERVE_REQUESTS,
-                                         np.random.default_rng(n))
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            per = {k: [0, 0.0] for k in ("stockham", "other", "copies")}
-            for e in prof.key_averages():
-                if e.device_type != DeviceType.CUDA:
-                    continue
-                kind = ("stockham" if STOCKHAM_KERNEL.search(e.key) else
-                        "copies" if e.key.startswith(("Memcpy", "Memset"))
-                        else "other")
-                per[kind][0] += e.count
-                per[kind][1] += e.self_device_time_total / 1e3
-            busy_ms = sum(ms for _, ms in per.values())
-            batches = stats["batches"]
-            traced[(op, n)] = {
-                "idle_share": 1 - busy_ms / wall_ms,
-                **{f"{k}_per_batch": c / batches for k, (c, _) in per.items()},
-                **{f"{k}_ms_per_batch": ms / batches
-                   for k, (_, ms) in per.items()}}
-            print(f"[trace] op={op} n={n} batch={SERVE_BATCH} "
-                  f"requests={SERVE_REQUESTS}: device busy "
-                  f"{busy_ms:.3f}ms of {wall_ms:.3f}ms wall -> idle share "
-                  f"{1 - busy_ms / wall_ms:.4f} (traced run); per batch "
-                  f"({batches} batches): " + ", ".join(
-                      f"{k} {c / batches:.2f} ({ms / batches:.4f}ms)"
-                      for k, (c, ms) in per.items())
-                  + f"; on {card}", flush=True)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        per = {k: [0, 0.0] for k in ("kernel", "other", "copies")}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            kind = ("kernel" if ROUTE_KERNEL.search(e.key) else
+                    "copies" if e.key.startswith(("Memcpy", "Memset"))
+                    else "other")
+            per[kind][0] += e.count
+            per[kind][1] += e.self_device_time_total / 1e3
+        busy_ms = sum(ms for _, ms in per.values())
+        batches = stats["batches"]
+        traced[svc.route, n] = {
+            "idle_share": 1 - busy_ms / wall_ms,
+            **{f"{k}_per_batch": c / batches for k, (c, _) in per.items()},
+            **{f"{k}_ms_per_batch": ms / batches
+               for k, (_, ms) in per.items()}}
+        print(f"[trace] op={op} n={n} route={svc.route} batch={SERVE_BATCH} "
+              f"requests={SERVE_REQUESTS}: device busy "
+              f"{busy_ms:.3f}ms of {wall_ms:.3f}ms wall -> idle share "
+              f"{1 - busy_ms / wall_ms:.4f} (traced run); per batch "
+              f"({batches} batches): " + ", ".join(
+                  f"{k} {c / batches:.2f} ({ms / batches:.4f}ms)"
+                  for k, (c, ms) in per.items())
+              + f"; on {card}", flush=True)
     return traced
 
 
@@ -323,10 +506,25 @@ def work(name: str, n: int, b: int, radix: int) -> tuple[float, float]:
         return 4 * (4 * b * n + 2 * n), b * (t + 2 * n)
     if name == "rfft_planes":
         return 4 * (2 * b * n + 2 * n), pairs * (t + 8 * (n // 2))
+    if name == "irfft_planes":       # unpack: ar - bi, ai + br; 1/n scale
+        return 4 * (2 * b * n + 2 * n), pairs * (t + 4 * n)
     if name == "polymul_complex_planes":
         return 4 * (6 * b * n + 2 * n), b * (3 * t + 8 * n)
     return (4 * (3 * b * n + 4 * n),
             2 * pairs * (t + 14 * n) + pairs * (t + 4 * n))
+
+
+def ntt_work(name: str, n: int, b: int, k: int = 1) -> tuple[float, float]:
+    """(bytes, 32-bit integer operations) one call must move and do: each
+    input word read once, each output written once, the tables read once;
+    n/2 butterflies per sweep and log2 n sweeps per transform."""
+    transform = (n // 2) * (n.bit_length() - 1) * BUTTERFLY_OPS
+    if name == "ntt_batched":         # forward: load reduction, sweeps
+        return 4 * (2 * b * n + n), b * (n + transform)
+    # per row: two loads, the twist of both operands, two NTTs, the r2 hop
+    # and the pointwise product, the inverse NTT and the untwist
+    per_row = 2 * n + 5 * n * MONT_OPS + 3 * transform
+    return 4 * k * (3 * b * n + 4 * n + 4), k * b * per_row
 
 
 def time_ms(torch, fn, arg_sets, reps: int) -> float:
@@ -346,33 +544,49 @@ def time_ms(torch, fn, arg_sets, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, arg_sets, reps: int) -> float:
-    """Mean device time of one call in ms: the summed duration of every
-    kernel the call ran, traced by torch.profiler (CUPTI), without the
-    host's launch gaps. A trace that holds no device time is taken once
-    more; if that one holds none either, the run fails."""
+def device_ms(torch, fn, arg_sets, reps: int, *,
+              launches_per_call: int | None = None,
+              tries: int = 5) -> tuple[float, int]:
+    """Mean device time of one call in ms, and the device events traced:
+    the summed duration of the kernels the calls ran, traced by
+    torch.profiler (CUPTI), without the host's launch gaps. The trace
+    drops some device events (traces of 20 launches of one kernel on an
+    H100 held 9 to 20 of them), so where the caller knows the kernels a
+    call launches (``launches_per_call``) the mean is taken over the
+    launches the trace holds; otherwise over the calls made, which a
+    dropped event lowers. A
+    trace without device time is reported and taken again, up to
+    ``tries`` times in all; if none holds any, the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
-    for _ in range(2):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(reps):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events)
+        seen = sum(e.count for e in events)
         if us > 0:
-            return us / 1e3 / reps
-    raise SystemExit("torch.profiler traced no device time in two tries")
+            calls = reps if launches_per_call is None \
+                else seen / launches_per_call
+            return us / 1e3 / calls, seen
+        print(f"[time] trace {attempt + 1} of {tries} held no device time; "
+              f"tracing again", flush=True)
+        time.sleep(1.0)
+    raise SystemExit(f"torch.profiler traced no device time in {tries} "
+                     f"tries")
 
 
 def occupancy(build, kfft, name: str, n: int, b: int, plan) -> dict:
     """Launch configuration and CTAs per SM of kernel ``name`` as its
     wrapper launches it for a batch of b rows under ``plan``."""
-    real = name in ("rfft_planes", "polymul_real_planes")
+    real = name in ("rfft_planes", "irfft_planes", "polymul_real_planes")
     product = name.startswith("polymul")
     rows, staged = kfft.cta_rows(n, b, plan.block_b, real=real,
                                  product=product)
@@ -380,10 +594,66 @@ def occupancy(build, kfft, name: str, n: int, b: int, plan) -> dict:
             **build.occupancy(name, n.bit_length() - 1, rows, staged)}
 
 
+def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
+            *, exact: bool, bound: tuple[float, float, str]) -> dict:
+    """Hold the kernel against its plain version on ``sets[0]`` (exactly,
+    or within phase 2's tolerance), then time kernel, plain version and
+    library call (None: no PyTorch call computes the function). ``bound``
+    is (ms for the bytes, ms for the operations, what the operations are)."""
+    reps = max(len(sets), 20)
+    got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
+                 for f in (kern, plain))
+    if exact:
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        ok = err == 0
+    else:
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, **tolerance(name, n))
+    if not ok:
+        raise SystemExit(f"{name} n={n}: kernel and plain version differ "
+                         f"(max abs difference {err})")
+    # wall time per call (CUDA events, host launch gaps included): plain,
+    # kernel, kernel, plain within this call; best of two
+    plain_ev = time_ms(torch, plain, sets, reps)
+    kern_ev = min(time_ms(torch, kern, sets, reps),
+                  time_ms(torch, kern, sets, reps))
+    plain_ev = min(plain_ev, time_ms(torch, plain, sets, reps))
+    t_bytes, t_ops, ops_kind = bound
+    ms, traced = device_ms(torch, kern, sets, reps, launches_per_call=1)
+    return {"ms": ms, "traced_launches": f"{traced} of {reps}",
+            "plain_ms": device_ms(torch, plain, sets, reps)[0],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "operations": ops_kind,
+            "library_ms": lib and device_ms(torch, lib, lib_sets, reps)[0],
+            "max_abs_err": err, "event_ms": kern_ev,
+            "plain_event_ms": plain_ev,
+            "library_event_ms": lib and time_ms(torch, lib, lib_sets, reps)}
+
+
+def report_line(name: str, n: int, entry: dict, card: str) -> None:
+    lib = entry["library_ms"]
+    print(f"[time] {name} n={n} batch={SERVE_BATCH} "
+          f"resident={entry['resident']} device ms (profiler): "
+          f"kernel={entry['ms']:.4f} (mean of {entry['traced_launches']} "
+          f"launches traced) plain={entry['plain_ms']:.4f} "
+          f"library={'none' if lib is None else f'{lib:.4f}'} "
+          f"[{entry['library']}] bound={entry['bound_ms']:.4f} "
+          f"({entry['bound_by']}; bytes {entry['bytes_ms']:.4f}, "
+          f"{entry['operations']} {entry['operations_ms']:.4f}); event ms "
+          f"per call: kernel={entry['event_ms']:.4f} "
+          f"plain={entry['plain_event_ms']:.4f}; |kernel-plain|max="
+          f"{entry['max_abs_err']:.3g}; launch: {entry['rows_per_cta']} "
+          f"rows/CTA, {entry['threads']} threads, {entry['smem_bytes']} B "
+          f"shared, {entry['regs']} regs/thread -> {entry['ctas_per_sm']} "
+          f"CTAs/SM; on {card}", flush=True)
+
+
 def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    out: dict[str, dict] = {name: {} for name in KERNELS}
+    out: dict[str, dict] = {name: {} for name in FLOAT_KERNELS}
     for n in SERVE_NS:
         b = SERVE_BATCH
         set_bytes = 6 * b * n * 4
@@ -398,6 +668,12 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
         plan_pc = core_fft.plan(n, b, product=True)
         plan_pr = core_fft.plan(n, b, real=True, product=True)
         tf = torch.fft
+        # library inputs: the complex tensors built from the same planes
+        lib_sets = [(torch.complex(p, q), p, q, torch.complex(r, s))
+                    for p, q, r, s in sets]
+        # irfft inputs: packed half spectra, and numpy's layout of the same
+        half_sets = [kfft.rfft_planes(p) for p, *_ in sets]
+        half_lib = [(tf.rfft(p),) for p, *_ in sets]
         cases = {
             "fft_planes": (
                 plan_c,
@@ -405,13 +681,22 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
                     p, q, radix=plan_c.radix, block_b=plan_c.block_b),
                 lambda p, q, *_: kfft.fft_planes_plain(p, q,
                                                        radix=plan_c.radix),
-                lambda z, *_: tf.fft(z), "torch.fft.fft"),
+                sets, lambda z, *_: tf.fft(z), lib_sets, "torch.fft.fft"),
             "rfft_planes": (
                 plan_r,
                 lambda p, *_: kfft.rfft_planes(p, radix=plan_r.radix,
                                                block_b=plan_r.block_b),
                 lambda p, *_: kfft.rfft_planes_plain(p, radix=plan_r.radix),
-                lambda z, p, *_: tf.rfft(p), "torch.fft.rfft"),
+                sets, lambda z, p, *_: tf.rfft(p), lib_sets,
+                "torch.fft.rfft"),
+            "irfft_planes": (
+                plan_r,
+                lambda p, q: kfft.irfft_planes(p, q, radix=plan_r.radix,
+                                               block_b=plan_r.block_b),
+                lambda p, q: kfft.irfft_planes_plain(p, q,
+                                                     radix=plan_r.radix),
+                half_sets, lambda h: tf.irfft(h, n=n), half_lib,
+                "torch.fft.irfft"),
             "polymul_complex_planes": (
                 plan_pc,
                 lambda p, q, r, s: kpoly.polymul_complex_planes(
@@ -419,69 +704,90 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
                     block_b=plan_pc.block_b),
                 lambda p, q, r, s: kpoly.polymul_complex_planes_plain(
                     p, q, r, s, radix=plan_pc.radix),
-                lambda z, p, q, w: tf.ifft(tf.fft(z) * tf.fft(w)),
-                "composite ifft(fft(a)*fft(b)), three cuFFT calls"),
+                sets, lambda z, p, q, w: tf.ifft(tf.fft(z) * tf.fft(w)),
+                lib_sets, "composite ifft(fft(a)*fft(b)), three cuFFT calls"),
             "polymul_real_planes": (
                 plan_pr,
                 lambda p, q, *_: kpoly.polymul_real_planes(
                     p, q, radix=plan_pr.radix, block_b=plan_pr.block_b),
                 lambda p, q, *_: kpoly.polymul_real_planes_plain(
                     p, q, radix=plan_pr.radix),
-                lambda z, p, q, w: tf.irfft(tf.rfft(p) * tf.rfft(q), n=n),
+                sets, lambda z, p, q, w: tf.irfft(tf.rfft(p) * tf.rfft(q),
+                                                  n=n),
+                lib_sets,
                 "composite irfft(rfft(a)*rfft(b)), three cuFFT calls"),
         }
-        # library inputs: the complex tensors built from the same planes
-        lib_sets = [(torch.complex(p, q), p, q, torch.complex(r, s))
-                    for p, q, r, s in sets]
-        for name, (plan, kern, plain, lib, lib_name) in cases.items():
-            reps = max(n_sets, 20)
-            got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
-                         for f in (kern, plain))
-            err = float((got - want).abs().max())
-            tol = tolerance(name, n)
-            if not torch.allclose(got, want, **tol):
-                raise SystemExit(f"{name} n={n} batch={b}: kernel and plain "
-                                 f"version differ beyond {tol} (max abs "
-                                 f"difference {err})")
-            # wall time per call (CUDA events, host launch gaps included):
-            # plain, kernel, kernel, plain within this call; best of two
-            plain_ev = time_ms(torch, plain, sets, reps)
-            kern_ev = time_ms(torch, kern, sets, reps)
-            kern_ev = min(kern_ev, time_ms(torch, kern, sets, reps))
-            plain_ev = min(plain_ev, time_ms(torch, plain, sets, reps))
-            lib_ev = time_ms(torch, lib, lib_sets, reps)
-            # device time per call (profiler)
-            timed = {k: device_ms(torch, f, s, reps)
-                     for k, f, s in (("kernel", kern, sets),
-                                     ("plain", plain, sets),
-                                     ("library", lib, lib_sets))}
-            occ = occupancy(build, kfft, name, n, b, plan)
+        for name, (plan, kern, plain, ksets, lib, lsets, lib_name) in \
+                cases.items():
             nbytes, flops = work(name, n, b, plan.radix)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOPS_PER_S * 1e3
-            entry = {"ms": timed["kernel"], "plain_ms": timed["plain"],
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else
-                     "operations",
-                     "library_ms": timed["library"], "library": lib_name,
-                     "max_abs_err": err,
-                     "event_ms": kern_ev, "plain_event_ms": plain_ev,
-                     "library_event_ms": lib_ev, "bytes": nbytes,
-                     "flops": flops, "radix": plan.radix,
-                     "block_b": plan.block_b, "resident": plan.resident,
-                     **occ}
+            entry = measure(torch, name, n, kern, plain, ksets, lib, lsets,
+                            exact=False,
+                            bound=(nbytes / HBM_BYTES_PER_S * 1e3,
+                                   flops / FP32_FLOPS_PER_S * 1e3,
+                                   "fp32 flops"))
+            entry.update(library=lib_name, bytes=nbytes, flops=flops,
+                         radix=plan.radix, block_b=plan.block_b,
+                         resident=plan.resident,
+                         **occupancy(build, kfft, name, n, b, plan))
             out[name][n] = entry
-            print(f"[time] {name} n={n} batch={b} radix={plan.radix} "
-                  f"resident={plan.resident} device ms (profiler): "
-                  f"kernel={entry['ms']:.4f} plain={entry['plain_ms']:.4f} "
-                  f"library={entry['library_ms']:.4f} [{lib_name}] "
-                  f"bound={entry['bound_ms']:.4f} ({entry['bound_by']}); "
-                  f"event ms per call: kernel={kern_ev:.4f} "
-                  f"plain={plain_ev:.4f} library={lib_ev:.4f}; "
-                  f"|kernel-plain|max={err:.3g}; launch: {occ['rows_per_cta']} "
-                  f"rows/CTA, {occ['threads']} threads, {occ['smem_bytes']} B "
-                  f"shared, {occ['regs']} regs/thread -> "
-                  f"{occ['ctas_per_sm']} CTAs/SM; on {card}", flush=True)
+            report_line(name, n, entry, card)
+    return out
+
+
+def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
+    """The three NTT kernels at the serve shapes: ntt_polymul and
+    ntt_batched at n = 4096 and 65536, rns_ntt_polymul at the RNS cell,
+    batch 64, on uint32 words as the serve path stages them. No PyTorch
+    call computes an NTT mod q, so there is no library time."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    out: dict[str, dict] = {name: {} for name in NTT_KERNELS}
+    b = SERVE_BATCH
+    shapes = [("ntt_polymul", n) for n in SERVE_NS] + \
+        [("ntt_batched", n) for n in SERVE_NS] + [("rns_ntt_polymul", RNS_N)]
+    for name, n in shapes:
+        plan = core_fft.plan(n, b, exact=True)
+        operands = 1 if name == "ntt_batched" else 2
+        if name == "rns_ntt_polymul":
+            r = ntt_core.RNSParams.make(n, modulus_bits=RNS_BITS)
+            k, qs = r.k, r.qs
+            kern = functools.partial(kntt.rns_ntt_polymul, rns=r,
+                                     block_b=plan.block_b)
+            plain = functools.partial(kntt.rns_ntt_polymul_plain, rns=r)
+        else:
+            p = ntt_core.NTTParams.make(n)
+            k, qs = 1, (p.q,)
+            if name == "ntt_batched":
+                plan = dataclasses.replace(
+                    plan, block_b=kntt.plan_ntt_block(n, product=False),
+                    resident=kntt.ntt_resident(n, product=False))
+            kern = functools.partial(getattr(kntt, name), params=p,
+                                     block_b=plan.block_b)
+            plain = functools.partial(getattr(kntt, f"{name}_plain"),
+                                      params=p)
+        sets = []
+        for _ in range(max(2, math.ceil(128e6 / (operands * k * b * n * 4)))):
+            words = [np.stack([rng.integers(0, q, (b, n)) for q in qs])
+                     for _ in range(operands)]
+            sets.append([torch.from_numpy(
+                (w if k > 1 else w[0]).astype(np.uint32)).to(dev)
+                for w in words])
+        nbytes, ops = ntt_work(name, n, b, k)
+        entry = measure(torch, name, n, kern, plain, sets, None, None,
+                        exact=True,
+                        bound=(nbytes / HBM_BYTES_PER_S * 1e3,
+                               ops / INT32_OPS_PER_S * 1e3,
+                               "int32 operations"))
+        rows, staged = kntt.ntt_cta_rows(n, b, plan.block_b,
+                                         product=name != "ntt_batched")
+        entry.update(library="none: no PyTorch call computes an NTT mod q",
+                     bytes=nbytes, int32_ops=ops, limbs=k,
+                     block_b=plan.block_b, resident=plan.resident,
+                     rows_per_cta=rows, staged=staged,
+                     **build.occupancy(name, n.bit_length() - 1, rows,
+                                       staged))
+        out[name][n] = entry
+        report_line(name, n, entry, card)
     return out
 
 
@@ -495,57 +801,76 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.core import fft as core_fft
+    from repro_torch.core import ntt as ntt_core
     from repro_torch.kernels import _build
     from repro_torch.kernels import fft as kfft
+    from repro_torch.kernels import ntt as kntt
     from repro_torch.kernels import polymul as kpoly
     from repro_torch.launch import engine as engine_mod
     from repro_torch.launch import serve
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
+    libs = _build.build()
     _build.load()
     card = card_line()
-    print(f"[build] {SOURCE} -> {_build.library_path()} in "
+    print(f"[build] {STOCKHAM}, {NTT} -> "
+          f"{', '.join(str(v) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     _build.reset_launches()
     worst = check_kernels(torch, kfft, kpoly, core_fft)
+    worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
-    print(f"[kernels] all four held against plain and numpy; launches "
+    print(f"[kernels] all eight held against plain and numpy; launches "
           f"{moved}; worst |kernel-plain| {worst}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
     expected, warm = serve_phase(serve, engine_mod, _build)
     launches = dict(_build.LAUNCHES)
-    for name, (op, _) in KERNELS.items():
+    for name, (route, _, _) in KERNELS.items():
         served = launches[name] - warm[name]
-        if served == 0 or served != expected[op]:
+        want = expected.get(route, 0)
+        if route is not None and (served == 0 or served != want):
             raise SystemExit(f"{name}: {served} launches while serving, "
-                             f"expected {expected[op]} (one per dispatched "
-                             f"batch)")
+                             f"expected {want} (one per dispatched batch "
+                             f"of route {route})")
     print(f"[serve] launch counters {launches}: warmups {warm}, the rest "
-          f"== dispatched batches {expected}", flush=True)
+          f"== dispatched batches per route {expected}", flush=True)
+    # the library path, counters zeroed just before
+    _build.reset_launches()
+    library_phase(torch, core_fft, kntt, ntt_core)
+    for name, (route, _, _) in KERNELS.items():
+        if route is None:
+            if _build.LAUNCHES[name] == 0:
+                raise SystemExit(f"{name}: never launched on the library "
+                                 f"path")
+            launches[name] = _build.LAUNCHES[name]
+    print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
     traced = idle_shares(torch, serve, card)
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
+    times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
     report = []
-    for name, (op, replaces) in KERNELS.items():
-        at = times[name][SERVE_NS[0]]
+    for name, (route, source, replaces) in KERNELS.items():
+        shapes = sorted(times[name])
+        at = times[name][shapes[0]]
         report.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": at["max_abs_err"], "ms": at["ms"],
             "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
             "bound_by": at["bound_by"], "library_ms": at["library_ms"],
-            "n": SERVE_NS[0], "batch": SERVE_BATCH,
-            "per_served_batch": {n: traced[(op, n)] for n in SERVE_NS},
-            f"at_n{SERVE_NS[1]}": times[name][SERVE_NS[1]]})
+            "n": shapes[0], "batch": SERVE_BATCH,
+            "per_served_batch": {n: traced[route, n] for n in SERVE_NS
+                                 if (route, n) in traced},
+            **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}))
     print(card)

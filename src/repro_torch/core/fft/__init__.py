@@ -2,17 +2,17 @@
 
 Public surface:
   fft / ifft / polymul                 (kernels.ops)
-  rfft / polymul_real                  (real fast path)
+  rfft / irfft / polymul_real          (real fast path)
   packed_to_halfspec / halfspec_to_packed (layout converters)
   plan / FFTPlan                       (planner)
 """
-from repro_torch.kernels.ops import (fft, halfspec_to_packed, ifft,
+from repro_torch.kernels.ops import (fft, halfspec_to_packed, ifft, irfft,
                                      packed_to_halfspec, polymul,
                                      polymul_real, rfft)
 from repro_torch.core.fft.planner import FFTPlan, plan
 
 __all__ = [
-    "fft", "ifft", "rfft", "polymul", "polymul_real",
+    "fft", "ifft", "rfft", "irfft", "polymul", "polymul_real",
     "packed_to_halfspec", "halfspec_to_packed",
     "FFTPlan", "plan",
 ]

@@ -3,20 +3,21 @@ legacy mode).
 
 Given (n, batch) it decides the kernel configuration that executes on the
 card: radix (2 or 4), rows per CTA, and whether a row stays in shared
-memory or runs its sweeps on a device-memory scratch. Only the local tier
-exists in this package: the distributed four-step tiers, the exact (NTT)
-tier and the cost-model auto mode raise and name the slice that ports them.
+memory or runs its sweeps on a device-memory scratch. Only the local tiers
+exist in this package, float and exact (NTT): the distributed four-step
+tiers and the cost-model auto mode raise and name the slice that ports
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.kernels.fft import plan_batch_block, resident
+from repro_torch.kernels.ntt import ntt_resident, plan_ntt_block
 from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block)
 
 #: Where the tiers this package does not run yet are ported.
-_EXACT_SLICE = "the exact-tier slice (polymul-mod on the NTT kernels)"
 _DIST_SLICE = "the multi-device slice (the distributed four-step tiers)"
 _AUTO_SLICE = "the cost-model slice (the PIM model and planner auto mode)"
 
@@ -24,7 +25,7 @@ _AUTO_SLICE = "the cost-model slice (the PIM model and planner auto mode)"
 @dataclasses.dataclass(frozen=True)
 class FFTPlan:
     tier: str           # "local" (the only tier this package runs)
-    radix: int          # 2 or 4
+    radix: int          # 2 or 4 (2 on the exact tier)
     block_b: int        # rows per CTA at most (a cap; fitted to each batch)
     #: real-Hermitian route: the two-for-one packed rfft kernel and the
     #: paired-inverse real product, with the doubled block the halved
@@ -37,13 +38,17 @@ class FFTPlan:
     #: for every sweep; False when the kernel stages its sweeps through a
     #: device-memory scratch.
     resident: bool = True
+    #: exact modular route: the fused Montgomery NTT product of uint32
+    #: residues (polymul-mod), bit-exact where the FFT routes round.
+    exact: bool = False
 
     def describe(self) -> str:
-        kind = {(False, False): "FFT",
-                (True, False): "real-packed FFT (two-for-one Hermitian)",
-                (False, True): "fused complex product",
-                (True, True): "fused real product (paired inverse)",
-                }[(self.real, self.product)]
+        kind = ("NTT (exact mod-q) fused product" if self.exact else
+                {(False, False): "FFT",
+                 (True, False): "real-packed FFT (two-for-one Hermitian)",
+                 (False, True): "fused complex product",
+                 (True, True): "fused real product (paired inverse)",
+                 }[(self.real, self.product)])
         where = ("shared-memory resident" if self.resident
                  else "staged through device memory")
         return (f"local CUDA {kind} kernel, radix-{self.radix}, "
@@ -60,9 +65,16 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     rows per CTA and reach shared-memory residency at half the n. Radix 4
     whenever n >= 4, as in the reference planner.
 
+    ``exact=True`` plans the modular tier: the fused NTT product of
+    ``polymul-mod``, radix 2, its block from shared memory for two uint32
+    operands in two ping-pong buffers (16n bytes a row). As in the
+    reference, one device plans every n locally (the reference's 512K-point
+    exact ceiling only picks its distributed tier when model_shards > 1);
+    rows past shared memory are staged.
+
     Raises ValueError on a non-power-of-two n, a negative batch,
     ``exact`` with ``real``, and on what this package does not run yet:
-    ``exact=True``, ``model_shards > 1`` and ``workload=``.
+    ``model_shards > 1`` and ``workload=``.
     """
     if n <= 0 or n & (n - 1):
         raise ValueError(f"n={n} must be a power of two")
@@ -71,21 +83,23 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     if exact and real:
         raise ValueError("exact (mod-q) and real (Hermitian) tiers are "
                          "mutually exclusive")
-    if exact:
-        raise ValueError(f"exact (NTT) tier not yet ported; it comes with "
-                         f"{_EXACT_SLICE}")
     if model_shards != 1:
         raise ValueError(f"model_shards={model_shards}: distributed tier not "
                          f"yet ported; it comes with {_DIST_SLICE}")
     if workload is not None:
         raise ValueError(f"workload={workload!r}: auto planning not yet "
                          f"ported; it comes with {_AUTO_SLICE}")
-    radix = 4 if (n.bit_length() - 1) >= 2 else 2
-    if product:
-        block = default_real_block(n) if real else default_complex_block(n)
+    if exact:      # the fused NTT product of polymul-mod, radix 2
+        radix, product = 2, True
+        block, res = plan_ntt_block(n), ntt_resident(n)
     else:
-        block = plan_batch_block(n, real=real)
+        radix = 4 if (n.bit_length() - 1) >= 2 else 2
+        if product:
+            block = (default_real_block(n) if real
+                     else default_complex_block(n))
+        else:
+            block = plan_batch_block(n, real=real)
+        res = resident(n, real=real, product=product)
     # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
     return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
-                   product=product,
-                   resident=resident(n, real=real, product=product))
+                   product=product, resident=res, exact=exact)

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the float transform service:
-// batched complex FFT, two-for-one real FFT, and the fused complex and real
-// circular polynomial products. One Stockham routine serves all four.
+// batched complex FFT, two-for-one real FFT and its inverse, and the fused
+// complex and real circular polynomial products. One Stockham routine
+// serves all five.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC  (repro_torch/kernels/_build.py)
@@ -267,6 +268,61 @@ rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
   }
 }
 
+// Kernel 3 -- replaces repro/kernels/fft.py::_irfft_kernel (irfft_planes).
+// Inverse of rfft_kernel: the packed-Nyquist half-spectra (n/2 bins) of
+// rows (2j, 2j+1) are unpacked to full Hermitian spectra A and B on the
+// load (bin k > n/2 is conj P[n-k]; DC and Nyquist have zero imaginary
+// parts), and one inverse complex transform of Z = A + iB gives both real
+// rows, a = Re z and b = Im z, scaled by 1/n. An odd batch pairs its last
+// spectrum with a zero spectrum, whose row is never written back. Bound:
+// device-memory bytes (4 bytes in and 4 out per real point). Design: the
+// unpacking happens in the load, so the full spectra never reach device
+// memory, and two real rows share one complex transform.
+__global__ void __launch_bounds__(kMaxThreads)
+irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+             float* __restrict__ y, const float* __restrict__ wr,
+             const float* __restrict__ wi, float* scratch, int batch,
+             int log2n, int radix, int block) {
+  extern __shared__ __align__(16) float smem[];
+  Rows a, b;
+  cta_buffers(smem, scratch, block >> 1, log2n, a, b);
+  const int n = 1 << log2n;
+  const int nh = n >> 1;
+  const int row0 = blockIdx.x * block;
+  const int rows = min(block, batch - row0);
+  const int pairs = (rows + 1) >> 1;
+  for (int k = threadIdx.x; k < (pairs << log2n); k += blockDim.x) {
+    const int r = row0 + 2 * (k >> log2n);
+    const int kk = k & (n - 1);
+    const bool second = r + 1 < batch;
+    // Bin kk of a full spectrum from its packed half: (pr[kk], pi[kk])
+    // below n/2 (imaginary part 0 at DC), pi[0] at the Nyquist bin, and
+    // (pr[n-kk], -pi[n-kk]) above it.
+    const int src = kk <= nh ? (kk == nh ? 0 : kk) : n - kk;
+    const size_t oa = (size_t)r * nh + src;
+    const float par = kk == nh ? xi[oa] : xr[oa];
+    const float pbr = second ? (kk == nh ? xi[oa + nh] : xr[oa + nh]) : 0.f;
+    const float pai = xi[oa];
+    const float pbi = second ? xi[oa + nh] : 0.f;
+    const bool real_bin = kk == 0 || kk == nh;
+    const float ar = par;
+    const float br = pbr;
+    const float ai = real_bin ? 0.f : (kk < nh ? pai : -pai);
+    const float bi = real_bin ? 0.f : (kk < nh ? pbi : -pbi);
+    a.re[k] = ar - bi;
+    a.im[k] = ai + br;
+  }
+  __syncthreads();
+  stockham(a, b, pairs, log2n, radix, true, wr, wi);
+  const float inv = 1.f / (float)n;
+  for (int k = threadIdx.x; k < (pairs << log2n); k += blockDim.x) {
+    const int r = row0 + 2 * (k >> log2n);
+    const size_t o = ((size_t)r << log2n) + (k & (n - 1));
+    y[o] = a.re[k] * inv;
+    if (r + 1 < batch) y[o + n] = a.im[k] * inv;
+  }
+}
+
 // Kernel 5 -- replaces repro/kernels/polymul.py::_polymul_complex_kernel
 // (polymul_complex_planes). Circular product mod x^n - 1 of complex rows:
 // both forward transforms in one batched pass over 2*rows rows, the
@@ -466,6 +522,24 @@ int stockham_rfft(const float* x, float* yr, float* yi, const float* wr,
   return cudaGetLastError();
 }
 
+int stockham_irfft(const float* xr, const float* xi, float* y,
+                   const float* wr, const float* wi, float* scratch,
+                   int batch, int log2n, int radix, int block, void* stream) {
+  if (bad_args(batch, log2n, radix, block) || log2n < 1 || (block & 1)) {
+    return cudaErrorInvalidValue;
+  }
+  if (batch == 0) return cudaSuccess;
+  size_t smem;
+  cudaError_t err =
+      smem_for(irfft_kernel, scratch != nullptr, block / 2, log2n, &smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (batch + block - 1) / block;
+  irfft_kernel<<<grid, threads_for(block / 2, log2n), smem,
+                 (cudaStream_t)stream>>>(xr, xi, y, wr, wi, scratch, batch,
+                                         log2n, radix, block);
+  return cudaGetLastError();
+}
+
 int stockham_polymul_complex(const float* ar, const float* ai,
                              const float* br, const float* bi, float* cr,
                              float* ci, const float* wr, const float* wi,
@@ -504,7 +578,7 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
 }
 
 // Occupancy of a launch as the launchers above make it: `kernel` is 0 fft,
-// 1 rfft, 2 complex product, 3 real product; `block` the rows per CTA the
+// 1 rfft, 2 complex product, 3 real product, 4 irfft; `block` the rows per CTA the
 // wrapper passes; `staged` whether the rows go through device memory.
 int stockham_occupancy(int kernel, int log2n, int block, int staged,
                        int* threads, int* smem, int* regs, int* ctas) {
@@ -523,6 +597,9 @@ int stockham_occupancy(int kernel, int log2n, int block, int staged,
     case 3:
       return occupancy_of(polymul_real_kernel, block, log2n, st, threads,
                           smem, regs, ctas);
+    case 4:
+      return occupancy_of(irfft_kernel, block / 2, log2n, st, threads, smem,
+                          regs, ctas);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-"""Batched Stockham FFT and two-for-one real FFT (port of ``repro.kernels.fft``).
+"""Batched Stockham FFT and two-for-one real FFT and its inverse (port of
+``repro.kernels.fft``).
 
 Each public ``*_planes`` function is a wrapper: for tensors on the card it
 launches its hand-written CUDA kernel (``csrc/stockham.cu``), for tensors on
@@ -194,12 +195,18 @@ def cta_rows(n: int, batch: int, block: int, *, real: bool = False,
     if block < 1 or (real and block % 2):
         raise ValueError(f"block={block}: need a block >= 1"
                          + (", even for two-for-one packing" if real else ""))
-    least = 2 if real else 1
-    blk = _fit_block(block, batch, even=real)
-    while blk > least and smem_bytes(n, blk, real=real,
-                                     product=product) > SMEM_MAX_BYTES:
+    return fit_smem(lambda blk: smem_bytes(n, blk, real=real,
+                                           product=product),
+                    _fit_block(block, batch, even=real), 2 if real else 1)
+
+
+def fit_smem(bytes_of, blk: int, least: int) -> tuple[int, bool]:
+    """Halve ``blk`` while a CTA of ``blk`` rows needs more than
+    ``SMEM_MAX_BYTES`` (``bytes_of(blk)``), down to ``least`` rows; returns
+    (rows per CTA, staged), staged when even ``least`` rows do not fit."""
+    while blk > least and bytes_of(blk) > SMEM_MAX_BYTES:
         blk //= 2
-    return blk, smem_bytes(n, blk, real=real, product=product) > SMEM_MAX_BYTES
+    return blk, bytes_of(blk) > SMEM_MAX_BYTES
 
 
 def resident(n: int, *, real: bool = False, product: bool = False) -> bool:
@@ -253,8 +260,7 @@ def _unpack_full(pr, pi, n: int):
     """Packed-Nyquist half-spectrum (B, n/2) -> full Hermitian planes (B, n).
 
     Mirror bins k in (n/2, n) are conj(P[n-k]); DC/Nyquist imag parts are
-    structurally zero. The inverse real FFT's plain version is built on it;
-    that op lands with its kernel (the reference's ``_irfft_kernel``).
+    structurally zero.
     """
     zero = torch.zeros_like(pr[:, :1])
     head_i = torch.cat([zero, pi[:, 1:]], dim=1)          # im, bins < n/2
@@ -396,3 +402,52 @@ def rfft_planes(x: torch.Tensor, *, radix: int = 2,
                       ptr(yi), ptr(wr), ptr(wi), ptr(scratch), b, _log2(n),
                       radix, rows)
     return yr, yi
+
+
+def irfft_planes_plain(xr, xi, *, radix: int = 2):
+    """Plain version of ``irfft_planes``: pairs spectra (2j, 2j+1) as
+    A + iB, padding an odd batch with one zero spectrum."""
+    b, nh = xr.shape
+    n = 2 * nh
+    if b % 2:
+        xr = torch.cat([xr, torch.zeros_like(xr[:1])])
+        xi = torch.cat([xi, torch.zeros_like(xi[:1])])
+    bp = xr.shape[0]
+    pr = xr.reshape(bp // 2, 2, nh)
+    pi = xi.reshape(bp // 2, 2, nh)
+    ar, ai = _unpack_full(pr[:, 0], pi[:, 0], n)
+    br, bi = _unpack_full(pr[:, 1], pi[:, 1], n)
+    wr, wi = device_twiddles(n, True, xr.device)
+    # Linearity: IFFT(A + i B) = a + i b for real rows a, b.
+    yr, yi = stockham_stages(ar - bi, ai + br, wr, wi, n=n, inverse=True,
+                             radix=radix)
+    return torch.stack([yr, yi], dim=1).reshape(bp, n)[:b]
+
+
+def irfft_planes(xr: torch.Tensor, xi: torch.Tensor, *, radix: int = 2,
+                 block_b: int | None = None) -> torch.Tensor:
+    """Inverse of ``rfft_planes``: packed planes (B, n//2) -> real (B, n).
+
+    On the card: kernel ``irfft_kernel``, an even number of rows per CTA
+    (default ``plan_batch_block(n, real=True)``); two packed half-spectra
+    are unpacked in the kernel and ride one inverse complex transform, and
+    an odd batch pairs its last spectrum with a zero spectrum. Replaces
+    ``repro/kernels/fft.py::irfft_planes``.
+    """
+    b, nh = check_planes("irfft_planes", xr, xi)
+    n = 2 * nh
+    check_radix(radix)
+    if xr.device.type == "cpu":
+        return irfft_planes_plain(xr, xi, radix=radix)
+    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n, real=True),
+                            real=True)
+    y = torch.empty((b, n), dtype=xr.dtype, device=xr.device)
+    if b == 0:
+        return y
+    with torch.cuda.device(xr.device):
+        wr, wi = device_twiddles(n, True, xr.device)
+        scratch = scratch_for(n, b, rows, staged, xr.device, real=True)
+        _build.launch("stockham_irfft", "irfft_planes", ptr(xr), ptr(xi),
+                      ptr(y), ptr(wr), ptr(wi), ptr(scratch), b, _log2(n),
+                      radix, rows)
+    return y

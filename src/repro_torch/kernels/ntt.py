@@ -1,0 +1,413 @@
+"""Batched Stockham NTT and fused modular polynomial products (port of
+``repro.kernels.ntt``).
+
+The exact (mod-q) counterpart of ``kernels/fft.py`` and ``kernels/polymul.py``:
+the same Stockham schedule with the complex butterfly replaced by a modular
+one. Each public function is a wrapper: for tensors on the card it launches
+its hand-written CUDA kernel (``csrc/ntt.cu``), for tensors on the CPU it
+runs the plain PyTorch version beside it, which performs the same sweeps,
+twist, pointwise product and untwist in ``int64``. Any other device raises.
+
+Arithmetic, shared by kernels and plain versions:
+
+* q is an odd prime < 2^31 (``core.ntt.ref`` selects it), so residues fit
+  one 32-bit word and a + b < 2^32.
+* Twiddles are stored in Montgomery form (w^k * 2^32 mod q), so each
+  butterfly multiply is one Montgomery REDC: mont(v, w_mont) = v * w mod q.
+  The data itself stays in the normal domain.
+* Every result is a canonical residue in [0, q), so kernel, plain version
+  and reference agree bit for bit (``==``).
+
+Storage: residues are ``torch.int32`` tensors on both devices (values < q <
+2^31, so the bits are those of uint32); the kernels read them as
+``uint32_t``. Inputs may also be ``torch.uint32`` words of any value: the
+load reduces them mod q, as the reference's ``_as_residues`` does.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.ntt.ref import NTTParams
+from repro_torch.kernels import _build
+from repro_torch.kernels.fft import (MAX_BLOCK, SMEM_BLOCK_BUDGET,
+                                     SMEM_MAX_BYTES, _fit_block, _log2,
+                                     fit_smem, ptr)
+
+_MASK32 = 0xFFFFFFFF
+_MASK16 = 0xFFFF
+
+
+# ---------------------------------------------------------------------------
+# Montgomery arithmetic on int64 tensors (the plain versions)
+# ---------------------------------------------------------------------------
+
+def mont_mul(a, b, q, qinv):
+    """Montgomery product a * b * 2^-32 mod q of residues a, b < q < 2^31
+    held in int64; ``qinv`` = -q^-1 mod 2^32. With b in Montgomery form this
+    is a * b mod q.
+
+    Written so no int64 intermediate overflows: a * b < 2^62, but
+    a * b + m * q would reach 2^62 + 2^63. So, as the kernel does, the
+    result is hi(a b) + hi(m q) + (lo(a b) != 0), each term in range, and
+    m = lo(a b) * qinv mod 2^32 is formed from 16-bit halves of lo(a b).
+    """
+    ab = a * b
+    lo = ab & _MASK32
+    m = (((((lo >> 16) * qinv) & _MASK16) << 16)
+         + (lo & _MASK16) * qinv) & _MASK32
+    t = (ab >> 32) + ((m * q) >> 32) + (lo != 0)
+    return torch.where(t >= q, t - q, t)
+
+
+def _add_mod(a, b, q):
+    s = a + b
+    return torch.where(s >= q, s - q, s)
+
+
+def _sub_mod(a, b, q):
+    return torch.where(a >= b, a - b, a + q - b)
+
+
+def _load(x: torch.Tensor, q) -> torch.Tensor:
+    """What a kernel's load does: read the words as uint32, reduce mod q."""
+    return (x.view(torch.int32).to(torch.int64) & _MASK32) % q
+
+
+def _ntt_radix2_stage(y, w, L: int, r: int, n: int, q, qinv):
+    """One Stockham sweep (P, B, L, r) -> (P, B, 2L, r/2) over F_q, P the
+    limbs; w is the (P, n) master table, q and qinv are (P, 1, 1, 1)."""
+    half = r // 2
+    e = y[..., :half]
+    o = y[..., half:]
+    stride = n // (2 * L)
+    tw = w[:, 0:L * stride:stride][:, None, :, None]     # (P, 1, L, 1)
+    t = mont_mul(o, tw, q, qinv)
+    return torch.cat([_add_mod(e, t, q), _sub_mod(e, t, q)], dim=2)
+
+
+def ntt_stages(x: torch.Tensor, w: torch.Tensor, q, qinv) -> torch.Tensor:
+    """All radix-2 Stockham sweeps of (P, B, n) int64 residues with the
+    (P, n) Montgomery table ``w`` (powers of the n-th root, or of its
+    inverse); q and qinv are (P, 1, 1). Natural order in and out: Stockham
+    autosorts, so there is no bit-reversal anywhere."""
+    p, b, n = x.shape
+    y = x.reshape(p, b, 1, n)
+    q4, qinv4 = q[..., None], qinv[..., None]
+    L, r = 1, n
+    while r > 1:
+        y = _ntt_radix2_stage(y, w, L, r, n, q4, qinv4)
+        L, r = 2 * L, r // 2
+    return y.reshape(p, b, n)
+
+
+def _polymul_stages(a, b, wf, wi, twist, untwist, q, qinv, r2,
+                    negacyclic: bool) -> torch.Tensor:
+    """The fused product on (P, B, n) words, tables (P, n), constants
+    (P, 1, 1), all int64: load, psi twist, two NTTs, the r2-hop pointwise
+    product, the inverse NTT, and the untwist by psi^-j * n^-1 (n^-1 alone
+    for the cyclic product). Returns int32 residues."""
+    a, b = _load(a, q), _load(b, q)
+    if negacyclic:
+        a = mont_mul(a, twist[:, None], q, qinv)
+        b = mont_mul(b, twist[:, None], q, qinv)
+    fa = ntt_stages(a, wf, q, qinv)
+    fb = ntt_stages(b, wf, q, qinv)
+    # one operand enters the Montgomery domain first (the r2 hop)
+    p = mont_mul(mont_mul(fa, r2, q, qinv), fb, q, qinv)
+    c = ntt_stages(p, wi, q, qinv)
+    return mont_mul(c, untwist[:, None], q, qinv).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Tables, cached per (params, device)
+# ---------------------------------------------------------------------------
+
+def untwist_table(params: NTTParams, negacyclic: bool) -> np.ndarray:
+    """Output-pass multipliers in the normal domain (uint64): psi^-j * n^-1
+    for the negacyclic untwist and scale, or n^-1 everywhere for the cyclic
+    product. The single definition the single-limb and RNS tables read."""
+    if negacyclic:
+        return (params.powers(params.psi_inv) * np.uint64(params.n_inv)
+                % np.uint64(params.q))
+    return np.full(params.n, params.n_inv, np.uint64)
+
+
+def _montgomery(params: NTTParams, values: np.ndarray) -> np.ndarray:
+    return params.to_montgomery(values).astype(np.int32)   # < q < 2^31
+
+
+@functools.lru_cache(maxsize=64)
+def master_table(params: NTTParams, base: int, device: torch.device
+                 ) -> torch.Tensor:
+    """(n,) int32 Montgomery-form powers of ``base`` mod q on ``device``."""
+    return torch.from_numpy(_montgomery(params, params.powers(base))
+                            ).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def polymul_tables(params: NTTParams, negacyclic: bool,
+                   device: torch.device) -> tuple[torch.Tensor, ...]:
+    """(wf, wi, twist, untwist) of the fused product, (n,) int32 each, in
+    Montgomery form. The cyclic product's twist (powers of 1) is unused."""
+    return (master_table(params, params.w, device),
+            master_table(params, params.w_inv, device),
+            master_table(params, params.psi if negacyclic else 1, device),
+            torch.from_numpy(_montgomery(
+                params, untwist_table(params, negacyclic))).to(device))
+
+
+@functools.lru_cache(maxsize=32)
+def rns_tables(rns, negacyclic: bool, device: torch.device
+               ) -> tuple[torch.Tensor, ...]:
+    """Per-limb tables of the RNS kernel on ``device``: scalars (k, 4) =
+    [q, qinv, r2, 0] as uint32 bits in int32, and wf, wi, twist, untwist as
+    (k, n) int32 in Montgomery form."""
+    scal = np.array([(p.q, p.qinv, p.r2, 0) for p in rns.limbs],
+                    np.uint32).view(np.int32)
+    cpu = torch.device("cpu")
+    per_limb = [polymul_tables(p, negacyclic, cpu) for p in rns.limbs]
+    stacks = [torch.stack([t[i] for t in per_limb]) for i in range(4)]
+    return tuple(t.to(device) for t in [torch.from_numpy(scal), *stacks])
+
+
+def _constants(device: torch.device, *values) -> list[torch.Tensor]:
+    """Scalars as (1, 1, 1) int64 tensors on ``device``."""
+    return [torch.tensor(v, dtype=torch.int64, device=device).view(1, 1, 1)
+            for v in values]
+
+
+# ---------------------------------------------------------------------------
+# Shared-memory planning: a CTA keeps its uint32 rows in two ping-pong
+# buffers, so a transformed row costs 8n bytes and a product row (both
+# operands) 16n.
+# ---------------------------------------------------------------------------
+
+def ntt_smem_bytes(n: int, block: int, *, product: bool = True) -> int:
+    """Shared memory of a CTA holding ``block`` rows of n residues."""
+    return block * n * 4 * 2 * (2 if product else 1)
+
+
+def plan_ntt_block(n: int, *, product: bool = True) -> int:
+    """Largest power-of-two batch block whose working set fits the block
+    budget (at least one row): the Hopper counterpart of the reference's
+    VMEM block."""
+    blk = SMEM_BLOCK_BUDGET // ntt_smem_bytes(n, 1, product=product)
+    blk = max(1, min(MAX_BLOCK, blk))
+    return 1 << (blk.bit_length() - 1)
+
+
+def ntt_cta_rows(n: int, batch: int, block: int, *, product: bool = True
+                 ) -> tuple[int, bool]:
+    """(rows per CTA, staged) for a launch: ``block`` is a cap, fitted to
+    the batch, then halved while the rows exceed shared memory; staged
+    when even one row does not fit."""
+    if block < 1:
+        raise ValueError(f"block={block}: need a block >= 1")
+    return fit_smem(lambda blk: ntt_smem_bytes(n, blk, product=product),
+                    _fit_block(block, batch), 1)
+
+
+def ntt_resident(n: int, *, product: bool = True) -> bool:
+    """Whether one row stays in shared memory for every sweep."""
+    return ntt_smem_bytes(n, 1, product=product) <= SMEM_MAX_BYTES
+
+
+def _scratch(n: int, batch: int, rows: int, staged: bool, limbs: int,
+             device: torch.device, *, product: bool) -> torch.Tensor | None:
+    """Device-memory ping-pong buffers of a staged launch, one slice per
+    CTA; None when the rows stay in shared memory."""
+    if not staged:
+        return None
+    ctas = limbs * -(-batch // rows)
+    words = ctas * ntt_smem_bytes(n, rows, product=product) // 4
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Input checks
+# ---------------------------------------------------------------------------
+
+def _as_residues(x: torch.Tensor, q: int) -> torch.Tensor:
+    """Integer coefficients -> the words the kernels read, with the
+    reference's contract: floats raise, negatives wrap Python-style
+    ((-1) % q == q - 1). ``torch.uint32`` passes as it is (the load reduces
+    it); other integer types reduce here into int32 residues."""
+    if x.dtype.is_floating_point or x.dtype.is_complex or \
+            x.dtype == torch.bool:
+        raise TypeError(f"NTT needs integer residues, got {x.dtype}")
+    if x.dtype == torch.uint32:
+        return x.contiguous()
+    return torch.remainder(x.to(torch.int64), q).to(torch.int32)
+
+
+def _check_rows(name: str, shape: tuple[int, ...], *xs: torch.Tensor
+                ) -> None:
+    ref = xs[0]
+    for x in xs:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if x.device != ref.device:
+            raise ValueError(f"{name}: tensors on {x.device} and "
+                             f"{ref.device}")
+    if ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {ref.device}")
+
+
+def residues_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """Kernel residues (int32, values < q < 2^31) -> numpy uint32, the
+    reference's result dtype."""
+    return x.cpu().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _scale_mont(params: NTTParams) -> int:
+    """n^-1 in Montgomery form: one REDC by it scales by n^-1."""
+    return params.n_inv * (1 << 32) % params.q
+
+
+def ntt_batched_plain(x: torch.Tensor, params: NTTParams, *,
+                      inverse: bool = False) -> torch.Tensor:
+    """Plain version of ``ntt_batched``."""
+    q, qinv = _constants(x.device, params.q, params.qinv)
+    w = master_table(params, params.w_inv if inverse else params.w,
+                     x.device).to(torch.int64)[None]
+    y = ntt_stages(_load(x[None], q), w, q, qinv)
+    if inverse:
+        y = mont_mul(y, _scale_mont(params), q, qinv)
+    return y[0].to(torch.int32)
+
+
+def ntt_batched(x: torch.Tensor, params: NTTParams, *,
+                inverse: bool = False, block_b: int | None = None
+                ) -> torch.Tensor:
+    """Batched cyclic NTT (or inverse NTT, scaled by n^-1) of integer
+    coefficients (B, n) mod ``params.q``; int32 residues out.
+
+    On the card: kernel ``ntt_kernel``, ``block_b`` rows per CTA at most
+    (default ``plan_ntt_block(n, product=False)``), fitted to the batch.
+    Replaces ``repro/kernels/ntt.py::ntt_batched``.
+    """
+    n = params.n
+    _check_rows("ntt_batched", (x.shape[0], n), x)
+    x = _as_residues(x, params.q)
+    if x.device.type == "cpu":
+        return ntt_batched_plain(x, params, inverse=inverse)
+    b = x.shape[0]
+    rows, staged = ntt_cta_rows(n, b, block_b or plan_ntt_block(
+        n, product=False), product=False)
+    y = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    if b == 0:
+        return y
+    with torch.cuda.device(x.device):
+        w = master_table(params, params.w_inv if inverse else params.w,
+                         x.device)
+        scratch = _scratch(n, b, rows, staged, 1, x.device, product=False)
+        _build.launch("ntt_batched", "ntt_batched", ptr(x), ptr(y), ptr(w),
+                      ptr(scratch), b, _log2(n), params.q, params.qinv,
+                      _scale_mont(params), int(inverse), rows)
+    return y
+
+
+def ntt_polymul_plain(a: torch.Tensor, b: torch.Tensor, params: NTTParams,
+                      *, negacyclic: bool = True) -> torch.Tensor:
+    """Plain version of ``ntt_polymul``."""
+    tables = [t.to(torch.int64)[None]
+              for t in polymul_tables(params, negacyclic, a.device)]
+    consts = _constants(a.device, params.q, params.qinv, params.r2)
+    return _polymul_stages(a[None], b[None], *tables, *consts,
+                           negacyclic)[0]
+
+
+def ntt_polymul(a: torch.Tensor, b: torch.Tensor, params: NTTParams, *,
+                negacyclic: bool = True, block_b: int | None = None
+                ) -> torch.Tensor:
+    """Exact product mod (x^n + 1, q), or x^n - 1 with ``negacyclic=False``,
+    of integer coefficient batches (B, n); int32 residues out.
+
+    On the card: kernel ``ntt_polymul_kernel`` (twist, two NTTs, pointwise
+    product, inverse NTT and untwist in one residency), ``block_b``
+    products per CTA at most (default ``plan_ntt_block(n)``). Replaces
+    ``repro/kernels/ntt.py::ntt_polymul``.
+    """
+    n = params.n
+    _check_rows("ntt_polymul", (a.shape[0], n), a, b)
+    a = _as_residues(a, params.q)
+    b = _as_residues(b, params.q)
+    if a.device.type == "cpu":
+        return ntt_polymul_plain(a, b, params, negacyclic=negacyclic)
+    bsz = a.shape[0]
+    rows, staged = ntt_cta_rows(n, bsz, block_b or plan_ntt_block(n))
+    c = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
+    if bsz == 0:
+        return c
+    with torch.cuda.device(a.device):
+        wf, wi, twist, untwist = polymul_tables(params, negacyclic, a.device)
+        scratch = _scratch(n, bsz, rows, staged, 1, a.device, product=True)
+        _build.launch("ntt_polymul", "ntt_polymul", ptr(a), ptr(b), ptr(c),
+                      ptr(wf), ptr(wi), ptr(twist), ptr(untwist),
+                      ptr(scratch), bsz, _log2(n), params.q, params.qinv,
+                      params.r2, int(negacyclic), rows)
+    return c
+
+
+def _check_rns(ar: torch.Tensor, br: torch.Tensor, rns) -> tuple[int, int]:
+    if ar.ndim != 3:
+        raise ValueError(f"rns_ntt_polymul: expected (k, B, n) residue "
+                         f"stacks, got shape {tuple(ar.shape)}")
+    _check_rows("rns_ntt_polymul", (rns.k, ar.shape[1], rns.n), ar, br)
+    for x in (ar, br):
+        if x.dtype != torch.uint32:
+            raise TypeError(f"rns_ntt_polymul wants uint32 residue stacks "
+                            f"(rns.to_rns), got {x.dtype}")
+    return ar.shape[1], rns.n
+
+
+def rns_ntt_polymul_plain(ar: torch.Tensor, br: torch.Tensor, rns, *,
+                          negacyclic: bool = True) -> torch.Tensor:
+    """Plain version of ``rns_ntt_polymul``: all limbs at once, each limb's
+    constants read from the same (k, 4) table as the kernel's."""
+    scal, *tables = rns_tables(rns, negacyclic, ar.device)
+    scal = scal.to(torch.int64) & _MASK32
+    q, qinv, r2 = (scal[:, i].view(-1, 1, 1) for i in range(3))
+    tables = [t.to(torch.int64) for t in tables]
+    return _polymul_stages(ar, br, *tables, q, qinv, r2, negacyclic)
+
+
+def rns_ntt_polymul(ar: torch.Tensor, br: torch.Tensor, rns, *,
+                    negacyclic: bool = True, block_b: int | None = None
+                    ) -> torch.Tensor:
+    """Limb-batched exact product: uint32 residue stacks (k, B, n) ->
+    int32 (k, B, n), every limb and batch block in one launch.
+
+    ``rns`` is a ``core.ntt.rns.RNSParams``. Inputs are the per-limb
+    residues ``rns.to_rns`` produces; the CRT (``rns.crt_to_modulus``)
+    is the caller's. On the card: kernel ``rns_ntt_polymul_kernel``, one
+    grid row per limb, ``block_b`` products per CTA at most (default
+    ``plan_ntt_block(n)``). Replaces
+    ``repro/kernels/ntt.py::rns_ntt_polymul``.
+    """
+    bsz, n = _check_rns(ar, br, rns)
+    ar, br = ar.contiguous(), br.contiguous()
+    if ar.device.type == "cpu":
+        return rns_ntt_polymul_plain(ar, br, rns, negacyclic=negacyclic)
+    rows, staged = ntt_cta_rows(n, bsz, block_b or plan_ntt_block(n))
+    c = torch.empty((rns.k, bsz, n), dtype=torch.int32, device=ar.device)
+    if bsz == 0:
+        return c
+    with torch.cuda.device(ar.device):
+        scal, wf, wi, twist, untwist = rns_tables(rns, negacyclic,
+                                                  ar.device)
+        scratch = _scratch(n, bsz, rows, staged, rns.k, ar.device,
+                           product=True)
+        _build.launch("ntt_rns_polymul", "rns_ntt_polymul", ptr(ar),
+                      ptr(br), ptr(c), ptr(scal), ptr(wf), ptr(wi),
+                      ptr(twist), ptr(untwist), ptr(scratch), rns.k, bsz,
+                      _log2(n), int(negacyclic), rows)
+    return c

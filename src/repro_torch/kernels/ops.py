@@ -4,8 +4,6 @@ Functions take tensors of shape (..., n), n a power of two, with any
 leading batch dims, and run where the tensor lies: on the card through the
 CUDA kernels, on the CPU through their plain versions. Complex tensors are
 complex64; real tensors float32.
-
-``irfft`` waits for the slice that ports its kernel.
 """
 from __future__ import annotations
 
@@ -84,6 +82,28 @@ def rfft(x: torch.Tensor, *, radix: int = 2, packed: bool = False,
     yr = yr.reshape(*lead, n // 2)
     yi = yi.reshape(*lead, n // 2)
     return (yr, yi) if packed else packed_to_halfspec(yr, yi)
+
+
+def irfft(x, *, radix: int = 2, packed: bool = False,
+          block_b: int | None = None) -> torch.Tensor:
+    """Inverse of ``rfft``: half-spectrum -> real (..., n).
+
+    ``x`` is complex (..., n/2+1) (numpy layout), or the packed plane pair
+    ``(re, im)`` of shape (..., n/2) with ``packed=True``. Runs the
+    two-for-one inverse kernel: two half-spectra per inverse complex
+    transform, unpacked inside the kernel.
+    """
+    if packed:
+        pr, pi = x
+        pr, pi = _real(pr), _real(pi)
+    else:
+        pr, pi = halfspec_to_packed(x)
+    n = 2 * pr.shape[-1]
+    p2, lead = _as2d(pr)
+    q2, _ = _as2d(pi)
+    y = _kfft.irfft_planes(p2.contiguous(), q2.contiguous(), radix=radix,
+                           block_b=block_b)
+    return y.reshape(*lead, n)
 
 
 def polymul_real(a: torch.Tensor, b: torch.Tensor, *, mode: str = "linear",

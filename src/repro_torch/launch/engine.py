@@ -218,11 +218,12 @@ class ServeEngine:
         return _Flight(key, reqs, host, done, t)
 
     def _resolve(self, flight: _Flight) -> None:
-        """Wait for a dispatched batch and record results and latencies."""
+        """Wait for a dispatched batch, run its route's host step (the RNS
+        route's CRT), and record results and latencies."""
         if flight.done is not None:
             flight.done.synchronize()
         # an array of its own, so the pinned buffer returns to the cache
-        arr = flight.host.numpy().copy()
+        arr = self._bound[flight.key].host_step(flight.host.numpy().copy())
         t_done = time.perf_counter()
         if arr.shape[0] != len(flight.reqs):
             raise RuntimeError(f"batch executed at {arr.shape[0]} rows for "

@@ -20,9 +20,9 @@ The OpSpec contract:
   * ``verify``           -- a numpy-oracle check of one served result.
 
 This package serves the float ops ``fft``, ``rfft``, ``polymul`` and
-``polymul-real`` on the local tier. Knobs an op does not consume are
-rejected by ``bind`` (strict mode) or stripped by ``OpSpec.narrow`` (the
-mixed engine).
+``polymul-real`` and the exact ``polymul-mod`` (single-limb and RNS) on the
+local tier. Knobs an op does not consume are rejected by ``bind`` (strict
+mode) or stripped by ``OpSpec.narrow`` (the mixed engine).
 """
 from __future__ import annotations
 
@@ -34,11 +34,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import fft as fft_core
+from repro_torch.core import ntt as ntt_core
+from repro_torch.kernels import ntt as kntt
 
 
-#: Torch dtypes of the payload dtypes, for the pinned staging buffers.
+#: Torch dtypes of the staged numpy dtypes, for the pinned staging buffers.
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                 np.dtype(np.complex64): torch.complex64}
+                 np.dtype(np.complex64): torch.complex64,
+                 np.dtype(np.uint32): torch.uint32}
 
 
 class OpConfigError(ValueError):
@@ -75,6 +78,12 @@ class BoundOp:
     ``fn`` takes the stacked operand tensors (``stack``'s output, one per
     operand) at ANY batch size: tail batches run at their actual size, the
     kernels fit their block to the batch instead of padding.
+
+    Host steps around the card: ``encode`` (None: the rows are staged as
+    they are) turns one operand's stacked (B, n) rows into the array that
+    is staged, and ``host_step`` turns the batch's output, once on the
+    host, into its (B, ...) result rows. The RNS route splits big-int rows
+    into (k, B, n) limb residues and runs the CRT there.
     """
     spec: "OpSpec"
     n: int
@@ -83,6 +92,10 @@ class BoundOp:
     fn: Callable[..., torch.Tensor]
     payload_dtype: Any              # numpy dtype
     device: torch.device
+    encode: Callable[[np.ndarray], np.ndarray] | None = None
+    host_step: Callable[[np.ndarray], np.ndarray] = lambda rows: rows
+    ntt_params: ntt_core.NTTParams | None = None   # single-limb modulus
+    rns: ntt_core.RNSParams | None = None          # multi-limb RNS route
 
     @property
     def key(self) -> tuple[str, int]:
@@ -100,10 +113,13 @@ class BoundOp:
 
     def _column(self, rows: Sequence[Any]) -> torch.Tensor:
         rows = [np.asarray(r, self.payload_dtype) for r in rows]
+        if self.encode is not None:
+            rows = self.encode(np.stack(rows))
+        # np.stack of a list of rows, or of an encoded array's first axis
         if self.device.type == "cpu":
             return torch.from_numpy(np.stack(rows))
-        host = torch.empty((len(rows), self.n), pin_memory=True,
-                           dtype=_TORCH_DTYPES[np.dtype(self.payload_dtype)])
+        host = torch.empty((len(rows), *rows[0].shape), pin_memory=True,
+                           dtype=_TORCH_DTYPES[rows[0].dtype])
         np.stack(rows, out=host.numpy())
         return host.to(self.device, non_blocking=True)
 
@@ -123,10 +139,10 @@ class BoundOp:
         host.copy_(out, non_blocking=True)
         return host
 
-    @staticmethod
-    def to_numpy(out: torch.Tensor) -> np.ndarray:
-        """Materialize a dispatched batch on the host (waits for it)."""
-        return out.cpu().numpy()
+    def to_numpy(self, out: torch.Tensor) -> np.ndarray:
+        """Materialize a dispatched batch's result rows on the host (waits
+        for it)."""
+        return self.host_step(out.cpu().numpy())
 
     def warmup(self, batch: int) -> None:
         """Run the route as the engine serves it at one batch size, two
@@ -147,12 +163,17 @@ class BoundOp:
         self.spec.verify(self, payload, result)
 
     def check_payload(self, payload) -> None:
-        """Admission guard: reject non-finite operands with an
-        :class:`OpConfigError` BEFORE they join a batch -- a NaN poisons
-        every row it batches with."""
+        """Admission guard: reject non-finite float/complex operands with
+        an :class:`OpConfigError` BEFORE they join a batch -- a NaN poisons
+        every row it batches with. Integer and big-int operands carry no
+        NaN and pass."""
         operands = (payload,) if self.spec.arity == 1 else tuple(payload)
         for i, op in enumerate(operands):
-            if not np.isfinite(np.asarray(op)).all():
+            arr = np.asarray(op)
+            if arr.dtype == object or not np.issubdtype(arr.dtype,
+                                                        np.inexact):
+                continue
+            if not np.isfinite(arr).all():
                 raise OpConfigError(
                     f"op {self.spec.name!r}: operand {i} contains "
                     f"non-finite values (NaN/Inf) -- rejected at submit "
@@ -168,7 +189,7 @@ class OpSpec:
     uses_modulus_bits: bool
     uses_model_shards: bool
     _validate: Callable[["OpSpec", int, OpContext], None]
-    _bind: Callable[["OpSpec", int, int, torch.device], BoundOp]
+    _bind: Callable[["OpSpec", int, int, torch.device, OpContext], BoundOp]
     warmup_payload: Callable[[BoundOp], Any]
     random_payload: Callable[[BoundOp, np.random.Generator], Any]
     verify: Callable[[BoundOp, Any, np.ndarray], None]
@@ -207,16 +228,10 @@ class OpSpec:
         if not strict:
             ctx = self.narrow(ctx)
         self.validate(n, ctx)
-        return self._bind(self, n, batch, resolve_device(device))
+        return self._bind(self, n, batch, resolve_device(device), ctx)
 
 
 _REGISTRY: dict[str, OpSpec] = {}
-
-#: Ops of the reference registry that consume a knob but are served by a
-#: later slice of this package; the knob messages name them as the
-#: reference registry does.
-_LATER_KNOB_USERS = {"modulus_bits": ("polymul-mod",),
-                     "model_shards": ("polymul-mod",)}
 
 
 def register_op(**kw) -> OpSpec:
@@ -243,8 +258,7 @@ def get_op(name: str) -> OpSpec:
 def ops_using(knob: str) -> tuple[str, ...]:
     flag = {"modulus_bits": "uses_modulus_bits",
             "model_shards": "uses_model_shards"}[knob]
-    served = tuple(s.name for s in _REGISTRY.values() if getattr(s, flag))
-    return served + _LATER_KNOB_USERS[knob]
+    return tuple(s.name for s in _REGISTRY.values() if getattr(s, flag))
 
 
 def cli_help() -> str:
@@ -311,7 +325,7 @@ def _plan_or_config_error(**kw) -> fft_core.FFTPlan:
 # ---------------------------------------------------------------------------
 
 def _bind_fft(spec: OpSpec, n: int, batch: int,
-              device: torch.device) -> BoundOp:
+              device: torch.device, ctx: OpContext) -> BoundOp:
     plan = _plan_or_config_error(n=n, batch=batch)
     return BoundOp(spec=spec, n=n, plan=plan, route="fft",
                    fn=lambda x: fft_core.fft(x, radix=plan.radix,
@@ -335,7 +349,7 @@ register_op(
 # ---------------------------------------------------------------------------
 
 def _bind_rfft(spec: OpSpec, n: int, batch: int,
-               device: torch.device) -> BoundOp:
+               device: torch.device, ctx: OpContext) -> BoundOp:
     plan = _plan_or_config_error(n=n, batch=batch, real=True)
     return BoundOp(spec=spec, n=n, plan=plan, route="rfft-real",
                    fn=lambda x: fft_core.rfft(x, radix=plan.radix,
@@ -359,7 +373,7 @@ register_op(
 # ---------------------------------------------------------------------------
 
 def _bind_polymul(spec: OpSpec, n: int, batch: int,
-                  device: torch.device) -> BoundOp:
+                  device: torch.device, ctx: OpContext) -> BoundOp:
     plan = _plan_or_config_error(n=n, batch=batch, product=True)
     return BoundOp(
         spec=spec, n=n, plan=plan, route="polymul",
@@ -392,7 +406,7 @@ def _validate_polymul_real(spec: OpSpec, n: int, ctx: OpContext) -> None:
 
 
 def _bind_polymul_real(spec: OpSpec, n: int, batch: int,
-                       device: torch.device) -> BoundOp:
+                       device: torch.device, ctx: OpContext) -> BoundOp:
     plan = _plan_or_config_error(n=n, batch=batch, real=True, product=True)
     return BoundOp(
         spec=spec, n=n, plan=plan, route="polymul-real-packed",
@@ -413,4 +427,92 @@ register_op(
         rng.standard_normal(b.n).astype(np.float32),
         rng.standard_normal(b.n).astype(np.float32)),
     verify=functools.partial(_float_verify, _circular_real, 1e-3),
+)
+
+
+# ---------------------------------------------------------------------------
+# polymul-mod -- exact negacyclic product mod (x^n + 1, q): the single-limb
+# fused NTT kernel (modulus_bits <= 30), or multi-limb RNS with the CRT on
+# the host (modulus_bits > 30). Its distributed four-step route
+# (model_shards > 1) comes with a later slice.
+# ---------------------------------------------------------------------------
+
+def _rns_route(ctx: OpContext) -> bool:
+    return ctx.modulus_bits is not None and ctx.modulus_bits > 30
+
+
+def _validate_polymul_mod(spec: OpSpec, n: int, ctx: OpContext) -> None:
+    bits = ctx.modulus_bits
+    if _rns_route(ctx) and ctx.model_shards > 1:
+        raise OpConfigError(
+            "distributed polymul-mod is single-limb: RNS "
+            "(modulus_bits > 30) shards limbs, not the sequence — drop "
+            "--model-shards or use modulus_bits <= 30")
+    if ctx.model_shards > 1:
+        _plan_or_config_error(n=n, batch=0, exact=True,
+                              model_shards=ctx.model_shards)
+    try:
+        if _rns_route(ctx):
+            ntt_core.RNSParams.make(n, modulus_bits=bits)
+        else:
+            ntt_core.NTTParams.make(n, bits=30 if bits is None else bits)
+    except ValueError as e:
+        raise OpConfigError(
+            f"no NTT modulus for n={n}, modulus_bits={bits}: {e}") from e
+
+
+def _bind_polymul_mod(spec: OpSpec, n: int, batch: int, device: torch.device,
+                      ctx: OpContext) -> BoundOp:
+    plan = _plan_or_config_error(n=n, batch=batch, exact=True)
+    if _rns_route(ctx):
+        rns = ntt_core.RNSParams.make(n, modulus_bits=ctx.modulus_bits)
+        return BoundOp(
+            spec=spec, n=n, plan=plan, route="polymul-mod-rns",
+            fn=lambda a, b: kntt.rns_ntt_polymul(a, b, rns,
+                                                 block_b=plan.block_b),
+            payload_dtype=object, device=device, rns=rns,
+            # limb residues < 2^30 go to the card; the CRT runs on the host
+            encode=lambda rows: ntt_core.to_rns(rows, rns).astype(np.uint32),
+            host_step=lambda res: ntt_core.crt_to_modulus(
+                res.view(np.uint32), rns))
+    bits = ctx.modulus_bits
+    params = ntt_core.NTTParams.make(n, bits=30 if bits is None else bits)
+    return BoundOp(
+        spec=spec, n=n, plan=plan, route="polymul-mod-single",
+        fn=lambda a, b: kntt.ntt_polymul(a, b, params, block_b=plan.block_b),
+        payload_dtype=np.uint32, device=device, ntt_params=params,
+        host_step=lambda res: res.view(np.uint32))
+
+
+def _random_mod_payload(bound: BoundOp, rng: np.random.Generator):
+    if bound.rns is not None:
+        return (ntt_core.random_poly(rng, bound.n, bound.rns.modulus),
+                ntt_core.random_poly(rng, bound.n, bound.rns.modulus))
+    q = bound.ntt_params.q
+    return (rng.integers(0, q, bound.n).astype(np.uint32),
+            rng.integers(0, q, bound.n).astype(np.uint32))
+
+
+def _verify_mod(bound: BoundOp, payload, result: np.ndarray) -> None:
+    a, b = payload
+    if bound.rns is not None:
+        want = ntt_core.rns_polymul_reference(np.asarray(a, object),
+                                              np.asarray(b, object),
+                                              bound.rns)
+    else:
+        want = ntt_core.negacyclic_polymul(np.asarray(a), np.asarray(b),
+                                           bound.ntt_params)
+    assert (np.asarray(result) == want).all(), \
+        f"{bound.route} is not bit-exact against the reference NTT"
+
+
+register_op(
+    name="polymul-mod", arity=2,
+    summary="exact negacyclic product mod (x^n+1, q); --modulus-bits > 30 "
+            "routes through multi-limb RNS/CRT",
+    uses_modulus_bits=True, uses_model_shards=True,
+    _validate=_validate_polymul_mod, _bind=_bind_polymul_mod,
+    warmup_payload=_zeros,
+    random_payload=_random_mod_payload,
+    verify=_verify_mod,
 )

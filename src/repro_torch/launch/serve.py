@@ -20,6 +20,8 @@ Example:
       --n 4096 --batch 64 --requests 256 --op polymul-real
   PYTHONPATH=src python -m repro_torch.launch.serve --service engine \
       --ops fft,rfft,polymul,polymul-real --ns 4096,65536 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --service fft \
+      --n 4096 --batch 64 --op polymul-mod --modulus-bits 109
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --n 256 --batch 4 --requests 16
 """

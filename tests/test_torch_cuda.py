@@ -5,18 +5,22 @@ This file imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors, and the wrapper must count exactly one launch. Tolerances: fft
-and rfft rtol 1e-4, atol 1e-4 * sqrt(n); the products rtol 1e-3,
+tensors, and the wrapper must count exactly one launch. Tolerances: fft,
+rfft and irfft rtol 1e-4, atol 1e-4 * sqrt(n); the products rtol 1e-3,
 atol 1e-4 * n (the reference tests' bounds). The kernels are built with
 -fmad=false and perform the plain versions' fp32 operations in the same
-order, so on the card they agree far inside these bounds.
+order, so on the card they agree far inside these bounds. The NTT kernels
+are exact: they equal their plain versions and the numpy reference bit
+for bit (``==``).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import ntt as tntt
 from repro_torch.kernels import _build
 from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import ntt as tknt
 from repro_torch.kernels import polymul as tpoly
 from repro_torch.launch import engine, serve
 
@@ -76,6 +80,77 @@ def test_rfft_kernel_matches_plain(cuda, rng, n, radix):
 
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 5])
+def test_irfft_kernel_matches_plain(cuda, rng, n, radix, batch):
+    """Odd batches pair their last spectrum with a zero spectrum."""
+    (x,) = _planes(rng, batch, n, 1, cuda)
+    yr, yi = tfft.rfft_planes(x, radix=radix)
+    got = _launched("irfft_planes",
+                    lambda: tfft.irfft_planes(yr, yi, radix=radix))
+    _close([got], [tfft.irfft_planes_plain(yr, yi, radix=radix)], 1e-4,
+           1e-4 * np.sqrt(n))
+    _close([got], [x], 1e-4, 1e-4 * n)
+
+
+NTT_NS = [2, 8, 4096, 16384, 32768, 65536]
+
+
+def _residues(rng, shape, q, device):
+    return torch.from_numpy(rng.integers(0, q, shape).astype(
+        np.uint32)).to(device)
+
+
+@pytest.mark.parametrize("n", NTT_NS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernel_matches_plain_and_reference(cuda, rng, n, inverse):
+    p = tntt.NTTParams.make(n)
+    x = _residues(rng, (5, n), p.q, cuda)
+    got = _launched("ntt_batched",
+                    lambda: tknt.ntt_batched(x, p, inverse=inverse))
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tknt.ntt_batched_plain(x, p, inverse=inverse))
+    want = (tntt.intt if inverse else tntt.ntt)(x.cpu().numpy(), p)
+    assert (tknt.residues_to_numpy(got) == want).all()
+
+
+@pytest.mark.parametrize("n", NTT_NS)
+@pytest.mark.parametrize("negacyclic", [True, False])
+@pytest.mark.parametrize("batch,block", [(1, None), (5, None), (5, 2)])
+def test_ntt_polymul_kernel_matches_plain_and_reference(
+        cuda, rng, n, negacyclic, batch, block):
+    p = tntt.NTTParams.make(n)
+    a, b = (_residues(rng, (batch, n), p.q, cuda) for _ in range(2))
+    got = _launched("ntt_polymul", lambda: tknt.ntt_polymul(
+        a, b, p, negacyclic=negacyclic, block_b=block))
+    assert torch.equal(got, tknt.ntt_polymul_plain(a, b, p,
+                                                   negacyclic=negacyclic))
+    fn = tntt.negacyclic_polymul if negacyclic else tntt.cyclic_polymul
+    assert (tknt.residues_to_numpy(got)
+            == fn(a.cpu().numpy(), b.cpu().numpy(), p)).all()
+
+
+@pytest.mark.parametrize("n,kw", [(64, {"modulus": 17}),
+                                  (4096, {"modulus_bits": 109}),
+                                  (65536, {"modulus_bits": 60})])
+@pytest.mark.parametrize("negacyclic", [True, False])
+def test_rns_kernel_matches_plain_and_reference(cuda, rng, n, kw,
+                                                negacyclic):
+    r = tntt.RNSParams.make(n, **kw)
+    a, b = (np.stack([tntt.random_poly(rng, n, r.modulus)
+                      for _ in range(3)]) for _ in range(2))
+    ar, br = (torch.from_numpy(tntt.to_rns(x, r).astype(np.uint32)).to(cuda)
+              for x in (a, b))
+    got = _launched("rns_ntt_polymul", lambda: tknt.rns_ntt_polymul(
+        ar, br, r, negacyclic=negacyclic))
+    assert torch.equal(got, tknt.rns_ntt_polymul_plain(
+        ar, br, r, negacyclic=negacyclic))
+    want = tntt.rns_polymul_reference(a, b, r, negacyclic=negacyclic)
+    assert (tntt.crt_to_modulus(tknt.residues_to_numpy(got), r)
+            == want).all()
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("radix", [2, 4])
 def test_polymul_kernels_match_plain(cuda, rng, n, radix):
     ar, ai, br, bi = _planes(rng, 5, n, 4, cuda)
     got = _launched("polymul_complex_planes",
@@ -90,13 +165,15 @@ def test_polymul_kernels_match_plain(cuda, rng, n, radix):
            1e-3, 1e-4 * n)
 
 
-@pytest.mark.parametrize("op", ["fft", "rfft", "polymul", "polymul-real"])
-def test_service_on_card_matches_cpu(cuda, rng, op):
+@pytest.mark.parametrize("op,bits", [
+    ("fft", None), ("rfft", None), ("polymul", None),
+    ("polymul-real", None), ("polymul-mod", None), ("polymul-mod", 109)])
+def test_service_on_card_matches_cpu(cuda, rng, op, bits):
     """The same payloads served on the card and on the CPU: each result
     within the op's tolerance of the other, and the card's kernels ran."""
     n, cap, total = 4096, 4, 6
-    on_card = serve.FFTService(n, cap, op, device="cuda")
-    on_cpu = serve.FFTService(n, cap, op, device="cpu")
+    on_card = serve.FFTService(n, cap, op, modulus_bits=bits, device="cuda")
+    on_cpu = serve.FFTService(n, cap, op, modulus_bits=bits, device="cpu")
     payloads = [on_card.bound.random_payload(rng) for _ in range(total)]
     _build.reset_launches()
     for svc in (on_card, on_cpu):
@@ -107,8 +184,11 @@ def test_service_on_card_matches_cpu(cuda, rng, op):
     tol = (dict(rtol=1e-3, atol=1e-4 * n) if op.startswith("polymul")
            else dict(rtol=1e-4, atol=1e-4 * np.sqrt(n)))
     for rid, p in enumerate(payloads):
-        np.testing.assert_allclose(on_card.results[rid], on_cpu.results[rid],
-                                   **tol)
+        if op == "polymul-mod":      # exact: bit for bit
+            assert (on_card.results[rid] == on_cpu.results[rid]).all()
+        else:
+            np.testing.assert_allclose(on_card.results[rid],
+                                       on_cpu.results[rid], **tol)
         on_card.bound.verify(p, on_card.results[rid])
 
 
@@ -129,7 +209,7 @@ def test_engine_copies_results_back_without_blocking(cuda, rng):
 
 @pytest.mark.parametrize("name,block", [
     ("fft_planes", 1), ("rfft_planes", 2), ("polymul_complex_planes", 1),
-    ("polymul_real_planes", 2)])
+    ("polymul_real_planes", 2), ("irfft_planes", 2)])
 @pytest.mark.parametrize("staged", [False, True])
 def test_occupancy_matches_launch_configuration(cuda, name, block, staged):
     """The occupancy query reports the launchers' own configuration at
@@ -138,8 +218,22 @@ def test_occupancy_matches_launch_configuration(cuda, name, block, staged):
     holds (none when staged), and at least one CTA per SM."""
     slots = {"fft_planes": block, "rfft_planes": block // 2,
              "polymul_complex_planes": 2 * block,
-             "polymul_real_planes": block}[name]
+             "polymul_real_planes": block, "irfft_planes": block // 2}[name]
     occ = _build.occupancy(name, 12, block, staged)
     assert occ["threads"] == min(1024, slots * 4096 // 4)
     assert occ["smem_bytes"] == (0 if staged else 16 * 4096 * slots)
+    assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("name,slots", [
+    ("ntt_batched", 1), ("ntt_polymul", 2), ("rns_ntt_polymul", 2)])
+@pytest.mark.parametrize("staged", [False, True])
+def test_ntt_occupancy_matches_launch_configuration(cuda, name, slots,
+                                                    staged):
+    """At n = 4096 and one row per CTA: one thread per butterfly (at most
+    1024), 8 bytes of shared memory per residue of each row the CTA holds
+    (none when staged), and at least one CTA per SM."""
+    occ = _build.occupancy(name, 12, 1, staged)
+    assert occ["threads"] == min(1024, slots * 4096 // 2)
+    assert occ["smem_bytes"] == (0 if staged else 8 * 4096 * slots)
     assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1

@@ -146,6 +146,41 @@ def test_rfft_planes_matches_pallas(rng, n, radix, batch):
                                atol=1e-4 * np.sqrt(n))
 
 
+@pytest.mark.parametrize("n,radix,batch", [
+    (2, 2, 1), (16, 4, 3), (256, 2, 4), (256, 4, 5), (1024, 4, 2)])
+def test_irfft_planes_matches_pallas(rng, n, radix, batch):
+    """The inverse of the packed half-spectrum, including odd batches (one
+    zero spectrum pads the last pair): the reference kernel at the
+    reference FFT tests' bound, and the round trip at the reference's
+    ``tests/test_real_fastpath.py`` bound (rtol 1e-4, atol 1e-4 * n)."""
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    yr, yi = jfft.rfft_planes(jnp.asarray(x), radix=radix, block_b=4)
+    got = tfft.irfft_planes(_t(np.array(yr)), _t(np.array(yi)),
+                            radix=radix).numpy()
+    assert got.shape == (batch, n) and got.dtype == np.float32
+    want = np.asarray(jfft.irfft_planes(yr, yi, radix=radix, block_b=4))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.sqrt(n))
+    np.testing.assert_allclose(got, x, rtol=1e-4, atol=1e-4 * n)
+    back = tfft.irfft_planes(*tfft.rfft_planes(_t(x), radix=radix),
+                             radix=radix).numpy()
+    np.testing.assert_allclose(back, x, rtol=1e-4, atol=1e-4 * n)
+
+
+@pytest.mark.parametrize("n", [8, 64, 256])
+def test_irfft_planes_matches_numpy(rng, n):
+    """Against numpy.fft.irfft of the same (Hermitian) half spectrum."""
+    half = (rng.standard_normal((3, n // 2 + 1))
+            + 1j * rng.standard_normal((3, n // 2 + 1)))
+    half[:, 0] = half[:, 0].real
+    half[:, -1] = half[:, -1].real
+    pr = half[:, :n // 2].real.astype(np.float32)
+    pi = np.concatenate([half[:, -1:].real, half[:, 1:n // 2].imag],
+                        axis=1).astype(np.float32)
+    got = tfft.irfft_planes(_t(pr), _t(pi)).numpy()
+    np.testing.assert_allclose(got, np.fft.irfft(half, n=n), rtol=1e-4,
+                               atol=1e-4 * np.sqrt(n))
+
+
 def test_plain_path_is_independent_of_block(rng):
     """On the CPU the block cap changes nothing: the plain version runs the
     whole batch at once."""
@@ -208,6 +243,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfft.fft_planes(x, x, radix=8)
     with pytest.raises(ValueError):
         tfft.rfft_planes(torch.zeros(8))
+    with pytest.raises(ValueError):
+        tfft.irfft_planes(x, torch.zeros(2, 4))
+    with pytest.raises(TypeError):
+        tfft.irfft_planes(x.double(), x.double())
 
 
 def test_cpu_tensors_launch_nothing(rng):
@@ -215,5 +254,5 @@ def test_cpu_tensors_launch_nothing(rng):
     _build.reset_launches()
     x = _t(rng.standard_normal((3, 32)).astype(np.float32))
     tfft.fft_planes(x, x)
-    tfft.rfft_planes(x)
+    tfft.irfft_planes(*tfft.rfft_planes(x))
     assert set(_build.LAUNCHES.values()) == {0}

@@ -32,7 +32,7 @@ def _ptol(n):
 
 
 def test_core_exports_the_local_surface():
-    for name in ("fft", "ifft", "rfft", "polymul", "polymul_real",
+    for name in ("fft", "ifft", "rfft", "irfft", "polymul", "polymul_real",
                  "packed_to_halfspec", "halfspec_to_packed", "plan",
                  "FFTPlan"):
         assert name in tcore.__all__ and hasattr(tcore, name)
@@ -75,6 +75,26 @@ def test_rfft_matches_reference(rng, packed):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **_ftol(n))
         np.testing.assert_allclose(got.numpy(),
                                    np.fft.rfft(x.astype(np.float64)),
+                                   **_ftol(n))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_irfft_matches_reference(rng, packed):
+    """Both layouts, leading batch dims with an odd row count, against the
+    reference's Pallas route on the same half spectrum and the round trip
+    (the reference's ``test_ops_irfft_roundtrip`` bound, 1e-3)."""
+    n = 64
+    x = rng.standard_normal((3, 5, n)).astype(np.float32)
+    h = tops.rfft(torch.from_numpy(x), packed=packed)
+    got = tcore.irfft(h, packed=packed)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    jh = (tuple(jnp.asarray(t.numpy()) for t in h) if packed
+          else jnp.asarray(h.numpy()))
+    want = np.asarray(jops.irfft(jh, backend="pallas", packed=packed))
+    np.testing.assert_allclose(got.numpy(), want, **_ftol(n))
+    np.testing.assert_allclose(got.numpy(), x, rtol=1e-3, atol=1e-3)
+    if not packed:
+        np.testing.assert_allclose(got.numpy(), np.fft.irfft(h.numpy(), n=n),
                                    **_ftol(n))
 
 

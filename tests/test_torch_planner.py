@@ -1,17 +1,18 @@
 """The port's planner (``repro_torch.core.fft.planner``) against the
 reference planner's legacy mode (``repro.core.fft.planner``).
 
-The plan's ``tier``, ``radix`` and ``real`` fields must equal the
-reference's, field by field. ``block_b`` is re-derived for Hopper shared
-memory and so differs from the reference's VMEM block on purpose; the
-tests pin the port's own rule instead. Plans are exact values, so every
-comparison is ``==``.
+The plan's ``tier``, ``radix``, ``real`` and ``exact`` fields must equal
+the reference's, field by field. ``block_b`` is re-derived for Hopper
+shared memory and so differs from the reference's VMEM block on purpose;
+the tests pin the port's own rule instead. Plans are exact values, so
+every comparison is ``==``.
 """
 import pytest
 
 from repro.core import fft as jcore
 from repro_torch.core import fft as tcore
 from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import ntt as tntt
 from repro_torch.kernels import polymul as tpoly
 
 NS = [2, 4, 8, 64, 1024, 4096, 8192, 65536, 262144]
@@ -69,8 +70,30 @@ def test_plan_rejects_negative_batch_and_exact_real():
             planner(1024, batch=8, exact=True, real=True)
 
 
+@pytest.mark.parametrize("n", NS + [524288])
+def test_exact_plan_is_the_fused_ntt_product(n):
+    """The exact tier is planned, as in the reference: local, radix 2,
+    exact. Its block is the NTT product's Hopper rule (two uint32 operands
+    in two ping-pong buffers, 16n bytes a row, against the block budget);
+    a row stays resident up to n = 8192 and is staged beyond."""
+    got = tcore.plan(n, 64, exact=True)
+    want = jcore.plan(n, 64, exact=True)
+    assert (got.tier, got.radix, got.exact, got.real) == \
+        (want.tier, want.radix, want.exact, want.real) == \
+        ("local", 2, True, False)
+    assert got.product
+    rows = min(1024, max(1, 48 * 1024 // (16 * n)))
+    assert got.block_b == tntt.plan_ntt_block(n) == \
+        1 << (rows.bit_length() - 1)
+    assert got.resident == tntt.ntt_resident(n) == (n <= 8192)
+    assert "NTT (exact mod-q)" in got.describe()
+    assert ("shared-memory resident" if n <= 8192
+            else "staged through device memory") in got.describe()
+    with pytest.raises(ValueError, match="multi-device slice"):
+        tcore.plan(n, 64, exact=True, model_shards=8)
+
+
 @pytest.mark.parametrize("kw,slice_name", [
-    ({"exact": True}, "exact-tier slice"),
     ({"model_shards": 4}, "multi-device slice"),
     ({"workload": "fft"}, "cost-model slice"),
 ])

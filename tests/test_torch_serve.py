@@ -6,7 +6,8 @@ kernels on the same batches); the port's service vs the reference's
 service on the same payloads is within the op's tolerance -- fft/rfft
 rtol 1e-4, atol 1e-4 * sqrt(n), products rtol 1e-3, atol 1e-4 * n (the
 reference tests' bounds; the reference serves its XLA Stockham at radix 2
-with fp32 phases, the port its kernels at the plan's radix 4).
+with fp32 phases, the port its kernels at the plan's radix 4) -- except
+the exact ``polymul-mod``, which equals the reference bit for bit.
 """
 import os
 import subprocess
@@ -26,6 +27,9 @@ from repro_torch.launch.engine import Backpressure, ServeEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPS = ("fft", "rfft", "polymul", "polymul-real")
+#: polymul-mod's two local routes: single-limb (modulus_bits <= 30) and RNS
+MOD_ROUTES = [(None, 256, "polymul-mod-single"),
+              (100, 64, "polymul-mod-rns")]
 
 
 def _tol(op, n):
@@ -45,8 +49,9 @@ def _env():
 # ---------------------------------------------------------------------------
 
 def test_registry_serves_the_float_ops_without_a_ladder():
-    assert op_registry.op_names() == OPS
-    for name in OPS:
+    assert op_registry.op_names() == OPS + ("polymul-mod",)
+    assert op_registry.op_names() == jops_registry.op_names()
+    for name in op_registry.op_names():
         assert name in op_registry.cli_help()
     from repro import analysis
     launch_dir = os.path.dirname(op_registry.__file__)
@@ -72,8 +77,13 @@ def test_foreign_knob_messages_match_reference(op, kw):
 
 
 def test_unknown_op_and_unported_routes_are_config_errors():
-    with pytest.raises(op_registry.OpConfigError):
-        op_registry.get_op("polymul-mod")
+    with pytest.raises(op_registry.OpConfigError, match="unknown op"):
+        op_registry.get_op("polymul-nope")
+    with pytest.raises(op_registry.OpConfigError,
+                       match="model_shards=8: distributed tier not yet "
+                             "ported; it comes with the multi-device slice"):
+        op_registry.get_op("polymul-mod").bind(
+            1024, op_registry.OpContext(model_shards=8), device="cpu")
     with pytest.raises(op_registry.OpConfigError,
                        match="distributed tier not yet ported"):
         op_registry.get_op("polymul-real").bind(
@@ -148,6 +158,97 @@ def test_service_matches_reference_service(op, rng):
                                    **_tol(op, n))
 
 
+@pytest.mark.parametrize("bits,n,route", MOD_ROUTES)
+def test_polymul_mod_service_equals_reference_service(rng, bits, n, route):
+    """The exact product served by the port and by the reference registry
+    on the same payloads: equal bit for bit, in the reference's result
+    dtype (uint32 residues single-limb, object big ints mod Q on RNS), and
+    each equal to the numpy reference product."""
+    port = serve.FFTService(n, 4, "polymul-mod", modulus_bits=bits,
+                            device="cpu")
+    ref = jserve.FFTService(n, 4, "polymul-mod", modulus_bits=bits)
+    assert port.route == ref.route == route
+    payloads = [port.bound.random_payload(rng) for _ in range(5)]
+    for svc in (port, ref):
+        for rid, p in enumerate(payloads):
+            svc.submit(rid, p)
+        assert svc.run(5)["served"] == 5
+    for rid in range(5):
+        got, want = port.results[rid], ref.results[rid]
+        assert got.dtype == want.dtype and got.shape == want.shape == (n,)
+        assert (got == want).all()
+        port.bound.verify(payloads[rid], got)
+
+
+@pytest.mark.parametrize("bits,n,route", MOD_ROUTES)
+def test_polymul_mod_engine_matches_direct_dispatch(rng, bits, n, route):
+    """Served through the engine (batches [4, 2], the RNS route's CRT as the
+    host step after the sync) == the direct BoundOp call; bit for bit."""
+    svc = serve.FFTService(n, 4, "polymul-mod", modulus_bits=bits,
+                           device="cpu")
+    payloads = [svc.bound.random_payload(rng) for _ in range(6)]
+    for rid, p in enumerate(payloads):
+        svc.submit(rid, p)
+    stats = svc.run(6)
+    bucket = stats["buckets"][f"polymul-mod/n={n}"]
+    assert bucket["batch_sizes"] == [4, 2] and bucket["route"] == route
+    direct = [svc.bound.to_numpy(svc.bound.execute(payloads[:4])),
+              svc.bound.to_numpy(svc.bound.execute(payloads[4:]))]
+    flat = [row for arr in direct for row in arr]
+    for rid in range(6):
+        assert (svc.results[rid] == flat[rid]).all()
+        svc.bound.verify(payloads[rid], svc.results[rid])
+    if bits is not None:       # (k, B, n) limb residues went to the kernel
+        a, _ = svc.bound.stack(payloads[:1])
+        assert a.shape == (svc.bound.rns.k, 1, n) and a.dtype == torch.uint32
+
+
+def test_polymul_mod_payloads_pass_admission(rng):
+    """Integer and big-int operands carry no NaN: the admission guard lets
+    them through (it used to call np.isfinite on object arrays)."""
+    for bits, n, _ in MOD_ROUTES:
+        bound = op_registry.get_op("polymul-mod").bind(
+            n, op_registry.OpContext(modulus_bits=bits), device="cpu")
+        bound.check_payload(bound.random_payload(rng))
+        bound.check_payload((np.arange(n), -np.arange(n)))
+
+
+@pytest.mark.parametrize("kw,n", [
+    ({"modulus_bits": 100, "model_shards": 8}, 1024),
+    ({"modulus_bits": 10}, 4096), ({"modulus_bits": 7}, 64),
+    ({}, 48), ({"modulus_bits": 100}, 48)])
+def test_polymul_mod_config_errors_match_reference(kw, n):
+    with pytest.raises(jops_registry.OpConfigError) as want:
+        jops_registry.get_op("polymul-mod").bind(
+            n, jops_registry.OpContext(**kw))
+    with pytest.raises(op_registry.OpConfigError) as got:
+        op_registry.get_op("polymul-mod").bind(
+            n, op_registry.OpContext(**kw), device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_mixed_stream_with_polymul_mod(rng):
+    """The five ops in one engine with a process-level modulus_bits: the
+    float ops narrow it away, polymul-mod takes the RNS route, and every
+    result passes its oracle."""
+    engine = ServeEngine(max_batch=4, max_pending=64, modulus_bits=100,
+                         device="cpu")
+    combos = [(op, 64) for op in OPS + ("polymul-mod",)]
+    for op, n in combos:
+        engine.register(op, n)
+    assert engine.bound("polymul-mod", 64).route == "polymul-mod-rns"
+    engine.warmup()
+    kept = {}
+    for rid in range(15):
+        op, n = combos[rid % len(combos)]
+        p = engine.bound(op, n).random_payload(rng)
+        kept[rid] = (op, n, p)
+        engine.submit(op, n, p, rid=rid)
+    assert engine.run(15)["served"] == 15
+    for rid, (op, n, p) in kept.items():
+        engine.bound(op, n).verify(p, engine.results[rid])
+
+
 def test_mixed_stream_bucketing(rng):
     """One engine, four ops x two lengths interleaved: every request lands
     in its bucket, keeps its bucket's shape and passes its oracle."""
@@ -215,8 +316,11 @@ def test_latency_percentiles_monotone_and_nan_rejected(rng):
 
 def test_cpu_serving_launches_no_kernel(rng):
     _build.reset_launches()
-    serve.main(["--service", "engine", "--ops", ",".join(OPS), "--ns", "32",
-                "--batch", "2", "--requests", "8", "--device", "cpu"])
+    serve.main(["--service", "engine", "--ops",
+                ",".join(OPS + ("polymul-mod",)), "--ns", "32",
+                "--batch", "2", "--requests", "10", "--device", "cpu"])
+    serve.main(["--op", "polymul-mod", "--modulus-bits", "100", "--n", "32",
+                "--batch", "2", "--requests", "3", "--device", "cpu"])
     assert set(_build.LAUNCHES.values()) == {0}
 
 
@@ -253,9 +357,24 @@ def test_cli_engine_on_cpu_subprocess():
     assert "[serve:engine] buckets=8 device=cpu served=24" in res.stdout
 
 
+@pytest.mark.parametrize("bits,route", [("30", "polymul-mod-single"),
+                                        ("109", "polymul-mod-rns")])
+def test_cli_modulus_bits_reaches_the_route_subprocess(bits, route):
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--op",
+         "polymul-mod", "--modulus-bits", bits, "--n", "64", "--batch", "4",
+         "--requests", "6", "--device", "cpu"],
+        capture_output=True, text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert f"op=polymul-mod route={route} n=64" in res.stdout
+    assert "served=6" in res.stdout and "NTT (exact mod-q)" in res.stdout
+
+
 def test_cli_exits_with_registry_validation_error(capsys):
     for argv in (["--op", "fft", "--modulus-bits", "40"],
                  ["--op", "polymul-real", "--model-shards", "8"],
+                 ["--op", "polymul-mod", "--modulus-bits", "109",
+                  "--model-shards", "2"],
                  ["--service", "engine", "--ops", "fft,nope", "--ns", "64"]):
         with pytest.raises(SystemExit) as exc:
             serve.main(argv + ["--device", "cpu"])
@@ -263,6 +382,7 @@ def test_cli_exits_with_registry_validation_error(capsys):
     err = capsys.readouterr().err
     assert "has no modular route" in err
     assert "distributed tier not yet ported" in err
+    assert "distributed polymul-mod is single-limb" in err
 
 
 def test_port_sources_import_neither_jax_nor_the_reference():
@@ -284,18 +404,24 @@ def test_port_sources_import_neither_jax_nor_the_reference():
                 continue
             bad += [(path.name, m) for m in names
                     if m.split(".")[0] in ("jax", "jaxlib", "repro")]
-    assert len(files) >= 15 and bad == []
+    assert len(files) >= 19 and bad == []
 
 
 def test_port_never_imports_jax_or_the_reference():
-    """Import every module of the port in a fresh interpreter: neither
-    jax nor any module of the reference package may be loaded."""
+    """Import every module of the port, and chip_smoke.py, in a fresh
+    interpreter: neither jax nor any module of the reference package may be
+    loaded."""
     prog = (
         "import pkgutil, sys, importlib\n"
+        f"sys.path.insert(0, {REPO!r})\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for m in ('repro_torch.core.ntt', 'repro_torch.core.ntt.rns', "
+        "'repro_torch.kernels.ntt'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -304,4 +430,4 @@ def test_port_never_imports_jax_or_the_reference():
     res = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, env=_env(), timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 14
+    assert int(res.stdout.split()[-1]) >= 18
