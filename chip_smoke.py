@@ -6,9 +6,10 @@ Run from the repository root, on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. Build: compile ``kernels/csrc/stockham.cu`` and ``kernels/csrc/ntt.cu``
-     with nvcc into ``build/``, one nvcc per source, both started together,
-     and print the build time, the card's name and its power limit.
+  1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
+     and ``kernels/csrc/attention.cu`` with nvcc into ``build/``, one nvcc
+     per source, all started together, and print the build time, the
+     card's name and its power limit.
   2. Kernels vs plain: each of the five float kernels against its plain
      PyTorch version on the card and against float64 numpy.fft, radix 2 and
      4, n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
@@ -19,7 +20,11 @@ Phases (any failure exits non-zero):
      and inverse NTT, cyclic and negacyclic products, n = 2 .. 2^19
      (resident and staged), batches 1, 2, 5 and a capped block, and the
      serve batch with the planner's block; the RNS kernel at k = 9
-     (109-bit Q) and at k = 1.
+     (109-bit Q) and at k = 1. Then the flash-attention kernel against its
+     plain version (``ATTN_CASES``): the served prefill shape, windows 1024
+     and 24, non-causal, ragged S = 1000, G = 1, head_dims 64 and 320, and
+     fp32 inputs, bf16 within one bf16 step and fp32 within 2e-4; and the
+     public (H, S, hd) layout against the naive oracle.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
      requests each), ``polymul-mod`` single-limb at both lengths and RNS at
      n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
@@ -32,7 +37,14 @@ Phases (any failure exits non-zero):
      trip through ``kernels.ntt.ntt_batched`` at the serve shapes.
      A separate traced run per serve cell then gives the card's idle share
      during serving, and the kernels and copies each served batch puts on
-     the card besides its own kernel.
+     the card besides its own kernel. Then the LM, counters zeroed just
+     before: the serve CLI's ``--service lm`` for qwen3-1.7b at full width
+     (bf16, random weights from a seeded generator), batch 8, prompt 2048,
+     gen 32, which must launch the flash kernel 28 times (one prefill, one
+     launch per layer) and nothing else; prefill/decode parity at full
+     width in fp32 (B = 2, S = 512) within the reference's 2e-3; and the
+     same 2-layer full-width weights on the card and on the CPU (plain
+     versions) within 2e-3.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -40,12 +52,17 @@ Phases (any failure exits non-zero):
      taken again, and the run fails if five in a row hold none), with
      the CUDA-event wall time per call beside it -- held against the least
      time the card could take: bytes over 3.35 TB/s, or operations over
-     67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels and
-     over the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
-     kernels; each kernel must agree with its plain version within phase
-     2's tolerance (exactly, for the NTT kernels). Each kernel's launch
-     configuration and the CTAs an SM holds come from the CUDA occupancy
-     API.
+     67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels, over
+     the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
+     kernels, and over 989 TFLOP/s bf16 for flash attention, whose
+     yardstick is ``scaled_dot_product_attention`` (causal, GQA; it and
+     the plain version timed by CUDA events, as their traces drop
+     events); each
+     kernel must agree with its plain version within phase 2's tolerance
+     (exactly, for the NTT kernels). Each kernel's launch configuration and
+     the CTAs an SM holds come from the CUDA occupancy API. Then the LM
+     cell: prefill ms, decode ms per token and tok/s, and a traced run for
+     the card's idle share and the flash kernel's share of the prefill.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -97,9 +114,10 @@ SERVE_CELLS = ([(op, n, None) for op in OPS + ("polymul-mod",)
                 for n in SERVE_NS] + [("polymul-mod", RNS_N, RNS_BITS)])
 STOCKHAM = "src/repro_torch/kernels/csrc/stockham.cu"
 NTT = "src/repro_torch/kernels/csrc/ntt.cu"
-#: wrapper -> (serve route that launches it, or None for the library path;
-#: source; TPU kernel it replaces)
-KERNELS = {
+ATTENTION = "src/repro_torch/kernels/csrc/attention.cu"
+#: transform-service wrapper -> (serve route that launches it, or None for
+#: the library path; source; TPU kernel it replaces)
+TRANSFORM_KERNELS = {
     "fft_planes": ("fft", STOCKHAM, "src/repro/kernels/fft.py:146"),
     "rfft_planes": ("rfft-real", STOCKHAM, "src/repro/kernels/fft.py:260"),
     "polymul_complex_planes": ("polymul", STOCKHAM,
@@ -113,6 +131,20 @@ KERNELS = {
                         "src/repro/kernels/ntt.py:142"),
     "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
+#: the LM's kernel: (source, TPU kernel it replaces)
+FLASH = ("flash_attention", ATTENTION, "src/repro/kernels/attention.py:30")
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+#: the served LM cell: qwen3-1.7b at full width, bf16 activations
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 8, 2048, 32
+#: flash kernel vs plain: fp32 at the reference tests' 2e-4; bf16 at one
+#: bf16 step (kernel and plain version round the same fp32 value once, and
+#: a difference of fp32 sums may move it to the neighbouring bf16 value,
+#: 2^-8 relative)
+ATTN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+            "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+#: LM parity (prefill/decode, card/CPU): the reference's own
+#: prefill/decode parity bound (tests/test_arch_smoke.py)
+LM_TOL = dict(rtol=2e-3, atol=2e-3)
 FLOAT_KERNELS = ("fft_planes", "rfft_planes", "polymul_complex_planes",
                  "polymul_real_planes", "irfft_planes")
 NTT_KERNELS = ("ntt_polymul", "rns_ntt_polymul", "ntt_batched")
@@ -354,7 +386,7 @@ def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
     the launches each kernel made in the warmups, for the launch-counter
     check."""
     expected: dict[str, int] = {}
-    warm = dict.fromkeys(KERNELS, 0)
+    warm = dict.fromkeys(TRANSFORM_KERNELS, 0)
 
     def warmup(eng):
         before = dict(build.LAUNCHES)
@@ -791,6 +823,313 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM: flash attention on the card, and serving qwen3-1.7b
+# ---------------------------------------------------------------------------
+
+#: phase 2's flash-attention cases: (label, B, S, H, KV, hd, dtype, window,
+#: causal). The first is the served prefill's shape.
+ATTN_CASES = [
+    ("served", LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16", 1 << 30, True),
+    ("window 1024", 2, LM_PROMPT, 16, 8, 128, "bfloat16", 1024, True),
+    ("window 24", 2, LM_PROMPT, 16, 8, 128, "bfloat16", 24, True),
+    ("non-causal", 2, 1024, 16, 8, 128, "bfloat16", 1 << 30, False),
+    ("ragged S", 2, 1000, 16, 8, 128, "bfloat16", 1 << 30, True),
+    ("G = 1", 2, 1024, 8, 8, 128, "bfloat16", 1 << 30, True),
+    ("hd 64", 2, 1024, 24, 8, 64, "bfloat16", 1 << 30, True),
+    ("hd 320", 2, 1024, 8, 4, 320, "bfloat16", 1024, True),
+    ("fp32", 2, 1000, 16, 8, 128, "float32", 1 << 30, True),
+    ("fp32 hd 320 window 24", 1, 300, 8, 4, 320, "float32", 24, True),
+]
+
+
+def attention_inputs(torch, B, S, H, KV, hd, dtype, seed):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, hd, device=dev, generator=g).to(dt)
+    k, v = (torch.randn(B, S, KV, hd, device=dev, generator=g).to(dt)
+            for _ in range(2))
+    return q, k, v
+
+
+def check_attention(torch, kattn) -> float:
+    """The flash kernel against its plain version (key blocks of the
+    kernel's tile) on every case of ATTN_CASES, and the public (H, S, hd)
+    layout against the naive oracle too. Returns the worst |kernel - plain|
+    at the served shape."""
+    served_err = None
+    for i, (label, B, S, H, KV, hd, dtype, window, causal) in \
+            enumerate(ATTN_CASES):
+        q, k, v = attention_inputs(torch, B, S, H, KV, hd, dtype, i)
+        kw = dict(window=window, causal=causal, scale=hd ** -0.5)
+        got = kattn.attention(q, k, v, **kw).float()
+        want = kattn.attention_plain(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **ATTN_TOL[dtype]):
+            raise SystemExit(f"flash_attention {label} (B={B} S={S} H={H} "
+                             f"KV={KV} hd={hd} {dtype} window={window} "
+                             f"causal={causal}): kernel and plain version "
+                             f"differ, max |diff| {err}")
+        served_err = err if served_err is None else served_err
+        print(f"[attention] {label}: B={B} S={S} H={H} KV={KV} hd={hd} "
+              f"{dtype} window={window} causal={causal} |kernel-plain|max="
+              f"{err:.3g} within {ATTN_TOL[dtype]}", flush=True)
+    q, k, v = (x[0].transpose(0, 1) for x in attention_inputs(
+        torch, 1, 500, 6, 6, 64, "float32", 99))
+    got = kattn.flash_attention(q, k, v, window=100)
+    for want in (kattn.flash_attention_plain(q, k, v, window=100),
+                 kattn.attention_ref(q, k, v, window=100)):
+        if not torch.allclose(got, want, **ATTN_TOL["float32"]):
+            raise SystemExit("flash_attention (H, S, hd) layout differs "
+                             "from its plain version or the oracle")
+    print("[attention] public (H, S, hd) layout, S=500 window=100 fp32: "
+          "== plain and naive oracle within 2e-4", flush=True)
+    torch.cuda.synchronize()
+    return served_err
+
+
+def full_width_state(torch, convert, cfg):
+    """qwen3-1.7b's weights drawn on the card from seed 0, as the serve
+    CLI draws them (fp32, the parameter type)."""
+    return convert.init_params(
+        cfg, torch.Generator(device=torch.device("cuda")).manual_seed(0))
+
+
+def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
+    """Phase 3 for the LM: (1) the served run through the serve CLI, the
+    launch counters zeroed just before; (2) prefill/decode parity at full
+    width in fp32; (3) the same 2-layer full-width weights on the card and
+    on the CPU. Returns what the report needs."""
+    import dataclasses
+    dev = torch.device("cuda")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(["--service", "lm", "--arch", LM_ARCH, "--batch",
+                      str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
+                      str(LM_GEN)])
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    cfg = get_config(LM_ARCH)
+    gen = res["generated"]
+    if launches["flash_attention"] != cfg.num_layers:
+        raise SystemExit(f"served LM run: flash_attention launched "
+                         f"{launches['flash_attention']} times, expected "
+                         f"{cfg.num_layers} (one per layer, one prefill)")
+    if others := {k: n for k, n in launches.items()
+                  if n and k != "flash_attention"}:
+        raise SystemExit(f"served LM run launched other kernels: {others}")
+    if gen.shape != (LM_GEN, LM_BATCH) or not (
+            (gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise SystemExit(f"served LM run: generated {gen.shape} "
+                         f"{gen.min()}..{gen.max()}")
+    print(f"[lm] served {LM_ARCH} (full width, {cfg.num_layers} layers, "
+          f"bf16) batch={LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: "
+          f"generated {gen.shape}, {res['tokens_per_s']:.1f} tok/s "
+          f"(first call, incl. prefill) in {wall:.1f}s with set-up; "
+          f"launches {launches}", flush=True)
+
+    # (2) parity at full width, fp32 activations
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    sd = full_width_state(torch, convert, cfg)
+    model = convert.build(cfg32, sd, dev)
+    del sd
+    B, S = 2, 512
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    full = model(tokens)
+    last, state = model.prefill(tokens[:, :S], cache_capacity=S + 1)
+    step, _ = model.decode_step(state, tokens[:, S], S)
+    errs = (float((last - full[:, S - 1]).abs().max()),
+            float((step - full[:, -1]).abs().max()))
+    if not (torch.isfinite(full).all()
+            and torch.allclose(last, full[:, S - 1], **LM_TOL)
+            and torch.allclose(step, full[:, -1], **LM_TOL)):
+        raise SystemExit(f"full-width prefill/decode parity failed: "
+                         f"|prefill - forward| {errs[0]}, |decode - "
+                         f"forward| {errs[1]}")
+    print(f"[lm] parity {LM_ARCH} full width fp32 B={B} S={S}: "
+          f"prefill last logits vs forward |diff|max={errs[0]:.3g}, "
+          f"decode_step(S) vs forward(S+1)[-1] |diff|max={errs[1]:.3g}, "
+          f"within {LM_TOL}", flush=True)
+    del model, full, state
+
+    # (3) the same weights on the card and on the CPU
+    cfg2 = dataclasses.replace(cfg32, num_layers=2)
+    sd = convert.init_params(cfg2, torch.Generator().manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 128),
+                           generator=torch.Generator().manual_seed(4))
+    on_cpu = convert.build(cfg2, sd, "cpu")(tokens)
+    on_card = convert.build(cfg2, sd, dev)(tokens.to(dev)).cpu()
+    err = float((on_card - on_cpu).abs().max())
+    if not torch.allclose(on_card, on_cpu, **LM_TOL):
+        raise SystemExit(f"2-layer full-width logits: card and CPU differ "
+                         f"by {err}")
+    print(f"[lm] {LM_ARCH} full width, 2 layers, fp32, B=1 S=128: card "
+          f"(flash kernel) vs CPU (plain) logits |diff|max={err:.3g} within "
+          f"{LM_TOL}", flush=True)
+    torch.cuda.synchronize()
+    return {"launches": launches["flash_attention"],
+            "first_call_tokens_per_s": res["tokens_per_s"],
+            "parity_max_abs": errs, "card_vs_cpu_max_abs": err}
+
+
+#: Device-side name of the flash kernel in a profiler trace.
+FLASH_KERNEL = re.compile(r"flash_attention_kernel")
+
+
+def attention_timing(torch, kattn, build, card: str) -> dict:
+    """The flash kernel at the served prefill shape: device time (mean over
+    the launches traced), its plain version, and
+    scaled_dot_product_attention (causal, GQA) on the same inputs as the
+    yardstick; bound: bytes of q, k, v and o over 3.35 TB/s, or the causal
+    pairs' flops (4 hd per pair: q.k and p.v) over 989 TFLOP/s bf16.
+
+    The plain version's and SDPA's times are CUDA-event time per call over
+    back-to-back calls: each call runs far longer than the host takes to
+    launch it, so the card never waits on the host, while their traces
+    drop device events and read low (on an H100 the trace of SDPA at this
+    shape read half its event time, below the bound). Their traced time
+    over calls is printed beside."""
+    _, B, S, H, KV, hd, dtype, window, causal = ATTN_CASES[0]
+    sets = [attention_inputs(torch, B, S, H, KV, hd, dtype, 100 + i)
+            for i in range(2)]
+    scale = hd ** -0.5
+    kern = functools.partial(kattn.attention, window=window, scale=scale)
+    plain = functools.partial(kattn.attention_plain, window=window,
+                              scale=scale)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = [tuple(x.transpose(1, 2) for x in s) for s in sets]
+
+    def lib(q, k, v):
+        return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+    got, want = kern(*sets[0]).float(), plain(*sets[0]).float()
+    ref = lib(*lib_sets[0]).transpose(1, 2).float()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **ATTN_TOL[dtype]):
+        raise SystemExit(f"flash_attention served shape: |kernel - plain| "
+                         f"{err}")
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    flops = 4 * hd * (S * (S + 1) // 2) * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    reps = 10
+    ms, traced = device_ms(torch, kern, sets, reps, launches_per_call=1)
+    entry = {
+        "ms": ms, "traced_launches": f"{traced} of {reps}",
+        "plain_ms": time_ms(torch, plain, sets, 4),
+        "library_ms": time_ms(torch, lib, lib_sets, reps),
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "event_ms": time_ms(torch, kern, sets, reps),
+        "plain_traced_ms": device_ms(torch, plain, sets, 4)[0],
+        "library_traced_ms": device_ms(torch, lib, lib_sets, reps)[0],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes, "operations_ms": t_ops,
+        "operations": "bf16 flops", "bytes": nbytes, "flops": flops,
+        "max_abs_err": err,
+        "sdpa_vs_plain_max_abs": float((ref - want).abs().max()),
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                  "dtype": dtype, "causal": causal},
+        **build.occupancy("flash_attention", hd, 1, 0)}
+    print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"{dtype} causal: kernel={entry['ms']:.4f} device ms (profiler, "
+          f"mean of {entry['traced_launches']} launches traced); event ms "
+          f"per call: kernel={entry['event_ms']:.4f} "
+          f"plain={entry['plain_ms']:.4f} sdpa={entry['library_ms']:.4f}; "
+          f"bound={entry['bound_ms']:.4f} ({entry['bound_by']}; bytes "
+          f"{t_bytes:.4f}, bf16 flops {t_ops:.4f}); traced ms over calls: "
+          f"plain={entry['plain_traced_ms']:.4f} "
+          f"sdpa={entry['library_traced_ms']:.4f}; "
+          f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s; |kernel-plain|max="
+          f"{err:.3g}; launch: {entry['threads']} threads, "
+          f"{entry['smem_bytes']} B shared, {entry['regs']} regs/thread -> "
+          f"{entry['ctas_per_sm']} CTAs/SM; on {card}", flush=True)
+    return entry
+
+
+def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
+    """The served cell's prefill ms, decode ms per token and tok/s (host
+    clock around work that ends in a synchronize, after one warm call),
+    then a traced generate: the card's idle share and the flash kernel's
+    share of the prefill's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cap = LM_PROMPT + LM_GEN
+    model.prefill(tokens, cache_capacity=cap)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = model.prefill(tokens, cache_capacity=cap)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    tok = logits.argmax(dim=-1)
+    model.decode_step(state, tok, LM_PROMPT)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        logits, state = model.decode_step(state, tok, LM_PROMPT + i)
+        tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    pre = min(prefill_ms)
+    tok_s = LM_BATCH * LM_GEN / ((pre + LM_GEN * decode_ms) / 1e3)
+
+    def device_time(prof):
+        """(device ms, flash kernel ms, flash launches traced)"""
+        total = flash = 0.0
+        seen = 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                total += e.self_device_time_total / 1e3
+                if FLASH_KERNEL.search(e.key):
+                    flash += e.self_device_time_total / 1e3
+                    seen += e.count
+        return total, flash, seen
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(tokens, cache_capacity=cap)
+        torch.cuda.synchronize()
+    pre_dev, pre_flash, flash_seen = device_time(prof)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.generate(model, tokens, LM_GEN)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, _, _ = device_time(prof)
+    out = {"prefill_ms": pre, "prefill_ms_runs": prefill_ms,
+           "decode_ms_per_token": decode_ms, "tokens_per_s": tok_s,
+           "prefill_device_ms": pre_dev, "prefill_flash_ms": pre_flash,
+           "prefill_flash_launches_traced": flash_seen,
+           "flash_share_of_prefill": pre_flash / pre_dev if pre_dev else None,
+           "idle_share": 1 - busy_ms / wall_ms,
+           "traced_generate_wall_ms": wall_ms, "traced_busy_ms": busy_ms}
+    print(f"[time] lm {LM_ARCH} batch={LM_BATCH} prompt={LM_PROMPT} "
+          f"gen={LM_GEN} bf16: prefill {pre:.2f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}), decode "
+          f"{decode_ms:.3f} ms/token, {tok_s:.1f} tok/s incl. prefill; "
+          f"traced prefill: device {pre_dev:.2f} ms, flash kernel "
+          f"{pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
+          f"launches traced ({out['flash_share_of_prefill'] or 0:.3f}); "
+          f"traced generate: "
+          f"device busy {busy_ms:.2f} of {wall_ms:.2f} ms wall -> idle "
+          f"share {out['idle_share']:.4f}; on {card}", flush=True)
+    return out
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -806,15 +1145,18 @@ def main() -> int:
     from repro_torch.kernels import fft as kfft
     from repro_torch.kernels import ntt as kntt
     from repro_torch.kernels import polymul as kpoly
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import attention as kattn
     from repro_torch.launch import engine as engine_mod
     from repro_torch.launch import serve
+    from repro_torch.models import convert, lm
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build()
     _build.load()
     card = card_line()
-    print(f"[build] {STOCKHAM}, {NTT} -> "
+    print(f"[build] {STOCKHAM}, {NTT}, {ATTENTION} -> "
           f"{', '.join(str(v) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -823,17 +1165,20 @@ def main() -> int:
     _build.reset_launches()
     worst = check_kernels(torch, kfft, kpoly, core_fft)
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
+    attn_err = check_attention(torch, kattn)
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
-    print(f"[kernels] all eight held against plain and numpy; launches "
-          f"{moved}; worst |kernel-plain| {worst}", flush=True)
+    print(f"[kernels] all nine held against their plain versions (the "
+          f"transform kernels against numpy too); launches {moved}; worst "
+          f"|kernel-plain| {worst}, flash_attention at the served shape "
+          f"{attn_err:.3g}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
     expected, warm = serve_phase(serve, engine_mod, _build)
     launches = dict(_build.LAUNCHES)
-    for name, (route, _, _) in KERNELS.items():
+    for name, (route, _, _) in TRANSFORM_KERNELS.items():
         served = launches[name] - warm[name]
         want = expected.get(route, 0)
         if route is not None and (served == 0 or served != want):
@@ -845,7 +1190,7 @@ def main() -> int:
     # the library path, counters zeroed just before
     _build.reset_launches()
     library_phase(torch, core_fft, kntt, ntt_core)
-    for name, (route, _, _) in KERNELS.items():
+    for name, (route, _, _) in TRANSFORM_KERNELS.items():
         if route is None:
             if _build.LAUNCHES[name] == 0:
                 raise SystemExit(f"{name}: never launched on the library "
@@ -853,12 +1198,16 @@ def main() -> int:
             launches[name] = _build.LAUNCHES[name]
     print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
     traced = idle_shares(torch, serve, card)
+    # the LM: its served run zeroes the counters just before
+    lm_run = lm_phase(torch, _build, serve, convert, lm, get_config)
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
+    attn = attention_timing(torch, kattn, _build, card)
+    lm_times = lm_timing(torch, convert, lm, get_config, card)
     report = []
-    for name, (route, source, replaces) in KERNELS.items():
+    for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
         at = times[name][shapes[0]]
         report.append({
@@ -871,6 +1220,14 @@ def main() -> int:
             "per_served_batch": {n: traced[route, n] for n in SERVE_NS
                                  if (route, n) in traced},
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
+    name, source, replaces = FLASH
+    report.append({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": lm_run["launches"],
+        **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "launches_per": "one served prefill (28 layers)",
+        "at_served_shape": attn, "lm": {**lm_run, **lm_times}})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}))
     print(card)

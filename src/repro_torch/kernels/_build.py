@@ -33,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: Per library (the stem of its source): the C launchers with their
 #: signatures (pointers, ints, then the stream) and the wrapper each one
@@ -65,6 +67,14 @@ LIBRARIES = {
         # a, b, c, scal, wf, wi, twist, untwist, scratch, limbs, batch,
         # log2n, negacyclic, block
         "ntt_rns_polymul": ("rns_ntt_polymul", [_P] * 9 + [_I] * 5 + [_P]),
+    },
+    "attention": {
+        # q, k, v, o, batch, seq, heads, kv_heads, head_dim, the (batch,
+        # seq, head) element strides of q, k, v and o, window, causal,
+        # scale, bf16
+        "flash_attention": ("flash_attention",
+                            [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 2
+                            + [_F, _I, _P]),
     },
 }
 
@@ -176,15 +186,16 @@ def launch(name: str, counter: str, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def occupancy(counter: str, log2n: int, block: int, staged: bool
-              ) -> dict[str, int]:
-    """How the wrapper ``counter`` launches its kernel for ``block`` rows per
-    CTA, and what the card makes of it: threads per CTA, dynamic shared
-    memory in bytes, registers per thread, and the CTAs one SM holds."""
+def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
+    """How the wrapper ``counter`` launches its kernel, and what the card
+    makes of it: threads per CTA, dynamic shared memory in bytes, registers
+    per thread, and the CTAs one SM holds. ``a, b, c`` select the launch:
+    (log2 n, rows per CTA, staged) for the transform kernels, (head_dim,
+    bf16, 0) for attention."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]
     err = getattr(load(stem), f"{stem}_occupancy")(
-        kernel, log2n, block, int(staged), *(ctypes.byref(v) for v in out))
+        kernel, a, b, int(c), *(ctypes.byref(v) for v in out))
     if err != 0:
         raise RuntimeError(f"{stem}_occupancy({counter}): CUDA error {err} "
                            f"({_error(stem, err)})")

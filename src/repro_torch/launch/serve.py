@@ -12,7 +12,13 @@
                    device sync, bounded-queue backpressure, and per-request
                    p50/p99 latency beside throughput.
 
-Both run on the card unless ``--device cpu`` is given; without a card they
+--service lm     : LM serving: random weights from a seed (``--arch``, full
+                   width, or ``--smoke`` for the reduced config), a
+                   (batch, prompt-len) prompt, one prefill whose attention
+                   runs the flash-attention kernel in every layer, then
+                   ``--gen`` greedy decode steps (``models/lm.py``).
+
+All run on the card unless ``--device cpu`` is given; without a card they
 raise rather than fall back to the CPU.
 
 Example:
@@ -24,17 +30,22 @@ Example:
       --n 4096 --batch 64 --op polymul-mod --modulus-bits 109
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --n 256 --batch 4 --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
+      --arch qwen3-1.7b --batch 8 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
 import argparse
 import threading
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.launch import ops as op_registry
 from repro_torch.launch.engine import ServeEngine
+from repro_torch.models import convert, lm
 
 
 class FFTService:
@@ -149,9 +160,37 @@ def run_engine_service(args) -> dict:
     return stats
 
 
+def run_lm_service(args) -> dict:
+    """Prefill a random (batch, prompt_len) prompt and decode ``gen`` tokens
+    greedily, with weights drawn from seed 0 and the prompt from seed 1, as
+    the reference's CLI does from its keys. The time covers prefill and
+    decode, not the weights' set-up."""
+    device = op_registry.resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.scaled_down()
+    weights = convert.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    model = convert.build(cfg, weights, device)
+    del weights
+    B, S = args.batch, args.prompt_len
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=device,
+                           generator=torch.Generator(
+                               device=device).manual_seed(1))
+    t0 = time.perf_counter()
+    generated = lm.generate(model, tokens, args.gen)
+    out = generated.cpu().numpy()      # waits for the card
+    dt = time.perf_counter() - t0
+    toks = B * args.gen
+    print(f"[serve:lm] arch={cfg.name} batch={B} prompt={S} gen={args.gen} "
+          f"device={device.type} -> {toks / dt:.1f} tok/s (incl. prefill)")
+    return {"tokens_per_s": toks / dt, "generated": out}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--service", choices=["fft", "engine"], default="fft")
+    ap.add_argument("--service", choices=["fft", "engine", "lm"],
+                    default="fft")
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=32,
                     help="single-op batch / engine continuous-batching "
@@ -179,7 +218,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the kernels run; cuda raises when no card "
                          "is present")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="lm service: architecture (configs/registry.py)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="lm service: the arch's reduced config")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
     args = ap.parse_args(argv)
+    if args.service == "lm":
+        return run_lm_service(args)
     if args.ns is None:
         args.ns = str(args.n)
     try:

@@ -5,7 +5,8 @@ This file imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors, and the wrapper must count exactly one launch. Tolerances: fft,
+tensors, and the wrapper must count exactly one launch; the LM's greedy
+tokens on the card must equal those on the CPU. Tolerances: fft,
 rfft and irfft rtol 1e-4, atol 1e-4 * sqrt(n); the products rtol 1e-3,
 atol 1e-4 * n (the reference tests' bounds). The kernels are built with
 -fmad=false and perform the plain versions' fp32 operations in the same
@@ -17,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import ntt as tntt
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import fft as tfft
 from repro_torch.kernels import ntt as tknt
 from repro_torch.kernels import polymul as tpoly
 from repro_torch.launch import engine, serve
+from repro_torch.models import convert, lm
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +241,79 @@ def test_ntt_occupancy_matches_launch_configuration(cuda, name, slots,
     assert occ["threads"] == min(1024, slots * 4096 // 2)
     assert occ["smem_bytes"] == (0 if staged else 8 * 4096 * slots)
     assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the LM on the card
+# ---------------------------------------------------------------------------
+
+#: bf16: kernel and plain version round the same fp32 result once; a
+#: difference of fp32 sums may move it to the neighbouring bf16 value, a
+#: step of at most 2^-8 relative. fp32: the reference tests' 2e-4.
+ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,window,causal", [
+    (200, 4, 2, 1 << 30, True), (130, 2, 1, 24, True),
+    (100, 2, 2, 1 << 30, False), (64, 4, 4, 1, True)])
+def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
+                                    causal):
+    g = torch.Generator(device=cuda).manual_seed(hd + S)
+    q = torch.randn(2, S, H, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(2, S, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=hd ** -0.5)
+    got = _launched("flash_attention", lambda: tattn.attention(q, k, v,
+                                                               **kw))
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+
+
+def test_flash_public_layout_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(6, 96, 64, device=cuda, generator=g)
+               for _ in range(3))
+    got = _launched("flash_attention",
+                    lambda: tattn.flash_attention(q, k, v, window=40))
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        tattn.flash_attention_plain(q, k, v, window=40, bk=64).cpu().numpy(),
+        **ATTN_TOL[torch.float32])
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        tattn.attention_ref(q, k, v, window=40).cpu().numpy(),
+        **ATTN_TOL[torch.float32])
+
+
+def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
+    x = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tattn.attention(x, x, x, window=4, scale=1.0)
+
+
+@pytest.mark.parametrize("hd,bf16,ctas", [(128, 1, 2), (320, 0, 1)])
+def test_attention_occupancy(cuda, hd, bf16, ctas):
+    occ = _build.occupancy("flash_attention", hd, bf16, 0)
+    assert occ["threads"] == 256
+    assert occ["smem_bytes"] == 4 * (64 * (hd + 4) * 2 + 64 * 68)
+    assert occ["ctas_per_sm"] == ctas
+
+
+def test_generate_on_card_matches_cpu(cuda):
+    """The smoke qwen3 in fp32 with the same weights on the card and on the
+    CPU: the same greedy tokens, one flash-attention launch per layer per
+    prefill."""
+    cfg = get_config("qwen3-1.7b").scaled_down()
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48),
+                           generator=torch.Generator().manual_seed(1))
+    want = lm.generate(convert.build(cfg, sd, "cpu"), tokens, 6)
+    _build.reset_launches()
+    got = lm.generate(convert.build(cfg, sd, cuda), tokens.to(cuda), 6)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == cfg.num_layers
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

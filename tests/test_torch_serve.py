@@ -431,3 +431,55 @@ def test_port_never_imports_jax_or_the_reference():
                          text=True, env=_env(), timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 18
+
+
+# ---------------------------------------------------------------------------
+# --service lm
+# ---------------------------------------------------------------------------
+
+LM_ARGS = ["--service", "lm", "--smoke", "--batch", "2", "--prompt-len",
+           "16", "--gen", "4"]
+
+
+def test_lm_service_on_cpu_returns_what_the_reference_returns():
+    """``generated`` is (gen, batch), token ids below the vocabulary, as the
+    reference's CLI returns it (its random weights and prompt come from
+    other generators, so the ids themselves differ)."""
+    _build.reset_launches()
+    got = serve.main(LM_ARGS + ["--device", "cpu"])
+    want = jserve.main(LM_ARGS)
+    assert set(got) == set(want) == {"tokens_per_s", "generated"}
+    assert got["generated"].shape == np.asarray(want["generated"]).shape \
+        == (4, 2)
+    assert got["generated"].dtype.kind == "i"
+    assert ((0 <= got["generated"]) & (got["generated"] < 512)).all()
+    assert got["tokens_per_s"] > 0
+    assert _build.LAUNCHES["flash_attention"] == 0
+
+
+def test_lm_service_is_seeded():
+    a = serve.main(LM_ARGS + ["--device", "cpu"])["generated"]
+    b = serve.main(LM_ARGS + ["--device", "cpu"])["generated"]
+    np.testing.assert_array_equal(a, b)
+
+
+def test_lm_service_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(LM_ARGS)
+
+
+def test_cli_lm_service_subprocess():
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LM_ARGS,
+         "--arch", "gemma3-4b", "--device", "cpu"],
+        capture_output=True, text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[serve:lm] arch=gemma3-4b-smoke batch=2 prompt=16 gen=4 " \
+           "device=cpu" in res.stdout
+
+
+def test_cli_lm_service_unported_arch_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        serve.main(["--service", "lm", "--smoke", "--arch", "mixtral-8x22b",
+                    "--device", "cpu"])
