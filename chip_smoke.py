@@ -8,8 +8,12 @@ Run from the repository root, on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero):
   1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
      and ``kernels/csrc/attention.cu`` with nvcc into ``build/``, one nvcc
-     per source, all started together, and print the build time, the
-     card's name and its power limit.
+     per source, all started together (and beside them a second nvcc of
+     ``attention.cu`` with ``-Xptxas -v``), and print the build time, the
+     card's name and its power limit; then ptxas's registers, shared
+     memory and spills for the wgmma flash kernel and the count of HGMMA
+     and UTMALDG instructions in its SASS (``cuobjdump -sass``), which
+     must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
      PyTorch version on the card and against float64 numpy.fft, radix 2 and
      4, n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
@@ -20,11 +24,14 @@ Phases (any failure exits non-zero):
      and inverse NTT, cyclic and negacyclic products, n = 2 .. 2^19
      (resident and staged), batches 1, 2, 5 and a capped block, and the
      serve batch with the planner's block; the RNS kernel at k = 9
-     (109-bit Q) and at k = 1. Then the flash-attention kernel against its
-     plain version (``ATTN_CASES``): the served prefill shape, windows 1024
-     and 24, non-causal, ragged S = 1000, G = 1, head_dims 64 and 320, and
-     fp32 inputs, bf16 within one bf16 step and fp32 within 2e-4; and the
-     public (H, S, hd) layout against the naive oracle.
+     (109-bit Q) and at k = 1. Then the two flash-attention kernels
+     against their plain versions (``ATTN_CASES``), each case launching
+     the kernel its (dtype, head_dim) dispatches to and the other never:
+     the wgmma kernel (bf16, head_dim 64 and 128) at the served prefill
+     shape, windows 1024 and 24, non-causal, ragged S, G = 1, S = 1 and
+     S < 64; the CUDA-core kernel at bf16 head_dims 32 and 320 and in
+     fp32; bf16 within one bf16 step and fp32 within 2e-4; and the public
+     (H, S, hd) layout against the naive oracle.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
      requests each), ``polymul-mod`` single-limb at both lengths and RNS at
      n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
@@ -40,10 +47,12 @@ Phases (any failure exits non-zero):
      the card besides its own kernel. Then the LM, counters zeroed just
      before: the serve CLI's ``--service lm`` for qwen3-1.7b at full width
      (bf16, random weights from a seeded generator), batch 8, prompt 2048,
-     gen 32, which must launch the flash kernel 28 times (one prefill, one
-     launch per layer) and nothing else; prefill/decode parity at full
-     width in fp32 (B = 2, S = 512) within the reference's 2e-3; and the
-     same 2-layer full-width weights on the card and on the CPU (plain
+     gen 32, which must launch the wgmma flash kernel 28 times (one
+     prefill, one launch per layer) and nothing else; prefill/decode
+     parity at full width in fp32 (B = 2, S = 512) within the reference's
+     2e-3, counters zeroed just before, which must launch the CUDA-core
+     flash kernel 56 times (a forward and a prefill) and nothing else; and
+     the same 2-layer full-width weights on the card and on the CPU (plain
      versions) within 2e-3.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
@@ -54,15 +63,19 @@ Phases (any failure exits non-zero):
      time the card could take: bytes over 3.35 TB/s, or operations over
      67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels, over
      the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
-     kernels, and over 989 TFLOP/s bf16 for flash attention, whose
-     yardstick is ``scaled_dot_product_attention`` (causal, GQA; it and
-     the plain version timed by CUDA events, as their traces drop
-     events); each
+     kernels, and over 989 TFLOP/s bf16 (the wgmma kernel, at the served
+     prefill shape; beside it the CUDA-core kernel on the same inputs) or
+     67 TFLOP/s fp32 (the CUDA-core kernel, at that shape in fp32) for
+     flash attention, whose yardstick is ``scaled_dot_product_attention``
+     (causal, GQA; the flash kernels, their plain versions and SDPA timed
+     by CUDA events over back-to-back calls, as their traces drop events;
+     the traced times are printed beside where the trace holds any); each
      kernel must agree with its plain version within phase 2's tolerance
      (exactly, for the NTT kernels). Each kernel's launch configuration and
      the CTAs an SM holds come from the CUDA occupancy API. Then the LM
      cell: prefill ms, decode ms per token and tok/s, and a traced run for
-     the card's idle share and the flash kernel's share of the prefill.
+     the card's idle share and the wgmma flash kernel's share of the
+     prefill.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -77,6 +90,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -131,8 +145,11 @@ TRANSFORM_KERNELS = {
                         "src/repro/kernels/ntt.py:142"),
     "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
-#: the LM's kernel: (source, TPU kernel it replaces)
-FLASH = ("flash_attention", ATTENTION, "src/repro/kernels/attention.py:30")
+#: the LM's two Hopper kernels for TPU kernel 9, by launch counter: the
+#: tensor-core kernel (bf16 at head_dim 64 and 128, the served prefill)
+#: and the CUDA-core kernel (fp32; bf16 at head_dim 32 and 320)
+FLASH_REPLACES = "src/repro/kernels/attention.py:30"
+FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention")
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 #: the served LM cell: qwen3-1.7b at full width, bf16 activations
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 8, 2048, 32
@@ -578,7 +595,8 @@ def time_ms(torch, fn, arg_sets, reps: int) -> float:
 
 def device_ms(torch, fn, arg_sets, reps: int, *,
               launches_per_call: int | None = None,
-              tries: int = 5) -> tuple[float, int]:
+              tries: int = 5, required: bool = True
+              ) -> tuple[float | None, int]:
     """Mean device time of one call in ms, and the device events traced:
     the summed duration of the kernels the calls ran, traced by
     torch.profiler (CUPTI), without the host's launch gaps. The trace
@@ -588,7 +606,9 @@ def device_ms(torch, fn, arg_sets, reps: int, *,
     launches the trace holds; otherwise over the calls made, which a
     dropped event lowers. A
     trace without device time is reported and taken again, up to
-    ``tries`` times in all; if none holds any, the run fails."""
+    ``tries`` times in all; if none holds any, the run fails, or, where
+    the caller times the call by CUDA events and the trace is only a
+    side figure (``required=False``), None is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets[:2]:
@@ -611,6 +631,8 @@ def device_ms(torch, fn, arg_sets, reps: int, *,
         print(f"[time] trace {attempt + 1} of {tries} held no device time; "
               f"tracing again", flush=True)
         time.sleep(1.0)
+    if not required:
+        return None, 0
     raise SystemExit(f"torch.profiler traced no device time in {tries} "
                      f"tries")
 
@@ -836,7 +858,12 @@ ATTN_CASES = [
     ("non-causal", 2, 1024, 16, 8, 128, "bfloat16", 1 << 30, False),
     ("ragged S", 2, 1000, 16, 8, 128, "bfloat16", 1 << 30, True),
     ("G = 1", 2, 1024, 8, 8, 128, "bfloat16", 1 << 30, True),
+    ("S = 1", 2, 1, 16, 8, 128, "bfloat16", 1 << 30, True),
+    ("S < 64", 3, 37, 16, 8, 128, "bfloat16", 1 << 30, True),
     ("hd 64", 2, 1024, 24, 8, 64, "bfloat16", 1 << 30, True),
+    ("hd 64 ragged S window 24", 2, 333, 24, 8, 64, "bfloat16", 24, True),
+    ("hd 64 non-causal S < 64", 2, 50, 8, 2, 64, "bfloat16", 1 << 30, False),
+    ("hd 32", 2, 500, 8, 4, 32, "bfloat16", 1 << 30, True),
     ("hd 320", 2, 1024, 8, 4, 320, "bfloat16", 1024, True),
     ("fp32", 2, 1000, 16, 8, 128, "float32", 1 << 30, True),
     ("fp32 hd 320 window 24", 1, 300, 8, 4, 320, "float32", 24, True),
@@ -853,29 +880,45 @@ def attention_inputs(torch, B, S, H, KV, hd, dtype, seed):
     return q, k, v
 
 
-def check_attention(torch, kattn) -> float:
-    """The flash kernel against its plain version (key blocks of the
-    kernel's tile) on every case of ATTN_CASES, and the public (H, S, hd)
-    layout against the naive oracle too. Returns the worst |kernel - plain|
-    at the served shape."""
-    served_err = None
+def flash_counter(kattn, dtype, hd: int) -> str:
+    """The launch counter of the kernel that (dtype, hd) dispatches to."""
+    return {"wgmma": "flash_attention_wgmma",
+            "cuda_core": "flash_attention"}[kattn.kernel_for(dtype, hd)]
+
+
+def check_attention(torch, kattn, build) -> dict[str, float]:
+    """Each flash kernel against its plain version (key blocks of the
+    kernel's tile; p split in two bf16 parts for the wgmma kernel) on every
+    case of ATTN_CASES, each case launching the kernel its (dtype, hd)
+    dispatches to once and the other kernel never; and the public
+    (H, S, hd) layout against the naive oracle too. Returns the worst
+    |kernel - plain| per kernel."""
+    worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     for i, (label, B, S, H, KV, hd, dtype, window, causal) in \
             enumerate(ATTN_CASES):
         q, k, v = attention_inputs(torch, B, S, H, KV, hd, dtype, i)
         kw = dict(window=window, causal=causal, scale=hd ** -0.5)
+        name = flash_counter(kattn, q.dtype, hd)
+        before = dict(build.LAUNCHES)
         got = kattn.attention(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        moved = {n: build.LAUNCHES[n] - before[n] for n in FLASH_KERNELS}
+        if moved != {n: int(n == name) for n in FLASH_KERNELS}:
+            raise SystemExit(f"flash_attention {label}: launches {moved}, "
+                             f"expected one of {name} alone")
         want = kattn.attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, **ATTN_TOL[dtype]):
-            raise SystemExit(f"flash_attention {label} (B={B} S={S} H={H} "
+            raise SystemExit(f"{name} {label} (B={B} S={S} H={H} "
                              f"KV={KV} hd={hd} {dtype} window={window} "
                              f"causal={causal}): kernel and plain version "
                              f"differ, max |diff| {err}")
-        served_err = err if served_err is None else served_err
+        worst[name] = max(worst[name], err)
         print(f"[attention] {label}: B={B} S={S} H={H} KV={KV} hd={hd} "
-              f"{dtype} window={window} causal={causal} |kernel-plain|max="
-              f"{err:.3g} within {ATTN_TOL[dtype]}", flush=True)
+              f"{dtype} window={window} causal={causal} -> {name} "
+              f"|kernel-plain|max={err:.3g} within {ATTN_TOL[dtype]}",
+              flush=True)
     q, k, v = (x[0].transpose(0, 1) for x in attention_inputs(
         torch, 1, 500, 6, 6, 64, "float32", 99))
     got = kattn.flash_attention(q, k, v, window=100)
@@ -884,10 +927,20 @@ def check_attention(torch, kattn) -> float:
         if not torch.allclose(got, want, **ATTN_TOL["float32"]):
             raise SystemExit("flash_attention (H, S, hd) layout differs "
                              "from its plain version or the oracle")
-    print("[attention] public (H, S, hd) layout, S=500 window=100 fp32: "
-          "== plain and naive oracle within 2e-4", flush=True)
+    q, k, v = (x[0].transpose(0, 1) for x in attention_inputs(
+        torch, 1, 500, 6, 6, 128, "bfloat16", 98))
+    got = kattn.flash_attention(q, k, v, window=100)
+    for want in (kattn.flash_attention_plain(q, k, v, window=100),
+                 kattn.attention_ref(q, k, v, window=100)):
+        if not torch.allclose(got.float(), want.float(),
+                              **ATTN_TOL["bfloat16"]):
+            raise SystemExit("flash_attention (H, S, hd) layout bf16 hd 128 "
+                             "differs from its plain version or the oracle")
+    print("[attention] public (H, S, hd) layout, S=500 window=100: fp32 "
+          "hd 64 == plain and naive oracle within 2e-4, bf16 hd 128 within "
+          "one bf16 step", flush=True)
     torch.cuda.synchronize()
-    return served_err
+    return worst
 
 
 def full_width_state(torch, convert, cfg):
@@ -899,9 +952,12 @@ def full_width_state(torch, convert, cfg):
 
 def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     """Phase 3 for the LM: (1) the served run through the serve CLI, the
-    launch counters zeroed just before; (2) prefill/decode parity at full
-    width in fp32; (3) the same 2-layer full-width weights on the card and
-    on the CPU. Returns what the report needs."""
+    launch counters zeroed just before: 28 launches of the wgmma kernel
+    and nothing else; (2) prefill/decode parity at full width in fp32, the
+    CUDA-core kernel's path, counters zeroed just before: one forward and
+    one prefill, 2 x 28 launches of that kernel and nothing else; (3) the
+    same 2-layer full-width weights on the card and on the CPU. Returns
+    what the report needs."""
     import dataclasses
     dev = torch.device("cuda")
     build.reset_launches()
@@ -913,12 +969,13 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     launches = dict(build.LAUNCHES)
     cfg = get_config(LM_ARCH)
     gen = res["generated"]
-    if launches["flash_attention"] != cfg.num_layers:
-        raise SystemExit(f"served LM run: flash_attention launched "
-                         f"{launches['flash_attention']} times, expected "
-                         f"{cfg.num_layers} (one per layer, one prefill)")
+    if launches["flash_attention_wgmma"] != cfg.num_layers:
+        raise SystemExit(f"served LM run: flash_attention_wgmma launched "
+                         f"{launches['flash_attention_wgmma']} times, "
+                         f"expected {cfg.num_layers} (one per layer, one "
+                         f"prefill)")
     if others := {k: n for k, n in launches.items()
-                  if n and k != "flash_attention"}:
+                  if n and k != "flash_attention_wgmma"}:
         raise SystemExit(f"served LM run launched other kernels: {others}")
     if gen.shape != (LM_GEN, LM_BATCH) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
@@ -930,7 +987,7 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
           f"(first call, incl. prefill) in {wall:.1f}s with set-up; "
           f"launches {launches}", flush=True)
 
-    # (2) parity at full width, fp32 activations
+    # (2) parity at full width, fp32 activations: the CUDA-core kernel
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     sd = full_width_state(torch, convert, cfg)
     model = convert.build(cfg32, sd, dev)
@@ -938,9 +995,19 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     B, S = 2, 512
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    build.reset_launches()
     full = model(tokens)
     last, state = model.prefill(tokens[:, :S], cache_capacity=S + 1)
     step, _ = model.decode_step(state, tokens[:, S], S)
+    torch.cuda.synchronize()
+    fp32_launches = dict(build.LAUNCHES)
+    if fp32_launches["flash_attention"] != 2 * cfg.num_layers or any(
+            n for k, n in fp32_launches.items() if k != "flash_attention"):
+        raise SystemExit(f"fp32 parity path: launches {fp32_launches}, "
+                         f"expected flash_attention {2 * cfg.num_layers} "
+                         f"times (one forward, one prefill) and nothing "
+                         f"else")
     errs = (float((last - full[:, S - 1]).abs().max()),
             float((step - full[:, -1]).abs().max()))
     if not (torch.isfinite(full).all()
@@ -952,7 +1019,7 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     print(f"[lm] parity {LM_ARCH} full width fp32 B={B} S={S}: "
           f"prefill last logits vs forward |diff|max={errs[0]:.3g}, "
           f"decode_step(S) vs forward(S+1)[-1] |diff|max={errs[1]:.3g}, "
-          f"within {LM_TOL}", flush=True)
+          f"within {LM_TOL}; launches {fp32_launches}", flush=True)
     del model, full, state
 
     # (3) the same weights on the card and on the CPU
@@ -970,34 +1037,65 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
           f"(flash kernel) vs CPU (plain) logits |diff|max={err:.3g} within "
           f"{LM_TOL}", flush=True)
     torch.cuda.synchronize()
-    return {"launches": launches["flash_attention"],
+    return {"launches": {"flash_attention_wgmma":
+                         launches["flash_attention_wgmma"],
+                         "flash_attention": fp32_launches["flash_attention"]},
             "first_call_tokens_per_s": res["tokens_per_s"],
             "parity_max_abs": errs, "card_vs_cpu_max_abs": err}
 
 
-#: Device-side name of the flash kernel in a profiler trace.
-FLASH_KERNEL = re.compile(r"flash_attention_kernel")
+#: Device-side name of the served prefill's flash kernel in a profiler
+#: trace.
+FLASH_KERNEL = re.compile(r"flash_attention_wgmma_kernel")
 
 
-def attention_timing(torch, kattn, build, card: str) -> dict:
-    """The flash kernel at the served prefill shape: device time (mean over
-    the launches traced), its plain version, and
+#: Phase 4's flash-attention shapes, by kernel: (B, S, H, KV, hd, dtype).
+#: The wgmma kernel at the served prefill; the CUDA-core kernel at the same
+#: shape in fp32, the type it serves on the LM path (the fp32 parity path).
+ATTN_TIMED = {
+    "flash_attention_wgmma": (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16"),
+    "flash_attention": (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32")}
+
+
+def cuda_core_on(torch, build, q, k, v, scale: float):
+    """The CUDA-core kernel on causal bf16 inputs at head_dim 128, which the
+    wrappers send to the wgmma kernel: the previous design on the served
+    prefill's own inputs, to compare the two within one run."""
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    build.launch("flash_attention", "flash_attention", q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+                 k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *o.stride()[:3], 1 << 30, 1, float(scale),
+                 1)
+    return o
+
+
+def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
+    """Flash kernel ``name`` at its ATTN_TIMED shape, causal: device time
+    (mean over the launches traced), its plain version, and
     scaled_dot_product_attention (causal, GQA) on the same inputs as the
     yardstick; bound: bytes of q, k, v and o over 3.35 TB/s, or the causal
-    pairs' flops (4 hd per pair: q.k and p.v) over 989 TFLOP/s bf16.
+    pairs' flops (4 hd per pair: q.k and p.v) over 989 TFLOP/s bf16 (the
+    tensor cores) or 67 TFLOP/s fp32 (the CUDA cores; the reference's fp32
+    products rule out TF32). For the wgmma kernel, the CUDA-core kernel on
+    the same bf16 inputs too.
 
-    The plain version's and SDPA's times are CUDA-event time per call over
-    back-to-back calls: each call runs far longer than the host takes to
-    launch it, so the card never waits on the host, while their traces
-    drop device events and read low (on an H100 the trace of SDPA at this
-    shape read half its event time, below the bound). Their traced time
-    over calls is printed beside."""
-    _, B, S, H, KV, hd, dtype, window, causal = ATTN_CASES[0]
+    The kernel's, the plain version's and SDPA's times are CUDA-event
+    time per call over back-to-back calls: each call runs far longer than
+    the host takes to launch it, so the card never waits on the host,
+    while their traces drop device events (on an H100 the flash kernels'
+    traces held 1 of 10 launches, or none in five tries, and SDPA's read
+    half its event time, below the bound). The traced times are printed
+    beside, where the trace holds any."""
+    B, S, H, KV, hd, dtype = ATTN_TIMED[name]
     sets = [attention_inputs(torch, B, S, H, KV, hd, dtype, 100 + i)
             for i in range(2)]
+    if flash_counter(kattn, sets[0][0].dtype, hd) != name:
+        raise SystemExit(f"{name}: ATTN_TIMED shape dispatches elsewhere")
     scale = hd ** -0.5
-    kern = functools.partial(kattn.attention, window=window, scale=scale)
-    plain = functools.partial(kattn.attention_plain, window=window,
+    kern = functools.partial(kattn.attention, window=1 << 30, scale=scale)
+    plain = functools.partial(kattn.attention_plain, window=1 << 30,
                               scale=scale)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = [tuple(x.transpose(1, 2) for x in s) for s in sets]
@@ -1005,49 +1103,75 @@ def attention_timing(torch, kattn, build, card: str) -> dict:
     def lib(q, k, v):
         return sdpa(q, k, v, is_causal=True, enable_gqa=True)
 
-    got, want = kern(*sets[0]).float(), plain(*sets[0]).float()
+    before = build.LAUNCHES[name]
+    got = kern(*sets[0]).float()
+    torch.cuda.synchronize()
+    if build.LAUNCHES[name] != before + 1:
+        raise SystemExit(f"{name}: the timed call did not launch it")
+    want = plain(*sets[0]).float()
     ref = lib(*lib_sets[0]).transpose(1, 2).float()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, **ATTN_TOL[dtype]):
-        raise SystemExit(f"flash_attention served shape: |kernel - plain| "
+        raise SystemExit(f"{name} at {ATTN_TIMED[name]}: |kernel - plain| "
                          f"{err}")
-    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    bf16 = dtype == "bfloat16"
+    nbytes = (2 if bf16 else 4) * (2 * B * S * H * hd + 2 * B * S * KV * hd)
     flops = 4 * hd * (S * (S + 1) // 2) * B * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
     reps = 10
-    ms, traced = device_ms(torch, kern, sets, reps, launches_per_call=1)
+    traced_ms, traced = device_ms(torch, kern, sets, reps,
+                                  launches_per_call=1, tries=2,
+                                  required=False)
     entry = {
-        "ms": ms, "traced_launches": f"{traced} of {reps}",
+        "ms": time_ms(torch, kern, sets, reps),
+        "traced_ms": traced_ms, "traced_launches": f"{traced} of {reps}",
         "plain_ms": time_ms(torch, plain, sets, 4),
         "library_ms": time_ms(torch, lib, lib_sets, reps),
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
-        "event_ms": time_ms(torch, kern, sets, reps),
-        "plain_traced_ms": device_ms(torch, plain, sets, 4)[0],
-        "library_traced_ms": device_ms(torch, lib, lib_sets, reps)[0],
+        "plain_traced_ms": device_ms(torch, plain, sets, 4, tries=2,
+                                     required=False)[0],
+        "library_traced_ms": device_ms(torch, lib, lib_sets, reps, tries=2,
+                                       required=False)[0],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "operations_ms": t_ops,
-        "operations": "bf16 flops", "bytes": nbytes, "flops": flops,
-        "max_abs_err": err,
+        "operations": "bf16 flops" if bf16 else "fp32 flops",
+        "bytes": nbytes, "flops": flops, "max_abs_err": err,
         "sdpa_vs_plain_max_abs": float((ref - want).abs().max()),
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                  "dtype": dtype, "causal": causal},
-        **build.occupancy("flash_attention", hd, 1, 0)}
-    print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
-          f"{dtype} causal: kernel={entry['ms']:.4f} device ms (profiler, "
-          f"mean of {entry['traced_launches']} launches traced); event ms "
-          f"per call: kernel={entry['event_ms']:.4f} "
+                  "dtype": dtype, "causal": True},
+        **build.occupancy(name, hd, int(bf16), 0)}
+    extra = ""
+    if name == "flash_attention_wgmma":
+        old = cuda_core_on(torch, build, *sets[0], scale).float()
+        if not torch.allclose(old, got, **ATTN_TOL[dtype]):
+            raise SystemExit("CUDA-core and wgmma kernels differ on the "
+                             "served prefill's inputs")
+        entry["cuda_core_same_inputs_event_ms"] = min(
+            time_ms(torch, lambda q, k, v: cuda_core_on(torch, build, q, k,
+                                                        v, scale),
+                    sets, reps) for _ in range(2))
+        entry["ms"] = min(entry["ms"], time_ms(torch, kern, sets, reps))
+        extra = (f"; the CUDA-core kernel on the same inputs "
+                 f"{entry['cuda_core_same_inputs_event_ms']:.4f} event ms "
+                 f"(order: wgmma, CUDA core, CUDA core, wgmma)")
+    def fmt(x):
+        return "none" if x is None else f"{x:.4f}"
+
+    print(f"[time] {name} B={B} S={S} H={H} KV={KV} hd={hd} {dtype} causal: "
+          f"event ms per call: kernel={entry['ms']:.4f} "
           f"plain={entry['plain_ms']:.4f} sdpa={entry['library_ms']:.4f}; "
           f"bound={entry['bound_ms']:.4f} ({entry['bound_by']}; bytes "
-          f"{t_bytes:.4f}, bf16 flops {t_ops:.4f}); traced ms over calls: "
-          f"plain={entry['plain_traced_ms']:.4f} "
-          f"sdpa={entry['library_traced_ms']:.4f}; "
+          f"{t_bytes:.4f}, {entry['operations']} {t_ops:.4f}); traced: "
+          f"kernel={fmt(traced_ms)} ms (mean of {entry['traced_launches']} "
+          f"launches traced), plain={fmt(entry['plain_traced_ms'])} and "
+          f"sdpa={fmt(entry['library_traced_ms'])} ms over calls; "
           f"{flops / entry['ms'] / 1e9:.1f} TFLOP/s; |kernel-plain|max="
           f"{err:.3g}; launch: {entry['threads']} threads, "
           f"{entry['smem_bytes']} B shared, {entry['regs']} regs/thread -> "
-          f"{entry['ctas_per_sm']} CTAs/SM; on {card}", flush=True)
+          f"{entry['ctas_per_sm']} CTAs/SM{extra}; on {card}", flush=True)
     return entry
 
 
@@ -1130,6 +1254,64 @@ def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
     return out
 
 
+def start_ptxas_report(build):
+    """A second nvcc of ``attention.cu`` with ``-Xptxas -v``, started beside
+    the build: ptxas's registers, shared memory and spills per kernel."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / f"attention-ptxas-{os.getpid()}.so"
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+         os.path.join(ROOT, ATTENTION)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, proc
+
+
+def wgmma_kernel_report(ptxas, library) -> dict:
+    """Print ptxas's report for flash_attention_wgmma_kernel (registers,
+    shared memory, spills, and any warning) and the count of HGMMA (wgmma)
+    and UTMALDG (TMA load) instructions in its SASS (``cuobjdump -sass`` of
+    the attention library). Fails if the SASS holds no HGMMA."""
+    out, proc = ptxas
+    stdout, stderr = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(f"nvcc -Xptxas -v of {ATTENTION} failed:\n"
+                         f"{stdout}\n{stderr}")
+    out.unlink()
+    report, keep = [], False
+    for line in (stdout + stderr).splitlines():
+        if "Compiling entry function" in line:
+            keep = "flash_attention_wgmma_kernel" in line
+        if keep or "warning" in line.lower():
+            report.append(line.strip())
+    for line in report:
+        print(f"[build] ptxas: {line}", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        print("[build] cuobjdump is missing: no SASS count of HGMMA and "
+              "UTMALDG", flush=True)
+        return {"ptxas": report, "sass": None}
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if "flash_attention_wgmma_kernel" not in fn:
+                fn = None
+            else:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += line.count(op)
+    for fn, c in counts.items():
+        print(f"[build] SASS {fn}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
+              f"UTMALDG", flush=True)
+    if not counts or not all(c["HGMMA"] for c in counts.values()):
+        raise SystemExit(f"flash_attention_wgmma_kernel: no HGMMA in its "
+                         f"SASS ({counts})")
+    return {"ptxas": report, "sass": counts}
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -1153,6 +1335,7 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report(_build)
     libs = _build.build()
     _build.load()
     card = card_line()
@@ -1160,19 +1343,19 @@ def main() -> int:
           f"{', '.join(str(v) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    wgmma_build = wgmma_kernel_report(ptxas, libs["attention"])
 
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     _build.reset_launches()
     worst = check_kernels(torch, kfft, kpoly, core_fft)
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
-    attn_err = check_attention(torch, kattn)
+    worst.update(check_attention(torch, kattn, _build))
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
-    print(f"[kernels] all nine held against their plain versions (the "
+    print(f"[kernels] all ten held against their plain versions (the "
           f"transform kernels against numpy too); launches {moved}; worst "
-          f"|kernel-plain| {worst}, flash_attention at the served shape "
-          f"{attn_err:.3g}", flush=True)
+          f"|kernel-plain| {worst}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
@@ -1204,7 +1387,8 @@ def main() -> int:
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
-    attn = attention_timing(torch, kattn, _build, card)
+    attn = {name: attention_timing(torch, kattn, _build, card, name)
+            for name in FLASH_KERNELS}
     lm_times = lm_timing(torch, convert, lm, get_config, card)
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
@@ -1220,14 +1404,20 @@ def main() -> int:
             "per_served_batch": {n: traced[route, n] for n in SERVE_NS
                                  if (route, n) in traced},
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
-    name, source, replaces = FLASH
-    report.append({
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": lm_run["launches"],
-        **{k: attn[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
-        "launches_per": "one served prefill (28 layers)",
-        "at_served_shape": attn, "lm": {**lm_run, **lm_times}})
+    per = {"flash_attention_wgmma": "one served prefill (28 layers)",
+           "flash_attention": "the full-width fp32 parity path: one forward "
+                              "and one prefill (28 layers each)"}
+    for name in FLASH_KERNELS:
+        report.append({
+            "name": name, "route": "cuda", "source": ATTENTION,
+            "replaces": FLASH_REPLACES,
+            "launches": lm_run["launches"][name],
+            **{k: attn[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+            "launches_per": per[name], "at_timed_shape": attn[name],
+            **({"build": wgmma_build, "lm": {**lm_run, **lm_times}}
+               if name == "flash_attention_wgmma" else {})})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}))
     print(card)

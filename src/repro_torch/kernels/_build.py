@@ -75,6 +75,10 @@ LIBRARIES = {
         "flash_attention": ("flash_attention",
                             [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 2
                             + [_F, _I, _P]),
+        # the same arguments; bf16 must be 1 and head_dim 64 or 128
+        "flash_attention_wgmma": ("flash_attention_wgmma",
+                                  [_P] * 4 + [_I] * 5 + [_L] * 12
+                                  + [_I] * 2 + [_F, _I, _P]),
     },
 }
 
@@ -191,7 +195,7 @@ def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
     makes of it: threads per CTA, dynamic shared memory in bytes, registers
     per thread, and the CTAs one SM holds. ``a, b, c`` select the launch:
     (log2 n, rows per CTA, staged) for the transform kernels, (head_dim,
-    bf16, 0) for attention."""
+    bf16, 0) for the two attention kernels."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]
     err = getattr(load(stem), f"{stem}_occupancy")(

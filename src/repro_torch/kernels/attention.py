@@ -4,16 +4,27 @@
 ``flash_attention`` is the public function in the reference's (H, S, hd)
 layout; ``attention`` is the same computation in the model's GQA layout,
 q (B, S, H, hd) against k, v (B, S, KV, hd), which the LM's prefill calls.
-Both are wrappers: for tensors on the card they launch the hand-written
-CUDA kernel ``flash_attention_kernel`` (``csrc/attention.cu``), which
-replaces the Pallas kernel ``repro/kernels/attention.py::_flash_kernel``;
-for tensors on the CPU they run the plain PyTorch version beside it, which
-has the kernel's dataflow: a running max, normalizer and accumulator in
-fp32, folded over key blocks. Any other device raises.
+Both are wrappers around two hand-written CUDA kernels in
+``csrc/attention.cu``, which replace the Pallas kernel
+``repro/kernels/attention.py::_flash_kernel``; ``kernel_for`` picks one by
+type and head_dim, and nothing falls back from one to the other:
 
-The kernel's tiles are fixed (64 query rows, 64 keys); ``bq``/``bk`` and
-``kv_block`` set the plain version's key blocks only. Block sizes change
-where the online softmax rounds, not what it computes.
+- ``flash_attention_wgmma_kernel`` (bf16 at head_dim 64 and 128): the
+  tensor cores through ``wgmma``, K and V loaded by TMA into a ring of
+  shared-memory stages, one producer warp and two consumer warpgroups;
+  p.V runs as two bf16 products, ``p_hi = bf16(p)`` and
+  ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator.
+- ``flash_attention_kernel`` (every fp32 call; bf16 at head_dim 32 and
+  320): fp32 products on the CUDA cores.
+
+For tensors on the CPU they run the plain PyTorch version beside them,
+which has the chosen kernel's dataflow: a running max, normalizer and
+accumulator in fp32, folded over the kernel's key tiles, with p split in
+two bf16 parts where the wgmma kernel splits it. Any other device raises.
+
+The kernels' tiles are fixed; ``bq``/``bk`` and ``kv_block`` set the plain
+version's key blocks only. Block sizes change where the online softmax
+rounds, not what it computes.
 """
 from __future__ import annotations
 
@@ -25,18 +36,43 @@ NEG = -1e30
 #: head_dims the kernel is instantiated for: 32 (the smoke configs), 64,
 #: 128 and 320 (gemma3-4b's 2560 / 8).
 HEAD_DIMS = (32, 64, 128, 320)
-#: Keys per tile of the kernel; the plain version with this block folds the
-#: online softmax at the same keys.
+#: Keys per tile of ``flash_attention_kernel``; the plain version with this
+#: block folds the online softmax at the same keys.
 KERNEL_KEYS = 64
+#: Keys per tile of ``flash_attention_wgmma_kernel``.
+WGMMA_KERNEL_KEYS = 128
+#: head_dims of the wgmma kernel (bf16 only): 128 for qwen3, llama3,
+#: starcoder2, qwen2-vl and mixtral; 64 for musicgen, granite, hymba and
+#: fourierpim-lm.
+WGMMA_HEAD_DIMS = (64, 128)
 _TYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel serves (dtype, head_dim): ``"wgmma"`` for bf16 at
+    head_dim 64 or 128, else ``"cuda_core"``. The wrappers and the plain
+    version both follow it."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def split_bf16(p: torch.Tensor) -> torch.Tensor:
+    """fp32 p as the wgmma kernel feeds it to the tensor cores: p_hi + p_lo
+    with p_hi = bf16(p) and p_lo = bf16(p - p_hi), summed in fp32 (exact:
+    together they hold about 16 significant bits)."""
+    hi = p.to(torch.bfloat16).float()
+    return hi + (p - hi).to(torch.bfloat16).float()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, causal: bool = True, scale: float,
-                    kv_block: int = KERNEL_KEYS) -> torch.Tensor:
-    """Plain version of ``attention``: the kernel's online softmax over key
-    blocks of ``kv_block``, as torch ops, in the layout of
-    ``repro.models.layers.attention.blockwise_attention``.
+                    kv_block: int | None = None) -> torch.Tensor:
+    """Plain version of ``attention``: the online softmax of the kernel that
+    ``kernel_for`` picks, over key blocks of ``kv_block`` (default: that
+    kernel's key tile), as torch ops, in the layout of
+    ``repro.models.layers.attention.blockwise_attention``. For the wgmma
+    kernel, p enters the p.V product as ``split_bf16(p)``.
 
     q: (B, S, H, hd); k, v: (B, S, KV, hd), H = KV * G, head h = kv * G + g.
     Returns (B, S, H, hd) in q's type; s = (q . k) * scale in fp32.
@@ -44,6 +80,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
+    split = kernel_for(q.dtype, hd) == "wgmma"
+    if kv_block is None:
+        kv_block = WGMMA_KERNEL_KEYS if split else KERNEL_KEYS
     qh = q.reshape(B, S, KV, G, hd).float()
     blk = max(1, min(kv_block, S))
     qpos = torch.arange(S, device=q.device)
@@ -67,6 +106,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
+        if split:
+            p = split_bf16(p)
         acc = acc * corr[..., None] + torch.einsum("bkgqn,bnkh->bkgqh", p, vj)
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
@@ -94,46 +135,50 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             window: int, causal: bool, scale: float) -> torch.Tensor:
-    """Launch ``flash_attention_kernel`` on (B, S, H, hd) views with any
-    strides whose head_dim axis is contiguous; returns a contiguous
-    (B, S, H, hd) o."""
+    """Launch the kernel that ``kernel_for`` picks on (B, S, H, hd) views
+    with any strides whose head_dim axis is contiguous; returns a
+    contiguous (B, S, H, hd) o."""
     B, S, H, hd = q.shape
+    wgmma = kernel_for(q.dtype, hd) == "wgmma"
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head_dim {hd} is not "
                          f"one of {HEAD_DIMS}")
+    # flash_attention_kernel loads 4 elements at a time; TMA takes a base
+    # on 16 bytes and strides of 16 bytes (8 bf16 elements)
+    step = 8 if wgmma else 4
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash attention kernel: {name}'s head_dim "
                              f"axis must be contiguous, strides "
                              f"{t.stride()}")
-        # the kernel loads 4 elements at a time, so rows start aligned
-        if t.data_ptr() % 16 or any(t.stride(i) % 4 for i in range(3)):
+        if t.data_ptr() % 16 or any(t.stride(i) % step for i in range(3)):
             raise ValueError(f"flash attention kernel: {name} must start on "
                              f"16 bytes with strides that are multiples of "
-                             f"4 elements, got strides {t.stride()}")
+                             f"{step} elements, got strides {t.stride()}")
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return o
+    name = "flash_attention_wgmma" if wgmma else "flash_attention"
     with torch.cuda.device(q.device):
         _build.launch(
-            "flash_attention", "flash_attention", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), B, S, H, k.shape[2], hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], min(int(window), 1 << 30), int(causal),
-            float(scale), int(q.dtype == torch.bfloat16))
+            name, name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, S, H, k.shape[2], hd, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            min(int(window), 1 << 30), int(causal), float(scale),
+            int(q.dtype == torch.bfloat16))
     return o
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               window: int, causal: bool = True, scale: float,
-              kv_block: int = KERNEL_KEYS) -> torch.Tensor:
+              kv_block: int | None = None) -> torch.Tensor:
     """Attention in the model's GQA layout: q (B, S, H, hd), k, v
     (B, S, KV, hd); returns (B, S, H, hd) in q's type. ``scale`` multiplies
     the fp32 scores (the model passes 1.0 after scaling q itself).
 
-    On the card: kernel ``flash_attention_kernel``, one launch, no copies of
-    q, k or v. On the CPU: ``attention_plain`` with key blocks of
-    ``kv_block``.
+    On the card: one launch of the kernel ``kernel_for`` picks, no copies
+    of q, k or v. On the CPU: ``attention_plain`` with key blocks of
+    ``kv_block`` (default: that kernel's key tile).
     """
     _check(q, k, v, window)
     if q.device.type == "cpu":
@@ -170,7 +215,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q, k, v: (H, S, hd) (fold batch and GQA groups into H upstream), fp32
     or bf16. Returns (H, S, hd) in q's type; s = (q . k) * hd^-0.5 in fp32.
 
-    On the card: kernel ``flash_attention_kernel`` through strided views,
+    On the card: the kernel ``kernel_for`` picks, through strided views,
     with its own tiles. On the CPU: ``flash_attention_plain``. Replaces
     ``repro/kernels/attention.py::flash_attention``.
     """

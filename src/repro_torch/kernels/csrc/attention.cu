@@ -44,7 +44,15 @@
 // at the tensor cores' 989 TFLOP/s bf16, against ~201 MB of q, k, v and o,
 // 0.060 ms at 3.35 TB/s: the operations bind. This kernel runs them on the
 // fp32 CUDA cores (67 TFLOP/s), so it cannot take less than about 2 ms a
-// call; wgmma, TMA and warp specialisation are later work.
+// call. It serves every fp32 call and bf16 at head_dim 32 and 320.
+//
+// flash_attention_wgmma_kernel (second half of this file) serves bf16 at
+// head_dim 64 and 128 -- the served LM's prefill -- on the tensor cores:
+// wgmma on bf16 tiles with fp32 accumulators, K and V brought in by TMA
+// through a ring of shared-memory stages, one producer warp feeding two
+// consumer warpgroups. Its header says how.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
+                   // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -341,6 +349,689 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
   }                                                                          \
   return cudaErrorInvalidValue;
 
+// ---------------------------------------------------------------------------
+// flash_attention_wgmma_kernel: bf16, head_dim 64 or 128, on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Computes what flash_attention_kernel computes (same masks, same
+// `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
+// scores, GQA by h / G, (batch, seq, head) element strides) for bf16 q, k,
+// v at head_dim 64 and 128, and replaces the same TPU kernel
+// (src/repro/kernels/attention.py: _flash_kernel).
+//
+// Precision. s = q.k^T is a wgmma with bf16 operands and an fp32
+// accumulator: a product of two bf16 values is exact in fp32, so only the
+// order of the sum differs from the reference's fp32 product. acc += p.V
+// splits the fp32 p in two bf16 parts, p_hi = bf16(p) and p_lo = bf16(p -
+// p_hi), and runs two wgmmas into the same fp32 accumulator: about 16
+// significant bits of p instead of a single bf16's 8, for 1.5x the tensor
+// work of one pass. l sums the fp32 p, as the reference does.
+//
+// The CTA. 384 threads: warpgroup 0 is the producer (setmaxnreg down to
+// 40 registers; one thread issues every TMA load), warpgroups 1 and 2 are
+// consumers (setmaxnreg up to 232), each owning 64 of the CTA's 128 query
+// rows. Grid (batch * heads, ceil(S / 128)); the q tiles are walked last to
+// first, so the CTAs with the most key tiles start first.
+//
+// Loads. The producer loads the CTA's Q tile once, then each key tile's K
+// and V (128 keys) into a ring of kStages shared-memory stages, through 4-D
+// tensor maps (hd, head, seq, batch; byte strides from the launcher's
+// element strides) with the 128-byte swizzle. A bf16 row of 128 elements is
+// 256 bytes, so a tile is HD / 64 boxes of 64 columns. K and V have a
+// "full" mbarrier each per stage (the producer's expect_tx, TMA's complete
+// transaction count) and an "empty" one each, which takes the 256 consumer
+// threads' arrivals once they are done with that tile: K as soon as its
+// s-product is done, V after its p.V, so the next K is in flight while a
+// tile's V is still in use. Rows at or past S arrive as zeros; the mask
+// still drops keys with kpos >= S (a zero K row scores 0, not -inf).
+//
+// Products. s (64 x 128 per warpgroup) is an SS wgmma m64n128k16 over
+// head_dim in steps of 16: Q (A) and K (B) both K-major in the swizzled
+// tiles, a step of 16 columns being 32 bytes within a 128-byte swizzle row,
+// and a new box every 64 columns. p.V is an RS wgmma m64nHDk16 over the
+// keys: p goes from the s accumulator's register layout straight into the
+// A-operand layout (registers 8kk..8kk+7 of s are the A fragment of key
+// step kk, packed as bf16 pairs), and V is the B operand read MN-major
+// (transposed) from the same swizzled tiles: a key step is 16 rows of 128
+// bytes, and the second 64-column box of head_dim lies one box further on
+// (the descriptor's leading byte offset).
+//
+// Softmax. Scale and mask are applied in fp32 on the accumulator
+// fragments (thread lane holds rows lane / 4 and lane / 4 + 8 of its
+// warp's 16, columns 8 j + 2 (lane % 4) + {0, 1}), in the log2 domain (the
+// scale times log2 e multiplies the scores once; p = 2^(x - m) on MUFU.EX2);
+// row maxima are reduced over the 4 threads of a row with shuffles, row
+// sums are kept per thread and reduced once at the end. Key tiles wholly
+// outside a warpgroup's causal or window range are skipped by that
+// warpgroup (it still waits on and releases their stages, so the ring
+// stays in step); tiles wholly inside it skip the mask.
+//
+// Overlap within a warpgroup. For each tile after its first, a consumer
+// issues the tile's s-product and then the previous tile's two p.V
+// products, waits for the s-product alone, and runs the tile's softmax
+// while p.V still runs on the tensor cores; then it waits for p.V,
+// rescales acc and splits the new p into the fragments.
+//
+// Overlap between the warpgroups (ping-pong). The two consumers take
+// turns to issue their wgmmas, through two named barriers, so that one's
+// softmax runs while the other's products occupy the tensor cores.
+//
+// Not done yet (later work, see PERF.md): a persistent scheduler for the
+// tail of the causal grid; a TMA store of the output; the masked half of
+// the diagonal tile that the first consumer computes and discards.
+
+constexpr int kWgBM = 128;       // query rows per CTA, 64 per consumer warpgroup
+constexpr int kWgBN = 128;       // keys per tile
+constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kStages = 2;       // K/V ring depth
+
+template <int HD>
+struct WgCfg {
+  static_assert(HD == 64 || HD == 128, "wgmma kernel: head_dim 64 or 128");
+  static constexpr int kBoxes = HD / 64;          // 64-column boxes per row
+  static constexpr int kQBox = kWgBM * 128;       // bytes of one Q box
+  static constexpr int kKVBox = kWgBN * 128;      // bytes of one K or V box
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kTileBytes = kBoxes * kKVBox;
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kBars = 1 + 4 * kStages;   // q; k/v full, k/v empty
+  // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
+  static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// Named barrier `id` over the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N of this warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads of an accumulator above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_D64                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define WG_F8(d, i)                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+#define WG_F64(d) \
+  WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+
+// d (+)= A.B^T, m64n128k16: A (64 x 16) and B (128 x 16) K-major in shared
+// memory; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A.B, m64nNk16: A (64 x 16) from registers as bf16 pairs, B (16 x N)
+// MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) -> bf16 pairs hi = bf16(a, b) and lo = bf16(a - hi.a, b - hi.b)
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = bf16_pair(a - hf.x, b - hf.y);
+}
+
+// 2^x (MUFU.EX2); x <= 0 here, so flushing subnormals to zero changes no
+// p that reaches a bf16 output.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Where this thread's scores live in a tile: rows row[0], row[1] and, for
+// accumulator register 4 j + e, row row[e / 2] and key kv0 + 8 j + col +
+// e % 2.
+struct Frag {
+  int row[2];
+  int col;
+};
+
+// One online-softmax step on a tile's scores, in the log2 domain (x = s *
+// scale * log2 e, so exp(s * scale - m) = 2^(x - m / log2 e)): the masked
+// scores, the row max over the 4 threads of a row, corr = 2^(m - m_new),
+// and p = valid ? 2^(x - m_new) : 0 in place of the scores; l (this
+// thread's part of the row sums) becomes l * corr + sum p. `full`: every
+// key of the tile is valid for every row, no mask.
+//
+// A masked score is -1e30, so 2^(x - m_new) is 0 on it unless m_new is
+// still -1e30, which happens only when every key of the row so far is
+// masked; then p is 0 on the whole row. That is the reference's `where`
+// on p, taken once per row.
+__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const Frag& f, int kv0, bool full,
+                                             int seq, int causal, int window,
+                                             float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+  if (full) {
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[4 * j + e] *= scale_log2;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      }
+  } else {
+    // key kv0 + f.col + c of the tile, c = 8 j + e % 2, is valid for row
+    // r iff c < seq - kv0 - f.col and, when causal, lo[r] < c <= hi[r]
+    const int cols = seq - kv0 - f.col;
+    int hi[2], lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      hi[r] = causal ? f.row[r] - kv0 - f.col : kWgBN;
+      lo[r] = causal ? hi[r] - window : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + (e & 1);
+        const int r = e >> 1;
+        const bool ok = c < cols && c <= hi[r] && c > lo[r];
+        const float x = ok ? sc[4 * j + e] * scale_log2 : kNeg;
+        sc[4 * j + e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+  }
+  bool none[2];  // no valid key in the row yet
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= corr[r];
+    none[r] = mx[r] == kNeg;
+  }
+#pragma unroll
+  for (int j = 0; j < kWgBN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = none[e >> 1] ? 0.f : ex2(sc[4 * j + e] - m[e >> 1]);
+      sc[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+}
+
+// p (fp32, accumulator layout) -> the A-operand fragments of the p.V
+// wgmmas, p_hi = bf16(p) and p_lo = bf16(p - p_hi): key step kk is the
+// accumulator registers 8 kk .. 8 kk + 7 as four bf16 pairs.
+__device__ __forceinline__ void split_fragments(const float (&sc)[64],
+                                                uint32_t (&ph)[kWgBN / 16][4],
+                                                uint32_t (&pl)[kWgBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_pair(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                 pl[kk][r]);
+}
+
+// s = Q.K^T for this warpgroup's 64 rows against a K tile (one group).
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  using C = WgCfg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;  // 16 columns in a swizzle row
+    wgmma_ss_n128(sc,
+                  sw128_desc(q_rows + (kk / 4) * C::kQBox + step, 16, 1024),
+                  sw128_desc(k_tile + (kk / 4) * C::kKVBox + step, 16, 1024),
+                  kk > 0);
+  }
+}
+
+// acc += p_hi.V + p_lo.V over a V tile (one group).
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
+                                         const uint32_t (&ph)[kWgBN / 16][4],
+                                         const uint32_t (&pl)[kWgBN / 16][4],
+                                         uint32_t v_tile) {
+  using C = WgCfg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+    const uint64_t dv = sw128_desc(v_tile + kk * 16 * 128, C::kKVBox, 1024);
+    wgmma_rs(acc, ph[kk], dv);
+    wgmma_rs(acc, pl[kk], dv);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 __nv_bfloat16* __restrict__ o, int seq,
+                                 int heads, int group, long long ob,
+                                 long long os, long long oh, int window,
+                                 int causal, float scale) {
+  using C = WgCfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t skv = base + C::kQBytes;  // stage s: K at s * 2 tiles, V after
+  const uint32_t bars = base + C::kBarOffset;
+  // per stage s, + 8 s: K and V arrived; K and V released by both consumers
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x - b * heads;
+  const int hk = h / group;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kWgBM;
+  // Key tiles that hold a valid key for some row of this CTA.
+  int lo = 0, hi = seq;
+  if (causal) {
+    hi = min(seq, q0 + kWgBM);
+    const long long first = (long long)q0 - window + 1;
+    lo = first > 0 ? (int)first : 0;
+  }
+  const int t_begin = lo / kWgBN;
+  const int t_end = (hi + kWgBN - 1) / kWgBN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);
+      mbar_init(v_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c)
+        tma_load(sq + c * C::kQBox, &tq, q_full, 64 * c, h, q0, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStages;
+        // the first lap finds the stage free (the parity of the phase
+        // before the barrier's first)
+        const uint32_t parity = ((uint32_t)(i / kStages) & 1u) ^ 1u;
+        const uint32_t ks = skv + s * 2 * C::kTileBytes;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(ks + c * C::kKVBox, &tk, k_full + 8 * s, 64 * c, hk,
+                   t * kWgBN, b);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, C::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load(ks + C::kTileBytes + c * C::kKVBox, &tv, v_full + 8 * s,
+                   64 * c, hk, t * kWgBN, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int cw = threadIdx.x / 128 - 1;  // 0 or 1
+    const int lane = threadIdx.x & 31;
+    const int r0 = q0 + 64 * cw;  // this warpgroup's first row
+    const int warp_row = r0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+    const Frag f{{warp_row, warp_row + 8}, 2 * (lane & 3)};
+    const uint32_t q_rows = sq + cw * 64 * 128;
+    const float scale_log2 = scale * 1.4426950408889634f;
+
+    // This warpgroup's own tiles [w_begin, w_end) of the CTA's: those
+    // with a valid key for one of its rows. It still waits on and releases
+    // the others, so the ring stays in step.
+    int w_begin = t_begin, w_end = t_end;
+    if (r0 >= seq) {
+      w_begin = w_end = t_end;
+    } else if (causal) {
+      const long long first = (long long)r0 - window + 1;
+      w_begin = max(t_begin, first > 0 ? (int)(first / kWgBN) : 0);
+      w_end = min(t_end, (r0 + 63) / kWgBN + 1);
+    }
+    // every key of tile t is valid for every row of the warpgroup
+    auto full_tile = [&](int t) {
+      const int kv0 = t * kWgBN;
+      return kv0 + kWgBN <= seq &&
+             (!causal || (kv0 + kWgBN - 1 <= r0 && kv0 >= r0 + 64 - window));
+    };
+    // Turns: the two consumers issue their wgmmas in alternation (named
+    // barriers 1 and 2), so one's softmax runs beside the other's
+    // products. Each takes one turn per tile of the CTA and one more for
+    // its last p.V, t_end - t_begin + 1 in all; consumer 1 lets consumer 0
+    // go first and gives back no turn after its last.
+    const int turns = t_end - t_begin + 1;
+    int turn = 0;
+    auto turn_begin = [&]() { bar_sync(1 + cw); };
+    auto turn_end = [&]() {
+      if (++turn < turns || cw == 0) bar_arrive(2 - cw);
+    };
+    if (cw == 1) bar_arrive(1);
+    auto pass = [&](int i) {  // wait on and release ring slot i unused
+      const int s = i % kStages;
+      const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+      mbar_wait(k_full + 8 * s, parity);
+      mbar_arrive(k_empty + 8 * s);
+      mbar_wait(v_full + 8 * s, parity);
+      mbar_arrive(v_empty + 8 * s);
+      turn_begin();
+      turn_end();
+    };
+
+    float m[2] = {kNeg, kNeg};
+    float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+    float corr[2];
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int i = 0;  // ring slot of tile t_begin + i
+    for (; i < w_begin - t_begin; ++i) pass(i);
+    if (w_begin < w_end) {
+      float sc[64];
+      uint32_t ph[kWgBN / 16][4], pl[kWgBN / 16][4];
+      // first tile: s, then p
+      {
+        const int s = i % kStages;
+        const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+        mbar_wait(k_full + 8 * s, parity);
+        turn_begin();
+        wgmma_fence();
+        issue_qk<HD>(sc, q_rows, skv + s * 2 * C::kTileBytes);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        mbar_arrive(k_empty + 8 * s);
+        softmax_step(sc, m, l, corr, f, w_begin * kWgBN, full_tile(w_begin),
+                     seq, causal, window, scale_log2);
+        split_fragments(sc, ph, pl);
+      }
+      // Each later tile: its s-product and the previous tile's p.V run on
+      // the tensor cores while this tile's softmax runs; acc is rescaled
+      // and the new p takes the fragments once p.V is done.
+      for (int t = w_begin + 1; t < w_end; ++t) {
+        const int sp = i % kStages;
+        const uint32_t pp = (uint32_t)(i / kStages) & 1u;
+        ++i;
+        const int s = i % kStages;
+        const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+        mbar_wait(k_full + 8 * s, parity);
+        mbar_wait(v_full + 8 * sp, pp);
+        turn_begin();
+        wgmma_fence();
+        issue_qk<HD>(sc, q_rows, skv + s * 2 * C::kTileBytes);
+        wgmma_commit();
+        issue_pv<HD>(acc, ph, pl, skv + sp * 2 * C::kTileBytes +
+                                      C::kTileBytes);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<1>();  // the s-product
+        fence_regs(sc);
+        mbar_arrive(k_empty + 8 * s);
+        softmax_step(sc, m, l, corr, f, t * kWgBN, full_tile(t), seq, causal,
+                     window, scale_log2);
+        wgmma_wait<0>();  // the previous p.V
+        fence_regs(acc);
+        mbar_arrive(v_empty + 8 * sp);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+        split_fragments(sc, ph, pl);
+      }
+      // the last tile's p.V
+      const int s = i % kStages;
+      mbar_wait(v_full + 8 * s, (uint32_t)(i / kStages) & 1u);
+      turn_begin();
+      wgmma_fence();
+      issue_pv<HD>(acc, ph, pl, skv + s * 2 * C::kTileBytes + C::kTileBytes);
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(v_empty + 8 * s);
+      ++i;
+    }
+    for (; i < t_end - t_begin; ++i) pass(i);
+    if (turn < turns) {  // no p.V of its own: the last turn is empty
+      turn_begin();
+      turn_end();
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (f.row[r] >= seq) continue;
+      const float denom = fmaxf(l[r], 1e-20f);
+      __nv_bfloat16* orow =
+          o + b * ob + (long long)f.row[r] * os + h * oh + f.col;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
+                                  acc[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+#undef WG_D32
+#undef WG_D64
+#undef WG_F8
+#undef WG_F32
+#undef WG_F64
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (head_dim, head, seq, batch) of a bf16 tensor with element
+// strides sb, ss, sh (head_dim contiguous), boxes of 64 columns x `rows`
+// rows, 128-byte swizzle; reads past S are zeros.
+cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, int hd,
+                            int heads, int seq, int batch, long long sb,
+                            long long ss, long long sh, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)(2 * sh), (cuuint64_t)(2 * ss),
+                           (cuuint64_t)(2 * sb)};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int batch, int seq, int heads, int kv_heads,
+                         const Strides& st, int window, int causal,
+                         float scale, cudaStream_t stream) {
+  using C = WgCfg<HD>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_tensor_map(&tq, q, HD, heads, seq, batch, st.qb,
+                                    st.qs, st.qh, kWgBM);
+  if (err == cudaSuccess)
+    err = make_tensor_map(&tk, k, HD, kv_heads, seq, batch, st.kb, st.ks,
+                          st.kh, kWgBN);
+  if (err == cudaSuccess)
+    err = make_tensor_map(&tv, v, HD, kv_heads, seq, batch, st.vb, st.vs,
+                          st.vh, kWgBN);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_attention_wgmma_kernel<HD>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(batch * heads),
+                  (unsigned)((seq + kWgBM - 1) / kWgBM));
+  kernel<<<grid, kWgThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq, heads,
+      heads / kv_heads, st.ob, st.os, st.oh, window, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t occupancy_wgmma(int* threads, int* smem, int* regs, int* ctas) {
+  using C = WgCfg<HD>;
+  auto kernel = flash_attention_wgmma_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *threads = kWgThreads;
+  *smem = C::kSmem;
+  *regs = attr.numRegs;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                       kWgThreads, C::kSmem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -372,11 +1063,51 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                      heads, group, st, window, causal, scale, s)
 }
 
-// Launch configuration of the kernel for (head_dim, bf16): threads per CTA,
-// dynamic shared memory in bytes, registers per thread, CTAs per SM.
+// The tensor-core kernel: bf16 q, k, v and o (bf16 must be 1) at head_dim
+// 64 or 128, the arguments as for flash_attention. Every stride must be a
+// multiple of 8 elements (16 bytes) and every base 16-byte aligned, as TMA
+// needs; a tensor map the driver refuses returns cudaErrorInvalidValue.
+int flash_attention_wgmma(const void* q, const void* k, const void* v,
+                          void* o, int batch, int seq, int heads,
+                          int kv_heads, int head_dim, long long qb,
+                          long long qs, long long qh, long long kb,
+                          long long ks, long long kh, long long vb,
+                          long long vs, long long vh, long long ob,
+                          long long os, long long oh, int window, int causal,
+                          float scale, int bf16, void* stream) {
+  if (batch < 0 || seq < 0 || heads < 1 || kv_heads < 1 ||
+      heads % kv_heads != 0 || window < 1 || bf16 != 1 ||
+      (long long)batch * heads > 0x7fffffffLL ||
+      (seq + kWgBM - 1) / kWgBM > 65535)
+    return cudaErrorInvalidValue;
+  if (batch == 0 || seq == 0) return cudaSuccess;
+  const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, batch, seq, heads, kv_heads, st,
+                              window, causal, scale, s);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, batch, seq, heads, kv_heads, st,
+                               window, causal, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Launch configuration of kernel 0 (flash_attention_kernel, any head_dim,
+// bf16 or fp32) or 1 (flash_attention_wgmma_kernel, head_dim 64 or 128,
+// bf16 == 1): threads per CTA, dynamic shared memory in bytes, registers
+// per thread, CTAs per SM.
 int attention_occupancy(int kernel, int head_dim, int bf16, int unused,
                         int* threads, int* smem, int* regs, int* ctas) {
   (void)unused;
+  if (kernel == 1) {
+    if (bf16 != 1) return cudaErrorInvalidValue;
+    if (head_dim == 64) return occupancy_wgmma<64>(threads, smem, regs, ctas);
+    if (head_dim == 128)
+      return occupancy_wgmma<128>(threads, smem, regs, ctas);
+    return cudaErrorInvalidValue;
+  }
   if (kernel != 0) return cudaErrorInvalidValue;
   ATTENTION_DISPATCH(occupancy_typed, head_dim, bf16, threads, smem, regs,
                      ctas)

@@ -254,39 +254,59 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 
 
+def _counter(dtype, hd):
+    """The launch counter of the kernel that (dtype, hd) dispatches to."""
+    return {"wgmma": "flash_attention_wgmma",
+            "cuda_core": "flash_attention"}[tattn.kernel_for(dtype, hd)]
+
+
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,KV,window,causal", [
     (200, 4, 2, 1 << 30, True), (130, 2, 1, 24, True),
-    (100, 2, 2, 1 << 30, False), (64, 4, 4, 1, True)])
+    (100, 2, 2, 1 << 30, False), (64, 4, 4, 1, True), (1, 4, 2, 1 << 30, True),
+    (37, 4, 2, 1 << 30, True), (300, 6, 2, 100, True)])
 def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
                                     causal):
+    """Each (dtype, hd) against the plain version of the kernel it
+    dispatches to, whose counter alone moves: bf16 at hd 64 and 128 on the
+    wgmma kernel, the rest on the CUDA-core kernel; S ragged against both
+    kernels' tiles, S = 1 and S < 64."""
     g = torch.Generator(device=cuda).manual_seed(hd + S)
     q = torch.randn(2, S, H, hd, device=cuda, generator=g).to(dtype)
     k, v = (torch.randn(2, S, KV, hd, device=cuda, generator=g).to(dtype)
             for _ in range(2))
     kw = dict(window=window, causal=causal, scale=hd ** -0.5)
-    got = _launched("flash_attention", lambda: tattn.attention(q, k, v,
-                                                               **kw))
+    other = ({"flash_attention", "flash_attention_wgmma"}
+             - {_counter(dtype, hd)}).pop()
+    before = _build.LAUNCHES[other]
+    got = _launched(_counter(dtype, hd),
+                    lambda: tattn.attention(q, k, v, **kw))
+    assert _build.LAUNCHES[other] == before
     want = tattn.attention_plain(q, k, v, **kw)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **ATTN_TOL[dtype])
 
 
-def test_flash_public_layout_matches_plain(cuda):
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_public_layout_matches_plain(cuda, dtype, hd):
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(6, 96, 64, device=cuda, generator=g)
+    q, k, v = (torch.randn(6, 96, hd, device=cuda, generator=g).to(dtype)
                for _ in range(3))
-    got = _launched("flash_attention",
+    got = _launched(_counter(dtype, hd),
                     lambda: tattn.flash_attention(q, k, v, window=40))
+    bk = tattn.WGMMA_KERNEL_KEYS if _counter(dtype, hd).endswith("wgmma") \
+        else tattn.KERNEL_KEYS
     np.testing.assert_allclose(
-        got.cpu().numpy(),
-        tattn.flash_attention_plain(q, k, v, window=40, bk=64).cpu().numpy(),
-        **ATTN_TOL[torch.float32])
+        got.float().cpu().numpy(),
+        tattn.flash_attention_plain(q, k, v, window=40, bk=bk).float().cpu()
+        .numpy(), **ATTN_TOL[dtype])
     np.testing.assert_allclose(
-        got.cpu().numpy(),
-        tattn.attention_ref(q, k, v, window=40).cpu().numpy(),
-        **ATTN_TOL[torch.float32])
+        got.float().cpu().numpy(),
+        tattn.attention_ref(q, k, v, window=40).float().cpu().numpy(),
+        **ATTN_TOL[dtype])
 
 
 def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
@@ -295,12 +315,34 @@ def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
         tattn.attention(x, x, x, window=4, scale=1.0)
 
 
-@pytest.mark.parametrize("hd,bf16,ctas", [(128, 1, 2), (320, 0, 1)])
-def test_attention_occupancy(cuda, hd, bf16, ctas):
-    occ = _build.occupancy("flash_attention", hd, bf16, 0)
-    assert occ["threads"] == 256
-    assert occ["smem_bytes"] == 4 * (64 * (hd + 4) * 2 + 64 * 68)
+def _wgmma_smem(hd):
+    """Q tile (128 rows), two stages of K and V tiles (128 keys), nine
+    mbarriers, and 1024 bytes to align the tiles to the swizzle atom."""
+    return 2 * 128 * hd + 2 * 2 * 2 * 128 * hd + 8 * 9 + 1024
+
+
+@pytest.mark.parametrize("name,hd,bf16,threads,smem,ctas", [
+    ("flash_attention", 128, 1, 256, 4 * (64 * 132 * 2 + 64 * 68), 2),
+    ("flash_attention", 320, 0, 256, 4 * (64 * 324 * 2 + 64 * 68), 1),
+    ("flash_attention_wgmma", 64, 1, 384, _wgmma_smem(64), 1),
+    ("flash_attention_wgmma", 128, 1, 384, _wgmma_smem(128), 1)])
+def test_attention_occupancy(cuda, name, hd, bf16, threads, smem, ctas):
+    occ = _build.occupancy(name, hd, bf16, 0)
+    assert occ["threads"] == threads
+    assert occ["smem_bytes"] == smem
     assert occ["ctas_per_sm"] == ctas
+
+
+def test_wgmma_kernel_refuses_fp32(cuda):
+    """The wgmma launcher takes bf16 only; asked for fp32 it refuses the
+    launch, and the wrapper raises instead of running another kernel."""
+    x = torch.zeros(1, 8, 2, 64, device=cuda)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="flash_attention_wgmma"):
+        _build.launch("flash_attention_wgmma", "flash_attention_wgmma",
+                      x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      1, 8, 2, 2, 64, *x.stride()[:3] * 4, 8, 1, 1.0, 0)
+    assert _build.LAUNCHES == before
 
 
 def test_generate_on_card_matches_cpu(cuda):

@@ -216,3 +216,152 @@ def test_launcher_rejects_what_the_kernel_does_not_take(fake_launch):
     with pytest.raises(ValueError, match="16 bytes"):
         tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert fake_launch == []
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernel's route: bf16 at head_dim 64 and 128
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
+def test_kernel_for_every_type_and_head_dim(dtype, hd):
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+            else "cuda_core")
+    assert tattn.kernel_for(dtype, hd) == want
+
+
+def test_split_bf16_keeps_16_bits():
+    """p_hi + p_lo holds p to 2^-16 relative: each bf16 rounding keeps 8
+    significant bits, and p_lo rounds a residual of at most 2^-8 p."""
+    rng = np.random.default_rng(5)
+    p = np.concatenate([rng.random(200_000), np.exp(-40 * rng.random(1000)),
+                        [0.0, 1.0, 0.5]]).astype(np.float32)
+    got = tattn.split_bf16(torch.from_numpy(p)).numpy()
+    assert np.all(np.abs(p - got) <= 2.0 ** -16 * np.abs(p))
+    # a single bf16 pass would not meet the bound
+    single = torch.from_numpy(p).to(torch.bfloat16).float().numpy()
+    assert not np.all(np.abs(p - single) <= 2.0 ** -16 * np.abs(p))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,window", [(160, 1 << 30), (96, 24)])
+def test_wgmma_plain_matches_pallas_kernel(rng, hd, S, window):
+    """bf16 at the wgmma kernel's head_dims: the plain version with its key
+    tile of 128 and p split in two bf16 parts against the Pallas kernel in
+    interpret mode and the naive oracle."""
+    arrs = _qkv(rng, 2, S, hd)
+    got = tattn.flash_attention(*_torch(arrs, torch.bfloat16), window=window)
+    assert got.dtype == torch.bfloat16
+    want = jattn.flash_attention(*_jax(arrs, jnp.bfloat16), window=window,
+                                 bq=32, bk=32)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+    oracle = jattn.attention_ref(*_jax(arrs, jnp.bfloat16), window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(oracle, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 40),
+                                         (6, 2, 1 << 30)])
+def test_wgmma_plain_matches_reference_layer(rng, hd, H, KV, window):
+    """The GQA layout in bf16: the port's layer (which runs the split plain
+    version on the CPU) and the plain version itself against the
+    reference's ``blockwise_attention``."""
+    arrs = [a * 2.0 for a in _gqa(rng, 2, 150, H, KV, hd)]
+    want = np.asarray(jlayer.blockwise_attention(
+        *_jax(arrs, jnp.bfloat16), window=window, kv_block=64), np.float32)
+    got = tlayer.blockwise_attention(*_torch(arrs, torch.bfloat16),
+                                     window=window, kv_block=64)
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+    q, k, v = _torch(arrs, torch.bfloat16)
+    plain = tattn.attention_plain(tlayer._scale_q(q), k, v, window=window,
+                                  scale=1.0)
+    np.testing.assert_allclose(plain.float().numpy(), want, **BF16_TOL)
+
+
+def test_wgmma_plain_folds_the_kernels_key_tile(rng):
+    """By default the plain version folds the key tile of the kernel that
+    ``kernel_for`` picks: 128 keys for the wgmma kernel, 64 otherwise."""
+    q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, 64), torch.bfloat16)
+    kw = dict(window=1 << 30, scale=0.125)
+    got = tattn.attention_plain(q, k, v, **kw)
+    assert torch.equal(got, tattn.attention_plain(
+        q, k, v, kv_block=tattn.WGMMA_KERNEL_KEYS, **kw))
+    q, k, v = (x.float() for x in (q, k, v))
+    assert torch.equal(tattn.attention_plain(q, k, v, **kw),
+                       tattn.attention_plain(
+                           q, k, v, kv_block=tattn.KERNEL_KEYS, **kw))
+
+
+def test_cpu_path_launches_no_wgmma_kernel(rng):
+    _build.reset_launches()
+    q, k, v = _torch(_qkv(rng, 2, 32, 64), torch.bfloat16)
+    tattn.flash_attention(q, k, v)
+    tattn.attention(q[None], k[None], v[None], window=8, scale=1.0)
+    assert _build.LAUNCHES["flash_attention_wgmma"] == 0
+    assert _build.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.fixture
+def fake_named_launch(monkeypatch):
+    """As ``fake_launch``, recording the C launcher and the counter too."""
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, counter, *args:
+                        calls.append((name, counter, args)))
+    monkeypatch.setattr(tattn.torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    return calls
+
+
+def test_wgmma_launcher_arguments_model_layout(fake_named_launch):
+    B, S, H, KV, hd = 2, 40, 16, 8, 128
+    q = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    k = torch.zeros(B, S, KV, hd, dtype=torch.bfloat16)
+    o = tattn._launch(q, k, k, window=1 << 40, causal=True, scale=1.0)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    ((name, counter, args),) = fake_named_launch
+    assert name == counter == "flash_attention_wgmma"
+    assert args[4:9] == (B, S, H, KV, hd)
+    assert args[9:21] == (S * H * hd, H * hd, hd, S * KV * hd, KV * hd, hd,
+                          S * KV * hd, KV * hd, hd, S * H * hd, H * hd, hd)
+    assert args[21:] == (1 << 30, 1, 1.0, 1)
+
+
+def test_wgmma_launcher_arguments_public_layout(fake_named_launch):
+    """(H, S, hd) bf16 at head_dim 64 reaches the wgmma kernel as strided
+    (1, S, H, hd) views, with no copy; fp32 at the same shape goes to the
+    CUDA-core kernel."""
+    H, S, hd = 3, 20, 64
+    q = torch.zeros(H, S, hd, dtype=torch.bfloat16)
+    q4 = q.permute(1, 0, 2)[None]
+    tattn._launch(q4, q4, q4, window=7, causal=False, scale=hd ** -0.5)
+    x = torch.zeros(H, S, hd).permute(1, 0, 2)[None]
+    tattn._launch(x, x, x, window=7, causal=False, scale=hd ** -0.5)
+    (name, _, args), (name32, _, args32) = fake_named_launch
+    assert (name, name32) == ("flash_attention_wgmma", "flash_attention")
+    assert args[0] == q.data_ptr()
+    assert args[4:9] == args32[4:9] == (1, S, H, H, hd)
+    assert args[10:12] == (hd, S * hd)
+    assert args[21:] == (7, 0, hd ** -0.5, 1)
+    assert args32[21:] == (7, 0, hd ** -0.5, 0)
+
+
+def test_wgmma_launcher_rejects_what_tma_does_not_take(fake_named_launch):
+    """TMA takes a base on 16 bytes and strides of 16 bytes: 8 bf16
+    elements. A stride of 4 elements, which the CUDA-core kernel takes,
+    is refused for bf16 at head_dim 64."""
+    x = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    x = torch.zeros(1, 8, 2, 136, dtype=torch.bfloat16)[..., 4:68]
+    with pytest.raises(ValueError, match="16 bytes"):
+        tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    assert fake_named_launch == []
+    x = torch.zeros(1, 8, 2, 68)[..., :64]      # fp32: the CUDA-core kernel
+    tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    x = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)[..., :64]
+    tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    assert [c[0] for c in fake_named_launch] == ["flash_attention",
+                                                 "flash_attention_wgmma"]
