@@ -31,7 +31,13 @@ Phases (any failure exits non-zero):
      shape, windows 1024 and 24, non-causal, ragged S, G = 1, S = 1 and
      S < 64; the CUDA-core kernel at bf16 head_dims 32 and 320 and in
      fp32; bf16 within one bf16 step and fp32 within 2e-4; and the public
-     (H, S, hd) layout against the naive oracle.
+     (H, S, hd) layout against the naive oracle. Then the fft and rfft
+     kernels' two-pass schedule (``check_two_pass``): n = 2^14 .. 2^18
+     (two passes) and 4096, 8192 under both schedules (the one the planner
+     does not pick through the launch helper the wrapper calls), radix 2
+     and 4, batches 1, 2, 5 and 64, forward and inverse, each result equal
+     to the plain version bit for bit (``==``), within tolerance of
+     float64 numpy, and the rfft -> irfft round trip.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
      requests each), ``polymul-mod`` single-limb at both lengths and RNS at
      n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
@@ -71,8 +77,13 @@ Phases (any failure exits non-zero):
      by CUDA events over back-to-back calls, as their traces drop events;
      the traced times are printed beside where the trace holds any); each
      kernel must agree with its plain version within phase 2's tolerance
-     (exactly, for the NTT kernels). Each kernel's launch configuration and
-     the CTAs an SM holds come from the CUDA occupancy API. Then the LM
+     (exactly, for the NTT kernels and the fft and rfft kernels). Each
+     kernel's launch configuration and the CTAs an SM holds come from the
+     CUDA occupancy API, for each pass of a two-pass launch, whose traced
+     time counts a call's two launches. Then the A/B of the fft and rfft
+     kernels' two schedules at n = 4096 and 8192 (``schedule_ab``: in
+     turns resident, two-pass, two-pass, resident), which sets the
+     planner's threshold. Then the LM
      cell: prefill ms, decode ms per token and tok/s, and a traced run for
      the card's idle share and the wgmma flash kernel's share of the
      prefill.
@@ -301,6 +312,127 @@ def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
     return worst
 
 
+#: phase 2's two-pass cases: the lengths where the wrappers plan two passes
+#: on the serve path and past it, and the resident lengths where both
+#: schedules run (the planner's, and the other through the launch helper)
+TWO_PASS_NS = tuple(1 << k for k in range(14, 19))
+BOTH_SCHEDULES_NS = (4096, 8192)
+TWO_PASS_BATCHES = (1, 2, 5, SERVE_BATCH)
+
+
+def schedules(kfft, name: str, n: int, radix: int) -> dict:
+    """The schedules phase 2 and the A/B run ``name`` under at length n:
+    {"two-pass" or "resident" (or "staged"): the ``TwoPass`` or None}; the
+    planner's first."""
+    real = name == "rfft_planes"
+    planned = kfft.two_pass_plan(n, radix, real=real)
+    out = {("two-pass" if planned else
+            "resident" if kfft.resident(n, real=real) else "staged"):
+           planned}
+    if n in BOTH_SCHEDULES_NS:
+        out.setdefault("resident", None)
+        out.setdefault("two-pass", kfft.two_pass_launch(
+            *kfft.two_pass_split(n, radix, real=real), real=real))
+    return out
+
+
+def launch_under(kfft, name: str, schedule, radix: int, *, inverse=False):
+    """``fft_planes`` / ``rfft_planes`` on card tensors under a given
+    schedule: through the wrapper where it is the planner's, else through
+    the launch helper the wrapper calls (the C entry point, one count on the
+    wrapper's counter), so the schedule the planner did not pick runs too."""
+    def run(*planes):
+        n = planes[0].shape[1]
+        real = name == "rfft_planes"
+        if schedule == kfft.two_pass_plan(n, radix, real=real):
+            if real:
+                return kfft.rfft_planes(planes[0], radix=radix)
+            return kfft.fft_planes(*planes[:2], inverse=inverse, radix=radix)
+        if real:
+            return kfft._launch_rfft(planes[0], radix, kfft.plan_batch_block(
+                n, real=True), schedule)
+        return kfft._launch_fft(*planes[:2], inverse, radix,
+                                kfft.plan_batch_block(n), schedule)
+    return run
+
+
+def check_two_pass(torch, kfft) -> dict[str, int]:
+    """fft_planes (forward and inverse) and rfft_planes under every
+    schedule of ``schedules`` -- two passes at n = 2^14 .. 2^18, both
+    schedules at n = 4096 and 8192 -- radix 2 and 4, batches 1, 2, 5 and the
+    serve batch: each result equal to its plain version bit for bit
+    (``==``), the first five rows within the reference tests' tolerance of
+    float64 numpy, and the rfft -> irfft round trip within rtol 1e-4, atol
+    1e-4 n. Returns the cases held per kernel."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    held = {"fft_planes": 0, "rfft_planes": 0}
+
+    def equal(label, got, want):
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            diff = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            raise SystemExit(f"{label}: kernel and plain version differ "
+                             f"(max |diff| {diff}); the two-pass schedule "
+                             f"must equal them bit for bit")
+
+    for n in sorted(BOTH_SCHEDULES_NS + TWO_PASS_NS):
+        tol = tolerance("fft_planes", n)
+        done = []
+        for radix in (2, 4):
+            for b in TWO_PASS_BATCHES:
+                xr, xi = (torch.from_numpy(rng.standard_normal(
+                    (b, n)).astype(np.float32)).to(dev) for _ in range(2))
+                head = (xr[:5].cpu().numpy().astype(np.float64)
+                        + 1j * xi[:5].cpu().numpy())
+                for inverse in (False, True):
+                    plain = kfft.fft_planes_plain(xr, xi, inverse=inverse,
+                                                  radix=radix)
+                    want = (np.fft.ifft(head) * n if inverse
+                            else np.fft.fft(head))
+                    for label, sched in schedules(kfft, "fft_planes", n,
+                                                  radix).items():
+                        got = launch_under(kfft, "fft_planes", sched, radix,
+                                           inverse=inverse)(xr, xi)
+                        case = (f"fft_planes n={n} radix={radix} batch={b} "
+                                f"inverse={inverse} {label}")
+                        equal(case, got, plain)
+                        g = (got[0][:5].cpu().numpy().astype(np.complex128)
+                             + 1j * got[1][:5].cpu().numpy())
+                        np.testing.assert_allclose(
+                            g * (n if inverse else 1), want, **tol,
+                            err_msg=case)
+                        held["fft_planes"] += 1
+                        done.append(label)
+                plain = kfft.rfft_planes_plain(xr, radix=radix)
+                half = np.fft.rfft(head.real)
+                for label, sched in schedules(kfft, "rfft_planes", n,
+                                              radix).items():
+                    yr, yi = launch_under(kfft, "rfft_planes", sched,
+                                          radix)(xr)
+                    case = (f"rfft_planes n={n} radix={radix} batch={b} "
+                            f"{label}")
+                    equal(case, (yr, yi), plain)
+                    pr, pi = yr[:5].cpu().numpy(), yi[:5].cpu().numpy()
+                    np.testing.assert_allclose(pr, half[:, :n // 2].real,
+                                               **tol, err_msg=case)
+                    np.testing.assert_allclose(pi[:, 0], half[:, n // 2].real,
+                                               **tol, err_msg=case)
+                    np.testing.assert_allclose(pi[:, 1:],
+                                               half[:, 1:n // 2].imag, **tol,
+                                               err_msg=case)
+                    back = kfft.irfft_planes(yr, yi, radix=radix)
+                    np.testing.assert_allclose(
+                        back.cpu().numpy(), xr.cpu().numpy(), rtol=1e-4,
+                        atol=1e-4 * n, err_msg=f"{case}: rfft -> irfft")
+                    held["rfft_planes"] += 1
+        print(f"[two-pass] n={n} radix 2,4 batches {TWO_PASS_BATCHES} "
+              f"schedules {sorted(set(done))}: fft (forward, inverse) and "
+              f"rfft == plain, within tolerance of numpy, rfft -> irfft "
+              f"round trip ok", flush=True)
+    torch.cuda.synchronize()
+    return held
+
+
 def check_ntt_kernels(torch, kntt, ntt_core, core_fft) -> dict[str, int]:
     """Sweep the three NTT kernels: each result must equal its plain
     version and the numpy reference bit for bit. Returns the worst
@@ -475,7 +607,7 @@ def library_phase(torch, core_fft, kntt, ntt_core) -> None:
 #: Device-side names of the serve routes' own kernels in a profiler trace.
 ROUTE_KERNEL = re.compile(
     r"(^|::)(fft|rfft|polymul_complex|polymul_real|ntt_polymul|"
-    r"rns_ntt_polymul)_kernel\b")
+    r"rns_ntt_polymul)(_pass[12])?_kernel\b")
 
 
 def idle_shares(torch, serve, card: str) -> dict:
@@ -593,6 +725,35 @@ def time_ms(torch, fn, arg_sets, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, arg_sets, reps: int) -> float:
+    """Mean ms of one call by CUDA events around the replay of a CUDA graph
+    that holds ``reps`` calls cycling through ``arg_sets``: the card's time
+    for the calls back to back, the host's launch gaps left out (the
+    launches are captured once). The best of two replays, after a warm
+    one."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.synchronize()
+    return best
+
+
 def device_ms(torch, fn, arg_sets, reps: int, *,
               launches_per_call: int | None = None,
               tries: int = 5, required: bool = True
@@ -639,30 +800,73 @@ def device_ms(torch, fn, arg_sets, reps: int, *,
 
 def occupancy(build, kfft, name: str, n: int, b: int, plan) -> dict:
     """Launch configuration and CTAs per SM of kernel ``name`` as its
-    wrapper launches it for a batch of b rows under ``plan``."""
+    wrapper launches it for a batch of b rows under ``plan``: under the
+    two-pass schedule, pass 1's (and pass 2's under "pass2"), with the
+    sub-problems per CTA as "rows_per_cta"."""
     real = name in ("rfft_planes", "irfft_planes", "polymul_real_planes")
+    if name in ("fft_planes", "rfft_planes") and plan.two_pass:
+        return pass_occupancy(build, kfft, name, n, plan.radix)
     product = name.startswith("polymul")
     rows, staged = kfft.cta_rows(n, b, plan.block_b, real=real,
                                  product=product)
-    return {"rows_per_cta": rows, "staged": staged,
+    return {"rows_per_cta": rows, "staged": staged, "launches_per_call": 1,
             **build.occupancy(name, n.bit_length() - 1, rows, staged)}
 
 
+def pass_occupancy(build, kfft, name: str, n: int, radix: int) -> dict:
+    """Both pass kernels of ``name``'s two-pass launch at length n: pass
+    1's numbers at the top level, pass 2's under "pass2"."""
+    real = name == "rfft_planes"
+    tp = kfft.two_pass_launch(*kfft.two_pass_split(n, radix, real=real),
+                              real=real)
+    lg = {v: v.bit_length() - 1 for v in (tp.n1, tp.n2)}
+    one = build.occupancy(name, lg[tp.n1], tp.c1, 2)
+    two = build.occupancy(name, lg[tp.n2], tp.c2, 3)
+    return {"rows_per_cta": f"{tp.c1} of {tp.n1} points",
+            "staged": False, "launches_per_call": 2,
+            "two_pass": f"{tp.n1} x {tp.n2}", **one,
+            "pass2": {"sub_problems_per_cta": (2 if real else 1) * tp.c2,
+                      "points": tp.n2, **two}}
+
+
+def launch_text(entry: dict) -> str:
+    """The launch configuration of a timed kernel, for its report line."""
+    def one(e, rows):
+        return (f"{rows}, {e['threads']} threads, {e['smem_bytes']} B "
+                f"shared, {e['regs']} regs/thread -> {e['ctas_per_sm']} "
+                f"CTAs/SM")
+    if "pass2" not in entry:
+        return one(entry, f"{entry['rows_per_cta']} rows/CTA")
+    p2 = entry["pass2"]
+    return (f"two-pass {entry['two_pass']}, 2 kernel launches per call; "
+            f"pass 1: " + one(entry, f"{entry['rows_per_cta']} sub-problems"
+                              f"/CTA") + "; pass 2: "
+            + one(p2, f"{p2['sub_problems_per_cta']} of {p2['points']} "
+                      f"points sub-problems/CTA"))
+
+
 def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
-            *, exact: bool, bound: tuple[float, float, str]) -> dict:
-    """Hold the kernel against its plain version on ``sets[0]`` (exactly,
-    or within phase 2's tolerance), then time kernel, plain version and
-    library call (None: no PyTorch call computes the function). ``bound``
-    is (ms for the bytes, ms for the operations, what the operations are)."""
+            *, exact: bool, bound: tuple[float, float, str],
+            launches_per_call: int = 1, graph: bool = False) -> dict:
+    """Hold the kernel against its plain version on ``sets[0]`` (exactly:
+    bit for bit, or within phase 2's tolerance), then time kernel, plain
+    version and library call (None: no PyTorch call computes the
+    function). ``bound`` is (ms for the bytes, ms for the operations, what
+    the operations are);
+    ``launches_per_call`` the kernel launches one call of the wrapper makes
+    (2 under the two-pass schedule), by which the traced launches are
+    counted into calls; ``graph`` adds the kernel's CUDA-graph replay time
+    (``graph_ms``) beside the others."""
     reps = max(len(sets), 20)
     got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
                  for f in (kern, plain))
-    if exact:
+    if not got.is_floating_point():
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         ok = err == 0
     else:
         err = float((got - want).abs().max())
-        ok = torch.allclose(got, want, **tolerance(name, n))
+        ok = (torch.equal(got, want) if exact
+              else torch.allclose(got, want, **tolerance(name, n)))
     if not ok:
         raise SystemExit(f"{name} n={n}: kernel and plain version differ "
                          f"(max abs difference {err})")
@@ -673,8 +877,10 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
                   time_ms(torch, kern, sets, reps))
     plain_ev = min(plain_ev, time_ms(torch, plain, sets, reps))
     t_bytes, t_ops, ops_kind = bound
-    ms, traced = device_ms(torch, kern, sets, reps, launches_per_call=1)
-    return {"ms": ms, "traced_launches": f"{traced} of {reps}",
+    ms, traced = device_ms(torch, kern, sets, reps,
+                           launches_per_call=launches_per_call)
+    return {"ms": ms,
+            "traced_launches": f"{traced} of {reps * launches_per_call}",
             "plain_ms": device_ms(torch, plain, sets, reps)[0],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -682,6 +888,8 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
             "operations": ops_kind,
             "library_ms": lib and device_ms(torch, lib, lib_sets, reps)[0],
             "max_abs_err": err, "event_ms": kern_ev,
+            "graph_event_ms": graph_ms(torch, kern, sets, reps) if graph
+            else None,
             "plain_event_ms": plain_ev,
             "library_event_ms": lib and time_ms(torch, lib, lib_sets, reps)}
 
@@ -690,18 +898,19 @@ def report_line(name: str, n: int, entry: dict, card: str) -> None:
     lib = entry["library_ms"]
     print(f"[time] {name} n={n} batch={SERVE_BATCH} "
           f"resident={entry['resident']} device ms (profiler): "
-          f"kernel={entry['ms']:.4f} (mean of {entry['traced_launches']} "
-          f"launches traced) plain={entry['plain_ms']:.4f} "
+          f"kernel={entry['ms']:.4f} (a call's {entry['launches_per_call']} "
+          f"launch(es), over the {entry['traced_launches']} launches "
+          f"traced) plain={entry['plain_ms']:.4f} "
           f"library={'none' if lib is None else f'{lib:.4f}'} "
           f"[{entry['library']}] bound={entry['bound_ms']:.4f} "
           f"({entry['bound_by']}; bytes {entry['bytes_ms']:.4f}, "
           f"{entry['operations']} {entry['operations_ms']:.4f}); event ms "
           f"per call: kernel={entry['event_ms']:.4f} "
-          f"plain={entry['plain_event_ms']:.4f}; |kernel-plain|max="
-          f"{entry['max_abs_err']:.3g}; launch: {entry['rows_per_cta']} "
-          f"rows/CTA, {entry['threads']} threads, {entry['smem_bytes']} B "
-          f"shared, {entry['regs']} regs/thread -> {entry['ctas_per_sm']} "
-          f"CTAs/SM; on {card}", flush=True)
+          + ("" if entry.get("graph_event_ms") is None else
+             f"(graph replay {entry['graph_event_ms']:.4f}) ")
+          + f"plain={entry['plain_event_ms']:.4f}; |kernel-plain|max="
+          f"{entry['max_abs_err']:.3g}; launch: {launch_text(entry)}; on "
+          f"{card}", flush=True)
 
 
 def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
@@ -774,17 +983,92 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
         for name, (plan, kern, plain, ksets, lib, lsets, lib_name) in \
                 cases.items():
             nbytes, flops = work(name, n, b, plan.radix)
+            occ = occupancy(build, kfft, name, n, b, plan)
             entry = measure(torch, name, n, kern, plain, ksets, lib, lsets,
-                            exact=False,
+                            exact=name in ("fft_planes", "rfft_planes"),
                             bound=(nbytes / HBM_BYTES_PER_S * 1e3,
                                    flops / FP32_FLOPS_PER_S * 1e3,
-                                   "fp32 flops"))
+                                   "fp32 flops"),
+                            launches_per_call=occ["launches_per_call"],
+                            graph=name in ("fft_planes", "rfft_planes"))
             entry.update(library=lib_name, bytes=nbytes, flops=flops,
                          radix=plan.radix, block_b=plan.block_b,
-                         resident=plan.resident,
-                         **occupancy(build, kfft, name, n, b, plan))
+                         resident=plan.resident, **occ)
             out[name][n] = entry
             report_line(name, n, entry, card)
+    return out
+
+
+def schedule_ab(torch, kfft, card: str) -> dict:
+    """fft_planes (forward) and rfft_planes at the resident lengths n = 4096
+    and 8192, batch 64, radix 4 (the planner's), under both schedules, in
+    turns: resident, two-pass, two-pass, resident. Per turn the time per
+    call by CUDA events around a CUDA-graph replay of the calls
+    (``graph_ms``: the card's time, without the host's launch gaps, which
+    at these sizes exceed the kernels'), the device time from the profiler
+    (a call's launches counted: 1 resident, 2 two-pass) and the CUDA-event
+    time of calls issued one by one (host gaps included); each schedule's
+    result must equal the plain version bit for bit. A schedule is faster
+    where each of its turns beats each of the other's. The planner's
+    threshold (``kernels.fft.TWO_PASS_FROM``) is set from the graph times
+    of such a run: two passes only where they are faster."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    out: dict[str, dict] = {}
+    for name in ("fft_planes", "rfft_planes"):
+        real = name == "rfft_planes"
+        plain = (functools.partial(kfft.rfft_planes_plain, radix=4) if real
+                 else functools.partial(kfft.fft_planes_plain, radix=4))
+        out[name] = {}
+        for n in BOTH_SCHEDULES_NS:
+            b = SERVE_BATCH
+            sets = [[torch.from_numpy(rng.standard_normal((b, n)).astype(
+                np.float32)).to(dev) for _ in range(2)]
+                for _ in range(max(2, math.ceil(128e6 / (2 * b * n * 4))))]
+            fns = {label: launch_under(kfft, name, sched, 4)
+                   for label, sched in schedules(kfft, name, n, 4).items()}
+            want = plain(*sets[0][:1 if real else 2])
+            for label, fn in fns.items():
+                got = fn(*sets[0])
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"{name} n={n} {label}: not equal to "
+                                     f"the plain version")
+            reps = max(len(sets), 20)
+            runs = {label: {"graph_ms": [], "device_ms": [], "event_ms": []}
+                    for label in fns}
+            for label in ("resident", "two-pass", "two-pass", "resident"):
+                per = 2 if label == "two-pass" else 1
+                runs[label]["graph_ms"].append(
+                    graph_ms(torch, fns[label], sets, reps))
+                ms, _ = device_ms(torch, fns[label], sets, reps,
+                                  launches_per_call=per)
+                runs[label]["device_ms"].append(ms)
+                runs[label]["event_ms"].append(
+                    time_ms(torch, fns[label], sets, reps))
+            best = {label: min(r["graph_ms"]) for label, r in runs.items()}
+            planned = ("two-pass" if kfft.two_pass_plan(n, 4, real=real)
+                       else "resident")
+            # faster: every turn of one schedule below every turn of the
+            # other; otherwise the two are within the turns' spread
+            res = runs["resident"]["graph_ms"]
+            two = runs["two-pass"]["graph_ms"]
+            faster = ("two-pass" if max(two) < min(res) else
+                      "resident" if max(res) < min(two) else
+                      "neither (within the turns' spread)")
+            out[name][n] = {"runs": runs, "best_graph_ms": best,
+                            "faster": faster, "planned": planned}
+            def fmt(ts):
+                return ", ".join(f"{t:.4f}" for t in ts)
+
+            print(f"[ab] {name} n={n} batch={b} radix 4, in turns resident, "
+                  f"two-pass, two-pass, resident: ms per call by CUDA "
+                  f"events around a CUDA-graph replay "
+                  + "; ".join(f"{label} {fmt(r['graph_ms'])} (profiler "
+                              f"device ms {fmt(r['device_ms'])}; event ms "
+                              f"with host gaps {fmt(r['event_ms'])})"
+                              for label, r in runs.items())
+                  + f" -> faster on the card: {faster}; the planner serves "
+                  f"{planned}; on {card}", flush=True)
     return out
 
 
@@ -835,7 +1119,8 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
         rows, staged = kntt.ntt_cta_rows(n, b, plan.block_b,
                                          product=name != "ntt_batched")
         entry.update(library="none: no PyTorch call computes an NTT mod q",
-                     bytes=nbytes, int32_ops=ops, limbs=k,
+                     launches_per_call=1, bytes=nbytes, int32_ops=ops,
+                     limbs=k,
                      block_b=plan.block_b, resident=plan.resident,
                      rows_per_cta=rows, staged=staged,
                      **build.occupancy(name, n.bit_length() - 1, rows,
@@ -1350,12 +1635,14 @@ def main() -> int:
     worst = check_kernels(torch, kfft, kpoly, core_fft)
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
     worst.update(check_attention(torch, kattn, _build))
+    two_pass_held = check_two_pass(torch, kfft)
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
     print(f"[kernels] all ten held against their plain versions (the "
-          f"transform kernels against numpy too); launches {moved}; worst "
-          f"|kernel-plain| {worst}", flush=True)
+          f"transform kernels against numpy too; fft and rfft bit for bit "
+          f"under both schedules in {two_pass_held} cases); launches "
+          f"{moved}; worst |kernel-plain| {worst}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
@@ -1386,6 +1673,7 @@ def main() -> int:
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
+    ab = schedule_ab(torch, kfft, card)
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
     attn = {name: attention_timing(torch, kattn, _build, card, name)
             for name in FLASH_KERNELS}
@@ -1403,6 +1691,7 @@ def main() -> int:
             "n": shapes[0], "batch": SERVE_BATCH,
             "per_served_batch": {n: traced[route, n] for n in SERVE_NS
                                  if (route, n) in traced},
+            **({"schedule_ab": ab[name]} if name in ab else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     per = {"flash_attention_wgmma": "one served prefill (28 layers)",
            "flash_attention": "the full-width fp32 parity path: one forward "

@@ -2,17 +2,19 @@
 legacy mode).
 
 Given (n, batch) it decides the kernel configuration that executes on the
-card: radix (2 or 4), rows per CTA, and whether a row stays in shared
-memory or runs its sweeps on a device-memory scratch. Only the local tiers
-exist in this package, float and exact (NTT): the distributed four-step
-tiers and the cost-model auto mode raise and name the slice that ports
-them.
+card: radix (2 or 4), rows per CTA, and the schedule: a row resident in
+one CTA's shared memory, the FFT's and real FFT's two-pass schedule (two
+launches, each CTA holding whole sub-problems of a split n = n1 x n2), or
+one CTA per row staging its sweeps through a device-memory scratch. Only
+the local tiers exist in this package, float and exact (NTT): the
+distributed four-step tiers and the cost-model auto mode raise and name
+the slice that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.kernels.fft import plan_batch_block, resident
+from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
 from repro_torch.kernels.ntt import ntt_resident, plan_ntt_block
 from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block)
@@ -34,13 +36,16 @@ class FFTPlan:
     #: fused-product route (polymul kernels): both operands' spectra share
     #: the CTA, so half the rows per CTA of the transform route.
     product: bool = False
-    #: True when a row (a row pair on the real route) stays in shared memory
-    #: for every sweep; False when the kernel stages its sweeps through a
-    #: device-memory scratch.
+    #: True when a row (a row pair on the real route) stays in one CTA's
+    #: shared memory for every sweep; False when the kernel runs two passes
+    #: (``two_pass``) or stages its sweeps through a device-memory scratch.
     resident: bool = True
     #: exact modular route: the fused Montgomery NTT product of uint32
     #: residues (polymul-mod), bit-exact where the FFT routes round.
     exact: bool = False
+    #: (n1, n2) where the FFT or real FFT kernel runs its two-pass schedule
+    #: (``kernels.fft.two_pass_plan``); None where one CTA takes whole rows.
+    two_pass: tuple[int, int] | None = None
 
     def describe(self) -> str:
         kind = ("NTT (exact mod-q) fused product" if self.exact else
@@ -49,8 +54,13 @@ class FFTPlan:
                  (False, True): "fused complex product",
                  (True, True): "fused real product (paired inverse)",
                  }[(self.real, self.product)])
+        if self.two_pass is not None:
+            n1, n2 = self.two_pass
+            return (f"local CUDA {kind} kernel, radix-{self.radix}, "
+                    f"two-pass {n1} x {n2} (two launches, whole "
+                    f"sub-problems per CTA)")
         where = ("shared-memory resident" if self.resident
-                 else "staged through device memory")
+                 else "single-CTA staged through device memory")
         return (f"local CUDA {kind} kernel, radix-{self.radix}, "
                 f"{self.block_b} rows per CTA ({where})")
 
@@ -63,7 +73,10 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     ``real=True`` plans the two-for-one packed kernels; ``product=True`` the
     fused products, which hold both operands' spectra and so take half the
     rows per CTA and reach shared-memory residency at half the n. Radix 4
-    whenever n >= 4, as in the reference planner.
+    whenever n >= 4, as in the reference planner. The transform and real
+    transform (not the products) record the two-pass split their kernel
+    launches (``kernels.fft.two_pass_plan``: from ``TWO_PASS_FROM`` points
+    on, where a split fits), and are then not resident.
 
     ``exact=True`` plans the modular tier: the fused NTT product of
     ``polymul-mod``, radix 2, its block from shared memory for two uint32
@@ -100,6 +113,13 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
         else:
             block = plan_batch_block(n, real=real)
         res = resident(n, real=real, product=product)
+    two_pass = None
+    if not (exact or product):
+        launch = two_pass_plan(n, radix, real=real)
+        if launch is not None:
+            two_pass = (launch.n1, launch.n2)
+            res = False
     # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
     return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
-                   product=product, resident=res, exact=exact)
+                   product=product, resident=res, exact=exact,
+                   two_pass=two_pass)

@@ -41,11 +41,14 @@ _F = ctypes.c_float
 #: serves, in the order of the source's ``<stem>_occupancy`` kernel ids.
 LIBRARIES = {
     "stockham": {
-        # xr, xi, yr, yi, wr, wi, scratch, batch, log2n, radix, inverse,
-        # block
-        "stockham_fft": ("fft_planes", [_P] * 7 + [_I] * 5 + [_P]),
-        # x, yr, yi, wr, wi, scratch, batch, log2n, radix, block
-        "stockham_rfft": ("rfft_planes", [_P] * 6 + [_I] * 4 + [_P]),
+        # xr, xi, yr, yi, wr, wi, scratch, tw2, batch, log2n, radix,
+        # inverse, block, then the two-pass split: log2 n1, log2 c1, log2
+        # c2 (log2 n1 = 0: one CTA per block of rows; else scratch holds
+        # the intermediate and tw2 the pass-2 twiddles)
+        "stockham_fft": ("fft_planes", [_P] * 8 + [_I] * 8 + [_P]),
+        # x, yr, yi, wr, wi, scratch, tw2, batch, log2n, radix, block,
+        # log2 n1, log2 c1, log2 c2
+        "stockham_rfft": ("rfft_planes", [_P] * 7 + [_I] * 7 + [_P]),
         # ar, ai, br, bi, cr, ci, wr, wi, scratch, batch, log2n, radix,
         # block
         "stockham_polymul_complex": ("polymul_complex_planes",
@@ -194,7 +197,11 @@ def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
     """How the wrapper ``counter`` launches its kernel, and what the card
     makes of it: threads per CTA, dynamic shared memory in bytes, registers
     per thread, and the CTAs one SM holds. ``a, b, c`` select the launch:
-    (log2 n, rows per CTA, staged) for the transform kernels, (head_dim,
+    (log2 n, rows per CTA, staged) for the transform kernels, where for
+    ``fft_planes`` and ``rfft_planes`` c = 2 or 3 selects the two-pass
+    schedule's pass 1 or pass 2 kernel, with a = log2 of its sub-problem
+    length and b = the sub-problems per CTA (for the rfft's pass 2, the low
+    ones: the CTA holds their mirrors too); (head_dim,
     bf16, 0) for the two attention kernels."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]

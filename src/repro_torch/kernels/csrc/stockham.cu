@@ -31,6 +31,10 @@
 //   the scratch is read through plain (coherent) loads, never the read-only
 //   path. The wrapper (repro_torch/kernels/fft.py: cta_rows) decides which
 //   path runs and passes scratch == nullptr for the shared-memory one.
+//   The FFT and the real FFT take a third schedule from 8192 points on, as
+//   far as n splits into two parts of at most 8192 points: two launches,
+//   each CTA holding whole sub-problems of the split (the two-pass section
+//   below); the staged path is theirs only past that.
 //
 // Arithmetic: twiddles come from the host table (f64 angles rounded once to
 // fp32) in device memory; the kernels never call sincosf/__sinf. The file is
@@ -47,6 +51,12 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr size_t kStaticSmemBytes = 48 * 1024;
+constexpr size_t kMaxSmemBytes = 232448;
+// Threads of a two-pass CTA at most (one per work item of its steps below
+// that): each holds 16 complex values in registers, so the pass kernels
+// are compiled for this many threads, which leaves them up to 255
+// registers.
+constexpr int kPassThreads = 256;
 
 // `rows` complex rows of length n in split planes.
 struct Rows {
@@ -191,7 +201,9 @@ __device__ __forceinline__ void cta_buffers(float* smem, float* scratch,
 // the 20 flops/byte at which the H100's fp32 rate would bind. Design: every
 // sweep stays in shared memory while the row fits (n <= 8192), so device
 // memory sees the input once and the output once; the 1/n scale is folded
-// into the write-out. Longer rows take the device-memory scratch.
+// into the write-out. From 8192 points on the wrapper launches the two-pass
+// kernels instead (fft_pass1_kernel, fft_pass2_kernel, below); rows past
+// their splits take the device-memory scratch.
 __global__ void __launch_bounds__(kMaxThreads)
 fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
            float* __restrict__ yr, float* __restrict__ yi,
@@ -228,7 +240,9 @@ fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // (4 bytes in and 4 bytes out per real point). Design: the split and the
 // packing happen in shared memory, so the full spectrum never reaches
 // device memory; two real rows share one complex transform, halving the
-// butterflies and the working set of the complex kernel on real input.
+// butterflies and the working set of the complex kernel on real input. From
+// 8192 points on the wrapper launches rfft_pass1_kernel and
+// rfft_pass2_kernel (below) instead, with the split in pass 2's epilogue.
 __global__ void __launch_bounds__(kMaxThreads)
 rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
             float* __restrict__ yi, const float* __restrict__ wr,
@@ -264,6 +278,527 @@ rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
     if (r + 1 < batch) {
       yr[oa + nh] = 0.5f * (m_i + z_i);
       yi[oa + nh] = kk == 0 ? 0.5f * (zi[nh] + zi[nh]) : 0.5f * (m_r - z_r);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 1 and 2, two-pass schedule (fft_planes and rfft_planes from
+// TWO_PASS_FROM points on, repro_torch/kernels/fft.py).
+//
+// The Stockham state A(L, r) splits at L = n1 (n = n1 * n2, n1 on the sweep
+// sequence) without changing one operation. Pass 1 runs the sweeps from
+// L = 1 to n1: they keep the column index modulo n2, so sub-problem q0 is
+// the n1-point transform of x[q0 + k n2], which ends as A[l n2 + q0]. Pass 2
+// runs the sweeps from L = n1 to n: they keep the block index modulo n1, so
+// sub-problem l0 starts as the slice A[l0 n2 .. (l0 + 1) n2) and ends as
+// y[l0 + k n1]; its twiddles take the global block index l0 + n1 l' (the
+// four-step twiddle, folded into the sweeps). Each pass is one launch; a
+// CTA takes `slots` consecutive sub-problems, so the strided accesses to
+// device memory move runs of `slots` contiguous floats.
+//
+// Inside a pass the sweeps run as steps in registers: a radix-16 step does
+// two radix-4 sweeps on 16 elements a thread holds (the four butterflies of
+// the first sweep that share one column block feed exactly the four of the
+// second), a radix-4 or radix-2 step one sweep on up to 16 elements. Steps
+// exchange their elements through shared memory (slot-major, row stride
+// m + 1 floats) with one barrier each; the first step loads from device
+// memory and the last stores to it, so a 256-point sub-problem touches
+// shared memory once. Pass 1's twiddles come from the host table (all slots
+// share them); pass 2's from a table the wrapper gathers in the order a CTA
+// reads them (Pass2Twiddles), since its slots' twiddles differ and would
+// otherwise be scattered reads. Every butterfly is the whole-row sweep's own
+// arithmetic on the same operands and the same twiddle values, in the same
+// order, so the result equals the single-CTA kernels' and the plain
+// versions' bit for bit.
+//
+// Bound: device-memory bytes. Device memory sees the input once, the
+// intermediate (one complex row per row; per row pair for the rfft) written
+// once and read once, and the output once -- at batch 64 and n = 65536 the
+// intermediate is 33.5 MB and fits the 50 MB L2 -- and the grid has B n2 /
+// slots CTAs per pass (1024 at that shape), so every SM has work, where the
+// single-CTA staged kernel ran one CTA per row through a device-memory
+// ping-pong for all 8 sweeps.
+// ---------------------------------------------------------------------------
+
+// Pass 2 of the fft: slot s holds sub-problem l0 = l0base + s.
+struct Pass2Slots {
+  int l0base;
+  __device__ __forceinline__ int l0(int s) const { return l0base + s; }
+};
+
+// Pass 2 of the rfft: CTA g holds the low sub-problems l0 = g c + t in slots
+// t < c and their mirrors n1 - l0 in slots c + t; the two sub-problems that
+// are their own mirrors, 0 and n1 / 2, sit in CTA 0's slots 0 and c
+// (fft.py: mirror_slots).
+struct MirrorSlots {
+  int g;
+  int c;
+  int n1;
+  __device__ __forceinline__ int l0(int s) const {
+    if (s < c) return g * c + s;
+    const int low = g * c + (s - c);
+    return low == 0 ? n1 >> 1 : n1 - low;
+  }
+  __device__ __forceinline__ int mirror(int s) const {
+    if (g == 0 && (s == 0 || s == c)) return s;
+    return s < c ? s + c : s - c;
+  }
+};
+
+struct Cplx {
+  float r, i;
+};
+
+// The radix-2 and radix-4 butterflies of radix2_stage and radix4_stage, the
+// same fp32 operations in the same order.
+__device__ __forceinline__ void bfly2(Cplx e, Cplx o, Cplx w, Cplx& lo,
+                                      Cplx& hi) {
+  Cplx t;
+  cmul(w.r, w.i, o.r, o.i, t.r, t.i);
+  lo = Cplx{e.r + t.r, e.i + t.i};
+  hi = Cplx{e.r - t.r, e.i - t.i};
+}
+
+__device__ __forceinline__ void bfly4(Cplx e0, Cplx e1, Cplx e2, Cplx e3,
+                                      Cplx w1, Cplx w2, Cplx w3, float sign,
+                                      Cplx* o) {
+  float t1r, t1i, t2r, t2i, t3r, t3i;
+  cmul(w1.r, w1.i, e1.r, e1.i, t1r, t1i);
+  cmul(w2.r, w2.i, e2.r, e2.i, t2r, t2i);
+  cmul(w3.r, w3.i, e3.r, e3.i, t3r, t3i);
+  const float a_r = e0.r + t2r, a_i = e0.i + t2i;
+  const float b_r = e0.r - t2r, b_i = e0.i - t2i;
+  const float c_r = t1r + t3r, c_i = t1i + t3i;
+  const float d_r = t1r - t3r, d_i = t1i - t3i;
+  const float id_r = sign < 0.f ? d_i : -d_i;
+  const float id_i = sign < 0.f ? -d_r : d_r;
+  o[0] = Cplx{a_r + c_r, a_i + c_i};
+  o[1] = Cplx{b_r + id_r, b_i + id_i};
+  o[2] = Cplx{a_r - c_r, a_i - c_i};
+  o[3] = Cplx{b_r - id_r, b_i - id_i};
+}
+
+// Twiddle m' (1 .. R-1) of local block l of slot s in a sweep of radix R at
+// local A(L, r), qr = r/R: the whole-row sweep's W[l_g m' n / (R L_g)] for
+// the slot's global block l_g.
+//
+// Pass 1: l_g = l and L_g = L, so it is W[l m' qr n2] of the host table,
+// the same for every slot.
+struct Pass1Twiddles {
+  const float* __restrict__ wr;
+  const float* __restrict__ wi;
+  int n2;
+  __device__ __forceinline__ Cplx operator()(int, int l, int, int qr,
+                                             int j) const {
+    const int t = l * (j * qr) * n2;
+    return Cplx{wr[t], wi[t]};
+  }
+};
+
+// Pass 2: l_g = l0 + n1 l and L_g = n1 L, so it is W[(l0 + n1 l) m' qr]. The
+// wrapper gathers these values from the host table into the pass-2 table
+// (fft.py: pass2_twiddles): entry n1 (L - 1) + ((m' - 1) L + l) n1 + l0,
+// sweep after sweep, so the slots of a CTA, which hold consecutive l0,
+// read consecutive entries.
+template <class Slots>
+struct Pass2Twiddles {
+  const float* __restrict__ tw;
+  int plane;
+  int n1;
+  Slots slots;
+  __device__ __forceinline__ Cplx operator()(int s, int l, int L, int,
+                                             int j) const {
+    const int t = n1 * (L - 1) + ((j - 1) * L + l) * n1 + slots.l0(s);
+    return Cplx{tw[t], tw[plane + t]};
+  }
+};
+
+// The sub-problems a pass CTA holds: `slots` (2^lslots) of 2^lm points, the
+// sign of the transform, its twiddles, and whether the first step's work
+// items run sub-problem by sub-problem (`first_by_sub`: neighbouring
+// threads on neighbouring elements of one sub-problem, for a first step
+// that reads contiguous slices of device memory) instead of slot by slot.
+template <class Tw>
+struct Subs {
+  int lslots;
+  int lm;
+  float sign;
+  Tw tw;
+  bool first_by_sub;
+};
+
+// Element p of slot s in shared memory (slot-major, row stride ld).
+struct SmemIO {
+  Rows rows;
+  int ld;
+  __device__ __forceinline__ Cplx load(int s, int p) const {
+    return Cplx{rows.re[s * ld + p], rows.im[s * ld + p]};
+  }
+  __device__ __forceinline__ void store(int s, int p, Cplx v) const {
+    rows.re[s * ld + p] = v.r;
+    rows.im[s * ld + p] = v.i;
+  }
+};
+
+// Work items of a step: every slot's sub-problem splits into max(1, m/16)
+// items of up to 16 elements. Item w is slot w mod slots and index
+// w / slots within its sub-problem (neighbouring threads on neighbouring
+// sub-problems, whose elements lie side by side in device memory at the
+// strided ends of each pass), or, `by_sub`, slot w / items and index
+// w mod items.
+__device__ __forceinline__ int litems_per_sub(int lm) {
+  return lm >= 4 ? lm - 4 : 0;
+}
+
+__device__ __forceinline__ void item_of(int w, int lslots, int lm,
+                                        bool by_sub, int& s, int& tau) {
+  const int lp = litems_per_sub(lm);
+  s = by_sub ? w >> lp : w & ((1 << lslots) - 1);
+  tau = by_sub ? w & ((1 << lp) - 1) : w >> lslots;
+}
+
+// One sweep of radix R = 2 or 4 at local A(L, r), lr = log2 r: item tau of
+// slot s does butterflies tau + i * (items per sub-problem), all loads
+// first.
+template <int R, class Tw, class Src, class Dst>
+__device__ __forceinline__ void step_radix(Subs<Tw> sp, bool by_sub, int L,
+                                           int lr, Src src, Dst dst) {
+  constexpr int kMax = 16 / R;  // butterflies an item does at most
+  const int lq = R == 4 ? lr - 2 : lr - 1;
+  const int qr = 1 << lq;
+  const int per = 1 << litems_per_sub(sp.lm);
+  const int nb = ((1 << sp.lm) / R) / per;
+  const int items = per << sp.lslots;
+  for (int w = threadIdx.x; w < items; w += blockDim.x) {
+    int s, tau;
+    item_of(w, sp.lslots, sp.lm, by_sub, s, tau);
+    Cplx v[16];
+#pragma unroll
+    for (int i = 0; i < kMax; ++i) {
+      if (i < nb) {
+        const int b = tau + i * per;
+        const int ib = ((b >> lq) << lr) + (b & (qr - 1));
+#pragma unroll
+        for (int j = 0; j < R; ++j) v[R * i + j] = src.load(s, ib + j * qr);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMax; ++i) {
+      if (i < nb) {
+        const int b = tau + i * per;
+        const int l = b >> lq;
+        const int ob = (l << lq) + (b & (qr - 1));
+        Cplx o[4];
+        if (R == 4) {
+          bfly4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3],
+                sp.tw(s, l, L, qr, 1), sp.tw(s, l, L, qr, 2),
+                sp.tw(s, l, L, qr, 3), sp.sign, o);
+        } else {
+          bfly2(v[2 * i], v[2 * i + 1], sp.tw(s, l, L, qr, 1), o[0], o[1]);
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) dst.store(s, ob + j * (L << lq), o[j]);
+      }
+    }
+  }
+}
+
+// Two radix-4 sweeps in registers, A(L, r) -> A(16L, r/16) (r >= 16): item
+// (l, q2), q2 < r/16, holds the 16 elements (l, q2 + t r/16), which the
+// first sweep's four butterflies (l, q2 + m r/16) read and the second
+// sweep's four butterflies (l + jL, q2) write. The butterflies, twiddles
+// and their order are the two sweeps' own.
+template <class Tw, class Src, class Dst>
+__device__ __forceinline__ void step_radix16(Subs<Tw> sp, bool by_sub, int L,
+                                             int lr, Src src, Dst dst) {
+  const int l16 = lr - 4;
+  const int r16 = 1 << l16;
+  const int items = 1 << (litems_per_sub(sp.lm) + sp.lslots);
+  for (int w = threadIdx.x; w < items; w += blockDim.x) {
+    int s, tau;
+    item_of(w, sp.lslots, sp.lm, by_sub, s, tau);
+    const int l = tau >> l16;
+    const int q2 = tau & (r16 - 1);
+    Cplx v[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) v[t] = src.load(s, (l << lr) + q2 + t * r16);
+    // sweep at (L, r): butterfly m reads (l, q2 + (m + 4j) r/16) and writes
+    // its output j to (l + jL, q2 + m r/16), kept in v[4j + m] (the slots
+    // it read)
+    const Cplx w1 = sp.tw(s, l, L, 4 * r16, 1),
+               w2 = sp.tw(s, l, L, 4 * r16, 2),
+               w3 = sp.tw(s, l, L, 4 * r16, 3);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      Cplx o[4];
+      bfly4(v[m], v[m + 4], v[m + 8], v[m + 12], w1, w2, w3, sp.sign, o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[4 * j + m] = o[j];
+    }
+    // sweep at (4L, r/4): butterfly (l + jL, q2) reads v[4j + m] and writes
+    // output m' to (l + jL + 4L m', q2) of A(16L, r/16)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int lj = l + j * L;
+      Cplx o[4];
+      bfly4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3],
+            sp.tw(s, lj, 4 * L, r16, 1), sp.tw(s, lj, 4 * L, r16, 2),
+            sp.tw(s, lj, 4 * L, r16, 3), sp.sign, o);
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm) {
+        dst.store(s, ((lj + 4 * L * mm) << l16) + q2, o[mm]);
+      }
+    }
+  }
+}
+
+// The radix of the next step at local (L, lr): radix 2 throughout for
+// radix 2; for radix 4 the leading radix-2 sweep of an odd log2 m, then
+// two radix-4 sweeps per step while r >= 16, and a single one last.
+__device__ __forceinline__ int next_step(int radix, int lm, int L, int lr) {
+  if (radix == 2 || (L == 1 && (lm & 1))) return 2;
+  return lr >= 4 ? 16 : 4;
+}
+
+template <class Tw, class Src, class Dst>
+__device__ __forceinline__ void run_step(int R, Subs<Tw> sp, bool by_sub,
+                                         int L, int lr, Src src, Dst dst) {
+  if (R == 16) {
+    step_radix16(sp, by_sub, L, lr, src, dst);
+  } else if (R == 4) {
+    step_radix<4>(sp, by_sub, L, lr, src, dst);
+  } else {
+    step_radix<2>(sp, by_sub, L, lr, src, dst);
+  }
+}
+
+// Every sweep of the CTA's sub-problems, in the whole transform's order,
+// grouped into steps. The first step reads `in` (device memory) where
+// `from_global`, else shared buffer `a` (filled and synchronised by the
+// caller); the last step writes `out` (device memory) where `to_global`,
+// else the shared buffer it returns. Steps ping-pong between a and b with a
+// barrier after each.
+template <class Tw, class In, class Out>
+__device__ __forceinline__ SmemIO sub_steps(Subs<Tw> sp, int radix,
+                                            In in, bool from_global, Out out,
+                                            bool to_global, SmemIO a,
+                                            SmemIO b) {
+  int L = 1;
+  int lr = sp.lm;
+  bool global_in = from_global;
+  SmemIO cur = a, oth = b;
+  while (lr > 0) {
+    const int R = next_step(radix, sp.lm, L, lr);
+    const int lg = R == 16 ? 4 : R == 4 ? 2 : 1;
+    const bool last = lr == lg;
+    if (global_in && last && to_global) {
+      run_step(R, sp, sp.first_by_sub, L, lr, in, out);
+    } else if (global_in) {
+      run_step(R, sp, sp.first_by_sub, L, lr, in, cur);
+    } else if (last && to_global) {
+      run_step(R, sp, false, L, lr, cur, out);
+    } else {
+      run_step(R, sp, false, L, lr, cur, oth);
+      const SmemIO t = cur; cur = oth; oth = t;
+    }
+    global_in = false;
+    __syncthreads();
+    L <<= lg;
+    lr -= lg;
+  }
+  return cur;
+}
+
+// The CTA's two ping-pong buffers of `slots` sub-problems at row stride ld.
+__device__ __forceinline__ void sub_buffers(float* smem, int slots, int ld,
+                                            SmemIO& a, SmemIO& b) {
+  const int plane = slots * ld;
+  a = SmemIO{Rows{smem, smem + plane}, ld};
+  b = SmemIO{Rows{smem + 2 * plane, smem + 3 * plane}, ld};
+}
+
+// Pass 1's input: element k of sub-problem q0 = q0base + s is x[k n2 + q0]
+// (for the rfft, z = a + ib of the pair's rows, 0 past an odd batch).
+struct Pass1In {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  size_t off;
+  int lg2;
+  int q0;
+  bool second;
+  __device__ __forceinline__ Cplx load(int s, int k) const {
+    const size_t g = off + ((size_t)k << lg2) + q0 + s;
+    return Cplx{xr[g], second ? xi[g] : 0.f};
+  }
+};
+
+// Pass 1's output: element l of sub-problem q0 is A[l n2 + q0].
+struct Pass1Out {
+  float* __restrict__ mr;
+  float* __restrict__ mi;
+  size_t off;
+  int lg2;
+  int q0;
+  __device__ __forceinline__ void store(int s, int l, Cplx v) const {
+    const size_t g = off + ((size_t)l << lg2) + q0 + s;
+    mr[g] = v.r;
+    mi[g] = v.i;
+  }
+};
+
+// Pass 2's output (fft): element k of sub-problem l0 = l0base + s is
+// y[l0 + k n1], scaled (by 1/n for the inverse).
+struct Pass2Out {
+  float* __restrict__ yr;
+  float* __restrict__ yi;
+  size_t off;
+  int l0base;
+  int lg1;
+  float scale;
+  __device__ __forceinline__ void store(int s, int k, Cplx v) const {
+    const size_t g = off + l0base + s + ((size_t)k << lg1);
+    yr[g] = v.r * scale;
+    yi[g] = v.i * scale;
+  }
+};
+
+// Pass 1 of kernel 1 (fft) or 2 (rfft; `paired`): CTA blockIdx.x takes
+// row (row pair) blockIdx.x / (n2 / c) and the c = 2^lc consecutive
+// sub-problems q0 = q0base + s: the sweeps from L = 1 to n1, loading
+// x[k n2 + q0] in the first step and storing A[l n2 + q0] to the
+// intermediate (m.re, m.im) in the last.
+template <bool paired>
+__device__ __forceinline__ void pass1(const float* __restrict__ xr,
+                      const float* __restrict__ xi, float* __restrict__ mr,
+                      float* __restrict__ mi, const float* __restrict__ wr,
+                      const float* __restrict__ wi, int batch, int log2n,
+                      int log2n1, int radix, float sign, int lc) {
+  extern __shared__ __align__(16) float smem[];
+  const int lg2 = log2n - log2n1;
+  const int glg = lg2 - lc;  // CTAs per row: n2 / c
+  const size_t row = blockIdx.x >> glg;
+  const int q0 = (blockIdx.x & ((1 << glg) - 1)) << lc;
+  SmemIO a, b;
+  sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, a, b);
+  const size_t in = (paired ? 2 * row : row) << log2n;
+  const bool second = !paired || 2 * row + 1 < (size_t)batch;
+  const Subs<Pass1Twiddles> sp{lc, log2n1, sign,
+                               Pass1Twiddles{wr, wi, 1 << lg2}, false};
+  sub_steps(sp, radix, Pass1In{xr, xi, in, lg2, q0, second}, true,
+            Pass1Out{mr, mi, row << log2n, lg2, q0}, true, a, b);
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+fft_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ mr, float* __restrict__ mi,
+                 const float* __restrict__ wr, const float* __restrict__ wi,
+                 int batch, int log2n, int log2n1, int radix, int inverse,
+                 int lc) {
+  pass1<false>(xr, xi, mr, mi, wr, wi, batch, log2n, log2n1, radix,
+               inverse ? 1.f : -1.f, lc);
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+rfft_pass1_kernel(const float* __restrict__ x, float* __restrict__ mr,
+                  float* __restrict__ mi, const float* __restrict__ wr,
+                  const float* __restrict__ wi, int batch, int log2n,
+                  int log2n1, int radix, int lc) {
+  // the pair's second row is x + n: pass1 reads it at the same offset
+  pass1<true>(x, x + ((size_t)1 << log2n), mr, mi, wr, wi, batch, log2n,
+              log2n1, radix, -1.f, lc);
+}
+
+// Pass 2's input: element i of the sub-problem in slot s is A[l0 n2 + i]
+// (l0 = slots.l0(s)); the first step reads it sub-problem by sub-problem,
+// so neighbouring threads read neighbouring elements.
+template <class Slots>
+struct Pass2In {
+  const float* __restrict__ mr;
+  const float* __restrict__ mi;
+  size_t off;
+  int lg2;
+  Slots slots;
+  __device__ __forceinline__ Cplx load(int s, int i) const {
+    const size_t g = off + ((size_t)slots.l0(s) << lg2) + i;
+    return Cplx{mr[g], mi[g]};
+  }
+};
+
+// Pass 2 of kernel 1: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and
+// the c = 2^lc consecutive sub-problems l0 = l0base + s: the sweeps from
+// L = n1 to n, loading the contiguous slices A[l0 n2 ..] in the first step
+// and storing y[l0 + k n1] in the last, scaled by 1/n for the inverse.
+// `tw2` is the pass-2 twiddle table (planes of n1 (n2 - 1) values).
+__global__ void __launch_bounds__(kPassThreads)
+fft_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
+                 float* __restrict__ yr, float* __restrict__ yi,
+                 const float* __restrict__ tw2, int log2n, int log2n1,
+                 int radix, int inverse, int lc) {
+  extern __shared__ __align__(16) float smem[];
+  const int lg2 = log2n - log2n1;
+  const int glg = log2n1 - lc;  // CTAs per row: n1 / c
+  const size_t off = (size_t)(blockIdx.x >> glg) << log2n;
+  const Pass2Slots slots{(int)(blockIdx.x & ((1 << glg) - 1)) << lc};
+  SmemIO a, b;
+  sub_buffers(smem, 1 << lc, (1 << lg2) + 1, a, b);
+  const float scale = inverse ? 1.f / (float)(1 << log2n) : 1.f;
+  const int n1 = 1 << log2n1;
+  const Subs<Pass2Twiddles<Pass2Slots>> sp{
+      lc, lg2, inverse ? 1.f : -1.f,
+      Pass2Twiddles<Pass2Slots>{tw2, n1 * ((1 << lg2) - 1), n1, slots}, true};
+  sub_steps(sp, radix, Pass2In<Pass2Slots>{mr, mi, off, lg2, slots}, true,
+            Pass2Out{yr, yi, off, slots.l0base, log2n1, scale}, true, a, b);
+}
+
+// Pass 2 of kernel 2: CTA blockIdx.x takes row pair blockIdx.x / (n1 / 2c)
+// and 2c sub-problems -- c low ones and their mirrors (MirrorSlots) -- runs
+// the sweeps from L = n1 to n, then, as the epilogue, the Hermitian split
+// and the packed-Nyquist store of rfft_kernel: bin k = l0 + n1 l'
+// (l' < n2 / 2) of slot s pairs with bin n - k, which lies in the mirror
+// slot; Z_{n/2} lies in sub-problem 0 (CTA 0, slot 0) at l' = n2 / 2. Each
+// packed bin is written once.
+__global__ void __launch_bounds__(kPassThreads)
+rfft_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
+                  float* __restrict__ yr, float* __restrict__ yi,
+                  const float* __restrict__ tw2, int batch, int log2n,
+                  int log2n1, int radix, int lc) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = 1 << log2n;
+  const int nh = n >> 1;
+  const int lg2 = log2n - log2n1;
+  const int n2 = 1 << lg2;
+  const int n1 = 1 << log2n1;
+  const int slots = 2 << lc;
+  const int glg = log2n1 - 1 - lc;  // CTAs per row pair: n1 / 2c
+  const size_t p = blockIdx.x >> glg;
+  const MirrorSlots ms{(int)(blockIdx.x & ((1 << glg) - 1)), 1 << lc, n1};
+  SmemIO a, b;
+  sub_buffers(smem, slots, n2 + 1, a, b);
+  const Subs<Pass2Twiddles<MirrorSlots>> sp{
+      lc + 1, lg2, -1.f,
+      Pass2Twiddles<MirrorSlots>{tw2, n1 * (n2 - 1), n1, ms}, true};
+  const SmemIO z = sub_steps(sp, radix,
+                             Pass2In<MirrorSlots>{mr, mi, p << log2n, lg2, ms},
+                             true, a, false, a, b);
+  const size_t r = 2 * p;
+  const int ld = z.ld;
+  for (int idx = threadIdx.x; idx < (n2 << lc); idx += blockDim.x) {
+    const int s = idx & (slots - 1);
+    const int lp = idx >> (lc + 1);
+    const int k = ms.l0(s) + (lp << log2n1);
+    const int mk = (n - k) & (n - 1);
+    const int mo = ms.mirror(s) * ld + (mk >> log2n1);
+    const float z_r = z.rows.re[s * ld + lp], z_i = z.rows.im[s * ld + lp];
+    const float m_r = z.rows.re[mo], m_i = z.rows.im[mo];
+    const size_t oa = r * nh + k;
+    yr[oa] = 0.5f * (m_r + z_r);
+    yi[oa] = k == 0 ? 0.5f * (z.rows.re[n2 >> 1] + z.rows.re[n2 >> 1])
+                    : 0.5f * (-m_i + z_i);
+    if (r + 1 < (size_t)batch) {
+      yr[oa + nh] = 0.5f * (m_i + z_i);
+      yi[oa + nh] = k == 0 ? 0.5f * (z.rows.im[n2 >> 1] + z.rows.im[n2 >> 1])
+                           : 0.5f * (m_r - z_r);
     }
   }
 }
@@ -447,30 +982,34 @@ bool bad_args(int batch, int log2n, int radix, int block) {
          (radix != 2 && radix != 4);
 }
 
+// Opts `kernel` in to `bytes` of dynamic shared memory above 48 KB.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  if (bytes > kStaticSmemBytes) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  return cudaSuccess;
+}
+
 // Dynamic shared memory for `slots` complex rows in two buffers, 0 for the
 // device-memory scratch path. Opts the kernel in above 48 KB.
 template <typename Kernel>
 cudaError_t smem_for(Kernel kernel, bool staged, int slots, int log2n,
                      size_t* bytes) {
   *bytes = staged ? 0 : 4 * ((size_t)slots << log2n) * sizeof(float);
-  if (*bytes > kStaticSmemBytes) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*bytes);
-  }
-  return cudaSuccess;
+  return opt_in(kernel, *bytes);
 }
 
-// The launch configuration a launcher below gives `kernel` for `slots` rows
-// (threads per CTA, dynamic shared memory), the registers per thread the
-// compiler gave it, and how many such CTAs one SM holds at once.
+// A launch of `kernel` with `threads` per CTA and `bytes` of dynamic shared
+// memory (opted in): reports those, the registers per thread the compiler
+// gave it, and how many such CTAs one SM holds at once.
 template <typename Kernel>
-cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
-                         int* threads, int* smem, int* regs, int* ctas) {
-  size_t bytes;
-  cudaError_t err = smem_for(kernel, staged, slots, log2n, &bytes);
+cudaError_t launch_occupancy(Kernel kernel, int threads_per_cta, size_t bytes,
+                             int* threads, int* smem, int* regs, int* ctas) {
+  cudaError_t err = opt_in(kernel, bytes);
   if (err != cudaSuccess) return err;
-  *threads = threads_for(slots, log2n);
+  *threads = threads_per_cta;
   *smem = (int)bytes;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -478,6 +1017,83 @@ cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
   *regs = attr.numRegs;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, *threads,
                                                        bytes);
+}
+
+// The launch configuration a launcher below gives `kernel` for `slots` rows
+// (threads per CTA, dynamic shared memory) and what the card makes of it.
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
+                         int* threads, int* smem, int* regs, int* ctas) {
+  const size_t bytes =
+      staged ? 0 : 4 * ((size_t)slots << log2n) * sizeof(float);
+  return launch_occupancy(kernel, threads_for(slots, log2n), bytes, threads,
+                          smem, regs, ctas);
+}
+
+// Threads of a pass CTA for `slots` sub-problems of 2^lm points: one per
+// work item of a step (max(1, 2^lm / 16) per sub-problem), at least a
+// warp.
+int pass_threads(int slots, int lm) {
+  const long t = (long)slots << (lm >= 4 ? lm - 4 : 0);
+  return t < 32 ? 32 : (t > kPassThreads ? kPassThreads : (int)t);
+}
+
+// Steps of sub_steps' schedule for a sub-problem of 2^lm points.
+int pass_steps(int lm, int radix) {
+  int steps = 0;
+  for (int L = 1, lr = lm; lr > 0; ++steps) {
+    const int lg = (radix == 2 || (L == 1 && (lm & 1))) ? 1
+                   : lr >= 4                           ? 4
+                                                       : 2;
+    L <<= lg;
+    lr -= lg;
+  }
+  return steps;
+}
+
+// Dynamic shared memory of a pass CTA holding `slots` sub-problems of 2^lm
+// points at row stride 2^lm + 1: one buffer of split planes for every
+// state the schedule keeps in shared memory (the copied-in slices unless
+// the first step reads device memory, and every step's output but a last
+// one written to device memory), two at most (ping-pong).
+size_t pass_smem(int slots, int lm, int radix, bool from_global,
+                 bool to_global) {
+  const int states = (from_global ? 0 : 1) + pass_steps(lm, radix) -
+                     (to_global ? 1 : 0);
+  const int buffers = states < 1 ? 1 : (states > 2 ? 2 : states);
+  return (size_t)buffers * 2 * slots * (((size_t)1 << lm) + 1) *
+         sizeof(float);
+}
+
+// The launch configuration of a pass kernel for `slots` sub-problems of
+// 2^lm points, as the two-pass launchers below make it.
+template <typename Kernel>
+cudaError_t pass_occupancy(Kernel kernel, int slots, int lm, int radix,
+                           bool from_global, bool to_global, int* threads,
+                           int* smem, int* regs, int* ctas) {
+  return launch_occupancy(kernel, pass_threads(slots, lm),
+                          pass_smem(slots, lm, radix, from_global, to_global),
+                          threads, smem, regs, ctas);
+}
+
+// A two-pass split the kernels take: n1 = 2^log2n1 and n2 both at least 2,
+// pass 1's c1 = 2^lc1 sub-problems per CTA at most n2, pass 2's c2 = 2^lc2
+// at most n1 (n1 / 2 for the rfft, whose CTA holds 2 c2), radix 4 with an
+// even log2 n2, each pass's shared memory within the card's 227 KB, and
+// each grid within 2^31 - 1 CTAs.
+bool bad_split(int batch, int log2n, int log2n1, int radix, int lc1, int lc2,
+               bool real) {
+  const int lg2 = log2n - log2n1;
+  if (log2n1 < 1 || lg2 < 1 || lc1 < 0 || lc2 < 0 || lc1 > lg2 ||
+      lc2 + (real ? 1 : 0) > log2n1 || (radix == 4 && (lg2 & 1))) {
+    return true;
+  }
+  const long rows = real ? (batch + 1L) / 2 : batch;
+  const int slots2 = real ? 2 << lc2 : 1 << lc2;
+  return pass_smem(1 << lc1, log2n1, radix, true, true) > kMaxSmemBytes ||
+         pass_smem(slots2, lg2, radix, true, !real) > kMaxSmemBytes ||
+         (rows << (lg2 - lc1)) > 0x7fffffffL ||
+         (rows << (log2n1 - lc2)) > 0x7fffffffL;
 }
 
 }  // namespace
@@ -488,11 +1104,44 @@ const char* stockham_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// log2n1 > 0: the two-pass schedule, `scratch` the intermediate (two planes
+// of batch * n floats), `tw2` the pass-2 twiddle table (two planes of
+// n1 (n2 - 1) floats) and `block` unused; both passes are launched on
+// `stream`, each checked. log2n1 == 0: one CTA per `block` rows, `tw2`
+// unused.
 int stockham_fft(const float* xr, const float* xi, float* yr, float* yi,
-                 const float* wr, const float* wi, float* scratch, int batch,
-                 int log2n, int radix, int inverse, int block, void* stream) {
+                 const float* wr, const float* wi, float* scratch,
+                 const float* tw2, int batch, int log2n, int radix,
+                 int inverse, int block, int log2n1, int lc1, int lc2,
+                 void* stream) {
   if (bad_args(batch, log2n, radix, block)) return cudaErrorInvalidValue;
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2 == nullptr ||
+       bad_split(batch, log2n, log2n1, radix, lc1, lc2, false))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    float* mr = scratch;
+    float* mi = scratch + ((size_t)batch << log2n);
+    size_t smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+    cudaError_t err = opt_in(fft_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    fft_pass1_kernel<<<batch << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
+                       smem, st>>>(xr, xi, mr, mi, wr, wi, batch, log2n,
+                                   log2n1, radix, inverse, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = pass_smem(1 << lc2, lg2, radix, true, true);
+    err = opt_in(fft_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    fft_pass2_kernel<<<batch << (log2n1 - lc2), pass_threads(1 << lc2, lg2),
+                       smem, st>>>(mr, mi, yr, yi, tw2, log2n, log2n1, radix,
+                                   inverse, lc2);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err =
       smem_for(fft_kernel, scratch != nullptr, block, log2n, &smem);
@@ -504,13 +1153,44 @@ int stockham_fft(const float* xr, const float* xi, float* yr, float* yi,
   return cudaGetLastError();
 }
 
+// log2n1 > 0: the two-pass schedule, `scratch` the intermediate (two planes
+// of (batch + 1) / 2 * n floats), `tw2` the pass-2 twiddle table, `block`
+// unused; else one CTA per `block` rows (even), `tw2` unused.
 int stockham_rfft(const float* x, float* yr, float* yi, const float* wr,
-                  const float* wi, float* scratch, int batch, int log2n,
-                  int radix, int block, void* stream) {
+                  const float* wi, float* scratch, const float* tw2,
+                  int batch, int log2n, int radix, int block, int log2n1,
+                  int lc1, int lc2, void* stream) {
   if (bad_args(batch, log2n, radix, block) || log2n < 1 || (block & 1)) {
     return cudaErrorInvalidValue;
   }
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2 == nullptr ||
+       bad_split(batch, log2n, log2n1, radix, lc1, lc2, true))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    const int pairs = (batch + 1) / 2;
+    float* mr = scratch;
+    float* mi = scratch + ((size_t)pairs << log2n);
+    size_t smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+    cudaError_t err = opt_in(rfft_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    rfft_pass1_kernel<<<pairs << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
+                        smem, st>>>(x, mr, mi, wr, wi, batch, log2n, log2n1,
+                                    radix, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = pass_smem(2 << lc2, lg2, radix, true, false);
+    err = opt_in(rfft_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    rfft_pass2_kernel<<<pairs << (log2n1 - 1 - lc2),
+                        pass_threads(2 << lc2, lg2), smem, st>>>(
+        mr, mi, yr, yi, tw2, batch, log2n, log2n1, radix, lc2);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err =
       smem_for(rfft_kernel, scratch != nullptr, block / 2, log2n, &smem);
@@ -579,10 +1259,31 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
 
 // Occupancy of a launch as the launchers above make it: `kernel` is 0 fft,
 // 1 rfft, 2 complex product, 3 real product, 4 irfft; `block` the rows per CTA the
-// wrapper passes; `staged` whether the rows go through device memory.
+// wrapper passes; `staged` whether the rows go through device memory. For
+// the fft and the rfft, staged = 2 or 3 selects the two-pass schedule's
+// pass 1 or pass 2 kernel, `log2n` is then log2 of its sub-problem length
+// and `block` its sub-problems per CTA (for the rfft's pass 2 the low ones,
+// each held with its mirror), at radix 4, the planner's radix.
 int stockham_occupancy(int kernel, int log2n, int block, int staged,
                        int* threads, int* smem, int* regs, int* ctas) {
   if (bad_args(1, log2n, 2, block)) return cudaErrorInvalidValue;
+  if (staged == 2 || staged == 3) {
+    const bool two = staged == 3;
+    if (log2n < 1) return cudaErrorInvalidValue;
+    switch (kernel) {
+      case 0:
+        return two ? pass_occupancy(fft_pass2_kernel, block, log2n, 4, true,
+                                    true, threads, smem, regs, ctas)
+                   : pass_occupancy(fft_pass1_kernel, block, log2n, 4, true,
+                                    true, threads, smem, regs, ctas);
+      case 1:
+        return two ? pass_occupancy(rfft_pass2_kernel, 2 * block, log2n, 4,
+                                    true, false, threads, smem, regs, ctas)
+                   : pass_occupancy(rfft_pass1_kernel, block, log2n, 4, true,
+                                    true, threads, smem, regs, ctas);
+    }
+    return cudaErrorInvalidValue;
+  }
   const bool st = staged != 0;
   switch (kernel) {
     case 0:

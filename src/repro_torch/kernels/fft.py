@@ -12,6 +12,7 @@ FFT of x[q :: r]; no bit-reversal permutation is ever applied.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -65,34 +66,46 @@ def _mul_i(r, i, sign: float):
     return -i, r
 
 
-def _radix2_stage(yr, yi, wr, wi, L, r, n):
-    """One Stockham radix-2 sweep: (B, L, r) -> (B, 2L, r/2)."""
+def _twiddles(wr, wi, L, step, blocks):
+    """W[l * step] for the L column blocks of a sweep, shaped to broadcast
+    against a state (..., L, r): (1, L, 1) from a strided slice of the
+    table, or, where ``blocks`` gives each block's global index (a pass-2
+    sub-problem's l0 + n1 l), (..., L, 1) gathered at those indices."""
+    if blocks is None:
+        return (wr[:, 0:L * step:step][:, :, None],
+                wi[:, 0:L * step:step][:, :, None])
+    idx = blocks * step
+    return wr[0][idx][..., None], wi[0][idx][..., None]
+
+
+def _radix2_stage(yr, yi, wr, wi, L, r, n, blocks=None):
+    """One Stockham radix-2 sweep: (..., L, r) -> (..., 2L, r/2).
+
+    L is the global block count (it sets the twiddle stride n / 2L); the
+    state may hold fewer blocks per row when ``blocks`` names them."""
     half = r // 2
-    er, ei = yr[:, :, :half], yi[:, :, :half]
-    orr, oii = yr[:, :, half:], yi[:, :, half:]
-    stride = n // (2 * L)
-    twr = wr[:, 0:L * stride:stride][:, :, None]   # (1, L, 1)
-    twi = wi[:, 0:L * stride:stride][:, :, None]
+    er, ei = yr[..., :half], yi[..., :half]
+    orr, oii = yr[..., half:], yi[..., half:]
+    twr, twi = _twiddles(wr, wi, L, n // (2 * L), blocks)
     tr, ti = _cmul(twr, twi, orr, oii)
-    outr = torch.cat([er + tr, er - tr], dim=1)
-    outi = torch.cat([ei + ti, ei - ti], dim=1)
+    outr = torch.cat([er + tr, er - tr], dim=-2)
+    outi = torch.cat([ei + ti, ei - ti], dim=-2)
     return outr, outi
 
 
-def _radix4_stage(yr, yi, wr, wi, L, r, n, sign: float):
-    """One Stockham radix-4 sweep: (B, L, r) -> (B, 4L, r/4).
+def _radix4_stage(yr, yi, wr, wi, L, r, n, sign: float, blocks=None):
+    """One Stockham radix-4 sweep: (..., L, r) -> (..., 4L, r/4).
 
     U[l + m L'] = sum_j w4^{jm} T_j,  T_j = W_n^{j l (n/4L)} E_j[l],
-    with E_j = A[:, :, j*r/4 : (j+1)*r/4] and L' = 4L blocks concatenated.
+    with E_j = A[..., j*r/4 : (j+1)*r/4] and L' = 4L blocks concatenated.
     """
     q = r // 4
     s = n // (4 * L)
-    e = [(yr[:, :, j * q:(j + 1) * q], yi[:, :, j * q:(j + 1) * q])
+    e = [(yr[..., j * q:(j + 1) * q], yi[..., j * q:(j + 1) * q])
          for j in range(4)]
     t = [e[0]]
     for j in (1, 2, 3):
-        twr = wr[:, 0:L * j * s:j * s][:, :, None]
-        twi = wi[:, 0:L * j * s:j * s][:, :, None]
+        twr, twi = _twiddles(wr, wi, L, j * s, blocks)
         t.append(_cmul(twr, twi, e[j][0], e[j][1]))
     (t0r, t0i), (t1r, t1i), (t2r, t2i), (t3r, t3i) = t
     a_r, a_i = t0r + t2r, t0i + t2i      # T0 + T2
@@ -100,8 +113,8 @@ def _radix4_stage(yr, yi, wr, wi, L, r, n, sign: float):
     c_r, c_i = t1r + t3r, t1i + t3i      # T1 + T3
     d_r, d_i = t1r - t3r, t1i - t3i      # T1 - T3
     id_r, id_i = _mul_i(d_r, d_i, sign)  # (+-i)(T1 - T3)
-    outr = torch.cat([a_r + c_r, b_r + id_r, a_r - c_r, b_r - id_r], dim=1)
-    outi = torch.cat([a_i + c_i, b_i + id_i, a_i - c_i, b_i - id_i], dim=1)
+    outr = torch.cat([a_r + c_r, b_r + id_r, a_r - c_r, b_r - id_r], dim=-2)
+    outi = torch.cat([a_i + c_i, b_i + id_i, a_i - c_i, b_i - id_i], dim=-2)
     return outr, outi
 
 
@@ -131,6 +144,256 @@ def stockham_stages(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int):
     if inverse:
         yr, yi = yr * (1.0 / n), yi * (1.0 / n)
     return yr, yi
+
+
+# ---------------------------------------------------------------------------
+# The two-pass schedule (fft_planes and rfft_planes)
+#
+# The Stockham state A(L, r) splits at L = n1 (n = n1 n2) without changing a
+# single operation. The sweeps from L = 1 up to n1 keep the column index q
+# modulo n2, so they are n2 independent n1-point sub-problems: sub-problem
+# q0 reads x[q0 + k n2] (k < n1) and ends as A[l n2 + q0]. The sweeps from
+# n1 up to n keep the block index l modulo n1, so they are n1 independent
+# n2-point sub-problems: sub-problem l0 starts as the slice
+# A[l0 n2 : (l0 + 1) n2] and ends as y[l0 + k n1]; its twiddles take the
+# global block index l = l0 + n1 l' (the four-step twiddle, folded into the
+# sweeps). Each pass is one launch whose CTAs hold a few whole
+# sub-problems in shared memory, so device memory sees the input, one
+# intermediate row per row and the output once each, and every SM has work.
+# n1 must be an L that the sweep sequence passes through; another split
+# gives a different result.
+# ---------------------------------------------------------------------------
+
+#: Longest sub-problem one CTA of a pass holds (two ping-pong buffers of
+#: 8192 complex fp32 points: 128 KB of shared memory).
+TWO_PASS_MAX_SUB = 8192
+#: rfft pass 2 holds each sub-problem beside its mirror, so its sub-problem
+#: is half as long at most.
+TWO_PASS_MAX_SUB_REAL = 4096
+#: Points a CTA of a pass holds (sub-problems x length): 4096 complex
+#: points, 16 in the registers of each of 256 threads and 32 KB in each
+#: shared buffer; a sub-problem longer than that runs alone in its CTA.
+TWO_PASS_CTA_POINTS = 4096
+#: Most sub-problems one CTA takes: 16 consecutive ones, so a strided load
+#: or store moves runs of 16 contiguous floats (64 bytes).
+TWO_PASS_MAX_SLOTS = 16
+#: Least n at which each wrapper takes the two-pass schedule; below it a
+#: row stays resident in one CTA. Above n = 8192 no row fits one CTA, so
+#: the threshold only matters at the resident sizes. It comes from
+#: chip_smoke.py phase 4's A/B of the two schedules (lines "[ab]": batch
+#: 64, radix 4, in turns) on an NVIDIA H100 80GB HBM3 at 700 W, whose runs
+#: and times PERF.md records: two passes were faster at n = 8192 for both
+#: transforms, and not at n = 4096 (slower for the fft, within the turns'
+#: spread for the rfft), so 4096 stays resident.
+TWO_PASS_FROM = {"fft": 8192, "rfft": 8192}
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoPass:
+    """A two-pass launch: n = n1 n2, and the sub-problems each CTA of pass
+    1 (``c1``, of n1 points) and of pass 2 (``c2``, of n2 points; for the
+    rfft, ``c2`` low sub-problems and their mirrors) holds."""
+    n1: int
+    n2: int
+    c1: int
+    c2: int
+
+
+def two_pass_split(n: int, radix: int, *, real: bool = False
+                   ) -> tuple[int, int] | None:
+    """(n1, n2) with n1 on the sweep sequence (radix 4: 4, 16, ... for even
+    log2 n, 2, 8, ... for odd; radix 2: any power of two), both at least 2,
+    n1 <= TWO_PASS_MAX_SUB and n2 <= TWO_PASS_MAX_SUB (or
+    TWO_PASS_MAX_SUB_REAL for the rfft), n1 as close to sqrt(n) as that
+    allows, the smaller n1 on a tie; None when no split qualifies."""
+    lg = _log2(n)
+    cap2 = TWO_PASS_MAX_SUB_REAL if real else TWO_PASS_MAX_SUB
+    best = None
+    for lg1 in range(1, lg):
+        n1, n2 = 1 << lg1, 1 << (lg - lg1)
+        if radix == 4 and (lg - lg1) % 2:
+            continue                      # n1 off the radix-4 sequence
+        if n1 > TWO_PASS_MAX_SUB or n2 > cap2:
+            continue
+        key = (abs(lg - 2 * lg1), lg1)
+        if best is None or key < best[0]:
+            best = (key, (n1, n2))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def two_pass_plan(n: int, radix: int, *, real: bool = False
+                  ) -> TwoPass | None:
+    """The two-pass launch ``fft_planes`` (``rfft_planes`` if ``real``)
+    makes for n-point rows, or None where it runs one CTA per row block:
+    below ``TWO_PASS_FROM``, and where no split qualifies (past 2^25 or
+    2^26 points; a single CTA then stages its sweeps through device
+    memory)."""
+    if n < TWO_PASS_FROM["rfft" if real else "fft"]:
+        return None
+    split = two_pass_split(n, radix, real=real)
+    return None if split is None else two_pass_launch(*split, real=real)
+
+
+def two_pass_launch(n1: int, n2: int, *, real: bool = False) -> TwoPass:
+    """Sub-problems per CTA for the split (n1, n2): as many as
+    ``TWO_PASS_CTA_POINTS`` allows, at most ``TWO_PASS_MAX_SLOTS`` and at
+    most the pass's sub-problems (for the rfft's pass 2, half of n1, each
+    with its mirror beside it)."""
+    def slots(m, avail):
+        return max(1, min(TWO_PASS_MAX_SLOTS, TWO_PASS_CTA_POINTS // m,
+                          avail))
+    c2 = slots(n2, n1)
+    if real:
+        c2 = max(1, min(c2 // 2, n1 // 2))
+    return TwoPass(n1, n2, slots(n1, n2), c2)
+
+
+def pass2_twiddles(n: int, n1: int, radix: int, *, inverse: bool = False
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Pass 2's twiddles, gathered from the master table in the order its
+    kernels read them: the sweep at local L (global L = n1 L, radix R)
+    uses W[(l0 + n1 l) m' n2 / (R L)] for m' < R, l < L and sub-problem l0,
+    at entry n1 (L - 1) + ((m' - 1) L + l) n1 + l0 -- sweep after sweep, l0
+    fastest, so the consecutive sub-problems of a CTA read consecutive
+    entries. n1 (n2 - 1) values, each the table's own fp32 value."""
+    n2 = n // n1
+    wr, wi = twiddle_table(n, inverse=inverse)
+    parts, L = [], 1
+    while L < n2:
+        m = np.arange(1, radix)[:, None, None]
+        l = np.arange(L)[None, :, None]
+        l0 = np.arange(n1)[None, None, :]
+        parts.append(((l0 + n1 * l) * m * (n2 // (radix * L))).reshape(-1))
+        L *= radix
+    idx = np.concatenate(parts)
+    return wr[0, idx], wi[0, idx]
+
+
+@functools.lru_cache(maxsize=64)
+def device_pass2_twiddles(n: int, n1: int, radix: int, inverse: bool,
+                          device: torch.device) -> torch.Tensor:
+    """``pass2_twiddles`` as one (2, n1 (n2 - 1)) fp32 tensor on
+    ``device``, cached as ``device_twiddles`` is."""
+    return torch.from_numpy(np.stack(pass2_twiddles(
+        n, n1, radix, inverse=inverse))).to(device)
+
+
+def _sweeps(yr, yi, wr, wi, *, n: int, r: int, radix: int, sign: float,
+            n1: int | None = None):
+    """Every sweep of r-point sub-problems, states (..., 1, r) -> (..., r,
+    1), in the order the whole transform runs them. Pass 1 (``n1`` None):
+    the local block index is the global one. Pass 2: the state is
+    (B, n1, 1, r), sub-problem l0 = its index on axis 1, global block
+    l = l0 + n1 l', and global L = n1 L'."""
+    def blocks(L):
+        if n1 is None:
+            return None
+        l0 = torch.arange(n1, device=yr.device)[:, None]
+        return l0 + n1 * torch.arange(L, device=yr.device)[None, :]
+
+    scale = 1 if n1 is None else n1
+    L = 1
+    if radix == 4 and _log2(r) % 2 == 1:
+        yr, yi = _radix2_stage(yr, yi, wr, wi, scale * L, r, n, blocks(L))
+        L, r = 2 * L, r // 2
+    while r > 1:
+        if radix == 4 and r % 4 == 0:
+            yr, yi = _radix4_stage(yr, yi, wr, wi, scale * L, r, n, sign,
+                                   blocks(L))
+            L, r = 4 * L, r // 4
+        else:
+            yr, yi = _radix2_stage(yr, yi, wr, wi, scale * L, r, n,
+                                   blocks(L))
+            L, r = 2 * L, r // 2
+    return yr, yi
+
+
+def stockham_two_pass(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int,
+                      n1: int):
+    """Plain mirror of the two-pass kernels on (B, n) planes: the very
+    sweeps of ``stockham_stages`` split at L = n1, in the kernels' layout,
+    so the result equals it bit for bit (for n1 on the sweep sequence).
+
+    Pass 1 runs (B n2, n1) sub-rows gathered at stride n2 and scatters them
+    back to the intermediate A at stride n2; pass 2 runs (B n1, n2)
+    contiguous sub-rows of A with twiddles from the global block index and
+    scatters them to y at stride n1. The inverse scales by 1/n on the
+    store.
+    """
+    sign = 1.0 if inverse else -1.0
+    b = xr.shape[0]
+    n2 = n // n1
+
+    def gather(p):      # sub-row q0 = p[q0 :: n2], as (B n2, 1, n1)
+        return p.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, 1, n1)
+
+    yr, yi = _sweeps(gather(xr), gather(xi), wr, wi, n=n, r=n1, radix=radix,
+                     sign=sign)
+    # A[l n2 + q0] <- sub-row q0's element l; pass 2's sub-row l0 is the
+    # slice A[l0 n2 : (l0 + 1) n2], as (B, n1, 1, n2)
+    ar, ai = (p.reshape(b, n2, n1).transpose(1, 2).reshape(b, n1, 1, n2)
+              for p in (yr, yi))
+    yr, yi = _sweeps(ar, ai, wr, wi, n=n, r=n2, radix=radix, sign=sign,
+                     n1=n1)
+    # y[l0 + n1 k] <- sub-row l0's element k
+    yr, yi = (p.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+              for p in (yr, yi))
+    if inverse:
+        yr, yi = yr * (1.0 / n), yi * (1.0 / n)
+    return yr, yi
+
+
+def mirror_slots(n1: int, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of the rfft: the sub-problems (l0) each CTA holds and, per
+    slot, the slot of its mirror (n1 - l0) mod n1, as (n1 / 2c, 2c) arrays.
+    CTA g holds l0 = g c + t in slot t (t < c) and its mirror n1 - l0 in
+    slot c + t; the two that are their own mirrors, 0 and n1 / 2, sit in
+    CTA 0's slots 0 and c. Every l0 < n1 is held exactly once."""
+    g = torch.arange(n1 // (2 * c))[:, None]
+    t = torch.arange(c)[None, :]
+    low = g * c + t
+    high = torch.where(low == 0, n1 // 2, n1 - low)
+    slots = torch.arange(2 * c).expand(len(g), 2 * c)
+    mirror = torch.where(slots < c, slots + c, slots - c)
+    own = (g == 0) & ((slots == 0) | (slots == c))
+    return torch.cat([low, high], 1), torch.where(own, slots, mirror)
+
+
+def rfft_two_pass(x, *, radix: int, plan: TwoPass):
+    """Plain mirror of the two-pass rfft on real rows (B, n): rows
+    (2j, 2j+1) ride z = a + ib through ``stockham_two_pass``, and the
+    Hermitian split and packed-Nyquist store run as pass 2's epilogue does:
+    bin k = l0 + n1 l' (l' < n2 / 2) of slot s pairs with bin n - k of the
+    mirror slot (``mirror_slots``), and Z_{n/2} lies in sub-problem 0. The
+    split's float expressions are ``hermitian_split``'s, so the result
+    equals ``rfft_planes_plain`` bit for bit."""
+    b, n = x.shape
+    nh, n1, n2 = n // 2, plan.n1, plan.n2
+    if b % 2:
+        x = torch.cat([x, torch.zeros_like(x[:1])])
+    bp = x.shape[0]
+    z = x.reshape(bp // 2, 2, n)
+    wr, wi = device_twiddles(n, False, x.device)
+    zr, zi = stockham_two_pass(z[:, 0], z[:, 1], wr, wi, n=n, inverse=False,
+                               radix=radix, n1=n1)
+    l0, ms = (t.to(x.device) for t in mirror_slots(n1, plan.c2))
+    lp = torch.arange(n2 // 2, device=x.device)
+    k = l0[..., None] + n1 * lp                     # (G, 2c, n2 / 2)
+    mk = (n - k) & (n - 1)
+    mirror = torch.gather(l0, 1, ms)[..., None] + n1 * (mk // n1)
+    k, mirror = k.flatten(), mirror.flatten()
+    z_r, z_i, m_r, m_i = zr[:, k], zi[:, k], zr[:, mirror], zi[:, mirror]
+    dc = k == 0
+    yr = torch.empty((bp // 2, 2, nh), dtype=x.dtype, device=x.device)
+    yi = torch.empty_like(yr)
+    yr[:, 0, k] = 0.5 * (m_r + z_r)
+    yi[:, 0, k] = torch.where(dc, 0.5 * (zr[:, nh:nh + 1] + zr[:, nh:nh + 1]),
+                              0.5 * (-m_i + z_i))
+    yr[:, 1, k] = 0.5 * (m_i + z_i)
+    yi[:, 1, k] = torch.where(dc, 0.5 * (zi[:, nh:nh + 1] + zi[:, nh:nh + 1]),
+                              0.5 * (m_r - z_r))
+    return yr.reshape(bp, nh)[:b], yi.reshape(bp, nh)[:b]
 
 
 # ---------------------------------------------------------------------------
@@ -332,24 +595,52 @@ def fft_planes(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched FFT (or inverse FFT, scaled by 1/n) on split planes (B, n).
 
-    On the card: kernel ``fft_kernel``, ``block_b`` rows per CTA at most
-    (default ``plan_batch_block``), fitted to the batch. Replaces
+    On the card: kernel ``fft_kernel`` -- from ``TWO_PASS_FROM["fft"]``
+    points on, its two-pass schedule (``two_pass_plan``: two launches, an
+    intermediate row per row), below that one CTA per ``block_b`` rows at
+    most (default ``plan_batch_block``), fitted to the batch. On the CPU the
+    plain version of the same schedule. Replaces
     ``repro/kernels/fft.py::fft_planes``.
     """
     b, n = check_planes("fft_planes", xr, xi)
     check_radix(radix)
+    two_pass = two_pass_plan(n, radix)
     if xr.device.type == "cpu":
+        if two_pass is not None:
+            wr, wi = device_twiddles(n, inverse, xr.device)
+            return stockham_two_pass(xr, xi, wr, wi, n=n, inverse=inverse,
+                                     radix=radix, n1=two_pass.n1)
         return fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
-    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n))
+    return _launch_fft(xr, xi, inverse, radix, block_b or plan_batch_block(n),
+                       two_pass)
+
+
+def _launch_fft(xr, xi, inverse: bool, radix: int, block: int,
+                two_pass: TwoPass | None):
+    """Launch ``stockham_fft`` on card planes under the given schedule:
+    ``two_pass``, or one CTA per ``block`` rows at most."""
+    b, n = xr.shape
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if b == 0:
         return yr, yi
     with torch.cuda.device(xr.device):
         wr, wi = device_twiddles(n, inverse, xr.device)
-        scratch = scratch_for(n, b, rows, staged, xr.device)
+        if two_pass is None:
+            rows, staged = cta_rows(n, b, block)
+            scratch = scratch_for(n, b, rows, staged, xr.device)
+            tw2, split = None, (0, 0, 0)
+        else:
+            rows = 1
+            scratch = torch.empty((2, b, n), dtype=xr.dtype,
+                                  device=xr.device)
+            tw2 = device_pass2_twiddles(n, two_pass.n1, radix, inverse,
+                                        xr.device)
+            split = (_log2(two_pass.n1), _log2(two_pass.c1),
+                     _log2(two_pass.c2))
         _build.launch("stockham_fft", "fft_planes", ptr(xr), ptr(xi),
                       ptr(yr), ptr(yi), ptr(wr), ptr(wi), ptr(scratch),
-                      b, _log2(n), radix, int(inverse), rows)
+                      ptr(tw2), b, _log2(n), radix, int(inverse), rows,
+                      *split)
     return yr, yi
 
 
@@ -378,29 +669,51 @@ def rfft_planes(x: torch.Tensor, *, radix: int = 2,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed half-spectrum FFT of real rows: (B, n) -> planes (B, n//2).
 
-    On the card: kernel ``rfft_kernel``, an even number of rows per CTA
-    (default ``plan_batch_block(n, real=True)``); an odd batch pairs its
-    last row with a zero row. Replaces
-    ``repro/kernels/fft.py::rfft_planes``.
+    On the card: kernel ``rfft_kernel`` -- from ``TWO_PASS_FROM["rfft"]``
+    points on, its two-pass schedule, with the Hermitian split in pass 2's
+    epilogue; below that an even number of rows per CTA (default
+    ``plan_batch_block(n, real=True)``). An odd batch pairs its last row
+    with a zero row. On the CPU the plain version of the same schedule.
+    Replaces ``repro/kernels/fft.py::rfft_planes``.
     """
     b, n = check_planes("rfft_planes", x)
     if n < 2:
         raise ValueError(f"rfft_planes: n={n} must be >= 2")
     check_radix(radix)
+    two_pass = two_pass_plan(n, radix, real=True)
     if x.device.type == "cpu":
+        if two_pass is not None:
+            return rfft_two_pass(x, radix=radix, plan=two_pass)
         return rfft_planes_plain(x, radix=radix)
-    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n, real=True),
-                            real=True)
+    return _launch_rfft(x, radix, block_b or plan_batch_block(n, real=True),
+                        two_pass)
+
+
+def _launch_rfft(x, radix: int, block: int, two_pass: TwoPass | None):
+    """Launch ``stockham_rfft`` on card rows under the given schedule:
+    ``two_pass``, or one CTA per ``block`` rows at most."""
+    b, n = x.shape
     yr = torch.empty((b, n // 2), dtype=x.dtype, device=x.device)
     yi = torch.empty_like(yr)
     if b == 0:
         return yr, yi
     with torch.cuda.device(x.device):
         wr, wi = device_twiddles(n, False, x.device)
-        scratch = scratch_for(n, b, rows, staged, x.device, real=True)
+        if two_pass is None:
+            rows, staged = cta_rows(n, b, block, real=True)
+            scratch = scratch_for(n, b, rows, staged, x.device, real=True)
+            tw2, split = None, (0, 0, 0)
+        else:
+            rows = 2
+            scratch = torch.empty((2, (b + 1) // 2, n), dtype=x.dtype,
+                                  device=x.device)
+            tw2 = device_pass2_twiddles(n, two_pass.n1, radix, False,
+                                        x.device)
+            split = (_log2(two_pass.n1), _log2(two_pass.c1),
+                     _log2(two_pass.c2))
         _build.launch("stockham_rfft", "rfft_planes", ptr(x), ptr(yr),
-                      ptr(yi), ptr(wr), ptr(wi), ptr(scratch), b, _log2(n),
-                      radix, rows)
+                      ptr(yi), ptr(wr), ptr(wi), ptr(scratch), ptr(tw2), b,
+                      _log2(n), radix, rows, *split)
     return yr, yi
 
 

@@ -96,6 +96,61 @@ def test_irfft_kernel_matches_plain(cuda, rng, n, radix, batch):
     _close([got], [x], 1e-4, 1e-4 * n)
 
 
+def _schedules(n, radix, real):
+    """The planner's schedule of fft_planes / rfft_planes at n and, at the
+    resident lengths, the other one: {label: TwoPass or None}."""
+    planned = tfft.two_pass_plan(n, radix, real=real)
+    out = {"planned": planned}
+    if n <= 8192:
+        split = tfft.two_pass_split(n, radix, real=real)
+        out["other"] = (None if planned else
+                        tfft.two_pass_launch(*split, real=real))
+    return out
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 65536, 1 << 18])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 5, 64])
+def test_fft_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
+    """fft_planes under the two-pass schedule and the resident one (the
+    latter through the launch helper where the planner picks the former),
+    forward and inverse: bit for bit the plain version, one count per
+    call."""
+    xr, xi = _planes(rng, batch, n, 2, cuda)
+    for label, sched in _schedules(n, radix, False).items():
+        for inverse in (False, True):
+            if label == "planned":
+                got = _launched("fft_planes", lambda: tfft.fft_planes(
+                    xr, xi, inverse=inverse, radix=radix))
+            else:
+                got = _launched("fft_planes", lambda: tfft._launch_fft(
+                    xr, xi, inverse, radix, tfft.plan_batch_block(n), sched))
+            want = tfft.fft_planes_plain(xr, xi, inverse=inverse,
+                                         radix=radix)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (label, inverse)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 65536, 1 << 18])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 5, 64])
+def test_rfft_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
+    """rfft_planes under both schedules, odd and even batches: bit for bit
+    the plain version, and the round trip through irfft_planes within rtol
+    1e-4, atol 1e-4 n."""
+    (x,) = _planes(rng, batch, n, 1, cuda)
+    for label, sched in _schedules(n, radix, True).items():
+        if label == "planned":
+            got = _launched("rfft_planes",
+                            lambda: tfft.rfft_planes(x, radix=radix))
+        else:
+            got = _launched("rfft_planes", lambda: tfft._launch_rfft(
+                x, radix, tfft.plan_batch_block(n, real=True), sched))
+        for g, w in zip(got, tfft.rfft_planes_plain(x, radix=radix)):
+            assert torch.equal(g, w), label
+        _close([tfft.irfft_planes(*got, radix=radix)], [x], 1e-4, 1e-4 * n)
+
+
 NTT_NS = [2, 8, 4096, 16384, 32768, 65536]
 
 
@@ -219,7 +274,10 @@ def test_occupancy_matches_launch_configuration(cuda, name, block, staged):
     """The occupancy query reports the launchers' own configuration at
     n = 4096: one thread per radix-4 butterfly of the CTA's rows (at most
     1024), 16 bytes of shared memory per point of each complex row it
-    holds (none when staged), and at least one CTA per SM."""
+    holds (none when staged), and at least one CTA per SM. For fft_planes
+    and rfft_planes these are the single-CTA kernels, which run below
+    ``TWO_PASS_FROM`` (resident) and past the two-pass splits (staged);
+    their two-pass launch is held by the next test."""
     slots = {"fft_planes": block, "rfft_planes": block // 2,
              "polymul_complex_planes": 2 * block,
              "polymul_real_planes": block, "irfft_planes": block // 2}[name]
@@ -227,6 +285,40 @@ def test_occupancy_matches_launch_configuration(cuda, name, block, staged):
     assert occ["threads"] == min(1024, slots * 4096 // 4)
     assert occ["smem_bytes"] == (0 if staged else 16 * 4096 * slots)
     assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+def _steps(lm):
+    """Steps of a radix-4 sub-problem of 2^lm points: a leading radix-2
+    sweep for odd lm, two radix-4 sweeps per step, one radix-4 sweep last
+    where an odd count remains."""
+    if lm % 2:
+        return 1 + _steps(lm - 1)
+    return lm // 4 + (lm % 4 == 2)
+
+
+@pytest.mark.parametrize("name", ["fft_planes", "rfft_planes"])
+@pytest.mark.parametrize("n", [4096, 65536, 1 << 18])
+def test_two_pass_occupancy_matches_launch_configuration(cuda, name, n):
+    """Each pass kernel of the two-pass launch at n (radix 4): one thread
+    per work item of 16 elements of the CTA's sub-problems (at least a
+    warp, at most 256), and one shared buffer of split planes at row stride
+    m + 1 (8 (m + 1) bytes per sub-problem of m points) for every state a
+    step leaves in shared memory, two at most: pass 1 reads and writes
+    device memory, pass 2 reads it, and the fft's pass 2 writes it (the
+    rfft's pass 2 holds 2 c2 sub-problems, each low one with its mirror,
+    and keeps its result for the epilogue); at least one CTA per SM."""
+    real = name == "rfft_planes"
+    tp = tfft.two_pass_launch(*tfft.two_pass_split(n, 4, real=real),
+                              real=real)
+    for mode, m, c, slots, to_device in (
+            (2, tp.n1, tp.c1, tp.c1, True),
+            (3, tp.n2, tp.c2, (2 if real else 1) * tp.c2, not real)):
+        lm = m.bit_length() - 1
+        occ = _build.occupancy(name, lm, c, mode)
+        assert occ["threads"] == max(32, min(256, slots * max(1, m // 16)))
+        buffers = min(2, max(1, _steps(lm) - int(to_device)))
+        assert occ["smem_bytes"] == buffers * 8 * slots * (m + 1)
+        assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("name,slots", [

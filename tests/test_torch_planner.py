@@ -40,19 +40,45 @@ def test_plan_block_and_residency_are_the_hopper_rule(n):
         tpoly.default_complex_block(n)
     assert tcore.plan(n, 8, real=True, product=True).block_b == \
         tpoly.default_real_block(n)
-    assert tcore.plan(n, 8).resident == (n <= 8192)
-    assert tcore.plan(n, 8, real=True).resident == (n <= 8192)
+    # the transforms run two passes from TWO_PASS_FROM (8192) on; a row
+    # stays resident below that (it would fit one CTA up to 8192)
+    assert tcore.plan(n, 8).resident == (n < tfft.TWO_PASS_FROM["fft"])
+    assert tcore.plan(n, 8, real=True).resident == \
+        (n < tfft.TWO_PASS_FROM["rfft"])
     assert tcore.plan(n, 8, product=True).resident == (n <= 4096)
     assert tcore.plan(n, 8, real=True, product=True).resident == (n <= 4096)
 
 
 def test_plan_describes_what_executes():
+    """The description names the schedule that runs: resident rows, the
+    FFT's and real FFT's two passes, or a single CTA per row staged through
+    device memory (the products, which keep their one-CTA kernels)."""
     assert "shared-memory resident" in tcore.plan(4096, 8).describe()
-    assert "staged through device memory" in \
-        tcore.plan(65536, 8).describe()
+    assert "two-pass 256 x 256" in tcore.plan(65536, 8).describe()
+    assert "two-pass 256 x 256" in \
+        tcore.plan(65536, 8, real=True).describe()
+    assert "two-pass 64 x 256" in tcore.plan(16384, 8).describe()
+    assert "single-CTA staged through device memory" in \
+        tcore.plan(65536, 8, product=True).describe()
+    assert "single-CTA staged through device memory" in \
+        tcore.plan(1 << 26, 8).describe()     # no radix-4 split fits
     assert "radix-4" in tcore.plan(4096, 8).describe()
     assert "paired inverse" in \
         tcore.plan(64, 8, real=True, product=True).describe()
+
+
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("product", [False, True])
+def test_plan_two_pass_is_the_kernels_schedule(n, real, product):
+    """The plan records the split the fft and rfft wrappers launch
+    (``kernels.fft.two_pass_plan``) and none for the products."""
+    got = tcore.plan(n, 64, real=real, product=product).two_pass
+    launch = tfft.two_pass_plan(n, 4 if n >= 4 else 2, real=real)
+    if product or launch is None:
+        assert got is None
+    else:
+        assert got == (launch.n1, launch.n2)
 
 
 @pytest.mark.parametrize("bad", [48, 0, -8, 1536])

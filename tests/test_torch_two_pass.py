@@ -1,0 +1,281 @@
+"""The two-pass schedule of ``fft_planes`` and ``rfft_planes``
+(``repro_torch.kernels.fft``: ``two_pass_split``, ``stockham_two_pass``,
+``rfft_two_pass``) on the CPU, against the single-pass plain versions and
+the reference (``repro.kernels.fft``).
+
+The plain mirrors follow the kernels' dataflow: pass 1 on (B n2, n1)
+sub-rows gathered at stride n2, pass 2 on (B n1, n2) contiguous sub-rows
+with twiddles from the global block index, scattered at stride n1, and for
+the rfft the Hermitian split paired by the mirror ranges of pass 2's CTAs.
+Tolerances, each with its reason:
+
+  * the mirrors against ``stockham_stages`` (the port's and the
+    reference's) and ``rfft_planes_plain``: bitwise (``==``) -- the very
+    fp32 operations in the same order, only split into independent pieces;
+  * the wrappers on CPU tensors against the reference's Pallas kernels in
+    interpret mode and float64 numpy: rtol 1e-4, atol 1e-4 * sqrt(n), the
+    reference FFT tests' bound (interpret mode may contract or reorder fp32
+    operations).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import fft as jfft
+from repro_torch.core import fft as tcore
+from repro_torch.kernels import _build
+from repro_torch.kernels import fft as tfft
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _planes(rng, b, n):
+    return (rng.standard_normal((b, n)).astype(np.float32),
+            rng.standard_normal((b, n)).astype(np.float32))
+
+
+def _sequence(n: int, radix: int) -> set[int]:
+    """The L values the sweeps of an n-point transform pass through."""
+    lg = n.bit_length() - 1
+    L, seq = 1, set()
+    if radix == 4 and lg % 2:
+        L *= 2
+        seq.add(L)
+    while L < n:
+        L *= 4 if radix == 4 else 2
+        seq.add(L)
+    return seq
+
+
+@pytest.mark.parametrize("lg", range(14, 27))
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("real", [False, True])
+def test_split_is_on_the_sweep_sequence_and_fits(lg, radix, real):
+    """n1 is an L of the sweep sequence, n1 <= 8192 and n2 <= 8192 (4096
+    for the rfft, whose pass 2 holds each sub-problem with its mirror), and
+    n1 is the closest such to sqrt(n), the smaller on a tie. Where no split
+    qualifies (radix 4 at 2^26; the rfft at 2^26) there is none, and the
+    wrapper keeps one CTA per row."""
+    n = 1 << lg
+    cap2 = 4096 if real else 8192
+    valid = [n1 for n1 in sorted(_sequence(n, radix))
+             if 2 <= n1 <= 8192 and 2 <= n // n1 <= cap2]
+    got = tfft.two_pass_split(n, radix, real=real)
+    if not valid:
+        assert got is None
+        assert tfft.two_pass_plan(n, radix, real=real) is None
+        return
+    n1, n2 = got
+    assert n1 * n2 == n and n1 in valid
+    best = min(abs(lg - 2 * (v.bit_length() - 1)) for v in valid)
+    assert abs(lg - 2 * (n1.bit_length() - 1)) == best
+    assert n1 == min(v for v in valid
+                     if abs(lg - 2 * (v.bit_length() - 1)) == best)
+    if radix == 4 and lg % 4 == 2 and lg < 26:
+        assert n1 == math.isqrt(n) // 2          # sqrt(n) is off the sequence
+    launch = tfft.two_pass_plan(n, radix, real=real)
+    assert (launch.n1, launch.n2) == (n1, n2)
+    # the CTAs' shared memory, two buffers at row stride m + 1 at most,
+    # fits 227 KB
+    slots2 = 2 * launch.c2 if real else launch.c2
+    for slots, m, avail in ((launch.c1, n1, n2), (slots2, n2, n1)):
+        assert 16 * slots * (m + 1) <= tfft.SMEM_MAX_BYTES
+        assert slots <= avail and slots & (slots - 1) == 0
+
+
+def test_split_examples():
+    assert tfft.two_pass_split(65536, 4) == (256, 256)
+    assert tfft.two_pass_split(4096, 4) == (64, 64)
+    assert tfft.two_pass_split(16384, 4) == (64, 256)
+    assert tfft.two_pass_split(16384, 2) == (128, 128)
+    assert tfft.two_pass_split(32768, 4) == (128, 256)
+    assert tfft.two_pass_split(1 << 18, 4) == (256, 1024)
+    assert tfft.two_pass_split(1 << 26, 2) == (8192, 8192)
+    assert tfft.two_pass_split(1 << 26, 2, real=True) is None
+    assert tfft.two_pass_split(1 << 25, 2, real=True) == (8192, 4096)
+    assert tfft.two_pass_split(1 << 26, 4) is None
+    assert tfft.two_pass_launch(256, 256) == tfft.TwoPass(256, 256, 16, 16)
+    assert tfft.two_pass_launch(256, 256, real=True) == \
+        tfft.TwoPass(256, 256, 16, 8)
+
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 15, 1 << 16])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_two_pass_equals_stockham_stages(rng, n, radix, inverse):
+    """The mirror at the planned split equals the port's single-pass sweeps
+    and the reference's, bit for bit."""
+    xr, xi = _planes(rng, 2, n)
+    wr, wi = tfft.twiddle_table(n, inverse=inverse)
+    n1, _ = tfft.two_pass_split(n, radix)
+    got = tfft.stockham_two_pass(_t(xr), _t(xi), _t(wr), _t(wi), n=n,
+                                 inverse=inverse, radix=radix, n1=n1)
+    port = tfft.stockham_stages(_t(xr), _t(xi), _t(wr), _t(wi), n=n,
+                                inverse=inverse, radix=radix)
+    ref = jfft.stockham_stages(jnp.asarray(xr), jnp.asarray(xi),
+                               jnp.asarray(wr), jnp.asarray(wi), n=n,
+                               inverse=inverse, radix=radix)
+    for g, p, r in zip(got, port, ref):
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("n1", [16, 256, 4096])
+def test_any_split_on_the_sequence_is_bitwise(rng, n1):
+    """At n = 2^16, radix 4, every n1 on the sweep sequence gives the same
+    bits."""
+    n = 1 << 16
+    xr, xi = _planes(rng, 2, n)
+    wr, wi = (_t(w) for w in tfft.twiddle_table(n))
+    got = tfft.stockham_two_pass(_t(xr), _t(xi), wr, wi, n=n, inverse=False,
+                                 radix=4, n1=n1)
+    want = tfft.stockham_stages(_t(xr), _t(xi), wr, wi, n=n, inverse=False,
+                                radix=4)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,n1", [(1 << 14, 128), (1 << 14, 512)])
+def test_a_split_off_the_sequence_differs(rng, n, n1):
+    """n1 = 128 or 512 is no L of the radix-4 sequence at 2^14: the split
+    then runs other sweeps and gives another answer (still an FFT)."""
+    xr, xi = _planes(rng, 1, n)
+    wr, wi = (_t(w) for w in tfft.twiddle_table(n))
+    got = tfft.stockham_two_pass(_t(xr), _t(xi), wr, wi, n=n, inverse=False,
+                                 radix=4, n1=n1)
+    want = tfft.stockham_stages(_t(xr), _t(xi), wr, wi, n=n, inverse=False,
+                                radix=4)
+    assert not torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("n,radix", [(4096, 4), (4096, 2), (1 << 14, 4),
+                                     (1 << 15, 4), (65536, 4), (65536, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pass2_twiddles_are_the_sweeps_own(n, radix, inverse):
+    """The pass-2 table the kernels read: entry n1 (L - 1) + ((m - 1) L + l)
+    n1 + l0 of the sweep at local L holds, bit for bit, the twiddle W[l_g m
+    n / (R L_g)] that the whole-row sweep gives global block l_g = l0 + n1 l
+    at L_g = n1 L -- the index arithmetic of csrc/stockham.cu's
+    Pass2Twiddles -- and the table has n1 (n2 - 1) entries."""
+    n1, n2 = tfft.two_pass_split(n, radix)
+    wr, wi = tfft.twiddle_table(n, inverse=inverse)
+    tr, ti = tfft.pass2_twiddles(n, n1, radix, inverse=inverse)
+    assert tr.shape == ti.shape == (n1 * (n2 - 1),)
+    L = 1
+    while L < n2:
+        for m in range(1, radix):
+            for l in range(L):
+                entry = n1 * (L - 1) + ((m - 1) * L + l) * n1
+                lg = np.arange(n1) + n1 * l
+                want = lg * m * (n // (radix * n1 * L))
+                assert (tr[entry:entry + n1].view(np.uint32)
+                        == wr[0, want].view(np.uint32)).all()
+                assert (ti[entry:entry + n1].view(np.uint32)
+                        == wi[0, want].view(np.uint32)).all()
+        L *= radix
+
+
+@pytest.mark.parametrize("n1,c", [(2, 1), (4, 2), (64, 8), (256, 8),
+                                  (256, 1)])
+def test_mirror_slots_hold_each_subproblem_once(n1, c):
+    """Pass 2 of the rfft: the CTAs' slots hold every l0 < n1 exactly once,
+    and each slot's mirror slot holds (n1 - l0) mod n1 in the same CTA."""
+    l0, mirror = tfft.mirror_slots(n1, c)
+    assert l0.shape == mirror.shape == (n1 // (2 * c), 2 * c)
+    assert sorted(l0.flatten().tolist()) == list(range(n1))
+    assert torch.equal(torch.gather(l0, 1, mirror), (n1 - l0) % n1)
+
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 16])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_rfft_two_pass_equals_plain(rng, n, radix, batch):
+    """Odd and even batches (an odd one pairs its last row with a zero
+    row): the mirror equals ``rfft_planes_plain`` bit for bit."""
+    x = _t(rng.standard_normal((batch, n)).astype(np.float32))
+    plan = tfft.two_pass_plan(n, radix, real=True)
+    got = tfft.rfft_two_pass(x, radix=radix, plan=plan)
+    for g, w in zip(got, tfft.rfft_planes_plain(x, radix=radix)):
+        assert g.shape == (batch, n // 2)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_planes_two_pass_matches_pallas(rng, radix, inverse):
+    """n = 16384, where the wrapper takes two passes: against the reference
+    kernel (interpret mode) and numpy at rtol 1e-4, atol 1e-4 sqrt(n), the
+    inverse held as n * ifft."""
+    n = 16384
+    assert tfft.two_pass_plan(n, radix) is not None
+    xr, xi = _planes(rng, 3, n)
+    got = [g.numpy() for g in tfft.fft_planes(_t(xr), _t(xi),
+                                              inverse=inverse, radix=radix)]
+    want = jfft.fft_planes(jnp.asarray(xr), jnp.asarray(xi), inverse=inverse,
+                           radix=radix)
+    scale = n if inverse else 1
+    tol = dict(rtol=1e-4, atol=1e-4 * np.sqrt(n))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g * scale, np.asarray(w) * scale, **tol)
+    ref = np.fft.ifft if inverse else np.fft.fft
+    np.testing.assert_allclose((got[0] + 1j * got[1]) * scale,
+                               ref(xr.astype(np.float64) + 1j * xi) * scale,
+                               **tol)
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4])
+def test_rfft_planes_two_pass_matches_pallas(rng, radix, batch):
+    """n = 16384, two passes: the packed planes against the reference
+    kernel (interpret mode) and numpy's half spectrum at rtol 1e-4, atol
+    1e-4 sqrt(n)."""
+    n = 16384
+    assert tfft.two_pass_plan(n, radix, real=True) is not None
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    pr, pi = (g.numpy() for g in tfft.rfft_planes(_t(x), radix=radix))
+    tol = dict(rtol=1e-4, atol=1e-4 * np.sqrt(n))
+    for g, w in zip((pr, pi), jfft.rfft_planes(jnp.asarray(x), radix=radix)):
+        np.testing.assert_allclose(g, np.asarray(w), **tol)
+    half = np.fft.rfft(x.astype(np.float64))
+    np.testing.assert_allclose(pr, half[:, :n // 2].real, **tol)
+    np.testing.assert_allclose(pi[:, 0], half[:, n // 2].real, **tol)
+    np.testing.assert_allclose(pi[:, 1:], half[:, 1:n // 2].imag, **tol)
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 65536])
+def test_schedule_follows_the_threshold(n):
+    """Below ``TWO_PASS_FROM`` a row stays in one CTA; from it on the
+    wrappers, the plan and its description take the two-pass schedule."""
+    for real, key in ((False, "fft"), (True, "rfft")):
+        launch = tfft.two_pass_plan(n, 4, real=real)
+        p = tcore.plan(n, 64, real=real)
+        if n < tfft.TWO_PASS_FROM[key]:
+            assert launch is None and p.two_pass is None
+            assert "shared-memory resident" in p.describe()
+        else:
+            assert p.two_pass == (launch.n1, launch.n2)
+            assert f"two-pass {launch.n1} x {launch.n2}" in p.describe()
+            assert not p.resident
+
+
+def test_cpu_wrappers_run_the_mirror_and_launch_nothing(rng):
+    """At n = 65536 the CPU wrappers run the two-pass mirrors (the same bits
+    as the single-pass plain versions) and launch no kernel."""
+    n = 65536
+    xr, xi = (_t(v) for v in _planes(rng, 3, n))
+    _build.reset_launches()
+    for inverse in (False, True):
+        got = tfft.fft_planes(xr, xi, inverse=inverse, radix=4)
+        for g, w in zip(got, tfft.fft_planes_plain(xr, xi, inverse=inverse,
+                                                   radix=4)):
+            assert torch.equal(g, w)
+    for g, w in zip(tfft.rfft_planes(xr, radix=4),
+                    tfft.rfft_planes_plain(xr, radix=4)):
+        assert torch.equal(g, w)
+    assert set(_build.LAUNCHES.values()) == {0}
