@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
   1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
      and ``kernels/csrc/attention.cu`` with nvcc into ``build/``, one nvcc
      per source, all started together (and beside them a second nvcc of
-     ``attention.cu`` with ``-Xptxas -v``), and print the build time, the
-     card's name and its power limit; then ptxas's registers, shared
-     memory and spills for the wgmma flash kernel and the count of HGMMA
+     ``attention.cu`` and of ``stockham.cu`` with ``-Xptxas -v``), and
+     print the build time, the card's name and its power limit; then
+     ptxas's registers and spills for every Stockham kernel, and its
+     registers, shared memory and spills for the wgmma flash kernel and
+     the count of HGMMA
      and UTMALDG instructions in its SASS (``cuobjdump -sass``), which
      must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
@@ -31,13 +33,15 @@ Phases (any failure exits non-zero):
      shape, windows 1024 and 24, non-causal, ragged S, G = 1, S = 1 and
      S < 64; the CUDA-core kernel at bf16 head_dims 32 and 320 and in
      fp32; bf16 within one bf16 step and fp32 within 2e-4; and the public
-     (H, S, hd) layout against the naive oracle. Then the fft and rfft
-     kernels' two-pass schedule (``check_two_pass``): n = 2^14 .. 2^18
-     (two passes) and 4096, 8192 under both schedules (the one the planner
-     does not pick through the launch helper the wrapper calls), radix 2
-     and 4, batches 1, 2, 5 and 64, forward and inverse, each result equal
-     to the plain version bit for bit (``==``), within tolerance of
-     float64 numpy, and the rfft -> irfft round trip.
+     (H, S, hd) layout against the naive oracle. Then the two-pass
+     schedules of the fft and rfft kernels and the products' split-pass
+     schedule (``check_two_pass``; three launches, four at odd log2 n and
+     radix 4): n = 2^14 .. 2^18 (two passes) and 4096, 8192 under both
+     schedules (the one the planner does not pick through the launch
+     helper the wrapper calls), radix 2 and 4, batches 1, 2, 5 and 64, the
+     fft forward and inverse, each result equal to the plain version bit
+     for bit (``==``), within tolerance of float64 numpy, and the rfft ->
+     irfft round trip.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
      requests each), ``polymul-mod`` single-limb at both lengths and RNS at
      n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
@@ -79,11 +83,14 @@ Phases (any failure exits non-zero):
      kernel must agree with its plain version within phase 2's tolerance
      (exactly, for the NTT kernels and the fft and rfft kernels). Each
      kernel's launch configuration and the CTAs an SM holds come from the
-     CUDA occupancy API, for each pass of a two-pass launch, whose traced
-     time counts a call's two launches. Then the A/B of the fft and rfft
-     kernels' two schedules at n = 4096 and 8192 (``schedule_ab``: in
-     turns resident, two-pass, two-pass, resident), which sets the
-     planner's threshold. Then the LM
+     CUDA occupancy API, for each launch of a two-pass call, whose traced
+     time counts the call's launches (and a trace splits it by kernel);
+     the two-pass kernels also by CUDA events around a CUDA-graph replay.
+     Then the A/B of the two schedules of the fft, the rfft and both
+     products at n = 4096 and 8192 (``schedule_ab``: in turns single-CTA,
+     two-pass, two-pass, single-CTA), which sets the planner's thresholds.
+     The CUDA-core flash kernel is timed in fp32 and at gemma3-4b's bf16
+     head_dim 320 (``ATTN_TIMED``). Then the LM
      cell: prefill ms, decode ms per token and tok/s, and a traced run for
      the card's idle share and the wgmma flash kernel's share of the
      prefill.
@@ -313,60 +320,94 @@ def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
 
 
 #: phase 2's two-pass cases: the lengths where the wrappers plan two passes
-#: on the serve path and past it, and the resident lengths where both
-#: schedules run (the planner's, and the other through the launch helper)
+#: (the products: their split-pass schedule) on the serve path and past it,
+#: and the lengths below 2^14 where both schedules run (the planner's, and
+#: the other through the launch helper)
 TWO_PASS_NS = tuple(1 << k for k in range(14, 19))
 BOTH_SCHEDULES_NS = (4096, 8192)
 TWO_PASS_BATCHES = (1, 2, 5, SERVE_BATCH)
+#: the kernels with a two-pass (split-pass) schedule
+TWO_PASS_KERNELS = ("fft_planes", "rfft_planes", "polymul_complex_planes",
+                    "polymul_real_planes")
 
 
-def schedules(kfft, name: str, n: int, radix: int) -> dict:
+def _kinds(name: str) -> tuple[bool, bool]:
+    """(real, product) of a two-pass kernel's wrapper."""
+    return (name in ("rfft_planes", "polymul_real_planes"),
+            name.startswith("polymul"))
+
+
+def planned_two_pass(kfft, kpoly, name: str, n: int, radix: int):
+    """The two-pass launch the wrapper ``name`` plans at n, or None."""
+    real, product = _kinds(name)
+    if product:
+        return kpoly.product_two_pass_plan(n, radix, real=real)
+    return kfft.two_pass_plan(n, radix, real=real)
+
+
+def schedules(kfft, kpoly, name: str, n: int, radix: int) -> dict:
     """The schedules phase 2 and the A/B run ``name`` under at length n:
-    {"two-pass" or "resident" (or "staged"): the ``TwoPass`` or None}; the
-    planner's first."""
-    real = name == "rfft_planes"
-    planned = kfft.two_pass_plan(n, radix, real=real)
-    out = {("two-pass" if planned else
-            "resident" if kfft.resident(n, real=real) else "staged"):
-           planned}
+    {"two-pass" or "resident" (or "staged"): the ``TwoPass`` /
+    ``ProductTwoPass`` or None}; the planner's first."""
+    real, product = _kinds(name)
+    planned = planned_two_pass(kfft, kpoly, name, n, radix)
+    single = ("resident" if kfft.resident(n, real=real, product=product)
+              else "staged")
+    out = {("two-pass" if planned else single): planned}
     if n in BOTH_SCHEDULES_NS:
-        out.setdefault("resident", None)
-        out.setdefault("two-pass", kfft.two_pass_launch(
-            *kfft.two_pass_split(n, radix, real=real), real=real))
+        out.setdefault(single, None)
+        split = kfft.two_pass_split(n, radix, real=real, product=product)
+        out.setdefault("two-pass", kpoly.product_two_pass_launch(
+            *split, radix, real=real) if product else
+            kfft.two_pass_launch(*split, real=real))
     return out
 
 
-def launch_under(kfft, name: str, schedule, radix: int, *, inverse=False):
-    """``fft_planes`` / ``rfft_planes`` on card tensors under a given
-    schedule: through the wrapper where it is the planner's, else through
-    the launch helper the wrapper calls (the C entry point, one count on the
-    wrapper's counter), so the schedule the planner did not pick runs too."""
+def launch_under(kfft, kpoly, name: str, schedule, radix: int, *,
+                 inverse=False):
+    """A two-pass kernel's wrapper on card tensors under a given schedule:
+    through the wrapper where it is the planner's, else through the launch
+    helper the wrapper calls (the C entry point, one count on the wrapper's
+    counter), so the schedule the planner did not pick runs too."""
+    real, product = _kinds(name)
+
     def run(*planes):
         n = planes[0].shape[1]
-        real = name == "rfft_planes"
-        if schedule == kfft.two_pass_plan(n, radix, real=real):
-            if real:
-                return kfft.rfft_planes(planes[0], radix=radix)
-            return kfft.fft_planes(*planes[:2], inverse=inverse, radix=radix)
-        if real:
-            return kfft._launch_rfft(planes[0], radix, kfft.plan_batch_block(
-                n, real=True), schedule)
-        return kfft._launch_fft(*planes[:2], inverse, radix,
-                                kfft.plan_batch_block(n), schedule)
+        planned = schedule == planned_two_pass(kfft, kpoly, name, n, radix)
+        if name == "fft_planes":
+            return (kfft.fft_planes(*planes[:2], inverse=inverse, radix=radix)
+                    if planned else kfft._launch_fft(
+                        *planes[:2], inverse, radix,
+                        kfft.plan_batch_block(n), schedule))
+        if name == "rfft_planes":
+            return (kfft.rfft_planes(planes[0], radix=radix) if planned
+                    else kfft._launch_rfft(planes[0], radix,
+                                           kfft.plan_batch_block(n, real=True),
+                                           schedule))
+        if name == "polymul_complex_planes":
+            return (kpoly.polymul_complex_planes(*planes[:4], radix=radix)
+                    if planned else kpoly._launch_polymul_complex(
+                        *planes[:4], radix, kpoly.default_complex_block(n),
+                        schedule))
+        return (kpoly.polymul_real_planes(*planes[:2], radix=radix)
+                if planned else kpoly._launch_polymul_real(
+                    *planes[:2], radix, kpoly.default_real_block(n),
+                    schedule))
     return run
 
 
-def check_two_pass(torch, kfft) -> dict[str, int]:
-    """fft_planes (forward and inverse) and rfft_planes under every
-    schedule of ``schedules`` -- two passes at n = 2^14 .. 2^18, both
-    schedules at n = 4096 and 8192 -- radix 2 and 4, batches 1, 2, 5 and the
-    serve batch: each result equal to its plain version bit for bit
-    (``==``), the first five rows within the reference tests' tolerance of
-    float64 numpy, and the rfft -> irfft round trip within rtol 1e-4, atol
-    1e-4 n. Returns the cases held per kernel."""
+def check_two_pass(torch, kfft, kpoly) -> dict[str, int]:
+    """fft_planes (forward and inverse), rfft_planes and the two products
+    under every schedule of ``schedules`` -- two passes (the products'
+    split-pass schedule: three launches, four at odd log2 n and radix 4) at
+    n = 2^14 .. 2^18, both schedules at n = 4096 and 8192 -- radix 2 and 4,
+    batches 1, 2, 5 and the serve batch: each result equal to its plain
+    version bit for bit (``==``), the first five rows within the reference
+    tests' tolerance of float64 numpy, and the rfft -> irfft round trip
+    within rtol 1e-4, atol 1e-4 n. Returns the cases held per kernel."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
-    held = {"fft_planes": 0, "rfft_planes": 0}
+    held = dict.fromkeys(TWO_PASS_KERNELS, 0)
 
     def equal(label, got, want):
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
@@ -375,24 +416,28 @@ def check_two_pass(torch, kfft) -> dict[str, int]:
                              f"(max |diff| {diff}); the two-pass schedule "
                              f"must equal them bit for bit")
 
+    def f64(*planes):
+        return [p[:5].cpu().numpy().astype(np.float64) for p in planes]
+
     for n in sorted(BOTH_SCHEDULES_NS + TWO_PASS_NS):
         tol = tolerance("fft_planes", n)
-        done = []
+        ptol = tolerance("polymul_real_planes", n)
+        done = set()
         for radix in (2, 4):
             for b in TWO_PASS_BATCHES:
-                xr, xi = (torch.from_numpy(rng.standard_normal(
-                    (b, n)).astype(np.float32)).to(dev) for _ in range(2))
-                head = (xr[:5].cpu().numpy().astype(np.float64)
-                        + 1j * xi[:5].cpu().numpy())
+                xr, xi, yr_, yi_ = (torch.from_numpy(rng.standard_normal(
+                    (b, n)).astype(np.float32)).to(dev) for _ in range(4))
+                hr, hi, gr, gi = f64(xr, xi, yr_, yi_)
+                head = hr + 1j * hi
                 for inverse in (False, True):
                     plain = kfft.fft_planes_plain(xr, xi, inverse=inverse,
                                                   radix=radix)
                     want = (np.fft.ifft(head) * n if inverse
                             else np.fft.fft(head))
-                    for label, sched in schedules(kfft, "fft_planes", n,
-                                                  radix).items():
-                        got = launch_under(kfft, "fft_planes", sched, radix,
-                                           inverse=inverse)(xr, xi)
+                    for label, sched in schedules(kfft, kpoly, "fft_planes",
+                                                  n, radix).items():
+                        got = launch_under(kfft, kpoly, "fft_planes", sched,
+                                           radix, inverse=inverse)(xr, xi)
                         case = (f"fft_planes n={n} radix={radix} batch={b} "
                                 f"inverse={inverse} {label}")
                         equal(case, got, plain)
@@ -402,12 +447,12 @@ def check_two_pass(torch, kfft) -> dict[str, int]:
                             g * (n if inverse else 1), want, **tol,
                             err_msg=case)
                         held["fft_planes"] += 1
-                        done.append(label)
+                        done.add(f"fft {label}")
                 plain = kfft.rfft_planes_plain(xr, radix=radix)
                 half = np.fft.rfft(head.real)
-                for label, sched in schedules(kfft, "rfft_planes", n,
+                for label, sched in schedules(kfft, kpoly, "rfft_planes", n,
                                               radix).items():
-                    yr, yi = launch_under(kfft, "rfft_planes", sched,
+                    yr, yi = launch_under(kfft, kpoly, "rfft_planes", sched,
                                           radix)(xr)
                     case = (f"rfft_planes n={n} radix={radix} batch={b} "
                             f"{label}")
@@ -425,10 +470,49 @@ def check_two_pass(torch, kfft) -> dict[str, int]:
                         back.cpu().numpy(), xr.cpu().numpy(), rtol=1e-4,
                         atol=1e-4 * n, err_msg=f"{case}: rfft -> irfft")
                     held["rfft_planes"] += 1
+                    done.add(f"rfft {label}")
+                # the products: (x, y) complex, (xr, xi) real
+                plain = kpoly.polymul_complex_planes_plain(
+                    xr, xi, yr_, yi_, radix=radix)
+                want = np.fft.ifft(np.fft.fft(head)
+                                   * np.fft.fft(gr + 1j * gi))
+                for label, sched in schedules(
+                        kfft, kpoly, "polymul_complex_planes", n,
+                        radix).items():
+                    got = launch_under(kfft, kpoly, "polymul_complex_planes",
+                                       sched, radix)(xr, xi, yr_, yi_)
+                    case = (f"polymul_complex_planes n={n} radix={radix} "
+                            f"batch={b} {label}")
+                    equal(case, got, plain)
+                    np.testing.assert_allclose(
+                        got[0][:5].cpu().numpy()
+                        + 1j * got[1][:5].cpu().numpy(), want, **ptol,
+                        err_msg=case)
+                    held["polymul_complex_planes"] += 1
+                    done.add(f"polymul {label}")
+                plain = kpoly.polymul_real_planes_plain(xr, xi, radix=radix)
+                want = np.fft.ifft(np.fft.fft(hr) * np.fft.fft(hi)).real
+                for label, sched in schedules(
+                        kfft, kpoly, "polymul_real_planes", n,
+                        radix).items():
+                    got = launch_under(kfft, kpoly, "polymul_real_planes",
+                                       sched, radix)(xr, xi)
+                    case = (f"polymul_real_planes n={n} radix={radix} "
+                            f"batch={b} {label}")
+                    equal(case, (got,), (plain,))
+                    np.testing.assert_allclose(got[:5].cpu().numpy(), want,
+                                               **ptol, err_msg=case)
+                    held["polymul_real_planes"] += 1
+                    done.add(f"polymul-real {label}")
+        products = {r: kfft.two_pass_split(n, r, product=True)
+                    for r in (2, 4)}
         print(f"[two-pass] n={n} radix 2,4 batches {TWO_PASS_BATCHES} "
-              f"schedules {sorted(set(done))}: fft (forward, inverse) and "
-              f"rfft == plain, within tolerance of numpy, rfft -> irfft "
-              f"round trip ok", flush=True)
+              f"schedules {sorted(done)}: fft (forward, inverse), rfft and "
+              f"both products == plain, within tolerance of numpy, rfft -> "
+              f"irfft round trip ok; product splits {products}, launches "
+              f"per call (radix 2, 4) "
+              f"{[kpoly.product_two_pass_launch(*products[r], r).launches for r in (2, 4)]}",
+              flush=True)
     torch.cuda.synchronize()
     return held
 
@@ -606,8 +690,8 @@ def library_phase(torch, core_fft, kntt, ntt_core) -> None:
 
 #: Device-side names of the serve routes' own kernels in a profiler trace.
 ROUTE_KERNEL = re.compile(
-    r"(^|::)(fft|rfft|polymul_complex|polymul_real|ntt_polymul|"
-    r"rns_ntt_polymul)(_pass[12])?_kernel\b")
+    r"(^|::)(fft|rfft|polymul|polymul_complex|polymul_real|ntt_polymul|"
+    r"rns_ntt_polymul)(_pass[12]|_mid)?_kernel\b")
 
 
 def idle_shares(torch, serve, card: str) -> dict:
@@ -798,14 +882,13 @@ def device_ms(torch, fn, arg_sets, reps: int, *,
                      f"tries")
 
 
-def occupancy(build, kfft, name: str, n: int, b: int, plan) -> dict:
+def occupancy(build, kfft, kpoly, name: str, n: int, b: int, plan) -> dict:
     """Launch configuration and CTAs per SM of kernel ``name`` as its
     wrapper launches it for a batch of b rows under ``plan``: under the
-    two-pass schedule, pass 1's (and pass 2's under "pass2"), with the
-    sub-problems per CTA as "rows_per_cta"."""
+    two-pass schedule each launch's, in order (``passes``)."""
     real = name in ("rfft_planes", "irfft_planes", "polymul_real_planes")
-    if name in ("fft_planes", "rfft_planes") and plan.two_pass:
-        return pass_occupancy(build, kfft, name, n, plan.radix)
+    if name in TWO_PASS_KERNELS and plan.two_pass:
+        return pass_occupancy(build, kfft, kpoly, name, n, plan.radix)
     product = name.startswith("polymul")
     rows, staged = kfft.cta_rows(n, b, plan.block_b, real=real,
                                  product=product)
@@ -813,20 +896,34 @@ def occupancy(build, kfft, name: str, n: int, b: int, plan) -> dict:
             **build.occupancy(name, n.bit_length() - 1, rows, staged)}
 
 
-def pass_occupancy(build, kfft, name: str, n: int, radix: int) -> dict:
-    """Both pass kernels of ``name``'s two-pass launch at length n: pass
-    1's numbers at the top level, pass 2's under "pass2"."""
-    real = name == "rfft_planes"
-    tp = kfft.two_pass_launch(*kfft.two_pass_split(n, radix, real=real),
-                              real=real)
-    lg = {v: v.bit_length() - 1 for v in (tp.n1, tp.n2)}
-    one = build.occupancy(name, lg[tp.n1], tp.c1, 2)
-    two = build.occupancy(name, lg[tp.n2], tp.c2, 3)
+def pass_occupancy(build, kfft, kpoly, name: str, n: int, radix: int
+                   ) -> dict:
+    """Each launch of ``name``'s two-pass (split-pass) schedule at length
+    n, in order, with what the occupancy API reports for it."""
+    real, product = _kinds(name)
+    tp = planned_two_pass(kfft, kpoly, name, n, radix)
+    # (label, sub-problems a CTA holds, their points, and the occupancy
+    # query: counter, sub-problems it takes, launch of the schedule)
+    if not product:
+        launches = [("pass 1", tp.c1, tp.n1, name, tp.c1, 2),
+                    ("pass 2", (2 if real else 1) * tp.c2, tp.n2, name,
+                     tp.c2, 3)]
+    else:
+        li2 = n // tp.inverse_n1
+        launches = [("F1: forward pass 1", tp.c1, tp.n1, name, tp.c1, 2),
+                    ("M: forward pass 2, product" + (
+                        ", inverse pass 1" if tp.fused else ""),
+                     (4 if real else 2) * tp.cm, tp.n2, name, tp.cm, 3)]
+        if not tp.fused:
+            launches.append(("I1: inverse pass 1", tp.c1, tp.n1,
+                             "fft_planes", tp.c1, 2))
+        launches.append(("I2: inverse pass 2", tp.ci, li2, name, tp.ci, 4))
+    passes = [{"launch": label, "sub_problems_per_cta": held, "points": m,
+               **build.occupancy(counter, m.bit_length() - 1, takes, mode)}
+              for label, held, m, counter, takes, mode in launches]
     return {"rows_per_cta": f"{tp.c1} of {tp.n1} points",
-            "staged": False, "launches_per_call": 2,
-            "two_pass": f"{tp.n1} x {tp.n2}", **one,
-            "pass2": {"sub_problems_per_cta": (2 if real else 1) * tp.c2,
-                      "points": tp.n2, **two}}
+            "staged": False, "launches_per_call": len(passes),
+            "two_pass": f"{tp.n1} x {tp.n2}", "passes": passes}
 
 
 def launch_text(entry: dict) -> str:
@@ -835,14 +932,36 @@ def launch_text(entry: dict) -> str:
         return (f"{rows}, {e['threads']} threads, {e['smem_bytes']} B "
                 f"shared, {e['regs']} regs/thread -> {e['ctas_per_sm']} "
                 f"CTAs/SM")
-    if "pass2" not in entry:
+    if "passes" not in entry:
         return one(entry, f"{entry['rows_per_cta']} rows/CTA")
-    p2 = entry["pass2"]
-    return (f"two-pass {entry['two_pass']}, 2 kernel launches per call; "
-            f"pass 1: " + one(entry, f"{entry['rows_per_cta']} sub-problems"
-                              f"/CTA") + "; pass 2: "
-            + one(p2, f"{p2['sub_problems_per_cta']} of {p2['points']} "
-                      f"points sub-problems/CTA"))
+    return (f"two-pass {entry['two_pass']}, {entry['launches_per_call']} "
+            f"kernel launches per call; " + "; ".join(
+                f"{p['launch']}: " + one(p, f"{p['sub_problems_per_cta']} "
+                                            f"sub-problems of {p['points']} "
+                                            f"points/CTA")
+                for p in entry["passes"]))
+
+
+def by_kernel(torch, fn, arg_sets, reps: int) -> dict[str, dict]:
+    """One trace of ``reps`` calls: device ms per launch and launches
+    traced, by kernel name (how a multi-launch call's time splits)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            # "(anonymous namespace)::fft_pass1_kernel(float const*, ...)"
+            found = re.search(r"(\w+)\(", e.key)
+            name = found.group(1) if found else e.key
+            out[name] = {"ms_per_launch": e.self_device_time_total / 1e3
+                         / e.count, "launches_traced": e.count}
+    return out
 
 
 def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
@@ -854,9 +973,11 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
     function). ``bound`` is (ms for the bytes, ms for the operations, what
     the operations are);
     ``launches_per_call`` the kernel launches one call of the wrapper makes
-    (2 under the two-pass schedule), by which the traced launches are
-    counted into calls; ``graph`` adds the kernel's CUDA-graph replay time
-    (``graph_ms``) beside the others."""
+    (2 under the two-pass schedule, 3 or 4 under the products' split-pass
+    one), by which the traced launches are counted into calls, and where
+    it is above 1 a trace splits the call's time by kernel (``by_kernel``);
+    ``graph`` adds the kernel's CUDA-graph replay time (``graph_ms``)
+    beside the others."""
     reps = max(len(sets), 20)
     got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
                  for f in (kern, plain))
@@ -890,6 +1011,10 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
             "max_abs_err": err, "event_ms": kern_ev,
             "graph_event_ms": graph_ms(torch, kern, sets, reps) if graph
             else None,
+            "library_graph_event_ms": graph_ms(torch, lib, lib_sets, reps)
+            if graph and lib else None,
+            "by_kernel": by_kernel(torch, kern, sets, reps)
+            if launches_per_call > 1 else None,
             "plain_event_ms": plain_ev,
             "library_event_ms": lib and time_ms(torch, lib, lib_sets, reps)}
 
@@ -908,12 +1033,22 @@ def report_line(name: str, n: int, entry: dict, card: str) -> None:
           f"per call: kernel={entry['event_ms']:.4f} "
           + ("" if entry.get("graph_event_ms") is None else
              f"(graph replay {entry['graph_event_ms']:.4f}) ")
+          + ("" if entry.get("library_graph_event_ms") is None else
+             f"library (graph replay "
+             f"{entry['library_graph_event_ms']:.4f}) ")
           + f"plain={entry['plain_event_ms']:.4f}; |kernel-plain|max="
-          f"{entry['max_abs_err']:.3g}; launch: {launch_text(entry)}; on "
-          f"{card}", flush=True)
+          f"{entry['max_abs_err']:.3g}; launch: {launch_text(entry)}"
+          + ("" if not entry.get("by_kernel") else "; traced by kernel: "
+             + ", ".join(f"{k} {v['ms_per_launch']:.4f} ms/launch "
+                         f"({v['launches_traced']} traced)"
+                         for k, v in entry["by_kernel"].items()))
+          + f"; on {card}", flush=True)
 
 
 def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
+    """Every float kernel at the serve shapes (batch 64, n = 4096 and
+    65536, radix 4 as planned): ``measure`` with its bound, occupancy and,
+    for the kernels with a two-pass schedule, the graph-replay time."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     out: dict[str, dict] = {name: {} for name in FLOAT_KERNELS}
@@ -983,14 +1118,14 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
         for name, (plan, kern, plain, ksets, lib, lsets, lib_name) in \
                 cases.items():
             nbytes, flops = work(name, n, b, plan.radix)
-            occ = occupancy(build, kfft, name, n, b, plan)
+            occ = occupancy(build, kfft, kpoly, name, n, b, plan)
             entry = measure(torch, name, n, kern, plain, ksets, lib, lsets,
-                            exact=name in ("fft_planes", "rfft_planes"),
+                            exact=name in TWO_PASS_KERNELS,
                             bound=(nbytes / HBM_BYTES_PER_S * 1e3,
                                    flops / FP32_FLOPS_PER_S * 1e3,
                                    "fp32 flops"),
                             launches_per_call=occ["launches_per_call"],
-                            graph=name in ("fft_planes", "rfft_planes"))
+                            graph=name in TWO_PASS_KERNELS)
             entry.update(library=lib_name, bytes=nbytes, flops=flops,
                          radix=plan.radix, block_b=plan.block_b,
                          resident=plan.resident, **occ)
@@ -999,71 +1134,85 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
     return out
 
 
-def schedule_ab(torch, kfft, card: str) -> dict:
-    """fft_planes (forward) and rfft_planes at the resident lengths n = 4096
-    and 8192, batch 64, radix 4 (the planner's), under both schedules, in
-    turns: resident, two-pass, two-pass, resident. Per turn the time per
-    call by CUDA events around a CUDA-graph replay of the calls
-    (``graph_ms``: the card's time, without the host's launch gaps, which
-    at these sizes exceed the kernels'), the device time from the profiler
-    (a call's launches counted: 1 resident, 2 two-pass) and the CUDA-event
-    time of calls issued one by one (host gaps included); each schedule's
-    result must equal the plain version bit for bit. A schedule is faster
-    where each of its turns beats each of the other's. The planner's
-    threshold (``kernels.fft.TWO_PASS_FROM``) is set from the graph times
-    of such a run: two passes only where they are faster."""
+def schedule_ab(torch, kfft, kpoly, card: str) -> dict:
+    """The two-pass kernels (the fft forward, the rfft, both products) at
+    n = 4096 and 8192, batch 64, radix 4 (the planner's), under both
+    schedules -- the single-CTA one (resident; for the products staged at
+    8192) and the two-pass one (split-pass for the products) -- in turns:
+    single, two-pass, two-pass, single. Per turn the time per call by CUDA
+    events around a CUDA-graph replay of the calls (``graph_ms``: the
+    card's time, without the host's launch gaps, which at these sizes
+    exceed the kernels'), the device time from the profiler (a call's
+    launches counted) and the CUDA-event time of calls issued one by one
+    (host gaps included); each schedule's result must equal the plain
+    version bit for bit. A schedule is faster where each of its turns beats
+    each of the other's. The planner's thresholds
+    (``kernels.fft.TWO_PASS_FROM``) are set from the graph times of such a
+    run: two passes only where they are faster."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
     out: dict[str, dict] = {}
-    for name in ("fft_planes", "rfft_planes"):
-        real = name == "rfft_planes"
-        plain = (functools.partial(kfft.rfft_planes_plain, radix=4) if real
-                 else functools.partial(kfft.fft_planes_plain, radix=4))
+    plains = {"fft_planes": kfft.fft_planes_plain,
+              "rfft_planes": kfft.rfft_planes_plain,
+              "polymul_complex_planes": kpoly.polymul_complex_planes_plain,
+              "polymul_real_planes": kpoly.polymul_real_planes_plain}
+    planes = {"fft_planes": 2, "rfft_planes": 1,
+              "polymul_complex_planes": 4, "polymul_real_planes": 2}
+    for name in TWO_PASS_KERNELS:
+        plain = functools.partial(plains[name], radix=4)
         out[name] = {}
         for n in BOTH_SCHEDULES_NS:
             b = SERVE_BATCH
+            k = planes[name]
             sets = [[torch.from_numpy(rng.standard_normal((b, n)).astype(
-                np.float32)).to(dev) for _ in range(2)]
-                for _ in range(max(2, math.ceil(128e6 / (2 * b * n * 4))))]
-            fns = {label: launch_under(kfft, name, sched, 4)
-                   for label, sched in schedules(kfft, name, n, 4).items()}
-            want = plain(*sets[0][:1 if real else 2])
+                np.float32)).to(dev) for _ in range(k)]
+                for _ in range(max(2, math.ceil(128e6 / (k * b * n * 4))))]
+            scheds = schedules(kfft, kpoly, name, n, 4)
+            fns = {label: launch_under(kfft, kpoly, name, sched, 4)
+                   for label, sched in scheds.items()}
+            launches = {label: 1 if sched is None else sched.launches
+                        for label, sched in scheds.items()}
+            single = next(label for label in fns if label != "two-pass")
+            want = plain(*sets[0])
             for label, fn in fns.items():
                 got = fn(*sets[0])
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                if not all(torch.equal(g, w) for g, w in
+                           zip(_as_tuple(got), _as_tuple(want))):
                     raise SystemExit(f"{name} n={n} {label}: not equal to "
                                      f"the plain version")
             reps = max(len(sets), 20)
             runs = {label: {"graph_ms": [], "device_ms": [], "event_ms": []}
                     for label in fns}
-            for label in ("resident", "two-pass", "two-pass", "resident"):
-                per = 2 if label == "two-pass" else 1
+            for label in (single, "two-pass", "two-pass", single):
                 runs[label]["graph_ms"].append(
                     graph_ms(torch, fns[label], sets, reps))
                 ms, _ = device_ms(torch, fns[label], sets, reps,
-                                  launches_per_call=per)
+                                  launches_per_call=launches[label])
                 runs[label]["device_ms"].append(ms)
                 runs[label]["event_ms"].append(
                     time_ms(torch, fns[label], sets, reps))
             best = {label: min(r["graph_ms"]) for label, r in runs.items()}
-            planned = ("two-pass" if kfft.two_pass_plan(n, 4, real=real)
-                       else "resident")
+            planned = ("two-pass" if planned_two_pass(kfft, kpoly, name, n,
+                                                      4) else single)
             # faster: every turn of one schedule below every turn of the
             # other; otherwise the two are within the turns' spread
-            res = runs["resident"]["graph_ms"]
+            one = runs[single]["graph_ms"]
             two = runs["two-pass"]["graph_ms"]
-            faster = ("two-pass" if max(two) < min(res) else
-                      "resident" if max(res) < min(two) else
+            faster = ("two-pass" if max(two) < min(one) else
+                      single if max(one) < min(two) else
                       "neither (within the turns' spread)")
             out[name][n] = {"runs": runs, "best_graph_ms": best,
-                            "faster": faster, "planned": planned}
+                            "faster": faster, "planned": planned,
+                            "launches_per_call": launches}
+
             def fmt(ts):
                 return ", ".join(f"{t:.4f}" for t in ts)
 
-            print(f"[ab] {name} n={n} batch={b} radix 4, in turns resident, "
-                  f"two-pass, two-pass, resident: ms per call by CUDA "
+            print(f"[ab] {name} n={n} batch={b} radix 4, in turns {single}, "
+                  f"two-pass, two-pass, {single}: ms per call by CUDA "
                   f"events around a CUDA-graph replay "
-                  + "; ".join(f"{label} {fmt(r['graph_ms'])} (profiler "
+                  + "; ".join(f"{label} ({launches[label]} launch(es)) "
+                              f"{fmt(r['graph_ms'])} (profiler "
                               f"device ms {fmt(r['device_ms'])}; event ms "
                               f"with host gaps {fmt(r['event_ms'])})"
                               for label, r in runs.items())
@@ -1334,12 +1483,21 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
 FLASH_KERNEL = re.compile(r"flash_attention_wgmma_kernel")
 
 
-#: Phase 4's flash-attention shapes, by kernel: (B, S, H, KV, hd, dtype).
-#: The wgmma kernel at the served prefill; the CUDA-core kernel at the same
-#: shape in fp32, the type it serves on the LM path (the fp32 parity path).
+#: Phase 4's flash-attention shapes: label -> (kernel, (B, S, H, KV, hd,
+#: dtype, window)), causal. The wgmma kernel at the served prefill; the
+#: CUDA-core kernel at the same shape in fp32, the type it serves on the LM
+#: path (the fp32 parity path), and in bf16 at gemma3-4b's heads (8 heads,
+#: 4 kv heads, head_dim 320, its local layers' window 1024) at the served
+#: batch and prompt. The first shape of each kernel is its report's.
 ATTN_TIMED = {
-    "flash_attention_wgmma": (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16"),
-    "flash_attention": (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32")}
+    "served prefill": ("flash_attention_wgmma",
+                       (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16",
+                        1 << 30)),
+    "fp32": ("flash_attention",
+             (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30)),
+    "gemma3-4b bf16 hd 320 window 1024": (
+        "flash_attention", (LM_BATCH, LM_PROMPT, 8, 4, 320, "bfloat16",
+                            1024))}
 
 
 def cuda_core_on(torch, build, q, k, v, scale: float):
@@ -1356,15 +1514,16 @@ def cuda_core_on(torch, build, q, k, v, scale: float):
     return o
 
 
-def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
-    """Flash kernel ``name`` at its ATTN_TIMED shape, causal: device time
-    (mean over the launches traced), its plain version, and
-    scaled_dot_product_attention (causal, GQA) on the same inputs as the
-    yardstick; bound: bytes of q, k, v and o over 3.35 TB/s, or the causal
-    pairs' flops (4 hd per pair: q.k and p.v) over 989 TFLOP/s bf16 (the
-    tensor cores) or 67 TFLOP/s fp32 (the CUDA cores; the reference's fp32
-    products rule out TF32). For the wgmma kernel, the CUDA-core kernel on
-    the same bf16 inputs too.
+def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
+    """Flash kernel of ATTN_TIMED[label] at its shape, causal (within its
+    window): device time (mean over the launches traced), its plain
+    version, and scaled_dot_product_attention (causal, GQA; with the
+    window, the same mask as a boolean ``attn_mask``) on the same inputs as
+    the yardstick; bound: bytes of q, k, v and o over 3.35 TB/s, or the
+    pairs' flops (4 hd per pair within the causal window: q.k and p.v)
+    over 989 TFLOP/s bf16 (the tensor cores) or 67 TFLOP/s fp32 (the CUDA
+    cores; the reference's fp32 products rule out TF32). For the wgmma
+    kernel, the CUDA-core kernel on the same bf16 inputs too.
 
     The kernel's, the plain version's and SDPA's times are CUDA-event
     time per call over back-to-back calls: each call runs far longer than
@@ -1373,20 +1532,25 @@ def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
     traces held 1 of 10 launches, or none in five tries, and SDPA's read
     half its event time, below the bound). The traced times are printed
     beside, where the trace holds any."""
-    B, S, H, KV, hd, dtype = ATTN_TIMED[name]
+    name, (B, S, H, KV, hd, dtype, window) = ATTN_TIMED[label]
     sets = [attention_inputs(torch, B, S, H, KV, hd, dtype, 100 + i)
             for i in range(2)]
     if flash_counter(kattn, sets[0][0].dtype, hd) != name:
         raise SystemExit(f"{name}: ATTN_TIMED shape dispatches elsewhere")
     scale = hd ** -0.5
-    kern = functools.partial(kattn.attention, window=1 << 30, scale=scale)
-    plain = functools.partial(kattn.attention_plain, window=1 << 30,
+    kern = functools.partial(kattn.attention, window=window, scale=scale)
+    plain = functools.partial(kattn.attention_plain, window=window,
                               scale=scale)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = [tuple(x.transpose(1, 2) for x in s) for s in sets]
+    pos = torch.arange(S, device=sets[0][0].device)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window)) if window < S else None
 
     def lib(q, k, v):
-        return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        if mask is None:
+            return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
     before = build.LAUNCHES[name]
     got = kern(*sets[0]).float()
@@ -1397,11 +1561,12 @@ def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
     ref = lib(*lib_sets[0]).transpose(1, 2).float()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, **ATTN_TOL[dtype]):
-        raise SystemExit(f"{name} at {ATTN_TIMED[name]}: |kernel - plain| "
+        raise SystemExit(f"{name} at {ATTN_TIMED[label]}: |kernel - plain| "
                          f"{err}")
     bf16 = dtype == "bfloat16"
     nbytes = (2 if bf16 else 4) * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    flops = 4 * hd * (S * (S + 1) // 2) * B * H
+    pairs = sum(min(q + 1, window) for q in range(S))
+    flops = 4 * hd * pairs * B * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
     reps = 10
@@ -1414,7 +1579,8 @@ def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
         "plain_ms": time_ms(torch, plain, sets, 4),
         "library_ms": time_ms(torch, lib, lib_sets, reps),
         "library": "torch.nn.functional.scaled_dot_product_attention("
-                   "is_causal=True, enable_gqa=True)",
+                   + ("is_causal=True" if mask is None else
+                      "attn_mask=<causal window>") + ", enable_gqa=True)",
         "plain_traced_ms": device_ms(torch, plain, sets, 4, tries=2,
                                      required=False)[0],
         "library_traced_ms": device_ms(torch, lib, lib_sets, reps, tries=2,
@@ -1426,7 +1592,7 @@ def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
         "bytes": nbytes, "flops": flops, "max_abs_err": err,
         "sdpa_vs_plain_max_abs": float((ref - want).abs().max()),
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                  "dtype": dtype, "causal": True},
+                  "dtype": dtype, "causal": True, "window": window},
         **build.occupancy(name, hd, int(bf16), 0)}
     extra = ""
     if name == "flash_attention_wgmma":
@@ -1445,7 +1611,8 @@ def attention_timing(torch, kattn, build, card: str, name: str) -> dict:
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
 
-    print(f"[time] {name} B={B} S={S} H={H} KV={KV} hd={hd} {dtype} causal: "
+    print(f"[time] {name} ({label}) B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"{dtype} causal window={window}: "
           f"event ms per call: kernel={entry['ms']:.4f} "
           f"plain={entry['plain_ms']:.4f} sdpa={entry['library_ms']:.4f}; "
           f"bound={entry['bound_ms']:.4f} ({entry['bound_by']}; bytes "
@@ -1539,16 +1706,54 @@ def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
     return out
 
 
-def start_ptxas_report(build):
-    """A second nvcc of ``attention.cu`` with ``-Xptxas -v``, started beside
-    the build: ptxas's registers, shared memory and spills per kernel."""
+def start_ptxas_report(build, source: str):
+    """A second nvcc of ``source`` with ``-Xptxas -v``, started beside the
+    build: ptxas's registers, shared memory and spills per kernel."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / f"attention-ptxas-{os.getpid()}.so"
+    stem = os.path.splitext(os.path.basename(source))[0]
+    out = build.BUILD_DIR / f"{stem}-ptxas-{os.getpid()}.so"
     proc = subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-         os.path.join(ROOT, ATTENTION)],
+         os.path.join(ROOT, source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return out, proc
+
+
+def stockham_kernel_report(ptxas) -> dict[str, dict]:
+    """Registers and spill bytes of every kernel of ``stockham.cu`` from
+    ptxas's report, one line each: {kernel: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    out, proc = ptxas
+    stdout, stderr = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(f"nvcc -Xptxas -v of {STOCKHAM} failed:\n"
+                         f"{stdout}\n{stderr}")
+    out.unlink()
+    def demangle(symbol):
+        """The kernel's own <length><name>: the innermost one that ends in
+        _kernel (the anonymous namespace before it may hold digits)."""
+        names = [symbol[m.end():m.end() + int(m.group(1))]
+                 for m in re.finditer(r"(\d+)(?=[A-Za-z_])", symbol)]
+        names = [n for n in names if n.endswith("_kernel")]
+        return min(names, key=len) if names else symbol
+
+    kernels, name = {}, None
+    for line in (stdout + stderr).splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = demangle(entry.group(1))
+            kernels[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            kernels[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+    for name, k in kernels.items():
+        print(f"[build] ptxas {name}: {k.get('registers')} registers, "
+              f"{k.get('spill_stores')} bytes spill stores, "
+              f"{k.get('spill_loads')} bytes spill loads", flush=True)
+    return kernels
 
 
 def wgmma_kernel_report(ptxas, library) -> dict:
@@ -1620,7 +1825,8 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    ptxas = start_ptxas_report(_build)
+    ptxas = start_ptxas_report(_build, ATTENTION)
+    stockham_ptxas = start_ptxas_report(_build, STOCKHAM)
     libs = _build.build()
     _build.load()
     card = card_line()
@@ -1629,20 +1835,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     wgmma_build = wgmma_kernel_report(ptxas, libs["attention"])
+    stockham_build = stockham_kernel_report(stockham_ptxas)
 
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     _build.reset_launches()
     worst = check_kernels(torch, kfft, kpoly, core_fft)
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
     worst.update(check_attention(torch, kattn, _build))
-    two_pass_held = check_two_pass(torch, kfft)
+    two_pass_held = check_two_pass(torch, kfft, kpoly)
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
     print(f"[kernels] all ten held against their plain versions (the "
-          f"transform kernels against numpy too; fft and rfft bit for bit "
-          f"under both schedules in {two_pass_held} cases); launches "
-          f"{moved}; worst |kernel-plain| {worst}", flush=True)
+          f"transform kernels against numpy too; fft, rfft and both "
+          f"products bit for bit under both schedules in {two_pass_held} "
+          f"cases); launches {moved}; worst |kernel-plain| {worst}",
+          flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
@@ -1673,10 +1881,10 @@ def main() -> int:
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
-    ab = schedule_ab(torch, kfft, card)
+    ab = schedule_ab(torch, kfft, kpoly, card)
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
-    attn = {name: attention_timing(torch, kattn, _build, card, name)
-            for name in FLASH_KERNELS}
+    attn = {label: attention_timing(torch, kattn, _build, card, label)
+            for label in ATTN_TIMED}
     lm_times = lm_timing(torch, convert, lm, get_config, card)
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
@@ -1692,19 +1900,29 @@ def main() -> int:
             "per_served_batch": {n: traced[route, n] for n in SERVE_NS
                                  if (route, n) in traced},
             **({"schedule_ab": ab[name]} if name in ab else {}),
+            # a multi-launch call's launches under their own kernel names
+            "device_kernels": {n: times[name][n]["by_kernel"]
+                               for n in shapes
+                               if times[name][n].get("by_kernel")},
+            **({"ptxas": {k: stockham_build.get(k) for n in shapes
+                          for k in times[name][n].get("by_kernel") or {}}}
+               if source == STOCKHAM else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     per = {"flash_attention_wgmma": "one served prefill (28 layers)",
            "flash_attention": "the full-width fp32 parity path: one forward "
                               "and one prefill (28 layers each)"}
     for name in FLASH_KERNELS:
+        labels = [label for label, (kernel, _) in ATTN_TIMED.items()
+                  if kernel == name]
+        first = attn[labels[0]]
         report.append({
             "name": name, "route": "cuda", "source": ATTENTION,
             "replaces": FLASH_REPLACES,
             "launches": lm_run["launches"][name],
-            **{k: attn[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")},
-            "launches_per": per[name], "at_timed_shape": attn[name],
+            **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+            "launches_per": per[name], "at_timed_shape": first,
+            **{f"at {label}": attn[label] for label in labels[1:]},
             **({"build": wgmma_build, "lm": {**lm_run, **lm_times}}
                if name == "flash_attention_wgmma" else {})})
     torch.cuda.synchronize()

@@ -3,9 +3,10 @@ legacy mode).
 
 Given (n, batch) it decides the kernel configuration that executes on the
 card: radix (2 or 4), rows per CTA, and the schedule: a row resident in
-one CTA's shared memory, the FFT's and real FFT's two-pass schedule (two
-launches, each CTA holding whole sub-problems of a split n = n1 x n2), or
-one CTA per row staging its sweeps through a device-memory scratch. Only
+one CTA's shared memory, the two-pass schedule (each CTA holding whole
+sub-problems of a split n = n1 x n2: two launches for the FFT and the real
+FFT, three or four for the products' split-pass schedule), or one CTA per
+row staging its sweeps through a device-memory scratch. Only
 the local tiers exist in this package, float and exact (NTT): the
 distributed four-step tiers and the cost-model auto mode raise and name
 the slice that ports them.
@@ -17,7 +18,8 @@ import dataclasses
 from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
 from repro_torch.kernels.ntt import ntt_resident, plan_ntt_block
 from repro_torch.kernels.polymul import (default_complex_block,
-                                         default_real_block)
+                                         default_real_block,
+                                         product_two_pass_plan)
 
 #: Where the tiers this package does not run yet are ported.
 _DIST_SLICE = "the multi-device slice (the distributed four-step tiers)"
@@ -43,9 +45,16 @@ class FFTPlan:
     #: exact modular route: the fused Montgomery NTT product of uint32
     #: residues (polymul-mod), bit-exact where the FFT routes round.
     exact: bool = False
-    #: (n1, n2) where the FFT or real FFT kernel runs its two-pass schedule
-    #: (``kernels.fft.two_pass_plan``); None where one CTA takes whole rows.
+    #: (n1, n2) where the kernel runs its two-pass schedule
+    #: (``kernels.fft.two_pass_plan``; for the products
+    #: ``kernels.polymul.product_two_pass_plan``); None where one CTA takes
+    #: whole rows.
     two_pass: tuple[int, int] | None = None
+    #: the kernel launches a call makes: 1 for one CTA per row block, 2
+    #: for the transforms' two passes, 3 or 4 for the products' split-pass
+    #: schedule (3 where the mirrored split n2 x n1 is on the sweep sequence
+    #: too, and the middle launch runs the inverse's first pass).
+    launches: int = 1
 
     def describe(self) -> str:
         kind = ("NTT (exact mod-q) fused product" if self.exact else
@@ -56,9 +65,14 @@ class FFTPlan:
                  }[(self.real, self.product)])
         if self.two_pass is not None:
             n1, n2 = self.two_pass
+            steps = {2: "pass 1; pass 2",
+                     3: "forward pass 1; forward pass 2, product and "
+                        "inverse pass 1; inverse pass 2",
+                     4: "forward pass 1; forward pass 2 and product; "
+                        "inverse pass 1; inverse pass 2"}[self.launches]
             return (f"local CUDA {kind} kernel, radix-{self.radix}, "
-                    f"two-pass {n1} x {n2} (two launches, whole "
-                    f"sub-problems per CTA)")
+                    f"two-pass {n1} x {n2} ({self.launches} launches: "
+                    f"{steps}; whole sub-problems per CTA)")
         where = ("shared-memory resident" if self.resident
                  else "single-CTA staged through device memory")
         return (f"local CUDA {kind} kernel, radix-{self.radix}, "
@@ -73,10 +87,11 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     ``real=True`` plans the two-for-one packed kernels; ``product=True`` the
     fused products, which hold both operands' spectra and so take half the
     rows per CTA and reach shared-memory residency at half the n. Radix 4
-    whenever n >= 4, as in the reference planner. The transform and real
-    transform (not the products) record the two-pass split their kernel
-    launches (``kernels.fft.two_pass_plan``: from ``TWO_PASS_FROM`` points
-    on, where a split fits), and are then not resident.
+    whenever n >= 4, as in the reference planner. Every float route
+    records the two-pass split its kernel launches (from ``TWO_PASS_FROM``
+    points on, where a split fits: ``kernels.fft.two_pass_plan``, for the
+    products ``kernels.polymul.product_two_pass_plan``) and its launches
+    per call, and is then not resident.
 
     ``exact=True`` plans the modular tier: the fused NTT product of
     ``polymul-mod``, radix 2, its block from shared memory for two uint32
@@ -113,13 +128,15 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
         else:
             block = plan_batch_block(n, real=real)
         res = resident(n, real=real, product=product)
-    two_pass = None
-    if not (exact or product):
-        launch = two_pass_plan(n, radix, real=real)
+    two_pass, launches = None, 1
+    if not exact:
+        launch = (product_two_pass_plan(n, radix, real=real) if product
+                  else two_pass_plan(n, radix, real=real))
         if launch is not None:
             two_pass = (launch.n1, launch.n2)
+            launches = launch.launches
             res = False
     # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
     return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
                    product=product, resident=res, exact=exact,
-                   two_pass=two_pass)
+                   two_pass=two_pass, launches=launches)

@@ -49,13 +49,17 @@ LIBRARIES = {
         # x, yr, yi, wr, wi, scratch, tw2, batch, log2n, radix, block,
         # log2 n1, log2 c1, log2 c2
         "stockham_rfft": ("rfft_planes", [_P] * 7 + [_I] * 7 + [_P]),
-        # ar, ai, br, bi, cr, ci, wr, wi, scratch, batch, log2n, radix,
-        # block
+        # ar, ai, br, bi, cr, ci, wr, wi, scratch, tw2f, tw2i, batch,
+        # log2n, radix, block, then the split-pass schedule: log2 n1, log2
+        # c1, log2 cm, log2 ci (log2 n1 = 0: one CTA per block of rows;
+        # else scratch holds the intermediates, tw2f and tw2i the forward
+        # and inverse pass-2 twiddles)
         "stockham_polymul_complex": ("polymul_complex_planes",
-                                     [_P] * 9 + [_I] * 4 + [_P]),
-        # a, b, c, wr, wi, wir, wii, scratch, batch, log2n, radix, block
+                                     [_P] * 11 + [_I] * 8 + [_P]),
+        # a, b, c, wr, wi, wir, wii, scratch, tw2f, tw2i, batch, log2n,
+        # radix, block, log2 n1, log2 c1, log2 cm, log2 ci
         "stockham_polymul_real": ("polymul_real_planes",
-                                  [_P] * 8 + [_I] * 4 + [_P]),
+                                  [_P] * 10 + [_I] * 8 + [_P]),
         # xr, xi, y, wr, wi, scratch, batch, log2n, radix, block
         "stockham_irfft": ("irfft_planes", [_P] * 6 + [_I] * 4 + [_P]),
     },
@@ -197,12 +201,14 @@ def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
     """How the wrapper ``counter`` launches its kernel, and what the card
     makes of it: threads per CTA, dynamic shared memory in bytes, registers
     per thread, and the CTAs one SM holds. ``a, b, c`` select the launch:
-    (log2 n, rows per CTA, staged) for the transform kernels, where for
-    ``fft_planes`` and ``rfft_planes`` c = 2 or 3 selects the two-pass
-    schedule's pass 1 or pass 2 kernel, with a = log2 of its sub-problem
-    length and b = the sub-problems per CTA (for the rfft's pass 2, the low
-    ones: the CTA holds their mirrors too); (head_dim,
-    bf16, 0) for the two attention kernels."""
+    (log2 n, rows per CTA, staged) for the transform kernels, where c = 2
+    or 3 selects the two-pass schedule's pass 1 or pass 2 kernel of
+    ``fft_planes`` and ``rfft_planes``, and c = 2, 3 or 4 the split-pass
+    schedule's F1, M or I2 of the two products, with a = log2 of its
+    sub-problem length and b = the sub-problems per CTA (for the rfft's
+    pass 2 and the products' M, the low ones: the CTA holds their mirrors,
+    b's, or both rows' too); (head_dim, bf16, 0) for the two attention
+    kernels."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]
     err = getattr(load(stem), f"{stem}_occupancy")(

@@ -34,7 +34,10 @@
 //   The FFT and the real FFT take a third schedule from 8192 points on, as
 //   far as n splits into two parts of at most 8192 points: two launches,
 //   each CTA holding whole sub-problems of the split (the two-pass section
-//   below); the staged path is theirs only past that.
+//   below); the two products take it too, as three or four launches, from
+//   their own thresholds (the split-pass section below: 8192 for the
+//   complex product, 4096 for the real one). The staged path runs only
+//   where no split fits.
 //
 // Arithmetic: twiddles come from the host table (f64 angles rounded once to
 // fp32) in device memory; the kernels never call sincosf/__sinf. The file is
@@ -196,8 +199,8 @@ __device__ __forceinline__ void cta_buffers(float* smem, float* scratch,
 
 // Kernel 1 -- replaces repro/kernels/fft.py::_fft_kernel (fft_planes).
 // Batched complex FFT or inverse FFT (scaled by 1/n) of split planes (B, n).
-// Bound on this card: device-memory bytes -- each CTA reads 16 bytes and
-// writes 16 bytes per point and does ~5 log2(n) flops per point, far below
+// Bound on this card: device-memory bytes -- a call reads 8 bytes and
+// writes 8 bytes per point and does ~5 log2(n) flops per point, far below
 // the 20 flops/byte at which the H100's fp32 rate would bind. Design: every
 // sweep stays in shared memory while the row fits (n <= 8192), so device
 // memory sees the input once and the output once; the 1/n scale is folded
@@ -321,10 +324,11 @@ rfft_kernel(const float* __restrict__ x, float* __restrict__ yr,
 // ping-pong for all 8 sweeps.
 // ---------------------------------------------------------------------------
 
-// Pass 2 of the fft: slot s holds sub-problem l0 = l0base + s.
-struct Pass2Slots {
-  int l0base;
-  __device__ __forceinline__ int l0(int s) const { return l0base + s; }
+// Consecutive sub-problems: slot s holds sub-problem base + s (pass 1's q0,
+// the fft's pass-2 l0).
+struct RunSlots {
+  int base;
+  __device__ __forceinline__ int l0(int s) const { return base + s; }
 };
 
 // Pass 2 of the rfft: CTA g holds the low sub-problems l0 = g c + t in slots
@@ -633,80 +637,101 @@ struct Pass1In {
   }
 };
 
-// Pass 1's output: element l of sub-problem q0 is A[l n2 + q0].
+// Pass 1's output: element l of sub-problem q0 = slots.l0(s) is
+// A[l n2 + q0].
+template <class Slots>
 struct Pass1Out {
   float* __restrict__ mr;
   float* __restrict__ mi;
   size_t off;
   int lg2;
-  int q0;
+  Slots slots;
   __device__ __forceinline__ void store(int s, int l, Cplx v) const {
-    const size_t g = off + ((size_t)l << lg2) + q0 + s;
+    const size_t g = off + ((size_t)l << lg2) + slots.l0(s);
     mr[g] = v.r;
     mi[g] = v.i;
   }
 };
 
 // Pass 2's output (fft): element k of sub-problem l0 = l0base + s is
-// y[l0 + k n1], scaled (by 1/n for the inverse).
+// y[l0 + k n1], its parts scaled by sr and si (1/n for the inverse; 1/n
+// and -1/n for the complex product's conj(FFT(conj P))/n).
 struct Pass2Out {
   float* __restrict__ yr;
   float* __restrict__ yi;
   size_t off;
   int l0base;
   int lg1;
-  float scale;
+  float sr;
+  float si;
   __device__ __forceinline__ void store(int s, int k, Cplx v) const {
     const size_t g = off + l0base + s + ((size_t)k << lg1);
-    yr[g] = v.r * scale;
-    yi[g] = v.i * scale;
+    yr[g] = v.r * sr;
+    yi[g] = v.i * si;
   }
 };
 
-// Pass 1 of kernel 1 (fft) or 2 (rfft; `paired`): CTA blockIdx.x takes
-// row (row pair) blockIdx.x / (n2 / c) and the c = 2^lc consecutive
-// sub-problems q0 = q0base + s: the sweeps from L = 1 to n1, loading
-// x[k n2 + q0] in the first step and storing A[l n2 + q0] to the
-// intermediate (m.re, m.im) in the last.
-template <bool paired>
+// The CTA's place in a pass over 2^lsubs sub-problems per row, c = 2^lc a
+// CTA: its row (blockIdx.x / (2^lsubs / c)) and its first sub-problem.
+__device__ __forceinline__ void pass_cta(int lsubs, int lc, size_t& row,
+                                         int& first) {
+  const int glg = lsubs - lc;
+  row = blockIdx.x >> glg;
+  first = (blockIdx.x & ((1 << glg) - 1)) << lc;
+}
+
+// Pass 1 of a row: the c = 2^lc consecutive sub-problems q0 = q0base + s,
+// the sweeps from L = 1 to n1, loading x[k n2 + q0] from the row at `in`
+// (the imaginary part 0 unless `second`) in the first step and storing
+// A[l n2 + q0] to the intermediate row at `out` in the last.
 __device__ __forceinline__ void pass1(const float* __restrict__ xr,
-                      const float* __restrict__ xi, float* __restrict__ mr,
-                      float* __restrict__ mi, const float* __restrict__ wr,
-                      const float* __restrict__ wi, int batch, int log2n,
-                      int log2n1, int radix, float sign, int lc) {
+                                      const float* __restrict__ xi,
+                                      size_t in, bool second,
+                                      float* __restrict__ mr,
+                                      float* __restrict__ mi, size_t out,
+                                      int q0, const float* __restrict__ wr,
+                                      const float* __restrict__ wi,
+                                      int log2n, int log2n1, int radix,
+                                      float sign, int lc) {
   extern __shared__ __align__(16) float smem[];
   const int lg2 = log2n - log2n1;
-  const int glg = lg2 - lc;  // CTAs per row: n2 / c
-  const size_t row = blockIdx.x >> glg;
-  const int q0 = (blockIdx.x & ((1 << glg) - 1)) << lc;
   SmemIO a, b;
   sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, a, b);
-  const size_t in = (paired ? 2 * row : row) << log2n;
-  const bool second = !paired || 2 * row + 1 < (size_t)batch;
   const Subs<Pass1Twiddles> sp{lc, log2n1, sign,
                                Pass1Twiddles{wr, wi, 1 << lg2}, false};
   sub_steps(sp, radix, Pass1In{xr, xi, in, lg2, q0, second}, true,
-            Pass1Out{mr, mi, row << log2n, lg2, q0}, true, a, b);
+            Pass1Out<RunSlots>{mr, mi, out, lg2, RunSlots{q0}}, true, a, b);
 }
 
+// Pass 1 of kernel 1 (fft), and of the real product's forward transforms
+// (z = a + ib) and the products' inverse off the mirrored split: CTA
+// blockIdx.x takes row blockIdx.x / (n2 / c) and c = 2^lc sub-problems.
 __global__ void __launch_bounds__(kPassThreads)
 fft_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ mr, float* __restrict__ mi,
                  const float* __restrict__ wr, const float* __restrict__ wi,
-                 int batch, int log2n, int log2n1, int radix, int inverse,
-                 int lc) {
-  pass1<false>(xr, xi, mr, mi, wr, wi, batch, log2n, log2n1, radix,
-               inverse ? 1.f : -1.f, lc);
+                 int log2n, int log2n1, int radix, int inverse, int lc) {
+  size_t row;
+  int q0;
+  pass_cta(log2n - log2n1, lc, row, q0);
+  pass1(xr, xi, row << log2n, true, mr, mi, row << log2n, q0, wr, wi, log2n,
+        log2n1, radix, inverse ? 1.f : -1.f, lc);
 }
 
+// Pass 1 of kernel 2 (rfft): row pair p = blockIdx.x / (n2 / c) rides
+// z = x_2p + i x_2p+1 (0 past an odd batch).
 __global__ void __launch_bounds__(kPassThreads)
 rfft_pass1_kernel(const float* __restrict__ x, float* __restrict__ mr,
                   float* __restrict__ mi, const float* __restrict__ wr,
                   const float* __restrict__ wi, int batch, int log2n,
                   int log2n1, int radix, int lc) {
+  size_t p;
+  int q0;
+  pass_cta(log2n - log2n1, lc, p, q0);
   // the pair's second row is x + n: pass1 reads it at the same offset
-  pass1<true>(x, x + ((size_t)1 << log2n), mr, mi, wr, wi, batch, log2n,
-              log2n1, radix, -1.f, lc);
+  pass1(x, x + ((size_t)1 << log2n), (2 * p) << log2n,
+        2 * p + 1 < (size_t)batch, mr, mi, p << log2n, q0, wr, wi, log2n,
+        log2n1, radix, -1.f, lc);
 }
 
 // Pass 2's input: element i of the sub-problem in slot s is A[l0 n2 + i]
@@ -725,30 +750,45 @@ struct Pass2In {
   }
 };
 
-// Pass 2 of kernel 1: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and
-// the c = 2^lc consecutive sub-problems l0 = l0base + s: the sweeps from
-// L = n1 to n, loading the contiguous slices A[l0 n2 ..] in the first step
-// and storing y[l0 + k n1] in the last, scaled by 1/n for the inverse.
-// `tw2` is the pass-2 twiddle table (planes of n1 (n2 - 1) values).
+// Pass 2 of a row: the c = 2^lc consecutive sub-problems l0 = l0base + s,
+// the sweeps from L = n1 to n, loading the contiguous slices A[l0 n2 ..]
+// of the intermediate row at `off` in the first step and handing element k
+// of sub-problem l0 (bin l0 + k n1) to `out` in the last. `tw2` is the
+// pass-2 twiddle table (planes of n1 (n2 - 1) values).
+template <class Out>
+__device__ __forceinline__ void pass2(const float* __restrict__ mr,
+                                      const float* __restrict__ mi,
+                                      size_t off, int l0base, Out out,
+                                      const float* __restrict__ tw2,
+                                      int log2n, int log2n1, int radix,
+                                      float sign, int lc) {
+  extern __shared__ __align__(16) float smem[];
+  const int lg2 = log2n - log2n1;
+  const RunSlots slots{l0base};
+  SmemIO a, b;
+  sub_buffers(smem, 1 << lc, (1 << lg2) + 1, a, b);
+  const int n1 = 1 << log2n1;
+  const Subs<Pass2Twiddles<RunSlots>> sp{
+      lc, lg2, sign,
+      Pass2Twiddles<RunSlots>{tw2, n1 * ((1 << lg2) - 1), n1, slots}, true};
+  sub_steps(sp, radix, Pass2In<RunSlots>{mr, mi, off, lg2, slots}, true, out,
+            true, a, b);
+}
+
+// Pass 2 of kernel 1, and the complex product's last inverse pass: CTA
+// blockIdx.x takes row blockIdx.x / (n1 / c) and c = 2^lc sub-problems,
+// storing y[l0 + k n1] with its parts scaled by sr and si.
 __global__ void __launch_bounds__(kPassThreads)
 fft_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float* __restrict__ tw2, int log2n, int log2n1,
-                 int radix, int inverse, int lc) {
-  extern __shared__ __align__(16) float smem[];
-  const int lg2 = log2n - log2n1;
-  const int glg = log2n1 - lc;  // CTAs per row: n1 / c
-  const size_t off = (size_t)(blockIdx.x >> glg) << log2n;
-  const Pass2Slots slots{(int)(blockIdx.x & ((1 << glg) - 1)) << lc};
-  SmemIO a, b;
-  sub_buffers(smem, 1 << lc, (1 << lg2) + 1, a, b);
-  const float scale = inverse ? 1.f / (float)(1 << log2n) : 1.f;
-  const int n1 = 1 << log2n1;
-  const Subs<Pass2Twiddles<Pass2Slots>> sp{
-      lc, lg2, inverse ? 1.f : -1.f,
-      Pass2Twiddles<Pass2Slots>{tw2, n1 * ((1 << lg2) - 1), n1, slots}, true};
-  sub_steps(sp, radix, Pass2In<Pass2Slots>{mr, mi, off, lg2, slots}, true,
-            Pass2Out{yr, yi, off, slots.l0base, log2n1, scale}, true, a, b);
+                 int radix, int inverse, int lc, float sr, float si) {
+  size_t row;
+  int l0base;
+  pass_cta(log2n1, lc, row, l0base);
+  const size_t off = row << log2n;
+  pass2(mr, mi, off, l0base, Pass2Out{yr, yi, off, l0base, log2n1, sr, si},
+        tw2, log2n, log2n1, radix, inverse ? 1.f : -1.f, lc);
 }
 
 // Pass 2 of kernel 2: CTA blockIdx.x takes row pair blockIdx.x / (n1 / 2c)
@@ -862,11 +902,13 @@ irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // (polymul_complex_planes). Circular product mod x^n - 1 of complex rows:
 // both forward transforms in one batched pass over 2*rows rows, the
 // pointwise product, and the inverse as conj(FFT(conj P))/n with the
-// forward table, all in one residency. Bound: device-memory bytes (32 bytes
-// in, 16 out per point). Design: the two spectra and the product never
+// forward table, all in one residency. Bound: device-memory bytes (16 bytes
+// in, 8 out per point). Design: the two spectra and the product never
 // leave the CTA while the pair of rows fits shared memory (n <= 4096),
 // where the three-call library composite writes and reads every
-// intermediate spectrum through device memory.
+// intermediate spectrum through device memory. From 8192 points on the
+// wrapper launches the split-pass schedule instead (polymul_pass1_kernel,
+// polymul_complex_mid_kernel, fft_pass2_kernel, below).
 __global__ void __launch_bounds__(kMaxThreads)
 polymul_complex_kernel(const float* __restrict__ ar,
                        const float* __restrict__ ai,
@@ -913,7 +955,10 @@ polymul_complex_kernel(const float* __restrict__ ar,
 // An odd batch pairs its last product with a zero row. Bound: device-memory
 // bytes (8 bytes in, 4 out per point). Design: 1.5 transforms per product
 // instead of 3, all in one residency while a row pair fits shared memory
-// (n <= 4096); longer rows take the device-memory scratch.
+// (n < 4096); from 4096 points on the wrapper launches the split-pass
+// schedule (fft_pass1_kernel, polymul_real_mid_kernel,
+// polymul_real_pass2_kernel, below), and rows past its splits take the
+// device-memory scratch.
 __global__ void __launch_bounds__(kMaxThreads)
 polymul_real_kernel(const float* __restrict__ a_in,
                     const float* __restrict__ b_in, float* __restrict__ c,
@@ -968,6 +1013,279 @@ polymul_real_kernel(const float* __restrict__ a_in,
     c[o] = a.re[k] * inv;
     if (r + 1 < batch) c[o + n] = a.im[k] * inv;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernels 5 and 4, split-pass schedule (polymul_complex_planes and
+// polymul_real_planes from TWO_PASS_FROM points on,
+// repro_torch/kernels/polymul.py).
+//
+// The forward transforms split at L = n1 as the fft's two passes do (the
+// section above). Launch F1 runs their pass 1. Launch M runs their pass 2
+// for a CTA's sub-problems l0 -- of a and of b (kernel 5), or of rows 2j
+// and 2j+1, each beside its mirror (kernel 4: the Hermitian split pairs bin
+// k with bin n - k, which lies in sub-problem (n1 - l0) mod n1,
+// MirrorSlots) -- and forms the product in shared memory: kernel 5's
+// (P.re, -P.im) for conj(FFT(conj P)), kernel 4's Q = P_2j + i P_2j+1.
+// Forward pass 2's sub-problem l0 holds the bins l0 + k n1 in order k:
+// exactly the inputs of sub-problem q0 = l0 of pass 1 of the split
+// (n2, n1). So where that mirrored split is on the sweep sequence too --
+// radix 2 always, radix 4 at even log2 n (n = 65536: 256 x 256) -- M goes
+// on, without leaving the CTA, to the inverse's pass 1 (kernel 5 with the
+// forward table, kernel 4 with the inverse table) and stores only its
+// result (`fused`); launch I2 is the inverse's pass 2 (split n2 x n1, its
+// own pass-2 table), storing kernel 5's conj(.)/n or kernel 4's
+// c_2j = Re / n, c_2j+1 = Im / n: three launches. At odd log2 n and radix
+// 4 (n = 8192: 128 x 64; n = 2^17: 512 x 256) the mirrored split is off
+// the sequence: M stores P (Q) in natural order and the inverse runs as
+// the fft's two passes split n1 x n2 (fft_pass1_kernel, then I2): four
+// launches. Every operation is the plain version's, in its order, on the
+// master tables' own fp32 values, so the result equals it bit for bit.
+//
+// Bound: device-memory bytes, 8 per complex point moved. Fused, kernel 5
+// moves 72 bytes per point (F1: a and b in, both spectra out; M: the
+// spectra in, the inverse's intermediate out; I2: it in, c out) against
+// the 24 its inputs and output need, kernel 4 36 per real point against
+// 12. Every launch spreads a row over n2 / c1, n1 / cm and n2 / ci CTAs,
+// where the single-CTA kernels staged one row per CTA through a
+// device-memory ping-pong for every sweep.
+// ---------------------------------------------------------------------------
+
+// Slots of a CTA that holds the same sub-problems of two rows: slots
+// [0, 2^lper) the first row's, the rest the second's, slot s holding
+// sub-problem inner.l0(s mod 2^lper).
+template <class Slots>
+struct RowSlots {
+  Slots inner;
+  int lper;
+  __device__ __forceinline__ int l0(int s) const {
+    return inner.l0(s & ((1 << lper) - 1));
+  }
+};
+
+// M's input: element i of the sub-problem in slot s is A[l0 n2 + i] of the
+// intermediate row at off0 (the first 2^lper slots) or off1; zeros for a
+// second row past the batch (the zero row an odd batch pairs its last
+// product with).
+template <class Slots>
+struct RowsIn {
+  const float* __restrict__ mr;
+  const float* __restrict__ mi;
+  size_t off0;
+  size_t off1;
+  bool has1;
+  int lg2;
+  RowSlots<Slots> slots;
+  __device__ __forceinline__ Cplx load(int s, int i) const {
+    const bool one = (s >> slots.lper) != 0;
+    if (one && !has1) return Cplx{0.f, 0.f};
+    const size_t g = (one ? off1 : off0) + ((size_t)slots.l0(s) << lg2) + i;
+    return Cplx{mr[g], mi[g]};
+  }
+};
+
+// M's forward half: pass 2 of the forward transforms (forward pass-2 table
+// `tw2`) for the CTA's 2^lslots sub-problems, ending in shared memory.
+// Returns the buffer that holds the spectra (slot s, element k: bin
+// l0(s) + k n1) and sets `spare` to the other one.
+template <class Slots>
+__device__ __forceinline__ SmemIO mid_forward(RowsIn<Slots> in, int lslots,
+                                              const float* __restrict__ tw2,
+                                              int log2n, int log2n1,
+                                              int radix, SmemIO& spare) {
+  extern __shared__ __align__(16) float smem[];
+  const int lg2 = log2n - log2n1;
+  const int n1 = 1 << log2n1;
+  SmemIO a, b;
+  sub_buffers(smem, 1 << lslots, (1 << lg2) + 1, a, b);
+  const Subs<Pass2Twiddles<RowSlots<Slots>>> sp{
+      lslots, lg2, -1.f,
+      Pass2Twiddles<RowSlots<Slots>>{tw2, n1 * ((1 << lg2) - 1), n1,
+                                     in.slots},
+      true};
+  const SmemIO z = sub_steps(sp, radix, in, true, a, false, a, b);
+  spare = z.rows.re == a.rows.re ? b : a;
+  return z;
+}
+
+// M's fused tail: pass 1 of the inverse, split n2 x n1 (twiddles of the
+// table (wr, wi) at stride n1), on the 2^lslots sub-problems
+// q0 = slots.l0(s) held in `q`, storing A'[l n1 + q0] of the row at `off`;
+// `spare` is the other shared buffer.
+template <class Slots>
+__device__ __forceinline__ void mid_inverse(SmemIO q, SmemIO spare,
+                                            int lslots, Slots slots,
+                                            float* __restrict__ qr,
+                                            float* __restrict__ qi,
+                                            size_t off,
+                                            const float* __restrict__ wr,
+                                            const float* __restrict__ wi,
+                                            float sign, int log2n,
+                                            int log2n1, int radix) {
+  const Subs<Pass1Twiddles> sp{lslots, log2n - log2n1, sign,
+                               Pass1Twiddles{wr, wi, 1 << log2n1}, false};
+  sub_steps(sp, radix, q, false, Pass1Out<Slots>{qr, qi, off, log2n1, slots},
+            true, q, spare);
+}
+
+// F1 of kernel 5: pass 1 of both forward transforms, CTA rows r < batch
+// from a and the rest from b (row r - batch), into intermediate row r.
+__global__ void __launch_bounds__(kPassThreads)
+polymul_pass1_kernel(const float* __restrict__ ar,
+                     const float* __restrict__ ai,
+                     const float* __restrict__ br,
+                     const float* __restrict__ bi, float* __restrict__ mr,
+                     float* __restrict__ mi, const float* __restrict__ wr,
+                     const float* __restrict__ wi, int batch, int log2n,
+                     int log2n1, int radix, int lc) {
+  size_t r;
+  int q0;
+  pass_cta(log2n - log2n1, lc, r, q0);
+  const bool of_b = r >= (size_t)batch;
+  pass1(of_b ? br : ar, of_b ? bi : ai, (of_b ? r - batch : r) << log2n,
+        true, mr, mi, r << log2n, q0, wr, wi, log2n, log2n1, radix, -1.f,
+        lc);
+}
+
+// M of kernel 5: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and its
+// c = 2^lc consecutive sub-problems l0 of a (slots s < c, intermediate row
+// `row`) and of b (slots c + s, row batch + row); the pointwise product
+// (P.re, -P.im) in place of a's spectra; then, `fused`, the inverse's pass
+// 1 into (pr, pi), else P stored there in natural order.
+__global__ void __launch_bounds__(kPassThreads)
+polymul_complex_mid_kernel(const float* __restrict__ mr,
+                           const float* __restrict__ mi,
+                           float* __restrict__ pr, float* __restrict__ pi,
+                           const float* __restrict__ tw2,
+                           const float* __restrict__ wr,
+                           const float* __restrict__ wi, int batch,
+                           int log2n, int log2n1, int radix, int lc,
+                           int fused) {
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int l0base;
+  pass_cta(log2n1, lc, row, l0base);
+  const size_t off = row << log2n;
+  const RowSlots<RunSlots> slots{RunSlots{l0base}, lc};
+  SmemIO spare;
+  const SmemIO z = mid_forward(
+      RowsIn<RunSlots>{mr, mi, off, ((size_t)batch + row) << log2n, true,
+                       lg2, slots},
+      lc + 1, tw2, log2n, log2n1, radix, spare);
+  const int c = 1 << lc;
+  for (int idx = threadIdx.x; idx < (c << lg2); idx += blockDim.x) {
+    const int s = idx & (c - 1);
+    const int k = idx >> lc;
+    const Cplx fa = z.load(s, k), fb = z.load(c + s, k);
+    Cplx p;
+    cmul(fa.r, fa.i, fb.r, fb.i, p.r, p.i);
+    if (fused) {
+      z.store(s, k, Cplx{p.r, -p.i});
+    } else {
+      const size_t g = off + l0base + s + ((size_t)k << log2n1);
+      pr[g] = p.r;
+      pi[g] = -p.i;
+    }
+  }
+  if (!fused) return;
+  __syncthreads();
+  mid_inverse(z, spare, lc, RunSlots{l0base}, pr, pi, off, wr, wi, -1.f,
+              log2n, log2n1, radix);
+}
+
+// M of kernel 4: CTA blockIdx.x takes row pair p = blockIdx.x / (n1 / 2c)
+// and 2c sub-problems of each row -- c low ones and their mirrors
+// (MirrorSlots) -- rows 2p in slots [0, 2c), 2p + 1 in [2c, 4c); the
+// Hermitian split and the product of each row, exactly as
+// polymul_real_kernel computes them, and Q = P_2p + i P_2p+1 for the low and
+// the mirror sub-problems alike (each is an inverse sub-problem); then,
+// `fused`, the inverse's pass 1 (inverse table) into (qr, qi), else Q
+// stored there in natural order.
+__global__ void __launch_bounds__(kPassThreads)
+polymul_real_mid_kernel(const float* __restrict__ mr,
+                        const float* __restrict__ mi,
+                        float* __restrict__ qr, float* __restrict__ qi,
+                        const float* __restrict__ tw2,
+                        const float* __restrict__ wir,
+                        const float* __restrict__ wii, int batch, int log2n,
+                        int log2n1, int radix, int lc, int fused) {
+  const int n = 1 << log2n;
+  const int lg2 = log2n - log2n1;
+  const int glg = log2n1 - 1 - lc;  // CTAs per row pair: n1 / 2c
+  const size_t p = blockIdx.x >> glg;
+  const MirrorSlots ms{(int)(blockIdx.x & ((1 << glg) - 1)), 1 << lc,
+                       1 << log2n1};
+  SmemIO spare;
+  const SmemIO z = mid_forward(
+      RowsIn<MirrorSlots>{mr, mi, (2 * p) << log2n, (2 * p + 1) << log2n,
+                          2 * p + 1 < (size_t)batch, lg2,
+                          RowSlots<MirrorSlots>{ms, lc + 1}},
+      lc + 2, tw2, log2n, log2n1, radix, spare);
+  const int held = 2 << lc;  // a row's sub-problems: c low, c mirrors
+  const size_t off = p << log2n;
+  for (int idx = threadIdx.x; idx < (held << lg2); idx += blockDim.x) {
+    const int s = idx & (held - 1);
+    const int lp = idx >> (lc + 1);
+    const int k = ms.l0(s) + (lp << log2n1);
+    const int mk = (n - k) & (n - 1);
+    const int mslot = ms.mirror(s), mel = mk >> log2n1;
+    Cplx prod[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const Cplx zk = z.load(r * held + s, lp);
+      const Cplx zm = z.load(r * held + mslot, mel);
+      const float far = 0.5f * (zm.r + zk.r);
+      const float fai = 0.5f * (-zm.i + zk.i);
+      const float fbr = 0.5f * (zm.i + zk.i);
+      const float fbi = 0.5f * (zm.r - zk.r);
+      cmul(far, fai, fbr, fbi, prod[r].r, prod[r].i);
+    }
+    const Cplx q{prod[0].r - prod[1].i, prod[0].i + prod[1].r};
+    if (fused) {
+      spare.store(s, lp, q);
+    } else {
+      qr[off + k] = q.r;
+      qi[off + k] = q.i;
+    }
+  }
+  if (!fused) return;
+  __syncthreads();
+  mid_inverse(spare, z, lc + 1, ms, qr, qi, off, wir, wii, 1.f, log2n,
+              log2n1, radix);
+}
+
+// Kernel 4's output of the inverse's last pass: element k of sub-problem
+// l0 = l0base + s is c_2p[l0 + k n1] = Re / n and, within the batch,
+// c_2p+1[l0 + k n1] = Im / n.
+struct PairOut {
+  float* __restrict__ c;
+  size_t off;  // row 2p
+  int n;
+  bool second;
+  int l0base;
+  int lg1;
+  float inv;
+  __device__ __forceinline__ void store(int s, int k, Cplx v) const {
+    const size_t g = off + l0base + s + ((size_t)k << lg1);
+    c[g] = v.r * inv;
+    if (second) c[g + n] = v.i * inv;
+  }
+};
+
+// I2 of kernel 4: pass 2 of the inverse (inverse pass-2 table, split
+// 2^log2n1 x n / 2^log2n1) of row pair p = blockIdx.x / (n1 / c).
+__global__ void __launch_bounds__(kPassThreads)
+polymul_real_pass2_kernel(const float* __restrict__ mr,
+                          const float* __restrict__ mi, float* __restrict__ c,
+                          const float* __restrict__ tw2, int batch, int log2n,
+                          int log2n1, int radix, int lc) {
+  size_t p;
+  int l0base;
+  pass_cta(log2n1, lc, p, l0base);
+  pass2(mr, mi, p << log2n, l0base,
+        PairOut{c, (2 * p) << log2n, 1 << log2n, 2 * p + 1 < (size_t)batch,
+                l0base, log2n1, 1.f / (float)(1 << log2n)},
+        tw2, log2n, log2n1, radix, 1.f, lc);
 }
 
 // Threads for a CTA that transforms `slots` complex rows: one per radix-4
@@ -1096,6 +1414,46 @@ bool bad_split(int batch, int log2n, int log2n1, int radix, int lc1, int lc2,
          (rows << (log2n1 - lc2)) > 0x7fffffffL;
 }
 
+// Whether a product's inverse splits n2 x n1 (the mirrored split on the
+// sweep sequence: radix 2, radix 4 at even log2 n), so M runs its pass 1.
+bool product_fused(int log2n, int radix) {
+  return radix == 2 || !(log2n & 1);
+}
+
+// Dynamic shared memory of a product's M: two buffers of split planes for
+// `slots` sub-problems of 2^lm points at row stride 2^lm + 1 (the product,
+// Q and the inverse's pass 1 use both).
+size_t mid_smem(int slots, int lm) {
+  return (size_t)2 * 2 * slots * (((size_t)1 << lm) + 1) * sizeof(float);
+}
+
+// A split-pass launch the products take: n1 = 2^log2n1 and n2 at least 2;
+// F1's c1 = 2^lc1 sub-problems per CTA at most n2; M's cm = 2^lcm low ones
+// at most n1 (n1 / 2 for kernel 4, `held` = 4 sub-problems per low one,
+// against kernel 5's 2); the inverse's last pass's ci = 2^lci at most its
+// sub-problem count; at radix 4 every pass-2 sub-problem of even log2;
+// each launch's shared memory within the card's 227 KB; each grid within
+// 2^31 - 1 CTAs. `rows`: F1's rows (2 B, or B); `rows_m`: the rows of M
+// and of the inverse (B, or (B + 1) / 2).
+bool bad_product_split(long rows, long rows_m, int log2n, int log2n1,
+                       int radix, int lc1, int lcm, int lci, int held) {
+  const int lg2 = log2n - log2n1;
+  const int li1 = product_fused(log2n, radix) ? lg2 : log2n1;
+  const int li2 = log2n - li1;
+  const int lpair = held == 4 ? 1 : 0;  // M's CTAs per row: n1 / 2^lpair cm
+  if (log2n1 < 1 || lg2 < 1 || lc1 < 0 || lcm < 0 || lci < 0 || lc1 > lg2 ||
+      lcm + lpair > log2n1 || lci > li1 ||
+      (radix == 4 && ((lg2 & 1) || (li2 & 1)))) {
+    return true;
+  }
+  return pass_smem(1 << lc1, log2n1, radix, true, true) > kMaxSmemBytes ||
+         mid_smem(held << lcm, lg2) > kMaxSmemBytes ||
+         pass_smem(1 << lci, li2, radix, true, true) > kMaxSmemBytes ||
+         (rows << (lg2 - lc1)) > 0x7fffffffL ||
+         (rows_m << (log2n1 - lpair - lcm)) > 0x7fffffffL ||
+         (rows_m << (li1 - lci)) > 0x7fffffffL;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1130,16 +1488,17 @@ int stockham_fft(const float* xr, const float* xi, float* yr, float* yi,
     cudaError_t err = opt_in(fft_pass1_kernel, smem);
     if (err != cudaSuccess) return err;
     fft_pass1_kernel<<<batch << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
-                       smem, st>>>(xr, xi, mr, mi, wr, wi, batch, log2n,
-                                   log2n1, radix, inverse, lc1);
+                       smem, st>>>(xr, xi, mr, mi, wr, wi, log2n, log2n1,
+                                   radix, inverse, lc1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     smem = pass_smem(1 << lc2, lg2, radix, true, true);
     err = opt_in(fft_pass2_kernel, smem);
     if (err != cudaSuccess) return err;
+    const float scale = inverse ? 1.f / (float)(1 << log2n) : 1.f;
     fft_pass2_kernel<<<batch << (log2n1 - lc2), pass_threads(1 << lc2, lg2),
                        smem, st>>>(mr, mi, yr, yi, tw2, log2n, log2n1, radix,
-                                   inverse, lc2);
+                                   inverse, lc2, scale, scale);
     return cudaGetLastError();
   }
   size_t smem;
@@ -1220,13 +1579,78 @@ int stockham_irfft(const float* xr, const float* xi, float* y,
   return cudaGetLastError();
 }
 
+// log2n1 > 0: the split-pass schedule, `scratch` six planes of batch * n
+// floats (F1's spectra of a and b, then P or the inverse's pass-1 result),
+// `tw2f` the forward transforms' pass-2 table (split n1 x n2) and `tw2i`
+// the inverse's (split n2 x n1 where fused, else n1 x n2), `block` unused;
+// each launch is checked. log2n1 == 0: one CTA per `block` rows, `tw2f`
+// and `tw2i` unused.
 int stockham_polymul_complex(const float* ar, const float* ai,
                              const float* br, const float* bi, float* cr,
                              float* ci, const float* wr, const float* wi,
-                             float* scratch, int batch, int log2n, int radix,
-                             int block, void* stream) {
+                             float* scratch, const float* tw2f,
+                             const float* tw2i, int batch, int log2n,
+                             int radix, int block, int log2n1, int lc1,
+                             int lcm, int lci, void* stream) {
   if (bad_args(batch, log2n, radix, block)) return cudaErrorInvalidValue;
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2f == nullptr || tw2i == nullptr ||
+       bad_product_split(2L * batch, batch, log2n, log2n1, radix, lc1, lcm,
+                         lci, 2))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    const bool fused = product_fused(log2n, radix);
+    const size_t rn = (size_t)batch << log2n;
+    float* fr = scratch;  // F1: a's rows, then b's
+    float* fi = scratch + 2 * rn;
+    float* pr = scratch + 4 * rn;  // P, or the inverse's pass-1 result
+    float* pi = pr + rn;
+    size_t smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+    cudaError_t err = opt_in(polymul_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    polymul_pass1_kernel<<<(2 * batch) << (lg2 - lc1),
+                           pass_threads(1 << lc1, log2n1), smem, st>>>(
+        ar, ai, br, bi, fr, fi, wr, wi, batch, log2n, log2n1, radix, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = mid_smem(2 << lcm, lg2);
+    err = opt_in(polymul_complex_mid_kernel, smem);
+    if (err != cudaSuccess) return err;
+    polymul_complex_mid_kernel<<<batch << (log2n1 - lcm),
+                                 pass_threads(2 << lcm, lg2), smem, st>>>(
+        fr, fi, pr, pi, tw2f, wr, wi, batch, log2n, log2n1, radix, lcm,
+        fused);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const float* sr = pr;
+    const float* si = pi;
+    if (!fused) {  // the inverse's pass 1 on P, into F1's buffer
+      smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+      err = opt_in(fft_pass1_kernel, smem);
+      if (err != cudaSuccess) return err;
+      fft_pass1_kernel<<<batch << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
+                         smem, st>>>(pr, pi, fr, fi, wr, wi, log2n, log2n1,
+                                     radix, 0, lc1);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      sr = fr;
+      si = fi;
+    }
+    const int li1 = fused ? lg2 : log2n1;
+    smem = pass_smem(1 << lci, log2n - li1, radix, true, true);
+    err = opt_in(fft_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const float inv = 1.f / (float)(1 << log2n);
+    fft_pass2_kernel<<<batch << (li1 - lci), pass_threads(1 << lci,
+                                                          log2n - li1),
+                       smem, st>>>(sr, si, cr, ci, tw2i, log2n, li1, radix, 0,
+                                   lci, inv, -inv);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err = smem_for(polymul_complex_kernel, scratch != nullptr,
                              2 * block, log2n, &smem);
@@ -1238,14 +1662,78 @@ int stockham_polymul_complex(const float* ar, const float* ai,
   return cudaGetLastError();
 }
 
+// log2n1 > 0: the split-pass schedule, `scratch` two planes of batch * n
+// floats (F1's spectra of z = a + ib) and two of (batch + 1) / 2 * n (Q, or
+// the inverse's pass-1 result), `tw2f` the forward pass-2 table and `tw2i`
+// the inverse's (from the inverse table), `block` unused; each launch is
+// checked. log2n1 == 0: one CTA per `block` rows (even).
 int stockham_polymul_real(const float* a, const float* b, float* c,
                           const float* wr, const float* wi, const float* wir,
-                          const float* wii, float* scratch, int batch,
-                          int log2n, int radix, int block, void* stream) {
+                          const float* wii, float* scratch, const float* tw2f,
+                          const float* tw2i, int batch, int log2n, int radix,
+                          int block, int log2n1, int lc1, int lcm, int lci,
+                          void* stream) {
   if (bad_args(batch, log2n, radix, block) || (block & 1)) {
     return cudaErrorInvalidValue;
   }
+  const int pairs = (batch + 1) / 2;
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2f == nullptr || tw2i == nullptr ||
+       bad_product_split(batch, pairs, log2n, log2n1, radix, lc1, lcm, lci,
+                         4))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    const bool fused = product_fused(log2n, radix);
+    const size_t rn = (size_t)batch << log2n;
+    float* fr = scratch;  // F1: Z of each product
+    float* fi = scratch + rn;
+    float* qr = scratch + 2 * rn;  // Q, or the inverse's pass-1 result
+    float* qi = qr + ((size_t)pairs << log2n);
+    size_t smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+    cudaError_t err = opt_in(fft_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    fft_pass1_kernel<<<batch << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
+                       smem, st>>>(a, b, fr, fi, wr, wi, log2n, log2n1, radix,
+                                   0, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = mid_smem(4 << lcm, lg2);
+    err = opt_in(polymul_real_mid_kernel, smem);
+    if (err != cudaSuccess) return err;
+    polymul_real_mid_kernel<<<pairs << (log2n1 - 1 - lcm),
+                              pass_threads(4 << lcm, lg2), smem, st>>>(
+        fr, fi, qr, qi, tw2f, wir, wii, batch, log2n, log2n1, radix, lcm,
+        fused);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const float* sr = qr;
+    const float* si = qi;
+    if (!fused) {  // the inverse's pass 1 on Q, into F1's buffer
+      smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+      err = opt_in(fft_pass1_kernel, smem);
+      if (err != cudaSuccess) return err;
+      fft_pass1_kernel<<<pairs << (lg2 - lc1), pass_threads(1 << lc1, log2n1),
+                         smem, st>>>(qr, qi, fr, fi, wir, wii, log2n, log2n1,
+                                     radix, 1, lc1);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      sr = fr;
+      si = fi;
+    }
+    const int li1 = fused ? lg2 : log2n1;
+    smem = pass_smem(1 << lci, log2n - li1, radix, true, true);
+    err = opt_in(polymul_real_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    polymul_real_pass2_kernel<<<pairs << (li1 - lci),
+                                pass_threads(1 << lci, log2n - li1), smem,
+                                st>>>(sr, si, c, tw2i, batch, log2n, li1,
+                                      radix, lci);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err = smem_for(polymul_real_kernel, scratch != nullptr, block,
                              log2n, &smem);
@@ -1258,29 +1746,56 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
 }
 
 // Occupancy of a launch as the launchers above make it: `kernel` is 0 fft,
-// 1 rfft, 2 complex product, 3 real product, 4 irfft; `block` the rows per CTA the
-// wrapper passes; `staged` whether the rows go through device memory. For
-// the fft and the rfft, staged = 2 or 3 selects the two-pass schedule's
-// pass 1 or pass 2 kernel, `log2n` is then log2 of its sub-problem length
-// and `block` its sub-problems per CTA (for the rfft's pass 2 the low ones,
-// each held with its mirror), at radix 4, the planner's radix.
+// 1 rfft, 2 complex product, 3 real product, 4 irfft; `block` the rows per
+// CTA the wrapper passes; `staged` whether the rows go through device
+// memory. staged = 2, 3 (and 4 for the products) select a launch of the
+// two-pass (split-pass) schedule, at radix 4, the planner's radix, with
+// `log2n` the log2 of its sub-problem length and `block` its sub-problems
+// per CTA: for the fft and the rfft pass 1 or pass 2 (for the rfft's pass 2
+// the low sub-problems, each held with its mirror); for the products F1,
+// M (its low sub-problems: the CTA holds b's beside them, or their mirrors
+// and the pair's second row's) or I2. The products' fourth launch off the
+// mirrored split is kernel 0's pass 1.
 int stockham_occupancy(int kernel, int log2n, int block, int staged,
                        int* threads, int* smem, int* regs, int* ctas) {
   if (bad_args(1, log2n, 2, block)) return cudaErrorInvalidValue;
-  if (staged == 2 || staged == 3) {
-    const bool two = staged == 3;
+  if (staged >= 2 && staged <= 4) {
     if (log2n < 1) return cudaErrorInvalidValue;
-    switch (kernel) {
-      case 0:
-        return two ? pass_occupancy(fft_pass2_kernel, block, log2n, 4, true,
-                                    true, threads, smem, regs, ctas)
-                   : pass_occupancy(fft_pass1_kernel, block, log2n, 4, true,
-                                    true, threads, smem, regs, ctas);
-      case 1:
-        return two ? pass_occupancy(rfft_pass2_kernel, 2 * block, log2n, 4,
-                                    true, false, threads, smem, regs, ctas)
-                   : pass_occupancy(rfft_pass1_kernel, block, log2n, 4, true,
-                                    true, threads, smem, regs, ctas);
+    switch (kernel * 8 + staged) {
+      case 0 * 8 + 2:
+        return pass_occupancy(fft_pass1_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 0 * 8 + 3:
+        return pass_occupancy(fft_pass2_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 1 * 8 + 2:
+        return pass_occupancy(rfft_pass1_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 1 * 8 + 3:
+        return pass_occupancy(rfft_pass2_kernel, 2 * block, log2n, 4, true,
+                              false, threads, smem, regs, ctas);
+      case 2 * 8 + 2:
+        return pass_occupancy(polymul_pass1_kernel, block, log2n, 4, true,
+                              true, threads, smem, regs, ctas);
+      case 2 * 8 + 3:
+        return launch_occupancy(polymul_complex_mid_kernel,
+                                pass_threads(2 * block, log2n),
+                                mid_smem(2 * block, log2n), threads, smem,
+                                regs, ctas);
+      case 2 * 8 + 4:
+        return pass_occupancy(fft_pass2_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 3 * 8 + 2:
+        return pass_occupancy(fft_pass1_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 3 * 8 + 3:
+        return launch_occupancy(polymul_real_mid_kernel,
+                                pass_threads(4 * block, log2n),
+                                mid_smem(4 * block, log2n), threads, smem,
+                                regs, ctas);
+      case 3 * 8 + 4:
+        return pass_occupancy(polymul_real_pass2_kernel, block, log2n, 4,
+                              true, true, threads, smem, regs, ctas);
     }
     return cudaErrorInvalidValue;
   }

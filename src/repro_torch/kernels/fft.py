@@ -165,11 +165,12 @@ def stockham_stages(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int):
 # ---------------------------------------------------------------------------
 
 #: Longest sub-problem one CTA of a pass holds (two ping-pong buffers of
-#: 8192 complex fp32 points: 128 KB of shared memory).
+#: 8192 complex fp32 points: 128 KB of shared memory). Where pass 2 holds
+#: each sub-problem beside others -- its mirror (the rfft), b's (the
+#: complex product), or its mirror and the pair's second row's two (the
+#: real product) -- its sub-problems are that many times shorter at most
+#: (``two_pass_split``).
 TWO_PASS_MAX_SUB = 8192
-#: rfft pass 2 holds each sub-problem beside its mirror, so its sub-problem
-#: is half as long at most.
-TWO_PASS_MAX_SUB_REAL = 4096
 #: Points a CTA of a pass holds (sub-problems x length): 4096 complex
 #: points, 16 in the registers of each of 256 threads and 32 KB in each
 #: shared buffer; a sub-problem longer than that runs alone in its CTA.
@@ -177,15 +178,19 @@ TWO_PASS_CTA_POINTS = 4096
 #: Most sub-problems one CTA takes: 16 consecutive ones, so a strided load
 #: or store moves runs of 16 contiguous floats (64 bytes).
 TWO_PASS_MAX_SLOTS = 16
-#: Least n at which each wrapper takes the two-pass schedule; below it a
-#: row stays resident in one CTA. Above n = 8192 no row fits one CTA, so
-#: the threshold only matters at the resident sizes. It comes from
-#: chip_smoke.py phase 4's A/B of the two schedules (lines "[ab]": batch
-#: 64, radix 4, in turns) on an NVIDIA H100 80GB HBM3 at 700 W, whose runs
-#: and times PERF.md records: two passes were faster at n = 8192 for both
-#: transforms, and not at n = 4096 (slower for the fft, within the turns'
-#: spread for the rfft), so 4096 stays resident.
-TWO_PASS_FROM = {"fft": 8192, "rfft": 8192}
+#: Least n at which each wrapper takes the two-pass schedule (the products:
+#: their split-pass schedule, ``kernels.polymul``); below it a row stays
+#: resident in one CTA. Above n = 8192 no row fits one CTA (above 4096 for
+#: the products, which hold two spectra), so the threshold only matters at
+#: the resident sizes. It comes from chip_smoke.py phase 4's A/B of the
+#: schedules (lines "[ab]": batch 64, radix 4, in turns) on an NVIDIA H100
+#: 80GB HBM3 at 700 W, whose runs and times PERF.md records: two passes
+#: were faster at n = 8192 for every kernel and at n = 4096 for the real
+#: product alone (slower there for the fft and the complex product, within
+#: the turns' spread or slower for the rfft), so the others stay resident
+#: at 4096.
+TWO_PASS_FROM = {"fft": 8192, "rfft": 8192, "polymul_complex": 8192,
+                 "polymul_real": 4096}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,16 +203,21 @@ class TwoPass:
     c1: int
     c2: int
 
+    @property
+    def launches(self) -> int:
+        return 2
 
-def two_pass_split(n: int, radix: int, *, real: bool = False
-                   ) -> tuple[int, int] | None:
+
+def two_pass_split(n: int, radix: int, *, real: bool = False,
+                   product: bool = False) -> tuple[int, int] | None:
     """(n1, n2) with n1 on the sweep sequence (radix 4: 4, 16, ... for even
     log2 n, 2, 8, ... for odd; radix 2: any power of two), both at least 2,
-    n1 <= TWO_PASS_MAX_SUB and n2 <= TWO_PASS_MAX_SUB (or
-    TWO_PASS_MAX_SUB_REAL for the rfft), n1 as close to sqrt(n) as that
+    n1 <= TWO_PASS_MAX_SUB and n2 <= TWO_PASS_MAX_SUB / h, where pass 2
+    holds h sub-problems for each of its own (the fft 1, the rfft and the
+    complex product 2, the real product 4), n1 as close to sqrt(n) as that
     allows, the smaller n1 on a tie; None when no split qualifies."""
     lg = _log2(n)
-    cap2 = TWO_PASS_MAX_SUB_REAL if real else TWO_PASS_MAX_SUB
+    cap2 = TWO_PASS_MAX_SUB // ((2 if real else 1) * (2 if product else 1))
     best = None
     for lg1 in range(1, lg):
         n1, n2 = 1 << lg1, 1 << (lg - lg1)
@@ -235,18 +245,22 @@ def two_pass_plan(n: int, radix: int, *, real: bool = False
     return None if split is None else two_pass_launch(*split, real=real)
 
 
+def pass_slots(m: int, avail: int, held: int = 1) -> int:
+    """Sub-problems of m points a pass CTA takes, out of ``avail``, where it
+    holds ``held`` sub-problems for each one it takes: as many as
+    ``TWO_PASS_CTA_POINTS`` and ``TWO_PASS_MAX_SLOTS`` allow, at least
+    one."""
+    most = min(TWO_PASS_MAX_SLOTS, TWO_PASS_CTA_POINTS // m) // held
+    return max(1, min(most, avail))
+
+
 def two_pass_launch(n1: int, n2: int, *, real: bool = False) -> TwoPass:
     """Sub-problems per CTA for the split (n1, n2): as many as
     ``TWO_PASS_CTA_POINTS`` allows, at most ``TWO_PASS_MAX_SLOTS`` and at
     most the pass's sub-problems (for the rfft's pass 2, half of n1, each
     with its mirror beside it)."""
-    def slots(m, avail):
-        return max(1, min(TWO_PASS_MAX_SLOTS, TWO_PASS_CTA_POINTS // m,
-                          avail))
-    c2 = slots(n2, n1)
-    if real:
-        c2 = max(1, min(c2 // 2, n1 // 2))
-    return TwoPass(n1, n2, slots(n1, n2), c2)
+    return TwoPass(n1, n2, pass_slots(n1, n2),
+                   pass_slots(n2, n1 // 2, 2) if real else pass_slots(n2, n1))
 
 
 def pass2_twiddles(n: int, n1: int, radix: int, *, inverse: bool = False
@@ -309,6 +323,40 @@ def _sweeps(yr, yi, wr, wi, *, n: int, r: int, radix: int, sign: float,
     return yr, yi
 
 
+def pass1_plain(xr, xi, wr, wi, *, n: int, n1: int, radix: int,
+                sign: float):
+    """Pass 1 on (B, n) planes: sub-row q0 = x[q0 :: n2] through the sweeps
+    from L = 1 to n1, scattered back at stride n2 into the intermediate A
+    (B, n), A[l n2 + q0]."""
+    b, n2 = xr.shape[0], n // n1
+
+    def gather(p):      # sub-row q0 = p[q0 :: n2], as (B n2, 1, n1)
+        return p.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, 1, n1)
+
+    yr, yi = _sweeps(gather(xr), gather(xi), wr, wi, n=n, r=n1, radix=radix,
+                     sign=sign)
+    return tuple(p.reshape(b, n2, n1).transpose(1, 2).reshape(b, n)
+                 for p in (yr, yi))
+
+
+def pass2_plain(ar, ai, wr, wi, *, n: int, n1: int, radix: int,
+                sign: float):
+    """Pass 2 on intermediates A (B, n): sub-row l0 = A[l0 n2 : (l0 + 1)
+    n2] through the sweeps from L = n1 to n, twiddles from the global block
+    index. Returns (B, n1, n2): element k of sub-problem l0 is bin
+    l0 + k n1 (``natural`` puts it in place)."""
+    b, n2 = ar.shape[0], n // n1
+    yr, yi = _sweeps(ar.reshape(b, n1, 1, n2), ai.reshape(b, n1, 1, n2), wr,
+                     wi, n=n, r=n2, radix=radix, sign=sign, n1=n1)
+    return yr.reshape(b, n1, n2), yi.reshape(b, n1, n2)
+
+
+def natural(p):
+    """Pass 2's (B, n1, n2) sub-problems in natural order: y[l0 + k n1]."""
+    b = p.shape[0]
+    return p.transpose(1, 2).reshape(b, -1)
+
+
 def stockham_two_pass(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int,
                       n1: int):
     """Plain mirror of the two-pass kernels on (B, n) planes: the very
@@ -322,23 +370,9 @@ def stockham_two_pass(xr, xi, wr, wi, *, n: int, inverse: bool, radix: int,
     store.
     """
     sign = 1.0 if inverse else -1.0
-    b = xr.shape[0]
-    n2 = n // n1
-
-    def gather(p):      # sub-row q0 = p[q0 :: n2], as (B n2, 1, n1)
-        return p.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, 1, n1)
-
-    yr, yi = _sweeps(gather(xr), gather(xi), wr, wi, n=n, r=n1, radix=radix,
-                     sign=sign)
-    # A[l n2 + q0] <- sub-row q0's element l; pass 2's sub-row l0 is the
-    # slice A[l0 n2 : (l0 + 1) n2], as (B, n1, 1, n2)
-    ar, ai = (p.reshape(b, n2, n1).transpose(1, 2).reshape(b, n1, 1, n2)
-              for p in (yr, yi))
-    yr, yi = _sweeps(ar, ai, wr, wi, n=n, r=n2, radix=radix, sign=sign,
-                     n1=n1)
-    # y[l0 + n1 k] <- sub-row l0's element k
-    yr, yi = (p.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
-              for p in (yr, yi))
+    ar, ai = pass1_plain(xr, xi, wr, wi, n=n, n1=n1, radix=radix, sign=sign)
+    yr, yi = (natural(p) for p in pass2_plain(ar, ai, wr, wi, n=n, n1=n1,
+                                              radix=radix, sign=sign))
     if inverse:
         yr, yi = yr * (1.0 / n), yi * (1.0 / n)
     return yr, yi

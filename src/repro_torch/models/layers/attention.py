@@ -83,6 +83,8 @@ def attention_train(params, x: torch.Tensor, cfg, *,
     blk = cfg.attn_kv_block or min(1024, S)
     out = blockwise_attention(q, k, v, window=window, kv_block=blk)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params.wo
+    if cfg.reduce_dtype == "bfloat16":   # the reference's rounding
+        y = y.to(torch.bfloat16).to(x.dtype)
     return (y, (k, v)) if want_cache else y
 
 

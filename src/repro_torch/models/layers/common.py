@@ -71,14 +71,19 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, *,
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
-def swiglu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(params, x: torch.Tensor,
+               reduce_dtype: torch.dtype | None = None) -> torch.Tensor:
     """params: w_gate (d, f), w_up (d, f), w_down (f, d), in x's type.
 
-    The reference asks for the down-projection in fp32 and rounds once to
-    x's type; a torch matmul in bf16 accumulates in fp32 and rounds once
-    (with ``allow_bf16_reduced_precision_reduction`` off on the card)."""
+    reduce_dtype: the type the down-projection is rounded to before x's
+    type (the reference's ``preferred_element_type``; None is fp32). A
+    torch matmul in bf16 accumulates in fp32 and rounds once (with
+    ``allow_bf16_reduced_precision_reduction`` off on the card)."""
     dtype = x.dtype
     gate = x @ params.w_gate
     up = x @ params.w_up
     h = F.silu(gate.float()).to(dtype) * up
-    return h @ params.w_down
+    out = h @ params.w_down
+    if reduce_dtype is not None:
+        out = out.to(reduce_dtype)
+    return out.to(dtype)

@@ -152,7 +152,8 @@ class Block(nn.Module):
                 want_cache=True)
             _fill_cache(cache, k, v)
         x = x + y
-        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2))
+        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
+                              _reduce_dtype(cfg))
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor,
                cache: tuple[torch.Tensor, torch.Tensor], *, pos: int,
@@ -163,7 +164,14 @@ class Block(nn.Module):
             self.attn, h, cfg, cache_k=cache[0], cache_v=cache[1], pos=pos,
             window=window, positions=positions)
         x = x + y
-        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2))
+        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
+                              _reduce_dtype(cfg))
+
+
+def _reduce_dtype(cfg: ModelConfig) -> torch.dtype | None:
+    """The down-projection's rounding (the reference's ``reduce_dtype``
+    argument of ``swiglu_mlp``): bf16, or None for fp32."""
+    return torch.bfloat16 if cfg.reduce_dtype == "bfloat16" else None
 
 
 def _fill_cache(cache, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -151,6 +151,57 @@ def test_rfft_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
         _close([tfft.irfft_planes(*got, radix=radix)], [x], 1e-4, 1e-4 * n)
 
 
+def _product_schedules(n, radix, real):
+    """The planner's schedule of a product at n and, where both exist (the
+    resident and staged lengths below 2^14), the other one: {label:
+    ProductTwoPass or None}."""
+    planned = tpoly.product_two_pass_plan(n, radix, real=real)
+    out = {"planned": planned}
+    if n <= 8192:
+        split = tfft.two_pass_split(n, radix, real=real, product=True)
+        out["other"] = (None if planned else
+                        tpoly.product_two_pass_launch(*split, radix,
+                                                      real=real))
+    return out
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 16384, 65536, 1 << 17])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 5, 64])
+def test_product_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
+    """Both products under the split-pass schedule (three launches, or four
+    at 2^13 and 2^17, radix 4) and the single-CTA one (resident at 4096,
+    staged at 8192; through the launch helpers where the planner picks the
+    other): bit for bit the plain versions, one count per call; odd
+    batches pair the real product's last row with a zero row."""
+    ar, ai, br, bi = _planes(rng, batch, n, 4, cuda)
+    want = tpoly.polymul_complex_planes_plain(ar, ai, br, bi, radix=radix)
+    for label, sched in _product_schedules(n, radix, False).items():
+        if label == "planned":
+            got = _launched("polymul_complex_planes",
+                            lambda: tpoly.polymul_complex_planes(
+                                ar, ai, br, bi, radix=radix))
+        else:
+            got = _launched("polymul_complex_planes",
+                            lambda: tpoly._launch_polymul_complex(
+                                ar, ai, br, bi, radix,
+                                tpoly.default_complex_block(n), sched))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+    want = tpoly.polymul_real_planes_plain(ar, br, radix=radix)
+    for label, sched in _product_schedules(n, radix, True).items():
+        if label == "planned":
+            got = _launched("polymul_real_planes",
+                            lambda: tpoly.polymul_real_planes(ar, br,
+                                                              radix=radix))
+        else:
+            got = _launched("polymul_real_planes",
+                            lambda: tpoly._launch_polymul_real(
+                                ar, br, radix, tpoly.default_real_block(n),
+                                sched))
+        assert torch.equal(got, want), label
+
+
 NTT_NS = [2, 8, 4096, 16384, 32768, 65536]
 
 
@@ -211,6 +262,8 @@ def test_rns_kernel_matches_plain_and_reference(cuda, rng, n, kw,
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("radix", [2, 4])
 def test_polymul_kernels_match_plain(cuda, rng, n, radix):
+    """The planner's schedule at each n (resident, split-pass); bit for bit
+    is held above, the reference tests' bounds here."""
     ar, ai, br, bi = _planes(rng, 5, n, 4, cuda)
     got = _launched("polymul_complex_planes",
                     lambda: tpoly.polymul_complex_planes(ar, ai, br, bi,
@@ -317,6 +370,36 @@ def test_two_pass_occupancy_matches_launch_configuration(cuda, name, n):
         occ = _build.occupancy(name, lm, c, mode)
         assert occ["threads"] == max(32, min(256, slots * max(1, m // 16)))
         buffers = min(2, max(1, _steps(lm) - int(to_device)))
+        assert occ["smem_bytes"] == buffers * 8 * slots * (m + 1)
+        assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("name", ["polymul_complex_planes",
+                                  "polymul_real_planes"])
+@pytest.mark.parametrize("n", [4096, 65536, 1 << 17])
+def test_product_two_pass_occupancy_matches_launch_configuration(cuda, name,
+                                                                 n):
+    """Each launch of a product's split-pass schedule at n (radix 4): F1 and
+    I2 as the fft's pass kernels are launched (one thread per work item of
+    16 elements, at most 256; one shared buffer of 8 (m + 1) bytes per
+    sub-problem for each state a step leaves in shared memory, two at
+    most); M with one thread per work item of its 2 cm (complex) or 4 cm
+    (real) sub-problems and always two buffers of them (the product, Q and
+    the inverse's first pass use both); at least one CTA per SM."""
+    real = name == "polymul_real_planes"
+    tp = tpoly.product_two_pass_plan(n, 4, real=real) or \
+        tpoly.product_two_pass_launch(
+            *tfft.two_pass_split(n, 4, real=real, product=True), 4,
+            real=real)
+    li2 = n // tp.inverse_n1
+    for mode, m, c, slots, buffers in (
+            (2, tp.n1, tp.c1, tp.c1, min(2, max(1, _steps(
+                tp.n1.bit_length() - 1) - 1))),
+            (3, tp.n2, tp.cm, (4 if real else 2) * tp.cm, 2),
+            (4, li2, tp.ci, tp.ci, min(2, max(1, _steps(
+                li2.bit_length() - 1) - 1)))):
+        occ = _build.occupancy(name, m.bit_length() - 1, c, mode)
+        assert occ["threads"] == max(32, min(256, slots * max(1, m // 16)))
         assert occ["smem_bytes"] == buffers * 8 * slots * (m + 1)
         assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
 

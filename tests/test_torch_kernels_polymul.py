@@ -1,6 +1,9 @@
 """Port of the fused product kernels (``repro_torch.kernels.polymul``)
 against the reference Pallas kernels (``repro.kernels.polymul``, interpret
-mode on the CPU) and float64 numpy, on the same seeded numpy inputs.
+mode on the CPU) and float64 numpy, on the same seeded numpy inputs. At
+n = 16384 the wrappers take their split-pass schedule (its plain mirrors
+on the CPU; ``tests/test_torch_two_pass.py`` pins them to the plain
+versions bit for bit).
 
 Tolerance: rtol 1e-3, atol 1e-4 * n -- the reference polymul tests' bound
 (three transforms of fp32 rounding, each growing with log n, and products
@@ -26,7 +29,8 @@ def _tol(n):
 
 
 @pytest.mark.parametrize("n,radix,batch", [
-    (8, 2, 3), (64, 4, 1), (128, 4, 2), (512, 4, 5)])
+    (8, 2, 3), (64, 4, 1), (128, 4, 2), (512, 4, 5), (16384, 4, 3),
+    (16384, 2, 1)])
 def test_polymul_complex_planes_matches_pallas(rng, n, radix, batch):
     a = (rng.standard_normal((batch, n))
          + 1j * rng.standard_normal((batch, n))).astype(np.complex64)
@@ -45,7 +49,8 @@ def test_polymul_complex_planes_matches_pallas(rng, n, radix, batch):
 
 
 @pytest.mark.parametrize("n,radix,batch", [
-    (2, 2, 1), (8, 2, 1), (64, 4, 3), (128, 4, 2), (512, 2, 5)])
+    (2, 2, 1), (8, 2, 1), (64, 4, 3), (128, 4, 2), (512, 2, 5),
+    (16384, 4, 3), (16384, 2, 4)])
 def test_polymul_real_planes_matches_pallas(rng, n, radix, batch):
     """Odd batches pair the last product with a zero row."""
     a = rng.standard_normal((batch, n)).astype(np.float32)
@@ -84,9 +89,11 @@ def test_default_blocks():
     assert tpoly.default_real_block(64) == 32
 
 
-def test_cpu_tensors_launch_nothing(rng):
+@pytest.mark.parametrize("n", [16, 16384])
+def test_cpu_tensors_launch_nothing(rng, n):
+    """Resident (n = 16) and split-pass (n = 16384) sizes alike."""
     _build.reset_launches()
-    x = _t(rng.standard_normal((3, 16)).astype(np.float32))
+    x = _t(rng.standard_normal((3, n)).astype(np.float32))
     tpoly.polymul_complex_planes(x, x, x, x)
     tpoly.polymul_real_planes(x, x)
     assert set(_build.LAUNCHES.values()) == {0}

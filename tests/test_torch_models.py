@@ -310,6 +310,96 @@ def test_generate_matches_reference_greedy_loop():
 
 
 # ---------------------------------------------------------------------------
+# reduce_dtype="bfloat16": the reference rounds the attention output
+# projection (attention_train) and the SwiGLU down-projection to bf16 before
+# the activations' type; attention_decode does not round. With fp32
+# activations the two frameworks' fp32 sums differ in their last bits, so a
+# value near a bf16 rounding boundary may land one bf16 step (2^-8
+# relative) apart: layers are held at REDUCE_TOL, and each result differs
+# from the float32 setting's by more than the fp32 tolerance.
+# ---------------------------------------------------------------------------
+
+REDUCE_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+def _differs_from_fp32(got, fp32):
+    assert not np.allclose(got, fp32, **TOL)
+
+
+def test_swiglu_mlp_reduce_bf16_matches_reference(rng):
+    w = {"w_gate": rng.standard_normal((32, 64)) * 0.2,
+         "w_up": rng.standard_normal((32, 64)) * 0.2,
+         "w_down": rng.standard_normal((64, 32)) * 0.1}
+    x = rng.standard_normal((2, 5, 32)).astype(np.float32)
+    got = tcommon.swiglu_mlp(_Params(w), _t(x), torch.bfloat16)
+    want = jcommon.swiglu_mlp({k: _j(v) for k, v in w.items()}, _j(x),
+                              reduce_dtype=jnp.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **REDUCE_TOL)
+    # every value is a bf16 value, and not the fp32 setting's
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    _differs_from_fp32(got.numpy(), tcommon.swiglu_mlp(_Params(w),
+                                                       _t(x)).numpy())
+
+
+@pytest.mark.parametrize("arch,window", [("qwen3-1.7b", 1 << 30),
+                                         ("gemma3-4b", 24)])
+def test_attention_train_reduce_bf16_matches_reference(rng, arch, window):
+    jc, tc, w = _block0_attn(arch)
+    jc = dataclasses.replace(jc, reduce_dtype="bfloat16")
+    B, S = 2, 48
+    x = rng.standard_normal((B, S, tc.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+
+    def port(cfg):
+        return tattn.attention_train(_Params(w), _t(x), cfg,
+                                     positions=_t(pos, torch.int32),
+                                     window=window)
+
+    got = port(dataclasses.replace(tc, reduce_dtype="bfloat16"))
+    want = jattn.attention_train({k: _j(v) for k, v in w.items()}, _j(x), jc,
+                                 positions=_j(pos, jnp.int32), window=window)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **REDUCE_TOL)
+    assert torch.equal(got, got.to(torch.bfloat16).float())
+    _differs_from_fp32(got.numpy(), port(tc).numpy())
+
+
+def test_prefill_and_decode_reduce_bf16_match_reference():
+    """A small whole model (qwen3-1.7b scaled down, fp32 activations,
+    reduce_dtype bf16): the prefill's last logits and one decode step's
+    against the reference's prefill and decode_step. A layer output that
+    lands one bf16 step apart moves the logits (magnitude about 4): by
+    0.0019 at most here (0.0002 for the decode step). REDUCE_LOGITS_TOL
+    allows twice that, and the logits of the float32 setting lie outside
+    it (0.0097 and 0.0077 from the reference's)."""
+    jc, tc, tree = _reference("qwen3-1.7b")
+    jc = dataclasses.replace(jc, reduce_dtype="bfloat16")
+    B, S = 2, 16
+    tokens, _, _ = _inputs(tc, B, S + 1, seed=5)
+    params = jax.tree.map(jnp.asarray, tree)
+    jlast, jstate = jlm.prefill(jc, params, jnp.asarray(tokens[:, :S]),
+                                cache_capacity=S + 1)
+    jstep, _ = jlm.decode_step(jc, params, jstate,
+                               jnp.asarray(tokens[:, S]), jnp.int32(S))
+    got = {}
+    for reduce in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(tc, reduce_dtype=reduce)
+        model = convert.build(cfg, convert.params_from_jax(cfg, tree), "cpu")
+        last, state = model.prefill(torch.from_numpy(tokens[:, :S]),
+                                    cache_capacity=S + 1)
+        step, _ = model.decode_step(state, torch.from_numpy(tokens[:, S]),
+                                    S)
+        got[reduce] = (last.numpy(), step.numpy())
+    for g, w, fp32 in zip(got["bfloat16"], (jlast, jstep), got["float32"]):
+        np.testing.assert_allclose(g, np.asarray(w), **REDUCE_LOGITS_TOL)
+        assert not np.allclose(fp32, np.asarray(w), **REDUCE_LOGITS_TOL)
+
+
+REDUCE_LOGITS_TOL = dict(rtol=0, atol=4e-3)
+
+
+# ---------------------------------------------------------------------------
 # Weights
 # ---------------------------------------------------------------------------
 

@@ -45,23 +45,35 @@ def test_plan_block_and_residency_are_the_hopper_rule(n):
     assert tcore.plan(n, 8).resident == (n < tfft.TWO_PASS_FROM["fft"])
     assert tcore.plan(n, 8, real=True).resident == \
         (n < tfft.TWO_PASS_FROM["rfft"])
-    assert tcore.plan(n, 8, product=True).resident == (n <= 4096)
-    assert tcore.plan(n, 8, real=True, product=True).resident == (n <= 4096)
+    # the products run their split-pass schedule from their own
+    # TWO_PASS_FROM on (the real product from 4096); a pair of spectra fits
+    # one CTA up to 4096
+    assert tcore.plan(n, 8, product=True).resident == \
+        (n < tfft.TWO_PASS_FROM["polymul_complex"])
+    assert tcore.plan(n, 8, real=True, product=True).resident == \
+        (n < tfft.TWO_PASS_FROM["polymul_real"])
 
 
 def test_plan_describes_what_executes():
     """The description names the schedule that runs: resident rows, the
-    FFT's and real FFT's two passes, or a single CTA per row staged through
-    device memory (the products, which keep their one-CTA kernels)."""
+    FFT's and real FFT's two passes, the products' split-pass schedule
+    (three launches where the mirrored split is on the sweep sequence, four
+    at odd log2 n, radix 4), or a single CTA per row staged through device
+    memory (past every split)."""
     assert "shared-memory resident" in tcore.plan(4096, 8).describe()
-    assert "two-pass 256 x 256" in tcore.plan(65536, 8).describe()
+    assert "two-pass 256 x 256 (2 launches" in tcore.plan(65536, 8).describe()
     assert "two-pass 256 x 256" in \
         tcore.plan(65536, 8, real=True).describe()
     assert "two-pass 64 x 256" in tcore.plan(16384, 8).describe()
-    assert "single-CTA staged through device memory" in \
-        tcore.plan(65536, 8, product=True).describe()
+    for real in (False, True):
+        assert "two-pass 256 x 256 (3 launches" in \
+            tcore.plan(65536, 8, real=real, product=True).describe()
+        assert "two-pass 512 x 256 (4 launches" in \
+            tcore.plan(1 << 17, 8, real=real, product=True).describe()
     assert "single-CTA staged through device memory" in \
         tcore.plan(1 << 26, 8).describe()     # no radix-4 split fits
+    assert "single-CTA staged through device memory" in \
+        tcore.plan(1 << 26, 8, product=True).describe()
     assert "radix-4" in tcore.plan(4096, 8).describe()
     assert "paired inverse" in \
         tcore.plan(64, 8, real=True, product=True).describe()
@@ -71,14 +83,20 @@ def test_plan_describes_what_executes():
 @pytest.mark.parametrize("real", [False, True])
 @pytest.mark.parametrize("product", [False, True])
 def test_plan_two_pass_is_the_kernels_schedule(n, real, product):
-    """The plan records the split the fft and rfft wrappers launch
-    (``kernels.fft.two_pass_plan``) and none for the products."""
-    got = tcore.plan(n, 64, real=real, product=product).two_pass
-    launch = tfft.two_pass_plan(n, 4 if n >= 4 else 2, real=real)
-    if product or launch is None:
-        assert got is None
+    """The plan records the split the wrappers launch
+    (``kernels.fft.two_pass_plan``; for the products
+    ``kernels.polymul.product_two_pass_plan``) and its launches per call."""
+    p = tcore.plan(n, 64, real=real, product=product)
+    radix = 4 if n >= 4 else 2
+    launch = (tpoly.product_two_pass_plan(n, radix, real=real) if product
+              else tfft.two_pass_plan(n, radix, real=real))
+    if launch is None:
+        assert p.two_pass is None and p.launches == 1
     else:
-        assert got == (launch.n1, launch.n2)
+        assert p.two_pass == (launch.n1, launch.n2)
+        assert p.launches == launch.launches == (
+            2 if not product else 3 if launch.fused else 4)
+        assert not p.resident
 
 
 @pytest.mark.parametrize("bad", [48, 0, -8, 1536])

@@ -1,7 +1,10 @@
 """The two-pass schedule of ``fft_planes`` and ``rfft_planes``
 (``repro_torch.kernels.fft``: ``two_pass_split``, ``stockham_two_pass``,
-``rfft_two_pass``) on the CPU, against the single-pass plain versions and
-the reference (``repro.kernels.fft``).
+``rfft_two_pass``) and the products' split-pass schedule
+(``repro_torch.kernels.polymul``: ``product_two_pass_plan``,
+``polymul_complex_two_pass``, ``polymul_real_two_pass``) on the CPU,
+against the single-pass plain versions and the reference
+(``repro.kernels.fft``).
 
 The plain mirrors follow the kernels' dataflow: pass 1 on (B n2, n1)
 sub-rows gathered at stride n2, pass 2 on (B n1, n2) contiguous sub-rows
@@ -29,6 +32,20 @@ from repro.kernels import fft as jfft
 from repro_torch.core import fft as tcore
 from repro_torch.kernels import _build
 from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import polymul as tpoly
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The mirrors run thousands of small torch ops on the CPU; under xdist
+    several workers' intra-op thread pools contend for the cores and these
+    tests run many times slower than alone. One thread per worker keeps
+    them near their single-process time; the results do not depend on it
+    (elementwise fp32 operations)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _t(x):
@@ -251,10 +268,14 @@ def test_rfft_planes_two_pass_matches_pallas(rng, radix, batch):
 @pytest.mark.parametrize("n", [4096, 8192, 16384, 65536])
 def test_schedule_follows_the_threshold(n):
     """Below ``TWO_PASS_FROM`` a row stays in one CTA; from it on the
-    wrappers, the plan and its description take the two-pass schedule."""
-    for real, key in ((False, "fft"), (True, "rfft")):
-        launch = tfft.two_pass_plan(n, 4, real=real)
-        p = tcore.plan(n, 64, real=real)
+    wrappers, the plan and its description take the two-pass schedule (the
+    products' split-pass one)."""
+    for real, product, key in (
+            (False, False, "fft"), (True, False, "rfft"),
+            (False, True, "polymul_complex"), (True, True, "polymul_real")):
+        launch = (tpoly.product_two_pass_plan(n, 4, real=real) if product
+                  else tfft.two_pass_plan(n, 4, real=real))
+        p = tcore.plan(n, 64, real=real, product=product)
         if n < tfft.TWO_PASS_FROM[key]:
             assert launch is None and p.two_pass is None
             assert "shared-memory resident" in p.describe()
@@ -278,4 +299,98 @@ def test_cpu_wrappers_run_the_mirror_and_launch_nothing(rng):
     for g, w in zip(tfft.rfft_planes(xr, radix=4),
                     tfft.rfft_planes_plain(xr, radix=4)):
         assert torch.equal(g, w)
+    for g, w in zip(tpoly.polymul_complex_planes(xr, xi, xi, xr, radix=4),
+                    tpoly.polymul_complex_planes_plain(xr, xi, xi, xr,
+                                                       radix=4)):
+        assert torch.equal(g, w)
+    assert torch.equal(tpoly.polymul_real_planes(xr, xi, radix=4),
+                       tpoly.polymul_real_planes_plain(xr, xi, radix=4))
     assert set(_build.LAUNCHES.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# The products' split-pass schedule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_product_mirrors_equal_plain(rng, n, radix, batch):
+    """The plain mirrors of the products' kernels equal the whole-row plain
+    versions bit for bit: three launches where the mirrored split is on the
+    sweep sequence (radix 2; radix 4 at 2^14 and 2^16), four at 2^17, radix
+    4 (odd log2 n); odd batches pair the last product with a zero row."""
+    ar, ai, br, bi = (_t(v) for v in _planes(rng, batch, n)
+                      + _planes(rng, batch, n))
+    plans = [tpoly.product_two_pass_plan(n, radix, real=r)
+             for r in (False, True)]
+    assert all(p.fused == (radix == 2 or n != 1 << 17) for p in plans)
+    got = tpoly.polymul_complex_two_pass(ar, ai, br, bi, radix=radix,
+                                         plan=plans[0])
+    for g, w in zip(got, tpoly.polymul_complex_planes_plain(ar, ai, br, bi,
+                                                            radix=radix)):
+        assert torch.equal(g, w)
+    got = tpoly.polymul_real_two_pass(ar, br, radix=radix, plan=plans[1])
+    assert got.shape == (batch, n)
+    assert torch.equal(got, tpoly.polymul_real_planes_plain(ar, br,
+                                                            radix=radix))
+
+
+def test_product_split_off_the_sequence_differs(rng):
+    """n1 = 128 is no L of the radix-4 sequence at 2^14: the products'
+    mirrors split there run other sweeps and give another answer."""
+    n = 1 << 14
+    ar, ai = (_t(v) for v in _planes(rng, 1, n))
+    for real in (False, True):
+        off = tpoly.product_two_pass_launch(128, 128, 4, real=real)
+        if real:
+            got = (tpoly.polymul_real_two_pass(ar, ai, radix=4, plan=off),)
+            want = (tpoly.polymul_real_planes_plain(ar, ai, radix=4),)
+        else:
+            got = tpoly.polymul_complex_two_pass(ar, ai, ai, ar, radix=4,
+                                                 plan=off)
+            want = tpoly.polymul_complex_planes_plain(ar, ai, ai, ar,
+                                                      radix=4)
+        assert not torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("n,radix,real,want", [
+    (65536, 4, False, tpoly.ProductTwoPass(256, 256, 16, 8, 16, True)),
+    (65536, 4, True, tpoly.ProductTwoPass(256, 256, 16, 4, 16, True)),
+    (1 << 17, 4, False, tpoly.ProductTwoPass(512, 256, 8, 8, 16, False)),
+    (1 << 17, 2, True, tpoly.ProductTwoPass(256, 512, 16, 2, 16, True)),
+    (8192, 4, True, tpoly.ProductTwoPass(128, 64, 16, 4, 16, False)),
+])
+def test_product_plan_examples(n, radix, real, want):
+    """M holds cm low sub-problems of n2 points beside b's (2 cm in all) or
+    their mirrors and the pair's second row's (4 cm), within
+    ``TWO_PASS_CTA_POINTS``; the inverse's last pass takes sub-problems of
+    n1 points where fused, n2 otherwise."""
+    plan = tpoly.product_two_pass_plan(n, radix, real=real)
+    assert plan == want
+    held = 4 if real else 2
+    assert held * plan.cm * plan.n2 <= tfft.TWO_PASS_CTA_POINTS
+    assert plan.launches == (3 if plan.fused else 4)
+
+
+@pytest.mark.parametrize("lg", range(13, 27))
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("real", [False, True])
+def test_product_split_fits(lg, radix, real):
+    """The products' split is the transforms' rule with pass-2 sub-problems
+    half as long again (M holds b's, or the pair's second row's, beside
+    each): two buffers of M's 2 cm or 4 cm sub-problems at row stride
+    n2 + 1 fit 227 KB, and the inverse's pass-2 sub-problems are on the
+    radix-4 sequence where fused."""
+    n = 1 << lg
+    plan = tpoly.product_two_pass_plan(n, radix, real=real)
+    split = tfft.two_pass_split(n, radix, real=real, product=True)
+    if split is None:
+        assert plan is None
+        return
+    assert (plan.n1, plan.n2) == split
+    held = 4 if real else 2
+    assert 16 * held * plan.cm * (plan.n2 + 1) <= tfft.SMEM_MAX_BYTES
+    assert plan.n2 <= tfft.TWO_PASS_MAX_SUB // held
+    if plan.fused and radix == 4:
+        assert (plan.n1.bit_length() - 1) % 2 == 0
