@@ -9,9 +9,9 @@ Phases (any failure exits non-zero):
   1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
      and ``kernels/csrc/attention.cu`` with nvcc into ``build/``, one nvcc
      per source, all started together (and beside them a second nvcc of
-     ``attention.cu`` and of ``stockham.cu`` with ``-Xptxas -v``), and
-     print the build time, the card's name and its power limit; then
-     ptxas's registers and spills for every Stockham kernel, and its
+     each with ``-Xptxas -v``), and print the build time, the card's name
+     and its power limit; then ptxas's registers and spills for every
+     Stockham and NTT kernel, and its
      registers, shared memory and spills for the wgmma flash kernel and
      the count of HGMMA
      and UTMALDG instructions in its SASS (``cuobjdump -sass``), which
@@ -26,7 +26,11 @@ Phases (any failure exits non-zero):
      and inverse NTT, cyclic and negacyclic products, n = 2 .. 2^19
      (resident and staged), batches 1, 2, 5 and a capped block, and the
      serve batch with the planner's block; the RNS kernel at k = 9
-     (109-bit Q) and at k = 1. Then the two flash-attention kernels
+     (109-bit Q) and at k = 1; the NTT product's split-pass schedule
+     (``check_ntt_two_pass``) at every n from its threshold to 2^19 and
+     under both schedules at 4096 and 8192, cyclic and negacyclic, batches
+     1, 2, 5 and 64, == plain == numpy reference. Then the two
+     flash-attention kernels
      against their plain versions (``ATTN_CASES``), each case launching
      the kernel its (dtype, head_dim) dispatches to and the other never:
      the wgmma kernel (bf16, head_dim 64 and 128) at the served prefill
@@ -34,14 +38,14 @@ Phases (any failure exits non-zero):
      S < 64; the CUDA-core kernel at bf16 head_dims 32 and 320 and in
      fp32; bf16 within one bf16 step and fp32 within 2e-4; and the public
      (H, S, hd) layout against the naive oracle. Then the two-pass
-     schedules of the fft and rfft kernels and the products' split-pass
-     schedule (``check_two_pass``; three launches, four at odd log2 n and
-     radix 4): n = 2^14 .. 2^18 (two passes) and 4096, 8192 under both
-     schedules (the one the planner does not pick through the launch
-     helper the wrapper calls), radix 2 and 4, batches 1, 2, 5 and 64, the
-     fft forward and inverse, each result equal to the plain version bit
-     for bit (``==``), within tolerance of float64 numpy, and the rfft ->
-     irfft round trip.
+     schedules of the fft, rfft and irfft kernels and the products'
+     split-pass schedule (``check_two_pass``; three launches, four at odd
+     log2 n and radix 4): n = 2^14 .. 2^18 (two passes) and 4096, 8192
+     under both schedules (the one the planner does not pick through the
+     launch helper the wrapper calls), radix 2 and 4, batches 1, 2, 5 and
+     64, the fft forward and inverse, each result equal to the plain
+     version bit for bit (``==``), within tolerance of float64 numpy, and
+     the rfft -> irfft round trips.
   3. Serve: ``FFTService`` per op at n = 4096 and 65536 (batch 64, 256
      requests each), ``polymul-mod`` single-limb at both lengths and RNS at
      n = 4096 with a 109-bit modulus, then one mixed ``ServeEngine`` over
@@ -84,11 +88,13 @@ Phases (any failure exits non-zero):
      (exactly, for the NTT kernels and the fft and rfft kernels). Each
      kernel's launch configuration and the CTAs an SM holds come from the
      CUDA occupancy API, for each launch of a two-pass call, whose traced
-     time counts the call's launches (and a trace splits it by kernel);
-     the two-pass kernels also by CUDA events around a CUDA-graph replay.
-     Then the A/B of the two schedules of the fft, the rfft and both
-     products at n = 4096 and 8192 (``schedule_ab``: in turns single-CTA,
-     two-pass, two-pass, single-CTA), which sets the planner's thresholds.
+     time counts the call's launches (and a trace splits it by kernel,
+     with the bytes and TB/s of the irfft's and the NTT product's
+     launches); the two-pass kernels and the NTT product also by CUDA
+     events around a CUDA-graph replay. Then the A/B of the two schedules
+     of the fft, the rfft, the irfft, both products and the NTT product at
+     n = 4096 and 8192 (``schedule_ab``: in turns single-CTA, two-pass,
+     two-pass, single-CTA), which sets the planner's thresholds.
      The CUDA-core flash kernel is timed in fp32 and at gemma3-4b's bf16
      head_dim 320 (``ATTN_TIMED``). Then the LM
      cell: prefill ms, decode ms per token and tok/s, and a traced run for
@@ -326,14 +332,14 @@ def check_kernels(torch, kfft, kpoly, core_fft) -> dict[str, float]:
 TWO_PASS_NS = tuple(1 << k for k in range(14, 19))
 BOTH_SCHEDULES_NS = (4096, 8192)
 TWO_PASS_BATCHES = (1, 2, 5, SERVE_BATCH)
-#: the kernels with a two-pass (split-pass) schedule
-TWO_PASS_KERNELS = ("fft_planes", "rfft_planes", "polymul_complex_planes",
-                    "polymul_real_planes")
+#: the float kernels with a two-pass (split-pass) schedule
+TWO_PASS_KERNELS = ("fft_planes", "rfft_planes", "irfft_planes",
+                    "polymul_complex_planes", "polymul_real_planes")
 
 
 def _kinds(name: str) -> tuple[bool, bool]:
     """(real, product) of a two-pass kernel's wrapper."""
-    return (name in ("rfft_planes", "polymul_real_planes"),
+    return (name in ("rfft_planes", "irfft_planes", "polymul_real_planes"),
             name.startswith("polymul"))
 
 
@@ -342,6 +348,8 @@ def planned_two_pass(kfft, kpoly, name: str, n: int, radix: int):
     real, product = _kinds(name)
     if product:
         return kpoly.product_two_pass_plan(n, radix, real=real)
+    if name == "irfft_planes":
+        return kfft.irfft_two_pass_plan(n, radix)
     return kfft.two_pass_plan(n, radix, real=real)
 
 
@@ -359,7 +367,7 @@ def schedules(kfft, kpoly, name: str, n: int, radix: int) -> dict:
         split = kfft.two_pass_split(n, radix, real=real, product=product)
         out.setdefault("two-pass", kpoly.product_two_pass_launch(
             *split, radix, real=real) if product else
-            kfft.two_pass_launch(*split, real=real))
+            kfft.two_pass_launch(*split, real=real and name == "rfft_planes"))
     return out
 
 
@@ -384,6 +392,14 @@ def launch_under(kfft, kpoly, name: str, schedule, radix: int, *,
                     else kfft._launch_rfft(planes[0], radix,
                                            kfft.plan_batch_block(n, real=True),
                                            schedule))
+        if name == "irfft_planes":      # packed planes (B, n / 2)
+            n = 2 * planes[0].shape[1]
+            planned = schedule == planned_two_pass(kfft, kpoly, name, n,
+                                                   radix)
+            return (kfft.irfft_planes(*planes[:2], radix=radix) if planned
+                    else kfft._launch_irfft(
+                        *planes[:2], radix,
+                        kfft.plan_batch_block(n, real=True), schedule))
         if name == "polymul_complex_planes":
             return (kpoly.polymul_complex_planes(*planes[:4], radix=radix)
                     if planned else kpoly._launch_polymul_complex(
@@ -397,14 +413,16 @@ def launch_under(kfft, kpoly, name: str, schedule, radix: int, *,
 
 
 def check_two_pass(torch, kfft, kpoly) -> dict[str, int]:
-    """fft_planes (forward and inverse), rfft_planes and the two products
-    under every schedule of ``schedules`` -- two passes (the products'
-    split-pass schedule: three launches, four at odd log2 n and radix 4) at
-    n = 2^14 .. 2^18, both schedules at n = 4096 and 8192 -- radix 2 and 4,
-    batches 1, 2, 5 and the serve batch: each result equal to its plain
-    version bit for bit (``==``), the first five rows within the reference
-    tests' tolerance of float64 numpy, and the rfft -> irfft round trip
-    within rtol 1e-4, atol 1e-4 n. Returns the cases held per kernel."""
+    """fft_planes (forward and inverse), rfft_planes, irfft_planes (of the
+    rfft's packed planes) and the two products under every schedule of
+    ``schedules`` -- two passes (the products' split-pass schedule: three
+    launches, four at odd log2 n and radix 4) at n = 2^14 .. 2^18, both
+    schedules at n = 4096 and 8192 -- radix 2 and 4, batches 1, 2, 5 and
+    the serve batch: each result equal to its plain version bit for bit
+    (``==``), the first five rows within the reference tests' tolerance of
+    float64 numpy, and the rfft -> irfft round trips (through the planned
+    irfft, and through each irfft schedule) within rtol 1e-4, atol 1e-4 n.
+    Returns the cases held per kernel."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
     held = dict.fromkeys(TWO_PASS_KERNELS, 0)
@@ -471,6 +489,29 @@ def check_two_pass(torch, kfft, kpoly) -> dict[str, int]:
                         atol=1e-4 * n, err_msg=f"{case}: rfft -> irfft")
                     held["rfft_planes"] += 1
                     done.add(f"rfft {label}")
+                # irfft of the packed planes: == plain, within tolerance of
+                # numpy.fft.irfft of the same half spectrum, and back to x
+                packed = plain
+                want = kfft.irfft_planes_plain(*packed, radix=radix)
+                hp = [v[:5].cpu().numpy().astype(np.float64) for v in packed]
+                half = hp[0] + 1j * hp[1]
+                half = np.concatenate([half, hp[1][:, :1]], axis=1)
+                half[:, 0] = hp[0][:, 0]
+                back_want = np.fft.irfft(half, n=n)
+                for label, sched in schedules(kfft, kpoly, "irfft_planes", n,
+                                              radix).items():
+                    got = launch_under(kfft, kpoly, "irfft_planes", sched,
+                                       radix)(*packed)
+                    case = (f"irfft_planes n={n} radix={radix} batch={b} "
+                            f"{label}")
+                    equal(case, (got,), (want,))
+                    np.testing.assert_allclose(got[:5].cpu().numpy(),
+                                               back_want, **tol, err_msg=case)
+                    np.testing.assert_allclose(
+                        got.cpu().numpy(), xr.cpu().numpy(), rtol=1e-4,
+                        atol=1e-4 * n, err_msg=f"{case}: rfft -> irfft")
+                    held["irfft_planes"] += 1
+                    done.add(f"irfft {label}")
                 # the products: (x, y) complex, (xr, xi) real
                 plain = kpoly.polymul_complex_planes_plain(
                     xr, xi, yr_, yi_, radix=radix)
@@ -507,9 +548,10 @@ def check_two_pass(torch, kfft, kpoly) -> dict[str, int]:
         products = {r: kfft.two_pass_split(n, r, product=True)
                     for r in (2, 4)}
         print(f"[two-pass] n={n} radix 2,4 batches {TWO_PASS_BATCHES} "
-              f"schedules {sorted(done)}: fft (forward, inverse), rfft and "
-              f"both products == plain, within tolerance of numpy, rfft -> "
-              f"irfft round trip ok; product splits {products}, launches "
+              f"schedules {sorted(done)}: fft (forward, inverse), rfft, "
+              f"irfft and both products == plain, within tolerance of "
+              f"numpy, rfft -> irfft round trips ok; product splits "
+              f"{products}, launches "
               f"per call (radix 2, 4) "
               f"{[kpoly.product_two_pass_launch(*products[r], r).launches for r in (2, 4)]}",
               flush=True)
@@ -578,7 +620,7 @@ def check_ntt_kernels(torch, kntt, ntt_core, core_fft) -> dict[str, int]:
                          (65536, {"modulus_bits": 40}, [(2, None)])):
         r = ntt_core.RNSParams.make(n, **kw)
         for b, cap in cases:
-            block = core_fft.plan(n, b, exact=True).block_b \
+            block = core_fft.plan(n, b, exact=True, rns=True).block_b \
                 if cap == "plan" else cap
             a = np.stack([ntt_core.random_poly(rng, n, r.modulus)
                           for _ in range(b)])
@@ -607,6 +649,77 @@ def check_ntt_kernels(torch, kntt, ntt_core, core_fft) -> dict[str, int]:
               flush=True)
     torch.cuda.synchronize()
     return worst
+
+
+def ntt_schedules(kntt, kfft, n: int) -> dict:
+    """The schedules of ``ntt_polymul`` at length n that phase 2 and the
+    A/B run: {"split-pass" or "resident" (or "staged"): the ``NTTTwoPass``
+    or None}, the planner's first; both at n = 4096 and 8192."""
+    planned = kntt.ntt_two_pass_plan(n)
+    single = "resident" if kntt.ntt_resident(n) else "staged"
+    out = {("split-pass" if planned else single): planned}
+    if n in BOTH_SCHEDULES_NS:
+        out.setdefault(single, None)
+        out.setdefault("split-pass", kntt.ntt_two_pass_launch(
+            *kfft.two_pass_split(n, 2, product=True)))
+    return out
+
+
+def ntt_launch_under(kntt, schedule, params, negacyclic: bool):
+    """``ntt_polymul`` on card residues under a given schedule: through the
+    wrapper where it is the planner's, else through the launch helper the
+    wrapper calls (one count on its counter)."""
+    def run(a, b):
+        if schedule == kntt.ntt_two_pass_plan(params.n):
+            return kntt.ntt_polymul(a, b, params, negacyclic=negacyclic)
+        return kntt._launch_ntt_polymul(a, b, params, negacyclic,
+                                        kntt.plan_ntt_block(params.n),
+                                        schedule)
+    return run
+
+
+def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> int:
+    """``ntt_polymul``'s split-pass schedule at every n from its threshold
+    to 2^19, and both schedules at 4096 and 8192, cyclic and negacyclic,
+    batches 1, 2, 5 and the serve batch: each result equal to the plain
+    version (``==``), whose first rows (five; two from 2^17 on, where the
+    host's numpy takes seconds a row) equal the numpy reference. Returns
+    the cases held."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    held = 0
+    lo = kfft.TWO_PASS_FROM["ntt_polymul"].bit_length() - 1
+    for n in sorted(set(BOTH_SCHEDULES_NS)
+                    | {1 << k for k in range(lo, 20)}):
+        p = ntt_core.NTTParams.make(n)
+        rows = 5 if n <= 1 << 16 else 2
+        done = set()
+        for b in TWO_PASS_BATCHES:
+            ta, tb = (torch.from_numpy(rng.integers(0, p.q, (b, n)).astype(
+                np.uint32)).to(dev) for _ in range(2))
+            ha, hb = (t[:rows].cpu().numpy() for t in (ta, tb))
+            for neg in (True, False):
+                plain = kntt.ntt_polymul_plain(ta, tb, p, negacyclic=neg)
+                fn = (ntt_core.negacyclic_polymul if neg
+                      else ntt_core.cyclic_polymul)
+                if not (kntt.residues_to_numpy(plain[:rows])
+                        == fn(ha, hb, p)).all():
+                    raise SystemExit(f"ntt_polymul_plain n={n}: not the "
+                                     f"numpy reference")
+                for label, sched in ntt_schedules(kntt, kfft, n).items():
+                    got = ntt_launch_under(kntt, sched, p, neg)(ta, tb)
+                    if not torch.equal(got, plain):
+                        raise SystemExit(
+                            f"ntt_polymul n={n} batch={b} negacyclic={neg} "
+                            f"{label}: kernel and plain version differ")
+                    held += 1
+                    done.add(label)
+        print(f"[ntt two-pass] n={n} batches {TWO_PASS_BATCHES} cyclic and "
+              f"negacyclic, schedules {sorted(done)} "
+              f"(split {kfft.two_pass_split(n, 2, product=True)}): kernel "
+              f"== plain == numpy reference", flush=True)
+    torch.cuda.synchronize()
+    return held
 
 
 # ---------------------------------------------------------------------------
@@ -887,7 +1000,8 @@ def occupancy(build, kfft, kpoly, name: str, n: int, b: int, plan) -> dict:
     wrapper launches it for a batch of b rows under ``plan``: under the
     two-pass schedule each launch's, in order (``passes``)."""
     real = name in ("rfft_planes", "irfft_planes", "polymul_real_planes")
-    if name in TWO_PASS_KERNELS and plan.two_pass:
+    if name in TWO_PASS_KERNELS and planned_two_pass(kfft, kpoly, name, n,
+                                                     plan.radix):
         return pass_occupancy(build, kfft, kpoly, name, n, plan.radix)
     product = name.startswith("polymul")
     rows, staged = kfft.cta_rows(n, b, plan.block_b, real=real,
@@ -904,10 +1018,10 @@ def pass_occupancy(build, kfft, kpoly, name: str, n: int, radix: int
     tp = planned_two_pass(kfft, kpoly, name, n, radix)
     # (label, sub-problems a CTA holds, their points, and the occupancy
     # query: counter, sub-problems it takes, launch of the schedule)
-    if not product:
+    if not product:     # the rfft's pass 2 holds each one with its mirror
         launches = [("pass 1", tp.c1, tp.n1, name, tp.c1, 2),
-                    ("pass 2", (2 if real else 1) * tp.c2, tp.n2, name,
-                     tp.c2, 3)]
+                    ("pass 2", (2 if name == "rfft_planes" else 1) * tp.c2,
+                     tp.n2, name, tp.c2, 3)]
     else:
         li2 = n // tp.inverse_n1
         launches = [("F1: forward pass 1", tp.c1, tp.n1, name, tp.c1, 2),
@@ -918,12 +1032,52 @@ def pass_occupancy(build, kfft, kpoly, name: str, n: int, radix: int
             launches.append(("I1: inverse pass 1", tp.c1, tp.n1,
                              "fft_planes", tp.c1, 2))
         launches.append(("I2: inverse pass 2", tp.ci, li2, name, tp.ci, 4))
+    return passes_entry(build, tp, launches)
+
+
+def passes_entry(build, tp, launches) -> dict:
+    """The occupancy report of a multi-launch call: ``launches`` is (label,
+    sub-problems a CTA holds, their points, occupancy counter, sub-problems
+    it takes, launch of the schedule) per launch."""
     passes = [{"launch": label, "sub_problems_per_cta": held, "points": m,
                **build.occupancy(counter, m.bit_length() - 1, takes, mode)}
               for label, held, m, counter, takes, mode in launches]
     return {"rows_per_cta": f"{tp.c1} of {tp.n1} points",
             "staged": False, "launches_per_call": len(passes),
             "two_pass": f"{tp.n1} x {tp.n2}", "passes": passes}
+
+
+def ntt_pass_occupancy(build, tp) -> dict:
+    """Each launch of ``ntt_polymul``'s split-pass schedule ``tp``, in
+    order, with what the occupancy API reports for it."""
+    name = "ntt_polymul"
+    return passes_entry(build, tp, [
+        ("F1: forward pass 1 of a and b", 2 * tp.c1, tp.n1, name, tp.c1, 2),
+        ("M: forward pass 2, product, inverse pass 1", 2 * tp.cm, tp.n2,
+         name, tp.cm, 3),
+        ("I2: inverse pass 2, untwist", tp.ci, tp.n1, name, tp.ci, 4)])
+
+
+#: Bytes one launch of a kernel moves for a batch of b rows of n points
+#: (each array it reads or writes once; the twiddle tables left out): the
+#: launches of the irfft and of the NTT product under their two schedules.
+LAUNCH_BYTES = {
+    "irfft_kernel": lambda n, b: 8 * b * n,
+    "irfft_pass1_kernel": lambda n, b: 16 * n * ((b + 1) // 2),
+    "irfft_pass2_kernel": lambda n, b: 16 * n * ((b + 1) // 2),
+    "ntt_polymul_kernel": lambda n, b: 12 * b * n,
+    "ntt_polymul_pass1_kernel": lambda n, b: 16 * b * n,
+    "ntt_polymul_mid_kernel": lambda n, b: 12 * b * n,
+    "ntt_polymul_pass2_kernel": lambda n, b: 8 * b * n,
+}
+
+
+def add_launch_rates(entry: dict, n: int, b: int) -> None:
+    """Bytes and TB/s beside each traced launch of ``LAUNCH_BYTES``."""
+    for kernel, v in (entry.get("by_kernel") or {}).items():
+        if kernel in LAUNCH_BYTES:
+            v["bytes"] = LAUNCH_BYTES[kernel](n, b)
+            v["tb_per_s"] = v["bytes"] / (v["ms_per_launch"] * 1e9)
 
 
 def launch_text(entry: dict) -> str:
@@ -1040,7 +1194,9 @@ def report_line(name: str, n: int, entry: dict, card: str) -> None:
           f"{entry['max_abs_err']:.3g}; launch: {launch_text(entry)}"
           + ("" if not entry.get("by_kernel") else "; traced by kernel: "
              + ", ".join(f"{k} {v['ms_per_launch']:.4f} ms/launch "
-                         f"({v['launches_traced']} traced)"
+                         f"({v['launches_traced']} traced"
+                         + (f"; {v['bytes']} B, {v['tb_per_s']:.3f} TB/s"
+                            if "bytes" in v else "") + ")"
                          for k, v in entry["by_kernel"].items()))
           + f"; on {card}", flush=True)
 
@@ -1088,7 +1244,10 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
                 sets, lambda z, p, *_: tf.rfft(p), lib_sets,
                 "torch.fft.rfft"),
             "irfft_planes": (
-                plan_r,
+                dataclasses.replace(
+                    plan_r, resident=kfft.irfft_two_pass_plan(
+                        n, plan_r.radix) is None
+                    and kfft.resident(n, real=True)),
                 lambda p, q: kfft.irfft_planes(p, q, radix=plan_r.radix,
                                                block_b=plan_r.block_b),
                 lambda p, q: kfft.irfft_planes_plain(p, q,
@@ -1129,95 +1288,118 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
             entry.update(library=lib_name, bytes=nbytes, flops=flops,
                          radix=plan.radix, block_b=plan.block_b,
                          resident=plan.resident, **occ)
+            add_launch_rates(entry, n, b)
             out[name][n] = entry
             report_line(name, n, entry, card)
     return out
 
 
-def schedule_ab(torch, kfft, kpoly, card: str) -> dict:
-    """The two-pass kernels (the fft forward, the rfft, both products) at
-    n = 4096 and 8192, batch 64, radix 4 (the planner's), under both
-    schedules -- the single-CTA one (resident; for the products staged at
-    8192) and the two-pass one (split-pass for the products) -- in turns:
-    single, two-pass, two-pass, single. Per turn the time per call by CUDA
-    events around a CUDA-graph replay of the calls (``graph_ms``: the
-    card's time, without the host's launch gaps, which at these sizes
-    exceed the kernels'), the device time from the profiler (a call's
-    launches counted) and the CUDA-event time of calls issued one by one
-    (host gaps included); each schedule's result must equal the plain
-    version bit for bit. A schedule is faster where each of its turns beats
-    each of the other's. The planner's thresholds
-    (``kernels.fft.TWO_PASS_FROM``) are set from the graph times of such a
-    run: two passes only where they are faster."""
+def ab_turns(torch, name: str, n: int, fns: dict, launches: dict, sets,
+             want, planned: str, card: str) -> dict:
+    """One A/B of a kernel's two schedules ``fns`` (label -> call) at
+    length n, batch 64: each schedule's result must equal the plain
+    version's ``want`` bit for bit; then in turns single-CTA, two-pass,
+    two-pass, single-CTA the time per call by CUDA events around a
+    CUDA-graph replay of the calls (``graph_ms``: the card's time, without
+    the host's launch gaps, which at these sizes exceed the kernels'), the
+    device time from the profiler (a call's launches counted) and the
+    CUDA-event time of calls issued one by one (host gaps included). A
+    schedule is faster where each of its turns beats each of the
+    other's."""
+    two_label = next(label for label in fns if label.endswith("-pass"))
+    single = next(label for label in fns if label != two_label)
+    for label, fn in fns.items():
+        got = fn(*sets[0])
+        if not all(torch.equal(g, w) for g, w in
+                   zip(_as_tuple(got), _as_tuple(want))):
+            raise SystemExit(f"{name} n={n} {label}: not equal to the plain "
+                             f"version")
+    reps = max(len(sets), 20)
+    runs = {label: {"graph_ms": [], "device_ms": [], "event_ms": []}
+            for label in fns}
+    for label in (single, two_label, two_label, single):
+        runs[label]["graph_ms"].append(graph_ms(torch, fns[label], sets,
+                                                reps))
+        ms, _ = device_ms(torch, fns[label], sets, reps,
+                          launches_per_call=launches[label])
+        runs[label]["device_ms"].append(ms)
+        runs[label]["event_ms"].append(time_ms(torch, fns[label], sets,
+                                               reps))
+    best = {label: min(r["graph_ms"]) for label, r in runs.items()}
+    # faster: every turn of one schedule below every turn of the other;
+    # otherwise the two are within the turns' spread
+    one, two = runs[single]["graph_ms"], runs[two_label]["graph_ms"]
+    faster = (two_label if max(two) < min(one) else
+              single if max(one) < min(two) else
+              "neither (within the turns' spread)")
+
+    def fmt(ts):
+        return ", ".join(f"{t:.4f}" for t in ts)
+
+    print(f"[ab] {name} n={n} batch={SERVE_BATCH}, in turns {single}, "
+          f"{two_label}, {two_label}, {single}: ms per call by CUDA events "
+          f"around a CUDA-graph replay "
+          + "; ".join(f"{label} ({launches[label]} launch(es)) "
+                      f"{fmt(r['graph_ms'])} (profiler device ms "
+                      f"{fmt(r['device_ms'])}; event ms with host gaps "
+                      f"{fmt(r['event_ms'])})" for label, r in runs.items())
+          + f" -> faster on the card: {faster}; the planner serves "
+          f"{planned}; on {card}", flush=True)
+    return {"runs": runs, "best_graph_ms": best, "faster": faster,
+            "planned": planned, "launches_per_call": launches}
+
+
+def schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card: str) -> dict:
+    """The kernels with two schedules at n = 4096 and 8192, batch 64, under
+    both (``ab_turns``): the float ones (the fft forward, the rfft, the
+    irfft, both products) at radix 4, the planner's -- the single-CTA
+    schedule (resident; for the products staged at 8192) against the
+    two-pass one (split-pass for the products) -- and the NTT product
+    (negacyclic, radix 2), resident against split-pass. The planner's
+    thresholds (``kernels.fft.TWO_PASS_FROM``) are set from the graph times
+    of such a run: two passes only where they are faster."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
     out: dict[str, dict] = {}
     plains = {"fft_planes": kfft.fft_planes_plain,
               "rfft_planes": kfft.rfft_planes_plain,
+              "irfft_planes": kfft.irfft_planes_plain,
               "polymul_complex_planes": kpoly.polymul_complex_planes_plain,
               "polymul_real_planes": kpoly.polymul_real_planes_plain}
-    planes = {"fft_planes": 2, "rfft_planes": 1,
+    planes = {"fft_planes": 2, "rfft_planes": 1, "irfft_planes": 2,
               "polymul_complex_planes": 4, "polymul_real_planes": 2}
+    b = SERVE_BATCH
     for name in TWO_PASS_KERNELS:
         plain = functools.partial(plains[name], radix=4)
         out[name] = {}
         for n in BOTH_SCHEDULES_NS:
-            b = SERVE_BATCH
             k = planes[name]
-            sets = [[torch.from_numpy(rng.standard_normal((b, n)).astype(
+            cols = n // 2 if name == "irfft_planes" else n
+            sets = [[torch.from_numpy(rng.standard_normal((b, cols)).astype(
                 np.float32)).to(dev) for _ in range(k)]
-                for _ in range(max(2, math.ceil(128e6 / (k * b * n * 4))))]
+                for _ in range(max(2, math.ceil(128e6 / (k * b * cols * 4))))]
             scheds = schedules(kfft, kpoly, name, n, 4)
             fns = {label: launch_under(kfft, kpoly, name, sched, 4)
                    for label, sched in scheds.items()}
             launches = {label: 1 if sched is None else sched.launches
                         for label, sched in scheds.items()}
-            single = next(label for label in fns if label != "two-pass")
-            want = plain(*sets[0])
-            for label, fn in fns.items():
-                got = fn(*sets[0])
-                if not all(torch.equal(g, w) for g, w in
-                           zip(_as_tuple(got), _as_tuple(want))):
-                    raise SystemExit(f"{name} n={n} {label}: not equal to "
-                                     f"the plain version")
-            reps = max(len(sets), 20)
-            runs = {label: {"graph_ms": [], "device_ms": [], "event_ms": []}
-                    for label in fns}
-            for label in (single, "two-pass", "two-pass", single):
-                runs[label]["graph_ms"].append(
-                    graph_ms(torch, fns[label], sets, reps))
-                ms, _ = device_ms(torch, fns[label], sets, reps,
-                                  launches_per_call=launches[label])
-                runs[label]["device_ms"].append(ms)
-                runs[label]["event_ms"].append(
-                    time_ms(torch, fns[label], sets, reps))
-            best = {label: min(r["graph_ms"]) for label, r in runs.items()}
-            planned = ("two-pass" if planned_two_pass(kfft, kpoly, name, n,
-                                                      4) else single)
-            # faster: every turn of one schedule below every turn of the
-            # other; otherwise the two are within the turns' spread
-            one = runs[single]["graph_ms"]
-            two = runs["two-pass"]["graph_ms"]
-            faster = ("two-pass" if max(two) < min(one) else
-                      single if max(one) < min(two) else
-                      "neither (within the turns' spread)")
-            out[name][n] = {"runs": runs, "best_graph_ms": best,
-                            "faster": faster, "planned": planned,
-                            "launches_per_call": launches}
-
-            def fmt(ts):
-                return ", ".join(f"{t:.4f}" for t in ts)
-
-            print(f"[ab] {name} n={n} batch={b} radix 4, in turns {single}, "
-                  f"two-pass, two-pass, {single}: ms per call by CUDA "
-                  f"events around a CUDA-graph replay "
-                  + "; ".join(f"{label} ({launches[label]} launch(es)) "
-                              f"{fmt(r['graph_ms'])} (profiler "
-                              f"device ms {fmt(r['device_ms'])}; event ms "
-                              f"with host gaps {fmt(r['event_ms'])})"
-                              for label, r in runs.items())
-                  + f" -> faster on the card: {faster}; the planner serves "
-                  f"{planned}; on {card}", flush=True)
+            out[name][n] = ab_turns(torch, name, n, fns, launches, sets,
+                                    plain(*sets[0]), next(iter(scheds)),
+                                    card)
+    out["ntt_polymul"] = {}
+    for n in BOTH_SCHEDULES_NS:
+        p = ntt_core.NTTParams.make(n)
+        sets = [[torch.from_numpy(rng.integers(0, p.q, (b, n)).astype(
+            np.uint32)).to(dev) for _ in range(2)]
+            for _ in range(max(2, math.ceil(128e6 / (2 * b * n * 4))))]
+        scheds = ntt_schedules(kntt, kfft, n)
+        fns = {label: ntt_launch_under(kntt, sched, p, True)
+               for label, sched in scheds.items()}
+        launches = {label: 1 if sched is None else sched.launches
+                    for label, sched in scheds.items()}
+        out["ntt_polymul"][n] = ab_turns(
+            torch, "ntt_polymul", n, fns, launches, sets,
+            kntt.ntt_polymul_plain(*sets[0], p), next(iter(scheds)), card)
     return out
 
 
@@ -1225,7 +1407,9 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
     """The three NTT kernels at the serve shapes: ntt_polymul and
     ntt_batched at n = 4096 and 65536, rns_ntt_polymul at the RNS cell,
     batch 64, on uint32 words as the serve path stages them. No PyTorch
-    call computes an NTT mod q, so there is no library time."""
+    call computes an NTT mod q, so there is no library time. Under its
+    split-pass schedule ntt_polymul also gets its CUDA-graph replay time
+    and each launch's traced time, bytes and TB/s and occupancy."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
     out: dict[str, dict] = {name: {} for name in NTT_KERNELS}
@@ -1233,7 +1417,8 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
     shapes = [("ntt_polymul", n) for n in SERVE_NS] + \
         [("ntt_batched", n) for n in SERVE_NS] + [("rns_ntt_polymul", RNS_N)]
     for name, n in shapes:
-        plan = core_fft.plan(n, b, exact=True)
+        plan = core_fft.plan(n, b, exact=True,
+                             rns=name == "rns_ntt_polymul")
         operands = 1 if name == "ntt_batched" else 2
         if name == "rns_ntt_polymul":
             r = ntt_core.RNSParams.make(n, modulus_bits=RNS_BITS)
@@ -1260,20 +1445,27 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
                 (w if k > 1 else w[0]).astype(np.uint32)).to(dev)
                 for w in words])
         nbytes, ops = ntt_work(name, n, b, k)
+        split = kntt.ntt_two_pass_plan(n) if name == "ntt_polymul" else None
+        if split is not None:
+            occ = ntt_pass_occupancy(build, split)
+        else:
+            rows, staged = kntt.ntt_cta_rows(n, b, plan.block_b,
+                                             product=name != "ntt_batched")
+            occ = {"rows_per_cta": rows, "staged": staged,
+                   "launches_per_call": 1,
+                   **build.occupancy(name, n.bit_length() - 1, rows,
+                                     staged)}
         entry = measure(torch, name, n, kern, plain, sets, None, None,
                         exact=True,
                         bound=(nbytes / HBM_BYTES_PER_S * 1e3,
                                ops / INT32_OPS_PER_S * 1e3,
-                               "int32 operations"))
-        rows, staged = kntt.ntt_cta_rows(n, b, plan.block_b,
-                                         product=name != "ntt_batched")
+                               "int32 operations"),
+                        launches_per_call=occ["launches_per_call"],
+                        graph=name == "ntt_polymul")
         entry.update(library="none: no PyTorch call computes an NTT mod q",
-                     launches_per_call=1, bytes=nbytes, int32_ops=ops,
-                     limbs=k,
-                     block_b=plan.block_b, resident=plan.resident,
-                     rows_per_cta=rows, staged=staged,
-                     **build.occupancy(name, n.bit_length() - 1, rows,
-                                       staged))
+                     bytes=nbytes, int32_ops=ops, limbs=k,
+                     block_b=plan.block_b, resident=plan.resident, **occ)
+        add_launch_rates(entry, n, b)
         out[name][n] = entry
         report_line(name, n, entry, card)
     return out
@@ -1719,14 +1911,14 @@ def start_ptxas_report(build, source: str):
     return out, proc
 
 
-def stockham_kernel_report(ptxas) -> dict[str, dict]:
-    """Registers and spill bytes of every kernel of ``stockham.cu`` from
+def kernel_report(ptxas, source: str) -> dict[str, dict]:
+    """Registers and spill bytes of every kernel of ``source`` from
     ptxas's report, one line each: {kernel: {"registers", "spill_stores",
     "spill_loads"}}."""
     out, proc = ptxas
     stdout, stderr = proc.communicate()
     if proc.returncode:
-        raise SystemExit(f"nvcc -Xptxas -v of {STOCKHAM} failed:\n"
+        raise SystemExit(f"nvcc -Xptxas -v of {source} failed:\n"
                          f"{stdout}\n{stderr}")
     out.unlink()
     def demangle(symbol):
@@ -1826,7 +2018,8 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(_build, ATTENTION)
-    stockham_ptxas = start_ptxas_report(_build, STOCKHAM)
+    kernel_ptxas = {src: start_ptxas_report(_build, src)
+                    for src in (STOCKHAM, NTT)}
     libs = _build.build()
     _build.load()
     card = card_line()
@@ -1835,7 +2028,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     wgmma_build = wgmma_kernel_report(ptxas, libs["attention"])
-    stockham_build = stockham_kernel_report(stockham_ptxas)
+    registers = {src: kernel_report(proc, src)
+                 for src, proc in kernel_ptxas.items()}
 
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     _build.reset_launches()
@@ -1843,14 +2037,16 @@ def main() -> int:
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
     worst.update(check_attention(torch, kattn, _build))
     two_pass_held = check_two_pass(torch, kfft, kpoly)
+    two_pass_held["ntt_polymul"] = check_ntt_two_pass(torch, kntt, ntt_core,
+                                                      kfft)
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
     print(f"[kernels] all ten held against their plain versions (the "
-          f"transform kernels against numpy too; fft, rfft and both "
-          f"products bit for bit under both schedules in {two_pass_held} "
-          f"cases); launches {moved}; worst |kernel-plain| {worst}",
-          flush=True)
+          f"transform kernels against numpy too; fft, rfft, irfft, both "
+          f"products and the NTT product bit for bit under both schedules "
+          f"in {two_pass_held} cases); launches {moved}; worst "
+          f"|kernel-plain| {worst}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
@@ -1881,7 +2077,7 @@ def main() -> int:
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
-    ab = schedule_ab(torch, kfft, kpoly, card)
+    ab = schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card)
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
     attn = {label: attention_timing(torch, kattn, _build, card, label)
             for label in ATTN_TIMED}
@@ -1904,9 +2100,9 @@ def main() -> int:
             "device_kernels": {n: times[name][n]["by_kernel"]
                                for n in shapes
                                if times[name][n].get("by_kernel")},
-            **({"ptxas": {k: stockham_build.get(k) for n in shapes
+            **({"ptxas": {k: registers[source].get(k) for n in shapes
                           for k in times[name][n].get("by_kernel") or {}}}
-               if source == STOCKHAM else {}),
+               if source in registers else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     per = {"flash_attention_wgmma": "one served prefill (28 layers)",
            "flash_attention": "the full-width fp32 parity path: one forward "

@@ -5,18 +5,19 @@ Given (n, batch) it decides the kernel configuration that executes on the
 card: radix (2 or 4), rows per CTA, and the schedule: a row resident in
 one CTA's shared memory, the two-pass schedule (each CTA holding whole
 sub-problems of a split n = n1 x n2: two launches for the FFT and the real
-FFT, three or four for the products' split-pass schedule), or one CTA per
-row staging its sweeps through a device-memory scratch. Only
-the local tiers exist in this package, float and exact (NTT): the
-distributed four-step tiers and the cost-model auto mode raise and name
-the slice that ports them.
+FFT, three or four for the products' split-pass schedule, three for the
+exact product's), or one CTA per row staging its sweeps through a
+device-memory scratch. Only the local tiers exist in this package, float
+and exact (NTT): the distributed four-step tiers and the cost-model auto
+mode raise and name the slice that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
-from repro_torch.kernels.ntt import ntt_resident, plan_ntt_block
+from repro_torch.kernels.ntt import (ntt_resident, ntt_two_pass_plan,
+                                     plan_ntt_block)
 from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block,
                                          product_two_pass_plan)
@@ -47,13 +48,15 @@ class FFTPlan:
     exact: bool = False
     #: (n1, n2) where the kernel runs its two-pass schedule
     #: (``kernels.fft.two_pass_plan``; for the products
-    #: ``kernels.polymul.product_two_pass_plan``); None where one CTA takes
-    #: whole rows.
+    #: ``kernels.polymul.product_two_pass_plan``, for the exact product
+    #: ``kernels.ntt.ntt_two_pass_plan``); None where one CTA takes whole
+    #: rows.
     two_pass: tuple[int, int] | None = None
     #: the kernel launches a call makes: 1 for one CTA per row block, 2
     #: for the transforms' two passes, 3 or 4 for the products' split-pass
     #: schedule (3 where the mirrored split n2 x n1 is on the sweep sequence
-    #: too, and the middle launch runs the inverse's first pass).
+    #: too, and the middle launch runs the inverse's first pass; always 3
+    #: on the exact tier, whose radix-2 sweeps put every split on it).
     launches: int = 1
 
     def describe(self) -> str:
@@ -80,7 +83,7 @@ class FFTPlan:
 
 
 def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
-         real: bool = False, product: bool = False,
+         real: bool = False, product: bool = False, rns: bool = False,
          workload: str | None = None) -> FFTPlan:
     """Execution plan for a batch of n-point transforms.
 
@@ -95,13 +98,18 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
 
     ``exact=True`` plans the modular tier: the fused NTT product of
     ``polymul-mod``, radix 2, its block from shared memory for two uint32
-    operands in two ping-pong buffers (16n bytes a row). As in the
-    reference, one device plans every n locally (the reference's 512K-point
-    exact ceiling only picks its distributed tier when model_shards > 1);
-    rows past shared memory are staged.
+    operands in two ping-pong buffers (16n bytes a row), and from
+    ``TWO_PASS_FROM["ntt_polymul"]`` points on its split-pass schedule
+    (``kernels.ntt.ntt_two_pass_plan``, three launches); with ``rns=True``
+    it plans the RNS product of the multi-limb route, whose kernel keeps
+    one CTA per row block at every n. As in the reference, one device
+    plans every n locally (the reference's 512K-point exact ceiling only
+    picks its distributed tier when model_shards > 1); rows past the
+    splits are staged.
 
     Raises ValueError on a non-power-of-two n, a negative batch,
-    ``exact`` with ``real``, and on what this package does not run yet:
+    ``exact`` with ``real``, ``rns`` without ``exact``, and on what this
+    package does not run yet:
     ``model_shards > 1`` and ``workload=``.
     """
     if n <= 0 or n & (n - 1):
@@ -111,6 +119,9 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     if exact and real:
         raise ValueError("exact (mod-q) and real (Hermitian) tiers are "
                          "mutually exclusive")
+    if rns and not exact:
+        raise ValueError("rns plans the exact tier's multi-limb product: "
+                         "pass exact=True")
     if model_shards != 1:
         raise ValueError(f"model_shards={model_shards}: distributed tier not "
                          f"yet ported; it comes with {_DIST_SLICE}")
@@ -129,13 +140,16 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
             block = plan_batch_block(n, real=real)
         res = resident(n, real=real, product=product)
     two_pass, launches = None, 1
-    if not exact:
-        launch = (product_two_pass_plan(n, radix, real=real) if product
-                  else two_pass_plan(n, radix, real=real))
-        if launch is not None:
-            two_pass = (launch.n1, launch.n2)
-            launches = launch.launches
-            res = False
+    if exact:
+        launch = None if rns else ntt_two_pass_plan(n)
+    elif product:
+        launch = product_two_pass_plan(n, radix, real=real)
+    else:
+        launch = two_pass_plan(n, radix, real=real)
+    if launch is not None:
+        two_pass = (launch.n1, launch.n2)
+        launches = launch.launches
+        res = False
     # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
     return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
                    product=product, resident=res, exact=exact,

@@ -60,17 +60,23 @@ LIBRARIES = {
         # radix, block, log2 n1, log2 c1, log2 cm, log2 ci
         "stockham_polymul_real": ("polymul_real_planes",
                                   [_P] * 10 + [_I] * 8 + [_P]),
-        # xr, xi, y, wr, wi, scratch, batch, log2n, radix, block
-        "stockham_irfft": ("irfft_planes", [_P] * 6 + [_I] * 4 + [_P]),
+        # xr, xi, y, wr, wi, scratch, tw2, batch, log2n, radix, block,
+        # log2 n1, log2 c1, log2 c2 (log2 n1 = 0: one CTA per block of
+        # rows; else scratch holds the intermediate and tw2 the inverse
+        # pass-2 twiddles)
+        "stockham_irfft": ("irfft_planes", [_P] * 7 + [_I] * 7 + [_P]),
     },
     "ntt": {
         # x, y, w, scratch, batch, log2n, q, qinv, scale, inverse, block
         "ntt_batched": ("ntt_batched",
                         [_P] * 4 + [_I] * 2 + [_U] * 3 + [_I] * 2 + [_P]),
-        # a, b, c, wf, wi, twist, untwist, scratch, batch, log2n, q, qinv,
-        # r2, negacyclic, block
+        # a, b, c, wf, wi, twist, untwist, scratch, tw2f, tw2i, batch,
+        # log2n, q, qinv, r2, negacyclic, block, then the split-pass
+        # schedule: log2 n1, log2 c1, log2 cm, log2 ci (log2 n1 = 0: one
+        # CTA per block of rows; else scratch holds the intermediates, tw2f
+        # and tw2i the forward and inverse pass-2 twiddles)
         "ntt_polymul": ("ntt_polymul",
-                        [_P] * 8 + [_I] * 2 + [_U] * 3 + [_I] * 2 + [_P]),
+                        [_P] * 10 + [_I] * 2 + [_U] * 3 + [_I] * 6 + [_P]),
         # a, b, c, scal, wf, wi, twist, untwist, scratch, limbs, batch,
         # log2n, negacyclic, block
         "ntt_rns_polymul": ("rns_ntt_polymul", [_P] * 9 + [_I] * 5 + [_P]),

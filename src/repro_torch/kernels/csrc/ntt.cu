@@ -31,7 +31,12 @@
 // CTA; __syncthreads() orders those global accesses within the CTA, and the
 // scratch is read through plain (coherent) loads. The wrapper
 // (repro_torch/kernels/ntt.py: ntt_cta_rows) decides which path runs and
-// passes scratch == nullptr for the shared-memory one.
+// passes scratch == nullptr for the shared-memory one. The single-limb
+// product takes a third schedule from TWO_PASS_FROM["ntt_polymul"] points
+// on, as far as n splits into parts of at most 8192 and 4096 points: three
+// launches whose CTAs hold whole sub-problems of the split (the split-pass
+// section below); the staged path then runs only the NTT, the RNS product
+// and the longest single-limb rows.
 //
 // Bound on this card: 32-bit integer operations. A butterfly is one
 // Montgomery REDC (the two halves of the 64-bit product, the multiply for m,
@@ -210,7 +215,10 @@ ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
 // integer operations (three transforms' butterflies against 12 bytes of
 // device memory per point). Design: the spectra never leave the CTA while a
 // product row fits shared memory (n <= 8192); the twist and the untwist ride
-// the load and the write-out, so they cost no pass of their own.
+// the load and the write-out, so they cost no pass of their own. From
+// TWO_PASS_FROM["ntt_polymul"] points on the wrapper launches the
+// split-pass schedule instead (ntt_polymul_pass1_kernel,
+// ntt_polymul_mid_kernel, ntt_polymul_pass2_kernel, below).
 __global__ void __launch_bounds__(kMaxThreads)
 ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
                    const uint32_t* __restrict__ b_in,
@@ -261,6 +269,511 @@ rns_ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
                negacyclic != 0);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 6, split-pass schedule (ntt_polymul from TWO_PASS_FROM
+// ["ntt_polymul"] points on, repro_torch/kernels/ntt.py:
+// ntt_two_pass_plan).
+//
+// The radix-2 Stockham state A(L, r) splits at L = n1 (n = n1 * n2)
+// without changing one operation, as stockham.cu's two-pass schedule
+// splits the float sweeps: the sweeps from L = 1 to n1 keep the column
+// index modulo n2, so sub-problem q0 is the n1-point transform of
+// x[q0 + k n2], ending as A[l n2 + q0]; the sweeps from n1 to n keep the
+// block index modulo n1, so sub-problem l0 is the slice A[l0 n2 ..
+// (l0 + 1) n2), ending as the bins l0 + k n1, with the twiddles of the
+// global block l0 + n1 l (gathered into a pass-2 table in reading order).
+// Three launches:
+//   F1 (ntt_polymul_pass1_kernel): c consecutive q0 of a row, of a and of
+//      b: load, reduce mod q, psi twist, forward sweeps L = 1 .. n1, store
+//      A_a and A_b.
+//   M  (ntt_polymul_mid_kernel): c consecutive l0 of a row, of a and of b:
+//      forward sweeps L = n1 .. n, the r2-hop product of the bins
+//      l0 + k n1 (in the place of a's), then the inverse's pass 1 under
+//      the mirrored split (n2, n1), whose sub-problem q0' = l0 reads
+//      exactly P[l0 + k n1], the elements the CTA holds: inverse sweeps
+//      L = 1 .. n2, store A'[l n1 + l0].
+//   I2 (ntt_polymul_pass2_kernel): c consecutive l0' < n2 of a row, the
+//      slices A'[l0' n1 ..): inverse sweeps L = n2 .. n, store
+//      c[l0' + k n2] times the untwist psi^-j n^-1.
+// Radix 2 puts every split on the sweep sequence, so the mirrored split
+// always is, and there are always three launches. Residues are exact, so
+// the result equals the single-CTA kernel's, the plain versions' and the
+// numpy reference's (==).
+//
+// Sweeps in registers: a step runs T <= 4 radix-2 sweeps on groups of 2^T
+// elements a thread holds -- at local A(L, r), group (l, q), q < r / 2^T,
+// holds (l, q + i r / 2^T); after sweep t it holds blocks l + b L (b < 2^t)
+// of A(2^t L, r / 2^t), so the group's butterflies of all T sweeps are its
+// own and it ends as blocks l + b L of column q of A(2^T L, r / 2^T). Each
+// thread holds 16 residues (16 / 2^T groups), so a 256-point sub-problem
+// takes two steps and touches shared memory once, where ntt_sweeps crosses
+// shared (or device) memory and a barrier for every sweep. Shared rows are
+// slot-major at stride m + 1 words (no bank conflicts between neighbouring
+// slots).
+//
+// Bound: 32-bit integer operations, as kernel 6 (the butterflies do not
+// change); device memory sees 36 bytes a point a row (F1 8 in, 8 out; M 8
+// in, 4 out; I2 4 in, 4 out), and every launch spreads a row over
+// n2 / c, n1 / c and n2 / c CTAs, where ntt_polymul_kernel ran one CTA of
+// 1024 threads per row through a device-memory ping-pong for all 48 sweeps
+// from n = 16384 on.
+// ---------------------------------------------------------------------------
+
+constexpr int kPassThreads = 256;
+constexpr size_t kMaxSmemBytes = 232448;
+
+// `slots` sub-problems in shared memory: element i of slot s at s ld + i.
+struct NttSmem {
+  uint32_t* p;
+  int ld;
+  __device__ __forceinline__ uint32_t load(int s, int i) const {
+    return p[s * ld + i];
+  }
+  __device__ __forceinline__ void store(int s, int i, uint32_t v) const {
+    p[s * ld + i] = v;
+  }
+};
+
+// Consecutive sub-problems: slot s holds base + s.
+struct NttRun {
+  int base;
+  __device__ __forceinline__ int l0(int s) const { return base + s; }
+};
+
+// The same sub-problems of both operands: slots [0, 2^lc) a's, the rest
+// b's, slot s holding base + (s mod 2^lc).
+struct NttPair {
+  int base;
+  int lc;
+  __device__ __forceinline__ int l0(int s) const {
+    return base + (s & ((1 << lc) - 1));
+  }
+};
+
+// Twiddle of local block l in a sweep at local A(L, r), half = r / 2.
+// Pass 1 (the whole transform's L and block index): w[l half stride] of
+// the master table, stride n / m for m-point sub-problems; the same for
+// every slot.
+struct NttTw1 {
+  const uint32_t* __restrict__ w;
+  int stride;
+  __device__ __forceinline__ uint32_t operator()(int, int l, int,
+                                                 int half) const {
+    return w[l * half * stride];
+  }
+};
+
+// Pass 2 (global block l0 + n1 l, global L = n1 L): w[(l0 + n1 l) half],
+// gathered by the wrapper at entry n1 (L - 1) + l n1 + l0 (ntt.py:
+// pass2_tables), so the consecutive slots of a CTA read consecutive
+// entries.
+template <class Slots>
+struct NttTw2 {
+  const uint32_t* __restrict__ tw;
+  int n1;
+  Slots slots;
+  __device__ __forceinline__ uint32_t operator()(int s, int l, int L,
+                                                 int) const {
+    return tw[n1 * (L - 1) + l * n1 + slots.l0(s)];
+  }
+};
+
+// The sub-problems a CTA holds: 2^lslots of 2^lm points, their twiddles,
+// the modulus, and whether the first step's work items run sub-problem by
+// sub-problem (neighbouring threads on neighbouring elements, for a first
+// step reading contiguous slices of device memory) instead of slot by
+// slot (neighbouring threads on neighbouring sub-problems, whose elements
+// lie side by side at the strided ends of a pass).
+template <class Tw>
+struct NttSubs {
+  int lslots;
+  int lm;
+  Tw tw;
+  Mod m;
+  bool first_by_sub;
+};
+
+// Work items of a step: max(1, m / 16) per sub-problem, item w being slot
+// w mod slots and index w / slots, or, `by_sub`, slot w / items and index
+// w mod items.
+__device__ __forceinline__ int ntt_litems(int lm) {
+  return lm >= 4 ? lm - 4 : 0;
+}
+
+__device__ __forceinline__ void ntt_item(int w, int lslots, int lm,
+                                         bool by_sub, int& s, int& tau) {
+  const int lp = ntt_litems(lm);
+  s = by_sub ? w >> lp : w & ((1 << lslots) - 1);
+  tau = by_sub ? w & ((1 << lp) - 1) : w >> lslots;
+}
+
+// Sweeps t .. T-1 of a group x in registers. Before sweep t, x[b + 2^t i]
+// holds block l + b L (b < 2^t) of A(2^t L, r / 2^t) at column q + i r /
+// 2^T (i < 2^(T-t)): butterfly (b, i < H) pairs i with i + H,
+// H = 2^(T-t-1), with the twiddle of block l + b L, and sends its outputs
+// to blocks l + b L and l + (b + 2^t) L of the next state, as ntt_stage.
+template <int T, int t, class Tw>
+__device__ __forceinline__ void group_sweeps(uint32_t (&x)[1 << T],
+                                             const NttSubs<Tw>& sp, int s,
+                                             int l, int L, int lr) {
+  if constexpr (t < T) {
+    constexpr int E = 1 << T;
+    constexpr int H = E >> (t + 1);
+    uint32_t u[E];
+#pragma unroll
+    for (int b = 0; b < (1 << t); ++b) {
+      const uint32_t w = sp.tw(s, l + b * L, L << t, 1 << (lr - t - 1));
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const uint32_t e = x[b + (i << t)];
+        const uint32_t o = mont_mul(x[b + ((i + H) << t)], w, sp.m);
+        u[b + (i << (t + 1))] = add_mod(e, o, sp.m.q);
+        u[b + (1 << t) + (i << (t + 1))] = sub_mod(e, o, sp.m.q);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = u[j];
+    group_sweeps<T, t + 1>(x, sp, s, l, L, lr);
+  }
+}
+
+// One step of T sweeps at local A(L, r), lr = log2 r >= T: item tau of
+// slot s runs the groups tau + g (items per sub-problem), all loads first.
+template <int T, class Tw, class Src, class Dst>
+__device__ __forceinline__ void ntt_step(NttSubs<Tw> sp, bool by_sub, int L,
+                                         int lr, Src src, Dst dst) {
+  constexpr int E = 1 << T;
+  constexpr int G = 16 / E;  // groups an item holds at most
+  const int lq = lr - T;
+  const int qr = 1 << lq;
+  const int per = 1 << ntt_litems(sp.lm);
+  const int nb = ((1 << sp.lm) >> T) / per;
+  const int items = per << sp.lslots;
+  for (int w = threadIdx.x; w < items; w += blockDim.x) {
+    int s, tau;
+    ntt_item(w, sp.lslots, sp.lm, by_sub, s, tau);
+    uint32_t v[G][E];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < nb) {
+        const int b = tau + g * per;
+        const int base = ((b >> lq) << lr) + (b & (qr - 1));
+#pragma unroll
+        for (int i = 0; i < E; ++i) v[g][i] = src.load(s, base + i * qr);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < nb) {
+        const int b = tau + g * per;
+        const int l = b >> lq;
+        const int q = b & (qr - 1);
+        group_sweeps<T, 0>(v[g], sp, s, l, L, lr);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          dst.store(s, ((l + j * L) << lq) + q, v[g][j]);
+        }
+      }
+    }
+  }
+}
+
+template <class Tw, class Src, class Dst>
+__device__ __forceinline__ void ntt_run_step(int T, NttSubs<Tw> sp,
+                                             bool by_sub, int L, int lr,
+                                             Src src, Dst dst) {
+  switch (T) {
+    case 4:
+      ntt_step<4>(sp, by_sub, L, lr, src, dst);
+      break;
+    case 3:
+      ntt_step<3>(sp, by_sub, L, lr, src, dst);
+      break;
+    case 2:
+      ntt_step<2>(sp, by_sub, L, lr, src, dst);
+      break;
+    default:
+      ntt_step<1>(sp, by_sub, L, lr, src, dst);
+  }
+}
+
+// Every sweep of the CTA's sub-problems in the whole transform's order, in
+// steps of min(4, sweeps left). The first step reads `in` (device memory)
+// where `from_global`, else shared buffer `a` (filled and synchronised by
+// the caller); the last step writes `out` (device memory) where
+// `to_global`, else the shared buffer it returns. Steps ping-pong between
+// a and b with a barrier after each.
+template <class Tw, class In, class Out>
+__device__ __forceinline__ NttSmem ntt_sub_steps(NttSubs<Tw> sp, In in,
+                                                 bool from_global, Out out,
+                                                 bool to_global, NttSmem a,
+                                                 NttSmem b) {
+  int L = 1;
+  int lr = sp.lm;
+  bool global_in = from_global;
+  NttSmem cur = a, oth = b;
+  while (lr > 0) {
+    const int T = lr >= 4 ? 4 : lr;
+    const bool last = lr == T;
+    if (global_in && last && to_global) {
+      ntt_run_step(T, sp, sp.first_by_sub, L, lr, in, out);
+    } else if (global_in) {
+      ntt_run_step(T, sp, sp.first_by_sub, L, lr, in, cur);
+    } else if (last && to_global) {
+      ntt_run_step(T, sp, false, L, lr, cur, out);
+    } else {
+      ntt_run_step(T, sp, false, L, lr, cur, oth);
+      const NttSmem t = cur;
+      cur = oth;
+      oth = t;
+    }
+    global_in = false;
+    __syncthreads();
+    L <<= T;
+    lr -= T;
+  }
+  return cur;
+}
+
+// The CTA's two shared buffers of `slots` sub-problems at row stride ld.
+__device__ __forceinline__ void ntt_sub_buffers(uint32_t* smem, int slots,
+                                                int ld, NttSmem& a,
+                                                NttSmem& b) {
+  a = NttSmem{smem, ld};
+  b = NttSmem{smem + slots * ld, ld};
+}
+
+// The CTA's place in a launch over 2^lsubs sub-problems per row, c = 2^lc
+// a CTA: its row (blockIdx.x / (2^lsubs / c)) and its first sub-problem.
+__device__ __forceinline__ void ntt_pass_cta(int lsubs, int lc, size_t& row,
+                                             int& first) {
+  const int glg = lsubs - lc;
+  row = blockIdx.x >> glg;
+  first = (blockIdx.x & ((1 << glg) - 1)) << lc;
+}
+
+// F1's input: element k of sub-problem q0 = base + (s mod c) of a (slots
+// s < c) or b is x[k n2 + q0] of the row at `off`, reduced mod q and, for
+// the negacyclic product, twisted by psi^(k n2 + q0).
+struct NttF1In {
+  const uint32_t* __restrict__ a;
+  const uint32_t* __restrict__ b;
+  const uint32_t* __restrict__ twist;
+  size_t off;
+  int lg2;
+  int q0;
+  int lc;
+  Mod m;
+  bool negacyclic;
+  __device__ __forceinline__ uint32_t load(int s, int k) const {
+    const int j = (k << lg2) + q0 + (s & ((1 << lc) - 1));
+    const uint32_t v = ((s >> lc) ? b : a)[off + j] % m.q;
+    return negacyclic ? mont_mul(v, twist[j], m) : v;
+  }
+};
+
+// F1's output: element l of sub-problem q0 to A[l n2 + q0] of a's or b's
+// intermediate row.
+struct NttF1Out {
+  uint32_t* __restrict__ fa;
+  uint32_t* __restrict__ fb;
+  size_t off;
+  int lg2;
+  int q0;
+  int lc;
+  __device__ __forceinline__ void store(int s, int l, uint32_t v) const {
+    ((s >> lc) ? fb : fa)[off + ((size_t)l << lg2) + q0 +
+                          (s & ((1 << lc) - 1))] = v;
+  }
+};
+
+// A contiguous sub-problem's input: element i of slot s is
+// x[(l0 << lm) + i] of the row at `off`, x a's (or the only) intermediate
+// for slots s < 2^lc and b's beyond.
+template <class Slots>
+struct NttSliceIn {
+  const uint32_t* __restrict__ xa;
+  const uint32_t* __restrict__ xb;
+  size_t off;
+  int lm;
+  int lc;
+  Slots slots;
+  __device__ __forceinline__ uint32_t load(int s, int i) const {
+    return ((s >> lc) ? xb : xa)[off + ((size_t)slots.l0(s) << lm) + i];
+  }
+};
+
+// M's output: element l of the inverse's pass-1 sub-problem q0' = l0 to
+// A'[l n1 + l0].
+struct NttMidOut {
+  uint32_t* __restrict__ ap;
+  size_t off;
+  int log2n1;
+  int l0;
+  __device__ __forceinline__ void store(int s, int l, uint32_t v) const {
+    ap[off + ((size_t)l << log2n1) + l0 + s] = v;
+  }
+};
+
+// I2's output: element k of sub-problem l0' to c[l0' + k n2], times the
+// untwist psi^-j n^-1 (n^-1 for the cyclic product) at j = l0' + k n2.
+struct NttI2Out {
+  uint32_t* __restrict__ c;
+  const uint32_t* __restrict__ untwist;
+  size_t off;
+  int lg2;
+  int l0;
+  Mod m;
+  __device__ __forceinline__ void store(int s, int k, uint32_t v) const {
+    const int j = l0 + s + (k << lg2);
+    c[off + j] = mont_mul(v, untwist[j], m);
+  }
+};
+
+// F1: CTA blockIdx.x takes row blockIdx.x / (n2 / c) and its c = 2^lc
+// consecutive sub-problems q0 of a and of b.
+__global__ void __launch_bounds__(kPassThreads)
+ntt_polymul_pass1_kernel(const uint32_t* __restrict__ a_in,
+                         const uint32_t* __restrict__ b_in,
+                         uint32_t* __restrict__ fa, uint32_t* __restrict__ fb,
+                         const uint32_t* __restrict__ wf,
+                         const uint32_t* __restrict__ twist, int log2n,
+                         int log2n1, uint32_t q, uint32_t qinv,
+                         int negacyclic, int lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int q0;
+  ntt_pass_cta(lg2, lc, row, q0);
+  const Mod m{q, qinv};
+  const size_t off = row << log2n;
+  NttSmem sa, sb;
+  ntt_sub_buffers(smem, 2 << lc, (1 << log2n1) + 1, sa, sb);
+  const NttSubs<NttTw1> sp{lc + 1, log2n1, NttTw1{wf, 1 << lg2}, m, false};
+  ntt_sub_steps(sp, NttF1In{a_in, b_in, twist, off, lg2, q0, lc, m,
+                            negacyclic != 0},
+                true, NttF1Out{fa, fb, off, lg2, q0, lc}, true, sa, sb);
+}
+
+// M: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and its c = 2^lc
+// consecutive sub-problems l0 of a (slots s < c) and of b (slots c + s).
+__global__ void __launch_bounds__(kPassThreads)
+ntt_polymul_mid_kernel(const uint32_t* __restrict__ fa,
+                       const uint32_t* __restrict__ fb,
+                       uint32_t* __restrict__ ap,
+                       const uint32_t* __restrict__ tw2f,
+                       const uint32_t* __restrict__ wi, int log2n,
+                       int log2n1, uint32_t q, uint32_t qinv, uint32_t r2,
+                       int lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int l0;
+  ntt_pass_cta(log2n1, lc, row, l0);
+  const Mod m{q, qinv};
+  const size_t off = row << log2n;
+  const int c = 1 << lc;
+  NttSmem sa, sb;
+  ntt_sub_buffers(smem, 2 << lc, (1 << lg2) + 1, sa, sb);
+  const NttPair slots{l0, lc};
+  const NttSubs<NttTw2<NttPair>> fwd{
+      lc + 1, lg2, NttTw2<NttPair>{tw2f, 1 << log2n1, slots}, m, true};
+  const NttSmem z = ntt_sub_steps(
+      fwd, NttSliceIn<NttPair>{fa, fb, off, lg2, lc, slots}, true, sa, false,
+      sa, sb);
+  const NttSmem spare = z.p == sa.p ? sb : sa;
+  // the r2-hop product of bins l0 + k n1, in the place of a's
+  for (int idx = threadIdx.x; idx < (c << lg2); idx += blockDim.x) {
+    const int s = idx & (c - 1);
+    const int k = idx >> lc;
+    z.store(s, k, mont_mul(mont_mul(z.load(s, k), r2, m), z.load(c + s, k),
+                           m));
+  }
+  __syncthreads();
+  const NttSubs<NttTw1> inv{lc, lg2, NttTw1{wi, 1 << log2n1}, m, false};
+  ntt_sub_steps(inv, z, false, NttMidOut{ap, off, log2n1, l0}, true, z,
+                spare);
+}
+
+// I2: CTA blockIdx.x takes row blockIdx.x / (n2 / c) and its c = 2^lc
+// consecutive sub-problems l0' of n1 points.
+__global__ void __launch_bounds__(kPassThreads)
+ntt_polymul_pass2_kernel(const uint32_t* __restrict__ ap,
+                         uint32_t* __restrict__ c,
+                         const uint32_t* __restrict__ tw2i,
+                         const uint32_t* __restrict__ untwist, int log2n,
+                         int log2n1, uint32_t q, uint32_t qinv, int lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int l0;
+  ntt_pass_cta(lg2, lc, row, l0);
+  const Mod m{q, qinv};
+  const size_t off = row << log2n;
+  NttSmem sa, sb;
+  ntt_sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, sa, sb);
+  const NttSubs<NttTw2<NttRun>> sp{
+      lc, log2n1, NttTw2<NttRun>{tw2i, 1 << lg2, NttRun{l0}}, m, true};
+  // one intermediate: both of NttSliceIn's rows are A'
+  ntt_sub_steps(sp, NttSliceIn<NttRun>{ap, ap, off, log2n1, lc, NttRun{l0}},
+                true, NttI2Out{c, untwist, off, lg2, l0, m}, true, sa, sb);
+}
+
+// Threads of a split-pass CTA for `slots` sub-problems of 2^lm points: one
+// per work item of a step, at least a warp, at most kPassThreads.
+int ntt_pass_threads(int slots, int lm) {
+  const long t = (long)slots << (lm >= 4 ? lm - 4 : 0);
+  return t < 32 ? 32 : (t > kPassThreads ? kPassThreads : (int)t);
+}
+
+// Dynamic shared memory of a split-pass CTA holding `slots` sub-problems
+// of 2^lm points at row stride 2^lm + 1: one buffer for every state the
+// steps keep in shared memory (the copied-in slices unless the first step
+// reads device memory, and every step's output but a last one written to
+// device memory), two at most. M (`mid`) keeps both: the spectra, the
+// product and the inverse's pass 1 use them.
+size_t ntt_pass_smem(int slots, int lm, bool from_global, bool to_global,
+                     bool mid) {
+  const int steps = (lm + 3) / 4;
+  const int states =
+      (from_global ? 0 : 1) + steps - (to_global ? 1 : 0);
+  const int buffers =
+      mid ? 2 : (states < 1 ? 1 : (states > 2 ? 2 : states));
+  return (size_t)buffers * slots * (((size_t)1 << lm) + 1) *
+         sizeof(uint32_t);
+}
+
+// Opts `kernel` in to `bytes` of dynamic shared memory above 48 KB.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  if (bytes > kStaticSmemBytes) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  return cudaSuccess;
+}
+
+// A split-pass launch the product takes: n1 = 2^log2n1 and n2 at least 2;
+// F1's c1 = 2^lc1 sub-problems of each operand at most n2; M's cm at most
+// n1; I2's ci at most n2; each launch's shared memory within the card's
+// 227 KB; each grid within 2^31 - 1 CTAs.
+bool bad_ntt_split(int batch, int log2n, int log2n1, int lc1, int lcm,
+                   int lci) {
+  const int lg2 = log2n - log2n1;
+  if (log2n1 < 1 || lg2 < 1 || lc1 < 0 || lcm < 0 || lci < 0 || lc1 > lg2 ||
+      lcm > log2n1 || lci > lg2) {
+    return true;
+  }
+  const long rows = batch;
+  return ntt_pass_smem(2 << lc1, log2n1, true, true, false) > kMaxSmemBytes ||
+         ntt_pass_smem(2 << lcm, lg2, true, true, true) > kMaxSmemBytes ||
+         ntt_pass_smem(1 << lci, log2n1, true, true, false) >
+             kMaxSmemBytes ||
+         (rows << (lg2 - lc1)) > 0x7fffffffL ||
+         (rows << (log2n1 - lcm)) > 0x7fffffffL ||
+         (rows << (lg2 - lci)) > 0x7fffffffL;
+}
+
 // Threads for a CTA that transforms `slots` rows: one per butterfly of a
 // sweep, at least a warp, at most 1024.
 int threads_for(int slots, int log2n) {
@@ -278,24 +791,18 @@ template <typename Kernel>
 cudaError_t smem_for(Kernel kernel, bool staged, int slots, int log2n,
                      size_t* bytes) {
   *bytes = staged ? 0 : 2 * ((size_t)slots << log2n) * sizeof(uint32_t);
-  if (*bytes > kStaticSmemBytes) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)*bytes);
-  }
-  return cudaSuccess;
+  return opt_in(kernel, *bytes);
 }
 
-// The launch configuration a launcher below gives `kernel` for `slots` rows
-// (threads per CTA, dynamic shared memory), the registers per thread the
-// compiler gave it, and how many such CTAs one SM holds at once.
+// A launch of `kernel` with `threads` per CTA and `bytes` of dynamic shared
+// memory (opted in): reports those, the registers per thread the compiler
+// gave it, and how many such CTAs one SM holds at once.
 template <typename Kernel>
-cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
-                         int* threads, int* smem, int* regs, int* ctas) {
-  size_t bytes;
-  cudaError_t err = smem_for(kernel, staged, slots, log2n, &bytes);
+cudaError_t launch_occupancy(Kernel kernel, int threads_per_cta, size_t bytes,
+                             int* threads, int* smem, int* regs, int* ctas) {
+  cudaError_t err = opt_in(kernel, bytes);
   if (err != cudaSuccess) return err;
-  *threads = threads_for(slots, log2n);
+  *threads = threads_per_cta;
   *smem = (int)bytes;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
@@ -303,6 +810,17 @@ cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
   *regs = attr.numRegs;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, *threads,
                                                        bytes);
+}
+
+// The launch configuration a launcher below gives `kernel` for `slots` rows
+// (threads per CTA, dynamic shared memory) and what the card makes of it.
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
+                         int* threads, int* smem, int* regs, int* ctas) {
+  const size_t bytes =
+      staged ? 0 : 2 * ((size_t)slots << log2n) * sizeof(uint32_t);
+  return launch_occupancy(kernel, threads_for(slots, log2n), bytes, threads,
+                          smem, regs, ctas);
 }
 
 }  // namespace
@@ -330,14 +848,58 @@ int ntt_batched(const uint32_t* x, uint32_t* y, const uint32_t* w,
   return cudaGetLastError();
 }
 
+// log2n1 > 0: the split-pass schedule, `scratch` three planes of batch * n
+// words (F1's spectra of a and of b, then the inverse's pass-1 result),
+// `tw2f` the forward pass-2 table (split n1 x n2) and `tw2i` the inverse's
+// (split n2 x n1), `block` unused; each launch is checked. log2n1 == 0:
+// one CTA per `block` rows, `tw2f` and `tw2i` unused.
 int ntt_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
                 const uint32_t* wf, const uint32_t* wi,
                 const uint32_t* twist, const uint32_t* untwist,
-                uint32_t* scratch, int batch, int log2n, uint32_t q,
+                uint32_t* scratch, const uint32_t* tw2f,
+                const uint32_t* tw2i, int batch, int log2n, uint32_t q,
                 uint32_t qinv, uint32_t r2, int negacyclic, int block,
-                void* stream) {
+                int log2n1, int lc1, int lcm, int lci, void* stream) {
   if (bad_args(batch, log2n, block)) return cudaErrorInvalidValue;
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2f == nullptr || tw2i == nullptr ||
+       bad_ntt_split(batch, log2n, log2n1, lc1, lcm, lci))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    const size_t rn = (size_t)batch << log2n;
+    uint32_t* fa = scratch;
+    uint32_t* fb = scratch + rn;
+    uint32_t* ap = scratch + 2 * rn;
+    size_t smem = ntt_pass_smem(2 << lc1, log2n1, true, true, false);
+    cudaError_t err = opt_in(ntt_polymul_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    ntt_polymul_pass1_kernel<<<batch << (lg2 - lc1),
+                               ntt_pass_threads(2 << lc1, log2n1), smem,
+                               st>>>(a, b, fa, fb, wf, twist, log2n, log2n1,
+                                     q, qinv, negacyclic, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = ntt_pass_smem(2 << lcm, lg2, true, true, true);
+    err = opt_in(ntt_polymul_mid_kernel, smem);
+    if (err != cudaSuccess) return err;
+    ntt_polymul_mid_kernel<<<batch << (log2n1 - lcm),
+                             ntt_pass_threads(2 << lcm, lg2), smem, st>>>(
+        fa, fb, ap, tw2f, wi, log2n, log2n1, q, qinv, r2, lcm);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = ntt_pass_smem(1 << lci, log2n1, true, true, false);
+    err = opt_in(ntt_polymul_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    ntt_polymul_pass2_kernel<<<batch << (lg2 - lci),
+                               ntt_pass_threads(1 << lci, log2n1), smem,
+                               st>>>(ap, c, tw2i, untwist, log2n, log2n1, q,
+                                     qinv, lci);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err = smem_for(ntt_polymul_kernel, scratch != nullptr,
                              2 * block, log2n, &smem);
@@ -375,9 +937,33 @@ int ntt_rns_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
 // Occupancy of a launch as the launchers above make it: `kernel` is 0 NTT,
 // 1 single-limb product, 2 RNS product; `block` the rows per CTA the
 // wrapper passes; `staged` whether the rows go through device memory.
+// For the single-limb product staged = 2, 3, 4 select F1, M or I2 of the
+// split-pass schedule, with `log2n` the log2 of the launch's sub-problem
+// length and `block` its sub-problems per CTA (of each operand for F1 and
+// M, which hold both).
 int ntt_occupancy(int kernel, int log2n, int block, int staged, int* threads,
                   int* smem, int* regs, int* ctas) {
   if (bad_args(1, log2n, block)) return cudaErrorInvalidValue;
+  if (kernel == 1 && staged >= 2 && staged <= 4) {
+    if (log2n < 1) return cudaErrorInvalidValue;
+    switch (staged) {
+      case 2:
+        return launch_occupancy(
+            ntt_polymul_pass1_kernel, ntt_pass_threads(2 * block, log2n),
+            ntt_pass_smem(2 * block, log2n, true, true, false), threads, smem,
+            regs, ctas);
+      case 3:
+        return launch_occupancy(
+            ntt_polymul_mid_kernel, ntt_pass_threads(2 * block, log2n),
+            ntt_pass_smem(2 * block, log2n, true, true, true), threads, smem,
+            regs, ctas);
+      default:
+        return launch_occupancy(
+            ntt_polymul_pass2_kernel, ntt_pass_threads(block, log2n),
+            ntt_pass_smem(block, log2n, true, true, false), threads, smem,
+            regs, ctas);
+    }
+  }
   const bool st = staged != 0;
   switch (kernel) {
     case 0:

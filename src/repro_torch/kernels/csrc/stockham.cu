@@ -31,10 +31,11 @@
 //   the scratch is read through plain (coherent) loads, never the read-only
 //   path. The wrapper (repro_torch/kernels/fft.py: cta_rows) decides which
 //   path runs and passes scratch == nullptr for the shared-memory one.
-//   The FFT and the real FFT take a third schedule from 8192 points on, as
-//   far as n splits into two parts of at most 8192 points: two launches,
-//   each CTA holding whole sub-problems of the split (the two-pass section
-//   below); the two products take it too, as three or four launches, from
+//   The FFT, the real FFT and its inverse take a third schedule from 8192
+//   points on, as far as n splits into two parts of at most 8192 points:
+//   two launches, each CTA holding whole sub-problems of the split (the
+//   two-pass sections below); the two products take it too, as three or
+//   four launches, from
 //   their own thresholds (the split-pass section below: 8192 for the
 //   complex product, 4096 for the real one). The staged path runs only
 //   where no split fits.
@@ -681,9 +682,29 @@ __device__ __forceinline__ void pass_cta(int lsubs, int lc, size_t& row,
 }
 
 // Pass 1 of a row: the c = 2^lc consecutive sub-problems q0 = q0base + s,
-// the sweeps from L = 1 to n1, loading x[k n2 + q0] from the row at `in`
-// (the imaginary part 0 unless `second`) in the first step and storing
-// A[l n2 + q0] to the intermediate row at `out` in the last.
+// the sweeps from L = 1 to n1, loading element k of sub-problem q0 from
+// `in` in the first step and storing A[l n2 + q0] to the intermediate row
+// at `out` in the last.
+template <class In>
+__device__ __forceinline__ void pass1_from(In in, float* __restrict__ mr,
+                                           float* __restrict__ mi, size_t out,
+                                           int q0,
+                                           const float* __restrict__ wr,
+                                           const float* __restrict__ wi,
+                                           int log2n, int log2n1, int radix,
+                                           float sign, int lc) {
+  extern __shared__ __align__(16) float smem[];
+  const int lg2 = log2n - log2n1;
+  SmemIO a, b;
+  sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, a, b);
+  const Subs<Pass1Twiddles> sp{lc, log2n1, sign,
+                               Pass1Twiddles{wr, wi, 1 << lg2}, false};
+  sub_steps(sp, radix, in, true,
+            Pass1Out<RunSlots>{mr, mi, out, lg2, RunSlots{q0}}, true, a, b);
+}
+
+// pass1_from with x[k n2 + q0] of the row at `in` (the imaginary part 0
+// unless `second`).
 __device__ __forceinline__ void pass1(const float* __restrict__ xr,
                                       const float* __restrict__ xi,
                                       size_t in, bool second,
@@ -693,14 +714,8 @@ __device__ __forceinline__ void pass1(const float* __restrict__ xr,
                                       const float* __restrict__ wi,
                                       int log2n, int log2n1, int radix,
                                       float sign, int lc) {
-  extern __shared__ __align__(16) float smem[];
-  const int lg2 = log2n - log2n1;
-  SmemIO a, b;
-  sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, a, b);
-  const Subs<Pass1Twiddles> sp{lc, log2n1, sign,
-                               Pass1Twiddles{wr, wi, 1 << lg2}, false};
-  sub_steps(sp, radix, Pass1In{xr, xi, in, lg2, q0, second}, true,
-            Pass1Out<RunSlots>{mr, mi, out, lg2, RunSlots{q0}}, true, a, b);
+  pass1_from(Pass1In{xr, xi, in, log2n - log2n1, q0, second}, mr, mi, out,
+             q0, wr, wi, log2n, log2n1, radix, sign, lc);
 }
 
 // Pass 1 of kernel 1 (fft), and of the real product's forward transforms
@@ -852,7 +867,9 @@ rfft_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
 // spectrum with a zero spectrum, whose row is never written back. Bound:
 // device-memory bytes (4 bytes in and 4 out per real point). Design: the
 // unpacking happens in the load, so the full spectra never reach device
-// memory, and two real rows share one complex transform.
+// memory, and two real rows share one complex transform. From
+// TWO_PASS_FROM["irfft"] points on the wrapper launches irfft_pass1_kernel
+// and irfft_pass2_kernel (below) instead.
 __global__ void __launch_bounds__(kMaxThreads)
 irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
              float* __restrict__ y, const float* __restrict__ wr,
@@ -896,6 +913,71 @@ irfft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     y[o] = a.re[k] * inv;
     if (r + 1 < batch) y[o + n] = a.im[k] * inv;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3, two-pass schedule (irfft_planes from TWO_PASS_FROM["irfft"]
+// points on, repro_torch/kernels/fft.py: irfft_two_pass_plan): the inverse
+// complex transform of Z = A + iB split at L = n1 as the fft's two passes
+// are (the section above; the rfft's split, the inverse table). The
+// unpacking rides pass 1's load, per bin: element k of sub-problem q0 is
+// bin kk = q0 + k n2 of Z, formed from one packed bin of each spectrum (kk
+// or n - kk) exactly as irfft_kernel forms it, so no mirror pairing is
+// needed and the c consecutive sub-problems of a CTA read c consecutive
+// packed bins (downwards for kk > n/2). Pass 2 stores Re z / n to row 2p
+// and Im z / n to row 2p + 1 (PairOut, the real product's last store),
+// with irfft_kernel's `* inv`, so the result equals the single-CTA kernel
+// and irfft_planes_plain bit for bit. Bound: device-memory bytes; device
+// memory sees the packed spectra once, the intermediate (one complex row
+// per pair) written once and read once, and the real rows once, and each
+// pass has B / 2 * n2 / c (or n1 / c) CTAs, where irfft_kernel ran one CTA
+// per row pair through a device-memory ping-pong for every sweep from
+// n = 16384 on.
+// ---------------------------------------------------------------------------
+
+// Pass 1's input of the irfft: element k of sub-problem q0 = q0base + s is
+// bin kk = q0 + k n2 of Z = A + iB for the packed spectra of rows 2p (at
+// `off`) and 2p + 1 (at off + n/2; zeros past an odd batch).
+struct IrfftIn {
+  const float* __restrict__ xr;
+  const float* __restrict__ xi;
+  size_t off;
+  int lg2;
+  int q0;
+  int log2n;
+  bool second;
+  __device__ __forceinline__ Cplx load(int s, int k) const {
+    const int n = 1 << log2n;
+    const int nh = n >> 1;
+    const int kk = (k << lg2) + q0 + s;
+    const int src = kk <= nh ? (kk == nh ? 0 : kk) : n - kk;
+    const size_t oa = off + src;
+    const float par = kk == nh ? xi[oa] : xr[oa];
+    const float pbr = second ? (kk == nh ? xi[oa + nh] : xr[oa + nh]) : 0.f;
+    const float pai = xi[oa];
+    const float pbi = second ? xi[oa + nh] : 0.f;
+    const bool real_bin = kk == 0 || kk == nh;
+    const float ai = real_bin ? 0.f : (kk < nh ? pai : -pai);
+    const float bi = real_bin ? 0.f : (kk < nh ? pbi : -pbi);
+    return Cplx{par - bi, ai + pbr};
+  }
+};
+
+// Pass 1 of kernel 3: row pair p = blockIdx.x / (n2 / c) and c = 2^lc
+// sub-problems, the inverse sweeps from L = 1 to n1 (inverse table),
+// into intermediate row p.
+__global__ void __launch_bounds__(kPassThreads)
+irfft_pass1_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                   float* __restrict__ mr, float* __restrict__ mi,
+                   const float* __restrict__ wr, const float* __restrict__ wi,
+                   int batch, int log2n, int log2n1, int radix, int lc) {
+  size_t p;
+  int q0;
+  const int lg2 = log2n - log2n1;
+  pass_cta(lg2, lc, p, q0);
+  pass1_from(IrfftIn{xr, xi, p << log2n, lg2, q0, log2n,
+                     2 * p + 1 < (size_t)batch},
+             mr, mi, p << log2n, q0, wr, wi, log2n, log2n1, radix, 1.f, lc);
 }
 
 // Kernel 5 -- replaces repro/kernels/polymul.py::_polymul_complex_kernel
@@ -1272,13 +1354,15 @@ struct PairOut {
   }
 };
 
-// I2 of kernel 4: pass 2 of the inverse (inverse pass-2 table, split
-// 2^log2n1 x n / 2^log2n1) of row pair p = blockIdx.x / (n1 / c).
-__global__ void __launch_bounds__(kPassThreads)
-polymul_real_pass2_kernel(const float* __restrict__ mr,
-                          const float* __restrict__ mi, float* __restrict__ c,
-                          const float* __restrict__ tw2, int batch, int log2n,
-                          int log2n1, int radix, int lc) {
+// Pass 2 of an inverse transform (inverse pass-2 table, split
+// 2^log2n1 x n / 2^log2n1) of row pair p = blockIdx.x / (n1 / c), stored as
+// two real rows (PairOut).
+__device__ __forceinline__ void pair_pass2(const float* __restrict__ mr,
+                                           const float* __restrict__ mi,
+                                           float* __restrict__ c,
+                                           const float* __restrict__ tw2,
+                                           int batch, int log2n, int log2n1,
+                                           int radix, int lc) {
   size_t p;
   int l0base;
   pass_cta(log2n1, lc, p, l0base);
@@ -1286,6 +1370,24 @@ polymul_real_pass2_kernel(const float* __restrict__ mr,
         PairOut{c, (2 * p) << log2n, 1 << log2n, 2 * p + 1 < (size_t)batch,
                 l0base, log2n1, 1.f / (float)(1 << log2n)},
         tw2, log2n, log2n1, radix, 1.f, lc);
+}
+
+// I2 of kernel 4: the inverse's pass 2, c_2p = Re / n, c_2p+1 = Im / n.
+__global__ void __launch_bounds__(kPassThreads)
+polymul_real_pass2_kernel(const float* __restrict__ mr,
+                          const float* __restrict__ mi, float* __restrict__ c,
+                          const float* __restrict__ tw2, int batch, int log2n,
+                          int log2n1, int radix, int lc) {
+  pair_pass2(mr, mi, c, tw2, batch, log2n, log2n1, radix, lc);
+}
+
+// Pass 2 of kernel 3: the inverse sweeps from L = n1 to n, y_2p = Re z / n
+// and y_2p+1 = Im z / n (the second store skipped past an odd batch).
+__global__ void __launch_bounds__(kPassThreads)
+irfft_pass2_kernel(const float* __restrict__ mr, const float* __restrict__ mi,
+                   float* __restrict__ y, const float* __restrict__ tw2,
+                   int batch, int log2n, int log2n1, int radix, int lc) {
+  pair_pass2(mr, mi, y, tw2, batch, log2n, log2n1, radix, lc);
 }
 
 // Threads for a CTA that transforms `slots` complex rows: one per radix-4
@@ -1561,13 +1663,46 @@ int stockham_rfft(const float* x, float* yr, float* yi, const float* wr,
   return cudaGetLastError();
 }
 
+// log2n1 > 0: the two-pass schedule, `scratch` the intermediate (two planes
+// of (batch + 1) / 2 * n floats), `tw2` the inverse pass-2 twiddle table,
+// `block` unused; else one CTA per `block` rows (even), `tw2` unused.
 int stockham_irfft(const float* xr, const float* xi, float* y,
                    const float* wr, const float* wi, float* scratch,
-                   int batch, int log2n, int radix, int block, void* stream) {
+                   const float* tw2, int batch, int log2n, int radix,
+                   int block, int log2n1, int lc1, int lc2, void* stream) {
   if (bad_args(batch, log2n, radix, block) || log2n < 1 || (block & 1)) {
     return cudaErrorInvalidValue;
   }
+  const int pairs = (batch + 1) / 2;
+  // both passes hold c sub-problems of one row (pair) and write device
+  // memory, as the fft's do
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2 == nullptr ||
+       bad_split(pairs, log2n, log2n1, radix, lc1, lc2, false))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  if (log2n1 != 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int lg2 = log2n - log2n1;
+    float* mr = scratch;
+    float* mi = scratch + ((size_t)pairs << log2n);
+    size_t smem = pass_smem(1 << lc1, log2n1, radix, true, true);
+    cudaError_t err = opt_in(irfft_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    irfft_pass1_kernel<<<pairs << (lg2 - lc1),
+                         pass_threads(1 << lc1, log2n1), smem, st>>>(
+        xr, xi, mr, mi, wr, wi, batch, log2n, log2n1, radix, lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = pass_smem(1 << lc2, lg2, radix, true, true);
+    err = opt_in(irfft_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    irfft_pass2_kernel<<<pairs << (log2n1 - lc2), pass_threads(1 << lc2, lg2),
+                         smem, st>>>(mr, mi, y, tw2, batch, log2n, log2n1,
+                                     radix, lc2);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err =
       smem_for(irfft_kernel, scratch != nullptr, block / 2, log2n, &smem);
@@ -1751,8 +1886,9 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
 // memory. staged = 2, 3 (and 4 for the products) select a launch of the
 // two-pass (split-pass) schedule, at radix 4, the planner's radix, with
 // `log2n` the log2 of its sub-problem length and `block` its sub-problems
-// per CTA: for the fft and the rfft pass 1 or pass 2 (for the rfft's pass 2
-// the low sub-problems, each held with its mirror); for the products F1,
+// per CTA: for the fft, the rfft and the irfft pass 1 or pass 2 (for the
+// rfft's pass 2 the low sub-problems, each held with its mirror); for the
+// products F1,
 // M (its low sub-problems: the CTA holds b's beside them, or their mirrors
 // and the pair's second row's) or I2. The products' fourth launch off the
 // mirrored split is kernel 0's pass 1.
@@ -1796,6 +1932,12 @@ int stockham_occupancy(int kernel, int log2n, int block, int staged,
       case 3 * 8 + 4:
         return pass_occupancy(polymul_real_pass2_kernel, block, log2n, 4,
                               true, true, threads, smem, regs, ctas);
+      case 4 * 8 + 2:
+        return pass_occupancy(irfft_pass1_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
+      case 4 * 8 + 3:
+        return pass_occupancy(irfft_pass2_kernel, block, log2n, 4, true, true,
+                              threads, smem, regs, ctas);
     }
     return cudaErrorInvalidValue;
   }

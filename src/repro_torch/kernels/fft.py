@@ -179,18 +179,21 @@ TWO_PASS_CTA_POINTS = 4096
 #: or store moves runs of 16 contiguous floats (64 bytes).
 TWO_PASS_MAX_SLOTS = 16
 #: Least n at which each wrapper takes the two-pass schedule (the products:
-#: their split-pass schedule, ``kernels.polymul``); below it a row stays
-#: resident in one CTA. Above n = 8192 no row fits one CTA (above 4096 for
-#: the products, which hold two spectra), so the threshold only matters at
-#: the resident sizes. It comes from chip_smoke.py phase 4's A/B of the
-#: schedules (lines "[ab]": batch 64, radix 4, in turns) on an NVIDIA H100
-#: 80GB HBM3 at 700 W, whose runs and times PERF.md records: two passes
-#: were faster at n = 8192 for every kernel and at n = 4096 for the real
-#: product alone (slower there for the fft and the complex product, within
-#: the turns' spread or slower for the rfft), so the others stay resident
-#: at 4096.
-TWO_PASS_FROM = {"fft": 8192, "rfft": 8192, "polymul_complex": 8192,
-                 "polymul_real": 4096}
+#: their split-pass schedule, ``kernels.polymul`` and, for the exact
+#: product, ``kernels.ntt``); below it a row stays resident in one CTA.
+#: Above n = 8192 no float row fits one CTA (above 4096 for the products,
+#: which hold two spectra; above 8192 for the NTT product), so the
+#: threshold only matters at the resident sizes. It comes from
+#: chip_smoke.py phase 4's A/B of the schedules (lines "[ab]": batch 64,
+#: the planner's radix, in turns) on an NVIDIA H100 80GB HBM3 at 700 W,
+#: whose runs and times PERF.md records: two passes were faster at
+#: n = 8192 for every kernel, and at n = 4096 for the real product and the
+#: NTT product (slower there for the fft, the rfft and the irfft, within
+#: the turns' spread for the complex product), so those stay resident at
+#: 4096.
+TWO_PASS_FROM = {"fft": 8192, "rfft": 8192, "irfft": 8192,
+                 "polymul_complex": 8192, "polymul_real": 4096,
+                 "ntt_polymul": 4096}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +248,19 @@ def two_pass_plan(n: int, radix: int, *, real: bool = False
     return None if split is None else two_pass_launch(*split, real=real)
 
 
+@functools.lru_cache(maxsize=256)
+def irfft_two_pass_plan(n: int, radix: int) -> TwoPass | None:
+    """The two-pass launch ``irfft_planes`` makes for n-point rows, or None
+    where it runs one CTA per row block: below ``TWO_PASS_FROM["irfft"]``,
+    and where no split qualifies. The split is the rfft's (the same
+    transform run backwards); neither pass holds mirrors, so each CTA takes
+    as many sub-problems as the fft's passes."""
+    if n < TWO_PASS_FROM["irfft"]:
+        return None
+    split = two_pass_split(n, radix, real=True)
+    return None if split is None else two_pass_launch(*split)
+
+
 def pass_slots(m: int, avail: int, held: int = 1) -> int:
     """Sub-problems of m points a pass CTA takes, out of ``avail``, where it
     holds ``held`` sub-problems for each one it takes: as many as
@@ -263,16 +279,14 @@ def two_pass_launch(n1: int, n2: int, *, real: bool = False) -> TwoPass:
                    pass_slots(n2, n1 // 2, 2) if real else pass_slots(n2, n1))
 
 
-def pass2_twiddles(n: int, n1: int, radix: int, *, inverse: bool = False
-                   ) -> tuple[np.ndarray, np.ndarray]:
-    """Pass 2's twiddles, gathered from the master table in the order its
+def pass2_twiddle_index(n: int, n1: int, radix: int) -> np.ndarray:
+    """Where pass 2's twiddles lie in the master table, in the order its
     kernels read them: the sweep at local L (global L = n1 L, radix R)
     uses W[(l0 + n1 l) m' n2 / (R L)] for m' < R, l < L and sub-problem l0,
     at entry n1 (L - 1) + ((m' - 1) L + l) n1 + l0 -- sweep after sweep, l0
     fastest, so the consecutive sub-problems of a CTA read consecutive
-    entries. n1 (n2 - 1) values, each the table's own fp32 value."""
+    entries. n1 (n2 - 1) indices."""
     n2 = n // n1
-    wr, wi = twiddle_table(n, inverse=inverse)
     parts, L = [], 1
     while L < n2:
         m = np.arange(1, radix)[:, None, None]
@@ -280,7 +294,15 @@ def pass2_twiddles(n: int, n1: int, radix: int, *, inverse: bool = False
         l0 = np.arange(n1)[None, None, :]
         parts.append(((l0 + n1 * l) * m * (n2 // (radix * L))).reshape(-1))
         L *= radix
-    idx = np.concatenate(parts)
+    return np.concatenate(parts)
+
+
+def pass2_twiddles(n: int, n1: int, radix: int, *, inverse: bool = False
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Pass 2's twiddles (``pass2_twiddle_index``), each the master table's
+    own fp32 value."""
+    wr, wi = twiddle_table(n, inverse=inverse)
+    idx = pass2_twiddle_index(n, n1, radix)
     return wr[0, idx], wi[0, idx]
 
 
@@ -428,6 +450,49 @@ def rfft_two_pass(x, *, radix: int, plan: TwoPass):
     yi[:, 1, k] = torch.where(dc, 0.5 * (zi[:, nh:nh + 1] + zi[:, nh:nh + 1]),
                               0.5 * (m_r - z_r))
     return yr.reshape(bp, nh)[:b], yi.reshape(bp, nh)[:b]
+
+
+def unpacked_bins(xr, xi, kk):
+    """Bins kk of the full spectra A and B of packed pairs (P, 2, n/2), as
+    ``irfft_kernel`` and ``irfft_pass1_kernel`` form them in their load,
+    one bin at a time from one packed bin of each spectrum: (pr[kk],
+    pi[kk]) below n/2 (imaginary part 0 at DC), pi[0] at the Nyquist bin,
+    (pr[n-kk], -pi[n-kk]) above it. Returns Z = A + iB at kk."""
+    nh = xr.shape[-1]
+    n = 2 * nh
+    src = torch.where(kk == nh, 0, torch.where(kk < nh, kk, n - kk))
+    xr, xi = xr[..., src], xi[..., src]
+    ar = torch.where(kk == nh, xi[:, 0], xr[:, 0])
+    br = torch.where(kk == nh, xi[:, 1], xr[:, 1])
+    real_bin = (kk == 0) | (kk == nh)
+    zero = torch.zeros((), dtype=xr.dtype, device=xr.device)
+    ai = torch.where(real_bin, zero, torch.where(kk < nh, xi[:, 0], -xi[:, 0]))
+    bi = torch.where(real_bin, zero, torch.where(kk < nh, xi[:, 1], -xi[:, 1]))
+    return ar - bi, ai + br
+
+
+def irfft_two_pass(xr, xi, *, radix: int, plan: TwoPass):
+    """Plain mirror of the two-pass irfft on packed planes (B, n/2): pass
+    1's load forms element k of sub-problem q0 as bin q0 + k n2 of
+    Z = A + iB of spectra (2j, 2j+1), each bin from one packed bin of each
+    spectrum (``unpacked_bins``); the inverse sweeps run split at n1
+    (``stockham_two_pass``, 1/n on the store); pass 2 stores Re z to row 2j
+    and Im z to row 2j+1. An odd batch pairs its last spectrum with a zero
+    spectrum. The float expressions are ``irfft_planes_plain``'s, so the
+    result equals it bit for bit."""
+    b, nh = xr.shape
+    n = 2 * nh
+    if b % 2:
+        xr = torch.cat([xr, torch.zeros_like(xr[:1])])
+        xi = torch.cat([xi, torch.zeros_like(xi[:1])])
+    bp = xr.shape[0]
+    kk = torch.arange(n, device=xr.device)
+    zr, zi = unpacked_bins(xr.reshape(bp // 2, 2, nh),
+                           xi.reshape(bp // 2, 2, nh), kk)
+    wr, wi = device_twiddles(n, True, xr.device)
+    yr, yi = stockham_two_pass(zr, zi, wr, wi, n=n, inverse=True,
+                               radix=radix, n1=plan.n1)
+    return torch.stack([yr, yi], dim=1).reshape(bp, n)[:b]
 
 
 # ---------------------------------------------------------------------------
@@ -775,26 +840,51 @@ def irfft_planes(xr: torch.Tensor, xi: torch.Tensor, *, radix: int = 2,
                  block_b: int | None = None) -> torch.Tensor:
     """Inverse of ``rfft_planes``: packed planes (B, n//2) -> real (B, n).
 
-    On the card: kernel ``irfft_kernel``, an even number of rows per CTA
-    (default ``plan_batch_block(n, real=True)``); two packed half-spectra
-    are unpacked in the kernel and ride one inverse complex transform, and
-    an odd batch pairs its last spectrum with a zero spectrum. Replaces
+    On the card: kernel ``irfft_kernel`` -- from ``TWO_PASS_FROM["irfft"]``
+    points on, its two-pass schedule (``irfft_two_pass_plan``: the
+    unpacking in pass 1's load, the split of the two real rows in pass 2's
+    store), below that an even number of rows per CTA (default
+    ``plan_batch_block(n, real=True)``); two packed half-spectra are
+    unpacked in the kernel and ride one inverse complex transform, and an
+    odd batch pairs its last spectrum with a zero spectrum. On the CPU the
+    plain version of the same schedule. Replaces
     ``repro/kernels/fft.py::irfft_planes``.
     """
     b, nh = check_planes("irfft_planes", xr, xi)
     n = 2 * nh
     check_radix(radix)
+    two_pass = irfft_two_pass_plan(n, radix)
     if xr.device.type == "cpu":
+        if two_pass is not None:
+            return irfft_two_pass(xr, xi, radix=radix, plan=two_pass)
         return irfft_planes_plain(xr, xi, radix=radix)
-    rows, staged = cta_rows(n, b, block_b or plan_batch_block(n, real=True),
-                            real=True)
+    return _launch_irfft(xr, xi, radix,
+                         block_b or plan_batch_block(n, real=True), two_pass)
+
+
+def _launch_irfft(xr, xi, radix: int, block: int, two_pass: TwoPass | None):
+    """Launch ``stockham_irfft`` on card planes under the given schedule:
+    ``two_pass``, or one CTA per ``block`` rows at most."""
+    b, nh = xr.shape
+    n = 2 * nh
     y = torch.empty((b, n), dtype=xr.dtype, device=xr.device)
     if b == 0:
         return y
     with torch.cuda.device(xr.device):
         wr, wi = device_twiddles(n, True, xr.device)
-        scratch = scratch_for(n, b, rows, staged, xr.device, real=True)
+        if two_pass is None:
+            rows, staged = cta_rows(n, b, block, real=True)
+            scratch = scratch_for(n, b, rows, staged, xr.device, real=True)
+            tw2, split = None, (0, 0, 0)
+        else:
+            rows = 2
+            scratch = torch.empty((2, (b + 1) // 2, n), dtype=xr.dtype,
+                                  device=xr.device)
+            tw2 = device_pass2_twiddles(n, two_pass.n1, radix, True,
+                                        xr.device)
+            split = (_log2(two_pass.n1), _log2(two_pass.c1),
+                     _log2(two_pass.c2))
         _build.launch("stockham_irfft", "irfft_planes", ptr(xr), ptr(xi),
-                      ptr(y), ptr(wr), ptr(wi), ptr(scratch), b, _log2(n),
-                      radix, rows)
+                      ptr(y), ptr(wr), ptr(wi), ptr(scratch), ptr(tw2), b,
+                      _log2(n), radix, rows, *split)
     return y

@@ -25,6 +25,7 @@ load reduces them mod q, as the reference's ``_as_residues`` does.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -33,8 +34,10 @@ import torch
 from repro_torch.core.ntt.ref import NTTParams
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import (MAX_BLOCK, SMEM_BLOCK_BUDGET,
-                                     SMEM_MAX_BYTES, _fit_block, _log2,
-                                     fit_smem, ptr)
+                                     SMEM_MAX_BYTES, TWO_PASS_FROM,
+                                     _fit_block, _log2, fit_smem,
+                                     pass2_twiddle_index, pass_slots, ptr,
+                                     two_pass_split)
 
 _MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
@@ -227,6 +230,142 @@ def _scratch(n: int, batch: int, rows: int, staged: bool, limbs: int,
 
 
 # ---------------------------------------------------------------------------
+# The product's split-pass schedule (csrc/ntt.cu, the split-pass section)
+#
+# The radix-2 Stockham state splits at any L = n1 (n = n1 n2) without
+# changing one residue, as ``kernels.fft``'s two-pass schedule splits the
+# float sweeps. Launch F1 runs pass 1 of both forward NTTs (sub-problem q0 =
+# x[q0 + k n2], after the load's reduction and psi twist). Launch M runs
+# their pass 2 on sub-problem l0 of a and of b, forms the r2-hop product of
+# the bins l0 + k n1 it then holds, and runs pass 1 of the inverse under the
+# mirrored split (n2, n1) on the same sub-problem: its q0' = l0 reads
+# exactly P[l0 + k n1]. Launch I2 is the inverse's pass 2 with the untwist
+# on its store. Radix 2 puts every split on the sweep sequence, so there is
+# always three launches.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NTTTwoPass:
+    """The product's split-pass launches: n = n1 n2; F1 holds ``c1``
+    sub-problems of n1 points of each operand a CTA (2 c1 in all), M ``cm``
+    sub-problems of n2 points of each operand (2 cm), the inverse's pass 2
+    ``ci`` sub-problems of n1 points."""
+    n1: int
+    n2: int
+    c1: int
+    cm: int
+    ci: int
+
+    @property
+    def launches(self) -> int:
+        return 3
+
+
+@functools.lru_cache(maxsize=256)
+def ntt_two_pass_plan(n: int) -> NTTTwoPass | None:
+    """The split-pass launches ``ntt_polymul`` makes for n-point rows, or
+    None where one CTA takes whole rows: below
+    ``TWO_PASS_FROM["ntt_polymul"]``, and past 2^25 points, where no split
+    fits (a single CTA then stages through device memory). The split is
+    the float products' radix-2 rule (n1 as close to sqrt(n) as n1 <= 8192
+    and n2 <= 4096 allow)."""
+    if n < TWO_PASS_FROM["ntt_polymul"]:
+        return None
+    split = two_pass_split(n, 2, product=True)
+    return None if split is None else ntt_two_pass_launch(*split)
+
+
+def ntt_two_pass_launch(n1: int, n2: int) -> NTTTwoPass:
+    """Sub-problems per CTA of each launch for the split (n1, n2), at most
+    the launch's sub-problems per row: F1 as many as
+    ``TWO_PASS_CTA_POINTS`` allows for the points it holds (both
+    operands'); I2 as many for its one operand; M as many of each operand
+    as I2 takes, since its inverse pass runs on a's slots alone and so
+    keeps every thread busy only then (twice the points a CTA of the
+    other launches holds, still within 66 KB of shared memory)."""
+    return NTTTwoPass(n1, n2, pass_slots(n1, n2, 2), pass_slots(n2, n1),
+                      pass_slots(n1, n2))
+
+
+@functools.lru_cache(maxsize=64)
+def pass2_tables(params: NTTParams, negacyclic: bool, n1: int,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pass-2 twiddles of the split (n1, n2), gathered in the order
+    the kernels read them (``kernels.fft.pass2_twiddle_index``, radix 2):
+    the forward transforms' from the forward table (split n1 x n2) and the
+    inverse's from the inverse table (split n2 x n1), int32 Montgomery
+    form on ``device``."""
+    n = params.n
+    wf, wi = (t.cpu() for t in polymul_tables(params, negacyclic,
+                                              torch.device("cpu"))[:2])
+    return (wf[torch.from_numpy(pass2_twiddle_index(n, n1, 2))].to(device),
+            wi[torch.from_numpy(pass2_twiddle_index(n, n // n1, 2))
+               ].to(device))
+
+
+def _sub_sweeps(y, w, q, qinv, *, n: int, n1: int | None = None):
+    """Every radix-2 sweep of m-point sub-problems, states (..., 1, m) ->
+    (..., m, 1), with the (n,) int64 table ``w`` of the whole n-point
+    transform. Pass 1 (``n1`` None): the local block index is the global
+    one. Pass 2: the state is (B, n1, 1, m), sub-problem l0 its index on
+    axis 1, global block l0 + n1 l and global L = n1 L; its twiddle is
+    w[(l0 + n1 l) r / 2] at local (L, r)."""
+    m = y.shape[-1]
+    L, r = 1, m
+    while r > 1:
+        half = r // 2
+        e, o = y[..., :half], y[..., half:]
+        if n1 is None:
+            stride = n // (2 * L)
+            tw = w[0:L * stride:stride][:, None]                # (L, 1)
+        else:
+            blocks = (torch.arange(n1, device=y.device)[:, None]
+                      + n1 * torch.arange(L, device=y.device)[None, :])
+            tw = w[blocks * half][..., None]                    # (n1, L, 1)
+        t = mont_mul(o, tw, q, qinv)
+        y = torch.cat([_add_mod(e, t, q), _sub_mod(e, t, q)], dim=-2)
+        L, r = 2 * L, half
+    return y
+
+
+def ntt_polymul_two_pass(a: torch.Tensor, b: torch.Tensor,
+                         params: NTTParams, *, negacyclic: bool = True,
+                         plan: NTTTwoPass) -> torch.Tensor:
+    """Plain mirror of the split-pass kernels in int64, in their dataflow:
+    F1 loads, reduces and twists each operand and runs (B n2, n1) sub-rows
+    gathered at stride n2, scattered to A[l n2 + q0]; M runs (B n1, n2)
+    contiguous sub-rows of A with twiddles from the global block index,
+    forms the r2-hop product of the bins l0 + k n1 they hold, and runs the
+    inverse's pass 1 on those very sub-rows, scattered to A'[l n1 + l0];
+    I2 runs (B n2, n1) contiguous sub-rows of A' (global block l0' + n2 l)
+    and stores c[l0' + k n2] with the untwist. Exact: it equals
+    ``ntt_polymul_plain`` (``==``) for any split."""
+    n, n1, n2 = params.n, plan.n1, plan.n2
+    bsz = a.shape[0]
+    wf, wi, twist, untwist = (t.to(torch.int64) for t in polymul_tables(
+        params, negacyclic, a.device))
+    q, qinv, r2 = params.q, params.qinv, params.r2
+
+    def forward(x):
+        x = _load(x, q)
+        if negacyclic:
+            x = mont_mul(x, twist, q, qinv)
+        sub = x.reshape(bsz, n1, n2).transpose(1, 2).reshape(bsz * n2, 1, n1)
+        inter = _sub_sweeps(sub, wf, q, qinv, n=n).reshape(bsz, n2, n1)
+        spectra = _sub_sweeps(inter.transpose(1, 2).reshape(bsz, n1, 1, n2),
+                              wf, q, qinv, n=n, n1=n1)
+        return spectra.reshape(bsz, n1, n2)       # [l0, k]: bin l0 + k n1
+
+    p = mont_mul(mont_mul(forward(a), r2, q, qinv), forward(b), q, qinv)
+    inter = _sub_sweeps(p.reshape(bsz * n1, 1, n2), wi, q, qinv, n=n)
+    inter = inter.reshape(bsz, n1, n2).transpose(1, 2)     # [l, l0]
+    out = _sub_sweeps(inter.reshape(bsz, n2, 1, n1), wi, q, qinv, n=n,
+                      n1=n2).reshape(bsz, n2, n1)  # [l0', k]: c[l0' + k n2]
+    c = out.transpose(1, 2).reshape(bsz, n)
+    return mont_mul(c, untwist, q, qinv).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Input checks
 # ---------------------------------------------------------------------------
 
@@ -331,29 +470,60 @@ def ntt_polymul(a: torch.Tensor, b: torch.Tensor, params: NTTParams, *,
     """Exact product mod (x^n + 1, q), or x^n - 1 with ``negacyclic=False``,
     of integer coefficient batches (B, n); int32 residues out.
 
-    On the card: kernel ``ntt_polymul_kernel`` (twist, two NTTs, pointwise
-    product, inverse NTT and untwist in one residency), ``block_b``
-    products per CTA at most (default ``plan_ntt_block(n)``). Replaces
+    On the card: kernel ``ntt_polymul_kernel`` -- from
+    ``TWO_PASS_FROM["ntt_polymul"]`` points on its split-pass schedule
+    (``ntt_two_pass_plan``: three launches whose CTAs hold whole
+    sub-problems of a split n = n1 x n2), below that twist, two NTTs,
+    pointwise product, inverse NTT and untwist in one residency, ``block_b``
+    products per CTA at most (default ``plan_ntt_block(n)``). On the CPU
+    the plain version of the same schedule. Replaces
     ``repro/kernels/ntt.py::ntt_polymul``.
     """
     n = params.n
     _check_rows("ntt_polymul", (a.shape[0], n), a, b)
     a = _as_residues(a, params.q)
     b = _as_residues(b, params.q)
+    two_pass = ntt_two_pass_plan(n)
     if a.device.type == "cpu":
+        if two_pass is not None:
+            return ntt_polymul_two_pass(a, b, params, negacyclic=negacyclic,
+                                        plan=two_pass)
         return ntt_polymul_plain(a, b, params, negacyclic=negacyclic)
+    return _launch_ntt_polymul(a, b, params, negacyclic,
+                               block_b or plan_ntt_block(n), two_pass)
+
+
+def _launch_ntt_polymul(a, b, params: NTTParams, negacyclic: bool,
+                        block: int, two_pass: NTTTwoPass | None):
+    """Launch ``ntt_polymul`` on card residues under the given schedule:
+    ``two_pass``, or one CTA per ``block`` products at most."""
+    n = params.n
     bsz = a.shape[0]
-    rows, staged = ntt_cta_rows(n, bsz, block_b or plan_ntt_block(n))
     c = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
     if bsz == 0:
         return c
     with torch.cuda.device(a.device):
         wf, wi, twist, untwist = polymul_tables(params, negacyclic, a.device)
-        scratch = _scratch(n, bsz, rows, staged, 1, a.device, product=True)
+        if two_pass is None:
+            rows, staged = ntt_cta_rows(n, bsz, block)
+            scratch = _scratch(n, bsz, rows, staged, 1, a.device,
+                               product=True)
+            tw2f = tw2i = None
+            split = (0, 0, 0, 0)
+        else:
+            # F1's spectra of a and of b, then the inverse's pass-1 result
+            rows = 1
+            scratch = torch.empty(3 * bsz * n, dtype=torch.int32,
+                                  device=a.device)
+            tw2f, tw2i = pass2_tables(params, negacyclic, two_pass.n1,
+                                      a.device)
+            split = tuple(_log2(v) for v in (two_pass.n1, two_pass.c1,
+                                             two_pass.cm, two_pass.ci))
         _build.launch("ntt_polymul", "ntt_polymul", ptr(a), ptr(b), ptr(c),
                       ptr(wf), ptr(wi), ptr(twist), ptr(untwist),
-                      ptr(scratch), bsz, _log2(n), params.q, params.qinv,
-                      params.r2, int(negacyclic), rows)
+                      ptr(scratch), ptr(tw2f), ptr(tw2i), bsz, _log2(n),
+                      params.q, params.qinv, params.r2, int(negacyclic),
+                      rows, *split)
     return c
 
 

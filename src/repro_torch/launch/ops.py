@@ -463,7 +463,8 @@ def _validate_polymul_mod(spec: OpSpec, n: int, ctx: OpContext) -> None:
 
 def _bind_polymul_mod(spec: OpSpec, n: int, batch: int, device: torch.device,
                       ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch, exact=True)
+    plan = _plan_or_config_error(n=n, batch=batch, exact=True,
+                                 rns=_rns_route(ctx))
     if _rns_route(ctx):
         rns = ntt_core.RNSParams.make(n, modulus_bits=ctx.modulus_bits)
         return BoundOp(

@@ -151,6 +151,27 @@ def test_rfft_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
         _close([tfft.irfft_planes(*got, radix=radix)], [x], 1e-4, 1e-4 * n)
 
 
+@pytest.mark.parametrize("n", [4096, 8192, 65536])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 5, 64])
+def test_irfft_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
+    """irfft_planes under the two-pass schedule and the single-CTA one
+    (resident at 4096 and 8192, staged at 65536; through the launch helper
+    where the planner picks the other), odd and even batches: bit for bit
+    the plain version, one count per call."""
+    pr, pi = _planes(rng, batch, n // 2, 2, cuda)
+    want = tfft.irfft_planes_plain(pr, pi, radix=radix)
+    planned = tfft.irfft_two_pass_plan(n, radix)
+    other = (None if planned else tfft.two_pass_launch(
+        *tfft.two_pass_split(n, radix, real=True)))
+    got = _launched("irfft_planes",
+                    lambda: tfft.irfft_planes(pr, pi, radix=radix))
+    assert torch.equal(got, want), "planned"
+    got = _launched("irfft_planes", lambda: tfft._launch_irfft(
+        pr, pi, radix, tfft.plan_batch_block(n, real=True), other))
+    assert torch.equal(got, want), "other"
+
+
 def _product_schedules(n, radix, real):
     """The planner's schedule of a product at n and, where both exist (the
     resident and staged lengths below 2^14), the other one: {label:
@@ -237,6 +258,32 @@ def test_ntt_polymul_kernel_matches_plain_and_reference(
     fn = tntt.negacyclic_polymul if negacyclic else tntt.cyclic_polymul
     assert (tknt.residues_to_numpy(got)
             == fn(a.cpu().numpy(), b.cpu().numpy(), p)).all()
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 65536])
+@pytest.mark.parametrize("negacyclic", [True, False])
+@pytest.mark.parametrize("batch", [1, 4, 5, 64])
+def test_ntt_polymul_schedules_equal_plain_bitwise(cuda, rng, n, negacyclic,
+                                                   batch):
+    """ntt_polymul under the split-pass schedule and the single-CTA one
+    (resident at 4096 and 8192, staged at 65536; through the launch helper
+    where the planner picks the other): equal to the plain version and the
+    numpy reference, one count per call."""
+    p = tntt.NTTParams.make(n)
+    a, b = (_residues(rng, (batch, n), p.q, cuda) for _ in range(2))
+    want = tknt.ntt_polymul_plain(a, b, p, negacyclic=negacyclic)
+    fn = tntt.negacyclic_polymul if negacyclic else tntt.cyclic_polymul
+    assert (tknt.residues_to_numpy(want)
+            == fn(a.cpu().numpy(), b.cpu().numpy(), p)).all()
+    planned = tknt.ntt_two_pass_plan(n)
+    other = None if planned else tknt.ntt_two_pass_launch(
+        *tfft.two_pass_split(n, 2, product=True))
+    got = _launched("ntt_polymul", lambda: tknt.ntt_polymul(
+        a, b, p, negacyclic=negacyclic))
+    assert torch.equal(got, want), "planned"
+    got = _launched("ntt_polymul", lambda: tknt._launch_ntt_polymul(
+        a, b, p, negacyclic, tknt.plan_ntt_block(n), other))
+    assert torch.equal(got, want), "other"
 
 
 @pytest.mark.parametrize("n,kw", [(64, {"modulus": 17}),
@@ -401,6 +448,45 @@ def test_product_two_pass_occupancy_matches_launch_configuration(cuda, name,
         occ = _build.occupancy(name, m.bit_length() - 1, c, mode)
         assert occ["threads"] == max(32, min(256, slots * max(1, m // 16)))
         assert occ["smem_bytes"] == buffers * 8 * slots * (m + 1)
+        assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("n", [16384, 65536, 1 << 18])
+def test_irfft_two_pass_occupancy_matches_launch_configuration(cuda, n):
+    """Both pass kernels of the irfft's two-pass launch at n (radix 4), as
+    the fft's: one thread per work item of 16 elements of the CTA's c
+    sub-problems (at least a warp, at most 256), one shared buffer of
+    8 (m + 1) bytes a sub-problem for each state a step leaves in shared
+    memory (both passes read and write device memory), two at most."""
+    tp = tfft.two_pass_launch(*tfft.two_pass_split(n, 4, real=True))
+    for mode, m, c in ((2, tp.n1, tp.c1), (3, tp.n2, tp.c2)):
+        lm = m.bit_length() - 1
+        occ = _build.occupancy("irfft_planes", lm, c, mode)
+        assert occ["threads"] == max(32, min(256, c * max(1, m // 16)))
+        buffers = min(2, max(1, _steps(lm) - 1))
+        assert occ["smem_bytes"] == buffers * 8 * c * (m + 1)
+        assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("n", [4096, 65536, 1 << 19])
+def test_ntt_two_pass_occupancy_matches_launch_configuration(cuda, n):
+    """Each launch of the exact product's split-pass schedule at n: one
+    thread per work item of 16 residues of the sub-problems a CTA holds
+    (F1 and M: c of each operand; at least a warp, at most 256); shared
+    buffers of 4 (m + 1) bytes a held sub-problem, one for each state the
+    radix-2 steps of up to four sweeps leave in shared memory (F1 and I2:
+    two at most) and always two for M."""
+    tp = tfft.two_pass_split(n, 2, product=True)
+    tp = tknt.ntt_two_pass_launch(*tp)
+    for mode, m, c, held in ((2, tp.n1, tp.c1, 2 * tp.c1),
+                             (3, tp.n2, tp.cm, 2 * tp.cm),
+                             (4, tp.n1, tp.ci, tp.ci)):
+        lm = m.bit_length() - 1
+        occ = _build.occupancy("ntt_polymul", lm, c, mode)
+        assert occ["threads"] == max(32, min(256, held * max(1, m // 16)))
+        steps = -(-lm // 4)
+        buffers = 2 if mode == 3 else min(2, max(1, steps - 1))
+        assert occ["smem_bytes"] == buffers * 4 * held * (m + 1)
         assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
 
 

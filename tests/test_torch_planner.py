@@ -119,7 +119,10 @@ def test_exact_plan_is_the_fused_ntt_product(n):
     """The exact tier is planned, as in the reference: local, radix 2,
     exact. Its block is the NTT product's Hopper rule (two uint32 operands
     in two ping-pong buffers, 16n bytes a row, against the block budget);
-    a row stays resident up to n = 8192 and is staged beyond."""
+    below ``TWO_PASS_FROM["ntt_polymul"]`` a row stays resident (it would
+    up to n = 8192), from it on the product takes its split-pass schedule:
+    three launches, whatever the split, since radix 2 puts the mirrored
+    split on the sweep sequence too."""
     got = tcore.plan(n, 64, exact=True)
     want = jcore.plan(n, 64, exact=True)
     assert (got.tier, got.radix, got.exact, got.real) == \
@@ -129,12 +132,34 @@ def test_exact_plan_is_the_fused_ntt_product(n):
     rows = min(1024, max(1, 48 * 1024 // (16 * n)))
     assert got.block_b == tntt.plan_ntt_block(n) == \
         1 << (rows.bit_length() - 1)
-    assert got.resident == tntt.ntt_resident(n) == (n <= 8192)
+    assert tntt.ntt_resident(n) == (n <= 8192)
     assert "NTT (exact mod-q)" in got.describe()
-    assert ("shared-memory resident" if n <= 8192
-            else "staged through device memory") in got.describe()
+    launch = tntt.ntt_two_pass_plan(n)
+    if n < tfft.TWO_PASS_FROM["ntt_polymul"]:
+        assert launch is None and got.two_pass is None
+        assert got.resident and got.launches == 1
+        assert "shared-memory resident" in got.describe()
+    else:
+        assert got.two_pass == (launch.n1, launch.n2)
+        assert got.launches == launch.launches == 3
+        assert not got.resident
+        assert (f"two-pass {launch.n1} x {launch.n2} (3 launches"
+                in got.describe())
     with pytest.raises(ValueError, match="multi-device slice"):
         tcore.plan(n, 64, exact=True, model_shards=8)
+
+
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_rns_plan_keeps_one_cta_per_row_block(n):
+    """The multi-limb route's RNS kernel has no split-pass schedule: its
+    plan keeps the single-limb product's block and one launch, resident
+    while a product row fits shared memory."""
+    got = tcore.plan(n, 64, exact=True, rns=True)
+    assert got.two_pass is None and got.launches == 1
+    assert got.block_b == tcore.plan(n, 64, exact=True).block_b
+    assert got.resident == tntt.ntt_resident(n)
+    with pytest.raises(ValueError, match="exact=True"):
+        tcore.plan(n, 64, rns=True)
 
 
 @pytest.mark.parametrize("kw,slice_name", [

@@ -1,6 +1,7 @@
-"""The two-pass schedule of ``fft_planes`` and ``rfft_planes``
-(``repro_torch.kernels.fft``: ``two_pass_split``, ``stockham_two_pass``,
-``rfft_two_pass``) and the products' split-pass schedule
+"""The two-pass schedule of ``fft_planes``, ``rfft_planes`` and
+``irfft_planes`` (``repro_torch.kernels.fft``: ``two_pass_split``,
+``stockham_two_pass``, ``rfft_two_pass``, ``irfft_two_pass``) and the
+products' split-pass schedule
 (``repro_torch.kernels.polymul``: ``product_two_pass_plan``,
 ``polymul_complex_two_pass``, ``polymul_real_two_pass``) on the CPU,
 against the single-pass plain versions and the reference
@@ -9,12 +10,14 @@ against the single-pass plain versions and the reference
 The plain mirrors follow the kernels' dataflow: pass 1 on (B n2, n1)
 sub-rows gathered at stride n2, pass 2 on (B n1, n2) contiguous sub-rows
 with twiddles from the global block index, scattered at stride n1, and for
-the rfft the Hermitian split paired by the mirror ranges of pass 2's CTAs.
-Tolerances, each with its reason:
+the rfft the Hermitian split paired by the mirror ranges of pass 2's CTAs,
+for the irfft the unpacking per bin in pass 1's load. Tolerances, each with
+its reason:
 
   * the mirrors against ``stockham_stages`` (the port's and the
-    reference's) and ``rfft_planes_plain``: bitwise (``==``) -- the very
-    fp32 operations in the same order, only split into independent pieces;
+    reference's), ``rfft_planes_plain`` and ``irfft_planes_plain``: bitwise
+    (``==``) -- the very fp32 operations in the same order, only split into
+    independent pieces;
   * the wrappers on CPU tensors against the reference's Pallas kernels in
     interpret mode and float64 numpy: rtol 1e-4, atol 1e-4 * sqrt(n), the
     reference FFT tests' bound (interpret mode may contract or reorder fp32
@@ -32,6 +35,7 @@ from repro.kernels import fft as jfft
 from repro_torch.core import fft as tcore
 from repro_torch.kernels import _build
 from repro_torch.kernels import fft as tfft
+from repro_torch.kernels import ntt as tntt
 from repro_torch.kernels import polymul as tpoly
 
 
@@ -223,6 +227,59 @@ def test_rfft_two_pass_equals_plain(rng, n, radix, batch):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("lg", range(13, 19))
+@pytest.mark.parametrize("radix", [2, 4])
+def test_irfft_two_pass_equals_plain(rng, lg, radix):
+    """The irfft's mirror at the rfft's split equals ``irfft_planes_plain``
+    bit for bit for random packed spectra, odd and even batches (an odd one
+    pairs its last spectrum with a zero spectrum); from the threshold on it
+    is the wrapper's plan."""
+    n = 1 << lg
+    plan = tfft.two_pass_launch(*tfft.two_pass_split(n, radix, real=True))
+    if n >= tfft.TWO_PASS_FROM["irfft"]:
+        assert tfft.irfft_two_pass_plan(n, radix) == plan
+    for batch in (1, 2, 5):
+        pr, pi = (_t(v) for v in _planes(rng, batch, n // 2))
+        got = tfft.irfft_two_pass(pr, pi, radix=radix, plan=plan)
+        assert got.shape == (batch, n)
+        assert torch.equal(got, tfft.irfft_planes_plain(pr, pi, radix=radix))
+
+
+def test_irfft_unpacks_each_bin_from_one_packed_bin(rng):
+    """Pass 1's per-bin unpacking (``unpacked_bins``) gives Z = A + iB of
+    the full Hermitian spectra, bin for bin, as the whole-row unpacking of
+    ``irfft_planes_plain`` does: A_{n-k} = conj A_k, real DC and Nyquist."""
+    n, nh = 64, 32
+    pr, pi = (_t(v) for v in _planes(rng, 2, nh))
+    zr, zi = tfft.unpacked_bins(pr[None], pi[None], torch.arange(n))
+    ar, ai = tfft._unpack_full(pr[:1], pi[:1], n)
+    br, bi = tfft._unpack_full(pr[1:], pi[1:], n)
+    assert torch.equal(zr[0], (ar - bi)[0])
+    assert torch.equal(zi[0], (ai + br)[0])
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_irfft_planes_two_pass_matches_pallas(rng, radix, batch):
+    """n = 16384, where the wrapper takes two passes: the real rows against
+    the reference kernel (interpret mode) and numpy.fft.irfft of the same
+    half spectrum at rtol 1e-4, atol 1e-4 sqrt(n)."""
+    n = 16384
+    assert tfft.irfft_two_pass_plan(n, radix) is not None
+    x = rng.standard_normal((batch, n)).astype(np.float32)
+    pr, pi = (np.array(v) for v in jfft.rfft_planes(jnp.asarray(x),
+                                                    radix=radix))
+    got = tfft.irfft_planes(_t(pr), _t(pi), radix=radix).numpy()
+    tol = dict(rtol=1e-4, atol=1e-4 * np.sqrt(n))
+    want = jfft.irfft_planes(jnp.asarray(pr), jnp.asarray(pi), radix=radix)
+    np.testing.assert_allclose(got, np.asarray(want), **tol)
+    half = np.zeros((batch, n // 2 + 1), np.complex128)
+    half[:, :n // 2] = pr + 1j * pi
+    half[:, 0] = pr[:, 0]
+    half[:, n // 2] = pi[:, 0]
+    np.testing.assert_allclose(got, np.fft.irfft(half, n=n), **tol)
+
+
 @pytest.mark.parametrize("radix", [2, 4])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fft_planes_two_pass_matches_pallas(rng, radix, inverse):
@@ -283,6 +340,29 @@ def test_schedule_follows_the_threshold(n):
             assert p.two_pass == (launch.n1, launch.n2)
             assert f"two-pass {launch.n1} x {launch.n2}" in p.describe()
             assert not p.resident
+    # the irfft has no plan of its own (the library path calls it); it
+    # takes the rfft's split from its own threshold
+    launch = tfft.irfft_two_pass_plan(n, 4)
+    assert (launch is None) == (n < tfft.TWO_PASS_FROM["irfft"])
+    if launch is not None:
+        assert (launch.n1, launch.n2) == tfft.two_pass_split(n, 4, real=True)
+    # the exact tier: its split-pass schedule, three launches
+    launch = tntt.ntt_two_pass_plan(n)
+    p = tcore.plan(n, 64, exact=True)
+    if n < tfft.TWO_PASS_FROM["ntt_polymul"]:
+        assert launch is None and p.two_pass is None and p.launches == 1
+        assert "shared-memory resident" in p.describe()
+    else:
+        assert p.two_pass == (launch.n1, launch.n2)
+        assert p.launches == 3 and not p.resident
+        assert f"two-pass {launch.n1} x {launch.n2} (3 launches" in \
+            p.describe()
+
+
+def test_exact_plan_at_65536_records_the_split():
+    p = tcore.plan(65536, 64, exact=True)
+    assert p.two_pass == (256, 256) and p.launches == 3
+    assert p.exact and p.radix == 2 and not p.resident
 
 
 def test_cpu_wrappers_run_the_mirror_and_launch_nothing(rng):
@@ -305,6 +385,9 @@ def test_cpu_wrappers_run_the_mirror_and_launch_nothing(rng):
         assert torch.equal(g, w)
     assert torch.equal(tpoly.polymul_real_planes(xr, xi, radix=4),
                        tpoly.polymul_real_planes_plain(xr, xi, radix=4))
+    pr, pi = (_t(v) for v in _planes(rng, 3, n // 2))
+    assert torch.equal(tfft.irfft_planes(pr, pi, radix=4),
+                       tfft.irfft_planes_plain(pr, pi, radix=4))
     assert set(_build.LAUNCHES.values()) == {0}
 
 
