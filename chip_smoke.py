@@ -26,10 +26,15 @@ Phases (any failure exits non-zero):
      and inverse NTT, cyclic and negacyclic products, n = 2 .. 2^19
      (resident and staged), batches 1, 2, 5 and a capped block, and the
      serve batch with the planner's block; the RNS kernel at k = 9
-     (109-bit Q) and at k = 1; the NTT product's split-pass schedule
-     (``check_ntt_two_pass``) at every n from its threshold to 2^19 and
-     under both schedules at 4096 and 8192, cyclic and negacyclic, batches
-     1, 2, 5 and 64, == plain == numpy reference. Then the two
+     (109-bit Q) and at k = 1. Then the NTT kernels' split schedules
+     (``check_ntt_two_pass``), cyclic and negacyclic (the NTT forward and
+     inverse), batches 1, 2, 5 and 64, == plain == numpy reference: the
+     NTT product's split-pass schedule at every n from its threshold to
+     2^19, the RNS product's planned schedule at k = 9 and k = 1 from its
+     split threshold to 2^17 (the CRT == ``rns_polymul_reference``), the
+     NTT's two passes from its threshold to 2^19, and every schedule of
+     each at 4096 and 8192 (the RNS product: single-CTA, register steps,
+     split-pass). Then the two
      flash-attention kernels
      against their plain versions (``ATTN_CASES``), each case launching
      the kernel its (dtype, head_dim) dispatches to and the other never:
@@ -53,7 +58,9 @@ Phases (any failure exits non-zero):
      the registry's numpy oracle (bit for bit for ``polymul-mod``), and the
      launch counters, zeroed just before this phase, must show one kernel
      launch per dispatched batch of the kernel's route besides the warmups'
-     launches. Then the library path, counters zeroed again: the rfft ->
+     launches, and the RNS route's calls all under its planned schedule
+     (``_build.SCHEDULES``). Then the library path, counters zeroed again:
+     the rfft ->
      irfft round trip through ``core.fft`` and the NTT -> inverse NTT round
      trip through ``kernels.ntt.ntt_batched`` at the serve shapes.
      A separate traced run per serve cell then gives the card's idle share
@@ -89,12 +96,16 @@ Phases (any failure exits non-zero):
      kernel's launch configuration and the CTAs an SM holds come from the
      CUDA occupancy API, for each launch of a two-pass call, whose traced
      time counts the call's launches (and a trace splits it by kernel,
-     with the bytes and TB/s of the irfft's and the NTT product's
-     launches); the two-pass kernels and the NTT product also by CUDA
-     events around a CUDA-graph replay. Then the A/B of the two schedules
-     of the fft, the rfft, the irfft, both products and the NTT product at
-     n = 4096 and 8192 (``schedule_ab``: in turns single-CTA, two-pass,
-     two-pass, single-CTA), which sets the planner's thresholds.
+     with the bytes and TB/s of the irfft's and the NTT kernels'
+     launches); the two-pass kernels and the NTT kernels (the RNS product
+     also at n = 65536, k = 9) also by CUDA events around a CUDA-graph
+     replay. Then the A/B of the schedules of the fft, the rfft, the
+     irfft, both products and the NTT product at n = 4096 and 8192, of the
+     RNS product at k = 9 (``RNS_AB_NS``: single-CTA, register steps,
+     split-pass) and of ntt_batched forward and inverse (``NTT_AB_NS``)
+     (``schedule_ab``: in turns single-CTA, two-pass, two-pass,
+     single-CTA, the register steps between), which sets the planner's
+     thresholds.
      The CUDA-core flash kernel is timed in fp32 and at gemma3-4b's bf16
      head_dim 320 (``ATTN_TIMED``). Then the LM
      cell: prefill ms, decode ms per token and tok/s, and a traced run for
@@ -108,6 +119,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import json
@@ -612,8 +624,8 @@ def check_ntt_kernels(torch, kntt, ntt_core, core_fft) -> dict[str, int]:
               f" resident={kntt.ntt_resident(n, product=False)}/"
               f"{kntt.ntt_resident(n)} forward, inverse, cyclic and "
               f"negacyclic == plain == numpy reference", flush=True)
-    # RNS: k = 9 limbs (the serve cell, resident), one limb, and a staged
-    # multi-limb case
+    # RNS: k = 9 limbs (the serve cell, register steps), one limb, and a
+    # split-pass multi-limb case
     for n, kw, cases in ((RNS_N, {"modulus_bits": RNS_BITS},
                           [(1, None), (5, 2), (SERVE_BATCH, "plan")]),
                          (256, {"modulus": 17}, [(3, None)]),
@@ -678,19 +690,95 @@ def ntt_launch_under(kntt, schedule, params, negacyclic: bool):
     return run
 
 
-def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> int:
-    """``ntt_polymul``'s split-pass schedule at every n from its threshold
-    to 2^19, and both schedules at 4096 and 8192, cyclic and negacyclic,
-    batches 1, 2, 5 and the serve batch: each result equal to the plain
-    version (``==``), whose first rows (five; two from 2^17 on, where the
-    host's numpy takes seconds a row) equal the numpy reference. Returns
-    the cases held."""
+def rns_schedules(kntt, kfft, n: int, every: bool = False) -> dict:
+    """The schedules of ``rns_ntt_polymul`` at length n, the planner's
+    first: {"resident" or "staged" (the single-CTA kernel), "register-step"
+    or "split-pass": the ``rns_schedule`` kind}; with ``every`` each one
+    that runs at n."""
+    single = "resident" if kntt.ntt_resident(n) else "staged"
+
+    def label(sched):
+        return single if sched is None else kntt.schedule_name(sched)
+    planned = kntt.rns_schedule(n)
+    out = {label(planned): planned}
+    if every:
+        out.setdefault(single, None)
+        if kntt.rns_steps_smem_bytes(n) <= kfft.SMEM_MAX_BYTES:
+            out.setdefault("register-step", kntt.RNSRegisterSteps(n))
+        split = kfft.two_pass_split(n, 2, product=True)
+        if split is not None:
+            out.setdefault("split-pass", kntt.ntt_two_pass_launch(*split))
+    return out
+
+
+def rns_launch_under(kntt, schedule, rns, negacyclic: bool):
+    """``rns_ntt_polymul`` under a given schedule: through the wrapper
+    where it is the planner's, else through the launch helper the wrapper
+    calls (one count on its counter)."""
+    def run(a, b):
+        if schedule == kntt.rns_schedule(rns.n):
+            return kntt.rns_ntt_polymul(a, b, rns, negacyclic=negacyclic)
+        return kntt._launch_rns_ntt_polymul(a, b, rns, negacyclic,
+                                            kntt.plan_ntt_block(rns.n),
+                                            schedule)
+    return run
+
+
+def ntt_batched_schedules(kntt, kfft, n: int, every: bool = False
+                          ) -> dict:
+    """The schedules of ``ntt_batched`` at length n, the planner's first:
+    {"two-pass": the ``TwoPass``, "resident" or "staged": None}; with
+    ``every`` both."""
+    planned = kntt.ntt_batched_two_pass_plan(n)
+    single = "resident" if kntt.ntt_resident(n, product=False) else "staged"
+    out = {("two-pass" if planned else single): planned}
+    if every:
+        out.setdefault(single, None)
+        out.setdefault("two-pass", kfft.two_pass_launch(
+            *kfft.two_pass_split(n, 2)))
+    return out
+
+
+def ntt_batched_launch_under(kntt, schedule, params, inverse: bool):
+    """``ntt_batched`` under a given schedule, as ``rns_launch_under``."""
+    def run(x):
+        if schedule == kntt.ntt_batched_two_pass_plan(params.n):
+            return kntt.ntt_batched(x, params, inverse=inverse)
+        return kntt._launch_ntt_batched(
+            x, params, inverse, kntt.plan_ntt_block(params.n, product=False),
+            schedule)
+    return run
+
+
+#: lengths at which check_ntt_two_pass holds the RNS product's schedules
+#: (from its split-pass threshold) and ntt_batched's (from its two-pass
+#: threshold), besides BOTH_SCHEDULES_NS
+RNS_TWO_PASS_TOP, NTT_TWO_PASS_TOP = 1 << 17, 1 << 19
+
+
+def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> dict[str, int]:
+    """The NTT kernels' split schedules, cyclic and negacyclic (forward and
+    inverse for the NTT), batches 1, 2, 5 and the serve batch, each result
+    equal to the plain version (``==``), whose first rows (five; two from
+    2^17 on, where the host's numpy takes seconds a row) equal the numpy
+    reference: ``ntt_polymul``'s split-pass schedule at every n from its
+    threshold to 2^19; ``rns_ntt_polymul``'s planned schedule at k = 9
+    (109-bit Q) and k = 1 from its split threshold to 2^17, the CRT of the
+    first row of the first batch == ``rns_polymul_reference``;
+    ``ntt_batched``'s two passes from its threshold to 2^19; and every
+    schedule of each at 4096 and 8192. Returns the cases held per
+    kernel."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
-    held = 0
-    lo = kfft.TWO_PASS_FROM["ntt_polymul"].bit_length() - 1
-    for n in sorted(set(BOTH_SCHEDULES_NS)
-                    | {1 << k for k in range(lo, 20)}):
+    held = dict.fromkeys(("ntt_polymul", "rns_ntt_polymul", "ntt_batched"),
+                         0)
+
+    def lengths(name, top):
+        lo = kfft.TWO_PASS_FROM[name].bit_length() - 1
+        return sorted(set(BOTH_SCHEDULES_NS)
+                      | {1 << k for k in range(lo, top.bit_length())})
+
+    for n in lengths("ntt_polymul", 1 << 19):
         p = ntt_core.NTTParams.make(n)
         rows = 5 if n <= 1 << 16 else 2
         done = set()
@@ -712,12 +800,87 @@ def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> int:
                         raise SystemExit(
                             f"ntt_polymul n={n} batch={b} negacyclic={neg} "
                             f"{label}: kernel and plain version differ")
-                    held += 1
+                    held["ntt_polymul"] += 1
                     done.add(label)
-        print(f"[ntt two-pass] n={n} batches {TWO_PASS_BATCHES} cyclic and "
-              f"negacyclic, schedules {sorted(done)} "
+        print(f"[ntt two-pass] ntt_polymul n={n} batches {TWO_PASS_BATCHES} "
+              f"cyclic and negacyclic, schedules {sorted(done)} "
               f"(split {kfft.two_pass_split(n, 2, product=True)}): kernel "
               f"== plain == numpy reference", flush=True)
+    for n in lengths("rns_ntt_polymul", RNS_TWO_PASS_TOP):
+        rows = 5 if n <= 1 << 16 else 2
+        scheds = rns_schedules(kntt, kfft, n, every=n in BOTH_SCHEDULES_NS)
+        for kw in ({"modulus_bits": RNS_BITS}, {"modulus": 17}):
+            r = ntt_core.RNSParams.make(n, **kw)
+            for b in TWO_PASS_BATCHES:
+                # the first rows from polynomials mod Q (for the CRT), the
+                # rest any residues of each limb
+                polys = [np.stack([ntt_core.random_poly(rng, n, r.modulus)
+                                   for _ in range(min(b, rows))])
+                         for _ in range(2)]
+                ta, tb = (torch.from_numpy(np.concatenate(
+                    [ntt_core.to_rns(x, r).astype(np.uint32),
+                     np.stack([rng.integers(0, q, (b - len(x), n))
+                               for q in r.qs]).astype(np.uint32)],
+                    axis=1)).to(dev) for x in polys)
+                for neg in (True, False):
+                    plain = kntt.rns_ntt_polymul_plain(ta, tb, r,
+                                                       negacyclic=neg)
+                    fn = (ntt_core.negacyclic_polymul if neg
+                          else ntt_core.cyclic_polymul)
+                    want = np.stack([fn(ta[i, :rows].cpu().numpy(),
+                                        tb[i, :rows].cpu().numpy(), lp)
+                                     for i, lp in enumerate(r.limbs)])
+                    if not (kntt.residues_to_numpy(plain[:, :rows])
+                            == want).all():
+                        raise SystemExit(f"rns_ntt_polymul_plain n={n} "
+                                         f"{kw}: not the numpy reference")
+                    if b == TWO_PASS_BATCHES[0] and (
+                            ntt_core.crt_to_modulus(kntt.residues_to_numpy(
+                                plain[:, :1]), r)
+                            != ntt_core.rns_polymul_reference(
+                                polys[0][:1], polys[1][:1], r,
+                                negacyclic=neg)).any():
+                        raise SystemExit(f"rns_ntt_polymul n={n} {kw}: CRT "
+                                         f"is not the reference mod Q")
+                    for label, sched in scheds.items():
+                        got = rns_launch_under(kntt, sched, r, neg)(ta, tb)
+                        if not torch.equal(got, plain):
+                            raise SystemExit(
+                                f"rns_ntt_polymul n={n} k={r.k} batch={b} "
+                                f"negacyclic={neg} {label}: kernel and "
+                                f"plain version differ")
+                        held["rns_ntt_polymul"] += 1
+        print(f"[ntt two-pass] rns_ntt_polymul n={n} k=9 and k=1 batches "
+              f"{TWO_PASS_BATCHES} cyclic and negacyclic, schedules "
+              f"{list(scheds)} (the planner's first): kernel == plain == "
+              f"numpy reference, CRT == reference mod Q", flush=True)
+    for n in lengths("ntt_batched", NTT_TWO_PASS_TOP):
+        p = ntt_core.NTTParams.make(n)
+        rows = 5 if n <= 1 << 16 else 2
+        scheds = ntt_batched_schedules(kntt, kfft, n,
+                                       every=n in BOTH_SCHEDULES_NS)
+        for b in TWO_PASS_BATCHES:
+            x = torch.from_numpy(rng.integers(0, 2**32, (b, n)).astype(
+                np.uint32)).to(dev)
+            for inverse in (False, True):
+                plain = kntt.ntt_batched_plain(x, p, inverse=inverse)
+                want = (ntt_core.intt if inverse else ntt_core.ntt)(
+                    x[:rows].cpu().numpy(), p)
+                if not (kntt.residues_to_numpy(plain[:rows]) == want).all():
+                    raise SystemExit(f"ntt_batched_plain n={n}: not the "
+                                     f"numpy reference")
+                for label, sched in scheds.items():
+                    got = ntt_batched_launch_under(kntt, sched, p,
+                                                   inverse)(x)
+                    if not torch.equal(got, plain):
+                        raise SystemExit(
+                            f"ntt_batched n={n} batch={b} inverse={inverse} "
+                            f"{label}: kernel and plain version differ")
+                    held["ntt_batched"] += 1
+        print(f"[ntt two-pass] ntt_batched n={n} batches {TWO_PASS_BATCHES} "
+              f"forward and inverse, schedules {list(scheds)} (split "
+              f"{kfft.two_pass_split(n, 2)}): kernel == plain == numpy "
+              f"reference", flush=True)
     torch.cuda.synchronize()
     return held
 
@@ -726,19 +889,24 @@ def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> int:
 # Phase 3: the serve path
 # ---------------------------------------------------------------------------
 
-def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
+def serve_phase(serve, engine_mod, build
+                ) -> tuple[dict, dict, collections.Counter]:
     """Drive FFTService per serve cell, then one mixed engine; verify every
     result. Returns the batches each route dispatched while serving, and
-    the launches each kernel made in the warmups, for the launch-counter
-    check."""
+    the launches each kernel made in the warmups, in all and per schedule
+    (``build.SCHEDULES``), for the launch-counter check."""
     expected: dict[str, int] = {}
     warm = dict.fromkeys(TRANSFORM_KERNELS, 0)
+    warm_schedules: collections.Counter = collections.Counter()
 
     def warmup(eng):
         before = dict(build.LAUNCHES)
+        before_schedules = collections.Counter(build.SCHEDULES)
         eng.warmup()
         for name in warm:
             warm[name] += build.LAUNCHES[name] - before[name]
+        warm_schedules.update(collections.Counter(build.SCHEDULES)
+                              - before_schedules)
 
     def drain(eng, combos, n_requests, seed):
         kept, stats = serve.produce(eng, combos, n_requests,
@@ -773,7 +941,7 @@ def serve_phase(serve, engine_mod, build) -> tuple[dict, dict]:
           f"{stats['throughput_per_s']:.1f} req/s p50={lat['p50']:.3f}ms "
           f"p99={lat['p99']:.3f}ms buckets={len(stats['buckets'])}",
           flush=True)
-    return expected, warm
+    return expected, warm, warm_schedules
 
 
 def library_phase(torch, core_fft, kntt, ntt_core) -> None:
@@ -804,7 +972,7 @@ def library_phase(torch, core_fft, kntt, ntt_core) -> None:
 #: Device-side names of the serve routes' own kernels in a profiler trace.
 ROUTE_KERNEL = re.compile(
     r"(^|::)(fft|rfft|polymul|polymul_complex|polymul_real|ntt_polymul|"
-    r"rns_ntt_polymul)(_pass[12]|_mid)?_kernel\b")
+    r"rns_ntt_polymul)(_pass[12]|_mid|_steps)?_kernel\b")
 
 
 def idle_shares(torch, serve, card: str) -> dict:
@@ -1047,10 +1215,10 @@ def passes_entry(build, tp, launches) -> dict:
             "two_pass": f"{tp.n1} x {tp.n2}", "passes": passes}
 
 
-def ntt_pass_occupancy(build, tp) -> dict:
-    """Each launch of ``ntt_polymul``'s split-pass schedule ``tp``, in
+def ntt_pass_occupancy(build, tp, name: str = "ntt_polymul") -> dict:
+    """Each launch of the split-pass schedule ``tp`` of ``ntt_polymul`` (or
+    ``rns_ntt_polymul``, the same launches with the limb as grid row y), in
     order, with what the occupancy API reports for it."""
-    name = "ntt_polymul"
     return passes_entry(build, tp, [
         ("F1: forward pass 1 of a and b", 2 * tp.c1, tp.n1, name, tp.c1, 2),
         ("M: forward pass 2, product, inverse pass 1", 2 * tp.cm, tp.n2,
@@ -1060,7 +1228,8 @@ def ntt_pass_occupancy(build, tp) -> dict:
 
 #: Bytes one launch of a kernel moves for a batch of b rows of n points
 #: (each array it reads or writes once; the twiddle tables left out): the
-#: launches of the irfft and of the NTT product under their two schedules.
+#: launches of the irfft and of the three NTT kernels under their
+#: schedules (for the RNS product b counts rows times limbs).
 LAUNCH_BYTES = {
     "irfft_kernel": lambda n, b: 8 * b * n,
     "irfft_pass1_kernel": lambda n, b: 16 * n * ((b + 1) // 2),
@@ -1069,6 +1238,11 @@ LAUNCH_BYTES = {
     "ntt_polymul_pass1_kernel": lambda n, b: 16 * b * n,
     "ntt_polymul_mid_kernel": lambda n, b: 12 * b * n,
     "ntt_polymul_pass2_kernel": lambda n, b: 8 * b * n,
+    "rns_ntt_polymul_kernel": lambda n, b: 12 * b * n,
+    "rns_ntt_polymul_steps_kernel": lambda n, b: 12 * b * n,
+    "ntt_kernel": lambda n, b: 8 * b * n,
+    "ntt_pass1_kernel": lambda n, b: 8 * b * n,
+    "ntt_pass2_kernel": lambda n, b: 8 * b * n,
 }
 
 
@@ -1086,6 +1260,8 @@ def launch_text(entry: dict) -> str:
         return (f"{rows}, {e['threads']} threads, {e['smem_bytes']} B "
                 f"shared, {e['regs']} regs/thread -> {e['ctas_per_sm']} "
                 f"CTAs/SM")
+    if entry.get("register_steps"):
+        return one(entry, "register steps, 1 row and limb/CTA")
     if "passes" not in entry:
         return one(entry, f"{entry['rows_per_cta']} rows/CTA")
     return (f"two-pass {entry['two_pass']}, {entry['launches_per_call']} "
@@ -1131,7 +1307,7 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
     one), by which the traced launches are counted into calls, and where
     it is above 1 a trace splits the call's time by kernel (``by_kernel``);
     ``graph`` adds the kernel's CUDA-graph replay time (``graph_ms``)
-    beside the others."""
+    beside the others, and the trace by kernel even of a single launch."""
     reps = max(len(sets), 20)
     got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
                  for f in (kern, plain))
@@ -1168,7 +1344,7 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
             "library_graph_event_ms": graph_ms(torch, lib, lib_sets, reps)
             if graph and lib else None,
             "by_kernel": by_kernel(torch, kern, sets, reps)
-            if launches_per_call > 1 else None,
+            if launches_per_call > 1 or graph else None,
             "plain_event_ms": plain_ev,
             "library_event_ms": lib and time_ms(torch, lib, lib_sets, reps)}
 
@@ -1294,20 +1470,24 @@ def timings(torch, kfft, kpoly, core_fft, build, card: str) -> dict:
     return out
 
 
+#: the order of a kernel's schedules in the A/B turns: its single-CTA
+#: kernel, the RNS product's register steps, the split
+AB_ORDER = {"resident": 0, "staged": 0, "register-step": 1}
+
+
 def ab_turns(torch, name: str, n: int, fns: dict, launches: dict, sets,
              want, planned: str, card: str) -> dict:
-    """One A/B of a kernel's two schedules ``fns`` (label -> call) at
-    length n, batch 64: each schedule's result must equal the plain
-    version's ``want`` bit for bit; then in turns single-CTA, two-pass,
-    two-pass, single-CTA the time per call by CUDA events around a
-    CUDA-graph replay of the calls (``graph_ms``: the card's time, without
-    the host's launch gaps, which at these sizes exceed the kernels'), the
-    device time from the profiler (a call's launches counted) and the
-    CUDA-event time of calls issued one by one (host gaps included). A
-    schedule is faster where each of its turns beats each of the
-    other's."""
-    two_label = next(label for label in fns if label.endswith("-pass"))
-    single = next(label for label in fns if label != two_label)
+    """One A/B of a kernel's schedules ``fns`` (label -> call) at length n,
+    batch 64: each schedule's result must equal the plain version's
+    ``want`` bit for bit; then in turns single-CTA, (register-step,)
+    two-pass, two-pass, (register-step,) single-CTA the time per call by
+    CUDA events around a CUDA-graph replay of the calls (``graph_ms``: the
+    card's time, without the host's launch gaps, which at these sizes
+    exceed the kernels'), the device time from the profiler (a call's
+    launches counted) and the CUDA-event time of calls issued one by one
+    (host gaps included). A schedule is faster where each of its turns
+    beats each of every other's."""
+    order = sorted(fns, key=lambda label: AB_ORDER.get(label, 2))
     for label, fn in fns.items():
         got = fn(*sets[0])
         if not all(torch.equal(g, w) for g, w in
@@ -1316,8 +1496,8 @@ def ab_turns(torch, name: str, n: int, fns: dict, launches: dict, sets,
                              f"version")
     reps = max(len(sets), 20)
     runs = {label: {"graph_ms": [], "device_ms": [], "event_ms": []}
-            for label in fns}
-    for label in (single, two_label, two_label, single):
+            for label in order}
+    for label in order + order[::-1]:
         runs[label]["graph_ms"].append(graph_ms(torch, fns[label], sets,
                                                 reps))
         ms, _ = device_ms(torch, fns[label], sets, reps,
@@ -1326,18 +1506,18 @@ def ab_turns(torch, name: str, n: int, fns: dict, launches: dict, sets,
         runs[label]["event_ms"].append(time_ms(torch, fns[label], sets,
                                                reps))
     best = {label: min(r["graph_ms"]) for label, r in runs.items()}
-    # faster: every turn of one schedule below every turn of the other;
-    # otherwise the two are within the turns' spread
-    one, two = runs[single]["graph_ms"], runs[two_label]["graph_ms"]
-    faster = (two_label if max(two) < min(one) else
-              single if max(one) < min(two) else
-              "neither (within the turns' spread)")
+    # faster: every turn of one schedule below every turn of the others;
+    # otherwise the fastest are within the turns' spread
+    faster = next((label for label in order if all(
+        max(runs[label]["graph_ms"]) < min(runs[other]["graph_ms"])
+        for other in order if other != label)),
+        "neither (within the turns' spread)")
 
     def fmt(ts):
         return ", ".join(f"{t:.4f}" for t in ts)
 
-    print(f"[ab] {name} n={n} batch={SERVE_BATCH}, in turns {single}, "
-          f"{two_label}, {two_label}, {single}: ms per call by CUDA events "
+    print(f"[ab] {name} n={n} batch={SERVE_BATCH}, in turns "
+          f"{', '.join(order + order[::-1])}: ms per call by CUDA events "
           f"around a CUDA-graph replay "
           + "; ".join(f"{label} ({launches[label]} launch(es)) "
                       f"{fmt(r['graph_ms'])} (profiler device ms "
@@ -1349,15 +1529,27 @@ def ab_turns(torch, name: str, n: int, fns: dict, launches: dict, sets,
             "planned": planned, "launches_per_call": launches}
 
 
+#: the A/B lengths of the RNS product (k = 9 limbs, 109-bit Q) and of
+#: ntt_batched: where the thresholds of ``kernels.fft.TWO_PASS_FROM`` and
+#: ``REGISTER_STEPS_FROM`` could fall, and 65536, where the single-CTA
+#: kernel (staged) is timed beside the split
+RNS_AB_NS = (16, 32, 4096, 8192, 16384, 65536)
+NTT_AB_NS = (1024, 2048, 4096, 8192, 65536)
+
+
 def schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card: str) -> dict:
-    """The kernels with two schedules at n = 4096 and 8192, batch 64, under
-    both (``ab_turns``): the float ones (the fft forward, the rfft, the
-    irfft, both products) at radix 4, the planner's -- the single-CTA
-    schedule (resident; for the products staged at 8192) against the
-    two-pass one (split-pass for the products) -- and the NTT product
-    (negacyclic, radix 2), resident against split-pass. The planner's
-    thresholds (``kernels.fft.TWO_PASS_FROM``) are set from the graph times
-    of such a run: two passes only where they are faster."""
+    """The kernels with several schedules, batch 64, under each
+    (``ab_turns``): at n = 4096 and 8192 the float ones (the fft forward,
+    the rfft, the irfft, both products) at radix 4, the planner's -- the
+    single-CTA schedule (resident; for the products staged at 8192)
+    against the two-pass one (split-pass for the products) -- and the NTT
+    product (negacyclic, radix 2), resident against split-pass; at
+    ``RNS_AB_NS`` the RNS product (negacyclic, k = 9), single-CTA, register
+    steps (where two rows fit a CTA) and split-pass; at ``NTT_AB_NS``
+    ntt_batched, forward and inverse, single-CTA against two passes. The
+    planner's thresholds (``kernels.fft.TWO_PASS_FROM`` and
+    ``REGISTER_STEPS_FROM``) are set from the graph times of such a run: a
+    schedule only where it is faster."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(9)
     out: dict[str, dict] = {}
@@ -1400,22 +1592,86 @@ def schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card: str) -> dict:
         out["ntt_polymul"][n] = ab_turns(
             torch, "ntt_polymul", n, fns, launches, sets,
             kntt.ntt_polymul_plain(*sets[0], p), next(iter(scheds)), card)
+    out["rns_ntt_polymul"] = {}
+    for n in RNS_AB_NS:
+        r = ntt_core.RNSParams.make(n, modulus_bits=RNS_BITS)
+        sets = [[torch.from_numpy(np.stack(
+            [rng.integers(0, q, (b, n)) for q in r.qs]).astype(
+                np.uint32)).to(dev) for _ in range(2)]
+            for _ in range(max(2, math.ceil(128e6 / (2 * r.k * b * n * 4))))]
+        scheds = rns_schedules(kntt, kfft, n, every=True)
+        fns = {label: rns_launch_under(kntt, sched, r, True)
+               for label, sched in scheds.items()}
+        launches = {label: 1 if sched is None else sched.launches
+                    for label, sched in scheds.items()}
+        out["rns_ntt_polymul"][n] = ab_turns(
+            torch, "rns_ntt_polymul", n, fns, launches, sets,
+            kntt.rns_ntt_polymul_plain(*sets[0], r), next(iter(scheds)),
+            card)
+    out["ntt_batched"] = {}
+    for n in NTT_AB_NS:
+        p = ntt_core.NTTParams.make(n)
+        sets = [[torch.from_numpy(rng.integers(0, p.q, (b, n)).astype(
+            np.uint32)).to(dev)]
+            for _ in range(max(2, math.ceil(128e6 / (b * n * 4))))]
+        scheds = ntt_batched_schedules(kntt, kfft, n, every=True)
+        out["ntt_batched"][n] = {}
+        for inverse in (False, True):
+            fns = {label: ntt_batched_launch_under(kntt, sched, p, inverse)
+                   for label, sched in scheds.items()}
+            launches = {label: 1 if sched is None else sched.launches
+                        for label, sched in scheds.items()}
+            key = "inverse" if inverse else "forward"
+            out["ntt_batched"][n][key] = ab_turns(
+                torch, f"ntt_batched ({key})", n, fns, launches, sets,
+                kntt.ntt_batched_plain(sets[0][0], p, inverse=inverse),
+                next(iter(scheds)), card)
     return out
 
 
+def ntt_occupancy(build, kntt, name: str, n: int, b: int, block: int
+                  ) -> dict:
+    """Launch configuration and CTAs per SM of NTT kernel ``name`` as its
+    wrapper launches it at length n, batch b, under the planned schedule:
+    each launch of a split, the register-step kernel, or one CTA per
+    ``block`` rows at most."""
+    lg = n.bit_length() - 1
+    if name == "ntt_batched":
+        tp = kntt.ntt_batched_two_pass_plan(n)
+        if tp is not None:
+            return passes_entry(build, tp, [
+                ("pass 1", tp.c1, tp.n1, name, tp.c1, 2),
+                ("pass 2, bins in natural order", tp.c2, tp.n2, name, tp.c2,
+                 3)])
+    else:
+        tp = (kntt.rns_schedule(n) if name == "rns_ntt_polymul"
+              else kntt.ntt_two_pass_plan(n))
+        if isinstance(tp, kntt.NTTTwoPass):
+            return ntt_pass_occupancy(build, tp, name)
+        if isinstance(tp, kntt.RNSRegisterSteps):
+            return {"rows_per_cta": 1, "register_steps": True,
+                    "staged": False, "launches_per_call": 1,
+                    **build.occupancy(name, lg, 1, 5)}
+    rows, staged = kntt.ntt_cta_rows(n, b, block,
+                                     product=name != "ntt_batched")
+    return {"rows_per_cta": rows, "staged": staged, "launches_per_call": 1,
+            **build.occupancy(name, lg, rows, staged)}
+
+
 def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
-    """The three NTT kernels at the serve shapes: ntt_polymul and
-    ntt_batched at n = 4096 and 65536, rns_ntt_polymul at the RNS cell,
-    batch 64, on uint32 words as the serve path stages them. No PyTorch
-    call computes an NTT mod q, so there is no library time. Under its
-    split-pass schedule ntt_polymul also gets its CUDA-graph replay time
-    and each launch's traced time, bytes and TB/s and occupancy."""
+    """The three NTT kernels at the serve lengths, batch 64, on uint32
+    words as the serve path stages them, each under its planned schedule:
+    ntt_polymul and ntt_batched at n = 4096 and 65536, rns_ntt_polymul at
+    the RNS cell (n = 4096, k = 9 at 109-bit Q) and at n = 65536 (k = 9).
+    No PyTorch call computes an NTT mod q, so there is no library time.
+    Each also gets its CUDA-graph replay time and each launch's traced
+    time, bytes, TB/s and occupancy."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
     out: dict[str, dict] = {name: {} for name in NTT_KERNELS}
     b = SERVE_BATCH
-    shapes = [("ntt_polymul", n) for n in SERVE_NS] + \
-        [("ntt_batched", n) for n in SERVE_NS] + [("rns_ntt_polymul", RNS_N)]
+    shapes = [(name, n) for name in ("ntt_polymul", "ntt_batched",
+                                     "rns_ntt_polymul") for n in SERVE_NS]
     for name, n in shapes:
         plan = core_fft.plan(n, b, exact=True,
                              rns=name == "rns_ntt_polymul")
@@ -1432,7 +1688,8 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
             if name == "ntt_batched":
                 plan = dataclasses.replace(
                     plan, block_b=kntt.plan_ntt_block(n, product=False),
-                    resident=kntt.ntt_resident(n, product=False))
+                    resident=kntt.ntt_batched_two_pass_plan(n) is None
+                    and kntt.ntt_resident(n, product=False))
             kern = functools.partial(getattr(kntt, name), params=p,
                                      block_b=plan.block_b)
             plain = functools.partial(getattr(kntt, f"{name}_plain"),
@@ -1445,27 +1702,18 @@ def ntt_timings(torch, kntt, ntt_core, core_fft, build, card: str) -> dict:
                 (w if k > 1 else w[0]).astype(np.uint32)).to(dev)
                 for w in words])
         nbytes, ops = ntt_work(name, n, b, k)
-        split = kntt.ntt_two_pass_plan(n) if name == "ntt_polymul" else None
-        if split is not None:
-            occ = ntt_pass_occupancy(build, split)
-        else:
-            rows, staged = kntt.ntt_cta_rows(n, b, plan.block_b,
-                                             product=name != "ntt_batched")
-            occ = {"rows_per_cta": rows, "staged": staged,
-                   "launches_per_call": 1,
-                   **build.occupancy(name, n.bit_length() - 1, rows,
-                                     staged)}
+        occ = ntt_occupancy(build, kntt, name, n, b, plan.block_b)
         entry = measure(torch, name, n, kern, plain, sets, None, None,
                         exact=True,
                         bound=(nbytes / HBM_BYTES_PER_S * 1e3,
                                ops / INT32_OPS_PER_S * 1e3,
                                "int32 operations"),
                         launches_per_call=occ["launches_per_call"],
-                        graph=name == "ntt_polymul")
+                        graph=True)
         entry.update(library="none: no PyTorch call computes an NTT mod q",
                      bytes=nbytes, int32_ops=ops, limbs=k,
                      block_b=plan.block_b, resident=plan.resident, **occ)
-        add_launch_rates(entry, n, b)
+        add_launch_rates(entry, n, b * k)
         out[name][n] = entry
         report_line(name, n, entry, card)
     return out
@@ -2037,20 +2285,19 @@ def main() -> int:
     worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
     worst.update(check_attention(torch, kattn, _build))
     two_pass_held = check_two_pass(torch, kfft, kpoly)
-    two_pass_held["ntt_polymul"] = check_ntt_two_pass(torch, kntt, ntt_core,
-                                                      kfft)
+    two_pass_held.update(check_ntt_two_pass(torch, kntt, ntt_core, kfft))
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
     print(f"[kernels] all ten held against their plain versions (the "
           f"transform kernels against numpy too; fft, rfft, irfft, both "
-          f"products and the NTT product bit for bit under both schedules "
-          f"in {two_pass_held} cases); launches {moved}; worst "
+          f"products and the three NTT kernels bit for bit under every "
+          f"schedule in {two_pass_held} cases); launches {moved}; worst "
           f"|kernel-plain| {worst}", flush=True)
 
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
-    expected, warm = serve_phase(serve, engine_mod, _build)
+    expected, warm, warm_schedules = serve_phase(serve, engine_mod, _build)
     launches = dict(_build.LAUNCHES)
     for name, (route, _, _) in TRANSFORM_KERNELS.items():
         served = launches[name] - warm[name]
@@ -2061,6 +2308,23 @@ def main() -> int:
                              f"of route {route})")
     print(f"[serve] launch counters {launches}: warmups {warm}, the rest "
           f"== dispatched batches per route {expected}", flush=True)
+    # the RNS route's calls while serving, by schedule: each dispatched
+    # batch under the planned one (its kernel launches: the plan's)
+    served = collections.Counter(_build.SCHEDULES) - warm_schedules
+    rns_route = TRANSFORM_KERNELS["rns_ntt_polymul"][0]
+    planned = kntt.rns_schedule(RNS_N)
+    took = {sched: c for (name, sched), c in served.items()
+            if name == "rns_ntt_polymul"}
+    if took != {kntt.schedule_name(planned): expected[rns_route]}:
+        raise SystemExit(f"rns_ntt_polymul: calls by schedule while "
+                         f"serving {took}, expected "
+                         f"{expected[rns_route]} under the planned "
+                         f"{kntt.schedule_name(planned)}")
+    print(f"[serve] calls by schedule while serving {dict(served)}: the RNS "
+          f"route's {expected[rns_route]} batches all under its planned "
+          f"{kntt.schedule_name(planned)} schedule "
+          f"({1 if planned is None else planned.launches} kernel "
+          f"launch(es) each)", flush=True)
     # the library path, counters zeroed just before
     _build.reset_launches()
     library_phase(torch, core_fft, kntt, ntt_core)

@@ -6,18 +6,20 @@ card: radix (2 or 4), rows per CTA, and the schedule: a row resident in
 one CTA's shared memory, the two-pass schedule (each CTA holding whole
 sub-problems of a split n = n1 x n2: two launches for the FFT and the real
 FFT, three or four for the products' split-pass schedule, three for the
-exact product's), or one CTA per row staging its sweeps through a
-device-memory scratch. Only the local tiers exist in this package, float
-and exact (NTT): the distributed four-step tiers and the cost-model auto
-mode raise and name the slice that ports them.
+exact products'), the RNS product's register-step schedule (one CTA per
+row and limb, its sweeps in registers), or one CTA per row staging its
+sweeps through a device-memory scratch. Only the local tiers exist in
+this package, float and exact (NTT): the distributed four-step tiers and
+the cost-model auto mode raise and name the slice that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
-from repro_torch.kernels.ntt import (ntt_resident, ntt_two_pass_plan,
-                                     plan_ntt_block)
+from repro_torch.kernels.ntt import (RNSRegisterSteps, ntt_resident,
+                                     ntt_two_pass_plan, plan_ntt_block,
+                                     rns_schedule)
 from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block,
                                          product_two_pass_plan)
@@ -49,9 +51,13 @@ class FFTPlan:
     #: (n1, n2) where the kernel runs its two-pass schedule
     #: (``kernels.fft.two_pass_plan``; for the products
     #: ``kernels.polymul.product_two_pass_plan``, for the exact product
-    #: ``kernels.ntt.ntt_two_pass_plan``); None where one CTA takes whole
-    #: rows.
+    #: ``kernels.ntt.ntt_two_pass_plan``, for the RNS product
+    #: ``kernels.ntt.rns_schedule``); None where one CTA takes whole rows.
     two_pass: tuple[int, int] | None = None
+    #: the RNS product's register-step schedule (``kernels.ntt.
+    #: RNSRegisterSteps``): one CTA per row and limb, shared-memory
+    #: resident, up to four radix-2 sweeps a step in registers.
+    register_steps: bool = False
     #: the kernel launches a call makes: 1 for one CTA per row block, 2
     #: for the transforms' two passes, 3 or 4 for the products' split-pass
     #: schedule (3 where the mirrored split n2 x n1 is on the sweep sequence
@@ -76,6 +82,10 @@ class FFTPlan:
             return (f"local CUDA {kind} kernel, radix-{self.radix}, "
                     f"two-pass {n1} x {n2} ({self.launches} launches: "
                     f"{steps}; whole sub-problems per CTA)")
+        if self.register_steps:
+            return (f"local CUDA {kind} kernel, radix-{self.radix}, one row "
+                    f"and limb per CTA (shared-memory resident; register "
+                    f"steps of up to four sweeps)")
         where = ("shared-memory resident" if self.resident
                  else "single-CTA staged through device memory")
         return (f"local CUDA {kind} kernel, radix-{self.radix}, "
@@ -101,8 +111,12 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     operands in two ping-pong buffers (16n bytes a row), and from
     ``TWO_PASS_FROM["ntt_polymul"]`` points on its split-pass schedule
     (``kernels.ntt.ntt_two_pass_plan``, three launches); with ``rns=True``
-    it plans the RNS product of the multi-limb route, whose kernel keeps
-    one CTA per row block at every n. As in the reference, one device
+    it plans the RNS product of the multi-limb route under
+    ``kernels.ntt.rns_schedule``: the same split-pass launches with the
+    limb as grid row y from ``TWO_PASS_FROM["rns_ntt_polymul"]`` points,
+    below that the register-step kernel (one row and limb per CTA, block
+    1) from ``REGISTER_STEPS_FROM["rns_ntt_polymul"]``, else one CTA per
+    row block and limb. As in the reference, one device
     plans every n locally (the reference's 512K-point exact ceiling only
     picks its distributed tier when model_shards > 1); rows past the
     splits are staged.
@@ -139,9 +153,13 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
         else:
             block = plan_batch_block(n, real=real)
         res = resident(n, real=real, product=product)
-    two_pass, launches = None, 1
-    if exact:
-        launch = None if rns else ntt_two_pass_plan(n)
+    two_pass, launches, steps = None, 1, False
+    if exact and rns:
+        launch = rns_schedule(n)
+        if isinstance(launch, RNSRegisterSteps):
+            launch, steps, block = None, True, 1
+    elif exact:
+        launch = ntt_two_pass_plan(n)
     elif product:
         launch = product_two_pass_plan(n, radix, real=real)
     else:
@@ -153,4 +171,5 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
     return FFTPlan(tier="local", radix=radix, block_b=block, real=real,
                    product=product, resident=res, exact=exact,
-                   two_pass=two_pass, launches=launches)
+                   two_pass=two_pass, launches=launches,
+                   register_steps=steps)

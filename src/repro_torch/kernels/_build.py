@@ -10,10 +10,13 @@ runs at import time: this module must import on hosts without a GPU or
 
 Every kernel wrapper adds one to its entry in ``LAUNCHES`` each time it
 launches its kernel, and nowhere else, so a run can show that the serve
-path really went through the kernels.
+path really went through the kernels. Where a wrapper has several
+schedules, the call is also counted under (wrapper, schedule) in
+``SCHEDULES``, so a run can show which one it took.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -67,9 +70,12 @@ LIBRARIES = {
         "stockham_irfft": ("irfft_planes", [_P] * 7 + [_I] * 7 + [_P]),
     },
     "ntt": {
-        # x, y, w, scratch, batch, log2n, q, qinv, scale, inverse, block
+        # x, y, w, scratch, tw2, batch, log2n, q, qinv, scale, inverse,
+        # block, then the two-pass schedule: log2 n1, log2 c1, log2 c2
+        # (log2 n1 = 0: one CTA per block of rows; else scratch holds the
+        # intermediate and tw2 the pass-2 twiddles)
         "ntt_batched": ("ntt_batched",
-                        [_P] * 4 + [_I] * 2 + [_U] * 3 + [_I] * 2 + [_P]),
+                        [_P] * 5 + [_I] * 2 + [_U] * 3 + [_I] * 5 + [_P]),
         # a, b, c, wf, wi, twist, untwist, scratch, tw2f, tw2i, batch,
         # log2n, q, qinv, r2, negacyclic, block, then the split-pass
         # schedule: log2 n1, log2 c1, log2 cm, log2 ci (log2 n1 = 0: one
@@ -77,9 +83,14 @@ LIBRARIES = {
         # and tw2i the forward and inverse pass-2 twiddles)
         "ntt_polymul": ("ntt_polymul",
                         [_P] * 10 + [_I] * 2 + [_U] * 3 + [_I] * 6 + [_P]),
-        # a, b, c, scal, wf, wi, twist, untwist, scratch, limbs, batch,
-        # log2n, negacyclic, block
-        "ntt_rns_polymul": ("rns_ntt_polymul", [_P] * 9 + [_I] * 5 + [_P]),
+        # a, b, c, scal, wf, wi, twist, untwist, scratch, tw2f, tw2i,
+        # limbs, batch, log2n, negacyclic, block, steps, then the
+        # split-pass schedule: log2 n1, log2 c1, log2 cm, log2 ci (log2 n1
+        # > 0: the split-pass launches, tw2f and tw2i the limbs' pass-2
+        # tables; else steps = 1: the register-step kernel; else one CTA
+        # per block of rows and limb)
+        "ntt_rns_polymul": ("rns_ntt_polymul",
+                            [_P] * 11 + [_I] * 10 + [_P]),
     },
     "attention": {
         # q, k, v, o, batch, seq, heads, kv_heads, head_dim, the (batch,
@@ -98,6 +109,8 @@ LIBRARIES = {
 #: Kernel launches per wrapper (see the module docstring).
 LAUNCHES: dict[str, int] = {wrapper: 0 for lib in LIBRARIES.values()
                             for wrapper, _ in lib.values()}
+#: Calls per (wrapper, schedule) of the wrappers that name their schedule.
+SCHEDULES: collections.Counter[tuple[str, str]] = collections.Counter()
 
 #: wrapper -> (library, kernel id of ``<library>_occupancy``)
 _KERNEL_IDS = {wrapper: (stem, i) for stem, lib in LIBRARIES.items()
@@ -113,6 +126,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SCHEDULES.clear()
 
 
 def _nvcc() -> str:
@@ -190,9 +204,11 @@ def _error(stem: str, err: int) -> str:
     return getattr(load(stem), f"{stem}_error_string")(err).decode()
 
 
-def launch(name: str, counter: str, *args) -> None:
+def launch(name: str, counter: str, *args, schedule: str | None = None
+           ) -> None:
     """Call C launcher ``name`` on PyTorch's current stream, raise if the
-    launch was refused, and count it under ``counter``."""
+    launch was refused, and count it under ``counter`` (and under
+    (``counter``, ``schedule``) where the wrapper names one)."""
     import torch
     stem = _LAUNCHER_LIB[name]
     stream = torch.cuda.current_stream().cuda_stream
@@ -201,6 +217,8 @@ def launch(name: str, counter: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({_error(stem, err)})")
     LAUNCHES[counter] += 1
+    if schedule is not None:
+        SCHEDULES[counter, schedule] += 1
 
 
 def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
@@ -209,11 +227,13 @@ def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
     per thread, and the CTAs one SM holds. ``a, b, c`` select the launch:
     (log2 n, rows per CTA, staged) for the transform kernels, where c = 2
     or 3 selects the two-pass schedule's pass 1 or pass 2 kernel of
-    ``fft_planes`` and ``rfft_planes``, and c = 2, 3 or 4 the split-pass
-    schedule's F1, M or I2 of the two products, with a = log2 of its
-    sub-problem length and b = the sub-problems per CTA (for the rfft's
-    pass 2 and the products' M, the low ones: the CTA holds their mirrors,
-    b's, or both rows' too); (head_dim, bf16, 0) for the two attention
+    ``fft_planes``, ``rfft_planes``, ``irfft_planes`` and ``ntt_batched``,
+    and c = 2, 3 or 4 the split-pass schedule's F1, M or I2 of the
+    products (``rns_ntt_polymul`` too), with a = log2 of its sub-problem
+    length and b = the sub-problems per CTA (for the rfft's pass 2 and the
+    products' M, the low ones: the CTA holds their mirrors, b's, or both
+    rows' too); c = 5 the register-step kernel of ``rns_ntt_polymul`` (a
+    = log2 n, b unused); (head_dim, bf16, 0) for the two attention
     kernels."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]

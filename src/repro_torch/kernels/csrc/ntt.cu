@@ -21,22 +21,25 @@
 // the kernels agree bit for bit with their plain int64 versions
 // (repro_torch/kernels/ntt.py) and with the numpy reference.
 //
-// Where the rows live: as in stockham.cu. A CTA holds its rows in two
-// ping-pong buffers: 8n bytes per transformed row, 16n per product (both
-// operands' spectra side by side). While that fits the 227 KB a CTA may opt
-// into, the rows stay in dynamic shared memory for every sweep: up to
-// n = 16384 for the NTT and n = 8192 for the products. Longer rows (the
-// service takes up to n = 2^19 and beyond) run the very same loop on a
-// device-memory ping-pong scratch that the wrapper allocates, one slice per
-// CTA; __syncthreads() orders those global accesses within the CTA, and the
-// scratch is read through plain (coherent) loads. The wrapper
-// (repro_torch/kernels/ntt.py: ntt_cta_rows) decides which path runs and
-// passes scratch == nullptr for the shared-memory one. The single-limb
-// product takes a third schedule from TWO_PASS_FROM["ntt_polymul"] points
-// on, as far as n splits into parts of at most 8192 and 4096 points: three
-// launches whose CTAs hold whole sub-problems of the split (the split-pass
-// section below); the staged path then runs only the NTT, the RNS product
-// and the longest single-limb rows.
+// Where the rows live: as in stockham.cu. The single-CTA kernels hold their
+// rows in two ping-pong buffers: 8n bytes per transformed row, 16n per
+// product (both operands' spectra side by side). While that fits the 227 KB
+// a CTA may opt into, the rows stay in dynamic shared memory for every
+// sweep: up to n = 16384 for the NTT and n = 8192 for the products. Longer
+// rows run the very same loop on a device-memory ping-pong scratch that the
+// wrapper allocates, one slice per CTA; __syncthreads() orders those global
+// accesses within the CTA, and the scratch is read through plain (coherent)
+// loads. The wrapper (repro_torch/kernels/ntt.py: ntt_cta_rows) decides
+// which path runs and passes scratch == nullptr for the shared-memory one.
+// From TWO_PASS_FROM (repro_torch/kernels/fft.py) points on, as far as n
+// splits into parts of at most 8192 points, every kernel takes a split-pass
+// schedule instead, whose CTAs hold whole sub-problems of a split n = n1 n2
+// (the split-pass section below): the NTT two launches, the single-limb and
+// the RNS product three (the RNS product with the limb as grid row y). Below
+// its split, from REGISTER_STEPS_FROM points on, the RNS product runs its
+// register-step schedule: one CTA per (row, limb), the sweeps in registers.
+// The staged path then runs only rows past every split (n > 2^25) and
+// whatever schedule a caller asks for by name.
 //
 // Bound on this card: 32-bit integer operations. A butterfly is one
 // Montgomery REDC (the two halves of the 64-bit product, the multiply for m,
@@ -184,8 +187,11 @@ __device__ void polymul_rows(const uint32_t* __restrict__ a_in,
 // Batched cyclic NTT, or inverse NTT scaled by n^-1 (`scale` is n^-1 in
 // Montgomery form, folded into the write-out as one REDC). Bound: integer
 // operations once the row stays on chip (log2 n butterflies per point
-// against 8 bytes of device memory per point). Design: every sweep stays in
-// shared memory while the row fits (n <= 16384); input reduced mod q on load.
+// against 8 bytes of device memory per point). Design: below
+// TWO_PASS_FROM["ntt_batched"] points every sweep stays in shared memory
+// (one CTA per row block, input reduced mod q on load); from there on the
+// wrapper launches the two-pass schedule instead (ntt_pass1_kernel and
+// ntt_pass2_kernel, below), whose CTAs hold whole sub-problems of the split.
 __global__ void __launch_bounds__(kMaxThreads)
 ntt_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
            const uint32_t* __restrict__ w, uint32_t* scratch, int batch,
@@ -242,7 +248,12 @@ ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
 // (rns_ntt_polymul). Kernel 6 for k RNS limbs in one launch: blockIdx.y is
 // the limb, blockIdx.x the batch block. Each limb's q, qinv and r2 come from
 // row `limb` of the (k, 4) table `scal`, its four tables from row `limb` of
-// the (k, n) tables. Bound and design: as kernel 6.
+// the (k, n) tables. Bound: as kernel 6. This single-CTA design (24 radix-2
+// sweeps, each a shared-memory round trip and a barrier) runs only where the
+// wrapper plans neither of the other two: from
+// REGISTER_STEPS_FROM["rns_ntt_polymul"] points the register-step kernel
+// (rns_ntt_polymul_steps_kernel), from TWO_PASS_FROM["rns_ntt_polymul"] the
+// split-pass launches of kernel 6 with the limb as grid row y.
 __global__ void __launch_bounds__(kMaxThreads)
 rns_ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
                        const uint32_t* __restrict__ b_in,
@@ -282,7 +293,9 @@ rns_ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
 // block index modulo n1, so sub-problem l0 is the slice A[l0 n2 ..
 // (l0 + 1) n2), ending as the bins l0 + k n1, with the twiddles of the
 // global block l0 + n1 l (gathered into a pass-2 table in reading order).
-// Three launches:
+// The product takes three launches (the RNS product the same three, with
+// blockIdx.y the limb: its q, qinv and r2 from row `limb` of the (k, 4)
+// table, its tables and pass-2 tables from row `limb` of (k, n) stacks):
 //   F1 (ntt_polymul_pass1_kernel): c consecutive q0 of a row, of a and of
 //      b: load, reduce mod q, psi twist, forward sweeps L = 1 .. n1, store
 //      A_a and A_b.
@@ -296,9 +309,12 @@ rns_ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
 //      slices A'[l0' n1 ..): inverse sweeps L = n2 .. n, store
 //      c[l0' + k n2] times the untwist psi^-j n^-1.
 // Radix 2 puts every split on the sweep sequence, so the mirrored split
-// always is, and there are always three launches. Residues are exact, so
-// the result equals the single-CTA kernel's, the plain versions' and the
-// numpy reference's (==).
+// always is, and there are always three launches. The NTT alone takes two:
+// pass 1 (ntt_pass1_kernel) is F1's reader on one operand without the
+// twist, pass 2 (ntt_pass2_kernel) the forward pass 2 with the bins
+// l0 + k n1 stored in natural order (times n^-1 for the inverse). Residues
+// are exact, so the result equals the single-CTA kernel's, the plain
+// versions' and the numpy reference's (==).
 //
 // Sweeps in registers: a step runs T <= 4 radix-2 sweeps on groups of 2^T
 // elements a thread holds -- at local A(L, r), group (l, q), q < r / 2^T,
@@ -309,11 +325,15 @@ rns_ntt_polymul_kernel(const uint32_t* __restrict__ a_in,
 // takes two steps and touches shared memory once, where ntt_sweeps crosses
 // shared (or device) memory and a barrier for every sweep. Shared rows are
 // slot-major at stride m + 1 words (no bank conflicts between neighbouring
-// slots).
+// slots). The RNS product's register-step kernel runs the same steps on
+// whole rows (one sub-problem of n points per operand), in rows with a pad
+// word after every 16 (NttRowSmem), where a step's strided columns would
+// otherwise fall on two banks.
 //
 // Bound: 32-bit integer operations, as kernel 6 (the butterflies do not
 // change); device memory sees 36 bytes a point a row (F1 8 in, 8 out; M 8
-// in, 4 out; I2 4 in, 4 out), and every launch spreads a row over
+// in, 4 out; I2 4 in, 4 out; the NTT's two passes 8 each), and every
+// launch spreads a row over
 // n2 / c, n1 / c and n2 / c CTAs, where ntt_polymul_kernel ran one CTA of
 // 1024 threads per row through a device-memory ping-pong for all 48 sweeps
 // from n = 16384 on.
@@ -331,6 +351,20 @@ struct NttSmem {
   }
   __device__ __forceinline__ void store(int s, int i, uint32_t v) const {
     p[s * ld + i] = v;
+  }
+};
+
+// Whole rows in shared memory: element i of row s at s ld + i + i / 16,
+// one pad word after every 16, so that the 32 threads of a warp reading
+// column i of 32 consecutive groups (stride 16 or 16 r) hit 32 banks.
+struct NttRowSmem {
+  uint32_t* p;
+  int ld;
+  __device__ __forceinline__ uint32_t load(int s, int i) const {
+    return p[s * ld + i + (i >> 4)];
+  }
+  __device__ __forceinline__ void store(int s, int i, uint32_t v) const {
+    p[s * ld + i + (i >> 4)] = v;
   }
 };
 
@@ -383,7 +417,9 @@ struct NttTw2 {
 // sub-problem (neighbouring threads on neighbouring elements, for a first
 // step reading contiguous slices of device memory) instead of slot by
 // slot (neighbouring threads on neighbouring sub-problems, whose elements
-// lie side by side at the strided ends of a pass).
+// lie side by side at the strided ends of a pass); `rest_by_sub` the same
+// for the later steps (whole rows, whose steps all read and write
+// contiguous runs).
 template <class Tw>
 struct NttSubs {
   int lslots;
@@ -391,6 +427,7 @@ struct NttSubs {
   Tw tw;
   Mod m;
   bool first_by_sub;
+  bool rest_by_sub = false;
 };
 
 // Work items of a step: max(1, m / 16) per sub-problem, item w being slot
@@ -502,16 +539,15 @@ __device__ __forceinline__ void ntt_run_step(int T, NttSubs<Tw> sp,
 // where `from_global`, else shared buffer `a` (filled and synchronised by
 // the caller); the last step writes `out` (device memory) where
 // `to_global`, else the shared buffer it returns. Steps ping-pong between
-// a and b with a barrier after each.
-template <class Tw, class In, class Out>
-__device__ __forceinline__ NttSmem ntt_sub_steps(NttSubs<Tw> sp, In in,
-                                                 bool from_global, Out out,
-                                                 bool to_global, NttSmem a,
-                                                 NttSmem b) {
+// a and b (NttSmem or NttRowSmem) with a barrier after each.
+template <class Tw, class In, class Out, class Sm>
+__device__ __forceinline__ Sm ntt_sub_steps(NttSubs<Tw> sp, In in,
+                                            bool from_global, Out out,
+                                            bool to_global, Sm a, Sm b) {
   int L = 1;
   int lr = sp.lm;
   bool global_in = from_global;
-  NttSmem cur = a, oth = b;
+  Sm cur = a, oth = b;
   while (lr > 0) {
     const int T = lr >= 4 ? 4 : lr;
     const bool last = lr == T;
@@ -520,10 +556,10 @@ __device__ __forceinline__ NttSmem ntt_sub_steps(NttSubs<Tw> sp, In in,
     } else if (global_in) {
       ntt_run_step(T, sp, sp.first_by_sub, L, lr, in, cur);
     } else if (last && to_global) {
-      ntt_run_step(T, sp, false, L, lr, cur, out);
+      ntt_run_step(T, sp, sp.rest_by_sub, L, lr, cur, out);
     } else {
-      ntt_run_step(T, sp, false, L, lr, cur, oth);
-      const NttSmem t = cur;
+      ntt_run_step(T, sp, sp.rest_by_sub, L, lr, cur, oth);
+      const Sm t = cur;
       cur = oth;
       oth = t;
     }
@@ -630,54 +666,99 @@ struct NttI2Out {
   }
 };
 
-// F1: CTA blockIdx.x takes row blockIdx.x / (n2 / c) and its c = 2^lc
-// consecutive sub-problems q0 of a and of b.
+// The NTT's pass-2 output: element k of sub-problem l0 is bin l0 + k n1,
+// stored in natural order, times n^-1 (`scale`, Montgomery form) for the
+// inverse.
+struct NttBinsOut {
+  uint32_t* __restrict__ y;
+  size_t off;
+  int log2n1;
+  int l0;
+  Mod m;
+  uint32_t scale;
+  bool inverse;
+  __device__ __forceinline__ void store(int s, int k, uint32_t v) const {
+    y[off + l0 + s + ((size_t)k << log2n1)] =
+        inverse ? mont_mul(v, scale, m) : v;
+  }
+};
+
+// The modulus of the launch's limb blockIdx.y: row `limb` of the (k, 4)
+// table `scal` (q, qinv, r2, 0), or, for a single-limb launch (scal null,
+// one grid row), the scalars the launcher was given.
+__device__ __forceinline__ Mod limb_mod(const uint32_t* __restrict__ scal,
+                                        uint32_t q, uint32_t qinv) {
+  const int limb = blockIdx.y;
+  return scal ? Mod{scal[4 * limb], scal[4 * limb + 1]} : Mod{q, qinv};
+}
+
+// Offset of the row `row` of limb blockIdx.y in a (k, B, n) stack, and of
+// the limb's row in a (k, n) table.
+__device__ __forceinline__ size_t limb_row(int batch, size_t row,
+                                           int log2n) {
+  return ((size_t)blockIdx.y * batch + row) << log2n;
+}
+
+__device__ __forceinline__ size_t limb_table(int log2n) {
+  return (size_t)blockIdx.y << log2n;
+}
+
+// F1: CTA (blockIdx.x, limb blockIdx.y) takes row blockIdx.x / (n2 / c)
+// and its c = 2^lc consecutive sub-problems q0 of a and of b.
 __global__ void __launch_bounds__(kPassThreads)
 ntt_polymul_pass1_kernel(const uint32_t* __restrict__ a_in,
                          const uint32_t* __restrict__ b_in,
                          uint32_t* __restrict__ fa, uint32_t* __restrict__ fb,
                          const uint32_t* __restrict__ wf,
-                         const uint32_t* __restrict__ twist, int log2n,
-                         int log2n1, uint32_t q, uint32_t qinv,
+                         const uint32_t* __restrict__ twist,
+                         const uint32_t* __restrict__ scal, int batch,
+                         int log2n, int log2n1, uint32_t q, uint32_t qinv,
                          int negacyclic, int lc) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int lg2 = log2n - log2n1;
   size_t row;
   int q0;
   ntt_pass_cta(lg2, lc, row, q0);
-  const Mod m{q, qinv};
-  const size_t off = row << log2n;
+  const Mod m = limb_mod(scal, q, qinv);
+  const size_t off = limb_row(batch, row, log2n);
+  const size_t table = limb_table(log2n);
   NttSmem sa, sb;
   ntt_sub_buffers(smem, 2 << lc, (1 << log2n1) + 1, sa, sb);
-  const NttSubs<NttTw1> sp{lc + 1, log2n1, NttTw1{wf, 1 << lg2}, m, false};
-  ntt_sub_steps(sp, NttF1In{a_in, b_in, twist, off, lg2, q0, lc, m,
+  const NttSubs<NttTw1> sp{lc + 1, log2n1, NttTw1{wf + table, 1 << lg2}, m,
+                           false};
+  ntt_sub_steps(sp, NttF1In{a_in, b_in, twist + table, off, lg2, q0, lc, m,
                             negacyclic != 0},
                 true, NttF1Out{fa, fb, off, lg2, q0, lc}, true, sa, sb);
 }
 
-// M: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and its c = 2^lc
-// consecutive sub-problems l0 of a (slots s < c) and of b (slots c + s).
+// M: CTA (blockIdx.x, limb blockIdx.y) takes row blockIdx.x / (n1 / c) and
+// its c = 2^lc consecutive sub-problems l0 of a (slots s < c) and of b
+// (slots c + s).
 __global__ void __launch_bounds__(kPassThreads)
 ntt_polymul_mid_kernel(const uint32_t* __restrict__ fa,
                        const uint32_t* __restrict__ fb,
                        uint32_t* __restrict__ ap,
                        const uint32_t* __restrict__ tw2f,
-                       const uint32_t* __restrict__ wi, int log2n,
-                       int log2n1, uint32_t q, uint32_t qinv, uint32_t r2,
-                       int lc) {
+                       const uint32_t* __restrict__ wi,
+                       const uint32_t* __restrict__ scal, int batch,
+                       int log2n, int log2n1, uint32_t q, uint32_t qinv,
+                       uint32_t r2, int lc) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int lg2 = log2n - log2n1;
   size_t row;
   int l0;
   ntt_pass_cta(log2n1, lc, row, l0);
-  const Mod m{q, qinv};
-  const size_t off = row << log2n;
+  const Mod m = limb_mod(scal, q, qinv);
+  if (scal) r2 = scal[4 * blockIdx.y + 2];
+  const size_t off = limb_row(batch, row, log2n);
+  const size_t table = limb_table(log2n);
   const int c = 1 << lc;
   NttSmem sa, sb;
   ntt_sub_buffers(smem, 2 << lc, (1 << lg2) + 1, sa, sb);
   const NttPair slots{l0, lc};
   const NttSubs<NttTw2<NttPair>> fwd{
-      lc + 1, lg2, NttTw2<NttPair>{tw2f, 1 << log2n1, slots}, m, true};
+      lc + 1, lg2, NttTw2<NttPair>{tw2f + table, 1 << log2n1, slots}, m,
+      true};
   const NttSmem z = ntt_sub_steps(
       fwd, NttSliceIn<NttPair>{fa, fb, off, lg2, lc, slots}, true, sa, false,
       sa, sb);
@@ -690,33 +771,134 @@ ntt_polymul_mid_kernel(const uint32_t* __restrict__ fa,
                            m));
   }
   __syncthreads();
-  const NttSubs<NttTw1> inv{lc, lg2, NttTw1{wi, 1 << log2n1}, m, false};
+  const NttSubs<NttTw1> inv{lc, lg2, NttTw1{wi + table, 1 << log2n1}, m,
+                            false};
   ntt_sub_steps(inv, z, false, NttMidOut{ap, off, log2n1, l0}, true, z,
                 spare);
 }
 
-// I2: CTA blockIdx.x takes row blockIdx.x / (n2 / c) and its c = 2^lc
-// consecutive sub-problems l0' of n1 points.
+// I2: CTA (blockIdx.x, limb blockIdx.y) takes row blockIdx.x / (n2 / c)
+// and its c = 2^lc consecutive sub-problems l0' of n1 points.
 __global__ void __launch_bounds__(kPassThreads)
 ntt_polymul_pass2_kernel(const uint32_t* __restrict__ ap,
                          uint32_t* __restrict__ c,
                          const uint32_t* __restrict__ tw2i,
-                         const uint32_t* __restrict__ untwist, int log2n,
-                         int log2n1, uint32_t q, uint32_t qinv, int lc) {
+                         const uint32_t* __restrict__ untwist,
+                         const uint32_t* __restrict__ scal, int batch,
+                         int log2n, int log2n1, uint32_t q, uint32_t qinv,
+                         int lc) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int lg2 = log2n - log2n1;
   size_t row;
   int l0;
   ntt_pass_cta(lg2, lc, row, l0);
+  const Mod m = limb_mod(scal, q, qinv);
+  const size_t off = limb_row(batch, row, log2n);
+  const size_t table = limb_table(log2n);
+  NttSmem sa, sb;
+  ntt_sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, sa, sb);
+  const NttSubs<NttTw2<NttRun>> sp{
+      lc, log2n1, NttTw2<NttRun>{tw2i + table, 1 << lg2, NttRun{l0}}, m,
+      true};
+  // one intermediate: both of NttSliceIn's rows are A'
+  ntt_sub_steps(sp, NttSliceIn<NttRun>{ap, ap, off, log2n1, lc, NttRun{l0}},
+                true, NttI2Out{c, untwist + table, off, lg2, l0, m}, true,
+                sa, sb);
+}
+
+// Kernel 8, register-step schedule: CTA (blockIdx.x, limb blockIdx.y)
+// takes the product of row blockIdx.x of limb blockIdx.y, both operands'
+// whole rows in shared memory (NttRowSmem, two buffers of two rows: 17n
+// bytes). The two forward transforms run as one pass over two sub-problems
+// of n points in register steps of up to four sweeps (ntt_sub_steps; the
+// load reduces mod q and twists, as F1's reader on one sub-problem of the
+// whole row), the r2-hop product runs in place of a's spectrum, and the
+// inverse runs on it in the same steps with the untwist on the store. A
+// 4096-point transform crosses shared memory three times where
+// rns_ntt_polymul_kernel crosses it twelve times, with a barrier each;
+// twiddles come from the limb's rows of the (k, n) tables. Bound: 32-bit
+// integer operations, as kernel 6 (12 bytes of device memory a point a
+// row, read and written once). 256 threads and 68 KB at n = 4096: two
+// CTAs an SM at the kernel's 128 registers (three, capped at 80, spill).
+__global__ void __launch_bounds__(kPassThreads)
+rns_ntt_polymul_steps_kernel(const uint32_t* __restrict__ a_in,
+                             const uint32_t* __restrict__ b_in,
+                             uint32_t* __restrict__ c,
+                             const uint32_t* __restrict__ scal,
+                             const uint32_t* __restrict__ wf,
+                             const uint32_t* __restrict__ wi,
+                             const uint32_t* __restrict__ twist,
+                             const uint32_t* __restrict__ untwist, int batch,
+                             int log2n, int negacyclic) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Mod m = limb_mod(scal, 0, 0);
+  const uint32_t r2 = scal[4 * blockIdx.y + 2];
+  const size_t off = limb_row(batch, blockIdx.x, log2n);
+  const size_t table = limb_table(log2n);
+  const int n = 1 << log2n;
+  const int ld = n + (n >> 4);
+  const NttRowSmem sa{smem, ld}, sb{smem + 2 * ld, ld};
+  const NttSubs<NttTw1> fwd{1, log2n, NttTw1{wf + table, 1}, m, true, true};
+  const NttRowSmem z = ntt_sub_steps(
+      fwd, NttF1In{a_in, b_in, twist + table, off, 0, 0, 0, m,
+                   negacyclic != 0},
+      true, sa, false, sa, sb);
+  const NttRowSmem spare = z.p == sa.p ? sb : sa;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    z.store(0, k, mont_mul(mont_mul(z.load(0, k), r2, m), z.load(1, k), m));
+  }
+  __syncthreads();
+  const NttSubs<NttTw1> inv{0, log2n, NttTw1{wi + table, 1}, m, false, true};
+  ntt_sub_steps(inv, z, false, NttI2Out{c, untwist + table, off, 0, 0, m},
+                true, z, spare);
+}
+
+// Kernel 7, two-pass schedule. Pass 1: CTA blockIdx.x takes row
+// blockIdx.x / (n2 / c) and its c = 2^lc consecutive sub-problems q0
+// (x[q0 + k n2], reduced mod q on load): sweeps L = 1 .. n1, store
+// A[l n2 + q0] to the intermediate t.
+__global__ void __launch_bounds__(kPassThreads)
+ntt_pass1_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ t,
+                 const uint32_t* __restrict__ w, int log2n, int log2n1,
+                 uint32_t q, uint32_t qinv, int lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int q0;
+  ntt_pass_cta(lg2, lc, row, q0);
   const Mod m{q, qinv};
   const size_t off = row << log2n;
   NttSmem sa, sb;
   ntt_sub_buffers(smem, 1 << lc, (1 << log2n1) + 1, sa, sb);
+  const NttSubs<NttTw1> sp{lc, log2n1, NttTw1{w, 1 << lg2}, m, false};
+  // one operand: every slot is below 2^lc, so NttF1In reads x alone
+  ntt_sub_steps(sp, NttF1In{x, x, nullptr, off, lg2, q0, lc, m, false}, true,
+                NttF1Out{t, t, off, lg2, q0, lc}, true, sa, sb);
+}
+
+// Pass 2: CTA blockIdx.x takes row blockIdx.x / (n1 / c) and its c = 2^lc
+// consecutive slices A[l0 n2 ..): sweeps L = n1 .. n with the gathered
+// pass-2 table `tw2` (of the forward root, or of its inverse), store bin
+// l0 + k n1, times n^-1 for the inverse.
+__global__ void __launch_bounds__(kPassThreads)
+ntt_pass2_kernel(const uint32_t* __restrict__ t, uint32_t* __restrict__ y,
+                 const uint32_t* __restrict__ tw2, int log2n, int log2n1,
+                 uint32_t q, uint32_t qinv, uint32_t scale, int inverse,
+                 int lc) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lg2 = log2n - log2n1;
+  size_t row;
+  int l0;
+  ntt_pass_cta(log2n1, lc, row, l0);
+  const Mod m{q, qinv};
+  const size_t off = row << log2n;
+  NttSmem sa, sb;
+  ntt_sub_buffers(smem, 1 << lc, (1 << lg2) + 1, sa, sb);
   const NttSubs<NttTw2<NttRun>> sp{
-      lc, log2n1, NttTw2<NttRun>{tw2i, 1 << lg2, NttRun{l0}}, m, true};
-  // one intermediate: both of NttSliceIn's rows are A'
-  ntt_sub_steps(sp, NttSliceIn<NttRun>{ap, ap, off, log2n1, lc, NttRun{l0}},
-                true, NttI2Out{c, untwist, off, lg2, l0, m}, true, sa, sb);
+      lc, lg2, NttTw2<NttRun>{tw2, 1 << log2n1, NttRun{l0}}, m, true};
+  ntt_sub_steps(sp, NttSliceIn<NttRun>{t, t, off, lg2, lc, NttRun{l0}}, true,
+                NttBinsOut{y, off, log2n1, l0, m, scale, inverse != 0}, true,
+                sa, sb);
 }
 
 // Threads of a split-pass CTA for `slots` sub-problems of 2^lm points: one
@@ -774,6 +956,30 @@ bool bad_ntt_split(int batch, int log2n, int log2n1, int lc1, int lcm,
          (rows << (lg2 - lci)) > 0x7fffffffL;
 }
 
+// A two-pass launch the NTT takes: n1 = 2^log2n1 and n2 at least 2; pass
+// 1's c1 = 2^lc1 sub-problems at most n2, pass 2's c2 at most n1; each
+// launch's shared memory within 227 KB, each grid within 2^31 - 1 CTAs.
+bool bad_ntt_pass_split(int batch, int log2n, int log2n1, int lc1,
+                        int lc2) {
+  const int lg2 = log2n - log2n1;
+  if (log2n1 < 1 || lg2 < 1 || lc1 < 0 || lc2 < 0 || lc1 > lg2 ||
+      lc2 > log2n1) {
+    return true;
+  }
+  const long rows = batch;
+  return ntt_pass_smem(1 << lc1, log2n1, true, true, false) > kMaxSmemBytes ||
+         ntt_pass_smem(1 << lc2, lg2, true, true, false) > kMaxSmemBytes ||
+         (rows << (lg2 - lc1)) > 0x7fffffffL ||
+         (rows << (log2n1 - lc2)) > 0x7fffffffL;
+}
+
+// Dynamic shared memory of the register-step kernel: two buffers of both
+// operands' rows of 2^log2n words, one pad word in 16 (NttRowSmem).
+size_t rns_steps_smem(int log2n) {
+  const size_t n = (size_t)1 << log2n;
+  return 4 * (n + (n >> 4)) * sizeof(uint32_t);
+}
+
 // Threads for a CTA that transforms `slots` rows: one per butterfly of a
 // sweep, at least a warp, at most 1024.
 int threads_for(int slots, int log2n) {
@@ -823,6 +1029,49 @@ cudaError_t occupancy_of(Kernel kernel, int slots, int log2n, bool staged,
                           smem, regs, ctas);
 }
 
+// The product's split-pass schedule over `limbs` limbs (grid row y): F1, M
+// and I2 on `st`, each launch checked. `scratch` holds three planes of
+// limbs * batch * n words (F1's spectra of a and of b, then the inverse's
+// pass-1 result); `scal` is null for a single limb, whose q, qinv and r2 are
+// then the scalars given.
+cudaError_t launch_polymul_split(
+    const uint32_t* a, const uint32_t* b, uint32_t* c, const uint32_t* scal,
+    const uint32_t* wf, const uint32_t* wi, const uint32_t* twist,
+    const uint32_t* untwist, uint32_t* scratch, const uint32_t* tw2f,
+    const uint32_t* tw2i, int limbs, int batch, int log2n, uint32_t q,
+    uint32_t qinv, uint32_t r2, int negacyclic, int log2n1, int lc1, int lcm,
+    int lci, cudaStream_t st) {
+  const int lg2 = log2n - log2n1;
+  const size_t plane = ((size_t)limbs * batch) << log2n;
+  uint32_t* fa = scratch;
+  uint32_t* fb = scratch + plane;
+  uint32_t* ap = scratch + 2 * plane;
+  size_t smem = ntt_pass_smem(2 << lc1, log2n1, true, true, false);
+  cudaError_t err = opt_in(ntt_polymul_pass1_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ntt_polymul_pass1_kernel<<<dim3(batch << (lg2 - lc1), limbs),
+                             ntt_pass_threads(2 << lc1, log2n1), smem, st>>>(
+      a, b, fa, fb, wf, twist, scal, batch, log2n, log2n1, q, qinv,
+      negacyclic, lc1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = ntt_pass_smem(2 << lcm, lg2, true, true, true);
+  err = opt_in(ntt_polymul_mid_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ntt_polymul_mid_kernel<<<dim3(batch << (log2n1 - lcm), limbs),
+                           ntt_pass_threads(2 << lcm, lg2), smem, st>>>(
+      fa, fb, ap, tw2f, wi, scal, batch, log2n, log2n1, q, qinv, r2, lcm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  smem = ntt_pass_smem(1 << lci, log2n1, true, true, false);
+  err = opt_in(ntt_polymul_pass2_kernel, smem);
+  if (err != cudaSuccess) return err;
+  ntt_polymul_pass2_kernel<<<dim3(batch << (lg2 - lci), limbs),
+                             ntt_pass_threads(1 << lci, log2n1), smem, st>>>(
+      ap, c, tw2i, untwist, scal, batch, log2n, log2n1, q, qinv, lci);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -831,20 +1080,49 @@ const char* ntt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// log2n1 > 0: the two-pass schedule, `scratch` one plane of batch * n
+// words (pass 1's result), `tw2` the pass-2 table of the forward root (of
+// its inverse for an inverse transform), `block` unused; each launch is
+// checked. log2n1 == 0: one CTA per `block` rows, `tw2` unused.
 int ntt_batched(const uint32_t* x, uint32_t* y, const uint32_t* w,
-                uint32_t* scratch, int batch, int log2n, uint32_t q,
-                uint32_t qinv, uint32_t scale, int inverse, int block,
-                void* stream) {
+                uint32_t* scratch, const uint32_t* tw2, int batch, int log2n,
+                uint32_t q, uint32_t qinv, uint32_t scale, int inverse,
+                int block, int log2n1, int lc1, int lc2, void* stream) {
   if (bad_args(batch, log2n, block)) return cudaErrorInvalidValue;
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2 == nullptr ||
+       bad_ntt_pass_split(batch, log2n, log2n1, lc1, lc2))) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (log2n1 != 0) {
+    const int lg2 = log2n - log2n1;
+    size_t smem = ntt_pass_smem(1 << lc1, log2n1, true, true, false);
+    cudaError_t err = opt_in(ntt_pass1_kernel, smem);
+    if (err != cudaSuccess) return err;
+    ntt_pass1_kernel<<<batch << (lg2 - lc1), ntt_pass_threads(1 << lc1,
+                                                              log2n1),
+                       smem, st>>>(x, scratch, w, log2n, log2n1, q, qinv,
+                                   lc1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    smem = ntt_pass_smem(1 << lc2, lg2, true, true, false);
+    err = opt_in(ntt_pass2_kernel, smem);
+    if (err != cudaSuccess) return err;
+    ntt_pass2_kernel<<<batch << (log2n1 - lc2), ntt_pass_threads(1 << lc2,
+                                                                 lg2),
+                       smem, st>>>(scratch, y, tw2, log2n, log2n1, q, qinv,
+                                   scale, inverse, lc2);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err =
       smem_for(ntt_kernel, scratch != nullptr, block, log2n, &smem);
   if (err != cudaSuccess) return err;
   const int grid = (batch + block - 1) / block;
-  ntt_kernel<<<grid, threads_for(block, log2n), smem,
-               (cudaStream_t)stream>>>(x, y, w, scratch, batch, log2n, q,
-                                       qinv, scale, inverse, block);
+  ntt_kernel<<<grid, threads_for(block, log2n), smem, st>>>(
+      x, y, w, scratch, batch, log2n, q, qinv, scale, inverse, block);
   return cudaGetLastError();
 }
 
@@ -868,37 +1146,10 @@ int ntt_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
   }
   if (batch == 0) return cudaSuccess;
   if (log2n1 != 0) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    const int lg2 = log2n - log2n1;
-    const size_t rn = (size_t)batch << log2n;
-    uint32_t* fa = scratch;
-    uint32_t* fb = scratch + rn;
-    uint32_t* ap = scratch + 2 * rn;
-    size_t smem = ntt_pass_smem(2 << lc1, log2n1, true, true, false);
-    cudaError_t err = opt_in(ntt_polymul_pass1_kernel, smem);
-    if (err != cudaSuccess) return err;
-    ntt_polymul_pass1_kernel<<<batch << (lg2 - lc1),
-                               ntt_pass_threads(2 << lc1, log2n1), smem,
-                               st>>>(a, b, fa, fb, wf, twist, log2n, log2n1,
-                                     q, qinv, negacyclic, lc1);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    smem = ntt_pass_smem(2 << lcm, lg2, true, true, true);
-    err = opt_in(ntt_polymul_mid_kernel, smem);
-    if (err != cudaSuccess) return err;
-    ntt_polymul_mid_kernel<<<batch << (log2n1 - lcm),
-                             ntt_pass_threads(2 << lcm, lg2), smem, st>>>(
-        fa, fb, ap, tw2f, wi, log2n, log2n1, q, qinv, r2, lcm);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    smem = ntt_pass_smem(1 << lci, log2n1, true, true, false);
-    err = opt_in(ntt_polymul_pass2_kernel, smem);
-    if (err != cudaSuccess) return err;
-    ntt_polymul_pass2_kernel<<<batch << (lg2 - lci),
-                               ntt_pass_threads(1 << lci, log2n1), smem,
-                               st>>>(ap, c, tw2i, untwist, log2n, log2n1, q,
-                                     qinv, lci);
-    return cudaGetLastError();
+    return launch_polymul_split(a, b, c, nullptr, wf, wi, twist, untwist,
+                                scratch, tw2f, tw2i, 1, batch, log2n, q,
+                                qinv, r2, negacyclic, log2n1, lc1, lcm, lci,
+                                (cudaStream_t)stream);
   }
   size_t smem;
   cudaError_t err = smem_for(ntt_polymul_kernel, scratch != nullptr,
@@ -912,23 +1163,54 @@ int ntt_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
   return cudaGetLastError();
 }
 
+// Three schedules. log2n1 > 0: the split-pass launches with the limb as
+// grid row y, `scratch` three planes of limbs * batch * n words, `tw2f` and
+// `tw2i` the (k, n) stacks of each limb's pass-2 tables (zero-padded to n).
+// Else `steps` != 0: the register-step kernel, one CTA per (row, limb).
+// Else one single-CTA launch per `block` rows and limb (`scratch` its
+// staging buffers, or null). Unused pointers may be null.
 int ntt_rns_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
                     const uint32_t* scal, const uint32_t* wf,
                     const uint32_t* wi, const uint32_t* twist,
-                    const uint32_t* untwist, uint32_t* scratch, int limbs,
+                    const uint32_t* untwist, uint32_t* scratch,
+                    const uint32_t* tw2f, const uint32_t* tw2i, int limbs,
                     int batch, int log2n, int negacyclic, int block,
+                    int steps, int log2n1, int lc1, int lcm, int lci,
                     void* stream) {
   if (bad_args(batch, log2n, block) || limbs < 1 || limbs > 65535) {
     return cudaErrorInvalidValue;
   }
+  if (log2n1 != 0 &&
+      (scratch == nullptr || tw2f == nullptr || tw2i == nullptr ||
+       bad_ntt_split(batch, log2n, log2n1, lc1, lcm, lci))) {
+    return cudaErrorInvalidValue;
+  }
+  if (log2n1 == 0 && steps != 0 &&
+      (log2n < 1 || rns_steps_smem(log2n) > kMaxSmemBytes)) {
+    return cudaErrorInvalidValue;
+  }
   if (batch == 0) return cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (log2n1 != 0) {
+    return launch_polymul_split(a, b, c, scal, wf, wi, twist, untwist,
+                                scratch, tw2f, tw2i, limbs, batch, log2n, 0,
+                                0, 0, negacyclic, log2n1, lc1, lcm, lci, st);
+  }
+  if (steps != 0) {
+    const size_t smem = rns_steps_smem(log2n);
+    cudaError_t err = opt_in(rns_ntt_polymul_steps_kernel, smem);
+    if (err != cudaSuccess) return err;
+    rns_ntt_polymul_steps_kernel<<<dim3(batch, limbs),
+                                   ntt_pass_threads(2, log2n), smem, st>>>(
+        a, b, c, scal, wf, wi, twist, untwist, batch, log2n, negacyclic);
+    return cudaGetLastError();
+  }
   size_t smem;
   cudaError_t err = smem_for(rns_ntt_polymul_kernel, scratch != nullptr,
                              2 * block, log2n, &smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((batch + block - 1) / block, limbs);
-  rns_ntt_polymul_kernel<<<grid, threads_for(2 * block, log2n), smem,
-                           (cudaStream_t)stream>>>(
+  rns_ntt_polymul_kernel<<<grid, threads_for(2 * block, log2n), smem, st>>>(
       a, b, c, scal, wf, wi, twist, untwist, scratch, batch, log2n,
       negacyclic, block);
   return cudaGetLastError();
@@ -937,14 +1219,16 @@ int ntt_rns_polymul(const uint32_t* a, const uint32_t* b, uint32_t* c,
 // Occupancy of a launch as the launchers above make it: `kernel` is 0 NTT,
 // 1 single-limb product, 2 RNS product; `block` the rows per CTA the
 // wrapper passes; `staged` whether the rows go through device memory.
-// For the single-limb product staged = 2, 3, 4 select F1, M or I2 of the
-// split-pass schedule, with `log2n` the log2 of the launch's sub-problem
-// length and `block` its sub-problems per CTA (of each operand for F1 and
-// M, which hold both).
+// Other values of `staged` select a launch of another schedule, with
+// `log2n` the log2 of the launch's sub-problem length and `block` its
+// sub-problems per CTA: for either product 2, 3, 4 select F1, M or I2 of
+// the split-pass schedule (`block` of each operand for F1 and M, which
+// hold both); for the NTT 2 and 3 its pass 1 and pass 2; for the RNS
+// product 5 the register-step kernel (`log2n` the row's, `block` unused).
 int ntt_occupancy(int kernel, int log2n, int block, int staged, int* threads,
                   int* smem, int* regs, int* ctas) {
   if (bad_args(1, log2n, block)) return cudaErrorInvalidValue;
-  if (kernel == 1 && staged >= 2 && staged <= 4) {
+  if ((kernel == 1 || kernel == 2) && staged >= 2 && staged <= 4) {
     if (log2n < 1) return cudaErrorInvalidValue;
     switch (staged) {
       case 2:
@@ -963,6 +1247,21 @@ int ntt_occupancy(int kernel, int log2n, int block, int staged, int* threads,
             ntt_pass_smem(block, log2n, true, true, false), threads, smem,
             regs, ctas);
     }
+  }
+  if (kernel == 2 && staged == 5) {
+    if (log2n < 1) return cudaErrorInvalidValue;
+    return launch_occupancy(rns_ntt_polymul_steps_kernel,
+                            ntt_pass_threads(2, log2n), rns_steps_smem(log2n),
+                            threads, smem, regs, ctas);
+  }
+  if (kernel == 0 && (staged == 2 || staged == 3)) {
+    if (log2n < 1) return cudaErrorInvalidValue;
+    const int t = ntt_pass_threads(block, log2n);
+    const size_t bytes = ntt_pass_smem(block, log2n, true, true, false);
+    return staged == 2 ? launch_occupancy(ntt_pass1_kernel, t, bytes,
+                                          threads, smem, regs, ctas)
+                       : launch_occupancy(ntt_pass2_kernel, t, bytes,
+                                          threads, smem, regs, ctas);
   }
   const bool st = staged != 0;
   switch (kernel) {

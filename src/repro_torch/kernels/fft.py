@@ -180,20 +180,31 @@ TWO_PASS_CTA_POINTS = 4096
 TWO_PASS_MAX_SLOTS = 16
 #: Least n at which each wrapper takes the two-pass schedule (the products:
 #: their split-pass schedule, ``kernels.polymul`` and, for the exact
-#: product, ``kernels.ntt``); below it a row stays resident in one CTA.
+#: products, ``kernels.ntt``); below it a row stays resident in one CTA.
 #: Above n = 8192 no float row fits one CTA (above 4096 for the products,
-#: which hold two spectra; above 8192 for the NTT product), so the
-#: threshold only matters at the resident sizes. It comes from
-#: chip_smoke.py phase 4's A/B of the schedules (lines "[ab]": batch 64,
-#: the planner's radix, in turns) on an NVIDIA H100 80GB HBM3 at 700 W,
-#: whose runs and times PERF.md records: two passes were faster at
+#: which hold two spectra; above 8192 for the NTT products, above 16384
+#: for the NTT), so the threshold only matters at the resident sizes. It
+#: comes from chip_smoke.py phase 4's A/B of the schedules (lines "[ab]":
+#: batch 64, the planner's radix, in turns) on an NVIDIA H100 80GB HBM3 at
+#: 700 W, whose runs and times PERF.md records: two passes were faster at
 #: n = 8192 for every kernel, and at n = 4096 for the real product and the
 #: NTT product (slower there for the fft, the rfft and the irfft, within
 #: the turns' spread for the complex product), so those stay resident at
-#: 4096.
+#: 4096. The NTT's two passes were faster from 2048 on, forward and
+#: inverse (at 1024 neither schedule won both directions). The RNS
+#: product (k = 9 limbs) took its split where it beat the register steps:
+#: at 8192 and above (the register steps won at 4096, today's single-CTA
+#: kernel lost at every length from 32 on).
 TWO_PASS_FROM = {"fft": 8192, "rfft": 8192, "irfft": 8192,
                  "polymul_complex": 8192, "polymul_real": 4096,
-                 "ntt_polymul": 4096}
+                 "ntt_polymul": 4096, "ntt_batched": 2048,
+                 "rns_ntt_polymul": 8192}
+#: Least n at which ``kernels.ntt.rns_ntt_polymul`` takes its register-step
+#: schedule (one CTA per row and limb) below its split; below it, and
+#: where the two rows do not fit one CTA, it runs its single-CTA kernel.
+#: From the same A/B (k = 9): the register steps were faster from 32
+#: points on, within the turns' spread at 16, slower at 8 and below.
+REGISTER_STEPS_FROM = {"rns_ntt_polymul": 32}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,10 +33,11 @@ import torch
 
 from repro_torch.core.ntt.ref import NTTParams
 from repro_torch.kernels import _build
-from repro_torch.kernels.fft import (MAX_BLOCK, SMEM_BLOCK_BUDGET,
-                                     SMEM_MAX_BYTES, TWO_PASS_FROM,
-                                     _fit_block, _log2, fit_smem,
-                                     pass2_twiddle_index, pass_slots, ptr,
+from repro_torch.kernels.fft import (MAX_BLOCK, REGISTER_STEPS_FROM,
+                                     SMEM_BLOCK_BUDGET, SMEM_MAX_BYTES,
+                                     TWO_PASS_FROM, TwoPass, _fit_block,
+                                     _log2, fit_smem, pass2_twiddle_index,
+                                     pass_slots, ptr, two_pass_launch,
                                      two_pass_split)
 
 _MASK32 = 0xFFFFFFFF
@@ -106,21 +107,53 @@ def ntt_stages(x: torch.Tensor, w: torch.Tensor, q, qinv) -> torch.Tensor:
     return y.reshape(p, b, n)
 
 
+def step_sweeps(x: torch.Tensor, w: torch.Tensor, q, qinv) -> torch.Tensor:
+    """``ntt_stages`` in the register-step order of ``csrc/ntt.cu``
+    (``ntt_sub_steps`` on whole rows): steps of T = min(4, sweeps left) at
+    state A(L, r), each on groups of 2^T elements -- group (l, c), c < r /
+    2^T, holds (l, c + i r / 2^T) -- whose T sweeps are the group's own
+    butterflies (``group_sweeps``: before sweep t, element b + 2^t i holds
+    block l + b L of A(2^t L, r / 2^t)), the group ending as blocks l + j L
+    of column c of A(2^T L, r / 2^T). The same residues as ``ntt_stages``
+    (``==``)."""
+    p, b, n = x.shape
+    qv, qiv = q.view(p, 1, 1, 1, 1, 1), qinv.view(p, 1, 1, 1, 1, 1)
+    L, r = 1, n
+    while r > 1:
+        lr = r.bit_length() - 1
+        T = min(4, lr)
+        E, cols = 1 << T, r >> T
+        g = x.reshape(p, b, L, E, cols)             # [l, i, c]
+        for t in range(T):
+            v = g.reshape(p, b, L, 2, E >> (t + 1), 1 << t, cols)
+            e, o = v[:, :, :, 0], v[:, :, :, 1]     # [l, i, b, c] each
+            blocks = (torch.arange(L, device=x.device)[:, None]
+                      + L * torch.arange(1 << t, device=x.device)[None, :])
+            tw = w[:, blocks << (lr - t - 1)][:, None, :, None, :, None]
+            m = mont_mul(o, tw, qv, qiv)
+            g = torch.stack([_add_mod(e, m, qv), _sub_mod(e, m, qv)],
+                            dim=-3).reshape(p, b, L, E, cols)
+        x = g.transpose(2, 3).reshape(p, b, n)       # [j, l, c]
+        L, r = L * E, cols
+    return x
+
+
 def _polymul_stages(a, b, wf, wi, twist, untwist, q, qinv, r2,
-                    negacyclic: bool) -> torch.Tensor:
+                    negacyclic: bool, stages=ntt_stages) -> torch.Tensor:
     """The fused product on (P, B, n) words, tables (P, n), constants
     (P, 1, 1), all int64: load, psi twist, two NTTs, the r2-hop pointwise
     product, the inverse NTT, and the untwist by psi^-j * n^-1 (n^-1 alone
-    for the cyclic product). Returns int32 residues."""
+    for the cyclic product), each transform by ``stages``. Returns int32
+    residues."""
     a, b = _load(a, q), _load(b, q)
     if negacyclic:
         a = mont_mul(a, twist[:, None], q, qinv)
         b = mont_mul(b, twist[:, None], q, qinv)
-    fa = ntt_stages(a, wf, q, qinv)
-    fb = ntt_stages(b, wf, q, qinv)
+    fa = stages(a, wf, q, qinv)
+    fb = stages(b, wf, q, qinv)
     # one operand enters the Montgomery domain first (the r2 hop)
     p = mont_mul(mont_mul(fa, r2, q, qinv), fb, q, qinv)
-    c = ntt_stages(p, wi, q, qinv)
+    c = stages(p, wi, q, qinv)
     return mont_mul(c, untwist[:, None], q, qinv).to(torch.int32)
 
 
@@ -218,6 +251,12 @@ def ntt_resident(n: int, *, product: bool = True) -> bool:
     return ntt_smem_bytes(n, 1, product=product) <= SMEM_MAX_BYTES
 
 
+def rns_steps_smem_bytes(n: int) -> int:
+    """Shared memory of the RNS product's register-step CTA: two buffers
+    of both operands' rows of n words, one pad word in 16."""
+    return 4 * (n + n // 16) * 4
+
+
 def _scratch(n: int, batch: int, rows: int, staged: bool, limbs: int,
              device: torch.device, *, product: bool) -> torch.Tensor | None:
     """Device-memory ping-pong buffers of a staged launch, one slice per
@@ -287,20 +326,96 @@ def ntt_two_pass_launch(n1: int, n2: int) -> NTTTwoPass:
                       pass_slots(n1, n2))
 
 
+@dataclasses.dataclass(frozen=True)
+class RNSRegisterSteps:
+    """The RNS product's register-step schedule: one launch, one CTA per
+    (row, limb) holding both operands' whole rows, its three transforms in
+    steps of up to four radix-2 sweeps on the residues a thread holds."""
+    n: int
+
+    @property
+    def launches(self) -> int:
+        return 1
+
+
+@functools.lru_cache(maxsize=256)
+def rns_schedule(n: int) -> NTTTwoPass | RNSRegisterSteps | None:
+    """The schedule ``rns_ntt_polymul`` takes for n-point rows: from
+    ``TWO_PASS_FROM["rns_ntt_polymul"]`` points on the single-limb
+    product's split-pass launches (``ntt_two_pass_plan``'s split) with the
+    limb as grid row y; below that, from
+    ``REGISTER_STEPS_FROM["rns_ntt_polymul"]`` on and while both rows fit
+    one CTA, the register-step kernel; else (None) the single-CTA kernel,
+    one CTA per row block and limb, staged past 8192 points (past 2^25,
+    where no split fits)."""
+    if n >= TWO_PASS_FROM["rns_ntt_polymul"]:
+        split = two_pass_split(n, 2, product=True)
+        if split is not None:
+            return ntt_two_pass_launch(*split)
+    if (n >= REGISTER_STEPS_FROM["rns_ntt_polymul"]
+            and rns_steps_smem_bytes(n) <= SMEM_MAX_BYTES):
+        return RNSRegisterSteps(n)
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def ntt_batched_two_pass_plan(n: int) -> TwoPass | None:
+    """The two-pass launches ``ntt_batched`` makes for n-point rows, or
+    None where one CTA takes whole rows: below
+    ``TWO_PASS_FROM["ntt_batched"]``, and past 2^26 points, where no split
+    fits. The split is the float fft's radix-2 rule (n1, n2 <= 8192, n1 as
+    close to sqrt(n) as allowed), its sub-problems per CTA the fft's."""
+    if n < TWO_PASS_FROM["ntt_batched"]:
+        return None
+    split = two_pass_split(n, 2)
+    return None if split is None else two_pass_launch(*split)
+
+
+def schedule_name(schedule) -> str:
+    """The name an NTT wrapper's call is counted under in
+    ``_build.SCHEDULES``."""
+    if schedule is None:
+        return "single-CTA"
+    if isinstance(schedule, RNSRegisterSteps):
+        return "register-step"
+    return "split-pass" if isinstance(schedule, NTTTwoPass) else "two-pass"
+
+
 @functools.lru_cache(maxsize=64)
+def pass2_table(params: NTTParams, base: int, n1: int,
+                device: torch.device) -> torch.Tensor:
+    """The pass-2 twiddles of the split (n1, n / n1) from the master table
+    of ``base`` (the root or its inverse), gathered in the order the
+    kernels read them (``kernels.fft.pass2_twiddle_index``, radix 2),
+    int32 Montgomery form on ``device``."""
+    idx = torch.from_numpy(pass2_twiddle_index(params.n, n1, 2))
+    return master_table(params, base, torch.device("cpu"))[idx].to(device)
+
+
 def pass2_tables(params: NTTParams, negacyclic: bool, n1: int,
                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The pass-2 twiddles of the split (n1, n2), gathered in the order
-    the kernels read them (``kernels.fft.pass2_twiddle_index``, radix 2):
-    the forward transforms' from the forward table (split n1 x n2) and the
-    inverse's from the inverse table (split n2 x n1), int32 Montgomery
-    form on ``device``."""
-    n = params.n
-    wf, wi = (t.cpu() for t in polymul_tables(params, negacyclic,
-                                              torch.device("cpu"))[:2])
-    return (wf[torch.from_numpy(pass2_twiddle_index(n, n1, 2))].to(device),
-            wi[torch.from_numpy(pass2_twiddle_index(n, n // n1, 2))
-               ].to(device))
+    """The product's pass-2 twiddles of the split (n1, n2): the forward
+    transforms' from the forward table (split n1 x n2) and the inverse's
+    from the inverse table (split n2 x n1). Both products read the same
+    (the twist is not in them)."""
+    return (pass2_table(params, params.w, n1, device),
+            pass2_table(params, params.w_inv, params.n // n1, device))
+
+
+@functools.lru_cache(maxsize=32)
+def rns_pass2_tables(rns, n1: int, device: torch.device
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each limb's pass-2 tables for the split (n1, n / n1) (forward and
+    inverse, as ``pass2_tables``), stacked as (k, n) int32 on ``device``:
+    row ``limb`` holds the limb's table, zero-padded to n words, where the
+    split-pass kernels read it."""
+    cpu = torch.device("cpu")
+    stacks = (torch.stack([pass2_table(p, p.w, n1, cpu)
+                           for p in rns.limbs]),
+              torch.stack([pass2_table(p, p.w_inv, rns.n // n1, cpu)
+                           for p in rns.limbs]))
+    return tuple(torch.nn.functional.pad(t, (0, rns.n - t.shape[1])
+                                         ).to(device) for t in stacks)
 
 
 def _sub_sweeps(y, w, q, qinv, *, n: int, n1: int | None = None):
@@ -328,6 +443,19 @@ def _sub_sweeps(y, w, q, qinv, *, n: int, n1: int | None = None):
     return y
 
 
+def _two_pass_sweeps(x, w, q, qinv, *, n: int, n1: int):
+    """Both passes of an n-point transform of (B, n) int64 residues at the
+    split (n1, n2): pass 1 on (B n2, n1) sub-rows gathered at stride n2,
+    scattered to A[l n2 + q0]; pass 2 on (B n1, n2) contiguous sub-rows of
+    A with twiddles from the global block index. Returns (B, n1, n2),
+    whose [l0, k] is bin l0 + k n1."""
+    bsz, n2 = x.shape[0], n // n1
+    sub = x.reshape(bsz, n1, n2).transpose(1, 2).reshape(bsz * n2, 1, n1)
+    inter = _sub_sweeps(sub, w, q, qinv, n=n).reshape(bsz, n2, n1)
+    return _sub_sweeps(inter.transpose(1, 2).reshape(bsz, n1, 1, n2), w, q,
+                       qinv, n=n, n1=n1).reshape(bsz, n1, n2)
+
+
 def ntt_polymul_two_pass(a: torch.Tensor, b: torch.Tensor,
                          params: NTTParams, *, negacyclic: bool = True,
                          plan: NTTTwoPass) -> torch.Tensor:
@@ -350,11 +478,7 @@ def ntt_polymul_two_pass(a: torch.Tensor, b: torch.Tensor,
         x = _load(x, q)
         if negacyclic:
             x = mont_mul(x, twist, q, qinv)
-        sub = x.reshape(bsz, n1, n2).transpose(1, 2).reshape(bsz * n2, 1, n1)
-        inter = _sub_sweeps(sub, wf, q, qinv, n=n).reshape(bsz, n2, n1)
-        spectra = _sub_sweeps(inter.transpose(1, 2).reshape(bsz, n1, 1, n2),
-                              wf, q, qinv, n=n, n1=n1)
-        return spectra.reshape(bsz, n1, n2)       # [l0, k]: bin l0 + k n1
+        return _two_pass_sweeps(x, wf, q, qinv, n=n, n1=n1)
 
     p = mont_mul(mont_mul(forward(a), r2, q, qinv), forward(b), q, qinv)
     inter = _sub_sweeps(p.reshape(bsz * n1, 1, n2), wi, q, qinv, n=n)
@@ -363,6 +487,38 @@ def ntt_polymul_two_pass(a: torch.Tensor, b: torch.Tensor,
                       n1=n2).reshape(bsz, n2, n1)  # [l0', k]: c[l0' + k n2]
     c = out.transpose(1, 2).reshape(bsz, n)
     return mont_mul(c, untwist, q, qinv).to(torch.int32)
+
+
+def rns_ntt_polymul_two_pass(ar: torch.Tensor, br: torch.Tensor, rns, *,
+                             negacyclic: bool = True,
+                             plan: NTTTwoPass) -> torch.Tensor:
+    """Plain mirror of the RNS product's split-pass launches: F1, M and I2
+    of ``ntt_polymul_two_pass`` on each limb's (B, n) rows (the kernels'
+    grid row y), with that limb's modulus and tables. Exact: it equals
+    ``rns_ntt_polymul_plain`` (``==``) for any split."""
+    return torch.stack([ntt_polymul_two_pass(ar[i], br[i], limb,
+                                             negacyclic=negacyclic,
+                                             plan=plan)
+                        for i, limb in enumerate(rns.limbs)])
+
+
+def ntt_batched_two_pass(x: torch.Tensor, params: NTTParams, *,
+                         inverse: bool = False, plan: TwoPass
+                         ) -> torch.Tensor:
+    """Plain mirror of ``ntt_batched``'s two launches in int64, in their
+    dataflow: pass 1 loads and reduces, runs (B n2, n1) sub-rows gathered
+    at stride n2 and scatters them to A[l n2 + q0]; pass 2 runs (B n1, n2)
+    contiguous sub-rows of A with twiddles from the global block index and
+    stores bin l0 + k n1, times n^-1 for the inverse. Exact: it equals
+    ``ntt_batched_plain`` (``==``) for any split."""
+    q, qinv = params.q, params.qinv
+    w = master_table(params, params.w_inv if inverse else params.w,
+                     x.device).to(torch.int64)
+    out = _two_pass_sweeps(_load(x, q), w, q, qinv, n=params.n, n1=plan.n1)
+    y = out.transpose(1, 2).reshape(x.shape[0], params.n)   # bin l0 + k n1
+    if inverse:
+        y = mont_mul(y, _scale_mont(params), q, qinv)
+    return y.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -429,28 +585,54 @@ def ntt_batched(x: torch.Tensor, params: NTTParams, *,
     """Batched cyclic NTT (or inverse NTT, scaled by n^-1) of integer
     coefficients (B, n) mod ``params.q``; int32 residues out.
 
-    On the card: kernel ``ntt_kernel``, ``block_b`` rows per CTA at most
-    (default ``plan_ntt_block(n, product=False)``), fitted to the batch.
+    On the card: kernel ``ntt_kernel`` -- from
+    ``TWO_PASS_FROM["ntt_batched"]`` points on its two-pass schedule
+    (``ntt_batched_two_pass_plan``: two launches whose CTAs hold whole
+    sub-problems of a split n = n1 x n2), below that ``block_b`` rows per
+    CTA at most (default ``plan_ntt_block(n, product=False)``), fitted to
+    the batch. On the CPU the plain version of the same schedule.
     Replaces ``repro/kernels/ntt.py::ntt_batched``.
     """
     n = params.n
     _check_rows("ntt_batched", (x.shape[0], n), x)
     x = _as_residues(x, params.q)
+    two_pass = ntt_batched_two_pass_plan(n)
     if x.device.type == "cpu":
+        if two_pass is not None:
+            return ntt_batched_two_pass(x, params, inverse=inverse,
+                                        plan=two_pass)
         return ntt_batched_plain(x, params, inverse=inverse)
+    return _launch_ntt_batched(x, params, inverse, block_b or plan_ntt_block(
+        n, product=False), two_pass)
+
+
+def _launch_ntt_batched(x, params: NTTParams, inverse: bool, block: int,
+                        two_pass: TwoPass | None):
+    """Launch ``ntt_batched`` on card residues under the given schedule:
+    ``two_pass``, or one CTA per ``block`` rows at most."""
+    n = params.n
     b = x.shape[0]
-    rows, staged = ntt_cta_rows(n, b, block_b or plan_ntt_block(
-        n, product=False), product=False)
     y = torch.empty((b, n), dtype=torch.int32, device=x.device)
     if b == 0:
         return y
+    base = params.w_inv if inverse else params.w
     with torch.cuda.device(x.device):
-        w = master_table(params, params.w_inv if inverse else params.w,
-                         x.device)
-        scratch = _scratch(n, b, rows, staged, 1, x.device, product=False)
+        w = master_table(params, base, x.device)
+        if two_pass is None:
+            rows, staged = ntt_cta_rows(n, b, block, product=False)
+            scratch = _scratch(n, b, rows, staged, 1, x.device,
+                               product=False)
+            tw2, split = None, (0, 0, 0)
+        else:
+            rows = 1
+            scratch = torch.empty(b * n, dtype=torch.int32, device=x.device)
+            tw2 = pass2_table(params, base, two_pass.n1, x.device)
+            split = tuple(_log2(v) for v in (two_pass.n1, two_pass.c1,
+                                             two_pass.c2))
         _build.launch("ntt_batched", "ntt_batched", ptr(x), ptr(y), ptr(w),
-                      ptr(scratch), b, _log2(n), params.q, params.qinv,
-                      _scale_mont(params), int(inverse), rows)
+                      ptr(scratch), ptr(tw2), b, _log2(n), params.q,
+                      params.qinv, _scale_mont(params), int(inverse), rows,
+                      *split, schedule=schedule_name(two_pass))
     return y
 
 
@@ -523,7 +705,7 @@ def _launch_ntt_polymul(a, b, params: NTTParams, negacyclic: bool,
                       ptr(wf), ptr(wi), ptr(twist), ptr(untwist),
                       ptr(scratch), ptr(tw2f), ptr(tw2i), bsz, _log2(n),
                       params.q, params.qinv, params.r2, int(negacyclic),
-                      rows, *split)
+                      rows, *split, schedule=schedule_name(two_pass))
     return c
 
 
@@ -540,14 +722,26 @@ def _check_rns(ar: torch.Tensor, br: torch.Tensor, rns) -> tuple[int, int]:
 
 
 def rns_ntt_polymul_plain(ar: torch.Tensor, br: torch.Tensor, rns, *,
-                          negacyclic: bool = True) -> torch.Tensor:
+                          negacyclic: bool = True,
+                          stages=ntt_stages) -> torch.Tensor:
     """Plain version of ``rns_ntt_polymul``: all limbs at once, each limb's
-    constants read from the same (k, 4) table as the kernel's."""
+    constants read from the same (k, 4) table as the kernel's; the sweeps
+    one by one (``ntt_stages``, the single-CTA kernel's order) or as
+    ``stages`` runs them."""
     scal, *tables = rns_tables(rns, negacyclic, ar.device)
     scal = scal.to(torch.int64) & _MASK32
     q, qinv, r2 = (scal[:, i].view(-1, 1, 1) for i in range(3))
     tables = [t.to(torch.int64) for t in tables]
-    return _polymul_stages(ar, br, *tables, q, qinv, r2, negacyclic)
+    return _polymul_stages(ar, br, *tables, q, qinv, r2, negacyclic, stages)
+
+
+def rns_ntt_polymul_steps(ar: torch.Tensor, br: torch.Tensor, rns, *,
+                          negacyclic: bool = True) -> torch.Tensor:
+    """Plain mirror of the register-step kernel: ``rns_ntt_polymul_plain``
+    with every transform in the kernel's step order (``step_sweeps``).
+    Exact: it equals the plain version (``==``)."""
+    return rns_ntt_polymul_plain(ar, br, rns, negacyclic=negacyclic,
+                                 stages=step_sweeps)
 
 
 def rns_ntt_polymul(ar: torch.Tensor, br: torch.Tensor, rns, *,
@@ -558,26 +752,59 @@ def rns_ntt_polymul(ar: torch.Tensor, br: torch.Tensor, rns, *,
 
     ``rns`` is a ``core.ntt.rns.RNSParams``. Inputs are the per-limb
     residues ``rns.to_rns`` produces; the CRT (``rns.crt_to_modulus``)
-    is the caller's. On the card: kernel ``rns_ntt_polymul_kernel``, one
-    grid row per limb, ``block_b`` products per CTA at most (default
-    ``plan_ntt_block(n)``). Replaces
-    ``repro/kernels/ntt.py::rns_ntt_polymul``.
+    is the caller's. On the card: kernel 8 under ``rns_schedule(n)``, one
+    grid row per limb -- the split-pass launches, the register-step kernel
+    (one CTA per row and limb), or the single-CTA kernel
+    ``rns_ntt_polymul_kernel`` with ``block_b`` products per CTA at most
+    (default ``plan_ntt_block(n)``). On the CPU the plain version of the
+    same schedule. Replaces ``repro/kernels/ntt.py::rns_ntt_polymul``.
     """
     bsz, n = _check_rns(ar, br, rns)
     ar, br = ar.contiguous(), br.contiguous()
+    schedule = rns_schedule(n)
     if ar.device.type == "cpu":
+        if isinstance(schedule, NTTTwoPass):
+            return rns_ntt_polymul_two_pass(ar, br, rns,
+                                            negacyclic=negacyclic,
+                                            plan=schedule)
+        if isinstance(schedule, RNSRegisterSteps):
+            return rns_ntt_polymul_steps(ar, br, rns, negacyclic=negacyclic)
         return rns_ntt_polymul_plain(ar, br, rns, negacyclic=negacyclic)
-    rows, staged = ntt_cta_rows(n, bsz, block_b or plan_ntt_block(n))
+    return _launch_rns_ntt_polymul(ar, br, rns, negacyclic,
+                                   block_b or plan_ntt_block(n), schedule)
+
+
+def _launch_rns_ntt_polymul(ar, br, rns, negacyclic: bool, block: int,
+                            schedule: NTTTwoPass | RNSRegisterSteps | None):
+    """Launch ``rns_ntt_polymul`` on card residue stacks under the given
+    schedule (``rns_schedule``'s kinds; None: one CTA per ``block``
+    products and limb at most)."""
+    n, bsz = rns.n, ar.shape[1]
     c = torch.empty((rns.k, bsz, n), dtype=torch.int32, device=ar.device)
     if bsz == 0:
         return c
     with torch.cuda.device(ar.device):
         scal, wf, wi, twist, untwist = rns_tables(rns, negacyclic,
                                                   ar.device)
-        scratch = _scratch(n, bsz, rows, staged, rns.k, ar.device,
-                           product=True)
+        rows, steps, split = 1, 0, (0, 0, 0, 0)
+        scratch = tw2f = tw2i = None
+        if isinstance(schedule, NTTTwoPass):
+            # F1's spectra of a and of b, then the inverse's pass-1 result
+            scratch = torch.empty(3 * rns.k * bsz * n, dtype=torch.int32,
+                                  device=ar.device)
+            tw2f, tw2i = rns_pass2_tables(rns, schedule.n1, ar.device)
+            split = tuple(_log2(v) for v in (schedule.n1, schedule.c1,
+                                             schedule.cm, schedule.ci))
+        elif isinstance(schedule, RNSRegisterSteps):
+            steps = 1
+        else:
+            rows, staged = ntt_cta_rows(n, bsz, block)
+            scratch = _scratch(n, bsz, rows, staged, rns.k, ar.device,
+                               product=True)
         _build.launch("ntt_rns_polymul", "rns_ntt_polymul", ptr(ar),
                       ptr(br), ptr(c), ptr(scal), ptr(wf), ptr(wi),
-                      ptr(twist), ptr(untwist), ptr(scratch), rns.k, bsz,
-                      _log2(n), int(negacyclic), rows)
+                      ptr(twist), ptr(untwist), ptr(scratch), ptr(tw2f),
+                      ptr(tw2i), rns.k, bsz, _log2(n), int(negacyclic),
+                      rows, steps, *split,
+                      schedule=schedule_name(schedule))
     return c

@@ -234,14 +234,27 @@ def _residues(rng, shape, q, device):
 @pytest.mark.parametrize("n", NTT_NS)
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_kernel_matches_plain_and_reference(cuda, rng, n, inverse):
+    """The planned schedule and, where n has both (4 to 16384: the
+    resident kernel and the two passes), the other through the launch
+    helper: each equal to the plain version and the numpy reference, one
+    count per call."""
     p = tntt.NTTParams.make(n)
     x = _residues(rng, (5, n), p.q, cuda)
+    want = tknt.ntt_batched_plain(x, p, inverse=inverse)
+    assert (tknt.residues_to_numpy(want)
+            == (tntt.intt if inverse else tntt.ntt)(x.cpu().numpy(),
+                                                    p)).all()
     got = _launched("ntt_batched",
                     lambda: tknt.ntt_batched(x, p, inverse=inverse))
     assert got.dtype == torch.int32
-    assert torch.equal(got, tknt.ntt_batched_plain(x, p, inverse=inverse))
-    want = (tntt.intt if inverse else tntt.ntt)(x.cpu().numpy(), p)
-    assert (tknt.residues_to_numpy(got) == want).all()
+    assert torch.equal(got, want), "planned"
+    if 4 <= n <= 16384:
+        planned = tknt.ntt_batched_two_pass_plan(n)
+        other = None if planned else tfft.two_pass_launch(
+            *tfft.two_pass_split(n, 2))
+        got = _launched("ntt_batched", lambda: tknt._launch_ntt_batched(
+            x, p, inverse, tknt.plan_ntt_block(n, product=False), other))
+        assert torch.equal(got, want), "other"
 
 
 @pytest.mark.parametrize("n", NTT_NS)
@@ -288,22 +301,40 @@ def test_ntt_polymul_schedules_equal_plain_bitwise(cuda, rng, n, negacyclic,
 
 @pytest.mark.parametrize("n,kw", [(64, {"modulus": 17}),
                                   (4096, {"modulus_bits": 109}),
+                                  (8192, {"modulus_bits": 109}),
                                   (65536, {"modulus_bits": 60})])
 @pytest.mark.parametrize("negacyclic", [True, False])
 def test_rns_kernel_matches_plain_and_reference(cuda, rng, n, kw,
                                                 negacyclic):
+    """Every schedule that runs at n -- the single-CTA kernel (staged at
+    65536), the register steps (while both rows fit a CTA), the split-pass
+    launches (from 16 points) -- the planned one through the wrapper, the
+    others through its launch helper: each equal to the plain version,
+    its CRT to the reference product mod Q, one count per call."""
     r = tntt.RNSParams.make(n, **kw)
     a, b = (np.stack([tntt.random_poly(rng, n, r.modulus)
                       for _ in range(3)]) for _ in range(2))
     ar, br = (torch.from_numpy(tntt.to_rns(x, r).astype(np.uint32)).to(cuda)
               for x in (a, b))
+    plain = tknt.rns_ntt_polymul_plain(ar, br, r, negacyclic=negacyclic)
+    want = tntt.rns_polymul_reference(a, b, r, negacyclic=negacyclic)
+    assert (tntt.crt_to_modulus(tknt.residues_to_numpy(plain), r)
+            == want).all()
     got = _launched("rns_ntt_polymul", lambda: tknt.rns_ntt_polymul(
         ar, br, r, negacyclic=negacyclic))
-    assert torch.equal(got, tknt.rns_ntt_polymul_plain(
-        ar, br, r, negacyclic=negacyclic))
-    want = tntt.rns_polymul_reference(a, b, r, negacyclic=negacyclic)
-    assert (tntt.crt_to_modulus(tknt.residues_to_numpy(got), r)
-            == want).all()
+    assert torch.equal(got, plain), "planned"
+    others = [None, tknt.ntt_two_pass_launch(
+        *tfft.two_pass_split(n, 2, product=True))]
+    if tknt.rns_steps_smem_bytes(n) <= tfft.SMEM_MAX_BYTES:
+        others.append(tknt.RNSRegisterSteps(n))
+    for sched in others:
+        if sched == tknt.rns_schedule(n):
+            continue
+        got = _launched("rns_ntt_polymul",
+                        lambda: tknt._launch_rns_ntt_polymul(
+                            ar, br, r, negacyclic, tknt.plan_ntt_block(n),
+                            sched))
+        assert torch.equal(got, plain), tknt.schedule_name(sched)
 
 
 @pytest.mark.parametrize("n", NS)
@@ -487,6 +518,36 @@ def test_ntt_two_pass_occupancy_matches_launch_configuration(cuda, n):
         steps = -(-lm // 4)
         buffers = 2 if mode == 3 else min(2, max(1, steps - 1))
         assert occ["smem_bytes"] == buffers * 4 * held * (m + 1)
+        assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_rns_register_steps_occupancy_matches_launch_configuration(cuda, n):
+    """The register-step kernel: one thread per work item of 16 residues
+    of both operands' rows (at most 256), two shared buffers of both rows
+    at one pad word in 16 (17n bytes)."""
+    lg = n.bit_length() - 1
+    occ = _build.occupancy("rns_ntt_polymul", lg, 1, 5)
+    assert occ["threads"] == min(256, 2 * n // 16)
+    assert occ["smem_bytes"] == tknt.rns_steps_smem_bytes(n) == 17 * n
+    assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("n", [4096, 65536, 1 << 19])
+def test_ntt_batched_two_pass_occupancy_matches_launch_configuration(
+        cuda, n):
+    """Both launches of the NTT's two passes at n, as the fft's: one
+    thread per work item of 16 residues of the CTA's c sub-problems (at
+    least a warp, at most 256), one shared buffer of 4 (m + 1) bytes a
+    sub-problem for each state the radix-2 steps of up to four sweeps
+    leave in shared memory, two at most."""
+    tp = tfft.two_pass_launch(*tfft.two_pass_split(n, 2))
+    for mode, m, c in ((2, tp.n1, tp.c1), (3, tp.n2, tp.c2)):
+        lm = m.bit_length() - 1
+        occ = _build.occupancy("ntt_batched", lm, c, mode)
+        assert occ["threads"] == max(32, min(256, c * max(1, m // 16)))
+        buffers = min(2, max(1, -(-lm // 4) - 1))
+        assert occ["smem_bytes"] == buffers * 4 * c * (m + 1)
         assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
 
 

@@ -21,6 +21,7 @@ from repro.kernels import ntt as jntt
 from repro_torch.core.ntt import ref as tref
 from repro_torch.core.ntt import rns as trns
 from repro_torch.kernels import _build
+from repro_torch.kernels import fft as tfft
 from repro_torch.kernels import ntt as tntt
 
 
@@ -227,6 +228,57 @@ def test_rns_kernel_equals_reference_kernel(rng, n, kw, negacyclic):
     assert got.dtype == torch.int32 and got.shape == (r.k, 3, n)
     want = np.asarray(jntt.rns_ntt_polymul(ar, br, rj,
                                            negacyclic=negacyclic))
+    assert (_np(got) == want).all()
+
+
+def _rns_schedule_run(name, ar, br, r, negacyclic):
+    """The plain mirror of the RNS schedule ``name`` on the CPU: the
+    register steps, or the split-pass launches at the planner's split."""
+    if name == "register-step":
+        return tntt.rns_ntt_polymul_steps(ar, br, r, negacyclic=negacyclic)
+    plan = tntt.ntt_two_pass_launch(*tfft.two_pass_split(r.n, 2,
+                                                         product=True))
+    return tntt.rns_ntt_polymul_two_pass(ar, br, r, negacyclic=negacyclic,
+                                         plan=plan)
+
+
+@pytest.mark.parametrize("n,kw", [(16, {"modulus": 17}),
+                                  (64, {"modulus_bits": 100}),
+                                  (256, {"modulus_bits": 109})])
+@pytest.mark.parametrize("negacyclic", [True, False])
+@pytest.mark.parametrize("schedule", ["register-step", "split-pass"])
+def test_rns_schedules_equal_reference_kernel(rng, n, kw, negacyclic,
+                                              schedule):
+    """The mirrors of the RNS product's register-step and split-pass
+    schedules against the reference kernel (interpret mode), k = 1 and
+    k >= 3, on words in [q, 2q) of each limb in the first operand (the
+    port's load reduces them; the reference's transforms keep them
+    congruent, and the final REDC makes the residues canonical)."""
+    r, rj = (m.RNSParams.make(n, **kw) for m in (trns, jrns))
+    assert (r.k == 1) == ("modulus" in kw)
+    ar = trns.to_rns(np.stack([trns.random_poly(rng, n, r.modulus)
+                               for _ in range(3)]), r).astype(np.uint32)
+    ar = ar + np.array(r.qs, np.uint32)[:, None, None]
+    br = trns.to_rns(np.stack([trns.random_poly(rng, n, r.modulus)
+                               for _ in range(3)]), r).astype(np.uint32)
+    got = _rns_schedule_run(schedule, _t(ar), _t(br), r, negacyclic)
+    want = np.asarray(jntt.rns_ntt_polymul(ar, br, rj,
+                                           negacyclic=negacyclic))
+    assert (_np(got) == want).all()
+    assert torch.equal(got, tntt.rns_ntt_polymul_plain(
+        _t(ar), _t(br), r, negacyclic=negacyclic))
+
+
+@pytest.mark.parametrize("n", [16, 256, 4096])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_batched_two_pass_equals_reference_kernel(rng, n, inverse):
+    """The NTT's two-pass mirror (the planner's split) against the
+    reference kernel in interpret mode, on words in [q, 2q)."""
+    p, pj = _params(n)
+    x = _residues(rng, (3, n), p.q) + np.uint32(p.q)
+    plan = tfft.two_pass_launch(*tfft.two_pass_split(n, 2))
+    got = tntt.ntt_batched_two_pass(_t(x), p, inverse=inverse, plan=plan)
+    want = np.asarray(jntt.ntt_batched(jnp.asarray(x), pj, inverse=inverse))
     assert (_np(got) == want).all()
 
 

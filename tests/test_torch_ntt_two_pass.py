@@ -1,8 +1,11 @@
-"""The exact product's split-pass schedule (``repro_torch.kernels.ntt``:
-``ntt_two_pass_plan``, ``pass2_tables``, ``ntt_polymul_two_pass``) on the
-CPU, against the single-CTA plain version, the reference's Pallas kernel
-(``repro.kernels.ntt.ntt_polymul``, interpret mode, as the reference's own
-tests run it) and the ported numpy reference (``core.ntt.ref``).
+"""The exact kernels' split schedules (``repro_torch.kernels.ntt``:
+``ntt_two_pass_plan``, ``pass2_tables``, ``ntt_polymul_two_pass``; the RNS
+product's ``rns_schedule``, ``rns_pass2_tables``,
+``rns_ntt_polymul_two_pass`` and register-step ``rns_ntt_polymul_steps``;
+the NTT's ``ntt_batched_two_pass_plan`` and ``ntt_batched_two_pass``) on
+the CPU, against the single-CTA plain versions, the reference's Pallas
+kernels (``repro.kernels.ntt``, interpret mode, as the reference's own
+tests run them) and the ported numpy reference (``core.ntt.ref``).
 
 The mirror follows the three launches' dataflow: F1 on (B n2, n1) sub-rows
 gathered at stride n2 (after the load's reduction and psi twist), M's
@@ -10,7 +13,12 @@ forward pass 2 on (B n1, n2) contiguous sub-rows with twiddles from the
 global block index, the r2-hop product, the inverse's pass 1 on the same
 sub-rows (the mirrored split n2 x n1) scattered at stride n1, and I2 on
 (B n2, n1) contiguous sub-rows scattered at stride n2 with the untwist.
-Residues are exact, so every comparison is ``==``, for every split.
+The RNS product's split runs those launches once per limb (the kernels'
+grid row y); its register steps run the sweeps of a whole row four at a
+time on 16-residue groups (``step_sweeps``). The NTT's two passes are F1's
+reader on one operand and M's forward pass 2 with the bins stored in
+natural order. Residues are exact, so every comparison is ``==``, for
+every split.
 """
 import numpy as np
 import pytest
@@ -22,6 +30,7 @@ from repro.core.ntt import ref as jref
 from repro.kernels import ntt as jntt
 from repro_torch.core import fft as tcore
 from repro_torch.core.ntt import ref as tref
+from repro_torch.core.ntt import rns as trns
 from repro_torch.kernels import _build
 from repro_torch.kernels import fft as tfft
 from repro_torch.kernels import ntt as tntt
@@ -175,3 +184,188 @@ def test_cpu_wrapper_runs_the_mirror_and_launches_nothing(rng):
                 tntt.ntt_polymul(a, b, p, negacyclic=negacyclic),
                 tntt.ntt_polymul_plain(a, b, p, negacyclic=negacyclic))
     assert set(_build.LAUNCHES.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# The RNS product's schedules
+# ---------------------------------------------------------------------------
+
+def _rns_words(rng, r, batch, *, above_q=False):
+    """(k, batch, n) uint32 words of each limb, in [q, 2q) if
+    ``above_q``."""
+    x = np.stack([rng.integers(0, q, (batch, r.n)) for q in r.qs])
+    if above_q:
+        x = x + np.array(r.qs)[:, None, None]
+    return x.astype(np.uint32)
+
+
+@pytest.mark.parametrize("n", [16, 4096])
+@pytest.mark.parametrize("kw", [{"modulus_bits": 109}, {"modulus": 17}])
+def test_rns_mirror_any_split_equals_plain(rng, n, kw):
+    """Every split n1 = 2 .. n/2 of the RNS product's split-pass mirror,
+    at k = 9 and k = 1, both products: the plain version's residues."""
+    r = trns.RNSParams.make(n, **kw)
+    a, b = (_t(_rns_words(rng, r, 2, above_q=i == 0)) for i in range(2))
+    for negacyclic in (True, False):
+        want = tntt.rns_ntt_polymul_plain(a, b, r, negacyclic=negacyclic)
+        n1 = 2
+        while n1 < n:
+            plan = tntt.ntt_two_pass_launch(n1, n // n1)
+            assert torch.equal(tntt.rns_ntt_polymul_two_pass(
+                a, b, r, negacyclic=negacyclic, plan=plan), want), n1
+            n1 *= 2
+
+
+@pytest.mark.parametrize("lg", range(1, 14))
+def test_register_steps_equal_sweeps(rng, lg):
+    """``step_sweeps`` (the register-step kernel's order: steps of up to
+    four sweeps on 16-residue groups) equals ``ntt_stages`` sweep for
+    sweep, forward and inverse table, and the RNS product's register-step
+    mirror equals the plain version (k = 3, both products)."""
+    n = 1 << lg
+    r = trns.RNSParams.make(n, modulus_bits=40)
+    scal, wf, wi = tntt.rns_tables(r, True, torch.device("cpu"))[:3]
+    scal = scal.to(torch.int64) & 0xFFFFFFFF
+    q, qinv = (scal[:, i].view(-1, 1, 1) for i in range(2))
+    x = _t(_rns_words(rng, r, 2)).view(torch.int32).to(torch.int64)
+    for w in (wf, wi):
+        w = w.to(torch.int64)
+        assert torch.equal(tntt.step_sweeps(x, w, q, qinv),
+                           tntt.ntt_stages(x, w, q, qinv))
+    a, b = (_t(_rns_words(rng, r, 3, above_q=i == 0)) for i in range(2))
+    for negacyclic in (True, False):
+        assert torch.equal(
+            tntt.rns_ntt_polymul_steps(a, b, r, negacyclic=negacyclic),
+            tntt.rns_ntt_polymul_plain(a, b, r, negacyclic=negacyclic))
+
+
+@pytest.mark.parametrize("n", [64, 4096])
+@pytest.mark.parametrize("negacyclic", [True, False])
+def test_rns_pass2_tables_are_each_limbs_own(n, negacyclic):
+    """Row ``limb`` of the stacked pass-2 tables holds that limb's own
+    ``pass2_tables`` (forward and inverse), zero-padded to n words."""
+    r = trns.RNSParams.make(n, modulus_bits=109)
+    n1, n2 = tfft.two_pass_split(n, 2, product=True)
+    cpu = torch.device("cpu")
+    tw2f, tw2i = tntt.rns_pass2_tables(r, n1, cpu)
+    assert tw2f.shape == tw2i.shape == (r.k, n)
+    for i, limb in enumerate(r.limbs):
+        for got, want in zip((tw2f[i], tw2i[i]),
+                             tntt.pass2_tables(limb, negacyclic, n1, cpu)):
+            assert torch.equal(got[:want.shape[0]], want)
+            assert not got[want.shape[0]:].any()
+
+
+def test_rns_schedule_examples_and_thresholds():
+    """Single-CTA below ``REGISTER_STEPS_FROM``, register steps up to the
+    split's threshold (while 17n bytes fit a CTA), the single-limb
+    product's split from there to 2^25, single-CTA (staged) past it."""
+    steps = tfft.REGISTER_STEPS_FROM["rns_ntt_polymul"]
+    split = tfft.TWO_PASS_FROM["rns_ntt_polymul"]
+    assert tntt.rns_schedule(steps // 2) is None
+    assert steps < split
+    for n in (steps, split // 2):
+        assert tntt.rns_schedule(n) == tntt.RNSRegisterSteps(n)
+        assert tntt.rns_schedule(n).launches == 1
+    for n in (split, 65536, 1 << 25):
+        assert tntt.rns_schedule(n) == tntt.ntt_two_pass_plan(n)
+        assert tntt.rns_schedule(n).launches == 3
+    assert tntt.rns_schedule(1 << 26) is None
+    assert [tntt.schedule_name(tntt.rns_schedule(n)) for n in
+            (steps // 2, steps, split)] == ["single-CTA", "register-step",
+                                            "split-pass"]
+
+
+@pytest.mark.parametrize("lg", range(1, 15))
+def test_register_steps_fit_shared_memory(lg):
+    """The register-step CTA holds two buffers of both operands' rows at
+    one pad word in 16 (17n bytes from n = 16): within the 227 KB a CTA
+    may hold up to 8192 points, so the schedule never plans it beyond; its
+    grid is (B, k), k within the 65535 rows a grid may have."""
+    n = 1 << lg
+    fits = tntt.rns_steps_smem_bytes(n) <= tfft.SMEM_MAX_BYTES
+    assert tntt.rns_steps_smem_bytes(n) == 16 * (n + n // 16)
+    assert fits == (n <= 8192)
+    if not fits:
+        assert not isinstance(tntt.rns_schedule(n), tntt.RNSRegisterSteps)
+    assert trns.RNSParams.make(n, modulus_bits=109).k <= 65535
+
+
+# ---------------------------------------------------------------------------
+# ntt_batched's two passes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [16, 4096])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_batched_mirror_any_split_equals_plain(rng, n, inverse):
+    """Every split n1 = 2 .. n/2 of the NTT's two-pass mirror, on words of
+    any value: the plain version's residues and the numpy reference's."""
+    p = tref.NTTParams.make(n)
+    x = rng.integers(0, 2**32, (3, n)).astype(np.uint32)
+    want = tntt.ntt_batched_plain(_t(x), p, inverse=inverse)
+    assert (tntt.residues_to_numpy(want)
+            == (tref.intt if inverse else tref.ntt)(x, p)).all()
+    n1 = 2
+    while n1 < n:
+        plan = tfft.two_pass_launch(n1, n // n1)
+        assert torch.equal(tntt.ntt_batched_two_pass(
+            _t(x), p, inverse=inverse, plan=plan), want), n1
+        n1 *= 2
+
+
+@pytest.mark.parametrize("lg", range(2, 27))
+def test_ntt_batched_split_fits_shared_memory_and_grid(lg):
+    """Both launches of the NTT's two passes (the fft's radix-2 split,
+    n1, n2 <= 8192): c sub-problems of m words in one or two buffers at
+    row stride m + 1 within 227 KB, c a power of two within the
+    sub-problems a row has, at most ``TWO_PASS_CTA_POINTS`` points unless
+    one sub-problem is longer; at batch 64 each grid is far within 2^31 -
+    1 CTAs."""
+    n = 1 << lg
+    plan = tntt.ntt_batched_two_pass_plan(n) or tfft.two_pass_launch(
+        *tfft.two_pass_split(n, 2))
+    assert plan.n1 * plan.n2 == n and plan.launches == 2
+    cap = tfft.TWO_PASS_CTA_POINTS
+    for held, m, avail in ((plan.c1, plan.n1, plan.n2),
+                           (plan.c2, plan.n2, plan.n1)):
+        assert 2 * 4 * held * (m + 1) <= tfft.SMEM_MAX_BYTES
+        assert held <= avail and held & (held - 1) == 0
+        assert held * m <= max(cap, m)
+        assert 64 * (avail // held) < 2**31
+
+
+def test_ntt_batched_plan_threshold():
+    low = tfft.TWO_PASS_FROM["ntt_batched"]
+    assert tntt.ntt_batched_two_pass_plan(low // 2) is None
+    assert tntt.ntt_batched_two_pass_plan(low) == tfft.two_pass_launch(
+        *tfft.two_pass_split(low, 2))
+    assert tntt.ntt_batched_two_pass_plan(65536) == tfft.TwoPass(256, 256,
+                                                                 16, 16)
+    assert tntt.ntt_batched_two_pass_plan(1 << 27) is None
+    assert tntt.schedule_name(tntt.ntt_batched_two_pass_plan(low)) == \
+        "two-pass"
+
+
+def test_cpu_rns_and_ntt_wrappers_run_the_planned_mirror(rng):
+    """On the CPU the RNS wrapper runs the mirror of its planned schedule
+    (register steps, split) and ``ntt_batched`` its two-pass mirror from
+    the threshold on, each the plain version's residues, launching
+    nothing."""
+    _build.reset_launches()
+    steps = tfft.REGISTER_STEPS_FROM["rns_ntt_polymul"]
+    for n in (steps, tfft.TWO_PASS_FROM["rns_ntt_polymul"]):
+        r = trns.RNSParams.make(n, modulus_bits=40)
+        assert tntt.rns_schedule(n) is not None
+        a, b = (_t(_rns_words(rng, r, 2)) for _ in range(2))
+        for negacyclic in (True, False):
+            assert torch.equal(
+                tntt.rns_ntt_polymul(a, b, r, negacyclic=negacyclic),
+                tntt.rns_ntt_polymul_plain(a, b, r, negacyclic=negacyclic))
+    n = tfft.TWO_PASS_FROM["ntt_batched"]
+    p = tref.NTTParams.make(n)
+    x = _t(_residues(rng, (3, n), p.q))
+    for inverse in (False, True):
+        assert torch.equal(tntt.ntt_batched(x, p, inverse=inverse),
+                           tntt.ntt_batched_plain(x, p, inverse=inverse))
+    assert set(_build.LAUNCHES.values()) == {0}
+    assert not _build.SCHEDULES

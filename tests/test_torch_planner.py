@@ -151,13 +151,32 @@ def test_exact_plan_is_the_fused_ntt_product(n):
 
 @pytest.mark.parametrize("n", [4096, 65536])
 def test_rns_plan_keeps_one_cta_per_row_block(n):
-    """The multi-limb route's RNS kernel has no split-pass schedule: its
-    plan keeps the single-limb product's block and one launch, resident
-    while a product row fits shared memory."""
+    """The multi-limb route's plan records ``rns_schedule``: at the serve
+    cell's 4096 the register-step kernel, one CTA per row and limb (block
+    1, one launch, resident); at 65536 the single-limb product's
+    split-pass launches with the limb as grid row y (three launches).
+    Below ``REGISTER_STEPS_FROM`` it keeps one CTA per row block, with the
+    single-limb product's block."""
     got = tcore.plan(n, 64, exact=True, rns=True)
-    assert got.two_pass is None and got.launches == 1
-    assert got.block_b == tcore.plan(n, 64, exact=True).block_b
-    assert got.resident == tntt.ntt_resident(n)
+    sched = tntt.rns_schedule(n)
+    assert got.launches == sched.launches
+    if n < tfft.TWO_PASS_FROM["rns_ntt_polymul"]:
+        assert sched == tntt.RNSRegisterSteps(n)
+        assert got.register_steps and got.resident and got.block_b == 1
+        assert got.two_pass is None and got.launches == 1
+        assert "register steps" in got.describe()
+    else:
+        assert got.two_pass == (sched.n1, sched.n2) == \
+            tcore.plan(n, 64, exact=True).two_pass
+        assert got.launches == 3 and not got.resident
+        assert not got.register_steps
+    small = tfft.REGISTER_STEPS_FROM["rns_ntt_polymul"] // 2
+    below = tcore.plan(small, 64, exact=True, rns=True)
+    assert tntt.rns_schedule(small) is None
+    assert below.two_pass is None and below.launches == 1
+    assert below.block_b == tcore.plan(small, 64, exact=True).block_b
+    assert below.resident == tntt.ntt_resident(small)
+    assert not below.register_steps
     with pytest.raises(ValueError, match="exact=True"):
         tcore.plan(n, 64, rns=True)
 
