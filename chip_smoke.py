@@ -12,8 +12,8 @@ Phases (any failure exits non-zero):
      each with ``-Xptxas -v``), and print the build time, the card's name
      and its power limit; then ptxas's registers and spills for every
      Stockham and NTT kernel, and its
-     registers, shared memory and spills for the wgmma flash kernel and
-     the count of HGMMA
+     registers, shared memory and spills for each instance of the wgmma
+     flash kernel and the count of HGMMA
      and UTMALDG instructions in its SASS (``cuobjdump -sass``), which
      must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
@@ -38,11 +38,13 @@ Phases (any failure exits non-zero):
      flash-attention kernels
      against their plain versions (``ATTN_CASES``), each case launching
      the kernel its (dtype, head_dim) dispatches to and the other never:
-     the wgmma kernel (bf16, head_dim 64 and 128) at the served prefill
-     shape, windows 1024 and 24, non-causal, ragged S, G = 1, S = 1 and
-     S < 64; the CUDA-core kernel at bf16 head_dims 32 and 320 and in
-     fp32; bf16 within one bf16 step and fp32 within 2e-4; and the public
-     (H, S, hd) layout against the naive oracle. Then the two-pass
+     the wgmma kernel (bf16, head_dim 64, 128 and 320) at the served
+     prefill shape, windows 1024 and 24, non-causal, ragged S, G = 1,
+     S = 1 and S < 64, and at gemma3-4b's heads (hd 320, 8 heads over 4
+     kv heads, S = 2048, window 1024 and global); the CUDA-core kernel at
+     bf16 head_dim 32 and in fp32; bf16 within one bf16 step and fp32
+     within 2e-4; and the public (H, S, hd) layout against the naive
+     oracle. Then the two-pass
      schedules of the fft, rfft and irfft kernels and the products'
      split-pass schedule (``check_two_pass``; three launches, four at odd
      log2 n and radix 4): n = 2^14 .. 2^18 (two passes) and 4096, 8192
@@ -74,7 +76,14 @@ Phases (any failure exits non-zero):
      2e-3, counters zeroed just before, which must launch the CUDA-core
      flash kernel 56 times (a forward and a prefill) and nothing else; and
      the same 2-layer full-width weights on the card and on the CPU (plain
-     versions) within 2e-3.
+     versions) within 2e-3. Then gemma3-4b the same way, counters zeroed
+     just before: ``--service lm --arch gemma3-4b`` at full width (34
+     layers, head_dim 320), batch 8, prompt 2048, gen 32, which must launch
+     the wgmma kernel 34 times and nothing else; and a 6-layer full-width
+     bf16 prefill (B = 2, S = 2048: five local layers and the global layer
+     5) once through the kernel and once with the plain version swapped in
+     for ``kernels.attention.attention``, whose last logits must agree
+     within ``GEMMA_PARITY_TOL``.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -85,9 +94,10 @@ Phases (any failure exits non-zero):
      67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels, over
      the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
      kernels, and over 989 TFLOP/s bf16 (the wgmma kernel, at the served
-     prefill shape; beside it the CUDA-core kernel on the same inputs) or
-     67 TFLOP/s fp32 (the CUDA-core kernel, at that shape in fp32) for
-     flash attention, whose yardstick is ``scaled_dot_product_attention``
+     prefill shape and at gemma3-4b's local and global shapes; beside it,
+     in turns on the same inputs, the CUDA-core kernel) or 67 TFLOP/s fp32
+     (the CUDA-core kernel, at the served shape in fp32) for flash
+     attention, whose yardstick is ``scaled_dot_product_attention``
      (causal, GQA; the flash kernels, their plain versions and SDPA timed
      by CUDA events over back-to-back calls, as their traces drop events;
      the traced times are printed beside where the trace holds any); each
@@ -106,11 +116,11 @@ Phases (any failure exits non-zero):
      (``schedule_ab``: in turns single-CTA, two-pass, two-pass,
      single-CTA, the register steps between), which sets the planner's
      thresholds.
-     The CUDA-core flash kernel is timed in fp32 and at gemma3-4b's bf16
-     head_dim 320 (``ATTN_TIMED``). Then the LM
-     cell: prefill ms, decode ms per token and tok/s, and a traced run for
-     the card's idle share and the wgmma flash kernel's share of the
-     prefill.
+     The flash kernels' shapes are ``ATTN_TIMED``. Then the LM cells,
+     qwen3-1.7b and gemma3-4b: prefill ms, decode ms per token and tok/s,
+     and a traced run for the card's idle share and the wgmma flash
+     kernel's share of the prefill; for gemma3-4b also the prefill with
+     the CUDA-core kernel swapped in, in turns with the wgmma kernel.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -182,13 +192,23 @@ TRANSFORM_KERNELS = {
     "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
 #: the LM's two Hopper kernels for TPU kernel 9, by launch counter: the
-#: tensor-core kernel (bf16 at head_dim 64 and 128, the served prefill)
-#: and the CUDA-core kernel (fp32; bf16 at head_dim 32 and 320)
+#: tensor-core kernel (bf16 at head_dim 64, 128 and 320, the served
+#: prefills) and the CUDA-core kernel (fp32; bf16 at head_dim 32)
 FLASH_REPLACES = "src/repro/kernels/attention.py:30"
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention")
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
-#: the served LM cell: qwen3-1.7b at full width, bf16 activations
+#: the served LM cells: qwen3-1.7b and gemma3-4b at full width, bf16
+#: activations, the same batch, prompt and generated tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 8, 2048, 32
+GEMMA_ARCH = "gemma3-4b"
+#: gemma3-4b's kernel-vs-plain prefill: 6 layers at full width (five local
+#: layers, then the global layer 5), batch 2, the served prompt
+GEMMA_PARITY_LAYERS, GEMMA_PARITY_BATCH = 6, 2
+#: its last logits are bf16 of magnitude up to about 8, spaced 2^-5 at 4..8;
+#: a bf16 rounding that differs in one of six layers' activations may move
+#: a logit by a step or two: four steps (as tests/test_torch_models.py holds
+#: the bf16 forward against the reference)
+GEMMA_PARITY_TOL = dict(rtol=0, atol=0.125)
 #: flash kernel vs plain: fp32 at the reference tests' 2e-4; bf16 at one
 #: bf16 step (kernel and plain version round the same fp32 value once, and
 #: a difference of fp32 sums may move it to the neighbouring bf16 value,
@@ -1739,6 +1759,10 @@ ATTN_CASES = [
     ("hd 64 non-causal S < 64", 2, 50, 8, 2, 64, "bfloat16", 1 << 30, False),
     ("hd 32", 2, 500, 8, 4, 32, "bfloat16", 1 << 30, True),
     ("hd 320", 2, 1024, 8, 4, 320, "bfloat16", 1024, True),
+    ("hd 320 ragged S window 24", 2, 333, 8, 4, 320, "bfloat16", 24, True),
+    ("gemma3-4b local", 2, LM_PROMPT, 8, 4, 320, "bfloat16", 1024, True),
+    ("gemma3-4b global", 2, LM_PROMPT, 8, 4, 320, "bfloat16", 1 << 30,
+     True),
     ("fp32", 2, 1000, 16, 8, 128, "float32", 1 << 30, True),
     ("fp32 hd 320 window 24", 1, 300, 8, 4, 320, "float32", 24, True),
 ]
@@ -1818,48 +1842,59 @@ def check_attention(torch, kattn, build) -> dict[str, float]:
 
 
 def full_width_state(torch, convert, cfg):
-    """qwen3-1.7b's weights drawn on the card from seed 0, as the serve
-    CLI draws them (fp32, the parameter type)."""
+    """The arch's weights drawn on the card from seed 0, as the serve CLI
+    draws them (fp32, the parameter type)."""
     return convert.init_params(
         cfg, torch.Generator(device=torch.device("cuda")).manual_seed(0))
 
 
-def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
-    """Phase 3 for the LM: (1) the served run through the serve CLI, the
-    launch counters zeroed just before: 28 launches of the wgmma kernel
-    and nothing else; (2) prefill/decode parity at full width in fp32, the
-    CUDA-core kernel's path, counters zeroed just before: one forward and
-    one prefill, 2 x 28 launches of that kernel and nothing else; (3) the
-    same 2-layer full-width weights on the card and on the CPU. Returns
-    what the report needs."""
-    import dataclasses
-    dev = torch.device("cuda")
+def serve_lm(torch, build, serve, get_config, arch: str) -> dict:
+    """The serve CLI's ``--service lm`` for ``arch`` at full width (batch 8,
+    prompt 2048, gen 32), the launch counters zeroed just before: one
+    launch of the wgmma kernel per layer (one prefill) and nothing else,
+    and LM_GEN tokens in the vocabulary for each prompt."""
     build.reset_launches()
     t0 = time.perf_counter()
-    res = serve.main(["--service", "lm", "--arch", LM_ARCH, "--batch",
+    res = serve.main(["--service", "lm", "--arch", arch, "--batch",
                       str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
                       str(LM_GEN)])
     wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     launches = dict(build.LAUNCHES)
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     gen = res["generated"]
     if launches["flash_attention_wgmma"] != cfg.num_layers:
-        raise SystemExit(f"served LM run: flash_attention_wgmma launched "
-                         f"{launches['flash_attention_wgmma']} times, "
-                         f"expected {cfg.num_layers} (one per layer, one "
-                         f"prefill)")
+        raise SystemExit(f"served {arch} run: flash_attention_wgmma "
+                         f"launched {launches['flash_attention_wgmma']} "
+                         f"times, expected {cfg.num_layers} (one per layer, "
+                         f"one prefill)")
     if others := {k: n for k, n in launches.items()
                   if n and k != "flash_attention_wgmma"}:
-        raise SystemExit(f"served LM run launched other kernels: {others}")
+        raise SystemExit(f"served {arch} run launched other kernels: "
+                         f"{others}")
     if gen.shape != (LM_GEN, LM_BATCH) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
-        raise SystemExit(f"served LM run: generated {gen.shape} "
+        raise SystemExit(f"served {arch} run: generated {gen.shape} "
                          f"{gen.min()}..{gen.max()}")
-    print(f"[lm] served {LM_ARCH} (full width, {cfg.num_layers} layers, "
-          f"bf16) batch={LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: "
-          f"generated {gen.shape}, {res['tokens_per_s']:.1f} tok/s "
-          f"(first call, incl. prefill) in {wall:.1f}s with set-up; "
-          f"launches {launches}", flush=True)
+    print(f"[lm] served {arch} (full width, {cfg.num_layers} layers, "
+          f"head_dim {cfg.head_dim}, bf16) batch={LM_BATCH} "
+          f"prompt={LM_PROMPT} gen={LM_GEN}: generated {gen.shape}, "
+          f"{res['tokens_per_s']:.1f} tok/s (first call, incl. prefill) in "
+          f"{wall:.1f}s with set-up; launches {launches}", flush=True)
+    return {"launches": launches, "tokens_per_s": res["tokens_per_s"]}
+
+
+def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
+    """Phase 3 for qwen3-1.7b: (1) the served run (``serve_lm``): 28
+    launches of the wgmma kernel and nothing else; (2) prefill/decode
+    parity at full width in fp32, the CUDA-core kernel's path, counters
+    zeroed just before: one forward and one prefill, 2 x 28 launches of
+    that kernel and nothing else; (3) the same 2-layer full-width weights
+    on the card and on the CPU. Returns what the report needs."""
+    dev = torch.device("cuda")
+    served = serve_lm(torch, build, serve, get_config, LM_ARCH)
+    launches = served["launches"]
+    cfg = get_config(LM_ARCH)
 
     # (2) parity at full width, fp32 activations: the CUDA-core kernel
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1914,43 +1949,126 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     return {"launches": {"flash_attention_wgmma":
                          launches["flash_attention_wgmma"],
                          "flash_attention": fp32_launches["flash_attention"]},
-            "first_call_tokens_per_s": res["tokens_per_s"],
+            "first_call_tokens_per_s": served["tokens_per_s"],
             "parity_max_abs": errs, "card_vs_cpu_max_abs": err}
 
 
-#: Device-side name of the served prefill's flash kernel in a profiler
-#: trace.
+def plain_attention(kattn):
+    """``kernels.attention.attention`` with the plain version in place of
+    the kernel on the card, folded at the kernel's own key tile (the
+    layer's ``kv_block`` is the CPU path's)."""
+    def attention(q, k, v, *, window, causal=True, scale, kv_block=None):
+        del kv_block
+        return kattn.attention_plain(q, k, v, window=window, causal=causal,
+                                     scale=scale)
+    return attention
+
+
+def gemma_phase(torch, build, serve, convert, kattn, get_config) -> dict:
+    """Phase 3 for gemma3-4b: (1) the served run (``serve_lm``): 34
+    launches of the wgmma kernel (its hd-320 instance) and nothing else;
+    (2) a full-width bf16 prefill of GEMMA_PARITY_LAYERS layers (five
+    local, window 1024, then the global layer 5) at batch 2 and the served
+    prompt, counters zeroed just before: once through the kernel (one
+    launch per layer, nothing else) and once with ``plain_attention``
+    swapped in for ``kernels.attention.attention`` (no launch); the last
+    logits finite, of the vocabulary's width, and within GEMMA_PARITY_TOL
+    of each other."""
+    dev = torch.device("cuda")
+    served = serve_lm(torch, build, serve, get_config, GEMMA_ARCH)
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
+                              num_layers=GEMMA_PARITY_LAYERS)
+    model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (GEMMA_PARITY_BATCH, LM_PROMPT), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with_kernel, _ = model.prefill(tokens)
+    torch.cuda.synchronize()
+    kernel_launches = dict(build.LAUNCHES)
+    kernel = kattn.attention
+    kattn.attention = plain_attention(kattn)
+    try:
+        with_plain, _ = model.prefill(tokens)
+        torch.cuda.synchronize()
+    finally:
+        kattn.attention = kernel
+    plain_launches = {k: n - kernel_launches[k]
+                      for k, n in build.LAUNCHES.items()}
+    want = {k: GEMMA_PARITY_LAYERS * (k == "flash_attention_wgmma")
+            for k in build.LAUNCHES}
+    if kernel_launches != want or any(plain_launches.values()):
+        raise SystemExit(f"{GEMMA_ARCH} {GEMMA_PARITY_LAYERS}-layer prefill: "
+                         f"launches {kernel_launches} with the kernel, "
+                         f"{plain_launches} with the plain version swapped "
+                         f"in; expected {want} and none")
+    got, ref = with_kernel.float(), with_plain.float()
+    err = float((got - ref).abs().max())
+    if got.shape != (GEMMA_PARITY_BATCH, cfg.vocab_padded) or not (
+            torch.isfinite(got).all() and torch.isfinite(ref).all()
+            and torch.allclose(got, ref, **GEMMA_PARITY_TOL)):
+        raise SystemExit(f"{GEMMA_ARCH} {GEMMA_PARITY_LAYERS}-layer prefill: "
+                         f"kernel and plain version's last logits {got.shape} "
+                         f"differ by {err}")
+    print(f"[lm] {GEMMA_ARCH} full width, {GEMMA_PARITY_LAYERS} layers "
+          f"(windows {[lm_window(cfg, i) for i in range(cfg.num_layers)]}), "
+          f"bf16, B={GEMMA_PARITY_BATCH} S={LM_PROMPT}: prefill last logits "
+          f"with the wgmma kernel vs the plain version swapped in "
+          f"|diff|max={err:.3g} within {GEMMA_PARITY_TOL} (|logit|max "
+          f"{float(ref.abs().max()):.3g}); launches {kernel_launches}",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": served["launches"]["flash_attention_wgmma"],
+            "first_call_tokens_per_s": served["tokens_per_s"],
+            "parity_layers": GEMMA_PARITY_LAYERS,
+            "kernel_vs_plain_last_logits_max_abs": err}
+
+
+def lm_window(cfg, i: int) -> str:
+    """Layer i's attention window, as printed."""
+    return "global" if cfg.layer_is_global(i) else str(cfg.window)
+
+
+#: Device-side names of the flash kernels in a profiler trace: the wgmma
+#: kernel (every instance) and the CUDA-core kernel.
 FLASH_KERNEL = re.compile(r"flash_attention_wgmma_kernel")
+CUDA_CORE_FLASH_KERNEL = re.compile(r"flash_attention_kernel")
 
 
 #: Phase 4's flash-attention shapes: label -> (kernel, (B, S, H, KV, hd,
-#: dtype, window)), causal. The wgmma kernel at the served prefill; the
-#: CUDA-core kernel at the same shape in fp32, the type it serves on the LM
-#: path (the fp32 parity path), and in bf16 at gemma3-4b's heads (8 heads,
-#: 4 kv heads, head_dim 320, its local layers' window 1024) at the served
-#: batch and prompt. The first shape of each kernel is its report's.
+#: dtype, window)), causal. The wgmma kernel at the served prefills: the
+#: qwen3-1.7b one, and gemma3-4b's heads (8 heads, 4 kv heads, head_dim
+#: 320) at its local layers' window 1024 and at its global layers; the
+#: CUDA-core kernel at the qwen3 shape in fp32, the type it serves on the LM
+#: path (the fp32 parity path). The first shape of each kernel is its
+#: report's; the hd-320 shapes make a report entry of their own.
 ATTN_TIMED = {
     "served prefill": ("flash_attention_wgmma",
                        (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16",
                         1 << 30)),
+    "gemma3-4b local, window 1024": (
+        "flash_attention_wgmma", (LM_BATCH, LM_PROMPT, 8, 4, 320,
+                                  "bfloat16", 1024)),
+    "gemma3-4b global": (
+        "flash_attention_wgmma", (LM_BATCH, LM_PROMPT, 8, 4, 320,
+                                  "bfloat16", 1 << 30)),
     "fp32": ("flash_attention",
-             (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30)),
-    "gemma3-4b bf16 hd 320 window 1024": (
-        "flash_attention", (LM_BATCH, LM_PROMPT, 8, 4, 320, "bfloat16",
-                            1024))}
+             (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30))}
 
 
-def cuda_core_on(torch, build, q, k, v, scale: float):
-    """The CUDA-core kernel on causal bf16 inputs at head_dim 128, which the
-    wrappers send to the wgmma kernel: the previous design on the served
-    prefill's own inputs, to compare the two within one run."""
+def cuda_core_on(torch, build, q, k, v, scale: float, window: int = 1 << 30):
+    """The CUDA-core kernel on causal bf16 inputs at a head_dim the wrappers
+    send to the wgmma kernel: the previous design on the same inputs, to
+    compare the two within one run."""
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     build.launch("flash_attention", "flash_attention", q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
                  k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], *o.stride()[:3], 1 << 30, 1, float(scale),
-                 1)
+                 *v.stride()[:3], *o.stride()[:3], min(window, 1 << 30), 1,
+                 float(scale), 1)
     return o
 
 
@@ -2036,18 +2154,31 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
         **build.occupancy(name, hd, int(bf16), 0)}
     extra = ""
     if name == "flash_attention_wgmma":
-        old = cuda_core_on(torch, build, *sets[0], scale).float()
-        if not torch.allclose(old, got, **ATTN_TOL[dtype]):
-            raise SystemExit("CUDA-core and wgmma kernels differ on the "
-                             "served prefill's inputs")
-        entry["cuda_core_same_inputs_event_ms"] = min(
-            time_ms(torch, lambda q, k, v: cuda_core_on(torch, build, q, k,
-                                                        v, scale),
-                    sets, reps) for _ in range(2))
-        entry["ms"] = min(entry["ms"], time_ms(torch, kern, sets, reps))
-        extra = (f"; the CUDA-core kernel on the same inputs "
-                 f"{entry['cuda_core_same_inputs_event_ms']:.4f} event ms "
-                 f"(order: wgmma, CUDA core, CUDA core, wgmma)")
+        # the CUDA-core kernel on the same inputs, held against the plain
+        # version of its own dataflow (64-key tiles, p in fp32); then in
+        # turns: this kernel, the CUDA-core kernel twice, this kernel again
+        core = functools.partial(cuda_core_on, torch, build, scale=scale,
+                                 window=window)
+        out = core(*sets[0]).float()
+        torch.cuda.synchronize()
+        ref = kattn.attention_plain(*sets[0], window=window, scale=scale,
+                                    kernel="cuda_core").float()
+        core_err = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, **ATTN_TOL[dtype]):
+            raise SystemExit(f"the CUDA-core kernel differs from its plain "
+                             f"version on {label}'s inputs: {core_err}")
+        kernel_turns = [entry["ms"]]
+        core_turns = [time_ms(torch, core, sets, reps) for _ in range(2)]
+        kernel_turns.append(time_ms(torch, kern, sets, reps))
+        entry.update(ms=min(kernel_turns), ms_turns=kernel_turns,
+                     cuda_core_max_abs_err=core_err,
+                     cuda_core_same_inputs_event_ms=min(core_turns),
+                     cuda_core_turns=core_turns)
+        extra = ("; on the same inputs, in turns (this kernel, CUDA core, "
+                 "CUDA core, this kernel): kernel "
+                 + ", ".join(f"{t:.4f}" for t in kernel_turns)
+                 + "; cuda_core " + ", ".join(f"{t:.4f}" for t in core_turns)
+                 + " event ms")
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
 
@@ -2067,28 +2198,58 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     return entry
 
 
-def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
+def cuda_core_attention(torch, build):
+    """``kernels.attention.attention`` with the CUDA-core kernel in place of
+    the wgmma kernel: the prefill as it ran before the wgmma kernel took
+    its head_dim (causal, any window)."""
+    def attention(q, k, v, *, window, causal=True, scale, kv_block=None):
+        del kv_block
+        if not causal:
+            raise ValueError("cuda_core_on launches causal attention only")
+        return cuda_core_on(torch, build, q, k, v, scale, window)
+    return attention
+
+
+def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
+              cuda_core=None) -> dict:
     """The served cell's prefill ms, decode ms per token and tok/s (host
     clock around work that ends in a synchronize, after one warm call),
     then a traced generate: the card's idle share and the flash kernel's
-    share of the prefill's device time."""
+    share of the prefill's device time. With ``cuda_core`` (a
+    ``cuda_core_attention``) also the prefill with it swapped in, in turns
+    with the wgmma kernel (wgmma, CUDA core, CUDA core, wgmma; best of 3
+    each), and that kernel's share of its own traced prefill."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
+    torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                            device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     cap = LM_PROMPT + LM_GEN
+
+    def prefills() -> list[float]:
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.prefill(tokens, cache_capacity=cap)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return runs, out
+
+    def swapped(attention, fn):
+        kernel = kattn.attention
+        kattn.attention = attention
+        try:
+            return fn()
+        finally:
+            kattn.attention = kernel
+
     model.prefill(tokens, cache_capacity=cap)
-    prefill_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, state = model.prefill(tokens, cache_capacity=cap)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms, (logits, state) = prefills()
     tok = logits.argmax(dim=-1)
     model.decode_step(state, tok, LM_PROMPT)      # warm
     torch.cuda.synchronize()
@@ -2098,26 +2259,30 @@ def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
         tok = logits.argmax(dim=-1)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    del state, logits
     pre = min(prefill_ms)
     tok_s = LM_BATCH * LM_GEN / ((pre + LM_GEN * decode_ms) / 1e3)
 
-    def device_time(prof):
+    def device_time(prof, kernel_name):
         """(device ms, flash kernel ms, flash launches traced)"""
         total = flash = 0.0
         seen = 0
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 total += e.self_device_time_total / 1e3
-                if FLASH_KERNEL.search(e.key):
+                if kernel_name.search(e.key):
                     flash += e.self_device_time_total / 1e3
                     seen += e.count
         return total, flash, seen
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.prefill(tokens, cache_capacity=cap)
-        torch.cuda.synchronize()
-    pre_dev, pre_flash, flash_seen = device_time(prof)
+    def traced_prefill(kernel_name):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(tokens, cache_capacity=cap)
+            torch.cuda.synchronize()
+        return device_time(prof, kernel_name)
+
+    pre_dev, pre_flash, flash_seen = traced_prefill(FLASH_KERNEL)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2125,24 +2290,49 @@ def lm_timing(torch, convert, lm, get_config, card: str) -> dict:
         lm.generate(model, tokens, LM_GEN)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, _, _ = device_time(prof)
-    out = {"prefill_ms": pre, "prefill_ms_runs": prefill_ms,
+    busy_ms, _, _ = device_time(prof, FLASH_KERNEL)
+    out = {"arch": arch, "prefill_ms": pre, "prefill_ms_runs": prefill_ms,
            "decode_ms_per_token": decode_ms, "tokens_per_s": tok_s,
            "prefill_device_ms": pre_dev, "prefill_flash_ms": pre_flash,
            "prefill_flash_launches_traced": flash_seen,
            "flash_share_of_prefill": pre_flash / pre_dev if pre_dev else None,
            "idle_share": 1 - busy_ms / wall_ms,
            "traced_generate_wall_ms": wall_ms, "traced_busy_ms": busy_ms}
-    print(f"[time] lm {LM_ARCH} batch={LM_BATCH} prompt={LM_PROMPT} "
+    extra = ""
+    if cuda_core is not None:
+        core_runs = (swapped(cuda_core, prefills)[0]
+                     + swapped(cuda_core, prefills)[0])
+        again = prefills()[0]
+        out["prefill_ms_runs"] = prefill_ms + again
+        out["prefill_ms"] = pre = min(pre, min(again))
+        out["tokens_per_s"] = LM_BATCH * LM_GEN / (
+            (pre + LM_GEN * decode_ms) / 1e3)
+        c_dev, c_flash, c_seen = swapped(
+            cuda_core, lambda: traced_prefill(CUDA_CORE_FLASH_KERNEL))
+        out["cuda_core"] = {
+            "prefill_ms": min(core_runs), "prefill_ms_runs": core_runs,
+            "prefill_device_ms": c_dev, "prefill_flash_ms": c_flash,
+            "prefill_flash_launches_traced": c_seen,
+            "flash_share_of_prefill": c_flash / c_dev if c_dev else None}
+        extra = (f"; with the CUDA-core kernel swapped in (turns wgmma, "
+                 f"CUDA core, CUDA core, wgmma): prefill "
+                 f"{min(core_runs):.2f} ms (runs "
+                 f"{', '.join(f'{t:.2f}' for t in core_runs)}), traced "
+                 f"device {c_dev:.2f} ms, flash kernel {c_flash:.2f} ms in "
+                 f"{c_seen} of {cfg.num_layers} launches traced "
+                 f"({out['cuda_core']['flash_share_of_prefill'] or 0:.3f})")
+    print(f"[time] lm {arch} batch={LM_BATCH} prompt={LM_PROMPT} "
           f"gen={LM_GEN} bf16: prefill {pre:.2f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}), decode "
-          f"{decode_ms:.3f} ms/token, {tok_s:.1f} tok/s incl. prefill; "
-          f"traced prefill: device {pre_dev:.2f} ms, flash kernel "
-          f"{pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
+          f"{', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])}), "
+          f"decode {decode_ms:.3f} ms/token, {out['tokens_per_s']:.1f} tok/s "
+          f"incl. prefill; traced prefill: device {pre_dev:.2f} ms, flash "
+          f"kernel {pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
           f"launches traced ({out['flash_share_of_prefill'] or 0:.3f}); "
           f"traced generate: "
           f"device busy {busy_ms:.2f} of {wall_ms:.2f} ms wall -> idle "
-          f"share {out['idle_share']:.4f}; on {card}", flush=True)
+          f"share {out['idle_share']:.4f}{extra}; on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2196,21 +2386,47 @@ def kernel_report(ptxas, source: str) -> dict[str, dict]:
     return kernels
 
 
+#: The template arguments of a wgmma kernel instance in its mangled name:
+#: WgCfg<head_dim, keys per tile, stages>.
+WGMMA_INSTANCE = re.compile(r"WgCfgILi(\d+)ELi(\d+)ELi(\d+)EE")
+
+
+def wgmma_instance(symbol: str) -> str | None:
+    """'hd 320, 48 keys, 2 stages' for a wgmma kernel instance's mangled
+    name."""
+    m = WGMMA_INSTANCE.search(symbol)
+    if m is None:
+        return None
+    hd, keys, stages = m.groups()
+    return f"hd {hd}, {keys} keys, {stages} stages"
+
+
 def wgmma_kernel_report(ptxas, library) -> dict:
-    """Print ptxas's report for flash_attention_wgmma_kernel (registers,
-    shared memory, spills, and any warning) and the count of HGMMA (wgmma)
-    and UTMALDG (TMA load) instructions in its SASS (``cuobjdump -sass`` of
-    the attention library). Fails if the SASS holds no HGMMA."""
+    """Print ptxas's report for each instance of flash_attention_wgmma_kernel
+    (registers, shared memory, spills, and any warning) and the count of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
+    (``cuobjdump -sass`` of the attention library). Fails if an instance's
+    SASS holds no HGMMA. Returns the lines and, per instance, its
+    registers, spill bytes and SASS counts."""
     out, proc = ptxas
     stdout, stderr = proc.communicate()
     if proc.returncode:
         raise SystemExit(f"nvcc -Xptxas -v of {ATTENTION} failed:\n"
                          f"{stdout}\n{stderr}")
     out.unlink()
-    report, keep = [], False
+    report, instances, keep = [], {}, None
     for line in (stdout + stderr).splitlines():
         if "Compiling entry function" in line:
-            keep = "flash_attention_wgmma_kernel" in line
+            keep = wgmma_instance(line) \
+                if "flash_attention_wgmma_kernel" in line else None
+            if keep:
+                instances[keep] = {}
+        if keep and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                    r"bytes spill loads", line)):
+            instances[keep].update(spill_stores=int(m.group(1)),
+                                   spill_loads=int(m.group(2)))
+        elif keep and (m := re.search(r"Used (\d+) registers", line)):
+            instances[keep]["registers"] = int(m.group(1))
         if keep or "warning" in line.lower():
             report.append(line.strip())
     for line in report:
@@ -2219,7 +2435,7 @@ def wgmma_kernel_report(ptxas, library) -> dict:
     if not os.path.exists(cuobjdump):
         print("[build] cuobjdump is missing: no SASS count of HGMMA and "
               "UTMALDG", flush=True)
-        return {"ptxas": report, "sass": None}
+        return {"ptxas": report, "instances": instances, "sass": None}
     sass = subprocess.run([cuobjdump, "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
@@ -2234,12 +2450,20 @@ def wgmma_kernel_report(ptxas, library) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 counts[fn][op] += line.count(op)
     for fn, c in counts.items():
-        print(f"[build] SASS {fn}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
-              f"UTMALDG", flush=True)
+        name = wgmma_instance(fn)
+        if name in instances:
+            instances[name].update(c)
+        print(f"[build] SASS {name or fn}: {c['HGMMA']} HGMMA, "
+              f"{c['UTMALDG']} UTMALDG", flush=True)
+    for name, k in instances.items():
+        print(f"[build] wgmma instance {name}: {k.get('registers')} "
+              f"registers, {k.get('spill_stores')} / {k.get('spill_loads')} "
+              f"bytes spill stores / loads, {k.get('HGMMA')} HGMMA, "
+              f"{k.get('UTMALDG')} UTMALDG", flush=True)
     if not counts or not all(c["HGMMA"] for c in counts.values()):
         raise SystemExit(f"flash_attention_wgmma_kernel: no HGMMA in its "
                          f"SASS ({counts})")
-    return {"ptxas": report, "sass": counts}
+    return {"ptxas": report, "instances": instances, "sass": counts}
 
 
 def _as_tuple(x):
@@ -2336,8 +2560,9 @@ def main() -> int:
             launches[name] = _build.LAUNCHES[name]
     print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
     traced = idle_shares(torch, serve, card)
-    # the LM: its served run zeroes the counters just before
+    # the LMs: each served run zeroes the counters just before
     lm_run = lm_phase(torch, _build, serve, convert, lm, get_config)
+    gemma_run = gemma_phase(torch, _build, serve, convert, kattn, get_config)
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
@@ -2345,7 +2570,11 @@ def main() -> int:
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
     attn = {label: attention_timing(torch, kattn, _build, card, label)
             for label in ATTN_TIMED}
-    lm_times = lm_timing(torch, convert, lm, get_config, card)
+    lm_times = lm_timing(torch, convert, lm, kattn, get_config, card,
+                         LM_ARCH)
+    gemma_times = lm_timing(torch, convert, lm, kattn, get_config, card,
+                            GEMMA_ARCH,
+                            cuda_core=cuda_core_attention(torch, _build))
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
@@ -2368,23 +2597,36 @@ def main() -> int:
                           for k in times[name][n].get("by_kernel") or {}}}
                if source in registers else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
-    per = {"flash_attention_wgmma": "one served prefill (28 layers)",
-           "flash_attention": "the full-width fp32 parity path: one forward "
-                              "and one prefill (28 layers each)"}
-    for name in FLASH_KERNELS:
-        labels = [label for label, (kernel, _) in ATTN_TIMED.items()
-                  if kernel == name]
+    # the wgmma kernel's entries: hd 64/128 at qwen3-1.7b's served prefill,
+    # and its hd-320 instance at gemma3-4b's
+    entries = {
+        "flash_attention_wgmma": (
+            "flash_attention_wgmma", lm_run["launches"]["flash_attention_wgmma"],
+            "one served qwen3-1.7b prefill (28 layers)",
+            {"build": wgmma_build, "lm": {**lm_run, **lm_times}}),
+        "flash_attention_wgmma[hd320]": (
+            "flash_attention_wgmma", gemma_run["launches"],
+            "one served gemma3-4b prefill (34 layers: 29 local, window "
+            "1024, and 5 global)",
+            {"build": {k: v for k, v in wgmma_build["instances"].items()
+                       if k.startswith("hd 320")},
+             "lm": {**gemma_run, **gemma_times}}),
+        "flash_attention": (
+            "flash_attention", lm_run["launches"]["flash_attention"],
+            "the full-width fp32 parity path: one forward and one prefill "
+            "(28 layers each)", {})}
+    for entry_name, (name, launched, per, more) in entries.items():
+        labels = [label for label, (kernel, shape) in ATTN_TIMED.items()
+                  if kernel == name and (shape[4] == 320) == entry_name
+                  .endswith("[hd320]")]
         first = attn[labels[0]]
         report.append({
-            "name": name, "route": "cuda", "source": ATTENTION,
-            "replaces": FLASH_REPLACES,
-            "launches": lm_run["launches"][name],
+            "name": entry_name, "route": "cuda", "source": ATTENTION,
+            "replaces": FLASH_REPLACES, "launches": launched,
             **{k: first[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
-            "launches_per": per[name], "at_timed_shape": first,
-            **{f"at {label}": attn[label] for label in labels[1:]},
-            **({"build": wgmma_build, "lm": {**lm_run, **lm_times}}
-               if name == "flash_attention_wgmma" else {})})
+            "launches_per": per, "at_timed_shape": first,
+            **{f"at {label}": attn[label] for label in labels[1:]}, **more})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}))
     print(card)

@@ -9,13 +9,14 @@ Both are wrappers around two hand-written CUDA kernels in
 ``repro/kernels/attention.py::_flash_kernel``; ``kernel_for`` picks one by
 type and head_dim, and nothing falls back from one to the other:
 
-- ``flash_attention_wgmma_kernel`` (bf16 at head_dim 64 and 128): the
-  tensor cores through ``wgmma``, K and V loaded by TMA into a ring of
+- ``flash_attention_wgmma_kernel`` (bf16 at head_dim 64, 128 and 320):
+  the tensor cores through ``wgmma``, K and V loaded by TMA into a ring of
   shared-memory stages, one producer warp and two consumer warpgroups;
   p.V runs as two bf16 products, ``p_hi = bf16(p)`` and
-  ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator.
-- ``flash_attention_kernel`` (every fp32 call; bf16 at head_dim 32 and
-  320): fp32 products on the CUDA cores.
+  ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator. Its key tile
+  depends on head_dim (``WGMMA_KERNEL_KEYS``).
+- ``flash_attention_kernel`` (every fp32 call; bf16 at head_dim 32): fp32
+  products on the CUDA cores.
 
 For tensors on the CPU they run the plain PyTorch version beside them,
 which has the chosen kernel's dataflow: a running max, normalizer and
@@ -39,22 +40,33 @@ HEAD_DIMS = (32, 64, 128, 320)
 #: Keys per tile of ``flash_attention_kernel``; the plain version with this
 #: block folds the online softmax at the same keys.
 KERNEL_KEYS = 64
-#: Keys per tile of ``flash_attention_wgmma_kernel``.
-WGMMA_KERNEL_KEYS = 128
-#: head_dims of the wgmma kernel (bf16 only): 128 for qwen3, llama3,
-#: starcoder2, qwen2-vl and mixtral; 64 for musicgen, granite, hymba and
-#: fourierpim-lm.
-WGMMA_HEAD_DIMS = (64, 128)
+#: Keys per tile of ``flash_attention_wgmma_kernel``'s instance, by
+#: head_dim (bf16 only): 128 at 128 (qwen3, llama3, starcoder2, qwen2-vl,
+#: mixtral) and 64 (musicgen, granite, hymba, fourierpim-lm); 48 at 320
+#: (gemma3-4b), where 128 query rows a CTA split between the two consumer
+#: warpgroups, a 64 x 320 fp32 accumulator and the 227 KB of shared memory
+#: leave room for no larger tile.
+WGMMA_KERNEL_KEYS = {64: 128, 128: 128, 320: 48}
+WGMMA_HEAD_DIMS = tuple(WGMMA_KERNEL_KEYS)
 _TYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel serves (dtype, head_dim): ``"wgmma"`` for bf16 at
-    head_dim 64 or 128, else ``"cuda_core"``. The wrappers and the plain
-    version both follow it."""
+    head_dim 64, 128 or 320, else ``"cuda_core"``. The wrappers and the
+    plain version both follow it."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
+
+
+def kernel_keys(dtype: torch.dtype, head_dim: int,
+                kernel: str | None = None) -> int:
+    """Keys per tile of ``kernel`` (default: the one ``kernel_for``
+    picks)."""
+    if (kernel or kernel_for(dtype, head_dim)) == "wgmma":
+        return WGMMA_KERNEL_KEYS[head_dim]
+    return KERNEL_KEYS
 
 
 def split_bf16(p: torch.Tensor) -> torch.Tensor:
@@ -67,10 +79,12 @@ def split_bf16(p: torch.Tensor) -> torch.Tensor:
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, causal: bool = True, scale: float,
-                    kv_block: int | None = None) -> torch.Tensor:
-    """Plain version of ``attention``: the online softmax of the kernel that
-    ``kernel_for`` picks, over key blocks of ``kv_block`` (default: that
-    kernel's key tile), as torch ops, in the layout of
+                    kv_block: int | None = None,
+                    kernel: str | None = None) -> torch.Tensor:
+    """Plain version of ``attention``: the online softmax of ``kernel``
+    (``"wgmma"`` or ``"cuda_core"``; default: the one ``kernel_for``
+    picks), over key blocks of ``kv_block`` (default: that kernel's key
+    tile), as torch ops, in the layout of
     ``repro.models.layers.attention.blockwise_attention``. For the wgmma
     kernel, p enters the p.V product as ``split_bf16(p)``.
 
@@ -80,9 +94,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    split = kernel_for(q.dtype, hd) == "wgmma"
+    kernel = kernel or kernel_for(q.dtype, hd)
+    split = kernel == "wgmma"
     if kv_block is None:
-        kv_block = WGMMA_KERNEL_KEYS if split else KERNEL_KEYS
+        kv_block = kernel_keys(q.dtype, hd, kernel)
     qh = q.reshape(B, S, KV, G, hd).float()
     blk = max(1, min(kv_block, S))
     qpos = torch.arange(S, device=q.device)

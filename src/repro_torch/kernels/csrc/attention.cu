@@ -44,13 +44,14 @@
 // at the tensor cores' 989 TFLOP/s bf16, against ~201 MB of q, k, v and o,
 // 0.060 ms at 3.35 TB/s: the operations bind. This kernel runs them on the
 // fp32 CUDA cores (67 TFLOP/s), so it cannot take less than about 2 ms a
-// call. It serves every fp32 call and bf16 at head_dim 32 and 320.
+// call. It serves every fp32 call and bf16 at head_dim 32.
 //
 // flash_attention_wgmma_kernel (second half of this file) serves bf16 at
-// head_dim 64 and 128 -- the served LM's prefill -- on the tensor cores:
-// wgmma on bf16 tiles with fp32 accumulators, K and V brought in by TMA
-// through a ring of shared-memory stages, one producer warp feeding two
-// consumer warpgroups. Its header says how.
+// head_dim 64, 128 and 320 -- the served LMs' prefills (qwen3-1.7b at 128,
+// gemma3-4b at 320) -- on the tensor cores: wgmma on bf16 tiles with fp32
+// accumulators, K and V brought in by TMA through a ring of shared-memory
+// stages, one producer warp feeding two consumer warpgroups. Its header
+// says how.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
                    // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
@@ -350,13 +351,14 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
   return cudaErrorInvalidValue;
 
 // ---------------------------------------------------------------------------
-// flash_attention_wgmma_kernel: bf16, head_dim 64 or 128, on the tensor cores
+// flash_attention_wgmma_kernel: bf16 at head_dim 64, 128 and 320, on the
+// tensor cores
 // ---------------------------------------------------------------------------
 //
 // Computes what flash_attention_kernel computes (same masks, same
 // `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
 // scores, GQA by h / G, (batch, seq, head) element strides) for bf16 q, k,
-// v at head_dim 64 and 128, and replaces the same TPU kernel
+// v at head_dim 64, 128 and 320, and replaces the same TPU kernel
 // (src/repro/kernels/attention.py: _flash_kernel).
 //
 // Precision. s = q.k^T is a wgmma with bf16 operands and an fp32
@@ -367,17 +369,30 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // significant bits of p instead of a single bf16's 8, for 1.5x the tensor
 // work of one pass. l sums the fp32 p, as the reference does.
 //
-// The CTA. 384 threads: warpgroup 0 is the producer (setmaxnreg down to
-// 40 registers; one thread issues every TMA load), warpgroups 1 and 2 are
-// consumers (setmaxnreg up to 232), each owning 64 of the CTA's 128 query
-// rows. Grid (batch * heads, ceil(S / 128)); the q tiles are walked last to
-// first, so the CTAs with the most key tiles start first.
+// The CTA. 384 threads: warpgroup 0 is the producer (setmaxnreg down; one
+// thread issues every TMA load), warpgroups 1 and 2 are consumers
+// (setmaxnreg up). Grid (batch * heads, ceil(S / BM)); the q tiles are
+// walked last to first, so the CTAs with the most key tiles start first.
+//
+// Instances (WgCfg<HD, BN, STAGES>, one per head_dim; BN is
+// kernels/attention.py::WGMMA_KERNEL_KEYS): BM = 128 query rows a CTA, 64
+// per consumer warpgroup.
+// - hd 64 and 128: BN = 128 keys a tile; 2 stages; setmaxnreg 40 / 232.
+// - hd 320: BN = 48; 2 stages: Q 80 KB + 2 x 60 KB of K and V. The
+//   accumulator, 64 x 320 fp32 over 128 threads, is 160 registers a
+//   thread; s takes 24 at this tile and the p fragments 24 + 24;
+//   setmaxnreg 24 / 240 (128 x 24 + 256 x 240 registers). p.V runs as an
+//   n256 and an n64 wgmma: wgmma takes N <= 256, and V, read MN-major
+//   through the 128-byte swizzle, splits only at a 64-column box. A 64-key
+//   tile leaves no shared memory for two stages (240 KB); 32 keys ran
+//   slower, and so did head_dim split between the two consumers over the
+//   same 64 query rows with 64-key tiles (PERF.md).
 //
 // Loads. The producer loads the CTA's Q tile once, then each key tile's K
-// and V (128 keys) into a ring of kStages shared-memory stages, through 4-D
+// and V (BN keys) into a ring of STAGES shared-memory stages, through 4-D
 // tensor maps (hd, head, seq, batch; byte strides from the launcher's
-// element strides) with the 128-byte swizzle. A bf16 row of 128 elements is
-// 256 bytes, so a tile is HD / 64 boxes of 64 columns. K and V have a
+// element strides) with the 128-byte swizzle. A bf16 row of 64 elements is
+// 128 bytes, so a tile is HD / 64 boxes of 64 columns. K and V have a
 // "full" mbarrier each per stage (the producer's expect_tx, TMA's complete
 // transaction count) and an "empty" one each, which takes the 256 consumer
 // threads' arrivals once they are done with that tile: K as soon as its
@@ -385,16 +400,17 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // tile's V is still in use. Rows at or past S arrive as zeros; the mask
 // still drops keys with kpos >= S (a zero K row scores 0, not -inf).
 //
-// Products. s (64 x 128 per warpgroup) is an SS wgmma m64n128k16 over
+// Products. s (64 x BN per warpgroup) is an SS wgmma m64nBNk16 over
 // head_dim in steps of 16: Q (A) and K (B) both K-major in the swizzled
 // tiles, a step of 16 columns being 32 bytes within a 128-byte swizzle row,
-// and a new box every 64 columns. p.V is an RS wgmma m64nHDk16 over the
-// keys: p goes from the s accumulator's register layout straight into the
-// A-operand layout (registers 8kk..8kk+7 of s are the A fragment of key
-// step kk, packed as bf16 pairs), and V is the B operand read MN-major
-// (transposed) from the same swizzled tiles: a key step is 16 rows of 128
-// bytes, and the second 64-column box of head_dim lies one box further on
-// (the descriptor's leading byte offset).
+// and a new box every 64 columns. p.V is an RS wgmma m64nNk16 over the
+// keys, N = 64 per box of head_dim, at most 256: p goes from the s
+// accumulator's register layout straight into the A-operand layout
+// (registers 8kk..8kk+7 of s are the A fragment of key step kk, packed as
+// bf16 pairs), and V is the B operand read MN-major (transposed) from the
+// same swizzled tiles: a key step is 16 rows of 128 bytes, and the next
+// 64-column box of head_dim lies one box further on (the descriptor's
+// leading byte offset).
 //
 // Softmax. Scale and mask are applied in fp32 on the accumulator
 // fragments (thread lane holds rows lane / 4 and lane / 4 + 8 of its
@@ -407,10 +423,10 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // stays in step); tiles wholly inside it skip the mask.
 //
 // Overlap within a warpgroup. For each tile after its first, a consumer
-// issues the tile's s-product and then the previous tile's two p.V
-// products, waits for the s-product alone, and runs the tile's softmax
-// while p.V still runs on the tensor cores; then it waits for p.V,
-// rescales acc and splits the new p into the fragments.
+// issues the tile's s-product and then the previous tile's p.V products,
+// waits for the s-product alone, and runs the tile's softmax while p.V
+// still runs on the tensor cores; then it waits for p.V, rescales acc and
+// splits the new p into the fragments.
 //
 // Overlap between the warpgroups (ping-pong). The two consumers take
 // turns to issue their wgmmas, through two named barriers, so that one's
@@ -420,24 +436,42 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // tail of the causal grid; a TMA store of the output; the masked half of
 // the diagonal tile that the first consumer computes and discards.
 
-constexpr int kWgBM = 128;       // query rows per CTA, 64 per consumer warpgroup
-constexpr int kWgBN = 128;       // keys per tile
 constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int kStages = 2;       // K/V ring depth
 
-template <int HD>
+template <int HD_, int BN, int STAGES>
 struct WgCfg {
-  static_assert(HD == 64 || HD == 128, "wgmma kernel: head_dim 64 or 128");
-  static constexpr int kBoxes = HD / 64;          // 64-column boxes per row
-  static constexpr int kQBox = kWgBM * 128;       // bytes of one Q box
-  static constexpr int kKVBox = kWgBN * 128;      // bytes of one K or V box
+  static constexpr int HD = HD_;
+  static constexpr int kBN = BN;                // keys per tile
+  static constexpr int kStages = STAGES;        // K/V ring depth
+  static constexpr int kBM = 128;               // query rows per CTA
+  static constexpr int kBoxes = HD / 64;        // 64-column boxes per row
+  static constexpr int kAcc = 32 * kBoxes;      // accumulator floats a thread
+  static constexpr int kProducerRegs = HD > 128 ? 24 : 40;
+  static constexpr int kConsumerRegs = HD > 128 ? 240 : 232;
+  static constexpr int kQBox = kBM * 128;       // bytes of one Q box
+  static constexpr int kKVBox = kBN * 128;      // bytes of one K or V box
   static constexpr int kQBytes = kBoxes * kQBox;
   static constexpr int kTileBytes = kBoxes * kKVBox;
   static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
-  static constexpr int kBars = 1 + 4 * kStages;   // q; k/v full, k/v empty
+  static constexpr int kBars = 1 + 4 * kStages;  // q; k/v full, k/v empty
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
   static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
+  static_assert(HD % 64 == 0 && BN % 16 == 0 && BN <= 256,
+                "wgmma kernel: head_dim in boxes of 64, keys in steps of 16");
+  static_assert(kBoxes <= 8, "p.V in at most two wgmmas of N <= 256");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
 };
+
+using WgHd64 = WgCfg<64, 128, 2>;
+using WgHd128 = WgCfg<128, 128, 2>;
+using WgHd320 = WgCfg<320, 48, 2>;
+
+// Calls F<C>(...) for the instance C of head_dim hd.
+#define WGMMA_DISPATCH(F, hd, ...)                \
+  if ((hd) == 64) return F<WgHd64>(__VA_ARGS__);   \
+  if ((hd) == 128) return F<WgHd128>(__VA_ARGS__); \
+  if ((hd) == 320) return F<WgHd320>(__VA_ARGS__); \
+  return cudaErrorInvalidValue;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -516,6 +550,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// d[OFF, OFF + N) of an accumulator, as an array of its own.
+template <int N, int OFF, int M>
+__device__ __forceinline__ auto part(float (&d)[M]) -> float (&)[N] {
+  static_assert(OFF + N <= M, "accumulator part out of range");
+  return *reinterpret_cast<float(*)[N]>(&d[OFF]);
+}
+
+#define WG_D24                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23}"
 #define WG_D32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -526,46 +570,63 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define WG_D128                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "      \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "      \
+  "%122, %123, %124, %125, %126, %127}"
 #define WG_F8(d, i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+#define WG_F24(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16)
+#define WG_F32(d) WG_F24(d), WG_F8(d, 24)
 #define WG_F64(d) \
   WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+#define WG_F128(d)                                                      \
+  WG_F64(d), WG_F8(d, 64), WG_F8(d, 72), WG_F8(d, 80), WG_F8(d, 88),    \
+      WG_F8(d, 96), WG_F8(d, 104), WG_F8(d, 112), WG_F8(d, 120)
 
-// d (+)= A.B^T, m64n128k16: A (64 x 16) and B (128 x 16) K-major in shared
-// memory; `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_F64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// d (+)= A.B^T, m64nNk16 with N = 2 * (the size of d): A (64 x 16) and B
+// (N x 16) K-major in shared memory; `accumulate` 0 overwrites d. IA, IB,
+// IP: the operand numbers of the two descriptors and the flag.
+#define WG_SS(N, D, F, IA, IB, IP)                                          \
+  __device__ __forceinline__ void wgmma_ss(float(&d)[N / 2], uint64_t da,    \
+                                           uint64_t db, int accumulate) {    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k16.f32.bf16.bf16 " D ", %" #IA ", %" #IB                  \
+                 ", p, 1, 1, 0, 0;\n}\n"                                     \
+                 : F(d)                                                      \
+                 : "l"(da), "l"(db), "r"(accumulate));                      \
+  }
+WG_SS(48, WG_D24, WG_F24, 24, 25, 26)
+WG_SS(128, WG_D64, WG_F64, 64, 65, 66)
 
-// d += A.B, m64nNk16: A (64 x 16) from registers as bf16 pairs, B (16 x N)
-// MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+// d += A.B, m64nNk16 with N = 2 * (the size of d): A (64 x 16) from
+// registers as bf16 pairs, B (16 x N) MN-major in shared memory. I0..I3,
+// IB, IP: the operand numbers of the A registers, the descriptor and the
+// flag.
+#define WG_RS(N, D, F, I0, I1, I2, I3, IB, IP)                              \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[N / 2],                 \
+                                           const uint32_t(&a)[4],            \
+                                           uint64_t db) {                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k16.f32.bf16.bf16 " D ", {%" #I0 ", %" #I1 ", %" #I2       \
+                 ", %" #I3 "}, %" #IB ", p, 1, 1, 1;\n}\n"                   \
+                 : F(d)                                                      \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(1));                                                  \
+  }
+WG_RS(64, WG_D32, WG_F32, 32, 33, 34, 35, 36, 37)
+WG_RS(128, WG_D64, WG_F64, 64, 65, 66, 67, 68, 69)
+WG_RS(256, WG_D128, WG_F128, 128, 129, 130, 131, 132, 133)
 
 __device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
@@ -597,18 +658,19 @@ struct Frag {
   int col;
 };
 
-// One online-softmax step on a tile's scores, in the log2 domain (x = s *
-// scale * log2 e, so exp(s * scale - m) = 2^(x - m / log2 e)): the masked
-// scores, the row max over the 4 threads of a row, corr = 2^(m - m_new),
-// and p = valid ? 2^(x - m_new) : 0 in place of the scores; l (this
-// thread's part of the row sums) becomes l * corr + sum p. `full`: every
-// key of the tile is valid for every row, no mask.
+// One online-softmax step on a tile's scores (BN keys), in the log2 domain
+// (x = s * scale * log2 e, so exp(s * scale - m) = 2^(x - m / log2 e)): the
+// masked scores, the row max over the 4 threads of a row, corr = 2^(m -
+// m_new), and p = valid ? 2^(x - m_new) : 0 in place of the scores; l
+// (this thread's part of the row sums) becomes l * corr + sum p. `full`:
+// every key of the tile is valid for every row, no mask.
 //
 // A masked score is -1e30, so 2^(x - m_new) is 0 on it unless m_new is
 // still -1e30, which happens only when every key of the row so far is
 // masked; then p is 0 on the whole row. That is the reference's `where`
 // on p, taken once per row.
-__device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
+template <int BN>
+__device__ __forceinline__ void softmax_step(float (&sc)[BN / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              const Frag& f, int kv0, bool full,
                                              int seq, int causal, int window,
@@ -616,7 +678,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
   float mx[2] = {m[0], m[1]};
   if (full) {
 #pragma unroll
-    for (int j = 0; j < kWgBN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         sc[4 * j + e] *= scale_log2;
@@ -629,11 +691,11 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
     int hi[2], lo[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      hi[r] = causal ? f.row[r] - kv0 - f.col : kWgBN;
+      hi[r] = causal ? f.row[r] - kv0 - f.col : BN;
       lo[r] = causal ? hi[r] - window : -1;
     }
 #pragma unroll
-    for (int j = 0; j < kWgBN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + (e & 1);
@@ -655,7 +717,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
     none[r] = mx[r] == kNeg;
   }
 #pragma unroll
-  for (int j = 0; j < kWgBN / 8; ++j)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = none[e >> 1] ? 0.f : ex2(sc[4 * j + e] - m[e >> 1]);
@@ -667,11 +729,12 @@ __device__ __forceinline__ void softmax_step(float (&sc)[64], float (&m)[2],
 // p (fp32, accumulator layout) -> the A-operand fragments of the p.V
 // wgmmas, p_hi = bf16(p) and p_lo = bf16(p - p_hi): key step kk is the
 // accumulator registers 8 kk .. 8 kk + 7 as four bf16 pairs.
-__device__ __forceinline__ void split_fragments(const float (&sc)[64],
-                                                uint32_t (&ph)[kWgBN / 16][4],
-                                                uint32_t (&pl)[kWgBN / 16][4]) {
+template <int BN>
+__device__ __forceinline__ void split_fragments(const float (&sc)[BN / 2],
+                                                uint32_t (&ph)[BN / 16][4],
+                                                uint32_t (&pl)[BN / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kWgBN / 16; ++kk)
+  for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split_pair(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
@@ -679,36 +742,67 @@ __device__ __forceinline__ void split_fragments(const float (&sc)[64],
 }
 
 // s = Q.K^T for this warpgroup's 64 rows against a K tile (one group).
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_rows,
-                                         uint32_t k_tile) {
-  using C = WgCfg<HD>;
+// At hd 320 the two bases pass through an empty asm, so that the compiler
+// computes the 20 k-steps' descriptors at each tile, next to their wgmmas:
+// hoisted out of the tile loop, beside the 160-register accumulator, they
+// spilled, and the kernel ran slower.
+template <class C>
+__device__ __forceinline__ void issue_qk(float (&sc)[C::kBN / 2],
+                                         uint32_t q_rows, uint32_t k_tile) {
+  if constexpr (C::HD > 128) asm volatile("" : "+r"(q_rows), "+r"(k_tile));
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < C::HD / 16; ++kk) {
     const uint32_t step = (kk % 4) * 32;  // 16 columns in a swizzle row
-    wgmma_ss_n128(sc,
-                  sw128_desc(q_rows + (kk / 4) * C::kQBox + step, 16, 1024),
-                  sw128_desc(k_tile + (kk / 4) * C::kKVBox + step, 16, 1024),
-                  kk > 0);
+    wgmma_ss(sc, sw128_desc(q_rows + (kk / 4) * C::kQBox + step, 16, 1024),
+             sw128_desc(k_tile + (kk / 4) * C::kKVBox + step, 16, 1024),
+             kk > 0);
   }
 }
 
-// acc += p_hi.V + p_lo.V over a V tile (one group).
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&acc)[HD / 2],
-                                         const uint32_t (&ph)[kWgBN / 16][4],
-                                         const uint32_t (&pl)[kWgBN / 16][4],
+// acc += p_hi.V + p_lo.V over a V tile (one group), in at most two wgmmas
+// a key step (N <= 256 each): head_dim boxes [0, N0) and [N0, kBoxes).
+template <class C>
+__device__ __forceinline__ void issue_pv(float (&acc)[C::kAcc],
+                                         const uint32_t (&ph)[C::kBN / 16][4],
+                                         const uint32_t (&pl)[C::kBN / 16][4],
                                          uint32_t v_tile) {
-  using C = WgCfg<HD>;
+  constexpr int NB = C::kBoxes;
+  constexpr int N0 = NB < 4 ? NB : 4;  // boxes of the first wgmma
 #pragma unroll
-  for (int kk = 0; kk < kWgBN / 16; ++kk) {
-    const uint64_t dv = sw128_desc(v_tile + kk * 16 * 128, C::kKVBox, 1024);
-    wgmma_rs(acc, ph[kk], dv);
-    wgmma_rs(acc, pl[kk], dv);
+  for (int kk = 0; kk < C::kBN / 16; ++kk) {
+    const uint32_t rows = v_tile + kk * 16 * 128;
+    const uint64_t dv = sw128_desc(rows, C::kKVBox, 1024);
+    wgmma_rs(part<32 * N0, 0>(acc), ph[kk], dv);
+    wgmma_rs(part<32 * N0, 0>(acc), pl[kk], dv);
+    if constexpr (NB > N0) {
+      const uint64_t dv1 = sw128_desc(rows + N0 * C::kKVBox, C::kKVBox, 1024);
+      wgmma_rs(part<32 * (NB - N0), 32 * N0>(acc), ph[kk], dv1);
+      wgmma_rs(part<32 * (NB - N0), 32 * N0>(acc), pl[kk], dv1);
+    }
   }
 }
 
-template <int HD>
+// Rows f.row[r] < seq of o (this head's rows, row stride os) take acc / l:
+// register 4 j + 2 r + {0, 1} is row f.row[r], column 8 j + f.col + {0, 1}.
+template <class C>
+__device__ __forceinline__ void store_rows(const float (&acc)[C::kAcc],
+                                           const float (&l)[2], const Frag& f,
+                                           __nv_bfloat16* o, long long os,
+                                           int seq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (f.row[r] >= seq) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+    __nv_bfloat16* orow = o + (long long)f.row[r] * os + f.col;
+#pragma unroll
+    for (int j = 0; j < 8 * C::kBoxes; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
+                                acc[4 * j + 2 * r + 1] / denom);
+  }
+}
+
+template <class C>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
@@ -717,7 +811,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                  int heads, int group, long long ob,
                                  long long os, long long oh, int window,
                                  int causal, float scale) {
-  using C = WgCfg<HD>;
+  constexpr int BM = C::kBM, BN = C::kBN, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base;
@@ -733,16 +827,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x - b * heads;
   const int hk = h / group;
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kWgBM;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * BM;
   // Key tiles that hold a valid key for some row of this CTA.
   int lo = 0, hi = seq;
   if (causal) {
-    hi = min(seq, q0 + kWgBM);
+    hi = min(seq, q0 + BM);
     const long long first = (long long)q0 - window + 1;
     lo = first > 0 ? (int)first : 0;
   }
-  const int t_begin = lo / kWgBN;
-  const int t_end = (hi + kWgBN - 1) / kWgBN;
+  const int t_begin = lo / BN;
+  const int t_end = (hi + BN - 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -759,7 +853,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every load ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        C::kProducerRegs));
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
@@ -776,18 +871,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load(ks + c * C::kKVBox, &tk, k_full + 8 * s, 64 * c, hk,
-                   t * kWgBN, b);
+                   t * BN, b);
         mbar_wait(v_empty + 8 * s, parity);
         mbar_expect_tx(v_full + 8 * s, C::kTileBytes);
 #pragma unroll
         for (int c = 0; c < C::kBoxes; ++c)
           tma_load(ks + C::kTileBytes + c * C::kKVBox, &tv, v_full + 8 * s,
-                   64 * c, hk, t * kWgBN, b);
+                   64 * c, hk, t * BN, b);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        C::kConsumerRegs));
     const int cw = threadIdx.x / 128 - 1;  // 0 or 1
     const int lane = threadIdx.x & 31;
     const int r0 = q0 + 64 * cw;  // this warpgroup's first row
@@ -804,14 +900,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       w_begin = w_end = t_end;
     } else if (causal) {
       const long long first = (long long)r0 - window + 1;
-      w_begin = max(t_begin, first > 0 ? (int)(first / kWgBN) : 0);
-      w_end = min(t_end, (r0 + 63) / kWgBN + 1);
+      w_begin = max(t_begin, first > 0 ? (int)(first / BN) : 0);
+      w_end = min(t_end, (r0 + 63) / BN + 1);
     }
     // every key of tile t is valid for every row of the warpgroup
     auto full_tile = [&](int t) {
-      const int kv0 = t * kWgBN;
-      return kv0 + kWgBN <= seq &&
-             (!causal || (kv0 + kWgBN - 1 <= r0 && kv0 >= r0 + 64 - window));
+      const int kv0 = t * BN;
+      return kv0 + BN <= seq &&
+             (!causal || (kv0 + BN - 1 <= r0 && kv0 >= r0 + 64 - window));
     };
     // Turns: the two consumers issue their wgmmas in alternation (named
     // barriers 1 and 2), so one's softmax runs beside the other's
@@ -839,16 +935,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     float m[2] = {kNeg, kNeg};
     float l[2] = {0.f, 0.f};  // this thread's part of the row sums
     float corr[2];
-    float acc[HD / 2];
+    float acc[C::kAcc];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
 
     mbar_wait(q_full, 0);
     int i = 0;  // ring slot of tile t_begin + i
     for (; i < w_begin - t_begin; ++i) pass(i);
     if (w_begin < w_end) {
-      float sc[64];
-      uint32_t ph[kWgBN / 16][4], pl[kWgBN / 16][4];
+      float sc[BN / 2];
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
       // first tile: s, then p
       {
         const int s = i % kStages;
@@ -856,15 +952,15 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(k_full + 8 * s, parity);
         turn_begin();
         wgmma_fence();
-        issue_qk<HD>(sc, q_rows, skv + s * 2 * C::kTileBytes);
+        issue_qk<C>(sc, q_rows, skv + s * 2 * C::kTileBytes);
         wgmma_commit();
         turn_end();
         wgmma_wait<0>();
         fence_regs(sc);
         mbar_arrive(k_empty + 8 * s);
-        softmax_step(sc, m, l, corr, f, w_begin * kWgBN, full_tile(w_begin),
-                     seq, causal, window, scale_log2);
-        split_fragments(sc, ph, pl);
+        softmax_step<BN>(sc, m, l, corr, f, w_begin * BN, full_tile(w_begin),
+                         seq, causal, window, scale_log2);
+        split_fragments<BN>(sc, ph, pl);
       }
       // Each later tile: its s-product and the previous tile's p.V run on
       // the tensor cores while this tile's softmax runs; acc is rescaled
@@ -879,32 +975,31 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(v_full + 8 * sp, pp);
         turn_begin();
         wgmma_fence();
-        issue_qk<HD>(sc, q_rows, skv + s * 2 * C::kTileBytes);
+        issue_qk<C>(sc, q_rows, skv + s * 2 * C::kTileBytes);
         wgmma_commit();
-        issue_pv<HD>(acc, ph, pl, skv + sp * 2 * C::kTileBytes +
-                                      C::kTileBytes);
+        issue_pv<C>(acc, ph, pl, skv + sp * 2 * C::kTileBytes + C::kTileBytes);
         wgmma_commit();
         turn_end();
         wgmma_wait<1>();  // the s-product
         fence_regs(sc);
         mbar_arrive(k_empty + 8 * s);
-        softmax_step(sc, m, l, corr, f, t * kWgBN, full_tile(t), seq, causal,
-                     window, scale_log2);
+        softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq, causal,
+                         window, scale_log2);
         wgmma_wait<0>();  // the previous p.V
         fence_regs(acc);
         mbar_arrive(v_empty + 8 * sp);
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
+        for (int j = 0; j < C::kAcc / 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
-        split_fragments(sc, ph, pl);
+        split_fragments<BN>(sc, ph, pl);
       }
       // the last tile's p.V
       const int s = i % kStages;
       mbar_wait(v_full + 8 * s, (uint32_t)(i / kStages) & 1u);
       turn_begin();
       wgmma_fence();
-      issue_pv<HD>(acc, ph, pl, skv + s * 2 * C::kTileBytes + C::kTileBytes);
+      issue_pv<C>(acc, ph, pl, skv + s * 2 * C::kTileBytes + C::kTileBytes);
       wgmma_commit();
       turn_end();
       wgmma_wait<0>();
@@ -923,26 +1018,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (f.row[r] >= seq) continue;
-      const float denom = fmaxf(l[r], 1e-20f);
-      __nv_bfloat16* orow =
-          o + b * ob + (long long)f.row[r] * os + h * oh + f.col;
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
-                                  acc[4 * j + 2 * r + 1] / denom);
-    }
+    store_rows<C>(acc, l, f, o + b * ob + h * oh, os, seq);
   }
 }
 
+#undef WG_SS
+#undef WG_RS
+#undef WG_D24
 #undef WG_D32
 #undef WG_D64
+#undef WG_D128
 #undef WG_F8
+#undef WG_F24
 #undef WG_F32
 #undef WG_F64
+#undef WG_F128
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -987,38 +1077,37 @@ cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, int hd,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD>
+template <class C>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int batch, int seq, int heads, int kv_heads,
                          const Strides& st, int window, int causal,
                          float scale, cudaStream_t stream) {
-  using C = WgCfg<HD>;
+  if ((seq + C::kBM - 1) / C::kBM > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_tensor_map(&tq, q, HD, heads, seq, batch, st.qb,
-                                    st.qs, st.qh, kWgBM);
+  cudaError_t err = make_tensor_map(&tq, q, C::HD, heads, seq, batch, st.qb,
+                                    st.qs, st.qh, C::kBM);
   if (err == cudaSuccess)
-    err = make_tensor_map(&tk, k, HD, kv_heads, seq, batch, st.kb, st.ks,
-                          st.kh, kWgBN);
+    err = make_tensor_map(&tk, k, C::HD, kv_heads, seq, batch, st.kb, st.ks,
+                          st.kh, C::kBN);
   if (err == cudaSuccess)
-    err = make_tensor_map(&tv, v, HD, kv_heads, seq, batch, st.vb, st.vs,
-                          st.vh, kWgBN);
+    err = make_tensor_map(&tv, v, C::HD, kv_heads, seq, batch, st.vb, st.vs,
+                          st.vh, C::kBN);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_attention_wgmma_kernel<HD>;
+  auto kernel = flash_attention_wgmma_kernel<C>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(batch * heads),
-                  (unsigned)((seq + kWgBM - 1) / kWgBM));
+                  (unsigned)((seq + C::kBM - 1) / C::kBM));
   kernel<<<grid, kWgThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq, heads,
       heads / kv_heads, st.ob, st.os, st.oh, window, causal, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <class C>
 cudaError_t occupancy_wgmma(int* threads, int* smem, int* regs, int* ctas) {
-  using C = WgCfg<HD>;
-  auto kernel = flash_attention_wgmma_kernel<HD>;
+  auto kernel = flash_attention_wgmma_kernel<C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
@@ -1064,9 +1153,9 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core kernel: bf16 q, k, v and o (bf16 must be 1) at head_dim
-// 64 or 128, the arguments as for flash_attention. Every stride must be a
-// multiple of 8 elements (16 bytes) and every base 16-byte aligned, as TMA
-// needs; a tensor map the driver refuses returns cudaErrorInvalidValue.
+// 64, 128 or 320, the arguments as for flash_attention. Every stride must
+// be a multiple of 8 elements (16 bytes) and every base 16-byte aligned, as
+// TMA needs; a tensor map the driver refuses returns cudaErrorInvalidValue.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
                           void* o, int batch, int seq, int heads,
                           int kv_heads, int head_dim, long long qb,
@@ -1077,36 +1166,25 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
                           float scale, int bf16, void* stream) {
   if (batch < 0 || seq < 0 || heads < 1 || kv_heads < 1 ||
       heads % kv_heads != 0 || window < 1 || bf16 != 1 ||
-      (long long)batch * heads > 0x7fffffffLL ||
-      (seq + kWgBM - 1) / kWgBM > 65535)
+      (long long)batch * heads > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   if (batch == 0 || seq == 0) return cudaSuccess;
   const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return launch_wgmma<64>(q, k, v, o, batch, seq, heads, kv_heads, st,
-                              window, causal, scale, s);
-    case 128:
-      return launch_wgmma<128>(q, k, v, o, batch, seq, heads, kv_heads, st,
-                               window, causal, scale, s);
-  }
-  return cudaErrorInvalidValue;
+  WGMMA_DISPATCH(launch_wgmma, head_dim, q, k, v, o, batch, seq, heads,
+                 kv_heads, st, window, causal, scale, s)
 }
 
 // Launch configuration of kernel 0 (flash_attention_kernel, any head_dim,
-// bf16 or fp32) or 1 (flash_attention_wgmma_kernel, head_dim 64 or 128,
-// bf16 == 1): threads per CTA, dynamic shared memory in bytes, registers
-// per thread, CTAs per SM.
+// bf16 or fp32) or 1 (flash_attention_wgmma_kernel, head_dim 64, 128 or
+// 320, bf16 == 1): threads per CTA, dynamic shared memory in bytes,
+// registers per thread, CTAs per SM.
 int attention_occupancy(int kernel, int head_dim, int bf16, int unused,
                         int* threads, int* smem, int* regs, int* ctas) {
   (void)unused;
   if (kernel == 1) {
     if (bf16 != 1) return cudaErrorInvalidValue;
-    if (head_dim == 64) return occupancy_wgmma<64>(threads, smem, regs, ctas);
-    if (head_dim == 128)
-      return occupancy_wgmma<128>(threads, smem, regs, ctas);
-    return cudaErrorInvalidValue;
+    WGMMA_DISPATCH(occupancy_wgmma, head_dim, threads, smem, regs, ctas)
   }
   if (kernel != 0) return cudaErrorInvalidValue;
   ATTENTION_DISPATCH(occupancy_typed, head_dim, bf16, threads, smem, regs,

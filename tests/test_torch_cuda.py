@@ -591,9 +591,9 @@ def _counter(dtype, hd):
 def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
                                     causal):
     """Each (dtype, hd) against the plain version of the kernel it
-    dispatches to, whose counter alone moves: bf16 at hd 64 and 128 on the
-    wgmma kernel, the rest on the CUDA-core kernel; S ragged against both
-    kernels' tiles, S = 1 and S < 64."""
+    dispatches to, whose counter alone moves: bf16 at hd 64, 128 and 320
+    on the wgmma kernel, the rest on the CUDA-core kernel; S ragged against
+    both kernels' tiles, S = 1 and S < 64."""
     g = torch.Generator(device=cuda).manual_seed(hd + S)
     q = torch.randn(2, S, H, hd, device=cuda, generator=g).to(dtype)
     k, v = (torch.randn(2, S, KV, hd, device=cuda, generator=g).to(dtype)
@@ -612,15 +612,15 @@ def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
                                       (torch.bfloat16, 64),
-                                      (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 320)])
 def test_flash_public_layout_matches_plain(cuda, dtype, hd):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(6, 96, hd, device=cuda, generator=g).to(dtype)
                for _ in range(3))
     got = _launched(_counter(dtype, hd),
                     lambda: tattn.flash_attention(q, k, v, window=40))
-    bk = tattn.WGMMA_KERNEL_KEYS if _counter(dtype, hd).endswith("wgmma") \
-        else tattn.KERNEL_KEYS
+    bk = tattn.kernel_keys(dtype, hd)
     np.testing.assert_allclose(
         got.float().cpu().numpy(),
         tattn.flash_attention_plain(q, k, v, window=40, bk=bk).float().cpu()
@@ -637,22 +637,65 @@ def test_flash_kernel_raises_on_unsupported_head_dim(cuda):
         tattn.attention(x, x, x, window=4, scale=1.0)
 
 
-def _wgmma_smem(hd):
-    """Q tile (128 rows), two stages of K and V tiles (128 keys), nine
+def _wgmma_smem(hd, keys=128):
+    """Q tile (128 rows), two stages of K and V tiles (``keys`` keys), nine
     mbarriers, and 1024 bytes to align the tiles to the swizzle atom."""
-    return 2 * 128 * hd + 2 * 2 * 2 * 128 * hd + 8 * 9 + 1024
+    return 2 * 128 * hd + 2 * 2 * 2 * keys * hd + 8 * 9 + 1024
 
 
 @pytest.mark.parametrize("name,hd,bf16,threads,smem,ctas", [
     ("flash_attention", 128, 1, 256, 4 * (64 * 132 * 2 + 64 * 68), 2),
     ("flash_attention", 320, 0, 256, 4 * (64 * 324 * 2 + 64 * 68), 1),
     ("flash_attention_wgmma", 64, 1, 384, _wgmma_smem(64), 1),
-    ("flash_attention_wgmma", 128, 1, 384, _wgmma_smem(128), 1)])
+    ("flash_attention_wgmma", 128, 1, 384, _wgmma_smem(128), 1),
+    # gemma3-4b's heads: 48-key tiles
+    ("flash_attention_wgmma", 320, 1, 384, _wgmma_smem(320, 48), 1)])
 def test_attention_occupancy(cuda, name, hd, bf16, threads, smem, ctas):
     occ = _build.occupancy(name, hd, bf16, 0)
     assert occ["threads"] == threads
     assert occ["smem_bytes"] == smem
     assert occ["ctas_per_sm"] == ctas
+
+
+def _wgmma_direct(q, k, v, *, window, causal):
+    """The wgmma launcher called directly, past the wrapper's checks."""
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    _build.launch("flash_attention_wgmma", "flash_attention_wgmma",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                  S, H, k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
+                  *v.stride()[:3], *o.stride()[:3], window, int(causal),
+                  hd ** -0.5, 1)
+    return o
+
+
+@pytest.mark.parametrize("S,window,causal", [
+    (1, 1 << 30, True), (37, 1 << 30, True), (300, 24, True),
+    (200, 1 << 30, False), (1000, 1 << 30, True), (2048, 1024, True)])
+def test_wgmma_hd320_matches_plain(cuda, S, window, causal):
+    """The hd-320 instance (48-key tiles) against the plain version folded
+    at its key tile, at gemma3-4b's 8 heads over 4 kv heads."""
+    g = torch.Generator(device=cuda).manual_seed(S + 48)
+    q = torch.randn(2, S, 8, 320, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(2, S, 4, 320, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=320 ** -0.5)
+    got = _launched("flash_attention_wgmma",
+                    lambda: tattn.attention(q, k, v, **kw))
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+def test_wgmma_launcher_refuses_an_instance_it_lacks(cuda):
+    """A head_dim with no instance (32, the CUDA-core kernel's) is refused
+    by the launcher, and the wrapper counts no launch."""
+    x = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="flash_attention_wgmma"):
+        _wgmma_direct(x, x, x, window=4, causal=True)
+    assert _build.LAUNCHES == before
 
 
 def test_wgmma_kernel_refuses_fp32(cuda):

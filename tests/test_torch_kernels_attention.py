@@ -118,7 +118,7 @@ def test_blockwise_gqa_matches_reference_layer(rng, H, KV, window, kv_block):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 320])
 def test_blockwise_bf16_prescale_matches_reference_layer(rng, hd):
     """bf16 activations: the layer scales q in bf16 before the fp32 cast, as
     the reference does (at hd = 128 the scale itself rounds to bf16). The
@@ -219,15 +219,18 @@ def test_launcher_rejects_what_the_kernel_does_not_take(fake_launch):
 
 
 # ---------------------------------------------------------------------------
-# The tensor-core kernel's route: bf16 at head_dim 64 and 128
+# The tensor-core kernel's route: bf16 at head_dim 64, 128 and 320
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_kernel_for_every_type_and_head_dim(dtype, hd):
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128)
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 320)
             else "cuda_core")
     assert tattn.kernel_for(dtype, hd) == want
+    keys = {"wgmma": {64: 128, 128: 128, 320: 48}.get(hd),
+            "cuda_core": 64}[want]
+    assert tattn.kernel_keys(dtype, hd) == keys
 
 
 def test_split_bf16_keeps_16_bits():
@@ -243,12 +246,14 @@ def test_split_bf16_keeps_16_bits():
     assert not np.all(np.abs(p - single) <= 2.0 ** -16 * np.abs(p))
 
 
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("S,window", [(160, 1 << 30), (96, 24)])
+@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("S,window", [(160, 1 << 30), (96, 24),
+                                      (150, 1 << 30), (100, 24)])
 def test_wgmma_plain_matches_pallas_kernel(rng, hd, S, window):
-    """bf16 at the wgmma kernel's head_dims: the plain version with its key
-    tile of 128 and p split in two bf16 parts against the Pallas kernel in
-    interpret mode and the naive oracle."""
+    """bf16 at the wgmma kernel's head_dims: the plain version with the
+    kernel's key tile (128 keys; 48 at hd 320) and p split in two bf16
+    parts against the Pallas kernel in interpret mode and the naive
+    oracle; S = 150 and 100 are ragged against both tiles."""
     arrs = _qkv(rng, 2, S, hd)
     got = tattn.flash_attention(*_torch(arrs, torch.bfloat16), window=window)
     assert got.dtype == torch.bfloat16
@@ -261,7 +266,7 @@ def test_wgmma_plain_matches_pallas_kernel(rng, hd, S, window):
                                np.asarray(oracle, np.float32), **BF16_TOL)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 320])
 @pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 40),
                                          (6, 2, 1 << 30)])
 def test_wgmma_plain_matches_reference_layer(rng, hd, H, KV, window):
@@ -280,18 +285,51 @@ def test_wgmma_plain_matches_reference_layer(rng, hd, H, KV, window):
     np.testing.assert_allclose(plain.float().numpy(), want, **BF16_TOL)
 
 
-def test_wgmma_plain_folds_the_kernels_key_tile(rng):
+@pytest.mark.parametrize("hd", [64, 320])
+def test_wgmma_plain_folds_the_kernels_key_tile(rng, hd):
     """By default the plain version folds the key tile of the kernel that
-    ``kernel_for`` picks: 128 keys for the wgmma kernel, 64 otherwise."""
-    q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, 64), torch.bfloat16)
-    kw = dict(window=1 << 30, scale=0.125)
+    ``kernel_for`` picks: for the wgmma kernel 128 keys (48 at hd 320),
+    64 otherwise."""
+    q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, hd), torch.bfloat16)
+    kw = dict(window=1 << 30, scale=hd ** -0.5)
     got = tattn.attention_plain(q, k, v, **kw)
     assert torch.equal(got, tattn.attention_plain(
-        q, k, v, kv_block=tattn.WGMMA_KERNEL_KEYS, **kw))
+        q, k, v, kv_block=tattn.WGMMA_KERNEL_KEYS[hd], **kw))
     q, k, v = (x.float() for x in (q, k, v))
     assert torch.equal(tattn.attention_plain(q, k, v, **kw),
                        tattn.attention_plain(
                            q, k, v, kv_block=tattn.KERNEL_KEYS, **kw))
+
+
+def test_plain_follows_the_kernel_it_is_named(rng):
+    """``kernel`` picks the dataflow the plain version follows: at bf16 hd
+    320, "cuda_core" folds 64-key tiles with p in fp32 (the fp32 inputs'
+    plain version, rounded to bf16), "wgmma" is the default."""
+    q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, 320), torch.bfloat16)
+    kw = dict(window=40, scale=320 ** -0.5)
+    core = tattn.attention_plain(q, k, v, kernel="cuda_core", **kw)
+    assert torch.equal(core, tattn.attention_plain(
+        *(x.float() for x in (q, k, v)), **kw).bfloat16())
+    assert torch.equal(tattn.attention_plain(q, k, v, kernel="wgmma", **kw),
+                       tattn.attention_plain(q, k, v, **kw))
+    assert tattn.kernel_keys(torch.bfloat16, 320, "cuda_core") == 64
+
+
+def test_hd320_key_tile_changes_where_the_softmax_rounds(rng):
+    """At hd 320 the fold at the kernel's 48-key tile is not the fold at
+    128 keys: the tile is part of the plain version's dataflow (both stay
+    within one bf16 step of the naive oracle)."""
+    arrs = [a * 3.0 for a in _gqa(rng, 1, 200, 2, 1, 320)]
+    q, k, v = _torch(arrs, torch.bfloat16)
+    kw = dict(window=1 << 30, scale=320 ** -0.5)
+    at48 = tattn.attention_plain(q, k, v, **kw)
+    at128 = tattn.attention_plain(q, k, v, kv_block=128, **kw)
+    assert not torch.equal(at48, at128)
+    oracle = tattn.attention_ref(*(x[0].transpose(0, 1) for x in (q, k, v)))
+    for got in (at48, at128):
+        np.testing.assert_allclose(
+            got[0].transpose(0, 1).float().numpy(), oracle.float().numpy(),
+            **BF16_TOL)
 
 
 def test_cpu_path_launches_no_wgmma_kernel(rng):
@@ -315,8 +353,15 @@ def fake_named_launch(monkeypatch):
     return calls
 
 
-def test_wgmma_launcher_arguments_model_layout(fake_named_launch):
-    B, S, H, KV, hd = 2, 40, 16, 8, 128
+#: (H, KV, hd) of the served archs' heads: qwen3-1.7b and gemma3-4b
+SERVED_HEADS = [(16, 8, 128), (8, 4, 320)]
+
+
+@pytest.mark.parametrize("H,KV,hd", SERVED_HEADS)
+def test_wgmma_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
+    """The model's layout reaches the wgmma launcher with its element
+    strides."""
+    B, S = 2, 40
     q = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
     k = torch.zeros(B, S, KV, hd, dtype=torch.bfloat16)
     o = tattn._launch(q, k, k, window=1 << 40, causal=True, scale=1.0)
@@ -329,11 +374,12 @@ def test_wgmma_launcher_arguments_model_layout(fake_named_launch):
     assert args[21:] == (1 << 30, 1, 1.0, 1)
 
 
-def test_wgmma_launcher_arguments_public_layout(fake_named_launch):
-    """(H, S, hd) bf16 at head_dim 64 reaches the wgmma kernel as strided
-    (1, S, H, hd) views, with no copy; fp32 at the same shape goes to the
-    CUDA-core kernel."""
-    H, S, hd = 3, 20, 64
+@pytest.mark.parametrize("hd", [64, 320])
+def test_wgmma_launcher_arguments_public_layout(fake_named_launch, hd):
+    """(H, S, hd) bf16 at head_dim 64 and 320 reaches the wgmma kernel as
+    strided (1, S, H, hd) views, with no copy; fp32 at the same shape goes
+    to the CUDA-core kernel."""
+    H, S = 3, 20
     q = torch.zeros(H, S, hd, dtype=torch.bfloat16)
     q4 = q.permute(1, 0, 2)[None]
     tattn._launch(q4, q4, q4, window=7, causal=False, scale=hd ** -0.5)
@@ -348,20 +394,22 @@ def test_wgmma_launcher_arguments_public_layout(fake_named_launch):
     assert args32[21:] == (7, 0, hd ** -0.5, 0)
 
 
-def test_wgmma_launcher_rejects_what_tma_does_not_take(fake_named_launch):
+@pytest.mark.parametrize("hd", [64, 320])
+def test_wgmma_launcher_rejects_what_tma_does_not_take(fake_named_launch,
+                                                       hd):
     """TMA takes a base on 16 bytes and strides of 16 bytes: 8 bf16
     elements. A stride of 4 elements, which the CUDA-core kernel takes,
-    is refused for bf16 at head_dim 64."""
-    x = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)[..., :64]
+    is refused for bf16 at head_dim 64 and 320."""
+    x = torch.zeros(1, 8, 2, hd + 4, dtype=torch.bfloat16)[..., :hd]
     with pytest.raises(ValueError, match="multiples of 8 elements"):
         tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
-    x = torch.zeros(1, 8, 2, 136, dtype=torch.bfloat16)[..., 4:68]
+    x = torch.zeros(1, 8, 2, 2 * hd + 8, dtype=torch.bfloat16)[..., 4:hd + 4]
     with pytest.raises(ValueError, match="16 bytes"):
         tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert fake_named_launch == []
-    x = torch.zeros(1, 8, 2, 68)[..., :64]      # fp32: the CUDA-core kernel
+    x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]  # fp32: the CUDA-core kernel
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
-    x = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)[..., :64]
+    x = torch.zeros(1, 8, 2, hd + 8, dtype=torch.bfloat16)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert [c[0] for c in fake_named_launch] == ["flash_attention",
                                                  "flash_attention_wgmma"]

@@ -26,6 +26,7 @@ from repro.models.layers import attention as jattn
 from repro.models.layers import common as jcommon
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention as kattn
 from repro_torch.models import convert, lm as tlm
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import common as tcommon
@@ -481,3 +482,75 @@ def test_unported_archs_raise_with_their_roadmap_item(arch):
         tlm.DecoderLM(cfg, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert.init_params(cfg, torch.Generator())
+
+
+# ---------------------------------------------------------------------------
+# gemma3-4b's head shape: head_dim 320 (its 2560 / 8), which the card serves
+# on the wgmma flash kernel's 48-key instance in bf16
+# ---------------------------------------------------------------------------
+
+def _gemma_hd320(dtype: str):
+    """gemma3-4b at small width with its head_dim: 6 layers (5 local with
+    the smoke window of 64, layer 5 global), 2 heads of 320 over 1 kv
+    head; the reference's config and weights, and the port's config."""
+    cut = dict(num_layers=6, num_heads=2, num_kv_heads=1, head_dim=320,
+               dtype=dtype)
+    jc = dataclasses.replace(jreg.get_config("gemma3-4b").scaled_down(),
+                             **cut)
+    tc = dataclasses.replace(treg.get_config("gemma3-4b").scaled_down(),
+                             **cut)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jc, jax.random.key(0)))
+    return jc, tc, tree
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemma_hd320_forward_matches_reference(dtype):
+    """Logits of the gemma3-4b-shaped model at S = 96, past the local
+    window, with one global layer: fp32 activations (the CUDA-core kernel's
+    plain version) at the fp32 tolerance; bf16 (the wgmma kernel's plain
+    version: 48-key tiles, p split in two bf16 parts) at four bf16 steps
+    of the logits, as for the served type in
+    ``test_bf16_forward_matches_reference``."""
+    jc, tc, tree = _gemma_hd320(dtype)
+    assert tlm._layer_windows(tc) == [64] * 5 + [tlm.BIG_WINDOW]
+    assert kattn.kernel_for(tlm.dtype_of(dtype), 320) == (
+        "wgmma" if dtype == "bfloat16" else "cuda_core")
+    tokens, _, _ = _inputs(tc, 2, 96)
+    want, _, _ = jlm.forward(jc, jax.tree.map(jnp.asarray, tree),
+                             jnp.asarray(tokens))
+    _build.reset_launches()
+    got = convert.build(tc, convert.params_from_jax(tc, tree), "cpu")(
+        torch.from_numpy(tokens))
+    assert not any(_build.LAUNCHES.values())      # the CPU runs plain
+    assert got.shape == (2, 96, tc.vocab_padded)
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=0.125)
+
+
+def test_gemma_hd320_prefill_decode_matches_reference():
+    """bf16 prefill of 96 positions and one decode step of the
+    gemma3-4b-shaped model against the reference's prefill and
+    decode_step, with the same weights: the last logits within four bf16
+    steps."""
+    jc, tc, tree = _gemma_hd320("bfloat16")
+    B, S = 2, 96
+    tokens, _, _ = _inputs(tc, B, S + 1, seed=4)
+    params = jax.tree.map(jnp.asarray, tree)
+    want_last, jstate = jlm.prefill(jc, params, jnp.asarray(tokens[:, :S]),
+                                    cache_capacity=S + 1)
+    want_step, _ = jlm.decode_step(jc, params, jstate,
+                                   jnp.asarray(tokens[:, S]), jnp.int32(S))
+    model = convert.build(tc, convert.params_from_jax(tc, tree), "cpu")
+    t = torch.from_numpy(tokens).long()
+    last, state = model.prefill(t[:, :S], cache_capacity=S + 1)
+    step, _ = model.decode_step(state, t[:, S], S)
+    np.testing.assert_allclose(last.float().numpy(),
+                               np.asarray(want_last, np.float32), rtol=0,
+                               atol=0.125)
+    np.testing.assert_allclose(step.numpy(), np.asarray(want_step,
+                                                        np.float32),
+                               rtol=0, atol=0.125)
