@@ -12,10 +12,10 @@ Phases (any failure exits non-zero):
      each with ``-Xptxas -v``), and print the build time, the card's name
      and its power limit; then ptxas's registers and spills for every
      Stockham and NTT kernel, and its
-     registers, shared memory and spills for each instance of the wgmma
-     flash kernel and the count of HGMMA
-     and UTMALDG instructions in its SASS (``cuobjdump -sass``), which
-     must hold HGMMA.
+     registers, shared memory and spills for each instance of the two
+     tensor-core flash kernels (wgmma on bf16, 3xTF32 on fp32) and the
+     count of HGMMA and UTMALDG instructions in its SASS (``cuobjdump
+     -sass``), which must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
      PyTorch version on the card and against float64 numpy.fft, radix 2 and
      4, n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
@@ -34,16 +34,19 @@ Phases (any failure exits non-zero):
      split threshold to 2^17 (the CRT == ``rns_polymul_reference``), the
      NTT's two passes from its threshold to 2^19, and every schedule of
      each at 4096 and 8192 (the RNS product: single-CTA, register steps,
-     split-pass). Then the two
+     split-pass). Then the three
      flash-attention kernels
      against their plain versions (``ATTN_CASES``), each case launching
-     the kernel its (dtype, head_dim) dispatches to and the other never:
+     the kernel its (dtype, head_dim) dispatches to and the others never:
      the wgmma kernel (bf16, head_dim 64, 128 and 320) at the served
      prefill shape, windows 1024 and 24, non-causal, ragged S, G = 1,
      S = 1 and S < 64, and at gemma3-4b's heads (hd 320, 8 heads over 4
-     kv heads, S = 2048, window 1024 and global); the CUDA-core kernel at
-     bf16 head_dim 32 and in fp32; bf16 within one bf16 step and fp32
-     within 2e-4; and the public (H, S, hd) layout against the naive
+     kv heads, S = 2048, window 1024 and global); the 3xTF32 kernel (fp32,
+     head_dim 64 and 128) at the served shape, window 24, non-causal,
+     ragged S, S = 1, S < 64, G = 1 and hd 64; the CUDA-core kernel at
+     fp32 head_dim 320, bf16 head_dim 32 and, launched directly, fp32
+     head_dim 128 (``CUDA_CORE_DIRECT``); bf16 within one bf16 step and
+     fp32 within 2e-4; and the public (H, S, hd) layout against the naive
      oracle. Then the two-pass
      schedules of the fft, rfft and irfft kernels and the products'
      split-pass schedule (``check_two_pass``; three launches, four at odd
@@ -73,7 +76,7 @@ Phases (any failure exits non-zero):
      gen 32, which must launch the wgmma flash kernel 28 times (one
      prefill, one launch per layer) and nothing else; prefill/decode
      parity at full width in fp32 (B = 2, S = 512) within the reference's
-     2e-3, counters zeroed just before, which must launch the CUDA-core
+     2e-3, counters zeroed just before, which must launch the 3xTF32
      flash kernel 56 times (a forward and a prefill) and nothing else; and
      the same 2-layer full-width weights on the card and on the CPU (plain
      versions) within 2e-3. Then gemma3-4b the same way, counters zeroed
@@ -83,7 +86,8 @@ Phases (any failure exits non-zero):
      bf16 prefill (B = 2, S = 2048: five local layers and the global layer
      5) once through the kernel and once with the plain version swapped in
      for ``kernels.attention.attention``, whose last logits must agree
-     within ``GEMMA_PARITY_TOL``.
+     within ``GEMMA_PARITY_TOL``; then the same prefill in fp32, the
+     CUDA-core kernel's path (6 launches, nothing else), within 2e-3.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -94,9 +98,11 @@ Phases (any failure exits non-zero):
      67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels, over
      the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
      kernels, and over 989 TFLOP/s bf16 (the wgmma kernel, at the served
-     prefill shape and at gemma3-4b's local and global shapes; beside it,
-     in turns on the same inputs, the CUDA-core kernel) or 67 TFLOP/s fp32
-     (the CUDA-core kernel, at the served shape in fp32) for flash
+     prefill shape and at gemma3-4b's local and global shapes), three times
+     the flops over 495 TFLOP/s TF32 (the 3xTF32 kernel, at the served
+     shape in fp32; beside each tensor-core kernel, in turns on the same
+     inputs, the CUDA-core kernel) or 67 TFLOP/s fp32 (the CUDA-core
+     kernel, at fp32 head_dim 320 and bf16 head_dim 32) for flash
      attention, whose yardstick is ``scaled_dot_product_attention``
      (causal, GQA; the flash kernels, their plain versions and SDPA timed
      by CUDA events over back-to-back calls, as their traces drop events;
@@ -120,7 +126,10 @@ Phases (any failure exits non-zero):
      qwen3-1.7b and gemma3-4b: prefill ms, decode ms per token and tok/s,
      and a traced run for the card's idle share and the wgmma flash
      kernel's share of the prefill; for gemma3-4b also the prefill with
-     the CUDA-core kernel swapped in, in turns with the wgmma kernel.
+     the CUDA-core kernel swapped in, in turns with the wgmma kernel; and
+     the full-width fp32 qwen3-1.7b prefill (batch 8 x 2048) through the
+     3xTF32 kernel, in turns with the CUDA-core kernel swapped in, with
+     each kernel's share of a traced prefill.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -191,12 +200,15 @@ TRANSFORM_KERNELS = {
                         "src/repro/kernels/ntt.py:142"),
     "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
-#: the LM's two Hopper kernels for TPU kernel 9, by launch counter: the
-#: tensor-core kernel (bf16 at head_dim 64, 128 and 320, the served
-#: prefills) and the CUDA-core kernel (fp32; bf16 at head_dim 32)
+#: the LM's three Hopper kernels for TPU kernel 9, by launch counter: the
+#: bf16 tensor-core kernel (head_dim 64, 128 and 320, the served
+#: prefills), the 3xTF32 tensor-core kernel (fp32 at head_dim 64 and 128)
+#: and the CUDA-core kernel (fp32 at head_dim 32 and 320; bf16 at 32)
 FLASH_REPLACES = "src/repro/kernels/attention.py:30"
-FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention")
+FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_tf32",
+                 "flash_attention")
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 #: the served LM cells: qwen3-1.7b and gemma3-4b at full width, bf16
 #: activations, the same batch, prompt and generated tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 8, 2048, 32
@@ -1763,9 +1775,28 @@ ATTN_CASES = [
     ("gemma3-4b local", 2, LM_PROMPT, 8, 4, 320, "bfloat16", 1024, True),
     ("gemma3-4b global", 2, LM_PROMPT, 8, 4, 320, "bfloat16", 1 << 30,
      True),
-    ("fp32", 2, 1000, 16, 8, 128, "float32", 1 << 30, True),
+    ("fp32 ragged S", 2, 1000, 16, 8, 128, "float32", 1 << 30, True),
+    ("fp32 served", LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30,
+     True),
+    ("fp32 window 24", 2, LM_PROMPT, 16, 8, 128, "float32", 24, True),
+    ("fp32 non-causal", 2, 1024, 16, 8, 128, "float32", 1 << 30, False),
+    ("fp32 S = 1", 2, 1, 16, 8, 128, "float32", 1 << 30, True),
+    ("fp32 S < 64", 3, 37, 16, 8, 128, "float32", 1 << 30, True),
+    ("fp32 G = 1", 2, 1024, 8, 8, 128, "float32", 1 << 30, True),
+    ("fp32 hd 64", 2, 1024, 24, 8, 64, "float32", 1 << 30, True),
+    ("fp32 hd 64 ragged S window 24", 2, 333, 24, 8, 64, "float32", 24,
+     True),
+    ("fp32 hd 64 non-causal S < 64", 2, 50, 8, 2, 64, "float32", 1 << 30,
+     False),
     ("fp32 hd 320 window 24", 1, 300, 8, 4, 320, "float32", 24, True),
 ]
+#: the CUDA-core kernel launched directly on inputs the wrappers send to a
+#: tensor-core kernel, against its own plain version: (label, B, S, H, KV,
+#: hd, dtype, window)
+CUDA_CORE_DIRECT = [
+    ("fp32 hd 128 (the tf32 kernel's)", 2, 1000, 16, 8, 128, "float32",
+     1 << 30),
+    ("fp32 hd 128 window 24", 2, 700, 16, 8, 128, "float32", 24)]
 
 
 def attention_inputs(torch, B, S, H, KV, hd, dtype, seed):
@@ -1780,17 +1811,18 @@ def attention_inputs(torch, B, S, H, KV, hd, dtype, seed):
 
 def flash_counter(kattn, dtype, hd: int) -> str:
     """The launch counter of the kernel that (dtype, hd) dispatches to."""
-    return {"wgmma": "flash_attention_wgmma",
-            "cuda_core": "flash_attention"}[kattn.kernel_for(dtype, hd)]
+    return kattn.LAUNCHERS[kattn.kernel_for(dtype, hd)]
 
 
 def check_attention(torch, kattn, build) -> dict[str, float]:
     """Each flash kernel against its plain version (key blocks of the
-    kernel's tile; p split in two bf16 parts for the wgmma kernel) on every
-    case of ATTN_CASES, each case launching the kernel its (dtype, hd)
-    dispatches to once and the other kernel never; and the public
-    (H, S, hd) layout against the naive oracle too. Returns the worst
-    |kernel - plain| per kernel."""
+    kernel's tile; p split in two bf16 parts for the wgmma kernel, both
+    products as three TF32 products for the tf32 kernel) on every case of
+    ATTN_CASES, each case launching the kernel its (dtype, hd) dispatches
+    to once and the others never; the CUDA-core kernel launched directly
+    on CUDA_CORE_DIRECT against the plain version of its own dataflow; and
+    the public (H, S, hd) layout against the naive oracle too. Returns the
+    worst |kernel - plain| per kernel."""
     worst = dict.fromkeys(FLASH_KERNELS, 0.0)
     for i, (label, B, S, H, KV, hd, dtype, window, causal) in \
             enumerate(ATTN_CASES):
@@ -1817,6 +1849,21 @@ def check_attention(torch, kattn, build) -> dict[str, float]:
               f"{dtype} window={window} causal={causal} -> {name} "
               f"|kernel-plain|max={err:.3g} within {ATTN_TOL[dtype]}",
               flush=True)
+    for label, B, S, H, KV, hd, dtype, window in CUDA_CORE_DIRECT:
+        q, k, v = attention_inputs(torch, B, S, H, KV, hd, dtype, 7 + S)
+        got = cuda_core_on(torch, build, q, k, v, hd ** -0.5, window).float()
+        want = kattn.attention_plain(q, k, v, window=window, scale=hd ** -0.5,
+                                     kernel="cuda_core").float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **ATTN_TOL[dtype]):
+            raise SystemExit(f"flash_attention launched directly on {label}: "
+                             f"kernel and plain version differ by {err}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        print(f"[attention] {label}, CUDA-core kernel launched directly: "
+              f"B={B} S={S} H={H} KV={KV} hd={hd} {dtype} window={window} "
+              f"|kernel-plain|max={err:.3g} within {ATTN_TOL[dtype]}",
+              flush=True)
     q, k, v = (x[0].transpose(0, 1) for x in attention_inputs(
         torch, 1, 500, 6, 6, 64, "float32", 99))
     got = kattn.flash_attention(q, k, v, window=100)
@@ -1835,8 +1882,8 @@ def check_attention(torch, kattn, build) -> dict[str, float]:
             raise SystemExit("flash_attention (H, S, hd) layout bf16 hd 128 "
                              "differs from its plain version or the oracle")
     print("[attention] public (H, S, hd) layout, S=500 window=100: fp32 "
-          "hd 64 == plain and naive oracle within 2e-4, bf16 hd 128 within "
-          "one bf16 step", flush=True)
+          "hd 64 (the tf32 kernel) == plain and naive oracle within 2e-4, "
+          "bf16 hd 128 within one bf16 step", flush=True)
     torch.cuda.synchronize()
     return worst
 
@@ -1887,7 +1934,7 @@ def serve_lm(torch, build, serve, get_config, arch: str) -> dict:
 def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     """Phase 3 for qwen3-1.7b: (1) the served run (``serve_lm``): 28
     launches of the wgmma kernel and nothing else; (2) prefill/decode
-    parity at full width in fp32, the CUDA-core kernel's path, counters
+    parity at full width in fp32, the 3xTF32 kernel's path, counters
     zeroed just before: one forward and one prefill, 2 x 28 launches of
     that kernel and nothing else; (3) the same 2-layer full-width weights
     on the card and on the CPU. Returns what the report needs."""
@@ -1896,7 +1943,7 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     launches = served["launches"]
     cfg = get_config(LM_ARCH)
 
-    # (2) parity at full width, fp32 activations: the CUDA-core kernel
+    # (2) parity at full width, fp32 activations: the 3xTF32 kernel
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     sd = full_width_state(torch, convert, cfg)
     model = convert.build(cfg32, sd, dev)
@@ -1911,12 +1958,13 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     step, _ = model.decode_step(state, tokens[:, S], S)
     torch.cuda.synchronize()
     fp32_launches = dict(build.LAUNCHES)
-    if fp32_launches["flash_attention"] != 2 * cfg.num_layers or any(
-            n for k, n in fp32_launches.items() if k != "flash_attention"):
+    if fp32_launches["flash_attention_tf32"] != 2 * cfg.num_layers or any(
+            n for k, n in fp32_launches.items()
+            if k != "flash_attention_tf32"):
         raise SystemExit(f"fp32 parity path: launches {fp32_launches}, "
-                         f"expected flash_attention {2 * cfg.num_layers} "
-                         f"times (one forward, one prefill) and nothing "
-                         f"else")
+                         f"expected flash_attention_tf32 "
+                         f"{2 * cfg.num_layers} times (one forward, one "
+                         f"prefill) and nothing else")
     errs = (float((last - full[:, S - 1]).abs().max()),
             float((step - full[:, -1]).abs().max()))
     if not (torch.isfinite(full).all()
@@ -1948,7 +1996,8 @@ def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
     torch.cuda.synchronize()
     return {"launches": {"flash_attention_wgmma":
                          launches["flash_attention_wgmma"],
-                         "flash_attention": fp32_launches["flash_attention"]},
+                         "flash_attention_tf32":
+                         fp32_launches["flash_attention_tf32"]},
             "first_call_tokens_per_s": served["tokens_per_s"],
             "parity_max_abs": errs, "card_vs_cpu_max_abs": err}
 
@@ -1964,20 +2013,16 @@ def plain_attention(kattn):
     return attention
 
 
-def gemma_phase(torch, build, serve, convert, kattn, get_config) -> dict:
-    """Phase 3 for gemma3-4b: (1) the served run (``serve_lm``): 34
-    launches of the wgmma kernel (its hd-320 instance) and nothing else;
-    (2) a full-width bf16 prefill of GEMMA_PARITY_LAYERS layers (five
-    local, window 1024, then the global layer 5) at batch 2 and the served
-    prompt, counters zeroed just before: once through the kernel (one
-    launch per layer, nothing else) and once with ``plain_attention``
-    swapped in for ``kernels.attention.attention`` (no launch); the last
-    logits finite, of the vocabulary's width, and within GEMMA_PARITY_TOL
-    of each other."""
+def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
+                     tol: dict) -> tuple[float, int]:
+    """A full-width prefill of ``cfg`` (seed-0 weights, batch
+    GEMMA_PARITY_BATCH, the served prompt), counters zeroed just before:
+    once through the kernel (one launch of ``counter`` per layer, nothing
+    else) and once with ``plain_attention`` swapped in for
+    ``kernels.attention.attention`` (no launch); the last logits finite, of
+    the vocabulary's width, and within ``tol`` of each other. Returns the
+    largest difference and the launches of ``counter``."""
     dev = torch.device("cuda")
-    served = serve_lm(torch, build, serve, get_config, GEMMA_ARCH)
-    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
-                              num_layers=GEMMA_PARITY_LAYERS)
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
     tokens = torch.randint(0, cfg.vocab_size,
                            (GEMMA_PARITY_BATCH, LM_PROMPT), device=dev,
@@ -1996,34 +2041,52 @@ def gemma_phase(torch, build, serve, convert, kattn, get_config) -> dict:
         kattn.attention = kernel
     plain_launches = {k: n - kernel_launches[k]
                       for k, n in build.LAUNCHES.items()}
-    want = {k: GEMMA_PARITY_LAYERS * (k == "flash_attention_wgmma")
-            for k in build.LAUNCHES}
+    want = {k: cfg.num_layers * (k == counter) for k in build.LAUNCHES}
+    name = f"{cfg.name} {cfg.num_layers}-layer {cfg.dtype} prefill"
     if kernel_launches != want or any(plain_launches.values()):
-        raise SystemExit(f"{GEMMA_ARCH} {GEMMA_PARITY_LAYERS}-layer prefill: "
-                         f"launches {kernel_launches} with the kernel, "
-                         f"{plain_launches} with the plain version swapped "
-                         f"in; expected {want} and none")
+        raise SystemExit(f"{name}: launches {kernel_launches} with the "
+                         f"kernel, {plain_launches} with the plain version "
+                         f"swapped in; expected {want} and none")
     got, ref = with_kernel.float(), with_plain.float()
     err = float((got - ref).abs().max())
     if got.shape != (GEMMA_PARITY_BATCH, cfg.vocab_padded) or not (
             torch.isfinite(got).all() and torch.isfinite(ref).all()
-            and torch.allclose(got, ref, **GEMMA_PARITY_TOL)):
-        raise SystemExit(f"{GEMMA_ARCH} {GEMMA_PARITY_LAYERS}-layer prefill: "
-                         f"kernel and plain version's last logits {got.shape} "
-                         f"differ by {err}")
-    print(f"[lm] {GEMMA_ARCH} full width, {GEMMA_PARITY_LAYERS} layers "
-          f"(windows {[lm_window(cfg, i) for i in range(cfg.num_layers)]}), "
-          f"bf16, B={GEMMA_PARITY_BATCH} S={LM_PROMPT}: prefill last logits "
-          f"with the wgmma kernel vs the plain version swapped in "
-          f"|diff|max={err:.3g} within {GEMMA_PARITY_TOL} (|logit|max "
+            and torch.allclose(got, ref, **tol)):
+        raise SystemExit(f"{name}: kernel and plain version's last logits "
+                         f"{got.shape} differ by {err}")
+    print(f"[lm] {cfg.name} full width, {cfg.num_layers} layers (windows "
+          f"{[lm_window(cfg, i) for i in range(cfg.num_layers)]}), "
+          f"{cfg.dtype}, B={GEMMA_PARITY_BATCH} S={LM_PROMPT}: prefill last "
+          f"logits with {counter} vs the plain version swapped in "
+          f"|diff|max={err:.3g} within {tol} (|logit|max "
           f"{float(ref.abs().max()):.3g}); launches {kernel_launches}",
           flush=True)
     del model
     torch.cuda.empty_cache()
+    return err, kernel_launches[counter]
+
+
+def gemma_phase(torch, build, serve, convert, kattn, get_config) -> dict:
+    """Phase 3 for gemma3-4b: (1) the served run (``serve_lm``): 34
+    launches of the wgmma kernel (its hd-320 instance) and nothing else;
+    (2) ``prefill_vs_plain`` on GEMMA_PARITY_LAYERS layers (five local,
+    window 1024, then the global layer 5) in bf16, through the wgmma
+    kernel, within GEMMA_PARITY_TOL; (3) the same in fp32, the CUDA-core
+    kernel's path at head_dim 320, within LM_TOL."""
+    served = serve_lm(torch, build, serve, get_config, GEMMA_ARCH)
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH),
+                              num_layers=GEMMA_PARITY_LAYERS)
+    err, _ = prefill_vs_plain(torch, build, convert, kattn, cfg,
+                              "flash_attention_wgmma", GEMMA_PARITY_TOL)
+    err32, core_launches = prefill_vs_plain(
+        torch, build, convert, kattn,
+        dataclasses.replace(cfg, dtype="float32"), "flash_attention", LM_TOL)
     return {"launches": served["launches"]["flash_attention_wgmma"],
             "first_call_tokens_per_s": served["tokens_per_s"],
             "parity_layers": GEMMA_PARITY_LAYERS,
-            "kernel_vs_plain_last_logits_max_abs": err}
+            "kernel_vs_plain_last_logits_max_abs": err,
+            "fp32_cuda_core_launches": core_launches,
+            "fp32_kernel_vs_plain_last_logits_max_abs": err32}
 
 
 def lm_window(cfg, i: int) -> str:
@@ -2031,19 +2094,19 @@ def lm_window(cfg, i: int) -> str:
     return "global" if cfg.layer_is_global(i) else str(cfg.window)
 
 
-#: Device-side names of the flash kernels in a profiler trace: the wgmma
-#: kernel (every instance) and the CUDA-core kernel.
-FLASH_KERNEL = re.compile(r"flash_attention_wgmma_kernel")
-CUDA_CORE_FLASH_KERNEL = re.compile(r"flash_attention_kernel")
+#: Device-side names of the flash kernels in a profiler trace, by launch
+#: counter (every instance of each).
+FLASH_TRACE_NAMES = {
+    name: re.compile(name + "_kernel") for name in FLASH_KERNELS}
 
 
 #: Phase 4's flash-attention shapes: label -> (kernel, (B, S, H, KV, hd,
-#: dtype, window)), causal. The wgmma kernel at the served prefills: the
-#: qwen3-1.7b one, and gemma3-4b's heads (8 heads, 4 kv heads, head_dim
-#: 320) at its local layers' window 1024 and at its global layers; the
-#: CUDA-core kernel at the qwen3 shape in fp32, the type it serves on the LM
-#: path (the fp32 parity path). The first shape of each kernel is its
-#: report's; the hd-320 shapes make a report entry of their own.
+#: dtype, window)), causal, at the served batch and prompt. The wgmma
+#: kernel at the served prefills: the qwen3-1.7b one, and gemma3-4b's heads
+#: (8 heads, 4 kv heads, head_dim 320) at its local layers' window 1024 and
+#: at its global layers; the tf32 kernel at the qwen3 shape in fp32 (the
+#: fp32 parity path's); the CUDA-core kernel on what it still serves, fp32
+#: at gemma3-4b's heads and bf16 at head_dim 32 (16 heads, 8 kv heads).
 ATTN_TIMED = {
     "served prefill": ("flash_attention_wgmma",
                        (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16",
@@ -2054,13 +2117,17 @@ ATTN_TIMED = {
     "gemma3-4b global": (
         "flash_attention_wgmma", (LM_BATCH, LM_PROMPT, 8, 4, 320,
                                   "bfloat16", 1 << 30)),
-    "fp32": ("flash_attention",
-             (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30))}
+    "fp32": ("flash_attention_tf32",
+             (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30)),
+    "fp32 hd 320": ("flash_attention",
+                    (LM_BATCH, LM_PROMPT, 8, 4, 320, "float32", 1 << 30)),
+    "bf16 hd 32": ("flash_attention",
+                   (LM_BATCH, LM_PROMPT, 16, 8, 32, "bfloat16", 1 << 30))}
 
 
 def cuda_core_on(torch, build, q, k, v, scale: float, window: int = 1 << 30):
-    """The CUDA-core kernel on causal bf16 inputs at a head_dim the wrappers
-    send to the wgmma kernel: the previous design on the same inputs, to
+    """The CUDA-core kernel on causal inputs at a head_dim the wrappers send
+    to a tensor-core kernel: the previous design on the same inputs, to
     compare the two within one run."""
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
@@ -2068,7 +2135,7 @@ def cuda_core_on(torch, build, q, k, v, scale: float, window: int = 1 << 30):
                  k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
                  k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
                  *v.stride()[:3], *o.stride()[:3], min(window, 1 << 30), 1,
-                 float(scale), 1)
+                 float(scale), int(q.dtype == torch.bfloat16))
     return o
 
 
@@ -2078,10 +2145,13 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     version, and scaled_dot_product_attention (causal, GQA; with the
     window, the same mask as a boolean ``attn_mask``) on the same inputs as
     the yardstick; bound: bytes of q, k, v and o over 3.35 TB/s, or the
-    pairs' flops (4 hd per pair within the causal window: q.k and p.v)
-    over 989 TFLOP/s bf16 (the tensor cores) or 67 TFLOP/s fp32 (the CUDA
-    cores; the reference's fp32 products rule out TF32). For the wgmma
-    kernel, the CUDA-core kernel on the same bf16 inputs too.
+    operations the kernel does on them: the pairs' flops (4 hd per pair
+    within the causal window: q.k and p.v) over 989 TFLOP/s bf16 (the
+    wgmma kernel) or 67 TFLOP/s fp32 (the CUDA-core kernel), or three
+    times those flops over 495 TFLOP/s TF32 (the tf32 kernel: each fp32
+    product as three TF32 products, which the reference's fp32 products
+    need; one TF32 pass keeps 10 bits). For a tensor-core kernel, the
+    CUDA-core kernel on the same inputs too, in turns.
 
     The kernel's, the plain version's and SDPA's times are CUDA-event
     time per call over back-to-back calls: each call runs far longer than
@@ -2126,7 +2196,13 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     pairs = sum(min(q + 1, window) for q in range(S))
     flops = 4 * hd * pairs * B * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
+    t_fp32 = flops / FP32_FLOPS_PER_S * 1e3
+    operations, t_ops = {
+        "flash_attention_wgmma": ("bf16 flops",
+                                  flops / BF16_FLOPS_PER_S * 1e3),
+        "flash_attention_tf32": ("3 x TF32 flops",
+                                 3 * flops / TF32_FLOPS_PER_S * 1e3),
+        "flash_attention": ("fp32 flops", t_fp32)}[name]
     reps = 10
     traced_ms, traced = device_ms(torch, kern, sets, reps,
                                   launches_per_call=1, tries=2,
@@ -2146,16 +2222,16 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "operations_ms": t_ops,
-        "operations": "bf16 flops" if bf16 else "fp32 flops",
+        "operations": operations, "fp32_cuda_core_ms": t_fp32,
         "bytes": nbytes, "flops": flops, "max_abs_err": err,
         "sdpa_vs_plain_max_abs": float((ref - want).abs().max()),
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
                   "dtype": dtype, "causal": True, "window": window},
         **build.occupancy(name, hd, int(bf16), 0)}
     extra = ""
-    if name == "flash_attention_wgmma":
+    if name != "flash_attention":
         # the CUDA-core kernel on the same inputs, held against the plain
-        # version of its own dataflow (64-key tiles, p in fp32); then in
+        # version of its own dataflow (64-key tiles, fp32 products); then in
         # turns: this kernel, the CUDA-core kernel twice, this kernel again
         core = functools.partial(cuda_core_on, torch, build, scale=scale,
                                  window=window)
@@ -2187,7 +2263,8 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
           f"event ms per call: kernel={entry['ms']:.4f} "
           f"plain={entry['plain_ms']:.4f} sdpa={entry['library_ms']:.4f}; "
           f"bound={entry['bound_ms']:.4f} ({entry['bound_by']}; bytes "
-          f"{t_bytes:.4f}, {entry['operations']} {t_ops:.4f}); traced: "
+          f"{t_bytes:.4f}, {entry['operations']} {t_ops:.4f}, fp32 flops "
+          f"on the CUDA cores {t_fp32:.4f}); traced: "
           f"kernel={fmt(traced_ms)} ms (mean of {entry['traced_launches']} "
           f"launches traced), plain={fmt(entry['plain_traced_ms'])} and "
           f"sdpa={fmt(entry['library_traced_ms'])} ms over calls; "
@@ -2200,8 +2277,8 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
 
 def cuda_core_attention(torch, build):
     """``kernels.attention.attention`` with the CUDA-core kernel in place of
-    the wgmma kernel: the prefill as it ran before the wgmma kernel took
-    its head_dim (causal, any window)."""
+    a tensor-core kernel: the prefill as it ran before the tensor-core
+    kernel took its type and head_dim (causal, any window)."""
     def attention(q, k, v, *, window, causal=True, scale, kv_block=None):
         del kv_block
         if not causal:
@@ -2211,18 +2288,23 @@ def cuda_core_attention(torch, build):
 
 
 def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
+              dtype: str = "bfloat16", decode: bool = True,
               cuda_core=None) -> dict:
-    """The served cell's prefill ms, decode ms per token and tok/s (host
-    clock around work that ends in a synchronize, after one warm call),
-    then a traced generate: the card's idle share and the flash kernel's
-    share of the prefill's device time. With ``cuda_core`` (a
+    """The cell's prefill ms (batch LM_BATCH x LM_PROMPT, activations in
+    ``dtype``; host clock around work that ends in a synchronize, after one
+    warm call) and a traced prefill: the flash kernel's share of its device
+    time. With ``decode``, decode ms per token and tok/s, and a traced
+    generate for the card's idle share. With ``cuda_core`` (a
     ``cuda_core_attention``) also the prefill with it swapped in, in turns
-    with the wgmma kernel (wgmma, CUDA core, CUDA core, wgmma; best of 3
-    each), and that kernel's share of its own traced prefill."""
+    with the kernel ``kernel_for`` picks (kernel, CUDA core, CUDA core,
+    kernel; best of 3 each), and that kernel's share of its own traced
+    prefill."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    flash = FLASH_TRACE_NAMES[flash_counter(kattn, getattr(torch, dtype),
+                                            cfg.head_dim)]
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
     torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -2248,32 +2330,17 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
         finally:
             kattn.attention = kernel
 
-    model.prefill(tokens, cache_capacity=cap)
-    prefill_ms, (logits, state) = prefills()
-    tok = logits.argmax(dim=-1)
-    model.decode_step(state, tok, LM_PROMPT)      # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(LM_GEN):
-        logits, state = model.decode_step(state, tok, LM_PROMPT + i)
-        tok = logits.argmax(dim=-1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_GEN
-    del state, logits
-    pre = min(prefill_ms)
-    tok_s = LM_BATCH * LM_GEN / ((pre + LM_GEN * decode_ms) / 1e3)
-
     def device_time(prof, kernel_name):
         """(device ms, flash kernel ms, flash launches traced)"""
-        total = flash = 0.0
+        total = flash_ms = 0.0
         seen = 0
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
                 total += e.self_device_time_total / 1e3
                 if kernel_name.search(e.key):
-                    flash += e.self_device_time_total / 1e3
+                    flash_ms += e.self_device_time_total / 1e3
                     seen += e.count
-        return total, flash, seen
+        return total, flash_ms, seen
 
     def traced_prefill(kernel_name):
         with profile(activities=[ProfilerActivity.CPU,
@@ -2282,22 +2349,39 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
             torch.cuda.synchronize()
         return device_time(prof, kernel_name)
 
-    pre_dev, pre_flash, flash_seen = traced_prefill(FLASH_KERNEL)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lm.generate(model, tokens, LM_GEN)
+    model.prefill(tokens, cache_capacity=cap)
+    prefill_ms, (logits, state) = prefills()
+    pre = min(prefill_ms)
+    out = {"arch": arch, "dtype": dtype, "prefill_ms": pre,
+           "prefill_ms_runs": prefill_ms}
+    text = ""
+    if decode:
+        tok = logits.argmax(dim=-1)
+        model.decode_step(state, tok, LM_PROMPT)      # warm
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, _, _ = device_time(prof, FLASH_KERNEL)
-    out = {"arch": arch, "prefill_ms": pre, "prefill_ms_runs": prefill_ms,
-           "decode_ms_per_token": decode_ms, "tokens_per_s": tok_s,
-           "prefill_device_ms": pre_dev, "prefill_flash_ms": pre_flash,
-           "prefill_flash_launches_traced": flash_seen,
-           "flash_share_of_prefill": pre_flash / pre_dev if pre_dev else None,
-           "idle_share": 1 - busy_ms / wall_ms,
-           "traced_generate_wall_ms": wall_ms, "traced_busy_ms": busy_ms}
+        t0 = time.perf_counter()
+        for i in range(LM_GEN):
+            logits, state = model.decode_step(state, tok, LM_PROMPT + i)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    del state, logits
+
+    pre_dev, pre_flash, flash_seen = traced_prefill(flash)
+    out.update(prefill_device_ms=pre_dev, prefill_flash_ms=pre_flash,
+               prefill_flash_launches_traced=flash_seen,
+               flash_share_of_prefill=pre_flash / pre_dev if pre_dev else None)
+    if decode:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lm.generate(model, tokens, LM_GEN)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, _, _ = device_time(prof, flash)
+        out.update(idle_share=1 - busy_ms / wall_ms,
+                   traced_generate_wall_ms=wall_ms, traced_busy_ms=busy_ms)
     extra = ""
     if cuda_core is not None:
         core_runs = (swapped(cuda_core, prefills)[0]
@@ -2305,32 +2389,36 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
         again = prefills()[0]
         out["prefill_ms_runs"] = prefill_ms + again
         out["prefill_ms"] = pre = min(pre, min(again))
-        out["tokens_per_s"] = LM_BATCH * LM_GEN / (
-            (pre + LM_GEN * decode_ms) / 1e3)
         c_dev, c_flash, c_seen = swapped(
-            cuda_core, lambda: traced_prefill(CUDA_CORE_FLASH_KERNEL))
+            cuda_core,
+            lambda: traced_prefill(FLASH_TRACE_NAMES["flash_attention"]))
         out["cuda_core"] = {
             "prefill_ms": min(core_runs), "prefill_ms_runs": core_runs,
             "prefill_device_ms": c_dev, "prefill_flash_ms": c_flash,
             "prefill_flash_launches_traced": c_seen,
             "flash_share_of_prefill": c_flash / c_dev if c_dev else None}
-        extra = (f"; with the CUDA-core kernel swapped in (turns wgmma, "
-                 f"CUDA core, CUDA core, wgmma): prefill "
+        extra = (f"; with the CUDA-core kernel swapped in (turns kernel, "
+                 f"CUDA core, CUDA core, kernel): prefill "
                  f"{min(core_runs):.2f} ms (runs "
                  f"{', '.join(f'{t:.2f}' for t in core_runs)}), traced "
                  f"device {c_dev:.2f} ms, flash kernel {c_flash:.2f} ms in "
                  f"{c_seen} of {cfg.num_layers} launches traced "
                  f"({out['cuda_core']['flash_share_of_prefill'] or 0:.3f})")
+    if decode:
+        out["tokens_per_s"] = LM_BATCH * LM_GEN / (
+            (pre + LM_GEN * out["decode_ms_per_token"]) / 1e3)
+        text = (f"decode {out['decode_ms_per_token']:.3f} ms/token, "
+                f"{out['tokens_per_s']:.1f} tok/s incl. prefill; ")
     print(f"[time] lm {arch} batch={LM_BATCH} prompt={LM_PROMPT} "
-          f"gen={LM_GEN} bf16: prefill {pre:.2f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])}), "
-          f"decode {decode_ms:.3f} ms/token, {out['tokens_per_s']:.1f} tok/s "
-          f"incl. prefill; traced prefill: device {pre_dev:.2f} ms, flash "
-          f"kernel {pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
-          f"launches traced ({out['flash_share_of_prefill'] or 0:.3f}); "
-          f"traced generate: "
-          f"device busy {busy_ms:.2f} of {wall_ms:.2f} ms wall -> idle "
-          f"share {out['idle_share']:.4f}{extra}; on {card}", flush=True)
+          f"gen={LM_GEN if decode else 0} {dtype}: prefill {pre:.2f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])}), {text}"
+          f"traced prefill: device {pre_dev:.2f} ms, {flash.pattern} "
+          f"{pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
+          f"launches traced ({out['flash_share_of_prefill'] or 0:.3f})"
+          + (f"; traced generate: device busy {out['traced_busy_ms']:.2f} of "
+             f"{out['traced_generate_wall_ms']:.2f} ms wall -> idle share "
+             f"{out['idle_share']:.4f}" if decode else "")
+          + f"{extra}; on {card}", flush=True)
     del model
     torch.cuda.empty_cache()
     return out
@@ -2386,25 +2474,29 @@ def kernel_report(ptxas, source: str) -> dict[str, dict]:
     return kernels
 
 
-#: The template arguments of a wgmma kernel instance in its mangled name:
-#: WgCfg<head_dim, keys per tile, stages>.
-WGMMA_INSTANCE = re.compile(r"WgCfgILi(\d+)ELi(\d+)ELi(\d+)EE")
+#: The template arguments of a tensor-core kernel instance in its mangled
+#: name: WgCfg<head_dim, keys per tile, stages> (bf16) or Tf32Cfg<head_dim,
+#: keys per tile> (fp32).
+TC_INSTANCE = re.compile(r"(WgCfg|Tf32Cfg)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?E")
+TC_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel")
 
 
-def wgmma_instance(symbol: str) -> str | None:
-    """'hd 320, 48 keys, 2 stages' for a wgmma kernel instance's mangled
-    name."""
-    m = WGMMA_INSTANCE.search(symbol)
+def tc_instance(symbol: str) -> str | None:
+    """'bf16 hd 320, 48 keys, 2 stages' or 'tf32 hd 128, 32 keys' for a
+    tensor-core kernel instance's mangled name."""
+    m = TC_INSTANCE.search(symbol)
     if m is None:
         return None
-    hd, keys, stages = m.groups()
-    return f"hd {hd}, {keys} keys, {stages} stages"
+    cfg, hd, keys, stages = m.groups()
+    if cfg == "Tf32Cfg":
+        return f"tf32 hd {hd}, {keys} keys"
+    return f"bf16 hd {hd}, {keys} keys, {stages} stages"
 
 
-def wgmma_kernel_report(ptxas, library) -> dict:
-    """Print ptxas's report for each instance of flash_attention_wgmma_kernel
-    (registers, shared memory, spills, and any warning) and the count of
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
+def tc_kernel_report(ptxas, library) -> dict:
+    """Print ptxas's report for each instance of the two tensor-core flash
+    kernels (registers, shared memory, spills, and any warning) and the
+    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS
     (``cuobjdump -sass`` of the attention library). Fails if an instance's
     SASS holds no HGMMA. Returns the lines and, per instance, its
     registers, spill bytes and SASS counts."""
@@ -2417,8 +2509,8 @@ def wgmma_kernel_report(ptxas, library) -> dict:
     report, instances, keep = [], {}, None
     for line in (stdout + stderr).splitlines():
         if "Compiling entry function" in line:
-            keep = wgmma_instance(line) \
-                if "flash_attention_wgmma_kernel" in line else None
+            keep = tc_instance(line) \
+                if any(k in line for k in TC_KERNELS) else None
             if keep:
                 instances[keep] = {}
         if keep and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
@@ -2442,7 +2534,7 @@ def wgmma_kernel_report(ptxas, library) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            if "flash_attention_wgmma_kernel" not in fn:
+            if not any(k in fn for k in TC_KERNELS):
                 fn = None
             else:
                 counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
@@ -2450,19 +2542,19 @@ def wgmma_kernel_report(ptxas, library) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 counts[fn][op] += line.count(op)
     for fn, c in counts.items():
-        name = wgmma_instance(fn)
+        name = tc_instance(fn)
         if name in instances:
             instances[name].update(c)
         print(f"[build] SASS {name or fn}: {c['HGMMA']} HGMMA, "
               f"{c['UTMALDG']} UTMALDG", flush=True)
     for name, k in instances.items():
-        print(f"[build] wgmma instance {name}: {k.get('registers')} "
+        print(f"[build] tensor-core instance {name}: {k.get('registers')} "
               f"registers, {k.get('spill_stores')} / {k.get('spill_loads')} "
               f"bytes spill stores / loads, {k.get('HGMMA')} HGMMA, "
               f"{k.get('UTMALDG')} UTMALDG", flush=True)
-    if not counts or not all(c["HGMMA"] for c in counts.values()):
-        raise SystemExit(f"flash_attention_wgmma_kernel: no HGMMA in its "
-                         f"SASS ({counts})")
+    if len(counts) < 5 or not all(c["HGMMA"] for c in counts.values()):
+        raise SystemExit(f"tensor-core flash kernels: an instance without "
+                         f"HGMMA in its SASS ({counts})")
     return {"ptxas": report, "instances": instances, "sass": counts}
 
 
@@ -2499,7 +2591,7 @@ def main() -> int:
           f"{', '.join(str(v) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.1f}s; card: {card}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
-    wgmma_build = wgmma_kernel_report(ptxas, libs["attention"])
+    tc_build = tc_kernel_report(ptxas, libs["attention"])
     registers = {src: kernel_report(proc, src)
                  for src, proc in kernel_ptxas.items()}
 
@@ -2513,7 +2605,7 @@ def main() -> int:
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
-    print(f"[kernels] all ten held against their plain versions (the "
+    print(f"[kernels] all eleven held against their plain versions (the "
           f"transform kernels against numpy too; fft, rfft, irfft, both "
           f"products and the three NTT kernels bit for bit under every "
           f"schedule in {two_pass_held} cases); launches {moved}; worst "
@@ -2575,6 +2667,9 @@ def main() -> int:
     gemma_times = lm_timing(torch, convert, lm, kattn, get_config, card,
                             GEMMA_ARCH,
                             cuda_core=cuda_core_attention(torch, _build))
+    fp32_times = lm_timing(torch, convert, lm, kattn, get_config, card,
+                           LM_ARCH, dtype="float32", decode=False,
+                           cuda_core=cuda_core_attention(torch, _build))
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
@@ -2597,28 +2692,38 @@ def main() -> int:
                           for k in times[name][n].get("by_kernel") or {}}}
                if source in registers else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
-    # the wgmma kernel's entries: hd 64/128 at qwen3-1.7b's served prefill,
-    # and its hd-320 instance at gemma3-4b's
+    # kernel 9's entries, each at its ATTN_TIMED labels (the first is the
+    # entry's numbers): the wgmma kernel at hd 64/128 (qwen3-1.7b's served
+    # prefill) and at hd 320 (gemma3-4b's), the tf32 kernel (the fp32
+    # parity path), the CUDA-core kernel (the fp32 gemma3-4b prefill)
+    instances = tc_build["instances"]
     entries = {
         "flash_attention_wgmma": (
             "flash_attention_wgmma", lm_run["launches"]["flash_attention_wgmma"],
-            "one served qwen3-1.7b prefill (28 layers)",
-            {"build": wgmma_build, "lm": {**lm_run, **lm_times}}),
+            "one served qwen3-1.7b prefill (28 layers)", ["served prefill"],
+            {"build": {k: v for k, v in instances.items()
+                       if k.startswith("bf16") and "hd 320" not in k},
+             "lm": {**lm_run, **lm_times}}),
         "flash_attention_wgmma[hd320]": (
             "flash_attention_wgmma", gemma_run["launches"],
             "one served gemma3-4b prefill (34 layers: 29 local, window "
             "1024, and 5 global)",
-            {"build": {k: v for k, v in wgmma_build["instances"].items()
-                       if k.startswith("hd 320")},
+            ["gemma3-4b local, window 1024", "gemma3-4b global"],
+            {"build": {k: v for k, v in instances.items()
+                       if k.startswith("bf16 hd 320")},
              "lm": {**gemma_run, **gemma_times}}),
-        "flash_attention": (
-            "flash_attention", lm_run["launches"]["flash_attention"],
+        "flash_attention_tf32": (
+            "flash_attention_tf32", lm_run["launches"]["flash_attention_tf32"],
             "the full-width fp32 parity path: one forward and one prefill "
-            "(28 layers each)", {})}
-    for entry_name, (name, launched, per, more) in entries.items():
-        labels = [label for label, (kernel, shape) in ATTN_TIMED.items()
-                  if kernel == name and (shape[4] == 320) == entry_name
-                  .endswith("[hd320]")]
+            "(28 layers each)", ["fp32"],
+            {"build": {k: v for k, v in instances.items()
+                       if k.startswith("tf32")},
+             "lm_fp32_prefill": fp32_times}),
+        "flash_attention": (
+            "flash_attention", gemma_run["fp32_cuda_core_launches"],
+            f"a {GEMMA_PARITY_LAYERS}-layer full-width fp32 gemma3-4b "
+            f"prefill (head_dim 320)", ["fp32 hd 320", "bf16 hd 32"], {})}
+    for entry_name, (name, launched, per, labels, more) in entries.items():
         first = attn[labels[0]]
         report.append({
             "name": entry_name, "route": "cuda", "source": ATTENTION,

@@ -103,6 +103,10 @@ LIBRARIES = {
         "flash_attention_wgmma": ("flash_attention_wgmma",
                                   [_P] * 4 + [_I] * 5 + [_L] * 12
                                   + [_I] * 2 + [_F, _I, _P]),
+        # the same arguments; bf16 must be 0 and head_dim 64 or 128
+        "flash_attention_tf32": ("flash_attention_tf32",
+                                 [_P] * 4 + [_I] * 5 + [_L] * 12
+                                 + [_I] * 2 + [_F, _I, _P]),
     },
 }
 
@@ -233,7 +237,7 @@ def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:
     length and b = the sub-problems per CTA (for the rfft's pass 2 and the
     products' M, the low ones: the CTA holds their mirrors, b's, or both
     rows' too); c = 5 the register-step kernel of ``rns_ntt_polymul`` (a
-    = log2 n, b unused); (head_dim, bf16, 0) for the two attention
+    = log2 n, b unused); (head_dim, bf16, 0) for the three attention
     kernels."""
     stem, kernel = _KERNEL_IDS[counter]
     out = [_I() for _ in range(4)]

@@ -4,10 +4,10 @@
 ``flash_attention`` is the public function in the reference's (H, S, hd)
 layout; ``attention`` is the same computation in the model's GQA layout,
 q (B, S, H, hd) against k, v (B, S, KV, hd), which the LM's prefill calls.
-Both are wrappers around two hand-written CUDA kernels in
+Both are wrappers around three hand-written CUDA kernels in
 ``csrc/attention.cu``, which replace the Pallas kernel
 ``repro/kernels/attention.py::_flash_kernel``; ``kernel_for`` picks one by
-type and head_dim, and nothing falls back from one to the other:
+type and head_dim, and nothing falls back from one to another:
 
 - ``flash_attention_wgmma_kernel`` (bf16 at head_dim 64, 128 and 320):
   the tensor cores through ``wgmma``, K and V loaded by TMA into a ring of
@@ -15,13 +15,18 @@ type and head_dim, and nothing falls back from one to the other:
   p.V runs as two bf16 products, ``p_hi = bf16(p)`` and
   ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator. Its key tile
   depends on head_dim (``WGMMA_KERNEL_KEYS``).
-- ``flash_attention_kernel`` (every fp32 call; bf16 at head_dim 32): fp32
-  products on the CUDA cores.
+- ``flash_attention_tf32_kernel`` (fp32 at head_dim 64 and 128): the same
+  design on TF32 tiles; every fp32 operand of q.k^T and p.V is split in
+  two TF32 parts (``split_tf32``) and each product is formed as three TF32
+  products, hi.hi + hi.lo + lo.hi (3xTF32). Key tile: ``TF32_KERNEL_KEYS``.
+- ``flash_attention_kernel`` (fp32 at head_dim 32 and 320; bf16 at
+  head_dim 32): fp32 products on the CUDA cores.
 
 For tensors on the CPU they run the plain PyTorch version beside them,
 which has the chosen kernel's dataflow: a running max, normalizer and
 accumulator in fp32, folded over the kernel's key tiles, with p split in
-two bf16 parts where the wgmma kernel splits it. Any other device raises.
+two bf16 parts where the wgmma kernel splits it and both products split
+in TF32 parts where the tf32 kernel splits them. Any other device raises.
 
 The kernels' tiles are fixed; ``bq``/``bk`` and ``kv_block`` set the plain
 version's key blocks only. Block sizes change where the online softmax
@@ -48,15 +53,26 @@ KERNEL_KEYS = 64
 #: leave room for no larger tile.
 WGMMA_KERNEL_KEYS = {64: 128, 128: 128, 320: 48}
 WGMMA_HEAD_DIMS = tuple(WGMMA_KERNEL_KEYS)
+#: Keys per tile of ``flash_attention_tf32_kernel``'s instance, by head_dim
+#: (fp32 only): 32 at 128, where Q_lo and two stages of K_hi, K_lo, V,
+#: V^T_hi and V^T_lo fill 224 KB of shared memory; 64 at 64.
+TF32_KERNEL_KEYS = {64: 64, 128: 32}
+TF32_HEAD_DIMS = tuple(TF32_KERNEL_KEYS)
+#: kernel -> its C launcher, whose name is also its launch counter
+LAUNCHERS = {"wgmma": "flash_attention_wgmma", "tf32": "flash_attention_tf32",
+             "cuda_core": "flash_attention"}
 _TYPES = (torch.float32, torch.bfloat16)
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel serves (dtype, head_dim): ``"wgmma"`` for bf16 at
-    head_dim 64, 128 or 320, else ``"cuda_core"``. The wrappers and the
-    plain version both follow it."""
+    head_dim 64, 128 or 320, ``"tf32"`` for fp32 at head_dim 64 or 128,
+    else ``"cuda_core"``. The wrappers and the plain version both follow
+    it."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if dtype == torch.float32 and head_dim in TF32_HEAD_DIMS:
+        return "tf32"
     return "cuda_core"
 
 
@@ -64,8 +80,11 @@ def kernel_keys(dtype: torch.dtype, head_dim: int,
                 kernel: str | None = None) -> int:
     """Keys per tile of ``kernel`` (default: the one ``kernel_for``
     picks)."""
-    if (kernel or kernel_for(dtype, head_dim)) == "wgmma":
+    kernel = kernel or kernel_for(dtype, head_dim)
+    if kernel == "wgmma":
         return WGMMA_KERNEL_KEYS[head_dim]
+    if kernel == "tf32":
+        return TF32_KERNEL_KEYS[head_dim]
     return KERNEL_KEYS
 
 
@@ -77,16 +96,44 @@ def split_bf16(p: torch.Tensor) -> torch.Tensor:
     return hi + (p - hi).to(torch.bfloat16).float()
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 fraction bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped
+    bits to the magnitude's bit pattern and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 x as the tf32 kernel feeds it to the tensor cores: x_hi =
+    tf32(x) and x_lo = tf32(x - x_hi) (the subtraction is exact in fp32).
+    Together they hold about 22 significant bits: |x - x_hi - x_lo| <=
+    2^-22 |x|."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor
+                    ) -> torch.Tensor:
+    """einsum(eq, a, b) as the tf32 kernel forms it: a_hi.b_hi + a_hi.b_lo
+    + a_lo.b_hi, the lo.lo term dropped."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return (torch.einsum(eq, ah, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, al, bh))
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, causal: bool = True, scale: float,
                     kv_block: int | None = None,
                     kernel: str | None = None) -> torch.Tensor:
     """Plain version of ``attention``: the online softmax of ``kernel``
-    (``"wgmma"`` or ``"cuda_core"``; default: the one ``kernel_for``
-    picks), over key blocks of ``kv_block`` (default: that kernel's key
-    tile), as torch ops, in the layout of
+    (``"wgmma"``, ``"tf32"`` or ``"cuda_core"``; default: the one
+    ``kernel_for`` picks), over key blocks of ``kv_block`` (default: that
+    kernel's key tile), as torch ops, in the layout of
     ``repro.models.layers.attention.blockwise_attention``. For the wgmma
-    kernel, p enters the p.V product as ``split_bf16(p)``.
+    kernel, p enters the p.V product as ``split_bf16(p)``; for the tf32
+    kernel, q.k^T and p.V are each three TF32 products
+    (``_product_3xtf32``).
 
     q: (B, S, H, hd); k, v: (B, S, KV, hd), H = KV * G, head h = kv * G + g.
     Returns (B, S, H, hd) in q's type; s = (q . k) * scale in fp32.
@@ -95,7 +142,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV = k.shape[2]
     G = H // KV
     kernel = kernel or kernel_for(q.dtype, hd)
-    split = kernel == "wgmma"
+    product = _product_3xtf32 if kernel == "tf32" else torch.einsum
     if kv_block is None:
         kv_block = kernel_keys(q.dtype, hd, kernel)
     qh = q.reshape(B, S, KV, G, hd).float()
@@ -108,7 +155,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for j0 in range(0, S, blk):
         kj = k[:, j0:j0 + blk].float()
         vj = v[:, j0:j0 + blk].float()
-        s = torch.einsum("bqkgh,bnkh->bkgqn", qh, kj) * scale
+        s = product("bqkgh,bnkh->bkgqn", qh, kj) * scale
         kpos = j0 + torch.arange(kj.shape[1], device=q.device)
         # the last block is cut at S, so every key here has kpos < S
         valid = torch.ones((S, kj.shape[1]), dtype=torch.bool,
@@ -121,9 +168,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
-        if split:
+        if kernel == "wgmma":
             p = split_bf16(p)
-        acc = acc * corr[..., None] + torch.einsum("bkgqn,bnkh->bkgqh", p, vj)
+        acc = acc * corr[..., None] + product("bkgqn,bnkh->bkgqh", p, vj)
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     # (B, KV, G, S, hd) -> (B, S, KV, G, hd) -> (B, S, H, hd); h = kv*G + g
@@ -154,13 +201,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with any strides whose head_dim axis is contiguous; returns a
     contiguous (B, S, H, hd) o."""
     B, S, H, hd = q.shape
-    wgmma = kernel_for(q.dtype, hd) == "wgmma"
+    kernel = kernel_for(q.dtype, hd)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head_dim {hd} is not "
                          f"one of {HEAD_DIMS}")
-    # flash_attention_kernel loads 4 elements at a time; TMA takes a base
-    # on 16 bytes and strides of 16 bytes (8 bf16 elements)
-    step = 8 if wgmma else 4
+    # flash_attention_kernel loads 4 elements at a time; TMA (the wgmma and
+    # tf32 kernels) takes a base on 16 bytes and strides of 16 bytes: 8
+    # bf16 or 4 fp32 elements
+    step = 8 if kernel == "wgmma" else 4
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash attention kernel: {name}'s head_dim "
@@ -173,7 +221,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return o
-    name = "flash_attention_wgmma" if wgmma else "flash_attention"
+    name = LAUNCHERS[kernel]
     with torch.cuda.device(q.device):
         _build.launch(
             name, name, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -44,14 +44,16 @@
 // at the tensor cores' 989 TFLOP/s bf16, against ~201 MB of q, k, v and o,
 // 0.060 ms at 3.35 TB/s: the operations bind. This kernel runs them on the
 // fp32 CUDA cores (67 TFLOP/s), so it cannot take less than about 2 ms a
-// call. It serves every fp32 call and bf16 at head_dim 32.
+// call. It serves fp32 at head_dim 32 and 320, and bf16 at head_dim 32.
 //
-// flash_attention_wgmma_kernel (second half of this file) serves bf16 at
-// head_dim 64, 128 and 320 -- the served LMs' prefills (qwen3-1.7b at 128,
-// gemma3-4b at 320) -- on the tensor cores: wgmma on bf16 tiles with fp32
-// accumulators, K and V brought in by TMA through a ring of shared-memory
-// stages, one producer warp feeding two consumer warpgroups. Its header
-// says how.
+// Two tensor-core kernels follow, each with a header that says how:
+// flash_attention_wgmma_kernel serves bf16 at head_dim 64, 128 and 320 --
+// the served LMs' prefills (qwen3-1.7b at 128, gemma3-4b at 320) -- with
+// wgmma on bf16 tiles; flash_attention_tf32_kernel serves fp32 at head_dim
+// 64 and 128 with wgmma on TF32 tiles, each fp32 product formed as three
+// TF32 products (3xTF32). Both bring K and V in by TMA through a ring of
+// shared-memory stages, one producer warp feeding two consumer warpgroups
+// of 64 query rows each.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
                    // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
@@ -59,6 +61,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -436,15 +439,17 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // tail of the causal grid; a TMA store of the output; the masked half of
 // the diagonal tile that the first consumer computes and discards.
 
-constexpr int kWgThreads = 384;  // producer warpgroup + two consumer warpgroups
-
 template <int HD_, int BN, int STAGES>
 struct WgCfg {
+  static constexpr bool kFp32 = false;          // bf16 q, k, v and o
+  static constexpr bool kPrepared = false;      // wgmma reads K, V as landed
+  static constexpr int kThreads = 384;         // producer + two consumers
   static constexpr int HD = HD_;
   static constexpr int kBN = BN;                // keys per tile
   static constexpr int kStages = STAGES;        // K/V ring depth
   static constexpr int kBM = 128;               // query rows per CTA
   static constexpr int kBoxes = HD / 64;        // 64-column boxes per row
+  static constexpr int kBoxCols = 64;           // 128 bytes of bf16
   static constexpr int kAcc = 32 * kBoxes;      // accumulator floats a thread
   static constexpr int kProducerRegs = HD > 128 ? 24 : 40;
   static constexpr int kConsumerRegs = HD > 128 ? 240 : 232;
@@ -452,7 +457,9 @@ struct WgCfg {
   static constexpr int kKVBox = kBN * 128;      // bytes of one K or V box
   static constexpr int kQBytes = kBoxes * kQBox;
   static constexpr int kTileBytes = kBoxes * kKVBox;
-  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kVOffset = kTileBytes;   // a stage: K, then V
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr int kBars = 1 + 4 * kStages;  // q; k/v full, k/v empty
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
   static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
@@ -642,8 +649,8 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
   lo = bf16_pair(a - hf.x, b - hf.y);
 }
 
-// 2^x (MUFU.EX2); x <= 0 here, so flushing subnormals to zero changes no
-// p that reaches a bf16 output.
+// 2^x (MUFU.EX2); x <= 0 here, so flushing subnormals to zero only drops
+// a p below 2^-126, against a row sum l >= 1.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -782,28 +789,312 @@ __device__ __forceinline__ void issue_pv(float (&acc)[C::kAcc],
   }
 }
 
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Rows f.row[r] < seq of o (this head's rows, row stride os) take acc / l:
 // register 4 j + 2 r + {0, 1} is row f.row[r], column 8 j + f.col + {0, 1}.
-template <class C>
+template <class C, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[C::kAcc],
                                            const float (&l)[2], const Frag& f,
-                                           __nv_bfloat16* o, long long os,
-                                           int seq) {
+                                           T* o, long long os, int seq) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (f.row[r] >= seq) continue;
     const float denom = fmaxf(l[r], 1e-20f);
-    __nv_bfloat16* orow = o + (long long)f.row[r] * os + f.col;
+    T* orow = o + (long long)f.row[r] * os + f.col;
 #pragma unroll
-    for (int j = 0; j < 8 * C::kBoxes; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r] / denom,
-                                acc[4 * j + 2 * r + 1] / denom);
+    for (int j = 0; j < C::HD / 8; ++j)
+      store_pair(orow + 8 * j, acc[4 * j + 2 * r] / denom,
+                 acc[4 * j + 2 * r + 1] / denom);
   }
 }
 
+// A CTA's shared memory in both tensor-core kernels, from its 1024-byte
+// aligned base: the Q tile, the ring of key-tile stages, and the
+// mbarriers, per stage s: K and V landed (TMA); K and V ready for the
+// consumers (the landed barriers themselves in the bf16 kernel, the prep
+// warps' own in the tf32 kernel); K and V released by both consumers.
+// Every address is the base plus a constant, so only the base stays in a
+// register.
 template <class C>
-__global__ void __launch_bounds__(kWgThreads, 1)
+struct Ring {
+  uint32_t base;
+  __device__ __forceinline__ uint32_t q() const { return base; }
+  __device__ __forceinline__ uint32_t stage(int s) const {
+    return base + C::kQBytes + s * C::kStageBytes;
+  }
+  __device__ __forceinline__ uint32_t q_full() const {
+    return base + C::kBarOffset;
+  }
+  __device__ __forceinline__ uint32_t k_full(int s) const {
+    return q_full() + 8 + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t v_full(int s) const {
+    return k_full(s) + 8 * C::kStages;
+  }
+  __device__ __forceinline__ uint32_t k_empty(int s) const {
+    return v_full(s) + 8 * C::kStages;
+  }
+  __device__ __forceinline__ uint32_t v_empty(int s) const {
+    return k_empty(s) + 8 * C::kStages;
+  }
+  __device__ __forceinline__ uint32_t k_ready(int s) const {
+    return C::kPrepared ? v_empty(s) + 8 * C::kStages : k_full(s);
+  }
+  __device__ __forceinline__ uint32_t v_ready(int s) const {
+    return C::kPrepared ? k_ready(s) + 8 * C::kStages : v_full(s);
+  }
+};
+
+template <class C>
+__device__ __forceinline__ Ring<C> make_ring(const uint8_t* smem_raw) {
+  return {(smem_addr(smem_raw) + 1023u) & ~1023u};
+}
+
+// Thread 0: every barrier of the ring, before the CTA's __syncthreads.
+template <class C>
+__device__ __forceinline__ void init_ring(const Ring<C>& r) {
+  mbar_init(r.q_full(), 1);
+#pragma unroll
+  for (int s = 0; s < C::kStages; ++s) {
+    mbar_init(r.k_full(s), 1);
+    mbar_init(r.v_full(s), 1);
+    mbar_init(r.k_empty(s), 2 * 128);
+    mbar_init(r.v_empty(s), 2 * 128);
+    if constexpr (C::kPrepared) {
+      mbar_init(r.k_ready(s), C::kKPrepThreads);
+      mbar_init(r.v_ready(s), C::kVPrepThreads);
+    }
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The CTA's tile of query rows (q0: the q tiles are walked last to first,
+// so the CTAs with the most key tiles start first) and its key tiles
+// [t_begin, t_end): those that hold a valid key for one of its rows.
+struct Tiles {
+  int q0, t_begin, t_end;
+};
+
+template <class C>
+__device__ __forceinline__ Tiles key_tiles(int seq, int causal, int window) {
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * C::kBM;
+  int lo = 0, hi = seq;
+  if (causal) {
+    hi = min(seq, q0 + C::kBM);
+    const long long first = (long long)q0 - window + 1;
+    lo = first > 0 ? (int)first : 0;
+  }
+  return {q0, lo / C::kBN, (hi + C::kBN - 1) / C::kBN};
+}
+
+// Thread 0 of the producer warpgroup: the CTA's Q tile once, then key tile
+// t's K and V into ring slot i = t - t_begin (stage i % kStages, V
+// kVOffset bytes after K), each once both consumers released the slot's
+// previous tile. Boxes of kBoxCols columns (128 bytes) of head_dim.
+template <class C>
+__device__ __forceinline__ void load_tiles(const CUtensorMap* tq,
+                                           const CUtensorMap* tk,
+                                           const CUtensorMap* tv,
+                                           const Ring<C>& r, const Tiles& tl,
+                                           int h, int hk, int b) {
+  mbar_expect_tx(r.q_full(), C::kQBytes);
+#pragma unroll
+  for (int c = 0; c < C::kBoxes; ++c)
+    tma_load(r.q() + c * C::kQBox, tq, r.q_full(), C::kBoxCols * c, h,
+             tl.q0, b);
+  for (int t = tl.t_begin, i = 0; t < tl.t_end; ++t, ++i) {
+    const int s = i % C::kStages;
+    // the first lap finds the stage free (the parity of the phase before
+    // the barrier's first)
+    const uint32_t parity = ((uint32_t)(i / C::kStages) & 1u) ^ 1u;
+    const uint32_t ks = r.stage(s);
+    mbar_wait(r.k_empty(s), parity);
+    mbar_expect_tx(r.k_full(s), C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c)
+      tma_load(ks + c * C::kKVBox, tk, r.k_full(s), C::kBoxCols * c, hk,
+               t * C::kBN, b);
+    mbar_wait(r.v_empty(s), parity);
+    mbar_expect_tx(r.v_full(s), C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c)
+      tma_load(ks + C::kVOffset + c * C::kKVBox, tv, r.v_full(s),
+               C::kBoxCols * c, hk, t * C::kBN, b);
+  }
+}
+
+// One consumer warpgroup (cw = 0 or 1, query rows q0 + 64 cw ..) of either
+// tensor-core kernel, after its Q tile landed: the online softmax over the
+// CTA's key tiles, the products issued through `prod` -- prod.qk(sc,
+// stage) the s-product against a stage's K, prod.pv(acc, stage) acc +=
+// p.V against its V with the fragments prod.split(p) made -- and this
+// warpgroup's rows of o stored.
+template <class C, class Products, typename T>
+__device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
+                                        const Tiles& tl, T* o, long long os,
+                                        int seq, int causal, int window,
+                                        float scale) {
+  constexpr int BN = C::kBN, kStages = C::kStages;
+  const int t_begin = tl.t_begin, t_end = tl.t_end;
+  const int cw = threadIdx.x / 128 - 1;  // 0 or 1
+  const int lane = threadIdx.x & 31;
+  const int r0 = tl.q0 + 64 * cw;  // this warpgroup's first row
+  const int warp_row = r0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+  const Frag f{{warp_row, warp_row + 8}, 2 * (lane & 3)};
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  // This warpgroup's own tiles [w_begin, w_end) of the CTA's: those
+  // with a valid key for one of its rows. It still waits on and releases
+  // the others, so the ring stays in step.
+  int w_begin = t_begin, w_end = t_end;
+  if (r0 >= seq) {
+    w_begin = w_end = t_end;
+  } else if (causal) {
+    const long long first = (long long)r0 - window + 1;
+    w_begin = max(t_begin, first > 0 ? (int)(first / BN) : 0);
+    w_end = min(t_end, (r0 + 63) / BN + 1);
+  }
+  // every key of tile t is valid for every row of the warpgroup
+  auto full_tile = [&](int t) {
+    const int kv0 = t * BN;
+    return kv0 + BN <= seq &&
+           (!causal || (kv0 + BN - 1 <= r0 && kv0 >= r0 + 64 - window));
+  };
+  // Turns: the two consumers issue their wgmmas in alternation (named
+  // barriers 1 and 2), so one's softmax runs beside the other's
+  // products. Each takes one turn per tile of the CTA and one more for
+  // its last p.V, t_end - t_begin + 1 in all; consumer 1 lets consumer 0
+  // go first and gives back no turn after its last.
+  const int turns = t_end - t_begin + 1;
+  int turn = 0;
+  auto turn_begin = [&]() { bar_sync(1 + cw); };
+  auto turn_end = [&]() {
+    if (++turn < turns || cw == 0) bar_arrive(2 - cw);
+  };
+  if (cw == 1) bar_arrive(1);
+  auto pass = [&](int i) {  // wait on and release ring slot i unused
+    const int s = i % kStages;
+    const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+    mbar_wait(r.k_ready(s), parity);
+    mbar_arrive(r.k_empty(s));
+    mbar_wait(r.v_ready(s), parity);
+    mbar_arrive(r.v_empty(s));
+    turn_begin();
+    turn_end();
+  };
+
+  float m[2] = {kNeg, kNeg};
+  float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+  float corr[2];
+  float acc[C::kAcc];
+#pragma unroll
+  for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
+
+  int i = 0;  // ring slot of tile t_begin + i
+  for (; i < w_begin - t_begin; ++i) pass(i);
+  if (w_begin < w_end) {
+    float sc[BN / 2];
+    // first tile: s, then p
+    {
+      const int s = i % kStages;
+      const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+      mbar_wait(r.k_ready(s), parity);
+      turn_begin();
+      wgmma_fence();
+      prod.qk(sc, r.stage(s));
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(r.k_empty(s));
+      softmax_step<BN>(sc, m, l, corr, f, w_begin * BN, full_tile(w_begin),
+                       seq, causal, window, scale_log2);
+      prod.split(sc);
+    }
+    // Each later tile: its s-product and the previous tile's p.V run on
+    // the tensor cores while this tile's softmax runs; acc is rescaled
+    // and the new p takes the fragments once p.V is done.
+    for (int t = w_begin + 1; t < w_end; ++t) {
+      const int sp = i % kStages;
+      const uint32_t pp = (uint32_t)(i / kStages) & 1u;
+      ++i;
+      const int s = i % kStages;
+      const uint32_t parity = (uint32_t)(i / kStages) & 1u;
+      mbar_wait(r.k_ready(s), parity);
+      mbar_wait(r.v_ready(sp), pp);
+      turn_begin();
+      wgmma_fence();
+      prod.qk(sc, r.stage(s));
+      wgmma_commit();
+      prod.pv(acc, r.stage(sp));
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<1>();  // the s-product
+      fence_regs(sc);
+      mbar_arrive(r.k_empty(s));
+      softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq, causal,
+                       window, scale_log2);
+      wgmma_wait<0>();  // the previous p.V
+      fence_regs(acc);
+      mbar_arrive(r.v_empty(sp));
+#pragma unroll
+      for (int j = 0; j < C::kAcc / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
+      prod.split(sc);
+    }
+    // the last tile's p.V
+    const int s = i % kStages;
+    mbar_wait(r.v_ready(s), (uint32_t)(i / kStages) & 1u);
+    turn_begin();
+    wgmma_fence();
+    prod.pv(acc, r.stage(s));
+    wgmma_commit();
+    turn_end();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(r.v_empty(s));
+    ++i;
+  }
+  for (; i < t_end - t_begin; ++i) pass(i);
+  if (turn < turns) {  // no p.V of its own: the last turn is empty
+    turn_begin();
+    turn_end();
+  }
+
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    l[k] += __shfl_xor_sync(0xffffffffu, l[k], 1);
+    l[k] += __shfl_xor_sync(0xffffffffu, l[k], 2);
+  }
+  store_rows<C>(acc, l, f, o, os, seq);
+}
+
+// The bf16 kernel's products: Q (this warpgroup's 64 rows at q_rows) and
+// K from shared memory, p split into the bf16 fragments ph, pl.
+template <class C>
+struct Bf16Products {
+  uint32_t q_rows;
+  uint32_t ph[C::kBN / 16][4], pl[C::kBN / 16][4];
+  __device__ __forceinline__ void qk(float (&sc)[C::kBN / 2], uint32_t st) {
+    issue_qk<C>(sc, q_rows, st);
+  }
+  __device__ __forceinline__ void pv(float (&acc)[C::kAcc], uint32_t st) {
+    issue_pv<C>(acc, ph, pl, st + C::kVOffset);
+  }
+  __device__ __forceinline__ void split(const float (&sc)[C::kBN / 2]) {
+    split_fragments<C::kBN>(sc, ph, pl);
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
@@ -811,217 +1102,449 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                  int heads, int group, long long ob,
                                  long long os, long long oh, int window,
                                  int causal, float scale) {
-  constexpr int BM = C::kBM, BN = C::kBN, kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base;
-  const uint32_t skv = base + C::kQBytes;  // stage s: K at s * 2 tiles, V after
-  const uint32_t bars = base + C::kBarOffset;
-  // per stage s, + 8 s: K and V arrived; K and V released by both consumers
-  const uint32_t q_full = bars;
-  const uint32_t k_full = bars + 8;
-  const uint32_t v_full = k_full + 8 * kStages;
-  const uint32_t k_empty = v_full + 8 * kStages;
-  const uint32_t v_empty = k_empty + 8 * kStages;
-
+  const Ring<C> ring = make_ring<C>(smem_raw);
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x - b * heads;
-  const int hk = h / group;
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * BM;
-  // Key tiles that hold a valid key for some row of this CTA.
-  int lo = 0, hi = seq;
-  if (causal) {
-    hi = min(seq, q0 + BM);
-    const long long first = (long long)q0 - window + 1;
-    lo = first > 0 ? (int)first : 0;
-  }
-  const int t_begin = lo / BN;
-  const int t_end = (hi + BN - 1) / BN;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(k_full + 8 * s, 1);
-      mbar_init(v_full + 8 * s, 1);
-      mbar_init(k_empty + 8 * s, 2 * 128);
-      mbar_init(v_empty + 8 * s, 2 * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  const Tiles tiles = key_tiles<C>(seq, causal, window);
+  if (threadIdx.x == 0) init_ring<C>(ring);
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
         C::kProducerRegs));
+    if (threadIdx.x == 0)
+      load_tiles<C>(&tq, &tk, &tv, ring, tiles, h, h / group, b);
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        C::kConsumerRegs));
+    Bf16Products<C> prod;
+    prod.q_rows = ring.q() + (threadIdx.x / 128 - 1) * 64 * 128;
+    mbar_wait(ring.q_full(), 0);
+    consume<C>(prod, ring, tiles, o + b * ob + h * oh, os, seq, causal,
+               window, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention_tf32_kernel: fp32 at head_dim 64 and 128, on the tensor
+// cores as three TF32 products (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// Computes what flash_attention_kernel computes (same masks, same
+// `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
+// scores, GQA by h / G, (batch, seq, head) element strides) for fp32 q, k,
+// v and o at head_dim 64 and 128, and replaces the same TPU kernel
+// (src/repro/kernels/attention.py: _flash_kernel, whose products take fp32
+// operands).
+//
+// Bound on this card. At the served shape in fp32 (B = 8, S = 2048, 16
+// heads, 8 kv heads, head_dim 128, causal) q.k^T and p.V are 1.375e11 flop;
+// as three TF32 products each, 4.1e11 flop, 0.833 ms at the tensor cores'
+// 495 TFLOP/s TF32, against 2.05 ms for the same work in fp32 on the CUDA
+// cores (67 TFLOP/s) and 0.120 ms for the 403 MB of q, k, v and o at 3.35
+// TB/s: the tensor operations bind, and this kernel puts them on wgmma.
+//
+// Precision. A TF32 operand keeps 10 of fp32's 23 fraction bits, and which
+// 13 bits the hardware drops from a raw fp32 value is not specified, so no
+// fp32 value enters a product unsplit: x_hi = tf32(x) and x_lo = tf32(x -
+// x_hi), rounded as cvt.rna.tf32.f32 rounds (the subtraction is exact in
+// fp32; the rounding is done on the integer units, tf32_rna), and a product
+// a.b is a_hi.b_hi + a_hi.b_lo + a_lo.b_hi into one fp32 accumulator, the
+// lo.lo term dropped: about 21 significant bits of each operand, for both
+// s = q.k^T and acc += p.V. The softmax (max, exp, l, the rescale) stays
+// fp32 on the CUDA cores, as in the other kernels; l sums the unsplit p.
+//
+// The CTA. 512 threads, grid (batch * heads, ceil(S / 128)), q tiles
+// walked last to first, as in flash_attention_wgmma_kernel. Warpgroup 0
+// (setmaxnreg down): thread 0 issues every TMA load, warps 1-3 split each
+// landed K tile. Warpgroup 3 (setmaxnreg down) transposes and splits each
+// landed V tile, beside them: the prep of a tile is 8,192 floats of CUDA-
+// core work, and with K and V prepared in turn by three warps it held the
+// consumers back. Warpgroups 1 and 2 (setmaxnreg up) are the consumers, 64
+// query rows each; they run the bf16 kernel's loop (consume), with its
+// ping-pong, its overlap of a tile's softmax with the products, and its
+// skipping of key tiles outside a warpgroup's causal or window range.
+//
+// Operands. wgmma reads 32-bit operands from shared memory K-major only
+// (there is no transpose bit):
+// - s = Q.K^T: Q (A) and K (B) have head_dim contiguous, which TMA lands
+//   K-major with the 128-byte swizzle (32 floats a row; head_dim in boxes
+//   of 32 columns). Each consumer splits its 64 rows of Q once: Q_hi stays
+//   in registers as the A fragments of an RS wgmma (HD / 2 registers a
+//   thread), Q_lo replaces the raw Q in shared memory. The prep warps
+//   split each K tile into K_hi, in place, and K_lo, a plane of the same
+//   layout. Per k8 step: RS(Q_hi, K_hi) + RS(Q_hi, K_lo) + SS(Q_lo, K_hi),
+//   m64nBNk8.
+// - acc += p.V: keys, the reduction axis, are V's rows, so the prep warps
+//   transpose each landed V tile into the planes V^T_hi and V^T_lo
+//   (head_dim rows of BN keys, 128-byte swizzle, a box every 32 keys); TMA
+//   cannot transpose. p comes straight from the s accumulator: thread lane
+//   holds keys 8 j + 2 t + {0, 1} (t = lane % 4), and a k8 step's A
+//   fragment wants columns t and t + 4. The prep warps store each group of
+//   8 keys in V^T's planes in the order 0, 2, 4, 6, 1, 3, 5, 7, so column t
+//   is key 2 t and column t + 4 key 2 t + 1: the fragment is registers d0,
+//   d2, d1, d3 of s, split into p_hi and p_lo, with no shuffle. Per k8
+//   step: RS(p_hi, V^T_hi) + RS(p_hi, V^T_lo) + RS(p_lo, V^T_hi), m64nHDk8.
+//
+// Budget (Tf32Cfg). Shared memory: Q_lo, 128 rows x HD floats; 2 stages of
+// K_hi, K_lo, raw V, V^T_hi and V^T_lo, BN x HD floats each; 13 mbarriers.
+// At hd 128 with 32-key tiles 64 KB + 2 x 80 KB = 224 KB (230,504 bytes
+// with the barriers and the swizzle alignment, of 232,448); at hd 64 with
+// 64-key tiles 32 KB + 2 x 80 KB = 192 KB. Consumer registers (setmaxnreg
+// 232, warpgroups 0 and 3 24): Q_hi HD / 2, acc HD / 2, s BN / 2 and the
+// p_hi and p_lo fragments BN / 2 -- 176 at hd 128, 160 at hd 64.
+
+template <int HD_, int BN>
+struct Tf32Cfg {
+  static constexpr bool kFp32 = true;           // fp32 q, k, v and o
+  static constexpr bool kPrepared = true;       // prep warps split K, V
+  static constexpr int kKPrepThreads = 96;      // warps 1-3 of warpgroup 0
+  static constexpr int kVPrepThreads = 128;     // warpgroup 3
+  static constexpr int HD = HD_;
+  static constexpr int kBN = BN;                // keys per tile
+  static constexpr int kStages = 2;             // K/V ring depth
+  static constexpr int kBM = 128;               // query rows per CTA
+  static constexpr int kBoxes = HD / 32;        // 32-column boxes of a row
+  static constexpr int kBoxCols = 32;           // 128 bytes of fp32
+  static constexpr int kKeyBoxes = BN / 32;     // 32-key boxes of V^T
+  static constexpr int kAcc = HD / 2;           // accumulator floats a thread
+  static constexpr int kThreads = 512;          // loads + prep, 2 consumers
+  // 2 x 128 x 24 + 2 x 128 x 232 = 65,536 registers; at 40 / 216 the hd
+  // 128 consumers spilled 56 bytes
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kQBox = kBM * 128;       // bytes of one Q box
+  static constexpr int kKVBox = BN * 128;       // bytes of one K or V box
+  static constexpr int kVTBox = HD * 128;       // bytes of one V^T box
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kTileBytes = kBoxes * kKVBox;  // a plane: BN x HD
+  // a stage: K_hi (K as it landed), K_lo, V, V^T_hi, V^T_lo
+  static constexpr int kVOffset = 2 * kTileBytes;
+  static constexpr int kVTOffset = 3 * kTileBytes;
+  static constexpr int kStageBytes = 5 * kTileBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // q; per stage: k/v landed, k/v prepared, k/v released
+  static constexpr int kBars = 1 + 6 * kStages;
+  // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
+  static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
+  static_assert(HD % 32 == 0 && HD <= 256 && BN % 32 == 0 && BN <= 256,
+                "tf32 kernel: head_dim and keys in boxes of 32, N <= 256");
+  static_assert(kKeyBoxes * kVTBox == kTileBytes, "V^T fills one plane");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+using Tf32Hd64 = Tf32Cfg<64, 64>;
+using Tf32Hd128 = Tf32Cfg<128, 32>;
+
+// Calls F<C>(...) for the instance C of head_dim hd.
+#define TF32_DISPATCH(F, hd, ...)                   \
+  if ((hd) == 64) return F<Tf32Hd64>(__VA_ARGS__);   \
+  if ((hd) == 128) return F<Tf32Hd128>(__VA_ARGS__); \
+  return cudaErrorInvalidValue;
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's operand reads); the writer fences before it signals.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, const uint32_t (&x)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3])
+               : "memory");
+}
+__device__ __forceinline__ float lds32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(x) : "memory");
+}
+
+// fp32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties
+// away from zero), on the integer units: half of the 13 dropped bits is
+// added to the magnitude's bit pattern, and they are cleared. The same
+// kernel with cvt.rna was slower at the served shape.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x -> hi = tf32(x), lo = tf32(x - hi), as the bit patterns wgmma takes.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+#define WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_F16(d) WG_F8(d, 0), WG_F8(d, 8)
+
+// d (+)= A.B^T on TF32 operands, m64nNk8 with N = 2 * (the size of d): A
+// (64 x 8) and B (N x 8) K-major in shared memory; `accumulate` 0
+// overwrites d.
+#define TF_SS(N, D, F, IA, IB, IP)                                          \
+  __device__ __forceinline__ void tf32_ss(float(&d)[N / 2], uint64_t da,     \
+                                          uint64_t db, int accumulate) {     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k8.f32.tf32.tf32 " D ", %" #IA ", %" #IB                   \
+                 ", p, 1, 1;\n}\n"                                           \
+                 : F(d)                                                      \
+                 : "l"(da), "l"(db), "r"(accumulate));                      \
+  }
+TF_SS(32, WG_D16, WG_F16, 16, 17, 18)
+TF_SS(64, WG_D32, WG_F32, 32, 33, 34)
+
+// d (+)= A.B^T on TF32 operands, m64nNk8: A (64 x 8) from registers, the
+// fragment of rows lane / 4 and lane / 4 + 8 of each warp's 16, columns
+// lane % 4 and lane % 4 + 4 (a[0..3]: (r, c), (r + 8, c), (r, c + 4),
+// (r + 8, c + 4)); B (N x 8) K-major in shared memory.
+#define TF_RS(N, D, F, I0, I1, I2, I3, IB, IP)                              \
+  __device__ __forceinline__ void tf32_rs(float(&d)[N / 2],                  \
+                                          const uint32_t(&a)[4],             \
+                                          uint64_t db, int accumulate) {     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N                      \
+                 "k8.f32.tf32.tf32 " D ", {%" #I0 ", %" #I1 ", %" #I2        \
+                 ", %" #I3 "}, %" #IB ", p, 1, 1;\n}\n"                      \
+                 : F(d)                                                      \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(accumulate));                                         \
+  }
+TF_RS(32, WG_D16, WG_F16, 16, 17, 18, 19, 20, 21)
+TF_RS(64, WG_D32, WG_F32, 32, 33, 34, 35, 36, 37)
+TF_RS(128, WG_D64, WG_F64, 64, 65, 66, 67, 68, 69)
+
+// This warpgroup's 64 rows of the landed Q tile (at q_rows, row stride 128
+// bytes within each 32-column box): Q_hi into qh, the A fragments of the k8
+// steps of Q.K^T, and Q_lo written back in place.
+template <class C>
+__device__ __forceinline__ void prep_q(uint32_t (&qh)[C::HD / 8][4],
+                                       uint32_t q_rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+#pragma unroll
+  for (int kk = 0; kk < C::HD / 8; ++kk)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = row + 8 * (a & 1);
+      const int col = 8 * kk + (lane & 3) + 4 * (a >> 1);
+      const uint32_t addr = q_rows + (col / 32) * C::kQBox + r * 128 +
+                            ((((col & 31) >> 2) ^ (r & 7)) << 4) +
+                            ((col & 3) << 2);
+      uint32_t lo;
+      split_tf32(lds32(addr), qh[kk][a], lo);
+      sts32(addr, lo);
+    }
+}
+
+// A landed K tile (at k) -> K_hi in place and K_lo at k + kTileBytes, in
+// the same layout. pt: this K-prep thread, 0 .. kKPrepThreads - 1.
+template <class C>
+__device__ __forceinline__ void prep_k(uint32_t k, int pt) {
+  for (int i = pt; i < C::kTileBytes / 16; i += C::kKPrepThreads) {
+    const uint32_t a = k + 16 * i;
+    const float4 x = lds128(a);
+    uint32_t hi[4], lo[4];
+    split_tf32(x.x, hi[0], lo[0]);
+    split_tf32(x.y, hi[1], lo[1]);
+    split_tf32(x.z, hi[2], lo[2]);
+    split_tf32(x.w, hi[3], lo[3]);
+    sts128(a, hi);
+    sts128(a + C::kTileBytes, lo);
+  }
+}
+
+// A landed V tile (at v: BN rows of keys, head_dim in 32-column boxes) ->
+// V^T_hi at vt and V^T_lo at vt + kTileBytes: row d of key box kb holds
+// keys 32 kb .. 32 kb + 31, each group of 8 in the order 0, 2, 4, 6, 1, 3,
+// 5, 7. V-prep warp w takes the items (key box, 4 columns) w, w + 4, ...;
+// its lanes, the box's 32 keys, read one float4 each (8 distinct 16-byte
+// chunks a quarter warp, through the swizzle) and write one 128-byte V^T
+// row a column.
+template <class C>
+__device__ __forceinline__ void prep_v(uint32_t v, uint32_t vt, int w,
+                                       int lane) {
+  constexpr int kGroups = C::HD / 4;
+  // the lane's key's column in a V^T row
+  const int c = (lane & 24) | ((lane & 1) << 2) | ((lane & 7) >> 1);
+  for (int item = w; item < C::kKeyBoxes * kGroups;
+       item += C::kVPrepThreads / 32) {
+    const int kb = item / kGroups;
+    const int g = item - kb * kGroups;  // columns 4 g .. 4 g + 3
+    const int key = 32 * kb + lane;
+    const float4 x = lds128(v + (g / 8) * C::kKVBox + key * 128 +
+                            (((g & 7) ^ (lane & 7)) << 4));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * g + e;
+      const uint32_t a = vt + kb * C::kVTBox + d * 128 +
+                         ((((c >> 2) ^ (d & 7)) << 4) | ((c & 3) << 2));
+      uint32_t hi, lo;
+      split_tf32(xs[e], hi, lo);
+      sts32(a, hi);
+      sts32(a + C::kTileBytes, lo);
+    }
+  }
+}
+
+// s = Q.K^T, three TF32 products per k8 step, for this warpgroup's 64 rows
+// (Q_hi in qh, Q_lo at q_lo) against a prepared K tile (K_hi at k_tile,
+// K_lo one plane on).
+template <class C>
+__device__ __forceinline__ void tf32_qk(float (&sc)[C::kBN / 2],
+                                        const uint32_t (&qh)[C::HD / 8][4],
+                                        uint32_t q_lo, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < C::HD / 8; ++kk) {
+    const uint32_t step = (kk % 4) * 32;  // 8 columns in a swizzle row
+    const uint32_t k = k_tile + (kk / 4) * C::kKVBox + step;
+    const uint64_t k_hi = sw128_desc(k, 16, 1024);
+    tf32_rs(sc, qh[kk], k_hi, kk > 0);
+    tf32_rs(sc, qh[kk], sw128_desc(k + C::kTileBytes, 16, 1024), 1);
+    tf32_ss(sc, sw128_desc(q_lo + (kk / 4) * C::kQBox + step, 16, 1024),
+            k_hi, 1);
+  }
+}
+
+// acc += p.V, three TF32 products per k8 step of keys: p_hi, p_lo
+// fragments against V^T_hi (at vt) and V^T_lo (one plane on).
+template <class C>
+__device__ __forceinline__ void tf32_pv(float (&acc)[C::kAcc],
+                                        const uint32_t (&ph)[C::kBN / 8][4],
+                                        const uint32_t (&pl)[C::kBN / 8][4],
+                                        uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < C::kBN / 8; ++kk) {
+    const uint32_t v = vt + (kk / 4) * C::kVTBox + (kk % 4) * 32;
+    const uint64_t v_hi = sw128_desc(v, 16, 1024);
+    tf32_rs(acc, ph[kk], v_hi, 1);
+    tf32_rs(acc, ph[kk], sw128_desc(v + C::kTileBytes, 16, 1024), 1);
+    tf32_rs(acc, pl[kk], v_hi, 1);
+  }
+}
+
+// p (fp32, accumulator layout) -> the A fragments of the p.V k8 steps,
+// p_hi and p_lo: step kk is registers 4 kk, 4 kk + 2, 4 kk + 1, 4 kk + 3
+// (keys 2 t and 2 t + 1 of rows r and r + 8; V^T's key order matches).
+template <int BN>
+__device__ __forceinline__ void tf32_fragments(const float (&sc)[BN / 2],
+                                               uint32_t (&ph)[BN / 8][4],
+                                               uint32_t (&pl)[BN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+    split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+    split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+    split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+  }
+}
+
+// The tf32 kernel's products: Q_hi in registers (the A fragments of its k8
+// steps), Q_lo at q_lo (this warpgroup's 64 rows), K_hi and K_lo from a
+// prepared stage, p split into the TF32 fragments ph, pl against V^T_hi
+// and V^T_lo (kVTOffset bytes into the stage).
+template <class C>
+struct Tf32Products {
+  uint32_t q_lo;
+  uint32_t qh[C::HD / 8][4];
+  uint32_t ph[C::kBN / 8][4], pl[C::kBN / 8][4];
+  __device__ __forceinline__ void qk(float (&sc)[C::kBN / 2], uint32_t st) {
+    tf32_qk<C>(sc, qh, q_lo, st);
+  }
+  __device__ __forceinline__ void pv(float (&acc)[C::kAcc], uint32_t st) {
+    tf32_pv<C>(acc, ph, pl, st + C::kVTOffset);
+  }
+  __device__ __forceinline__ void split(const float (&sc)[C::kBN / 2]) {
+    tf32_fragments<C::kBN>(sc, ph, pl);
+  }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, 1)
+    flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                float* __restrict__ o, int seq, int heads,
+                                int group, long long ob, long long os,
+                                long long oh, int window, int causal,
+                                float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring<C> ring = make_ring<C>(smem_raw);
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x - b * heads;
+  const Tiles tiles = key_tiles<C>(seq, causal, window);
+  if (threadIdx.x == 0) init_ring<C>(ring);
+  __syncthreads();
+
+  // A stage is loaded again only once both consumers released it, which
+  // they do after its ready barrier: the prep warps' reads and writes of a
+  // stage are done before TMA refills it.
+  if (threadIdx.x < 128) {
+    // ---- warpgroup 0: thread 0 loads, warps 1-3 prepare K ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        C::kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, C::kQBytes);
-#pragma unroll
-      for (int c = 0; c < C::kBoxes; ++c)
-        tma_load(sq + c * C::kQBox, &tq, q_full, 64 * c, h, q0, b);
-      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
-        const int s = i % kStages;
-        // the first lap finds the stage free (the parity of the phase
-        // before the barrier's first)
-        const uint32_t parity = ((uint32_t)(i / kStages) & 1u) ^ 1u;
-        const uint32_t ks = skv + s * 2 * C::kTileBytes;
-        mbar_wait(k_empty + 8 * s, parity);
-        mbar_expect_tx(k_full + 8 * s, C::kTileBytes);
-#pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c)
-          tma_load(ks + c * C::kKVBox, &tk, k_full + 8 * s, 64 * c, hk,
-                   t * BN, b);
-        mbar_wait(v_empty + 8 * s, parity);
-        mbar_expect_tx(v_full + 8 * s, C::kTileBytes);
-#pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c)
-          tma_load(ks + C::kTileBytes + c * C::kKVBox, &tv, v_full + 8 * s,
-                   64 * c, hk, t * BN, b);
+      load_tiles<C>(&tq, &tk, &tv, ring, tiles, h, h / group, b);
+    } else if (threadIdx.x >= 32) {
+      for (int i = 0; i < tiles.t_end - tiles.t_begin; ++i) {
+        const int s = i % C::kStages;
+        mbar_wait(ring.k_full(s), (uint32_t)(i / C::kStages) & 1u);
+        prep_k<C>(ring.stage(s), threadIdx.x - 32);
+        fence_proxy_async();
+        mbar_arrive(ring.k_ready(s));
       }
+    }
+  } else if (threadIdx.x >= 384) {
+    // ---- warpgroup 3: prepares V, beside the K-prep warps ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        C::kProducerRegs));
+    for (int i = 0; i < tiles.t_end - tiles.t_begin; ++i) {
+      const int s = i % C::kStages;
+      const uint32_t st = ring.stage(s);
+      mbar_wait(ring.v_full(s), (uint32_t)(i / C::kStages) & 1u);
+      prep_v<C>(st + C::kVOffset, st + C::kVTOffset, (threadIdx.x >> 5) & 3,
+                threadIdx.x & 31);
+      fence_proxy_async();
+      mbar_arrive(ring.v_ready(s));
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
         C::kConsumerRegs));
-    const int cw = threadIdx.x / 128 - 1;  // 0 or 1
-    const int lane = threadIdx.x & 31;
-    const int r0 = q0 + 64 * cw;  // this warpgroup's first row
-    const int warp_row = r0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
-    const Frag f{{warp_row, warp_row + 8}, 2 * (lane & 3)};
-    const uint32_t q_rows = sq + cw * 64 * 128;
-    const float scale_log2 = scale * 1.4426950408889634f;
-
-    // This warpgroup's own tiles [w_begin, w_end) of the CTA's: those
-    // with a valid key for one of its rows. It still waits on and releases
-    // the others, so the ring stays in step.
-    int w_begin = t_begin, w_end = t_end;
-    if (r0 >= seq) {
-      w_begin = w_end = t_end;
-    } else if (causal) {
-      const long long first = (long long)r0 - window + 1;
-      w_begin = max(t_begin, first > 0 ? (int)(first / BN) : 0);
-      w_end = min(t_end, (r0 + 63) / BN + 1);
-    }
-    // every key of tile t is valid for every row of the warpgroup
-    auto full_tile = [&](int t) {
-      const int kv0 = t * BN;
-      return kv0 + BN <= seq &&
-             (!causal || (kv0 + BN - 1 <= r0 && kv0 >= r0 + 64 - window));
-    };
-    // Turns: the two consumers issue their wgmmas in alternation (named
-    // barriers 1 and 2), so one's softmax runs beside the other's
-    // products. Each takes one turn per tile of the CTA and one more for
-    // its last p.V, t_end - t_begin + 1 in all; consumer 1 lets consumer 0
-    // go first and gives back no turn after its last.
-    const int turns = t_end - t_begin + 1;
-    int turn = 0;
-    auto turn_begin = [&]() { bar_sync(1 + cw); };
-    auto turn_end = [&]() {
-      if (++turn < turns || cw == 0) bar_arrive(2 - cw);
-    };
-    if (cw == 1) bar_arrive(1);
-    auto pass = [&](int i) {  // wait on and release ring slot i unused
-      const int s = i % kStages;
-      const uint32_t parity = (uint32_t)(i / kStages) & 1u;
-      mbar_wait(k_full + 8 * s, parity);
-      mbar_arrive(k_empty + 8 * s);
-      mbar_wait(v_full + 8 * s, parity);
-      mbar_arrive(v_empty + 8 * s);
-      turn_begin();
-      turn_end();
-    };
-
-    float m[2] = {kNeg, kNeg};
-    float l[2] = {0.f, 0.f};  // this thread's part of the row sums
-    float corr[2];
-    float acc[C::kAcc];
-#pragma unroll
-    for (int i = 0; i < C::kAcc; ++i) acc[i] = 0.f;
-
-    mbar_wait(q_full, 0);
-    int i = 0;  // ring slot of tile t_begin + i
-    for (; i < w_begin - t_begin; ++i) pass(i);
-    if (w_begin < w_end) {
-      float sc[BN / 2];
-      uint32_t ph[BN / 16][4], pl[BN / 16][4];
-      // first tile: s, then p
-      {
-        const int s = i % kStages;
-        const uint32_t parity = (uint32_t)(i / kStages) & 1u;
-        mbar_wait(k_full + 8 * s, parity);
-        turn_begin();
-        wgmma_fence();
-        issue_qk<C>(sc, q_rows, skv + s * 2 * C::kTileBytes);
-        wgmma_commit();
-        turn_end();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        mbar_arrive(k_empty + 8 * s);
-        softmax_step<BN>(sc, m, l, corr, f, w_begin * BN, full_tile(w_begin),
-                         seq, causal, window, scale_log2);
-        split_fragments<BN>(sc, ph, pl);
-      }
-      // Each later tile: its s-product and the previous tile's p.V run on
-      // the tensor cores while this tile's softmax runs; acc is rescaled
-      // and the new p takes the fragments once p.V is done.
-      for (int t = w_begin + 1; t < w_end; ++t) {
-        const int sp = i % kStages;
-        const uint32_t pp = (uint32_t)(i / kStages) & 1u;
-        ++i;
-        const int s = i % kStages;
-        const uint32_t parity = (uint32_t)(i / kStages) & 1u;
-        mbar_wait(k_full + 8 * s, parity);
-        mbar_wait(v_full + 8 * sp, pp);
-        turn_begin();
-        wgmma_fence();
-        issue_qk<C>(sc, q_rows, skv + s * 2 * C::kTileBytes);
-        wgmma_commit();
-        issue_pv<C>(acc, ph, pl, skv + sp * 2 * C::kTileBytes + C::kTileBytes);
-        wgmma_commit();
-        turn_end();
-        wgmma_wait<1>();  // the s-product
-        fence_regs(sc);
-        mbar_arrive(k_empty + 8 * s);
-        softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq, causal,
-                         window, scale_log2);
-        wgmma_wait<0>();  // the previous p.V
-        fence_regs(acc);
-        mbar_arrive(v_empty + 8 * sp);
-#pragma unroll
-        for (int j = 0; j < C::kAcc / 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
-        split_fragments<BN>(sc, ph, pl);
-      }
-      // the last tile's p.V
-      const int s = i % kStages;
-      mbar_wait(v_full + 8 * s, (uint32_t)(i / kStages) & 1u);
-      turn_begin();
-      wgmma_fence();
-      issue_pv<C>(acc, ph, pl, skv + s * 2 * C::kTileBytes + C::kTileBytes);
-      wgmma_commit();
-      turn_end();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      mbar_arrive(v_empty + 8 * s);
-      ++i;
-    }
-    for (; i < t_end - t_begin; ++i) pass(i);
-    if (turn < turns) {  // no p.V of its own: the last turn is empty
-      turn_begin();
-      turn_end();
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    }
-    store_rows<C>(acc, l, f, o + b * ob + h * oh, os, seq);
+    const int cw = threadIdx.x / 128 - 1;
+    // Q: Q_hi to registers, Q_lo in place, once; this warpgroup's rows
+    // only, so a barrier over its own 128 threads (3 or 4) orders Q_lo's
+    // writes before its wgmmas read them.
+    Tf32Products<C> prod;
+    prod.q_lo = ring.q() + cw * 64 * 128;
+    mbar_wait(ring.q_full(), 0);
+    prep_q<C>(prod.qh, prod.q_lo);
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;" ::"r"(3 + cw) : "memory");
+    consume<C>(prod, ring, tiles, o + b * ob + h * oh, os, seq, causal,
+               window, scale);
   }
 }
 
+#undef TF_SS
+#undef TF_RS
+#undef WG_D16
+#undef WG_F16
 #undef WG_SS
 #undef WG_RS
 #undef WG_D24
@@ -1055,26 +1578,41 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The 4-D map (head_dim, head, seq, batch) of a bf16 tensor with element
-// strides sb, ss, sh (head_dim contiguous), boxes of 64 columns x `rows`
-// rows, 128-byte swizzle; reads past S are zeros.
-cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, int hd,
-                            int heads, int seq, int batch, long long sb,
-                            long long ss, long long sh, int rows) {
+// The 4-D map (head_dim, head, seq, batch) of a bf16 or fp32 tensor with
+// element strides sb, ss, sh (head_dim contiguous), boxes of 128 bytes (64
+// bf16 or 32 fp32 columns) x `rows` rows, 128-byte swizzle; reads past S
+// are zeros.
+cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, bool fp32,
+                            int hd, int heads, int seq, int batch,
+                            long long sb, long long ss, long long sh,
+                            int rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const long long size = fp32 ? 4 : 2;
   cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)seq,
                         (cuuint64_t)batch};
-  cuuint64_t strides[3] = {(cuuint64_t)(2 * sh), (cuuint64_t)(2 * ss),
-                           (cuuint64_t)(2 * sb)};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint64_t strides[3] = {(cuuint64_t)(size * sh), (cuuint64_t)(size * ss),
+                           (cuuint64_t)(size * sb)};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / size), 1, (cuuint32_t)rows, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel of instance C: flash_attention_tf32_kernel for a
+// Tf32Cfg, flash_attention_wgmma_kernel for a WgCfg.
+template <class C>
+auto tensor_core_kernel() {
+  if constexpr (C::kFp32)
+    return flash_attention_tf32_kernel<C>;
+  else
+    return flash_attention_wgmma_kernel<C>;
 }
 
 template <class C>
@@ -1082,43 +1620,44 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int batch, int seq, int heads, int kv_heads,
                          const Strides& st, int window, int causal,
                          float scale, cudaStream_t stream) {
+  using T = std::conditional_t<C::kFp32, float, __nv_bfloat16>;
   if ((seq + C::kBM - 1) / C::kBM > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_tensor_map(&tq, q, C::HD, heads, seq, batch, st.qb,
-                                    st.qs, st.qh, C::kBM);
+  cudaError_t err = make_tensor_map(&tq, q, C::kFp32, C::HD, heads, seq,
+                                    batch, st.qb, st.qs, st.qh, C::kBM);
   if (err == cudaSuccess)
-    err = make_tensor_map(&tk, k, C::HD, kv_heads, seq, batch, st.kb, st.ks,
-                          st.kh, C::kBN);
+    err = make_tensor_map(&tk, k, C::kFp32, C::HD, kv_heads, seq, batch,
+                          st.kb, st.ks, st.kh, C::kBN);
   if (err == cudaSuccess)
-    err = make_tensor_map(&tv, v, C::HD, kv_heads, seq, batch, st.vb, st.vs,
-                          st.vh, C::kBN);
+    err = make_tensor_map(&tv, v, C::kFp32, C::HD, kv_heads, seq, batch,
+                          st.vb, st.vs, st.vh, C::kBN);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_attention_wgmma_kernel<C>;
+  auto kernel = tensor_core_kernel<C>();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(batch * heads),
                   (unsigned)((seq + C::kBM - 1) / C::kBM));
-  kernel<<<grid, kWgThreads, C::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), seq, heads,
-      heads / kv_heads, st.ob, st.os, st.oh, window, causal, scale);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), seq, heads, heads / kv_heads, st.ob,
+      st.os, st.oh, window, causal, scale);
   return cudaGetLastError();
 }
 
 template <class C>
 cudaError_t occupancy_wgmma(int* threads, int* smem, int* regs, int* ctas) {
-  auto kernel = flash_attention_wgmma_kernel<C>;
+  auto kernel = tensor_core_kernel<C>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  *threads = kWgThreads;
+  *threads = C::kThreads;
   *smem = C::kSmem;
   *regs = attr.numRegs;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
-                                                       kWgThreads, C::kSmem);
+                                                       C::kThreads, C::kSmem);
 }
 
 }  // namespace
@@ -1175,16 +1714,45 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
                  kv_heads, st, window, causal, scale, s)
 }
 
+// The 3xTF32 tensor-core kernel: fp32 q, k, v and o (bf16 must be 0) at
+// head_dim 64 or 128, the arguments as for flash_attention. Every stride
+// must be a multiple of 4 elements (16 bytes) and every base 16-byte
+// aligned, as TMA needs; a tensor map that cuTensorMapEncodeTiled refuses
+// returns cudaErrorInvalidValue.
+int flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
+                         int batch, int seq, int heads, int kv_heads,
+                         int head_dim, long long qb, long long qs,
+                         long long qh, long long kb, long long ks,
+                         long long kh, long long vb, long long vs,
+                         long long vh, long long ob, long long os,
+                         long long oh, int window, int causal, float scale,
+                         int bf16, void* stream) {
+  if (batch < 0 || seq < 0 || heads < 1 || kv_heads < 1 ||
+      heads % kv_heads != 0 || window < 1 || bf16 != 0 ||
+      (long long)batch * heads > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (batch == 0 || seq == 0) return cudaSuccess;
+  const Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TF32_DISPATCH(launch_wgmma, head_dim, q, k, v, o, batch, seq, heads,
+                kv_heads, st, window, causal, scale, s)
+}
+
 // Launch configuration of kernel 0 (flash_attention_kernel, any head_dim,
-// bf16 or fp32) or 1 (flash_attention_wgmma_kernel, head_dim 64, 128 or
-// 320, bf16 == 1): threads per CTA, dynamic shared memory in bytes,
-// registers per thread, CTAs per SM.
+// bf16 or fp32), 1 (flash_attention_wgmma_kernel, head_dim 64, 128 or 320,
+// bf16 == 1) or 2 (flash_attention_tf32_kernel, head_dim 64 or 128, bf16
+// == 0): threads per CTA, dynamic shared memory in bytes, registers per
+// thread, CTAs per SM.
 int attention_occupancy(int kernel, int head_dim, int bf16, int unused,
                         int* threads, int* smem, int* regs, int* ctas) {
   (void)unused;
   if (kernel == 1) {
     if (bf16 != 1) return cudaErrorInvalidValue;
     WGMMA_DISPATCH(occupancy_wgmma, head_dim, threads, smem, regs, ctas)
+  }
+  if (kernel == 2) {
+    if (bf16 != 0) return cudaErrorInvalidValue;
+    TF32_DISPATCH(occupancy_wgmma, head_dim, threads, smem, regs, ctas)
   }
   if (kernel != 0) return cudaErrorInvalidValue;
   ATTENTION_DISPATCH(occupancy_typed, head_dim, bf16, threads, smem, regs,

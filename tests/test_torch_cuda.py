@@ -578,8 +578,7 @@ ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
 
 def _counter(dtype, hd):
     """The launch counter of the kernel that (dtype, hd) dispatches to."""
-    return {"wgmma": "flash_attention_wgmma",
-            "cuda_core": "flash_attention"}[tattn.kernel_for(dtype, hd)]
+    return tattn.LAUNCHERS[tattn.kernel_for(dtype, hd)]
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
@@ -592,25 +591,27 @@ def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
                                     causal):
     """Each (dtype, hd) against the plain version of the kernel it
     dispatches to, whose counter alone moves: bf16 at hd 64, 128 and 320
-    on the wgmma kernel, the rest on the CUDA-core kernel; S ragged against
-    both kernels' tiles, S = 1 and S < 64."""
+    on the wgmma kernel, fp32 at hd 64 and 128 on the 3xTF32 kernel, the
+    rest on the CUDA-core kernel; S ragged against the kernels' tiles,
+    S = 1 and S < 64."""
     g = torch.Generator(device=cuda).manual_seed(hd + S)
     q = torch.randn(2, S, H, hd, device=cuda, generator=g).to(dtype)
     k, v = (torch.randn(2, S, KV, hd, device=cuda, generator=g).to(dtype)
             for _ in range(2))
     kw = dict(window=window, causal=causal, scale=hd ** -0.5)
-    other = ({"flash_attention", "flash_attention_wgmma"}
-             - {_counter(dtype, hd)}).pop()
-    before = _build.LAUNCHES[other]
+    others = set(tattn.LAUNCHERS.values()) - {_counter(dtype, hd)}
+    before = {n: _build.LAUNCHES[n] for n in others}
     got = _launched(_counter(dtype, hd),
                     lambda: tattn.attention(q, k, v, **kw))
-    assert _build.LAUNCHES[other] == before
+    assert {n: _build.LAUNCHES[n] for n in others} == before
     want = tattn.attention_plain(q, k, v, **kw)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.float32, 320),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128),
                                       (torch.bfloat16, 320)])
@@ -643,13 +644,23 @@ def _wgmma_smem(hd, keys=128):
     return 2 * 128 * hd + 2 * 2 * 2 * keys * hd + 8 * 9 + 1024
 
 
+def _tf32_smem(hd, keys):
+    """Q_lo (128 rows of fp32), two stages of five fp32 planes (K_hi,
+    K_lo, V, V^T_hi, V^T_lo) of ``keys`` keys, 13 mbarriers, and 1024 bytes
+    to align the tiles to the swizzle atom."""
+    return 4 * 128 * hd + 2 * 5 * 4 * keys * hd + 8 * 13 + 1024
+
+
 @pytest.mark.parametrize("name,hd,bf16,threads,smem,ctas", [
     ("flash_attention", 128, 1, 256, 4 * (64 * 132 * 2 + 64 * 68), 2),
     ("flash_attention", 320, 0, 256, 4 * (64 * 324 * 2 + 64 * 68), 1),
     ("flash_attention_wgmma", 64, 1, 384, _wgmma_smem(64), 1),
     ("flash_attention_wgmma", 128, 1, 384, _wgmma_smem(128), 1),
     # gemma3-4b's heads: 48-key tiles
-    ("flash_attention_wgmma", 320, 1, 384, _wgmma_smem(320, 48), 1)])
+    ("flash_attention_wgmma", 320, 1, 384, _wgmma_smem(320, 48), 1),
+    # fp32: 512 threads (loads and K prep, V prep, two consumers)
+    ("flash_attention_tf32", 64, 0, 512, _tf32_smem(64, 64), 1),
+    ("flash_attention_tf32", 128, 0, 512, _tf32_smem(128, 32), 1)])
 def test_attention_occupancy(cuda, name, hd, bf16, threads, smem, ctas):
     occ = _build.occupancy(name, hd, bf16, 0)
     assert occ["threads"] == threads
@@ -707,6 +718,59 @@ def test_wgmma_kernel_refuses_fp32(cuda):
         _build.launch("flash_attention_wgmma", "flash_attention_wgmma",
                       x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
                       1, 8, 2, 2, 64, *x.stride()[:3] * 4, 8, 1, 1.0, 0)
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("B,S,H,KV,window,causal", [
+    (2, 2048, 16, 8, 24, True), (2, 1024, 16, 8, 1 << 30, False),
+    (2, 1000, 16, 8, 1 << 30, True), (2, 1, 16, 8, 1 << 30, True),
+    (3, 37, 16, 8, 1 << 30, True), (2, 1024, 8, 8, 1 << 30, True),
+    (2, 333, 24, 8, 100, True)])
+def test_tf32_kernel_matches_plain(cuda, hd, B, S, H, KV, window, causal):
+    """The 3xTF32 kernel against its plain version (three TF32 products,
+    its key tile) within the reference tests' 2e-4: window 24, non-causal,
+    ragged S, S = 1, S < 64, G = 1 and a ragged window; only its counter
+    moves."""
+    g = torch.Generator(device=cuda).manual_seed(hd + S + H)
+    q = torch.randn(B, S, H, hd, device=cuda, generator=g)
+    k, v = (torch.randn(B, S, KV, hd, device=cuda, generator=g)
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=hd ** -0.5)
+    before = dict(_build.LAUNCHES)
+    got = tattn.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    moved = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+             if c != before[n]}
+    assert moved == {"flash_attention_tf32": 1}
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("hd,counter", [(32, "flash_attention"),
+                                        (64, "flash_attention_tf32"),
+                                        (128, "flash_attention_tf32"),
+                                        (320, "flash_attention")])
+def test_fp32_reaches_one_kernel(cuda, hd, counter):
+    """fp32 at head_dim 64 and 128 launches the 3xTF32 kernel and nothing
+    else; at 32 and 320 the CUDA-core kernel and nothing else."""
+    x = torch.randn(1, 70, 4, hd, device=cuda)
+    _build.reset_launches()
+    tattn.attention(x, x, x, window=1 << 30, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {counter: 1}
+
+
+def test_tf32_kernel_refuses_bf16(cuda):
+    """The tf32 launcher takes fp32 only; asked for bf16 it refuses the
+    launch, and the wrapper raises instead of running another kernel."""
+    x = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="flash_attention_tf32"):
+        _build.launch("flash_attention_tf32", "flash_attention_tf32",
+                      x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      1, 8, 2, 2, 64, *x.stride()[:3] * 4, 8, 1, 1.0, 1)
     assert _build.LAUNCHES == before
 
 

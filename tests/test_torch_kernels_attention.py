@@ -225,11 +225,18 @@ def test_launcher_rejects_what_the_kernel_does_not_take(fake_launch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_kernel_for_every_type_and_head_dim(dtype, hd):
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 320)
-            else "cuda_core")
+    """bf16 at 64, 128 and 320 on the wgmma kernel, fp32 at 64 and 128 on
+    the 3xTF32 kernel, the rest (fp32 at 32 and 320, bf16 at 32) on the
+    CUDA-core kernel; each with its key tile."""
+    if dtype == torch.bfloat16 and hd in (64, 128, 320):
+        want = "wgmma"
+    elif dtype == torch.float32 and hd in (64, 128):
+        want = "tf32"
+    else:
+        want = "cuda_core"
     assert tattn.kernel_for(dtype, hd) == want
     keys = {"wgmma": {64: 128, 128: 128, 320: 48}.get(hd),
-            "cuda_core": 64}[want]
+            "tf32": {64: 64, 128: 32}.get(hd), "cuda_core": 64}[want]
     assert tattn.kernel_keys(dtype, hd) == keys
 
 
@@ -378,7 +385,7 @@ def test_wgmma_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
 def test_wgmma_launcher_arguments_public_layout(fake_named_launch, hd):
     """(H, S, hd) bf16 at head_dim 64 and 320 reaches the wgmma kernel as
     strided (1, S, H, hd) views, with no copy; fp32 at the same shape goes
-    to the CUDA-core kernel."""
+    to the 3xTF32 kernel at 64 and to the CUDA-core kernel at 320."""
     H, S = 3, 20
     q = torch.zeros(H, S, hd, dtype=torch.bfloat16)
     q4 = q.permute(1, 0, 2)[None]
@@ -386,7 +393,9 @@ def test_wgmma_launcher_arguments_public_layout(fake_named_launch, hd):
     x = torch.zeros(H, S, hd).permute(1, 0, 2)[None]
     tattn._launch(x, x, x, window=7, causal=False, scale=hd ** -0.5)
     (name, _, args), (name32, _, args32) = fake_named_launch
-    assert (name, name32) == ("flash_attention_wgmma", "flash_attention")
+    assert (name, name32) == ("flash_attention_wgmma",
+                              {64: "flash_attention_tf32",
+                               320: "flash_attention"}[hd])
     assert args[0] == q.data_ptr()
     assert args[4:9] == args32[4:9] == (1, S, H, H, hd)
     assert args[10:12] == (hd, S * hd)
@@ -407,9 +416,193 @@ def test_wgmma_launcher_rejects_what_tma_does_not_take(fake_named_launch,
     with pytest.raises(ValueError, match="16 bytes"):
         tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert fake_named_launch == []
-    x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]  # fp32: the CUDA-core kernel
+    # fp32: 4 elements are 16 bytes (the tf32 kernel's TMA at 64, the
+    # CUDA-core kernel's float4 loads at 320)
+    x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     x = torch.zeros(1, 8, 2, hd + 8, dtype=torch.bfloat16)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
-    assert [c[0] for c in fake_named_launch] == ["flash_attention",
-                                                 "flash_attention_wgmma"]
+    assert [c[0] for c in fake_named_launch] == [
+        {64: "flash_attention_tf32", 320: "flash_attention"}[hd],
+        "flash_attention_wgmma"]
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 kernel's route: fp32 at head_dim 64 and 128
+# ---------------------------------------------------------------------------
+
+def _tf32_reference(x: np.ndarray) -> np.ndarray:
+    """fp32 x rounded to 10 fraction bits, to nearest with ties away from
+    zero, in float64 arithmetic (finite, normal x)."""
+    x64 = x.astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.abs(x64))) - 10)
+    return (np.sign(x64) * np.floor(np.abs(x64) / ulp + 0.5) * ulp
+            ).astype(np.float32)
+
+
+def _low_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32) & 0x1FFF
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    """hi = tf32(x) and lo = tf32(x - hi) keep the low 13 bits zero; x - hi
+    is exact in fp32; hi + lo holds x to 2^-22 relative (lo rounds a
+    residual of up to 12 significant bits to TF32's 11, so it is not exact
+    in general); the rounding is to nearest, ties away from zero, as
+    cvt.rna.tf32.f32 rounds; sign, zero and inf pass through hi."""
+    rng = np.random.default_rng(6)
+    x = np.concatenate([rng.standard_normal(200_000) * 10.0 ** rng.integers(
+        -30, 30, 200_000), rng.random(1000)]).astype(np.float32)
+    hi, lo = tattn.split_tf32(torch.from_numpy(x))
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    np.testing.assert_array_equal(hi.numpy(), _tf32_reference(x))
+    resid = x.astype(np.float64) - hi.numpy().astype(np.float64)
+    np.testing.assert_array_equal(resid.astype(np.float32).astype(np.float64),
+                                  resid)
+    total = hi.double().numpy() + lo.double().numpy()
+    assert np.all(np.abs(x - total) <= 2.0 ** -22 * np.abs(x))
+    # one TF32 part alone misses that bound
+    assert not np.all(np.abs(x - hi.double().numpy())
+                      <= 2.0 ** -22 * np.abs(x))
+    # ties go away from zero: 1 + 2^-11 and 1 + 3 * 2^-11 sit half way
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                         -(1 + 3 * 2 ** -11)], dtype=torch.float32)
+    got, _ = tattn.split_tf32(ties)
+    assert got.tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9,
+                            -(1 + 2 ** -9)]
+    special = torch.tensor([0.0, -0.0, float("inf"), float("-inf")])
+    got, low = tattn.split_tf32(special)
+    assert got.tolist() == special.tolist()
+    assert torch.equal(torch.signbit(got), torch.signbit(special))
+    assert low[:2].tolist() == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,window,causal", [(160, 1 << 30, True),
+                                             (96, 24, True),
+                                             (150, 1 << 30, True),
+                                             (100, 1 << 30, False)])
+def test_tf32_plain_matches_pallas_kernel(rng, hd, S, window, causal):
+    """fp32 at the tf32 kernel's head_dims: the plain version (both
+    products as three TF32 products, the kernel's key tile: 64 keys at hd
+    64, 32 at 128) against the Pallas kernel in interpret mode and the
+    naive oracle within the reference tests' 2e-4; causal, window 24,
+    non-causal, and S = 150 ragged against both tiles."""
+    arrs = _qkv(rng, 2, S, hd)
+    got = tattn.flash_attention(*_torch(arrs), window=window, causal=causal)
+    assert got.dtype == torch.float32
+    want = jattn.flash_attention(*_jax(arrs), window=window, causal=causal,
+                                 bq=32, bk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    oracle = jattn.attention_ref(*_jax(arrs), window=window, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 24),
+                                         (6, 2, 1 << 30)])
+def test_tf32_plain_matches_reference_layer(rng, hd, H, KV, window):
+    """The GQA layout in fp32 at S = 150 (ragged): the port's layer (which
+    runs the 3xTF32 plain version on the CPU) and the plain version itself
+    against the reference's ``blockwise_attention``."""
+    arrs = [a * 2.0 for a in _gqa(rng, 2, 150, H, KV, hd)]
+    want = np.asarray(jlayer.blockwise_attention(
+        *_jax(arrs), window=window, kv_block=64))
+    got = tlayer.blockwise_attention(*_torch(arrs), window=window,
+                                     kv_block=64)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    q, k, v = _torch(arrs)
+    plain = tattn.attention_plain(tlayer._scale_q(q), k, v, window=window,
+                                  scale=1.0)
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32_plain_folds_the_kernels_key_tile(rng, hd):
+    """By default the fp32 plain version folds the tf32 kernel's key tile
+    (64 keys at hd 64, 32 at 128) with both products as three TF32
+    products: that is not the CUDA-core kernel's dataflow (fp32 products,
+    64-key tiles), though both stay within 2e-4 of each other."""
+    q, k, v = _torch(_gqa(rng, 1, 200, 4, 2, hd))
+    kw = dict(window=1 << 30, scale=hd ** -0.5)
+    got = tattn.attention_plain(q, k, v, **kw)
+    assert torch.equal(got, tattn.attention_plain(
+        q, k, v, kv_block=tattn.TF32_KERNEL_KEYS[hd], kernel="tf32", **kw))
+    core = tattn.attention_plain(q, k, v, kernel="cuda_core", **kw)
+    assert not torch.equal(got, core)
+    np.testing.assert_allclose(got.numpy(), core.numpy(), **TOL)
+
+
+def test_tf32_products_hold_fp32_where_one_tf32_pass_does_not(rng):
+    """Three TF32 products of fp32 operands keep the fp32 product to about
+    2^-21, where one TF32 pass (10 fraction bits) misses the reference's
+    2e-4 on logits of a few units."""
+    a = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+    exact = a.double() @ b.double()
+    three = tattn._product_3xtf32("ij,jk->ik", a, b).double()
+    one = (tattn._tf32(a) @ tattn._tf32(b)).double()
+    scale = exact.abs().max()
+    assert float((three - exact).abs().max() / scale) < 2 ** -19
+    assert float((one - exact).abs().max() / scale) > 2e-4
+
+
+def test_cpu_path_launches_no_tf32_kernel(rng):
+    _build.reset_launches()
+    q, k, v = _torch(_qkv(rng, 2, 40, 128))
+    tattn.flash_attention(q, k, v)
+    tattn.attention(q[None], k[None], v[None], window=8, scale=1.0)
+    assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (24, 8, 64)])
+def test_tf32_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
+    """fp32 in the model's layout reaches the tf32 launcher, counted under
+    its own counter, with its element strides and bf16 = 0."""
+    B, S = 2, 40
+    q = torch.zeros(B, S, H, hd)
+    k = torch.zeros(B, S, KV, hd)
+    o = tattn._launch(q, k, k, window=1 << 40, causal=True, scale=0.5)
+    assert o.shape == q.shape and o.dtype == torch.float32
+    ((name, counter, args),) = fake_named_launch
+    assert name == counter == "flash_attention_tf32"
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                        o.data_ptr())
+    assert args[4:9] == (B, S, H, KV, hd)
+    assert args[9:21] == (S * H * hd, H * hd, hd, S * KV * hd, KV * hd, hd,
+                          S * KV * hd, KV * hd, hd, S * H * hd, H * hd, hd)
+    assert args[21:] == (1 << 30, 1, 0.5, 0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32_launcher_arguments_public_layout(fake_named_launch, hd):
+    """(H, S, hd) fp32 reaches the tf32 kernel as strided (1, S, H, hd)
+    views of the same storage, with no copy."""
+    H, S = 3, 20
+    q = torch.zeros(H, S, hd)
+    k = torch.zeros(H, S, hd)
+    tattn._launch(*(x.permute(1, 0, 2)[None] for x in (q, k, k)), window=7,
+                  causal=False, scale=hd ** -0.5)
+    ((name, _, args),) = fake_named_launch
+    assert name == "flash_attention_tf32"
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), k.data_ptr())
+    assert args[4:9] == (1, S, H, H, hd)
+    assert args[10:12] == (hd, S * hd)  # seq and head strides
+    assert args[21:] == (7, 0, hd ** -0.5, 0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32_launcher_rejects_what_tma_does_not_take(fake_named_launch, hd):
+    """TMA takes a base on 16 bytes and strides of 16 bytes, 4 fp32
+    elements: a row stride of hd + 2 or a base 8 bytes off is refused
+    before any launch; hd + 4 is taken."""
+    x = torch.zeros(1, 8, 2, hd + 2)[..., :hd]
+    with pytest.raises(ValueError, match="multiples of 4 elements"):
+        tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    x = torch.zeros(1, 8, 2, hd + 4)[..., 2:hd + 2]
+    with pytest.raises(ValueError, match="16 bytes"):
+        tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    assert fake_named_launch == []
+    x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
+    tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
+    assert [c[0] for c in fake_named_launch] == ["flash_attention_tf32"]
