@@ -12,10 +12,11 @@ Phases (any failure exits non-zero):
      each with ``-Xptxas -v``), and print the build time, the card's name
      and its power limit; then ptxas's registers and spills for every
      Stockham and NTT kernel, and its
-     registers, shared memory and spills for each instance of the two
-     tensor-core flash kernels (wgmma on bf16, 3xTF32 on fp32) and the
-     count of HGMMA and UTMALDG instructions in its SASS (``cuobjdump
-     -sass``), which must hold HGMMA.
+     registers, shared memory and spills for each of the seven instances
+     of the two tensor-core flash kernels (wgmma on bf16 at head_dim 32,
+     64, 128 and 320; 3xTF32 on fp32 at 64, 128 and 320) and the count of
+     HGMMA and UTMALDG instructions in its SASS (``cuobjdump -sass``),
+     which must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
      PyTorch version on the card and against float64 numpy.fft, radix 2 and
      4, n = 2 .. 2^18 (shared-memory resident and staged rows), odd and even
@@ -38,16 +39,19 @@ Phases (any failure exits non-zero):
      flash-attention kernels
      against their plain versions (``ATTN_CASES``), each case launching
      the kernel its (dtype, head_dim) dispatches to and the others never:
-     the wgmma kernel (bf16, head_dim 64, 128 and 320) at the served
+     the wgmma kernel (bf16, head_dim 32, 64, 128 and 320) at the served
      prefill shape, windows 1024 and 24, non-causal, ragged S, G = 1,
-     S = 1 and S < 64, and at gemma3-4b's heads (hd 320, 8 heads over 4
-     kv heads, S = 2048, window 1024 and global); the 3xTF32 kernel (fp32,
-     head_dim 64 and 128) at the served shape, window 24, non-causal,
-     ragged S, S = 1, S < 64, G = 1 and hd 64; the CUDA-core kernel at
-     fp32 head_dim 320, bf16 head_dim 32 and, launched directly, fp32
-     head_dim 128 (``CUDA_CORE_DIRECT``); bf16 within one bf16 step and
-     fp32 within 2e-4; and the public (H, S, hd) layout against the naive
-     oracle. Then the two-pass
+     S = 1 and S < 64, at gemma3-4b's heads (hd 320, 8 heads over 4 kv
+     heads, S = 2048, window 1024 and global) and at head_dim 32 (the
+     reduced configs') at the served batch and prompt and the same edge
+     cases; the 3xTF32 kernel (fp32, head_dim 64, 128 and 320) at the
+     served shape, window 24, non-causal, ragged S, S = 1, S < 64, G = 1,
+     hd 64, and hd 320 (the head_dim-split instance) at the same edge
+     cases and gemma3-4b's local and global shapes; the CUDA-core kernel
+     at fp32 head_dim 32 and, launched directly (``CUDA_CORE_DIRECT``,
+     the in-turn baseline of phase 4), at fp32 head_dim 128 and 320 and
+     bf16 head_dim 32; bf16 within one bf16 step and fp32 within 2e-4; and
+     the public (H, S, hd) layout against the naive oracle. Then the two-pass
      schedules of the fft, rfft and irfft kernels and the products'
      split-pass schedule (``check_two_pass``; three launches, four at odd
      log2 n and radix 4): n = 2^14 .. 2^18 (two passes) and 4096, 8192
@@ -86,8 +90,12 @@ Phases (any failure exits non-zero):
      bf16 prefill (B = 2, S = 2048: five local layers and the global layer
      5) once through the kernel and once with the plain version swapped in
      for ``kernels.attention.attention``, whose last logits must agree
-     within ``GEMMA_PARITY_TOL``; then the same prefill in fp32, the
-     CUDA-core kernel's path (6 launches, nothing else), within 2e-3.
+     within ``GEMMA_PARITY_TOL``; then the same prefill in fp32, the 3xTF32
+     kernel's head_dim-split instance (6 launches, nothing else), within
+     2e-3. Then the reduced qwen3-1.7b config (head_dim 32) the same way
+     at B = 2, S = ``REDUCED_PROMPT``: in bf16 on the wgmma kernel's hd-32
+     instance (2 launches, nothing else), in fp32 on the CUDA-core kernel
+     (2 launches, nothing else).
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -98,11 +106,12 @@ Phases (any failure exits non-zero):
      67 TFLOP/s fp32 (the H100 SXM data sheet) for the float kernels, over
      the card's 32-bit integer rate (``INT32_OPS_PER_S``) for the NTT
      kernels, and over 989 TFLOP/s bf16 (the wgmma kernel, at the served
-     prefill shape and at gemma3-4b's local and global shapes), three times
-     the flops over 495 TFLOP/s TF32 (the 3xTF32 kernel, at the served
-     shape in fp32; beside each tensor-core kernel, in turns on the same
+     prefill shape, at gemma3-4b's local and global shapes and at head_dim
+     32), three times the flops over 495 TFLOP/s TF32 (the 3xTF32 kernel,
+     at the served shape in fp32 and at gemma3-4b's global and local
+     shapes in fp32; beside each tensor-core kernel, in turns on the same
      inputs, the CUDA-core kernel) or 67 TFLOP/s fp32 (the CUDA-core
-     kernel, at fp32 head_dim 320 and bf16 head_dim 32) for flash
+     kernel, at fp32 head_dim 32) for flash
      attention, whose yardstick is ``scaled_dot_product_attention``
      (causal, GQA; the flash kernels, their plain versions and SDPA timed
      by CUDA events over back-to-back calls, as their traces drop events;
@@ -127,9 +136,12 @@ Phases (any failure exits non-zero):
      and a traced run for the card's idle share and the wgmma flash
      kernel's share of the prefill; for gemma3-4b also the prefill with
      the CUDA-core kernel swapped in, in turns with the wgmma kernel; and
-     the full-width fp32 qwen3-1.7b prefill (batch 8 x 2048) through the
-     3xTF32 kernel, in turns with the CUDA-core kernel swapped in, with
-     each kernel's share of a traced prefill.
+     the full-width fp32 qwen3-1.7b and gemma3-4b prefills (batch 8 x
+     2048; gemma3-4b's 34 layers through the head_dim-split instance)
+     through the 3xTF32 kernel, in turns with the CUDA-core kernel swapped
+     in, with each kernel's share of a traced prefill. Each LM timing
+     first counts one prefill's launches, the counters zeroed just before:
+     the kernel ``kernel_for`` picks, once per layer, and nothing else.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -201,9 +213,9 @@ TRANSFORM_KERNELS = {
     "ntt_batched": (None, NTT, "src/repro/kernels/ntt.py:134"),
 }
 #: the LM's three Hopper kernels for TPU kernel 9, by launch counter: the
-#: bf16 tensor-core kernel (head_dim 64, 128 and 320, the served
-#: prefills), the 3xTF32 tensor-core kernel (fp32 at head_dim 64 and 128)
-#: and the CUDA-core kernel (fp32 at head_dim 32 and 320; bf16 at 32)
+#: bf16 tensor-core kernel (head_dim 32, 64, 128 and 320: the served
+#: prefills and the reduced configs'), the 3xTF32 tensor-core kernel (fp32
+#: at head_dim 64, 128 and 320) and the CUDA-core kernel (fp32 at 32)
 FLASH_REPLACES = "src/repro/kernels/attention.py:30"
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_tf32",
                  "flash_attention")
@@ -216,6 +228,8 @@ GEMMA_ARCH = "gemma3-4b"
 #: gemma3-4b's kernel-vs-plain prefill: 6 layers at full width (five local
 #: layers, then the global layer 5), batch 2, the served prompt
 GEMMA_PARITY_LAYERS, GEMMA_PARITY_BATCH = 6, 2
+#: the reduced configs' prefill (head_dim 32): batch 2 of this many tokens
+REDUCED_PROMPT = 1000
 #: its last logits are bf16 of magnitude up to about 8, spaced 2^-5 at 4..8;
 #: a bf16 rounding that differs in one of six layers' activations may move
 #: a logit by a step or two: four steps (as tests/test_torch_models.py holds
@@ -1789,6 +1803,27 @@ ATTN_CASES = [
     ("fp32 hd 64 non-causal S < 64", 2, 50, 8, 2, 64, "float32", 1 << 30,
      False),
     ("fp32 hd 320 window 24", 1, 300, 8, 4, 320, "float32", 24, True),
+    # the reduced configs' head_dim in bf16 (the wgmma kernel's hd-32
+    # instance) and gemma3-4b's in fp32 (the tf32 kernel's split instance)
+    ("hd 32 served heads", LM_BATCH, LM_PROMPT, 16, 8, 32, "bfloat16",
+     1 << 30, True),
+    ("hd 32 window 24", 2, LM_PROMPT, 16, 8, 32, "bfloat16", 24, True),
+    ("hd 32 non-causal", 2, 1024, 16, 8, 32, "bfloat16", 1 << 30, False),
+    ("hd 32 ragged S", 2, 1000, 16, 8, 32, "bfloat16", 1 << 30, True),
+    ("hd 32 S = 1", 2, 1, 16, 8, 32, "bfloat16", 1 << 30, True),
+    ("hd 32 S < 64", 3, 37, 16, 8, 32, "bfloat16", 1 << 30, True),
+    ("hd 32 G = 1", 2, 1024, 8, 8, 32, "bfloat16", 1 << 30, True),
+    ("fp32 hd 320 ragged S", 2, 1000, 8, 4, 320, "float32", 1 << 30, True),
+    ("fp32 hd 320 non-causal", 2, 1024, 8, 4, 320, "float32", 1 << 30,
+     False),
+    ("fp32 hd 320 S = 1", 2, 1, 8, 4, 320, "float32", 1 << 30, True),
+    ("fp32 hd 320 S < 64", 3, 37, 8, 4, 320, "float32", 1 << 30, True),
+    ("fp32 hd 320 G = 1", 2, 1024, 4, 4, 320, "float32", 1 << 30, True),
+    ("fp32 gemma3-4b local", 2, LM_PROMPT, 8, 4, 320, "float32", 1024,
+     True),
+    ("fp32 gemma3-4b global", 2, LM_PROMPT, 8, 4, 320, "float32", 1 << 30,
+     True),
+    ("fp32 hd 32", 2, 1000, 16, 8, 32, "float32", 1 << 30, True),
 ]
 #: the CUDA-core kernel launched directly on inputs the wrappers send to a
 #: tensor-core kernel, against its own plain version: (label, B, S, H, KV,
@@ -1796,7 +1831,12 @@ ATTN_CASES = [
 CUDA_CORE_DIRECT = [
     ("fp32 hd 128 (the tf32 kernel's)", 2, 1000, 16, 8, 128, "float32",
      1 << 30),
-    ("fp32 hd 128 window 24", 2, 700, 16, 8, 128, "float32", 24)]
+    ("fp32 hd 128 window 24", 2, 700, 16, 8, 128, "float32", 24),
+    ("fp32 hd 320 (the tf32 kernel's)", 2, 1000, 8, 4, 320, "float32",
+     1 << 30),
+    ("bf16 hd 32 (the wgmma kernel's)", 2, 1000, 16, 8, 32, "bfloat16",
+     1 << 30),
+    ("bf16 hd 32 window 24", 2, 700, 16, 8, 32, "bfloat16", 24)]
 
 
 def attention_inputs(torch, B, S, H, KV, hd, dtype, seed):
@@ -2014,9 +2054,9 @@ def plain_attention(kattn):
 
 
 def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
-                     tol: dict) -> tuple[float, int]:
-    """A full-width prefill of ``cfg`` (seed-0 weights, batch
-    GEMMA_PARITY_BATCH, the served prompt), counters zeroed just before:
+                     tol: dict, prompt: int = LM_PROMPT) -> tuple[float, int]:
+    """A prefill of ``cfg`` (seed-0 weights, batch GEMMA_PARITY_BATCH,
+    ``prompt`` tokens: the served prompt), counters zeroed just before:
     once through the kernel (one launch of ``counter`` per layer, nothing
     else) and once with ``plain_attention`` swapped in for
     ``kernels.attention.attention`` (no launch); the last logits finite, of
@@ -2025,7 +2065,7 @@ def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
     dev = torch.device("cuda")
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
     tokens = torch.randint(0, cfg.vocab_size,
-                           (GEMMA_PARITY_BATCH, LM_PROMPT), device=dev,
+                           (GEMMA_PARITY_BATCH, prompt), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(5))
     torch.cuda.synchronize()
     build.reset_launches()
@@ -2054,9 +2094,10 @@ def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
             and torch.allclose(got, ref, **tol)):
         raise SystemExit(f"{name}: kernel and plain version's last logits "
                          f"{got.shape} differ by {err}")
-    print(f"[lm] {cfg.name} full width, {cfg.num_layers} layers (windows "
+    print(f"[lm] {cfg.name} (d_model {cfg.d_model}, head_dim "
+          f"{cfg.head_dim}), {cfg.num_layers} layers (windows "
           f"{[lm_window(cfg, i) for i in range(cfg.num_layers)]}), "
-          f"{cfg.dtype}, B={GEMMA_PARITY_BATCH} S={LM_PROMPT}: prefill last "
+          f"{cfg.dtype}, B={GEMMA_PARITY_BATCH} S={prompt}: prefill last "
           f"logits with {counter} vs the plain version swapped in "
           f"|diff|max={err:.3g} within {tol} (|logit|max "
           f"{float(ref.abs().max()):.3g}); launches {kernel_launches}",
@@ -2071,22 +2112,45 @@ def gemma_phase(torch, build, serve, convert, kattn, get_config) -> dict:
     launches of the wgmma kernel (its hd-320 instance) and nothing else;
     (2) ``prefill_vs_plain`` on GEMMA_PARITY_LAYERS layers (five local,
     window 1024, then the global layer 5) in bf16, through the wgmma
-    kernel, within GEMMA_PARITY_TOL; (3) the same in fp32, the CUDA-core
-    kernel's path at head_dim 320, within LM_TOL."""
+    kernel, within GEMMA_PARITY_TOL; (3) the same in fp32, the tf32
+    kernel's head_dim-split instance (one launch per layer, nothing else),
+    within LM_TOL."""
     served = serve_lm(torch, build, serve, get_config, GEMMA_ARCH)
     cfg = dataclasses.replace(get_config(GEMMA_ARCH),
                               num_layers=GEMMA_PARITY_LAYERS)
     err, _ = prefill_vs_plain(torch, build, convert, kattn, cfg,
                               "flash_attention_wgmma", GEMMA_PARITY_TOL)
-    err32, core_launches = prefill_vs_plain(
+    err32, tf32_launches = prefill_vs_plain(
         torch, build, convert, kattn,
-        dataclasses.replace(cfg, dtype="float32"), "flash_attention", LM_TOL)
+        dataclasses.replace(cfg, dtype="float32"), "flash_attention_tf32",
+        LM_TOL)
     return {"launches": served["launches"]["flash_attention_wgmma"],
             "first_call_tokens_per_s": served["tokens_per_s"],
             "parity_layers": GEMMA_PARITY_LAYERS,
             "kernel_vs_plain_last_logits_max_abs": err,
-            "fp32_cuda_core_launches": core_launches,
+            "fp32_tf32_launches": tf32_launches,
             "fp32_kernel_vs_plain_last_logits_max_abs": err32}
+
+
+def reduced_phase(torch, build, convert, kattn, get_config) -> dict:
+    """Phase 3 for the reduced configs (``ModelConfig.scaled_down`` of
+    qwen3-1.7b: 2 layers, 4 heads over 4 kv heads, head_dim 32):
+    ``prefill_vs_plain`` at batch GEMMA_PARITY_BATCH x REDUCED_PROMPT, in
+    bf16 (the wgmma kernel's hd-32 instance, one launch per layer, nothing
+    else; within GEMMA_PARITY_TOL) and in fp32 (the CUDA-core kernel,
+    which serves only fp32 at head_dim 32; within LM_TOL)."""
+    cfg = get_config(LM_ARCH).scaled_down()
+    out = {}
+    for dtype, counter, tol in (("bfloat16", "flash_attention_wgmma",
+                                 GEMMA_PARITY_TOL),
+                                ("float32", "flash_attention", LM_TOL)):
+        err, launched = prefill_vs_plain(
+            torch, build, convert, kattn,
+            dataclasses.replace(cfg, dtype=dtype), counter, tol,
+            prompt=REDUCED_PROMPT)
+        out[dtype] = {"launches": launched, "counter": counter,
+                      "kernel_vs_plain_last_logits_max_abs": err}
+    return out
 
 
 def lm_window(cfg, i: int) -> str:
@@ -2104,9 +2168,10 @@ FLASH_TRACE_NAMES = {
 #: dtype, window)), causal, at the served batch and prompt. The wgmma
 #: kernel at the served prefills: the qwen3-1.7b one, and gemma3-4b's heads
 #: (8 heads, 4 kv heads, head_dim 320) at its local layers' window 1024 and
-#: at its global layers; the tf32 kernel at the qwen3 shape in fp32 (the
-#: fp32 parity path's); the CUDA-core kernel on what it still serves, fp32
-#: at gemma3-4b's heads and bf16 at head_dim 32 (16 heads, 8 kv heads).
+#: at its global layers, and at the reduced configs' head_dim 32 (at qwen3's
+#: 16 heads, 8 kv heads); the tf32 kernel at the qwen3 shape in fp32 (the
+#: fp32 parity path's) and at gemma3-4b's in fp32, global and local; the
+#: CUDA-core kernel on what it still serves, fp32 at head_dim 32.
 ATTN_TIMED = {
     "served prefill": ("flash_attention_wgmma",
                        (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16",
@@ -2119,10 +2184,15 @@ ATTN_TIMED = {
                                   "bfloat16", 1 << 30)),
     "fp32": ("flash_attention_tf32",
              (LM_BATCH, LM_PROMPT, 16, 8, 128, "float32", 1 << 30)),
-    "fp32 hd 320": ("flash_attention",
+    "fp32 hd 320": ("flash_attention_tf32",
                     (LM_BATCH, LM_PROMPT, 8, 4, 320, "float32", 1 << 30)),
-    "bf16 hd 32": ("flash_attention",
-                   (LM_BATCH, LM_PROMPT, 16, 8, 32, "bfloat16", 1 << 30))}
+    "fp32 hd 320 local, window 1024": (
+        "flash_attention_tf32", (LM_BATCH, LM_PROMPT, 8, 4, 320, "float32",
+                                 1024)),
+    "bf16 hd 32": ("flash_attention_wgmma",
+                   (LM_BATCH, LM_PROMPT, 16, 8, 32, "bfloat16", 1 << 30)),
+    "fp32 hd 32": ("flash_attention",
+                   (LM_BATCH, LM_PROMPT, 16, 8, 32, "float32", 1 << 30))}
 
 
 def cuda_core_on(torch, build, q, k, v, scale: float, window: int = 1 << 30):
@@ -2185,7 +2255,12 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     torch.cuda.synchronize()
     if build.LAUNCHES[name] != before + 1:
         raise SystemExit(f"{name}: the timed call did not launch it")
+    t0 = time.perf_counter()
     want = plain(*sets[0]).float()
+    torch.cuda.synchronize()
+    # a plain version that takes long a call (at fp32 hd 320 it folds 8-key
+    # tiles: about 0.7 s) is timed by one call and not traced
+    slow_plain = time.perf_counter() - t0 > 0.25
     ref = lib(*lib_sets[0]).transpose(1, 2).float()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, **ATTN_TOL[dtype]):
@@ -2210,13 +2285,14 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     entry = {
         "ms": time_ms(torch, kern, sets, reps),
         "traced_ms": traced_ms, "traced_launches": f"{traced} of {reps}",
-        "plain_ms": time_ms(torch, plain, sets, 4),
+        "plain_ms": (time_ms(torch, plain, sets[:1], 1) if slow_plain
+                     else time_ms(torch, plain, sets, 4)),
         "library_ms": time_ms(torch, lib, lib_sets, reps),
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    + ("is_causal=True" if mask is None else
                       "attn_mask=<causal window>") + ", enable_gqa=True)",
-        "plain_traced_ms": device_ms(torch, plain, sets, 4, tries=2,
-                                     required=False)[0],
+        "plain_traced_ms": None if slow_plain else device_ms(
+            torch, plain, sets, 4, tries=2, required=False)[0],
         "library_traced_ms": device_ms(torch, lib, lib_sets, reps, tries=2,
                                        required=False)[0],
         "bound_ms": max(t_bytes, t_ops),
@@ -2287,13 +2363,14 @@ def cuda_core_attention(torch, build):
     return attention
 
 
-def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
-              dtype: str = "bfloat16", decode: bool = True,
+def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
+              arch: str, dtype: str = "bfloat16", decode: bool = True,
               cuda_core=None) -> dict:
     """The cell's prefill ms (batch LM_BATCH x LM_PROMPT, activations in
     ``dtype``; host clock around work that ends in a synchronize, after one
-    warm call) and a traced prefill: the flash kernel's share of its device
-    time. With ``decode``, decode ms per token and tok/s, and a traced
+    warm call, which must launch the kernel ``kernel_for`` picks once per
+    layer and nothing else, the counters zeroed just before it) and a
+    traced prefill: the flash kernel's share of its device time. With ``decode``, decode ms per token and tok/s, and a traced
     generate for the card's idle share. With ``cuda_core`` (a
     ``cuda_core_attention``) also the prefill with it swapped in, in turns
     with the kernel ``kernel_for`` picks (kernel, CUDA core, CUDA core,
@@ -2303,8 +2380,8 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-    flash = FLASH_TRACE_NAMES[flash_counter(kattn, getattr(torch, dtype),
-                                            cfg.head_dim)]
+    counter = flash_counter(kattn, getattr(torch, dtype), cfg.head_dim)
+    flash = FLASH_TRACE_NAMES[counter]
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
     torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -2349,11 +2426,19 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
             torch.cuda.synchronize()
         return device_time(prof, kernel_name)
 
+    torch.cuda.synchronize()
+    build.reset_launches()
     model.prefill(tokens, cache_capacity=cap)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    if launches != {counter: cfg.num_layers}:
+        raise SystemExit(f"{arch} {dtype} prefill (B={LM_BATCH}, "
+                         f"S={LM_PROMPT}): launches {launches}, expected "
+                         f"{counter} {cfg.num_layers} times and nothing else")
     prefill_ms, (logits, state) = prefills()
     pre = min(prefill_ms)
-    out = {"arch": arch, "dtype": dtype, "prefill_ms": pre,
-           "prefill_ms_runs": prefill_ms}
+    out = {"arch": arch, "dtype": dtype, "launches": launches,
+           "prefill_ms": pre, "prefill_ms_runs": prefill_ms}
     text = ""
     if decode:
         tok = logits.argmax(dim=-1)
@@ -2410,7 +2495,8 @@ def lm_timing(torch, convert, lm, kattn, get_config, card: str, arch: str,
         text = (f"decode {out['decode_ms_per_token']:.3f} ms/token, "
                 f"{out['tokens_per_s']:.1f} tok/s incl. prefill; ")
     print(f"[time] lm {arch} batch={LM_BATCH} prompt={LM_PROMPT} "
-          f"gen={LM_GEN if decode else 0} {dtype}: prefill {pre:.2f} ms (runs "
+          f"gen={LM_GEN if decode else 0} {dtype}: one prefill launched "
+          f"{launches}; prefill {pre:.2f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])}), {text}"
           f"traced prefill: device {pre_dev:.2f} ms, {flash.pattern} "
           f"{pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
@@ -2476,21 +2562,25 @@ def kernel_report(ptxas, source: str) -> dict[str, dict]:
 
 #: The template arguments of a tensor-core kernel instance in its mangled
 #: name: WgCfg<head_dim, keys per tile, stages> (bf16) or Tf32Cfg<head_dim,
-#: keys per tile> (fp32).
-TC_INSTANCE = re.compile(r"(WgCfg|Tf32Cfg)ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?E")
+#: keys per tile, stages, head_dim split> (fp32).
+TC_INSTANCE = re.compile(
+    r"(WgCfg|Tf32Cfg)ILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?E")
+#: tensor-core instances in attention.cu: bf16 at hd 32, 64, 128 and 320,
+#: fp32 at hd 64, 128 and 320
+TC_INSTANCES = 7
 TC_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel")
 
 
 def tc_instance(symbol: str) -> str | None:
-    """'bf16 hd 320, 48 keys, 2 stages' or 'tf32 hd 128, 32 keys' for a
-    tensor-core kernel instance's mangled name."""
+    """'bf16 hd 320, 48 keys, 2 stages' or 'tf32 hd 320, 8 keys, 3 stages,
+    head_dim split' for a tensor-core kernel instance's mangled name."""
     m = TC_INSTANCE.search(symbol)
     if m is None:
         return None
-    cfg, hd, keys, stages = m.groups()
-    if cfg == "Tf32Cfg":
-        return f"tf32 hd {hd}, {keys} keys"
-    return f"bf16 hd {hd}, {keys} keys, {stages} stages"
+    cfg, hd, keys, stages, split = m.groups()
+    name = (f"{'tf32' if cfg == 'Tf32Cfg' else 'bf16'} hd {hd}, {keys} keys, "
+            f"{stages} stages")
+    return name + (", head_dim split" if split == "1" else "")
 
 
 def tc_kernel_report(ptxas, library) -> dict:
@@ -2552,7 +2642,8 @@ def tc_kernel_report(ptxas, library) -> dict:
               f"registers, {k.get('spill_stores')} / {k.get('spill_loads')} "
               f"bytes spill stores / loads, {k.get('HGMMA')} HGMMA, "
               f"{k.get('UTMALDG')} UTMALDG", flush=True)
-    if len(counts) < 5 or not all(c["HGMMA"] for c in counts.values()):
+    if len(counts) < TC_INSTANCES or not all(c["HGMMA"]
+                                             for c in counts.values()):
         raise SystemExit(f"tensor-core flash kernels: an instance without "
                          f"HGMMA in its SASS ({counts})")
     return {"ptxas": report, "instances": instances, "sass": counts}
@@ -2579,6 +2670,14 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.models import convert, lm
 
+    start = time.perf_counter()
+
+    def clock(label: str) -> None:
+        """Seconds since the start, after each step: the run time by
+        phase."""
+        print(f"[clock] {label}: {time.perf_counter() - start:.1f}s",
+              flush=True)
+
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     ptxas = start_ptxas_report(_build, ATTENTION)
@@ -2595,6 +2694,7 @@ def main() -> int:
     registers = {src: kernel_report(proc, src)
                  for src, proc in kernel_ptxas.items()}
 
+    clock("phase 1, build")
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     _build.reset_launches()
     worst = check_kernels(torch, kfft, kpoly, core_fft)
@@ -2611,6 +2711,7 @@ def main() -> int:
           f"schedule in {two_pass_held} cases); launches {moved}; worst "
           f"|kernel-plain| {worst}", flush=True)
 
+    clock("phase 2, kernels vs plain")
     # -- phase 3: serve, launch counters zeroed just before --------------------
     _build.reset_launches()
     expected, warm, warm_schedules = serve_phase(serve, engine_mod, _build)
@@ -2651,25 +2752,41 @@ def main() -> int:
                                  f"path")
             launches[name] = _build.LAUNCHES[name]
     print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
+    clock("phase 3, serve and library path")
     traced = idle_shares(torch, serve, card)
+    clock("phase 3, traced serve cells")
     # the LMs: each served run zeroes the counters just before
     lm_run = lm_phase(torch, _build, serve, convert, lm, get_config)
+    clock("phase 3, qwen3-1.7b")
     gemma_run = gemma_phase(torch, _build, serve, convert, kattn, get_config)
+    clock("phase 3, gemma3-4b")
+    reduced_run = reduced_phase(torch, _build, convert, kattn, get_config)
+    clock("phase 3, reduced config")
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
+    clock("phase 4, transform timings")
     ab = schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card)
+    clock("phase 4, schedule A/B")
     times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
+    clock("phase 4, NTT timings")
     attn = {label: attention_timing(torch, kattn, _build, card, label)
             for label in ATTN_TIMED}
-    lm_times = lm_timing(torch, convert, lm, kattn, get_config, card,
+    clock("phase 4, flash attention timings")
+    lm_times = lm_timing(torch, _build, convert, lm, kattn, get_config, card,
                          LM_ARCH)
-    gemma_times = lm_timing(torch, convert, lm, kattn, get_config, card,
-                            GEMMA_ARCH,
+    gemma_times = lm_timing(torch, _build, convert, lm, kattn, get_config,
+                            card, GEMMA_ARCH,
                             cuda_core=cuda_core_attention(torch, _build))
-    fp32_times = lm_timing(torch, convert, lm, kattn, get_config, card,
-                           LM_ARCH, dtype="float32", decode=False,
+    fp32_times = lm_timing(torch, _build, convert, lm, kattn, get_config,
+                           card, LM_ARCH, dtype="float32", decode=False,
                            cuda_core=cuda_core_attention(torch, _build))
+    clock("phase 4, qwen3-1.7b and gemma3-4b bf16, qwen3-1.7b fp32")
+    gemma_fp32_times = lm_timing(
+        torch, _build, convert, lm, kattn, get_config, card, GEMMA_ARCH,
+        dtype="float32", decode=False,
+        cuda_core=cuda_core_attention(torch, _build))
+    clock("phase 4, gemma3-4b fp32")
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
@@ -2694,35 +2811,56 @@ def main() -> int:
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     # kernel 9's entries, each at its ATTN_TIMED labels (the first is the
     # entry's numbers): the wgmma kernel at hd 64/128 (qwen3-1.7b's served
-    # prefill) and at hd 320 (gemma3-4b's), the tf32 kernel (the fp32
-    # parity path), the CUDA-core kernel (the fp32 gemma3-4b prefill)
+    # prefill), at hd 320 (gemma3-4b's) and at hd 32 (the reduced configs'
+    # bf16 prefill), the tf32 kernel at hd 64/128 (the fp32 parity path)
+    # and at hd 320 (the full-width fp32 gemma3-4b prefill), the CUDA-core
+    # kernel (the reduced configs' fp32 prefill)
     instances = tc_build["instances"]
+
+    def built(*prefixes):
+        return {k: v for k, v in instances.items() if k.startswith(prefixes)}
+
     entries = {
         "flash_attention_wgmma": (
             "flash_attention_wgmma", lm_run["launches"]["flash_attention_wgmma"],
             "one served qwen3-1.7b prefill (28 layers)", ["served prefill"],
-            {"build": {k: v for k, v in instances.items()
-                       if k.startswith("bf16") and "hd 320" not in k},
+            {"build": built("bf16 hd 64,", "bf16 hd 128,"),
              "lm": {**lm_run, **lm_times}}),
         "flash_attention_wgmma[hd320]": (
             "flash_attention_wgmma", gemma_run["launches"],
             "one served gemma3-4b prefill (34 layers: 29 local, window "
             "1024, and 5 global)",
             ["gemma3-4b local, window 1024", "gemma3-4b global"],
-            {"build": {k: v for k, v in instances.items()
-                       if k.startswith("bf16 hd 320")},
+            {"build": built("bf16 hd 320,"),
              "lm": {**gemma_run, **gemma_times}}),
+        "flash_attention_wgmma[hd32]": (
+            "flash_attention_wgmma", reduced_run["bfloat16"]["launches"],
+            f"one bf16 prefill of the reduced qwen3-1.7b config (2 layers, "
+            f"head_dim 32; B {GEMMA_PARITY_BATCH} x {REDUCED_PROMPT})",
+            ["bf16 hd 32"],
+            {"build": built("bf16 hd 32,"), "reduced": reduced_run}),
         "flash_attention_tf32": (
             "flash_attention_tf32", lm_run["launches"]["flash_attention_tf32"],
             "the full-width fp32 parity path: one forward and one prefill "
             "(28 layers each)", ["fp32"],
-            {"build": {k: v for k, v in instances.items()
-                       if k.startswith("tf32")},
+            {"build": built("tf32 hd 64,", "tf32 hd 128,"),
              "lm_fp32_prefill": fp32_times}),
+        "flash_attention_tf32[hd320]": (
+            "flash_attention_tf32",
+            gemma_fp32_times["launches"]["flash_attention_tf32"],
+            "one full-width fp32 gemma3-4b prefill (34 layers; B 8 x 2048)",
+            ["fp32 hd 320", "fp32 hd 320 local, window 1024"],
+            {"build": built("tf32 hd 320,"),
+             "parity_6_layers": {
+                 "launches": gemma_run["fp32_tf32_launches"],
+                 "last_logits_max_abs":
+                     gemma_run["fp32_kernel_vs_plain_last_logits_max_abs"]},
+             "lm_fp32_prefill": gemma_fp32_times}),
         "flash_attention": (
-            "flash_attention", gemma_run["fp32_cuda_core_launches"],
-            f"a {GEMMA_PARITY_LAYERS}-layer full-width fp32 gemma3-4b "
-            f"prefill (head_dim 320)", ["fp32 hd 320", "bf16 hd 32"], {})}
+            "flash_attention", reduced_run["float32"]["launches"],
+            f"one fp32 prefill of the reduced qwen3-1.7b config (2 layers, "
+            f"head_dim 32; B {GEMMA_PARITY_BATCH} x {REDUCED_PROMPT})",
+            ["fp32 hd 32"], {})}
     for entry_name, (name, launched, per, labels, more) in entries.items():
         first = attn[labels[0]]
         report.append({

@@ -9,18 +9,20 @@ Both are wrappers around three hand-written CUDA kernels in
 ``repro/kernels/attention.py::_flash_kernel``; ``kernel_for`` picks one by
 type and head_dim, and nothing falls back from one to another:
 
-- ``flash_attention_wgmma_kernel`` (bf16 at head_dim 64, 128 and 320):
+- ``flash_attention_wgmma_kernel`` (bf16 at head_dim 32, 64, 128 and 320):
   the tensor cores through ``wgmma``, K and V loaded by TMA into a ring of
   shared-memory stages, one producer warp and two consumer warpgroups;
   p.V runs as two bf16 products, ``p_hi = bf16(p)`` and
   ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator. Its key tile
   depends on head_dim (``WGMMA_KERNEL_KEYS``).
-- ``flash_attention_tf32_kernel`` (fp32 at head_dim 64 and 128): the same
-  design on TF32 tiles; every fp32 operand of q.k^T and p.V is split in
-  two TF32 parts (``split_tf32``) and each product is formed as three TF32
-  products, hi.hi + hi.lo + lo.hi (3xTF32). Key tile: ``TF32_KERNEL_KEYS``.
-- ``flash_attention_kernel`` (fp32 at head_dim 32 and 320; bf16 at
-  head_dim 32): fp32 products on the CUDA cores.
+- ``flash_attention_tf32_kernel`` (fp32 at head_dim 64, 128 and 320): the
+  same design on TF32 tiles; every fp32 operand of q.k^T and p.V is split
+  in two TF32 parts (``split_tf32``) and each product is formed as three
+  TF32 products, hi.hi + hi.lo + lo.hi (3xTF32). Key tile:
+  ``TF32_KERNEL_KEYS``. At head_dim 320 its two consumer warpgroups split
+  head_dim, and s is the sum of their two halves (``TF32_SPLIT_HEAD_DIMS``).
+- ``flash_attention_kernel`` (fp32 at head_dim 32): fp32 products on the
+  CUDA cores.
 
 For tensors on the CPU they run the plain PyTorch version beside them,
 which has the chosen kernel's dataflow: a running max, normalizer and
@@ -50,14 +52,21 @@ KERNEL_KEYS = 64
 #: mixtral) and 64 (musicgen, granite, hymba, fourierpim-lm); 48 at 320
 #: (gemma3-4b), where 128 query rows a CTA split between the two consumer
 #: warpgroups, a 64 x 320 fp32 accumulator and the 227 KB of shared memory
-#: leave room for no larger tile.
-WGMMA_KERNEL_KEYS = {64: 128, 128: 128, 320: 48}
+#: leave room for no larger tile; 128 at 32 (every reduced config), by an
+#: A/B of tiles on the card (PERF.md).
+WGMMA_KERNEL_KEYS = {32: 128, 64: 128, 128: 128, 320: 48}
 WGMMA_HEAD_DIMS = tuple(WGMMA_KERNEL_KEYS)
 #: Keys per tile of ``flash_attention_tf32_kernel``'s instance, by head_dim
 #: (fp32 only): 32 at 128, where Q_lo and two stages of K_hi, K_lo, V,
-#: V^T_hi and V^T_lo fill 224 KB of shared memory; 64 at 64.
-TF32_KERNEL_KEYS = {64: 64, 128: 32}
+#: V^T_hi and V^T_lo fill 224 KB of shared memory; 64 at 64; 8 at 320
+#: (gemma3-4b), where 64 query rows a CTA, Q_lo and three stages of K_hi,
+#: K_lo, V^T_hi and V^T_lo fill 209 KB.
+TF32_KERNEL_KEYS = {64: 64, 128: 32, 320: 8}
 TF32_HEAD_DIMS = tuple(TF32_KERNEL_KEYS)
+#: head_dims at which the tf32 kernel's two consumer warpgroups split
+#: head_dim in halves, each forming s over its own: s is half 0 + half 1,
+#: and the plain version sums it so.
+TF32_SPLIT_HEAD_DIMS = (320,)
 #: kernel -> its C launcher, whose name is also its launch counter
 LAUNCHERS = {"wgmma": "flash_attention_wgmma", "tf32": "flash_attention_tf32",
              "cuda_core": "flash_attention"}
@@ -66,9 +75,9 @@ _TYPES = (torch.float32, torch.bfloat16)
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel serves (dtype, head_dim): ``"wgmma"`` for bf16 at
-    head_dim 64, 128 or 320, ``"tf32"`` for fp32 at head_dim 64 or 128,
-    else ``"cuda_core"``. The wrappers and the plain version both follow
-    it."""
+    head_dim 32, 64, 128 or 320, ``"tf32"`` for fp32 at head_dim 64, 128
+    or 320, else ``"cuda_core"`` (fp32 at 32). The wrappers and the plain
+    version both follow it."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype == torch.float32 and head_dim in TF32_HEAD_DIMS:
@@ -133,7 +142,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``repro.models.layers.attention.blockwise_attention``. For the wgmma
     kernel, p enters the p.V product as ``split_bf16(p)``; for the tf32
     kernel, q.k^T and p.V are each three TF32 products
-    (``_product_3xtf32``).
+    (``_product_3xtf32``), and at ``TF32_SPLIT_HEAD_DIMS`` q.k^T is summed
+    over the two halves of head_dim, as the kernel's two warpgroups sum
+    it.
 
     q: (B, S, H, hd); k, v: (B, S, KV, hd), H = KV * G, head h = kv * G + g.
     Returns (B, S, H, hd) in q's type; s = (q . k) * scale in fp32.
@@ -143,6 +154,12 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     kernel = kernel or kernel_for(q.dtype, hd)
     product = _product_3xtf32 if kernel == "tf32" else torch.einsum
+    scores = product
+    if kernel == "tf32" and hd in TF32_SPLIT_HEAD_DIMS:
+        def scores(eq, a, b):
+            h = hd // 2
+            return (product(eq, a[..., :h], b[..., :h])
+                    + product(eq, a[..., h:], b[..., h:]))
     if kv_block is None:
         kv_block = kernel_keys(q.dtype, hd, kernel)
     qh = q.reshape(B, S, KV, G, hd).float()
@@ -155,7 +172,7 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for j0 in range(0, S, blk):
         kj = k[:, j0:j0 + blk].float()
         vj = v[:, j0:j0 + blk].float()
-        s = product("bqkgh,bnkh->bkgqn", qh, kj) * scale
+        s = scores("bqkgh,bnkh->bkgqn", qh, kj) * scale
         kpos = j0 + torch.arange(kj.shape[1], device=q.device)
         # the last block is cut at S, so every key here has kpos < S
         valid = torch.ones((S, kj.shape[1]), dtype=torch.bool,

@@ -44,16 +44,18 @@
 // at the tensor cores' 989 TFLOP/s bf16, against ~201 MB of q, k, v and o,
 // 0.060 ms at 3.35 TB/s: the operations bind. This kernel runs them on the
 // fp32 CUDA cores (67 TFLOP/s), so it cannot take less than about 2 ms a
-// call. It serves fp32 at head_dim 32 and 320, and bf16 at head_dim 32.
+// call. It serves fp32 at head_dim 32 (the reduced configs in fp32).
 //
 // Two tensor-core kernels follow, each with a header that says how:
-// flash_attention_wgmma_kernel serves bf16 at head_dim 64, 128 and 320 --
-// the served LMs' prefills (qwen3-1.7b at 128, gemma3-4b at 320) -- with
-// wgmma on bf16 tiles; flash_attention_tf32_kernel serves fp32 at head_dim
-// 64 and 128 with wgmma on TF32 tiles, each fp32 product formed as three
-// TF32 products (3xTF32). Both bring K and V in by TMA through a ring of
-// shared-memory stages, one producer warp feeding two consumer warpgroups
-// of 64 query rows each.
+// flash_attention_wgmma_kernel serves bf16 at head_dim 32, 64, 128 and 320
+// -- the served LMs' prefills (qwen3-1.7b at 128, gemma3-4b at 320) and
+// the reduced configs' (32) -- with wgmma on bf16 tiles;
+// flash_attention_tf32_kernel serves fp32 at head_dim 64, 128 and 320 with
+// wgmma on TF32 tiles, each fp32 product formed as three TF32 products
+// (3xTF32). Both bring K and V in by TMA through a ring of shared-memory
+// stages, one producer warp feeding two consumer warpgroups of 64 query
+// rows each (at fp32 head_dim 320: the same 64 rows, half of head_dim
+// each).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
                    // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
@@ -354,14 +356,14 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
   return cudaErrorInvalidValue;
 
 // ---------------------------------------------------------------------------
-// flash_attention_wgmma_kernel: bf16 at head_dim 64, 128 and 320, on the
-// tensor cores
+// flash_attention_wgmma_kernel: bf16 at head_dim 32, 64, 128 and 320, on
+// the tensor cores
 // ---------------------------------------------------------------------------
 //
 // Computes what flash_attention_kernel computes (same masks, same
 // `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
 // scores, GQA by h / G, (batch, seq, head) element strides) for bf16 q, k,
-// v at head_dim 64, 128 and 320, and replaces the same TPU kernel
+// v at head_dim 32, 64, 128 and 320, and replaces the same TPU kernel
 // (src/repro/kernels/attention.py: _flash_kernel).
 //
 // Precision. s = q.k^T is a wgmma with bf16 operands and an fp32
@@ -380,6 +382,12 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // Instances (WgCfg<HD, BN, STAGES>, one per head_dim; BN is
 // kernels/attention.py::WGMMA_KERNEL_KEYS): BM = 128 query rows a CTA, 64
 // per consumer warpgroup.
+// - hd 32 (the reduced configs): BN = 128 keys a tile; 2 stages, chosen
+//   by an A/B of tiles on the card (PERF.md); setmaxnreg 40 / 232. A row
+//   of 32 bf16 is 64 bytes: one box a row, under the 64-byte swizzle,
+//   Q.K^T in two k16 steps, p.V one m64n32k16 wgmma a key step. (A
+//   zero-padded 64-column box under the 128-byte swizzle needs no new
+//   layout, but runs twice the products.)
 // - hd 64 and 128: BN = 128 keys a tile; 2 stages; setmaxnreg 40 / 232.
 // - hd 320: BN = 48; 2 stages: Q 80 KB + 2 x 60 KB of K and V. The
 //   accumulator, 64 x 320 fp32 over 128 threads, is 160 registers a
@@ -395,7 +403,8 @@ cudaError_t occupancy_typed(int* threads, int* smem, int* regs, int* ctas) {
 // and V (BN keys) into a ring of STAGES shared-memory stages, through 4-D
 // tensor maps (hd, head, seq, batch; byte strides from the launcher's
 // element strides) with the 128-byte swizzle. A bf16 row of 64 elements is
-// 128 bytes, so a tile is HD / 64 boxes of 64 columns. K and V have a
+// 128 bytes, so a tile is HD / 64 boxes of 64 columns (at hd 32 one box of
+// 32 columns, 64 bytes, under the 64-byte swizzle). K and V have a
 // "full" mbarrier each per stage (the producer's expect_tx, TMA's complete
 // transaction count) and an "empty" one each, which takes the 256 consumer
 // threads' arrivals once they are done with that tile: K as soon as its
@@ -443,18 +452,22 @@ template <int HD_, int BN, int STAGES>
 struct WgCfg {
   static constexpr bool kFp32 = false;          // bf16 q, k, v and o
   static constexpr bool kPrepared = false;      // wgmma reads K, V as landed
+  static constexpr bool kSplit = false;         // each consumer: all of hd
   static constexpr int kThreads = 384;         // producer + two consumers
   static constexpr int HD = HD_;
   static constexpr int kBN = BN;                // keys per tile
   static constexpr int kStages = STAGES;        // K/V ring depth
   static constexpr int kBM = 128;               // query rows per CTA
-  static constexpr int kBoxes = HD / 64;        // 64-column boxes per row
-  static constexpr int kBoxCols = 64;           // 128 bytes of bf16
-  static constexpr int kAcc = 32 * kBoxes;      // accumulator floats a thread
+  // columns of a box: 64 (128 bytes, the 128-byte swizzle), or the whole
+  // 32-column row (64 bytes, the 64-byte swizzle) at hd 32
+  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kRowBytes = 2 * kBoxCols;  // a box row; its swizzle
+  static constexpr int kBoxes = HD / kBoxCols;  // boxes per row
+  static constexpr int kAcc = HD / 2;           // accumulator floats a thread
   static constexpr int kProducerRegs = HD > 128 ? 24 : 40;
   static constexpr int kConsumerRegs = HD > 128 ? 240 : 232;
-  static constexpr int kQBox = kBM * 128;       // bytes of one Q box
-  static constexpr int kKVBox = kBN * 128;      // bytes of one K or V box
+  static constexpr int kQBox = kBM * kRowBytes;  // bytes of one Q box
+  static constexpr int kKVBox = kBN * kRowBytes;  // bytes of one K or V box
   static constexpr int kQBytes = kBoxes * kQBox;
   static constexpr int kTileBytes = kBoxes * kKVBox;
   static constexpr int kVOffset = kTileBytes;   // a stage: K, then V
@@ -463,18 +476,21 @@ struct WgCfg {
   static constexpr int kBars = 1 + 4 * kStages;  // q; k/v full, k/v empty
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
   static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
-  static_assert(HD % 64 == 0 && BN % 16 == 0 && BN <= 256,
-                "wgmma kernel: head_dim in boxes of 64, keys in steps of 16");
+  static_assert((HD == 32 || HD % 64 == 0) && BN % 16 == 0 && BN <= 256,
+                "wgmma kernel: head_dim 32 or in boxes of 64, keys in steps "
+                "of 16");
   static_assert(kBoxes <= 8, "p.V in at most two wgmmas of N <= 256");
   static_assert(kSmem <= 232448, "227 KB of shared memory a block");
 };
 
+using WgHd32 = WgCfg<32, 128, 2>;
 using WgHd64 = WgCfg<64, 128, 2>;
 using WgHd128 = WgCfg<128, 128, 2>;
 using WgHd320 = WgCfg<320, 48, 2>;
 
 // Calls F<C>(...) for the instance C of head_dim hd.
 #define WGMMA_DISPATCH(F, hd, ...)                \
+  if ((hd) == 32) return F<WgHd32>(__VA_ARGS__);   \
   if ((hd) == 64) return F<WgHd64>(__VA_ARGS__);   \
   if ((hd) == 128) return F<WgHd128>(__VA_ARGS__); \
   if ((hd) == 320) return F<WgHd320>(__VA_ARGS__); \
@@ -522,13 +538,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor of a layout under the SW-byte swizzle
+// (128, 64 or 32; rows of SW bytes, 8-row groups SW * 8 bytes apart):
+// start address, leading and stride byte offsets, all in 16-byte units,
+// and the swizzle mode in bits 62-63 (1: 128 bytes, 2: 64, 3: 32).
+template <int SW>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "a wgmma swizzle mode");
+  constexpr uint64_t kMode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (kMode << 62);
 }
 
 // Named barrier `id` over the two consumer warpgroups (256 threads).
@@ -564,6 +585,10 @@ __device__ __forceinline__ auto part(float (&d)[M]) -> float (&)[N] {
   return *reinterpret_cast<float(*)[N]>(&d[OFF]);
 }
 
+#define WG_D4 "{%0, %1, %2, %3}"
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define WG_D24                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23}"
@@ -577,6 +602,13 @@ __device__ __forceinline__ auto part(float (&d)[M]) -> float (&)[N] {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define WG_D80                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
+  "%72, %73, %74, %75, %76, %77, %78, %79}"
 #define WG_D128                                                             \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -591,10 +623,14 @@ __device__ __forceinline__ auto part(float (&d)[M]) -> float (&)[N] {
 #define WG_F8(d, i)                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F4(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+#define WG_F8A(d) WG_F8(d, 0)
+#define WG_F16(d) WG_F8(d, 0), WG_F8(d, 8)
 #define WG_F24(d) WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16)
 #define WG_F32(d) WG_F24(d), WG_F8(d, 24)
 #define WG_F64(d) \
   WG_F32(d), WG_F8(d, 32), WG_F8(d, 40), WG_F8(d, 48), WG_F8(d, 56)
+#define WG_F80(d) WG_F64(d), WG_F8(d, 64), WG_F8(d, 72)
 #define WG_F128(d)                                                      \
   WG_F64(d), WG_F8(d, 64), WG_F8(d, 72), WG_F8(d, 80), WG_F8(d, 88),    \
       WG_F8(d, 96), WG_F8(d, 104), WG_F8(d, 112), WG_F8(d, 120)
@@ -631,6 +667,7 @@ WG_SS(128, WG_D64, WG_F64, 64, 65, 66)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                    "r"(1));                                                  \
   }
+WG_RS(32, WG_D16, WG_F16, 16, 17, 18, 19, 20, 21)
 WG_RS(64, WG_D32, WG_F32, 32, 33, 34, 35, 36, 37)
 WG_RS(128, WG_D64, WG_F64, 64, 65, 66, 67, 68, 69)
 WG_RS(256, WG_D128, WG_F128, 128, 129, 130, 131, 132, 133)
@@ -748,7 +785,10 @@ __device__ __forceinline__ void split_fragments(const float (&sc)[BN / 2],
                  pl[kk][r]);
 }
 
-// s = Q.K^T for this warpgroup's 64 rows against a K tile (one group).
+// s = Q.K^T for this warpgroup's 64 rows against a K tile (one group):
+// k16 steps of 32 bytes within a box row (kRowBytes: 128, or 64 at hd
+// 32, whose whole row is two steps under the 64-byte swizzle), a new box
+// every kRowBytes / 32 steps.
 // At hd 320 the two bases pass through an empty asm, so that the compiler
 // computes the 20 k-steps' descriptors at each tile, next to their wgmmas:
 // hoisted out of the tile loop, beside the 160-register accumulator, they
@@ -756,35 +796,41 @@ __device__ __forceinline__ void split_fragments(const float (&sc)[BN / 2],
 template <class C>
 __device__ __forceinline__ void issue_qk(float (&sc)[C::kBN / 2],
                                          uint32_t q_rows, uint32_t k_tile) {
+  constexpr int kRow = C::kRowBytes, kSteps = kRow / 32;
   if constexpr (C::HD > 128) asm volatile("" : "+r"(q_rows), "+r"(k_tile));
 #pragma unroll
   for (int kk = 0; kk < C::HD / 16; ++kk) {
-    const uint32_t step = (kk % 4) * 32;  // 16 columns in a swizzle row
-    wgmma_ss(sc, sw128_desc(q_rows + (kk / 4) * C::kQBox + step, 16, 1024),
-             sw128_desc(k_tile + (kk / 4) * C::kKVBox + step, 16, 1024),
+    const uint32_t step = (kk % kSteps) * 32;  // 16 columns in a row
+    wgmma_ss(sc,
+             sw_desc<kRow>(q_rows + (kk / kSteps) * C::kQBox + step, 16,
+                           8 * kRow),
+             sw_desc<kRow>(k_tile + (kk / kSteps) * C::kKVBox + step, 16,
+                           8 * kRow),
              kk > 0);
   }
 }
 
 // acc += p_hi.V + p_lo.V over a V tile (one group), in at most two wgmmas
-// a key step (N <= 256 each): head_dim boxes [0, N0) and [N0, kBoxes).
+// a key step (N <= 256 each): head_dim boxes [0, N0) and [N0, kBoxes), a
+// box being kBoxCols columns (kBoxCols / 2 accumulator floats a thread).
 template <class C>
 __device__ __forceinline__ void issue_pv(float (&acc)[C::kAcc],
                                          const uint32_t (&ph)[C::kBN / 16][4],
                                          const uint32_t (&pl)[C::kBN / 16][4],
                                          uint32_t v_tile) {
-  constexpr int NB = C::kBoxes;
+  constexpr int NB = C::kBoxes, kRow = C::kRowBytes, F = C::kBoxCols / 2;
   constexpr int N0 = NB < 4 ? NB : 4;  // boxes of the first wgmma
 #pragma unroll
   for (int kk = 0; kk < C::kBN / 16; ++kk) {
-    const uint32_t rows = v_tile + kk * 16 * 128;
-    const uint64_t dv = sw128_desc(rows, C::kKVBox, 1024);
-    wgmma_rs(part<32 * N0, 0>(acc), ph[kk], dv);
-    wgmma_rs(part<32 * N0, 0>(acc), pl[kk], dv);
+    const uint32_t rows = v_tile + kk * 16 * kRow;
+    const uint64_t dv = sw_desc<kRow>(rows, C::kKVBox, 8 * kRow);
+    wgmma_rs(part<F * N0, 0>(acc), ph[kk], dv);
+    wgmma_rs(part<F * N0, 0>(acc), pl[kk], dv);
     if constexpr (NB > N0) {
-      const uint64_t dv1 = sw128_desc(rows + N0 * C::kKVBox, C::kKVBox, 1024);
-      wgmma_rs(part<32 * (NB - N0), 32 * N0>(acc), ph[kk], dv1);
-      wgmma_rs(part<32 * (NB - N0), 32 * N0>(acc), pl[kk], dv1);
+      const uint64_t dv1 =
+          sw_desc<kRow>(rows + N0 * C::kKVBox, C::kKVBox, 8 * kRow);
+      wgmma_rs(part<F * (NB - N0), F * N0>(acc), ph[kk], dv1);
+      wgmma_rs(part<F * (NB - N0), F * N0>(acc), pl[kk], dv1);
     }
   }
 }
@@ -797,18 +843,20 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 }
 
 // Rows f.row[r] < seq of o (this head's rows, row stride os) take acc / l:
-// register 4 j + 2 r + {0, 1} is row f.row[r], column 8 j + f.col + {0, 1}.
+// register 4 j + 2 r + {0, 1} is row f.row[r], column col0 + 8 j + f.col +
+// {0, 1} (col0: the warpgroup's first column, 0 unless head_dim is split).
 template <class C, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[C::kAcc],
                                            const float (&l)[2], const Frag& f,
-                                           T* o, long long os, int seq) {
+                                           T* o, long long os, int seq,
+                                           int col0) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (f.row[r] >= seq) continue;
     const float denom = fmaxf(l[r], 1e-20f);
-    T* orow = o + (long long)f.row[r] * os + f.col;
+    T* orow = o + (long long)f.row[r] * os + col0 + f.col;
 #pragma unroll
-    for (int j = 0; j < C::HD / 8; ++j)
+    for (int j = 0; j < C::kAcc / 4; ++j)
       store_pair(orow + 8 * j, acc[4 * j + 2 * r] / denom,
                  acc[4 * j + 2 * r + 1] / denom);
   }
@@ -929,12 +977,15 @@ __device__ __forceinline__ void load_tiles(const CUtensorMap* tq,
   }
 }
 
-// One consumer warpgroup (cw = 0 or 1, query rows q0 + 64 cw ..) of either
-// tensor-core kernel, after its Q tile landed: the online softmax over the
-// CTA's key tiles, the products issued through `prod` -- prod.qk(sc,
-// stage) the s-product against a stage's K, prod.pv(acc, stage) acc +=
-// p.V against its V with the fragments prod.split(p) made -- and this
-// warpgroup's rows of o stored.
+// One consumer warpgroup (cw = 0 or 1, query rows q0 + 64 cw ..; with
+// C::kSplit both take rows q0 .. q0 + 63, and columns cw * HD / 2 ..) of
+// either tensor-core kernel, after its Q tile landed: the online softmax
+// over the CTA's key tiles, the products issued through `prod` --
+// prod.qk(sc, stage) the s-product against a stage's K, prod.combine(sc,
+// n) the sum of the two warpgroups' halves of s (n: the tile's parity;
+// nothing without kSplit), prod.pv(acc, stage) acc += p.V against its V
+// with the fragments prod.split(p) made -- and this warpgroup's part of o
+// stored.
 template <class C, class Products, typename T>
 __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
                                         const Tiles& tl, T* o, long long os,
@@ -944,7 +995,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
   const int t_begin = tl.t_begin, t_end = tl.t_end;
   const int cw = threadIdx.x / 128 - 1;  // 0 or 1
   const int lane = threadIdx.x & 31;
-  const int r0 = tl.q0 + 64 * cw;  // this warpgroup's first row
+  const int r0 = tl.q0 + (C::kSplit ? 0 : 64 * cw);  // its first row
   const int warp_row = r0 + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
   const Frag f{{warp_row, warp_row + 8}, 2 * (lane & 3)};
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -970,14 +1021,18 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
   // barriers 1 and 2), so one's softmax runs beside the other's
   // products. Each takes one turn per tile of the CTA and one more for
   // its last p.V, t_end - t_begin + 1 in all; consumer 1 lets consumer 0
-  // go first and gives back no turn after its last.
+  // go first and gives back no turn after its last. With kSplit the two
+  // meet at every tile to sum s, and take no turns.
   const int turns = t_end - t_begin + 1;
   int turn = 0;
-  auto turn_begin = [&]() { bar_sync(1 + cw); };
-  auto turn_end = [&]() {
-    if (++turn < turns || cw == 0) bar_arrive(2 - cw);
+  auto turn_begin = [&]() {
+    if constexpr (!C::kSplit) bar_sync(1 + cw);
   };
-  if (cw == 1) bar_arrive(1);
+  auto turn_end = [&]() {
+    if constexpr (!C::kSplit)
+      if (++turn < turns || cw == 0) bar_arrive(2 - cw);
+  };
+  if (!C::kSplit && cw == 1) bar_arrive(1);
   auto pass = [&](int i) {  // wait on and release ring slot i unused
     const int s = i % kStages;
     const uint32_t parity = (uint32_t)(i / kStages) & 1u;
@@ -1013,6 +1068,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
       wgmma_wait<0>();
       fence_regs(sc);
       mbar_arrive(r.k_empty(s));
+      prod.combine(sc, 0);
       softmax_step<BN>(sc, m, l, corr, f, w_begin * BN, full_tile(w_begin),
                        seq, causal, window, scale_log2);
       prod.split(sc);
@@ -1038,6 +1094,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
       wgmma_wait<1>();  // the s-product
       fence_regs(sc);
       mbar_arrive(r.k_empty(s));
+      prod.combine(sc, (t - w_begin) & 1);
       softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq, causal,
                        window, scale_log2);
       wgmma_wait<0>();  // the previous p.V
@@ -1063,7 +1120,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
     ++i;
   }
   for (; i < t_end - t_begin; ++i) pass(i);
-  if (turn < turns) {  // no p.V of its own: the last turn is empty
+  if (!C::kSplit && turn < turns) {  // no p.V of its own: an empty turn
     turn_begin();
     turn_end();
   }
@@ -1073,7 +1130,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
     l[k] += __shfl_xor_sync(0xffffffffu, l[k], 1);
     l[k] += __shfl_xor_sync(0xffffffffu, l[k], 2);
   }
-  store_rows<C>(acc, l, f, o, os, seq);
+  store_rows<C>(acc, l, f, o, os, seq, C::kSplit ? cw * 2 * C::kAcc : 0);
 }
 
 // The bf16 kernel's products: Q (this warpgroup's 64 rows at q_rows) and
@@ -1091,6 +1148,7 @@ struct Bf16Products {
   __device__ __forceinline__ void split(const float (&sc)[C::kBN / 2]) {
     split_fragments<C::kBN>(sc, ph, pl);
   }
+  __device__ __forceinline__ void combine(float (&)[C::kBN / 2], int) {}
 };
 
 template <class C>
@@ -1121,7 +1179,7 @@ __global__ void __launch_bounds__(C::kThreads, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
         C::kConsumerRegs));
     Bf16Products<C> prod;
-    prod.q_rows = ring.q() + (threadIdx.x / 128 - 1) * 64 * 128;
+    prod.q_rows = ring.q() + (threadIdx.x / 128 - 1) * 64 * C::kRowBytes;
     mbar_wait(ring.q_full(), 0);
     consume<C>(prod, ring, tiles, o + b * ob + h * oh, os, seq, causal,
                window, scale);
@@ -1129,14 +1187,14 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention_tf32_kernel: fp32 at head_dim 64 and 128, on the tensor
-// cores as three TF32 products (3xTF32)
+// flash_attention_tf32_kernel: fp32 at head_dim 64, 128 and 320, on the
+// tensor cores as three TF32 products (3xTF32)
 // ---------------------------------------------------------------------------
 //
 // Computes what flash_attention_kernel computes (same masks, same
 // `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
 // scores, GQA by h / G, (batch, seq, head) element strides) for fp32 q, k,
-// v and o at head_dim 64 and 128, and replaces the same TPU kernel
+// v and o at head_dim 64, 128 and 320, and replaces the same TPU kernel
 // (src/repro/kernels/attention.py: _flash_kernel, whose products take fp32
 // operands).
 //
@@ -1196,53 +1254,101 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 // 64-key tiles 32 KB + 2 x 80 KB = 192 KB. Consumer registers (setmaxnreg
 // 232, warpgroups 0 and 3 24): Q_hi HD / 2, acc HD / 2, s BN / 2 and the
 // p_hi and p_lo fragments BN / 2 -- 176 at hd 128, 160 at hd 64.
+//
+// Head_dim 320 (gemma3-4b; kSplit). Q_hi of 64 rows (160 registers a
+// thread) beside a 64 x 320 accumulator (160 more) does not fit a thread,
+// and Q_lo of 128 rows alone takes 160 KB. So the CTA takes 64 query rows,
+// and its two consumer warpgroups split head_dim instead of rows: each
+// holds Q_hi of its 160 columns (80 registers) and acc of its 160 output
+// columns (80), forms its half of s = Q.K^T over its columns, and the two
+// halves meet in shared memory: each warpgroup stores its fragments (a
+// thread's 4 floats, the same positions in both), one named barrier over
+// both, and each adds the other's, half 0 + half 1 in both (fp32 addition
+// commutes, so both hold the same bits of s and run the same softmax,
+// with the same m, l and p). Each then runs p.V against its 160 columns of
+// V^T (m64n160k8). Shared memory: Q_lo 64 x 320 floats (80 KB) and 3
+// stages of 8-key tiles, each four planes of 8 x 320 floats (K_hi, K_lo,
+// V^T_hi, V^T_lo: 40 KB; V lands in the V^T_lo plane, and the V-prep warps
+// transpose it in place, box by box: a 32-column box of 8 keys is 1 KB of
+// V and 1 KB of V^T, whose rows are 8 keys, 32 bytes, under the 32-byte
+// swizzle), the exchange of s (2 tiles x 2 warpgroups x 128 threads x 16
+// bytes: 8 KB), 19 mbarriers: 214,168 bytes. 8 keys is the largest tile
+// two stages fit (16 keys: 240 KB), and three stages ran faster than two
+// (an A/B on the card; PERF.md). At 8 keys a tile the small s-wgmmas
+// dominate, so Q_hi.K_hi and Q_hi.K_lo run as one n16 wgmma
+// (tf32_qk_paired): two wgmmas a k8 step, not three. Registers: consumers
+// 224 (Q_hi 80, acc 80, s 16, p 8), the V-prep warpgroup 40 (a box's 8
+// floats a lane), the load and K-prep warpgroup 24. The plain version
+// sums s over the two halves as the kernel does (kernels/attention.py:
+// TF32_SPLIT_HEAD_DIMS).
 
-template <int HD_, int BN>
+template <int HD_, int BN, int STAGES = 2, bool SPLIT = false>
 struct Tf32Cfg {
   static constexpr bool kFp32 = true;           // fp32 q, k, v and o
   static constexpr bool kPrepared = true;       // prep warps split K, V
+  static constexpr bool kSplit = SPLIT;         // consumers split head_dim
   static constexpr int kKPrepThreads = 96;      // warps 1-3 of warpgroup 0
   static constexpr int kVPrepThreads = 128;     // warpgroup 3
   static constexpr int HD = HD_;
   static constexpr int kBN = BN;                // keys per tile
-  static constexpr int kStages = 2;             // K/V ring depth
-  static constexpr int kBM = 128;               // query rows per CTA
+  static constexpr int kStages = STAGES;        // K/V ring depth
+  static constexpr int kBM = SPLIT ? 64 : 128;  // query rows per CTA
   static constexpr int kBoxes = HD / 32;        // 32-column boxes of a row
   static constexpr int kBoxCols = 32;           // 128 bytes of fp32
-  static constexpr int kKeyBoxes = BN / 32;     // 32-key boxes of V^T
-  static constexpr int kAcc = HD / 2;           // accumulator floats a thread
+  static constexpr int kCols = SPLIT ? HD / 2 : HD;  // a consumer's columns
+  static constexpr int kQSteps = kCols / 8;     // its k8 steps of Q.K^T
+  static constexpr int kAcc = kCols / 2;        // accumulator floats a thread
+  // a V^T row of a key box: 32 keys (128 bytes, the 128-byte swizzle), or
+  // the tile's 8 keys (32 bytes, the 32-byte swizzle) with kSplit
+  static constexpr int kVTRow = (BN < 32 ? BN : 32) * 4;
+  static constexpr int kKeyBoxes = BN * 4 / kVTRow;  // key boxes of V^T
   static constexpr int kThreads = 512;          // loads + prep, 2 consumers
   // 2 x 128 x 24 + 2 x 128 x 232 = 65,536 registers; at 40 / 216 the hd
-  // 128 consumers spilled 56 bytes
+  // 128 consumers spilled 56 bytes. kSplit: 128 x (24 + 40) + 256 x 224,
+  // the V-prep warpgroup holding a box of V in registers.
   static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs = 232;
+  static constexpr int kVPrepRegs = SPLIT ? 40 : 24;
+  static constexpr int kConsumerRegs = (65536 / 128 - kProducerRegs -
+                                        kVPrepRegs) / 2;
   static constexpr int kQBox = kBM * 128;       // bytes of one Q box
   static constexpr int kKVBox = BN * 128;       // bytes of one K or V box
-  static constexpr int kVTBox = HD * 128;       // bytes of one V^T box
+  static constexpr int kVTBox = HD * kVTRow;    // bytes of one V^T key box
   static constexpr int kQBytes = kBoxes * kQBox;
   static constexpr int kTileBytes = kBoxes * kKVBox;  // a plane: BN x HD
-  // a stage: K_hi (K as it landed), K_lo, V, V^T_hi, V^T_lo
-  static constexpr int kVOffset = 2 * kTileBytes;
-  static constexpr int kVTOffset = 3 * kTileBytes;
-  static constexpr int kStageBytes = 5 * kTileBytes;
-  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // a stage: K_hi (K as it landed), K_lo, then V, V^T_hi, V^T_lo; with
+  // kSplit V^T_hi, V^T_lo, V landing in the V^T_lo plane
+  static constexpr int kVOffset = (SPLIT ? 3 : 2) * kTileBytes;
+  static constexpr int kVTOffset = (SPLIT ? 2 : 3) * kTileBytes;
+  static constexpr int kStageBytes = (SPLIT ? 4 : 5) * kTileBytes;
+  // kSplit: the halves of s, per tile parity and warpgroup, 16 bytes a
+  // thread (BN / 2 floats)
+  static constexpr int kXOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kXBytes = SPLIT ? 2 * 2 * 128 * (BN / 2) * 4 : 0;
+  static constexpr int kBarOffset = kXOffset + kXBytes;
   // q; per stage: k/v landed, k/v prepared, k/v released
   static constexpr int kBars = 1 + 6 * kStages;
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle atom)
   static constexpr int kSmem = kBarOffset + 8 * kBars + 1024;
-  static_assert(HD % 32 == 0 && HD <= 256 && BN % 32 == 0 && BN <= 256,
-                "tf32 kernel: head_dim and keys in boxes of 32, N <= 256");
+  static_assert(HD % 32 == 0 && kCols <= 256 && BN <= 256,
+                "tf32 kernel: head_dim in boxes of 32, N <= 256");
+  static_assert(SPLIT ? BN == 8 && HD % 64 == 0 : BN % 32 == 0,
+                "tf32 kernel: 32-key boxes of V^T, or 8-key tiles when "
+                "head_dim is split");
   static_assert(kKeyBoxes * kVTBox == kTileBytes, "V^T fills one plane");
   static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+  static_assert(kConsumerRegs % 8 == 0 && kVPrepRegs % 8 == 0,
+                "setmaxnreg takes multiples of 8");
 };
 
 using Tf32Hd64 = Tf32Cfg<64, 64>;
 using Tf32Hd128 = Tf32Cfg<128, 32>;
+using Tf32Hd320 = Tf32Cfg<320, 8, 3, true>;
 
 // Calls F<C>(...) for the instance C of head_dim hd.
 #define TF32_DISPATCH(F, hd, ...)                   \
   if ((hd) == 64) return F<Tf32Hd64>(__VA_ARGS__);   \
   if ((hd) == 128) return F<Tf32Hd128>(__VA_ARGS__); \
+  if ((hd) == 320) return F<Tf32Hd320>(__VA_ARGS__); \
   return cudaErrorInvalidValue;
 
 // Generic-proxy writes to shared memory made visible to the async proxy
@@ -1288,10 +1394,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-#define WG_D16 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define WG_F16(d) WG_F8(d, 0), WG_F8(d, 8)
-
 // d (+)= A.B^T on TF32 operands, m64nNk8 with N = 2 * (the size of d): A
 // (64 x 8) and B (N x 8) K-major in shared memory; `accumulate` 0
 // overwrites d.
@@ -1305,6 +1407,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                  : F(d)                                                      \
                  : "l"(da), "l"(db), "r"(accumulate));                      \
   }
+TF_SS(8, WG_D4, WG_F4, 4, 5, 6)
 TF_SS(32, WG_D16, WG_F16, 16, 17, 18)
 TF_SS(64, WG_D32, WG_F32, 32, 33, 34)
 
@@ -1324,20 +1427,24 @@ TF_SS(64, WG_D32, WG_F32, 32, 33, 34)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
                    "r"(accumulate));                                         \
   }
+TF_RS(8, WG_D4, WG_F4, 4, 5, 6, 7, 8, 9)
+TF_RS(16, WG_D8, WG_F8A, 8, 9, 10, 11, 12, 13)
 TF_RS(32, WG_D16, WG_F16, 16, 17, 18, 19, 20, 21)
 TF_RS(64, WG_D32, WG_F32, 32, 33, 34, 35, 36, 37)
 TF_RS(128, WG_D64, WG_F64, 64, 65, 66, 67, 68, 69)
+TF_RS(160, WG_D80, WG_F80, 80, 81, 82, 83, 84, 85)
 
-// This warpgroup's 64 rows of the landed Q tile (at q_rows, row stride 128
-// bytes within each 32-column box): Q_hi into qh, the A fragments of the k8
-// steps of Q.K^T, and Q_lo written back in place.
+// This warpgroup's 64 rows and kCols columns of the landed Q tile (at
+// q_rows, row stride 128 bytes within each 32-column box): Q_hi into qh,
+// the A fragments of its k8 steps of Q.K^T, and Q_lo written back in
+// place.
 template <class C>
-__device__ __forceinline__ void prep_q(uint32_t (&qh)[C::HD / 8][4],
+__device__ __forceinline__ void prep_q(uint32_t (&qh)[C::kQSteps][4],
                                        uint32_t q_rows) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
 #pragma unroll
-  for (int kk = 0; kk < C::HD / 8; ++kk)
+  for (int kk = 0; kk < C::kQSteps; ++kk)
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int r = row + 8 * (a & 1);
@@ -1402,38 +1509,101 @@ __device__ __forceinline__ void prep_v(uint32_t v, uint32_t vt, int w,
   }
 }
 
+// A landed 8-key V tile (at v: 8 rows of keys, head_dim in 32-column
+// boxes of 1 KB under the 128-byte swizzle) -> V^T_hi at vt and V^T_lo in
+// place of V: row d of V^T holds column d's 8 keys, 32 bytes under the
+// 32-byte swizzle, in the order 0, 2, 4, 6, 1, 3, 5, 7. Box c of V holds
+// columns 32 c .. 32 c + 31, and so do V^T's rows in the same 1 KB, so a
+// box transposes alone: V-prep warp w reads boxes w, w + 4, ... whole into
+// registers (two float4 a lane), then writes them back.
+template <class C>
+__device__ __forceinline__ void prep_v8(uint32_t v, uint32_t vt, int w,
+                                        int lane) {
+  for (int box = w; box < C::kBoxes; box += C::kVPrepThreads / 32) {
+    const uint32_t b = box * 1024;
+    float4 x[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lane + 32 * h;  // 16-byte chunk of the box
+      const int key = i >> 3, g = i & 7;
+      x[h] = lds128(v + b + key * 128 + ((g ^ key) << 4));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lane + 32 * h;
+      const int key = i >> 3, g = i & 7;
+      const int c = ((key & 1) << 2) | (key >> 1);  // the key's column
+      const float xs[4] = {x[h].x, x[h].y, x[h].z, x[h].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * g + e;  // row of V^T within the box
+        const uint32_t a = b + d * 32 +
+                           ((((c >> 2) ^ (d >> 2)) & 1) << 4) + ((c & 3) << 2);
+        uint32_t hi, lo;
+        split_tf32(xs[e], hi, lo);
+        sts32(vt + a, hi);
+        sts32(v + a, lo);
+      }
+    }
+  }
+}
+
 // s = Q.K^T, three TF32 products per k8 step, for this warpgroup's 64 rows
-// (Q_hi in qh, Q_lo at q_lo) against a prepared K tile (K_hi at k_tile,
-// K_lo one plane on).
+// and kCols columns (Q_hi in qh, Q_lo at q_lo) against a prepared K tile
+// (K_hi at k_tile, K_lo one plane on).
 template <class C>
 __device__ __forceinline__ void tf32_qk(float (&sc)[C::kBN / 2],
-                                        const uint32_t (&qh)[C::HD / 8][4],
+                                        const uint32_t (&qh)[C::kQSteps][4],
                                         uint32_t q_lo, uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < C::HD / 8; ++kk) {
+  for (int kk = 0; kk < C::kQSteps; ++kk) {
     const uint32_t step = (kk % 4) * 32;  // 8 columns in a swizzle row
     const uint32_t k = k_tile + (kk / 4) * C::kKVBox + step;
-    const uint64_t k_hi = sw128_desc(k, 16, 1024);
+    const uint64_t k_hi = sw_desc<128>(k, 16, 1024);
     tf32_rs(sc, qh[kk], k_hi, kk > 0);
-    tf32_rs(sc, qh[kk], sw128_desc(k + C::kTileBytes, 16, 1024), 1);
-    tf32_ss(sc, sw128_desc(q_lo + (kk / 4) * C::kQBox + step, 16, 1024),
+    tf32_rs(sc, qh[kk], sw_desc<128>(k + C::kTileBytes, 16, 1024), 1);
+    tf32_ss(sc, sw_desc<128>(q_lo + (kk / 4) * C::kQBox + step, 16, 1024),
             k_hi, 1);
   }
 }
 
+// kSplit: the same products, two wgmmas a k8 step. Q_hi against K_hi and
+// K_lo is one m64n16k8 wgmma whose B operand is the K_hi box's 8 rows and
+// then the K_lo box's 8 (the stride between 8-row groups being one plane,
+// kTileBytes), into s2 (columns 0-7 Q_hi.K_hi, 8-15 Q_hi.K_lo); Q_lo.K_hi
+// runs into sl. s = (s2[0..3] + s2[4..7]) + sl once they are done
+// (Tf32Products::combine): the sum _product_3xtf32 forms.
+template <class C>
+__device__ __forceinline__ void tf32_qk_paired(
+    float (&s2)[8], float (&sl)[4], const uint32_t (&qh)[C::kQSteps][4],
+    uint32_t q_lo, uint32_t k_tile) {
+  static_assert(C::kBN == 8, "a pair of 8-key boxes is one n16 operand");
+#pragma unroll
+  for (int kk = 0; kk < C::kQSteps; ++kk) {
+    const uint32_t step = (kk % 4) * 32;  // 8 columns in a swizzle row
+    const uint32_t k = k_tile + (kk / 4) * C::kKVBox + step;
+    tf32_rs(s2, qh[kk], sw_desc<128>(k, 16, C::kTileBytes), kk > 0);
+    tf32_ss(sl, sw_desc<128>(q_lo + (kk / 4) * C::kQBox + step, 16, 1024),
+            sw_desc<128>(k, 16, 1024), kk > 0);
+  }
+}
+
 // acc += p.V, three TF32 products per k8 step of keys: p_hi, p_lo
-// fragments against V^T_hi (at vt) and V^T_lo (one plane on).
+// fragments against V^T_hi (at vt: this warpgroup's kCols rows) and V^T_lo
+// (one plane on); a k8 step is 32 bytes of a V^T row of kVTRow bytes.
 template <class C>
 __device__ __forceinline__ void tf32_pv(float (&acc)[C::kAcc],
                                         const uint32_t (&ph)[C::kBN / 8][4],
                                         const uint32_t (&pl)[C::kBN / 8][4],
                                         uint32_t vt) {
+  constexpr int kRow = C::kVTRow, kSteps = kRow / 32;
 #pragma unroll
   for (int kk = 0; kk < C::kBN / 8; ++kk) {
-    const uint32_t v = vt + (kk / 4) * C::kVTBox + (kk % 4) * 32;
-    const uint64_t v_hi = sw128_desc(v, 16, 1024);
+    const uint32_t v = vt + (kk / kSteps) * C::kVTBox + (kk % kSteps) * 32;
+    const uint64_t v_hi = sw_desc<kRow>(v, 16, 8 * kRow);
     tf32_rs(acc, ph[kk], v_hi, 1);
-    tf32_rs(acc, ph[kk], sw128_desc(v + C::kTileBytes, 16, 1024), 1);
+    tf32_rs(acc, ph[kk], sw_desc<kRow>(v + C::kTileBytes, 16, 8 * kRow), 1);
     tf32_rs(acc, pl[kk], v_hi, 1);
   }
 }
@@ -1455,22 +1625,54 @@ __device__ __forceinline__ void tf32_fragments(const float (&sc)[BN / 2],
 }
 
 // The tf32 kernel's products: Q_hi in registers (the A fragments of its k8
-// steps), Q_lo at q_lo (this warpgroup's 64 rows), K_hi and K_lo from a
-// prepared stage, p split into the TF32 fragments ph, pl against V^T_hi
-// and V^T_lo (kVTOffset bytes into the stage).
+// steps), Q_lo at q_lo (this warpgroup's 64 rows, from its first column's
+// box), K_hi and K_lo from a prepared stage (k_col: the byte offset of its
+// first column's box), p split into the TF32 fragments ph, pl against
+// V^T_hi and V^T_lo (kVTOffset bytes into the stage, vt_row: the offset
+// of its first row). With kSplit, x is the exchange of s (kXOffset).
 template <class C>
 struct Tf32Products {
-  uint32_t q_lo;
-  uint32_t qh[C::HD / 8][4];
+  uint32_t q_lo, k_col, vt_row, x;
+  uint32_t qh[C::kQSteps][4];
   uint32_t ph[C::kBN / 8][4], pl[C::kBN / 8][4];
+  float s2[8], sl[4];  // kSplit's accumulators of s
   __device__ __forceinline__ void qk(float (&sc)[C::kBN / 2], uint32_t st) {
-    tf32_qk<C>(sc, qh, q_lo, st);
+    if constexpr (C::kSplit)
+      tf32_qk_paired<C>(s2, sl, qh, q_lo, st + k_col);
+    else
+      tf32_qk<C>(sc, qh, q_lo, st + k_col);
   }
   __device__ __forceinline__ void pv(float (&acc)[C::kAcc], uint32_t st) {
-    tf32_pv<C>(acc, ph, pl, st + C::kVTOffset);
+    tf32_pv<C>(acc, ph, pl, st + C::kVTOffset + vt_row);
   }
   __device__ __forceinline__ void split(const float (&sc)[C::kBN / 2]) {
     tf32_fragments<C::kBN>(sc, ph, pl);
+  }
+  // kSplit: this warpgroup's half of s from its accumulators, then s =
+  // (warpgroup 0's half) + (warpgroup 1's half), the same bits in both.
+  // Slot n (the tile's parity) of each warpgroup is written again two
+  // tiles on, after the barrier of the tile between, which the other
+  // passes only once it has read the slot.
+  __device__ __forceinline__ void combine(float (&sc)[C::kBN / 2], int n) {
+    if constexpr (C::kSplit) {
+      static_assert(C::kBN / 2 == 4, "one 16-byte fragment a thread");
+      fence_regs(s2);
+      fence_regs(sl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[e] = (s2[e] + s2[4 + e]) + sl[e];
+      const int cw = threadIdx.x / 128 - 1;
+      const uint32_t t = 16 * (threadIdx.x & 127);
+      const uint32_t mine[4] = {__float_as_uint(sc[0]), __float_as_uint(sc[1]),
+                                __float_as_uint(sc[2]),
+                                __float_as_uint(sc[3])};
+      sts128(x + (2 * n + cw) * 2048 + t, mine);
+      bar_sync(5);
+      const float4 other = lds128(x + (2 * n + 1 - cw) * 2048 + t);
+      sc[0] += other.x;
+      sc[1] += other.y;
+      sc[2] += other.z;
+      sc[3] += other.w;
+    }
   }
 };
 
@@ -1512,26 +1714,35 @@ __global__ void __launch_bounds__(C::kThreads, 1)
   } else if (threadIdx.x >= 384) {
     // ---- warpgroup 3: prepares V, beside the K-prep warps ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
-        C::kProducerRegs));
+        C::kVPrepRegs));
     for (int i = 0; i < tiles.t_end - tiles.t_begin; ++i) {
       const int s = i % C::kStages;
       const uint32_t st = ring.stage(s);
       mbar_wait(ring.v_full(s), (uint32_t)(i / C::kStages) & 1u);
-      prep_v<C>(st + C::kVOffset, st + C::kVTOffset, (threadIdx.x >> 5) & 3,
-                threadIdx.x & 31);
+      if constexpr (C::kSplit)
+        prep_v8<C>(st + C::kVOffset, st + C::kVTOffset,
+                   (threadIdx.x >> 5) & 3, threadIdx.x & 31);
+      else
+        prep_v<C>(st + C::kVOffset, st + C::kVTOffset,
+                  (threadIdx.x >> 5) & 3, threadIdx.x & 31);
       fence_proxy_async();
       mbar_arrive(ring.v_ready(s));
     }
   } else {
-    // ---- consumer warpgroups: 64 query rows each ----
+    // ---- consumer warpgroups: 64 query rows each (kSplit: the same 64
+    // rows, HD / 2 columns each) ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
         C::kConsumerRegs));
     const int cw = threadIdx.x / 128 - 1;
     // Q: Q_hi to registers, Q_lo in place, once; this warpgroup's rows
-    // only, so a barrier over its own 128 threads (3 or 4) orders Q_lo's
-    // writes before its wgmmas read them.
+    // (kSplit: columns) only, so a barrier over its own 128 threads (3 or
+    // 4) orders Q_lo's writes before its wgmmas read them.
     Tf32Products<C> prod;
-    prod.q_lo = ring.q() + cw * 64 * 128;
+    const int box0 = C::kSplit ? cw * C::kCols / 32 : 0;  // first column's
+    prod.q_lo = ring.q() + (C::kSplit ? box0 * C::kQBox : cw * 64 * 128);
+    prod.k_col = box0 * C::kKVBox;
+    prod.vt_row = C::kSplit ? cw * C::kCols * C::kVTRow : 0;
+    prod.x = ring.base + C::kXOffset;
     mbar_wait(ring.q_full(), 0);
     prep_q<C>(prod.qh, prod.q_lo);
     fence_proxy_async();
@@ -1543,18 +1754,24 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 
 #undef TF_SS
 #undef TF_RS
+#undef WG_D4
+#undef WG_D8
 #undef WG_D16
+#undef WG_F4
+#undef WG_F8A
 #undef WG_F16
 #undef WG_SS
 #undef WG_RS
 #undef WG_D24
 #undef WG_D32
 #undef WG_D64
+#undef WG_D80
 #undef WG_D128
 #undef WG_F8
 #undef WG_F24
 #undef WG_F32
 #undef WG_F64
+#undef WG_F80
 #undef WG_F128
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1579,13 +1796,13 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // The 4-D map (head_dim, head, seq, batch) of a bf16 or fp32 tensor with
-// element strides sb, ss, sh (head_dim contiguous), boxes of 128 bytes (64
-// bf16 or 32 fp32 columns) x `rows` rows, 128-byte swizzle; reads past S
-// are zeros.
+// element strides sb, ss, sh (head_dim contiguous), boxes of `cols`
+// columns x `rows` rows, under the swizzle of the box row's bytes (128: 64
+// bf16 or 32 fp32 columns; 64: bf16 at hd 32); reads past S are zeros.
 cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, bool fp32,
                             int hd, int heads, int seq, int batch,
                             long long sb, long long ss, long long sh,
-                            int rows) {
+                            int cols, int rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const long long size = fp32 ? 4 : 2;
@@ -1593,14 +1810,17 @@ cudaError_t make_tensor_map(CUtensorMap* map, const void* ptr, bool fp32,
                         (cuuint64_t)batch};
   cuuint64_t strides[3] = {(cuuint64_t)(size * sh), (cuuint64_t)(size * ss),
                            (cuuint64_t)(size * sb)};
-  cuuint32_t box[4] = {(cuuint32_t)(128 / size), 1, (cuuint32_t)rows, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  if (cols * size != 128 && cols * size != 64) return cudaErrorInvalidValue;
   cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map,
       fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, const_cast<void*>(ptr), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      cols * size == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1623,14 +1843,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   using T = std::conditional_t<C::kFp32, float, __nv_bfloat16>;
   if ((seq + C::kBM - 1) / C::kBM > 65535) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_tensor_map(&tq, q, C::kFp32, C::HD, heads, seq,
-                                    batch, st.qb, st.qs, st.qh, C::kBM);
+  cudaError_t err =
+      make_tensor_map(&tq, q, C::kFp32, C::HD, heads, seq, batch, st.qb,
+                      st.qs, st.qh, C::kBoxCols, C::kBM);
   if (err == cudaSuccess)
     err = make_tensor_map(&tk, k, C::kFp32, C::HD, kv_heads, seq, batch,
-                          st.kb, st.ks, st.kh, C::kBN);
+                          st.kb, st.ks, st.kh, C::kBoxCols, C::kBN);
   if (err == cudaSuccess)
     err = make_tensor_map(&tv, v, C::kFp32, C::HD, kv_heads, seq, batch,
-                          st.vb, st.vs, st.vh, C::kBN);
+                          st.vb, st.vs, st.vh, C::kBoxCols, C::kBN);
   if (err != cudaSuccess) return err;
   auto kernel = tensor_core_kernel<C>();
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1692,7 +1913,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // The tensor-core kernel: bf16 q, k, v and o (bf16 must be 1) at head_dim
-// 64, 128 or 320, the arguments as for flash_attention. Every stride must
+// 32, 64, 128 or 320, the arguments as for flash_attention. Every stride must
 // be a multiple of 8 elements (16 bytes) and every base 16-byte aligned, as
 // TMA needs; a tensor map the driver refuses returns cudaErrorInvalidValue.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
@@ -1715,7 +1936,7 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
 }
 
 // The 3xTF32 tensor-core kernel: fp32 q, k, v and o (bf16 must be 0) at
-// head_dim 64 or 128, the arguments as for flash_attention. Every stride
+// head_dim 64, 128 or 320, the arguments as for flash_attention. Every stride
 // must be a multiple of 4 elements (16 bytes) and every base 16-byte
 // aligned, as TMA needs; a tensor map that cuTensorMapEncodeTiled refuses
 // returns cudaErrorInvalidValue.
@@ -1739,10 +1960,10 @@ int flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
 }
 
 // Launch configuration of kernel 0 (flash_attention_kernel, any head_dim,
-// bf16 or fp32), 1 (flash_attention_wgmma_kernel, head_dim 64, 128 or 320,
-// bf16 == 1) or 2 (flash_attention_tf32_kernel, head_dim 64 or 128, bf16
-// == 0): threads per CTA, dynamic shared memory in bytes, registers per
-// thread, CTAs per SM.
+// bf16 or fp32), 1 (flash_attention_wgmma_kernel, head_dim 32, 64, 128 or
+// 320, bf16 == 1) or 2 (flash_attention_tf32_kernel, head_dim 64, 128 or
+// 320, bf16 == 0): threads per CTA, dynamic shared memory in bytes,
+// registers per thread, CTAs per SM.
 int attention_occupancy(int kernel, int head_dim, int bf16, int unused,
                         int* threads, int* smem, int* regs, int* ctas) {
   (void)unused;

@@ -14,6 +14,8 @@ order, so on the card they agree far inside these bounds. The NTT kernels
 are exact: they equal their plain versions and the numpy reference bit
 for bit (``==``).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -651,6 +653,15 @@ def _tf32_smem(hd, keys):
     return 4 * 128 * hd + 2 * 5 * 4 * keys * hd + 8 * 13 + 1024
 
 
+def _tf32_split_smem(hd, keys=8, stages=3):
+    """The head_dim-split instance: Q_lo (64 rows of fp32), ``stages``
+    stages of four fp32 planes (K_hi, K_lo, V^T_hi, V^T_lo) of ``keys``
+    keys, the exchange of s (2 tiles x 2 warpgroups x 128 threads x keys /
+    2 floats), 1 + 6 stages mbarriers, and 1024 bytes of alignment."""
+    return (4 * 64 * hd + stages * 4 * 4 * keys * hd + 2 * 2 * 128 * keys * 2
+            + 8 * (1 + 6 * stages) + 1024)
+
+
 @pytest.mark.parametrize("name,hd,bf16,threads,smem,ctas", [
     ("flash_attention", 128, 1, 256, 4 * (64 * 132 * 2 + 64 * 68), 2),
     ("flash_attention", 320, 0, 256, 4 * (64 * 324 * 2 + 64 * 68), 1),
@@ -658,9 +669,13 @@ def _tf32_smem(hd, keys):
     ("flash_attention_wgmma", 128, 1, 384, _wgmma_smem(128), 1),
     # gemma3-4b's heads: 48-key tiles
     ("flash_attention_wgmma", 320, 1, 384, _wgmma_smem(320, 48), 1),
+    # the reduced configs' head_dim: one 64-byte box a row
+    ("flash_attention_wgmma", 32, 1, 384, _wgmma_smem(32), 1),
     # fp32: 512 threads (loads and K prep, V prep, two consumers)
     ("flash_attention_tf32", 64, 0, 512, _tf32_smem(64, 64), 1),
-    ("flash_attention_tf32", 128, 0, 512, _tf32_smem(128, 32), 1)])
+    ("flash_attention_tf32", 128, 0, 512, _tf32_smem(128, 32), 1),
+    # gemma3-4b in fp32: 64 query rows, head_dim split, 8-key tiles
+    ("flash_attention_tf32", 320, 0, 512, _tf32_split_smem(320), 1)])
 def test_attention_occupancy(cuda, name, hd, bf16, threads, smem, ctas):
     occ = _build.occupancy(name, hd, bf16, 0)
     assert occ["threads"] == threads
@@ -699,10 +714,63 @@ def test_wgmma_hd320_matches_plain(cuda, S, window, causal):
                                **ATTN_TOL[torch.bfloat16])
 
 
+@pytest.mark.parametrize("S,window,causal,H,KV", [
+    (1, 1 << 30, True, 16, 8), (37, 1 << 30, True, 16, 8),
+    (300, 24, True, 16, 8), (200, 1 << 30, False, 16, 8),
+    (1000, 1 << 30, True, 16, 8), (1024, 1 << 30, True, 8, 8),
+    (2048, 1 << 30, True, 16, 8)])
+def test_wgmma_hd32_matches_plain(cuda, S, window, causal, H, KV):
+    """The hd-32 instance (one 64-byte box a row, its key tile) against the
+    plain version folded at that tile, p split in two bf16 parts: S = 1,
+    S < 64, window 24, non-causal, ragged S, G = 1 and the served prompt;
+    only its counter moves."""
+    g = torch.Generator(device=cuda).manual_seed(S + 32)
+    q = torch.randn(2, S, H, 32, device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn(2, S, KV, 32, device=cuda, generator=g).bfloat16()
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=32 ** -0.5)
+    before = dict(_build.LAUNCHES)
+    got = tattn.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in _build.LAUNCHES.items()
+            if c != before[n]} == {"flash_attention_wgmma": 1}
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B,S,window,causal,H,KV", [
+    (2, 1, 1 << 30, True, 8, 4), (3, 37, 1 << 30, True, 8, 4),
+    (2, 300, 24, True, 8, 4), (2, 200, 1 << 30, False, 8, 4),
+    (2, 1000, 1 << 30, True, 8, 4), (2, 1024, 1 << 30, True, 4, 4),
+    (1, 2048, 1024, True, 8, 4), (1, 2048, 1 << 30, True, 8, 4)])
+def test_tf32_hd320_matches_plain(cuda, B, S, window, causal, H, KV):
+    """The fp32 hd-320 instance (64 query rows a CTA, head_dim split
+    between its two consumer warpgroups, 8-key tiles) against the plain
+    version, which sums s over the two halves as the kernel does, within
+    the reference tests' 2e-4: S = 1, S < 64, window 24, non-causal,
+    ragged S, G = 1 and gemma3-4b's local and global layers at the served
+    prompt; only its counter moves."""
+    g = torch.Generator(device=cuda).manual_seed(S + 320)
+    q = torch.randn(B, S, H, 320, device=cuda, generator=g)
+    k, v = (torch.randn(B, S, KV, 320, device=cuda, generator=g)
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=320 ** -0.5)
+    before = dict(_build.LAUNCHES)
+    got = tattn.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in _build.LAUNCHES.items()
+            if c != before[n]} == {"flash_attention_tf32": 1}
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
 def test_wgmma_launcher_refuses_an_instance_it_lacks(cuda):
-    """A head_dim with no instance (32, the CUDA-core kernel's) is refused
-    by the launcher, and the wrapper counts no launch."""
-    x = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16)
+    """A head_dim with no instance (96) is refused by the launcher, and the
+    wrapper counts no launch."""
+    x = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="flash_attention_wgmma"):
         _wgmma_direct(x, x, x, window=4, causal=True)
@@ -751,10 +819,10 @@ def test_tf32_kernel_matches_plain(cuda, hd, B, S, H, KV, window, causal):
 @pytest.mark.parametrize("hd,counter", [(32, "flash_attention"),
                                         (64, "flash_attention_tf32"),
                                         (128, "flash_attention_tf32"),
-                                        (320, "flash_attention")])
+                                        (320, "flash_attention_tf32")])
 def test_fp32_reaches_one_kernel(cuda, hd, counter):
-    """fp32 at head_dim 64 and 128 launches the 3xTF32 kernel and nothing
-    else; at 32 and 320 the CUDA-core kernel and nothing else."""
+    """fp32 at head_dim 64, 128 and 320 launches the 3xTF32 kernel and
+    nothing else; at 32 the CUDA-core kernel and nothing else."""
     x = torch.randn(1, 70, 4, hd, device=cuda)
     _build.reset_launches()
     tattn.attention(x, x, x, window=1 << 30, scale=hd ** -0.5)
@@ -772,6 +840,39 @@ def test_tf32_kernel_refuses_bf16(cuda):
                       x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
                       1, 8, 2, 2, 64, *x.stride()[:3] * 4, 8, 1, 1.0, 1)
     assert _build.LAUNCHES == before
+
+
+def test_reduced_config_bf16_prefill_launches_only_wgmma(cuda, monkeypatch):
+    """A reduced config in bf16 (head_dim 32): its prefill launches the
+    wgmma kernel once per layer and nothing else, and its last logits are
+    within four bf16 steps of the same prefill with the plain version in
+    place of the kernel (which launches nothing)."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").scaled_down(),
+                              dtype="bfloat16")
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    model = convert.build(cfg, sd, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100),
+                           generator=torch.Generator().manual_seed(1)).to(cuda)
+    _build.reset_launches()
+    got, _ = model.prefill(tokens)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "flash_attention_wgmma": cfg.num_layers}
+    kernel_attention = tattn.attention
+    monkeypatch.setattr(tattn, "attention",
+                        lambda q, k, v, *, window, causal=True, scale,
+                        kv_block=None: tattn.attention_plain(
+                            q, k, v, window=window, causal=causal,
+                            scale=scale))
+    want, _ = model.prefill(tokens)
+    torch.cuda.synchronize()
+    assert tattn.attention is not kernel_attention
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "flash_attention_wgmma": cfg.num_layers}
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0,
+                               atol=0.125)
 
 
 def test_generate_on_card_matches_cpu(cuda):

@@ -225,18 +225,18 @@ def test_launcher_rejects_what_the_kernel_does_not_take(fake_launch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_kernel_for_every_type_and_head_dim(dtype, hd):
-    """bf16 at 64, 128 and 320 on the wgmma kernel, fp32 at 64 and 128 on
-    the 3xTF32 kernel, the rest (fp32 at 32 and 320, bf16 at 32) on the
-    CUDA-core kernel; each with its key tile."""
-    if dtype == torch.bfloat16 and hd in (64, 128, 320):
+    """bf16 at 32, 64, 128 and 320 on the wgmma kernel, fp32 at 64, 128
+    and 320 on the 3xTF32 kernel, fp32 at 32 on the CUDA-core kernel; each
+    with its key tile."""
+    if dtype == torch.bfloat16:
         want = "wgmma"
-    elif dtype == torch.float32 and hd in (64, 128):
+    elif hd in (64, 128, 320):
         want = "tf32"
     else:
         want = "cuda_core"
     assert tattn.kernel_for(dtype, hd) == want
-    keys = {"wgmma": {64: 128, 128: 128, 320: 48}.get(hd),
-            "tf32": {64: 64, 128: 32}.get(hd), "cuda_core": 64}[want]
+    keys = {"wgmma": {32: 128, 64: 128, 128: 128, 320: 48}.get(hd),
+            "tf32": {64: 64, 128: 32, 320: 8}.get(hd), "cuda_core": 64}[want]
     assert tattn.kernel_keys(dtype, hd) == keys
 
 
@@ -253,7 +253,7 @@ def test_split_bf16_keeps_16_bits():
     assert not np.all(np.abs(p - single) <= 2.0 ** -16 * np.abs(p))
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [64, 128, 320, 32])
 @pytest.mark.parametrize("S,window", [(160, 1 << 30), (96, 24),
                                       (150, 1 << 30), (100, 24)])
 def test_wgmma_plain_matches_pallas_kernel(rng, hd, S, window):
@@ -273,7 +273,7 @@ def test_wgmma_plain_matches_pallas_kernel(rng, hd, S, window):
                                np.asarray(oracle, np.float32), **BF16_TOL)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [64, 128, 320, 32])
 @pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 40),
                                          (6, 2, 1 << 30)])
 def test_wgmma_plain_matches_reference_layer(rng, hd, H, KV, window):
@@ -292,11 +292,32 @@ def test_wgmma_plain_matches_reference_layer(rng, hd, H, KV, window):
     np.testing.assert_allclose(plain.float().numpy(), want, **BF16_TOL)
 
 
+@pytest.mark.parametrize("S,window", [(100, 1 << 30), (37, 1 << 30),
+                                      (300, 24)])
+def test_wgmma_hd32_plain_noncausal_matches_pallas_kernel(rng, S, window):
+    """bf16 at head_dim 32 (the reduced configs), non-causal: the plain
+    version of the wgmma kernel's dataflow (128-key tiles, p split in two
+    bf16 parts) against the Pallas kernel in interpret mode and the naive
+    oracle, S ragged against the tile and below 64."""
+    arrs = _qkv(rng, 3, S, 32)
+    got = tattn.flash_attention(*_torch(arrs, torch.bfloat16), window=window,
+                                causal=False)
+    assert tattn.kernel_for(torch.bfloat16, 32) == "wgmma"
+    want = jattn.flash_attention(*_jax(arrs, jnp.bfloat16), window=window,
+                                 causal=False, bq=32, bk=32)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+    oracle = jattn.attention_ref(*_jax(arrs, jnp.bfloat16), window=window,
+                                 causal=False)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(oracle, np.float32), **BF16_TOL)
+
+
 @pytest.mark.parametrize("hd", [64, 320])
 def test_wgmma_plain_folds_the_kernels_key_tile(rng, hd):
     """By default the plain version folds the key tile of the kernel that
     ``kernel_for`` picks: for the wgmma kernel 128 keys (48 at hd 320),
-    64 otherwise."""
+    for fp32 the tf32 kernel's (64 keys at hd 64, 8 at hd 320)."""
     q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, hd), torch.bfloat16)
     kw = dict(window=1 << 30, scale=hd ** -0.5)
     got = tattn.attention_plain(q, k, v, **kw)
@@ -305,18 +326,27 @@ def test_wgmma_plain_folds_the_kernels_key_tile(rng, hd):
     q, k, v = (x.float() for x in (q, k, v))
     assert torch.equal(tattn.attention_plain(q, k, v, **kw),
                        tattn.attention_plain(
-                           q, k, v, kv_block=tattn.KERNEL_KEYS, **kw))
+                           q, k, v, kv_block=tattn.TF32_KERNEL_KEYS[hd],
+                           **kw))
 
 
 def test_plain_follows_the_kernel_it_is_named(rng):
     """``kernel`` picks the dataflow the plain version follows: at bf16 hd
     320, "cuda_core" folds 64-key tiles with p in fp32 (the fp32 inputs'
-    plain version, rounded to bf16), "wgmma" is the default."""
+    CUDA-core plain version, rounded to bf16), "wgmma" is the default;
+    for fp32 at hd 320 "tf32" is the default, three TF32 products summed
+    over the halves of head_dim on 8-key tiles, not the CUDA-core
+    dataflow."""
     q, k, v = _torch(_gqa(rng, 1, 200, 2, 1, 320), torch.bfloat16)
     kw = dict(window=40, scale=320 ** -0.5)
     core = tattn.attention_plain(q, k, v, kernel="cuda_core", **kw)
-    assert torch.equal(core, tattn.attention_plain(
-        *(x.float() for x in (q, k, v)), **kw).bfloat16())
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    core32 = tattn.attention_plain(q32, k32, v32, kernel="cuda_core", **kw)
+    assert torch.equal(core, core32.bfloat16())
+    tf32 = tattn.attention_plain(q32, k32, v32, **kw)
+    assert torch.equal(tf32, tattn.attention_plain(q32, k32, v32,
+                                                   kernel="tf32", **kw))
+    assert not torch.equal(tf32, core32)
     assert torch.equal(tattn.attention_plain(q, k, v, kernel="wgmma", **kw),
                        tattn.attention_plain(q, k, v, **kw))
     assert tattn.kernel_keys(torch.bfloat16, 320, "cuda_core") == 64
@@ -385,7 +415,7 @@ def test_wgmma_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
 def test_wgmma_launcher_arguments_public_layout(fake_named_launch, hd):
     """(H, S, hd) bf16 at head_dim 64 and 320 reaches the wgmma kernel as
     strided (1, S, H, hd) views, with no copy; fp32 at the same shape goes
-    to the 3xTF32 kernel at 64 and to the CUDA-core kernel at 320."""
+    to the 3xTF32 kernel."""
     H, S = 3, 20
     q = torch.zeros(H, S, hd, dtype=torch.bfloat16)
     q4 = q.permute(1, 0, 2)[None]
@@ -394,8 +424,7 @@ def test_wgmma_launcher_arguments_public_layout(fake_named_launch, hd):
     tattn._launch(x, x, x, window=7, causal=False, scale=hd ** -0.5)
     (name, _, args), (name32, _, args32) = fake_named_launch
     assert (name, name32) == ("flash_attention_wgmma",
-                              {64: "flash_attention_tf32",
-                               320: "flash_attention"}[hd])
+                              "flash_attention_tf32")
     assert args[0] == q.data_ptr()
     assert args[4:9] == args32[4:9] == (1, S, H, H, hd)
     assert args[10:12] == (hd, S * hd)
@@ -416,19 +445,50 @@ def test_wgmma_launcher_rejects_what_tma_does_not_take(fake_named_launch,
     with pytest.raises(ValueError, match="16 bytes"):
         tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert fake_named_launch == []
-    # fp32: 4 elements are 16 bytes (the tf32 kernel's TMA at 64, the
-    # CUDA-core kernel's float4 loads at 320)
+    # fp32: 4 elements are 16 bytes (the tf32 kernel's TMA)
     x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     x = torch.zeros(1, 8, 2, hd + 8, dtype=torch.bfloat16)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert [c[0] for c in fake_named_launch] == [
-        {64: "flash_attention_tf32", 320: "flash_attention"}[hd],
-        "flash_attention_wgmma"]
+        "flash_attention_tf32", "flash_attention_wgmma"]
+
+
+def test_wgmma_hd32_launcher_arguments(fake_named_launch):
+    """bf16 at head_dim 32 reaches the wgmma launcher in the model's layout
+    and, as strided (1, S, H, hd) views, in the public one, with no copy;
+    TMA's 16-byte strides refuse a row of hd + 4 elements before any
+    launch; fp32 at head_dim 32 stays on the CUDA-core kernel."""
+    B, S, H, KV, hd = 2, 40, 4, 2, 32
+    q = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    k = torch.zeros(B, S, KV, hd, dtype=torch.bfloat16)
+    o = tattn._launch(q, k, k, window=1 << 40, causal=True, scale=1.0)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    x = torch.zeros(3, 20, hd, dtype=torch.bfloat16)
+    x4 = x.permute(1, 0, 2)[None]
+    tattn._launch(x4, x4, x4, window=7, causal=False, scale=hd ** -0.5)
+    (name, counter, args), (name_pub, _, args_pub) = fake_named_launch
+    assert name == counter == name_pub == "flash_attention_wgmma"
+    assert args[4:9] == (B, S, H, KV, hd)
+    assert args[9:21] == (S * H * hd, H * hd, hd, S * KV * hd, KV * hd, hd,
+                          S * KV * hd, KV * hd, hd, S * H * hd, H * hd, hd)
+    assert args[21:] == (1 << 30, 1, 1.0, 1)
+    assert args_pub[0] == x.data_ptr()
+    assert args_pub[4:9] == (1, 20, 3, 3, hd)
+    assert args_pub[10:12] == (hd, 20 * hd)
+    assert args_pub[21:] == (7, 0, hd ** -0.5, 1)
+    fake_named_launch.clear()
+    y = torch.zeros(1, 8, 2, hd + 4, dtype=torch.bfloat16)[..., :hd]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        tattn._launch(y, y, y, window=4, causal=True, scale=1.0)
+    assert fake_named_launch == []
+    y = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
+    tattn._launch(y, y, y, window=4, causal=True, scale=1.0)
+    assert [c[0] for c in fake_named_launch] == ["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
-# The 3xTF32 kernel's route: fp32 at head_dim 64 and 128
+# The 3xTF32 kernel's route: fp32 at head_dim 64, 128 and 320
 # ---------------------------------------------------------------------------
 
 def _tf32_reference(x: np.ndarray) -> np.ndarray:
@@ -477,7 +537,7 @@ def test_split_tf32_rounds_as_cvt_rna():
     assert low[:2].tolist() == [0.0, 0.0]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 320])
 @pytest.mark.parametrize("S,window,causal", [(160, 1 << 30, True),
                                              (96, 24, True),
                                              (150, 1 << 30, True),
@@ -498,7 +558,7 @@ def test_tf32_plain_matches_pallas_kernel(rng, hd, S, window, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 320])
 @pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 24),
                                          (6, 2, 1 << 30)])
 def test_tf32_plain_matches_reference_layer(rng, hd, H, KV, window):
@@ -555,7 +615,7 @@ def test_cpu_path_launches_no_tf32_kernel(rng):
     assert not any(_build.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (24, 8, 64)])
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (24, 8, 64), (8, 4, 320)])
 def test_tf32_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
     """fp32 in the model's layout reaches the tf32 launcher, counted under
     its own counter, with its element strides and bf16 = 0."""
@@ -574,7 +634,7 @@ def test_tf32_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
     assert args[21:] == (1 << 30, 1, 0.5, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 320])
 def test_tf32_launcher_arguments_public_layout(fake_named_launch, hd):
     """(H, S, hd) fp32 reaches the tf32 kernel as strided (1, S, H, hd)
     views of the same storage, with no copy."""
@@ -591,7 +651,7 @@ def test_tf32_launcher_arguments_public_layout(fake_named_launch, hd):
     assert args[21:] == (7, 0, hd ** -0.5, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 320])
 def test_tf32_launcher_rejects_what_tma_does_not_take(fake_named_launch, hd):
     """TMA takes a base on 16 bytes and strides of 16 bytes, 4 fp32
     elements: a row stride of hd + 2 or a base 8 bytes off is refused
@@ -606,3 +666,47 @@ def test_tf32_launcher_rejects_what_tma_does_not_take(fake_named_launch, hd):
     x = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
     tattn._launch(x, x, x, window=4, causal=True, scale=1.0)
     assert [c[0] for c in fake_named_launch] == ["flash_attention_tf32"]
+
+
+def test_tf32_hd320_sums_s_over_head_dim_halves(rng, monkeypatch):
+    """At fp32 hd 320 the plain version forms s as the kernel's two
+    warpgroups do: three TF32 products over head_dim 0..159, plus the same
+    over 160..319 (``TF32_SPLIT_HEAD_DIMS``), on 8-key tiles. It equals
+    that sum written out, differs from one 3xTF32 product over all of
+    head_dim in its last bits, and both stay within 2e-4 of the naive
+    oracle."""
+    assert tattn.TF32_SPLIT_HEAD_DIMS == (320,)
+    assert tattn.TF32_KERNEL_KEYS[320] == 8
+    q, k, v = _torch(_gqa(rng, 1, 40, 2, 1, 320))
+    kw = dict(window=1 << 30, scale=320 ** -0.5)
+    got = tattn.attention_plain(q, k, v, **kw)
+    # the same fold written out: one 8-key block after another
+    qh = q.reshape(1, 40, 1, 2, 320)
+    m = torch.full((1, 1, 2, 40), tattn.NEG)
+    l = torch.zeros((1, 1, 2, 40))
+    acc = torch.zeros((1, 1, 2, 40, 320))
+    pos = torch.arange(40)
+    for j0 in range(0, 40, 8):
+        kj, vj = k[:, j0:j0 + 8], v[:, j0:j0 + 8]
+        s = (tattn._product_3xtf32("bqkgh,bnkh->bkgqn", qh[..., :160],
+                                   kj[..., :160])
+             + tattn._product_3xtf32("bqkgh,bnkh->bkgqn", qh[..., 160:],
+                                     kj[..., 160:])) * kw["scale"]
+        valid = (j0 + torch.arange(8))[None, :] <= pos[:, None]
+        s = torch.where(valid, s, tattn.NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + tattn._product_3xtf32(
+            "bkgqn,bnkh->bkgqh", p, vj)
+        m = m_new
+    want = (acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(1, 40, 2, 320)
+    assert torch.equal(got, want)
+    monkeypatch.setattr(tattn, "TF32_SPLIT_HEAD_DIMS", ())
+    whole = tattn.attention_plain(q, k, v, **kw)
+    assert not torch.equal(got, whole)
+    oracle = tattn.attention_ref(*(x[0].transpose(0, 1) for x in (q, k, v)))
+    for out in (got, whole):
+        np.testing.assert_allclose(out[0].transpose(0, 1).numpy(),
+                                   oracle.numpy(), **TOL)

@@ -506,15 +506,15 @@ def _gemma_hd320(dtype: str):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gemma_hd320_forward_matches_reference(dtype):
     """Logits of the gemma3-4b-shaped model at S = 96, past the local
-    window, with one global layer: fp32 activations (the CUDA-core kernel's
-    plain version) at the fp32 tolerance; bf16 (the wgmma kernel's plain
-    version: 48-key tiles, p split in two bf16 parts) at four bf16 steps
-    of the logits, as for the served type in
-    ``test_bf16_forward_matches_reference``."""
+    window, with one global layer: fp32 activations (the 3xTF32 kernel's
+    plain version: 8-key tiles, s summed over the halves of head_dim) at
+    the fp32 tolerance; bf16 (the wgmma kernel's plain version: 48-key
+    tiles, p split in two bf16 parts) at four bf16 steps of the logits, as
+    for the served type in ``test_bf16_forward_matches_reference``."""
     jc, tc, tree = _gemma_hd320(dtype)
     assert tlm._layer_windows(tc) == [64] * 5 + [tlm.BIG_WINDOW]
     assert kattn.kernel_for(tlm.dtype_of(dtype), 320) == (
-        "wgmma" if dtype == "bfloat16" else "cuda_core")
+        "wgmma" if dtype == "bfloat16" else "tf32")
     tokens, _, _ = _inputs(tc, 2, 96)
     want, _, _ = jlm.forward(jc, jax.tree.map(jnp.asarray, tree),
                              jnp.asarray(tokens))
