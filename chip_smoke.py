@@ -931,6 +931,146 @@ def check_ntt_two_pass(torch, kntt, ntt_core, kfft) -> dict[str, int]:
     return held
 
 
+#: fft_causal_conv at fourierpim-lm's shapes: x (B, d 768, T) with the taps
+#: (1, 768, 256). The served prefill's x (8, 768, 2048) pads to n = 4096,
+#: resident (one kernel a transform); x (2, 768, 8192) pads to n = 16384,
+#: the two-pass schedule (two kernels a transform, one launcher call).
+FOURIER_CONV_SHAPES = (((8, 768, 2048), 256), ((2, 768, 8192), 256))
+#: the reference tests' bound of the FFT compositions
+#: (tests/test_kernels_fft.py): rtol 1e-3, atol 1e-3
+FOURIER_OPS_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def plain_fft_planes(kfft):
+    """``kernels.fft.fft_planes`` with its plain version in place of the
+    kernel on the card: the whole-row sweeps, which its two-pass mirror
+    equals bit for bit."""
+    def fft_planes(xr, xi, *, inverse=False, radix=2, block_b=None):
+        del block_b
+        return kfft.fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
+    return fft_planes
+
+
+def swapped_fft_planes(kfft, fn):
+    """Run ``fn`` with ``plain_fft_planes`` swapped in for
+    ``kernels.fft.fft_planes``."""
+    kernel = kfft.fft_planes
+    kfft.fft_planes = plain_fft_planes(kfft)
+    try:
+        return fn()
+    finally:
+        kfft.fft_planes = kernel
+
+
+def causal_numpy(x, k):
+    """Causal depthwise convolution in float64 (np.convolve), x (..., T)
+    and k (..., K) broadcast against each other."""
+    T = x.shape[-1]
+    lead = np.broadcast_shapes(x.shape[:-1], k.shape[:-1])
+    xb = np.broadcast_to(x, lead + (T,)).reshape(-1, T).astype(np.float64)
+    kb = np.broadcast_to(k, lead + k.shape[-1:]).reshape(-1, k.shape[-1])
+    return np.stack([np.convolve(a, b)[:T] for a, b in zip(xb, kb)]
+                    ).reshape(lead + (T,))
+
+
+def check_fourier_ops(torch, build, kfft, kops, radix: int
+                      ) -> dict[str, float]:
+    """The FFT compositions of ``kernels.ops`` on the card, every transform
+    a launch of ``fft_planes``: ``realpack_fft``, ``fft2`` forward and
+    inverse, ``fft_conv2d`` and ``fft_causal_conv`` against float64 numpy
+    at FOURIER_OPS_TOL; then ``fft_causal_conv`` at FOURIER_CONV_SHAPES
+    through the kernel == with ``plain_fft_planes`` swapped in (bit for
+    bit), its first rows within FOURIER_OPS_TOL of numpy. Returns the
+    worst |op - numpy| per op."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    worst = {}
+
+    def held(name, got, want, tol=FOURIER_OPS_TOL):
+        got = got.cpu().numpy()
+        np.testing.assert_allclose(got, want, **tol, err_msg=name)
+        worst[name] = max(worst.get(name, 0.0),
+                          float(np.max(np.abs(got - want))))
+
+    def card(a):
+        return torch.from_numpy(a).to(dev)
+
+    for n in (8, 256, 4096, 16384):
+        x, y = (rng.standard_normal((4, n)).astype(np.float32)
+                for _ in range(2))
+        xk, yk = kops.realpack_fft(card(x), card(y), radix=radix)
+        # whole spectra of random rows: atol scaled by n, as the reference
+        held("realpack_fft", xk, np.fft.fft(x.astype(np.float64)),
+             dict(rtol=1e-3, atol=1e-3 * n))
+        held("realpack_fft", yk, np.fft.fft(y.astype(np.float64)),
+             dict(rtol=1e-3, atol=1e-3 * n))
+    for shape in ((2, 16, 32), (1, 256, 512), (4, 64, 64)):
+        z = (rng.standard_normal(shape)
+             + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        f = kops.fft2(card(z), radix=radix)
+        held("fft2", f, np.fft.fft2(z.astype(np.complex128)),
+             dict(rtol=1e-3, atol=1e-3 * math.sqrt(shape[-1] * shape[-2])))
+        held("fft2 inverse", kops.fft2(f, inverse=True, radix=radix), z,
+             dict(rtol=1e-3, atol=1e-4))
+    for H, W, kh, kw in ((12, 20, 3, 5), (100, 60, 7, 3), (255, 255, 5, 5)):
+        img = rng.standard_normal((2, H, W)).astype(np.float32)
+        kern = rng.standard_normal((kh, kw)).astype(np.float32)
+        want = np.zeros((2, H + kh - 1, W + kw - 1))
+        for i in range(kh):
+            for j in range(kw):
+                want[:, i:i + H, j:j + W] += kern[i, j] * img
+        r0, c0 = kh // 2, kw // 2
+        held("fft_conv2d", kops.fft_conv2d(card(img), card(kern),
+                                           radix=radix),
+             want[:, r0:r0 + H, c0:c0 + W])
+    for xs, ks in (((3, 100), (3, 17)), ((2, 8, 40), (1, 8, 16)),
+                   ((2, 16, 600), (1, 16, 256))):
+        x = rng.standard_normal(xs).astype(np.float32)
+        k = rng.standard_normal(ks).astype(np.float32)
+        held("fft_causal_conv", kops.fft_causal_conv(card(x), card(k),
+                                                     radix=radix),
+             causal_numpy(x, k))
+    equal = []
+    for xs, K in FOURIER_CONV_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(K + xs[-1])
+        x = torch.randn(*xs, device=dev, generator=g)
+        k = torch.randn(1, xs[1], K, device=dev, generator=g) * 0.02
+        n = kops._next_pow2(xs[-1] + K)
+        before = dict(build.LAUNCHES)
+        got = kops.fft_causal_conv(x, k, radix=radix)
+        torch.cuda.synchronize()
+        moved = {name: c - before[name]
+                 for name, c in build.LAUNCHES.items()
+                 if c != before[name]}
+        # the counter counts launcher calls: two kernels each at n >=
+        # TWO_PASS_FROM["fft"]
+        per = 1 if kfft.two_pass_plan(n, radix) is None else 2
+        if moved != {"fft_planes": 3}:
+            raise SystemExit(f"fft_causal_conv x {xs} taps {K}: launches "
+                             f"{moved}, expected fft_planes 3 times and "
+                             f"nothing else")
+        want = swapped_fft_planes(
+            kfft, lambda: kops.fft_causal_conv(x, k, radix=radix))
+        if not torch.equal(got, want):
+            raise SystemExit(
+                f"fft_causal_conv x {xs} taps {K} (n = {n}): kernel and "
+                f"plain version differ by "
+                f"{float((got - want).abs().max())}")
+        held("fft_causal_conv", got[0, :4],
+             causal_numpy(x[0, :4].cpu().numpy(), k[0, :4].cpu().numpy()))
+        equal.append(f"x {xs} taps {K}: n = {n}, {per} kernel(s) a "
+                     f"transform")
+        del x, k, got, want
+    torch.cuda.synchronize()
+    print(f"[fourier ops] realpack_fft, fft2 and its inverse, fft_conv2d "
+          f"and fft_causal_conv (radix {radix}) within {FOURIER_OPS_TOL} "
+          f"of float64 numpy (atol scaled by n for whole spectra); "
+          f"fft_causal_conv through the kernel == with the plain version "
+          f"swapped in at {'; '.join(equal)}; worst |op - numpy| {worst}",
+          flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the serve path
 # ---------------------------------------------------------------------------
@@ -1935,11 +2075,14 @@ def full_width_state(torch, convert, cfg):
         cfg, torch.Generator(device=torch.device("cuda")).manual_seed(0))
 
 
-def serve_lm(torch, build, serve, get_config, arch: str) -> dict:
+def serve_lm(torch, build, serve, get_config, arch: str,
+             counter: str = "flash_attention_wgmma",
+             per_layer: int = 1) -> dict:
     """The serve CLI's ``--service lm`` for ``arch`` at full width (batch 8,
-    prompt 2048, gen 32), the launch counters zeroed just before: one
-    launch of the wgmma kernel per layer (one prefill) and nothing else,
-    and LM_GEN tokens in the vocabulary for each prompt."""
+    prompt 2048, gen 32), the launch counters zeroed just before:
+    ``per_layer`` launches of ``counter`` per layer (one prefill: the wgmma
+    flash kernel once, or for fourierpim-lm fft_planes three times) and
+    nothing else, and LM_GEN tokens in the vocabulary for each prompt."""
     build.reset_launches()
     t0 = time.perf_counter()
     res = serve.main(["--service", "lm", "--arch", arch, "--batch",
@@ -1950,21 +2093,23 @@ def serve_lm(torch, build, serve, get_config, arch: str) -> dict:
     launches = dict(build.LAUNCHES)
     cfg = get_config(arch)
     gen = res["generated"]
-    if launches["flash_attention_wgmma"] != cfg.num_layers:
-        raise SystemExit(f"served {arch} run: flash_attention_wgmma "
-                         f"launched {launches['flash_attention_wgmma']} "
-                         f"times, expected {cfg.num_layers} (one per layer, "
-                         f"one prefill)")
+    if launches[counter] != per_layer * cfg.num_layers:
+        raise SystemExit(f"served {arch} run: {counter} launched "
+                         f"{launches[counter]} times, expected "
+                         f"{per_layer * cfg.num_layers} ({per_layer} per "
+                         f"layer, one prefill)")
     if others := {k: n for k, n in launches.items()
-                  if n and k != "flash_attention_wgmma"}:
+                  if n and k != counter}:
         raise SystemExit(f"served {arch} run launched other kernels: "
                          f"{others}")
     if gen.shape != (LM_GEN, LM_BATCH) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise SystemExit(f"served {arch} run: generated {gen.shape} "
                          f"{gen.min()}..{gen.max()}")
+    shape = (f"{cfg.fourier_taps} taps" if cfg.mixer == "fourier"
+             else f"head_dim {cfg.head_dim}")
     print(f"[lm] served {arch} (full width, {cfg.num_layers} layers, "
-          f"head_dim {cfg.head_dim}, bf16) batch={LM_BATCH} "
+          f"{shape}, bf16) batch={LM_BATCH} "
           f"prompt={LM_PROMPT} gen={LM_GEN}: generated {gen.shape}, "
           f"{res['tokens_per_s']:.1f} tok/s (first call, incl. prefill) in "
           f"{wall:.1f}s with set-up; launches {launches}", flush=True)
@@ -2156,6 +2301,111 @@ def reduced_phase(torch, build, convert, kattn, get_config) -> dict:
 def lm_window(cfg, i: int) -> str:
     """Layer i's attention window, as printed."""
     return "global" if cfg.layer_is_global(i) else str(cfg.window)
+
+
+#: fourierpim-lm's checks beside its served run: the card against the CPU
+#: (layers, batch, prompt), fp32; and a prefill at n = 16384, the two-pass
+#: schedule, through the kernel against the plain version, bf16
+FOURIER_ARCH = "fourierpim-lm"
+FOURIER_PARITY = (2, 1, 512)
+FOURIER_LONG = (2, 2, 8192)
+
+
+def fourier_phase(torch, build, serve, convert, kfft, kops, get_config,
+                  radix: int) -> dict:
+    """Phase 3 for fourierpim-lm: (1) the served run (``serve_lm``):
+    fft_planes three times a layer (one prefill) and nothing else; (2) the
+    same FOURIER_PARITY full-width fp32 weights on the card and on the CPU
+    (plain versions): the prefill's last logits and one decode step within
+    LM_TOL, the card's prefill launching fft_planes three times a layer and
+    the CPU's nothing; (3) a FOURIER_LONG full-width bf16 prefill (n =
+    16384, two kernels a transform) through the kernel and again with
+    ``plain_fft_planes`` swapped in (no launch): last logits equal."""
+    dev = torch.device("cuda")
+    served = serve_lm(torch, build, serve, get_config, FOURIER_ARCH,
+                      counter="fft_planes", per_layer=3)
+    cfg = get_config(FOURIER_ARCH)
+
+    # (2) the card against the CPU, fp32
+    layers, B, S = FOURIER_PARITY
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    sd = convert.init_params(cfg32, torch.Generator().manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                           generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for where, place in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = convert.build(cfg32, sd, place)
+        t = tokens.to(place)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        last, state = model.prefill(t[:, :S], cache_capacity=S + 1)
+        step, _ = model.decode_step(state, t[:, S], S)
+        outs[where] = (last.float().cpu(), step.float().cpu(),
+                       {k: n for k, n in build.LAUNCHES.items() if n})
+        del model, state
+    if outs["cpu"][2] or outs["cuda"][2] != {"fft_planes": 3 * layers}:
+        raise SystemExit(f"{FOURIER_ARCH} card vs CPU: launches "
+                         f"{outs['cuda'][2]} on the card, "
+                         f"{outs['cpu'][2]} on the CPU; expected "
+                         f"fft_planes {3 * layers} times and none")
+    errs = [float((a - b).abs().max())
+            for a, b in zip(outs["cuda"][:2], outs["cpu"][:2])]
+    if not all(torch.isfinite(a).all() and torch.allclose(a, b, **LM_TOL)
+               for a, b in zip(outs["cuda"][:2], outs["cpu"][:2])):
+        raise SystemExit(f"{FOURIER_ARCH} {layers}-layer full width fp32: "
+                         f"card and CPU differ by {errs} (prefill, decode)")
+    print(f"[lm] {FOURIER_ARCH} full width, {layers} layers, fp32, B={B} "
+          f"S={S}: card (fft kernel) vs CPU (plain) prefill last logits "
+          f"|diff|max={errs[0]:.3g}, decode_step(S) |diff|max="
+          f"{errs[1]:.3g}, within {LM_TOL}; card launches "
+          f"{outs['cuda'][2]}", flush=True)
+
+    # (3) the two-pass schedule: kernel against plain version, bf16
+    layers, B, S = FOURIER_LONG
+    cfg16 = dataclasses.replace(cfg, num_layers=layers)
+    n = kops._next_pow2(S + cfg.fourier_taps)
+    per = 1 if kfft.two_pass_plan(n, radix) is None else 2
+    model = convert.build(cfg16, full_width_state(torch, convert, cfg16),
+                          dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with_kernel, _ = model.prefill(tokens)
+    torch.cuda.synchronize()
+    kernel_launches = {k: c for k, c in build.LAUNCHES.items() if c}
+    with_plain, _ = swapped_fft_planes(kfft, lambda: model.prefill(tokens))
+    torch.cuda.synchronize()
+    plain_launches = {k: c - kernel_launches.get(k, 0)
+                      for k, c in build.LAUNCHES.items()
+                      if c != kernel_launches.get(k, 0)}
+    if kernel_launches != {"fft_planes": 3 * layers} or plain_launches:
+        raise SystemExit(f"{FOURIER_ARCH} {layers}-layer prefill B={B} "
+                         f"S={S}: launches {kernel_launches} with the "
+                         f"kernel, {plain_launches} with the plain version; "
+                         f"expected fft_planes {3 * layers} times and none")
+    got, ref = with_kernel.float(), with_plain.float()
+    long_err = float((got - ref).abs().max())
+    if got.shape != (B, cfg.vocab_padded) or not (
+            torch.isfinite(got).all() and torch.equal(with_kernel,
+                                                      with_plain)):
+        raise SystemExit(f"{FOURIER_ARCH} {layers}-layer bf16 prefill at "
+                         f"n = {n}: last logits {tuple(got.shape)} through "
+                         f"the kernel and the plain version differ by "
+                         f"{long_err}")
+    print(f"[lm] {FOURIER_ARCH} full width, {layers} layers, bf16, B={B} "
+          f"S={S} (n = {n}, {per} kernels a transform): prefill last "
+          f"logits through the kernel == with the plain version swapped in "
+          f"(|logit|max {float(ref.abs().max()):.3g}); launches "
+          f"{kernel_launches}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": served["launches"]["fft_planes"],
+            "first_call_tokens_per_s": served["tokens_per_s"],
+            "card_vs_cpu_max_abs": errs,
+            "two_pass_prefill": {"layers": layers, "batch": B, "prompt": S,
+                                 "n": n, "launches": kernel_launches,
+                                 "kernel_equals_plain": True}}
 
 
 #: Device-side names of the flash kernels in a profiler trace, by launch
@@ -2510,6 +2760,273 @@ def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
     return out
 
 
+#: trace names: the fft kernel's launches (one CTA per row block, or the
+#: two passes) and the matmuls' (cuBLAS and CUTLASS kernels)
+FFT_TRACE_NAME = re.compile(r"(?<![a-z])fft_(pass[12]_)?kernel")
+MATMUL_TRACE_NAME = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas",
+                               re.IGNORECASE)
+#: fft_planes at fourierpim-lm's shapes (rows, n): a served prefill's x
+#: (8 x 768 channel rows) and its taps (768 rows), padded to n = 4096
+FOURIER_FFT_SHAPES = ((LM_BATCH * 768, 4096), (768, 4096))
+
+
+def trace_split(torch, fn) -> dict:
+    """One traced call of ``fn``: the device ms in all, in the fft kernel's
+    launches (and how many the trace holds), in the matmuls, and the rest,
+    with the rest's five largest kernels (ms, launches, name). The trace
+    drops some or all events of the ctypes-launched kernels, so the fft
+    kernel's traced time is a side figure: callers take its time from
+    graph replays (``fft_at_lm_shapes``) and from the trace only the rest,
+    whose kernels are PyTorch's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"device_ms": 0.0, "fft_ms": 0.0, "fft_launches_traced": 0,
+           "matmul_ms": 0.0}
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        out["device_ms"] += ms
+        if FFT_TRACE_NAME.search(e.key):
+            out["fft_ms"] += ms
+            out["fft_launches_traced"] += e.count
+        elif MATMUL_TRACE_NAME.search(e.key):
+            out["matmul_ms"] += ms
+        else:
+            other.append((ms, e.count, e.key[:100]))
+    out["other_ms"] = out["device_ms"] - out["fft_ms"] - out["matmul_ms"]
+    out["other_top"] = sorted(other, reverse=True)[:5]
+    return out
+
+
+def fft_at_lm_shapes(torch, kfft, radix: int, card: str) -> dict:
+    """``fft_planes`` forward and inverse at FOURIER_FFT_SHAPES: == its
+    plain version, then CUDA events around a CUDA-graph replay of the
+    kernel and of ``torch.fft.fft`` / ``ifft`` on the complex tensors of
+    the same planes, beside the bound (``work``)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    out = {}
+    for rows, n in FOURIER_FFT_SHAPES:
+        sets = [[torch.from_numpy(rng.standard_normal((rows, n)).astype(
+            np.float32)).to(dev) for _ in range(2)]
+            for _ in range(max(1, math.ceil(128e6 / (8 * rows * n))))]
+        lib_sets = [(torch.complex(p, q),) for p, q in sets]
+        nbytes, flops = work("fft_planes", n, rows, radix)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        for inverse in (False, True):
+            def kern(p, q, inverse=inverse):
+                return kfft.fft_planes(p, q, inverse=inverse, radix=radix)
+            lib = torch.fft.ifft if inverse else torch.fft.fft
+            got = kern(*sets[0])
+            want = kfft.fft_planes_plain(*sets[0], inverse=inverse,
+                                         radix=radix)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise SystemExit(f"fft_planes {rows} x {n} inverse="
+                                 f"{inverse}: kernel and plain version "
+                                 f"differ")
+            del got, want
+            reps = max(len(sets), 10)
+            entry = {"rows": rows, "n": n, "inverse": inverse,
+                     "radix": radix,
+                     "graph_ms": graph_ms(torch, kern, sets, reps),
+                     "library_graph_ms": graph_ms(torch, lib, lib_sets,
+                                                  reps),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "flops": flops}
+            entry["share_of_bound"] = entry["bound_ms"] / entry["graph_ms"]
+            entry["over_library"] = (entry["graph_ms"]
+                                     / entry["library_graph_ms"])
+            out[f"{rows}x{n}{' inverse' if inverse else ''}"] = entry
+            print(f"[time] fft_planes at fourierpim-lm's shape {rows} x {n} "
+                  f"{'inverse' if inverse else 'forward'} radix {radix} "
+                  f"(graph replay, CUDA events): kernel "
+                  f"{entry['graph_ms']:.4f} ms, torch.fft."
+                  f"{'ifft' if inverse else 'fft'} "
+                  f"{entry['library_graph_ms']:.4f} ms, bound "
+                  f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
+                  f"{entry['share_of_bound']:.3f} of the bound, "
+                  f"{entry['over_library']:.2f}x the library; kernel == "
+                  f"plain; on {card}", flush=True)
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def conv_timing(torch, kops, radix: int, card: str,
+                fft_ms: float) -> dict:
+    """``fft_causal_conv`` at the served prefill's shape (x (8, 768, 2048)
+    fp32, taps (1, 768, 256)) by graph replay, against the same composite
+    of ``torch.fft`` calls (pad, complex cast, fft of both, product, ifft,
+    real part of the first T points); and the glue around its three fft
+    launches (pads, the zero imaginary planes, the spectral product, the
+    cut of the real part): the call's graph time less ``fft_ms``, the
+    graph-replay time of its three fft launches. (A trace of the call
+    late in a run may hold none of its kernels, the glue's included.)"""
+    dev = torch.device("cuda")
+    (xs, K), = [s for s in FOURIER_CONV_SHAPES if s[0][-1] == LM_PROMPT]
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(*xs, device=dev, generator=g)
+    k = torch.randn(1, xs[1], K, device=dev, generator=g) * 0.02
+    T = xs[-1]
+    n = kops._next_pow2(T + K)
+    pad = torch.nn.functional.pad
+    tf = torch.fft
+
+    def ours(x, k):
+        return kops.fft_causal_conv(x, k, radix=radix)
+
+    def composite(x, k):
+        fa = tf.fft(pad(x, (0, n - T)).to(torch.complex64))
+        fb = tf.fft(pad(k, (0, n - K)).to(torch.complex64))
+        return tf.ifft(fa * fb)[..., :T].real
+
+    err = float((ours(x, k) - composite(x, k)).abs().max())
+    if err > FOURIER_OPS_TOL["atol"]:
+        raise SystemExit(f"fft_causal_conv and the torch.fft composite "
+                         f"differ by {err}")
+    out = {"x": list(xs), "taps": K, "n": n, "radix": radix,
+           "graph_ms": graph_ms(torch, ours, [(x, k)], 10),
+           "library_graph_ms": graph_ms(torch, composite, [(x, k)], 10),
+           "fft_graph_ms": fft_ms, "vs_library_max_abs": err}
+    out["glue_ms"] = out["graph_ms"] - fft_ms
+    print(f"[time] fft_causal_conv x {xs} taps {K} (n = {n}, radix "
+          f"{radix}): graph replay {out['graph_ms']:.4f} ms against the "
+          f"torch.fft composite's {out['library_graph_ms']:.4f} ms; its "
+          f"three fft launches {fft_ms:.4f} ms (graph replays at their "
+          f"shapes), the glue {out['glue_ms']:.4f} ms; |ours - "
+          f"composite|max {err:.3g}; on {card}", flush=True)
+    del x, k
+    torch.cuda.empty_cache()
+    return out
+
+
+def fourier_timing(torch, build, convert, lm, kfft, kops, get_config,
+                   card: str, radix: int) -> dict:
+    """fourierpim-lm's cell at full width (bf16, batch LM_BATCH x
+    LM_PROMPT, LM_GEN tokens): the prefill's launches (the counters zeroed
+    just before a warm prefill: fft_planes three times a layer, nothing
+    else), prefill ms (CUDA events, best of 3), decode ms per token (host
+    clock around work that ends in a synchronize) and tok/s; the prefill's device time
+    split into the fft kernel (``fft_at_lm_shapes``' graph replays of its
+    three launches a layer), the matmuls and the rest (a traced prefill),
+    and the convolution's glue (``conv_timing``, per call, times the
+    layers); a traced generate for the card's idle share, its fft
+    launches counted as in the prefill."""
+    dev = torch.device("cuda")
+    cfg = get_config(FOURIER_ARCH)
+    model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    cap = LM_PROMPT + LM_GEN
+    torch.cuda.synchronize()
+    build.reset_launches()
+    model.prefill(tokens, cache_capacity=cap)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    if launches != {"fft_planes": 3 * cfg.num_layers}:
+        raise SystemExit(f"{FOURIER_ARCH} prefill (B={LM_BATCH}, "
+                         f"S={LM_PROMPT}): launches {launches}, expected "
+                         f"fft_planes {3 * cfg.num_layers} times and "
+                         f"nothing else")
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        logits, state = model.prefill(tokens, cache_capacity=cap)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    pre = min(runs)
+    tok = logits.argmax(dim=-1)
+    model.decode_step(state, tok, LM_PROMPT)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_GEN):
+        logits, state = model.decode_step(state, tok, LM_PROMPT + i)
+        tok = logits.argmax(dim=-1)
+    torch.cuda.synchronize()
+    decode = (time.perf_counter() - t0) * 1e3 / LM_GEN
+    del state, logits
+    split = trace_split(torch, lambda: model.prefill(tokens,
+                                                     cache_capacity=cap))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.generate(model, tokens, LM_GEN)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # busy: the traced kernels but the fft kernel's, whose launches (one
+    # prefill's) are counted from their graph replays below
+    busy_traced = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and not FFT_TRACE_NAME.search(e.key)) / 1e3
+    del model
+    torch.cuda.empty_cache()
+    # the fft kernel's time in a prefill from graph replays at its shapes:
+    # each layer transforms the 6144 channel rows forward, the 768 tap rows
+    # forward and the 6144 product rows back
+    shapes = fft_at_lm_shapes(torch, kfft, radix, card)
+    (x_rows, n), (k_rows, _) = FOURIER_FFT_SHAPES
+    fft_layer = (shapes[f"{x_rows}x{n}"]["graph_ms"]
+                 + shapes[f"{k_rows}x{n}"]["graph_ms"]
+                 + shapes[f"{x_rows}x{n} inverse"]["graph_ms"])
+    conv = conv_timing(torch, kops, radix, card, fft_layer)
+    glue = conv["glue_ms"] * cfg.num_layers
+    fft = fft_layer * cfg.num_layers
+    device = split["device_ms"] - split["fft_ms"] + fft
+    busy = busy_traced + fft
+    out = {"arch": FOURIER_ARCH, "dtype": cfg.dtype, "launches": launches,
+           "prefill_ms": pre, "prefill_ms_runs": runs,
+           "decode_ms_per_token": decode,
+           "tokens_per_s": LM_BATCH * LM_GEN / ((pre + LM_GEN * decode)
+                                                / 1e3),
+           "traced_prefill": split, "fft_ms_per_prefill": fft,
+           "device_ms_per_prefill": device,
+           "fft_share_of_prefill": fft / device,
+           "matmul_share_of_prefill": split["matmul_ms"] / device,
+           "conv_glue_ms_per_prefill": glue,
+           "glue_share_of_prefill": glue / device,
+           "idle_share": 1 - busy / wall, "traced_generate_wall_ms": wall,
+           "traced_busy_ms": busy, "conv": conv, "fft_at_lm_shapes": shapes}
+    print(f"[time] lm {FOURIER_ARCH} batch={LM_BATCH} prompt={LM_PROMPT} "
+          f"gen={LM_GEN} {cfg.dtype}: one prefill launched {launches}; "
+          f"prefill {pre:.2f} ms (runs {', '.join(f'{t:.2f}' for t in runs)}"
+          f"), decode {decode:.3f} ms/token, {out['tokens_per_s']:.1f} tok/s "
+          f"incl. prefill; prefill device time {device:.2f} ms: the fft "
+          f"kernel {fft:.2f} ms (graph replays at its shapes, "
+          f"{cfg.num_layers} layers; "
+          f"{out['fft_share_of_prefill']:.3f}; the trace held "
+          f"{split['fft_launches_traced']} of its "
+          f"{launches['fft_planes']} launches, {split['fft_ms']:.2f} ms), "
+          f"traced: matmuls "
+          f"{split['matmul_ms']:.2f} ms ({out['matmul_share_of_prefill']:.3f}"
+          f"), the rest {split['other_ms']:.2f} ms, of which the "
+          f"convolution's glue {glue:.2f} ms "
+          f"({out['glue_share_of_prefill']:.3f}; {conv['glue_ms']:.4f} ms "
+          f"a layer; the rest's largest kernels "
+          f"{[(round(ms, 3), c, k) for ms, c, k in split['other_top']]}); "
+          f"traced generate: device "
+          f"busy {busy:.2f} of {wall:.2f} ms wall -> idle share "
+          f"{out['idle_share']:.4f}; on {card}", flush=True)
+    return out
+
+
 def start_ptxas_report(build, source: str):
     """A second nvcc of ``source`` with ``-Xptxas -v``, started beside the
     build: ptxas's registers, shared memory and spills per kernel."""
@@ -2663,12 +3180,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import fft as kfft
     from repro_torch.kernels import ntt as kntt
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import polymul as kpoly
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import attention as kattn
     from repro_torch.launch import engine as engine_mod
     from repro_torch.launch import serve
     from repro_torch.models import convert, lm
+    from repro_torch.models.layers.common import MIXING_RADIX
 
     start = time.perf_counter()
 
@@ -2702,6 +3221,9 @@ def main() -> int:
     worst.update(check_attention(torch, kattn, _build))
     two_pass_held = check_two_pass(torch, kfft, kpoly)
     two_pass_held.update(check_ntt_two_pass(torch, kntt, ntt_core, kfft))
+    clock("phase 2, kernels and schedules")
+    worst.update(check_fourier_ops(torch, _build, kfft, kops, MIXING_RADIX))
+    clock("phase 2, FFT compositions")
     moved = dict(_build.LAUNCHES)
     if not all(moved.values()):
         raise SystemExit(f"a kernel never launched in the sweep: {moved}")
@@ -2762,6 +3284,9 @@ def main() -> int:
     clock("phase 3, gemma3-4b")
     reduced_run = reduced_phase(torch, _build, convert, kattn, get_config)
     clock("phase 3, reduced config")
+    fourier_run = fourier_phase(torch, _build, serve, convert, kfft, kops,
+                                get_config, MIXING_RADIX)
+    clock("phase 3, fourierpim-lm")
 
     # -- phase 4: timings ----------------------------------------------------
     times = timings(torch, kfft, kpoly, core_fft, _build, card)
@@ -2787,6 +3312,9 @@ def main() -> int:
         dtype="float32", decode=False,
         cuda_core=cuda_core_attention(torch, _build))
     clock("phase 4, gemma3-4b fp32")
+    fourier_times = fourier_timing(torch, _build, convert, lm, kfft, kops,
+                                   get_config, card, MIXING_RADIX)
+    clock("phase 4, fourierpim-lm")
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
@@ -2808,6 +3336,11 @@ def main() -> int:
             **({"ptxas": {k: registers[source].get(k) for n in shapes
                           for k in times[name][n].get("by_kernel") or {}}}
                if source in registers else {}),
+            # the LM path: fourierpim-lm's prefill, 3 calls a layer
+            **({FOURIER_ARCH: {
+                "launches_per_prefill": fourier_run["launches"],
+                **fourier_run, "lm": fourier_times}}
+               if name == "fft_planes" else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     # kernel 9's entries, each at its ATTN_TIMED labels (the first is the
     # entry's numbers): the wgmma kernel at hd 64/128 (qwen3-1.7b's served

@@ -3,7 +3,8 @@
 Functions take tensors of shape (..., n), n a power of two, with any
 leading batch dims, and run where the tensor lies: on the card through the
 CUDA kernels, on the CPU through their plain versions. Complex tensors are
-complex64; real tensors float32.
+complex64; real tensors float32. On a CUDA tensor no op here calls
+``torch.fft``: every transform is a launch of the port's kernels.
 """
 from __future__ import annotations
 
@@ -147,3 +148,79 @@ def polymul(a: torch.Tensor, b: torch.Tensor, *, mode: str = "linear",
     cr, ci = _kpoly.polymul_complex_planes(*_planes(a2), *_planes(b2),
                                            radix=radix, block_b=block_b)
     return torch.complex(cr, ci).reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# Compositions of the batched transform: the real-packing identity, 2-D
+# transforms and FFT convolutions.
+# ---------------------------------------------------------------------------
+
+def realpack_fft(x: torch.Tensor, y: torch.Tensor, *, radix: int = 2
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FFTs of two real tensors (..., n) through one complex FFT of
+    z = x + i y (paper Eq. (10)):
+    X_k = (conj(Z_{n-k}) + Z_k) / 2,  Y_k = i (conj(Z_{n-k}) - Z_k) / 2."""
+    zf = fft(torch.complex(_real(x), _real(y)), radix=radix)
+    zrev = torch.roll(torch.flip(zf, dims=[-1]), 1, dims=-1)   # Z_{n-k}
+    return 0.5 * (torch.conj(zrev) + zf), 0.5j * (torch.conj(zrev) - zf)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def fft2(x: torch.Tensor, *, inverse: bool = False,
+         radix: int = 2) -> torch.Tensor:
+    """2-D FFT of (..., H, W), H and W powers of two, by separability: the
+    batched 1-D transform along W, then (the last two axes swapped) along
+    H."""
+    y = fft(x, inverse=inverse, radix=radix)                   # along W
+    y = fft(y.transpose(-1, -2), inverse=inverse, radix=radix)  # along H
+    return y.transpose(-1, -2)
+
+
+def fft_conv2d(img: torch.Tensor, kern: torch.Tensor, *,
+               radix: int = 2) -> torch.Tensor:
+    """'same'-padded 2-D convolution by the convolution theorem.
+
+    img: (..., H, W) real; kern: (kh, kw) real, kh and kw odd. Both are
+    zero-padded to the next powers of two >= H + kh and W + kw."""
+    H, W = img.shape[-2:]
+    kh, kw = kern.shape
+    Hp, Wp = _next_pow2(H + kh), _next_pow2(W + kw)
+    pad = torch.nn.functional.pad
+    xi = pad(_real(img), (0, Wp - W, 0, Hp - H))
+    ki = pad(_real(kern), (0, Wp - kw, 0, Hp - kh))
+    fx = fft2(xi.to(torch.complex64), radix=radix)
+    fk = fft2(ki.to(torch.complex64), radix=radix)
+    full = fft2(fx * fk, inverse=True, radix=radix).real
+    r0, c0 = kh // 2, kw // 2
+    return full[..., r0:r0 + H, c0:c0 + W].to(img.dtype)
+
+
+def fft_causal_conv(x: torch.Tensor, k: torch.Tensor, *,
+                    radix: int = 2) -> torch.Tensor:
+    """Causal depthwise long convolution y[t] = sum_{s<=t} k[s] x[t-s].
+
+    x: (..., T) real signal, k: (..., K) real taps, their leading dims
+    broadcast against each other (``fourier_mixing`` passes x (B, d, T)
+    and k (1, d, K)). Both are zero-padded to n = the next power of two
+    >= T + K, so the circular product does not wrap; each is transformed
+    by the complex FFT (``fft_planes``, zero imaginary plane), the spectra
+    are multiplied, the product is transformed back, and the real part of
+    the first T points is returned in x's type. Three calls of
+    ``fft_planes``, each one kernel below ``TWO_PASS_FROM["fft"]`` points
+    and two passes from there on."""
+    T, K = x.shape[-1], k.shape[-1]
+    n = _next_pow2(T + K)
+    pad = torch.nn.functional.pad
+    xp, x_lead = _as2d(pad(_real(x), (0, n - T)))
+    kp, k_lead = _as2d(pad(_real(k), (0, n - K)))
+    ar, ai = _kfft.fft_planes(xp, torch.zeros_like(xp), radix=radix)
+    br, bi = _kfft.fft_planes(kp, torch.zeros_like(kp), radix=radix)
+    ar, ai = ar.reshape(*x_lead, n), ai.reshape(*x_lead, n)
+    br, bi = br.reshape(*k_lead, n), bi.reshape(*k_lead, n)
+    cr, lead = _as2d(ar * br - ai * bi)
+    ci, _ = _as2d(ar * bi + ai * br)
+    yr, _ = _kfft.fft_planes(cr, ci, inverse=True, radix=radix)
+    return yr.reshape(*lead, n)[..., :T].to(x.dtype)

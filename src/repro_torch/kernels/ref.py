@@ -1,7 +1,8 @@
 """Plain-torch oracles for the Fourier kernels (port of ``repro.kernels.ref``).
 
 These are test oracles, written independently of the kernels: a naive
-Vandermonde DFT, an iterative radix-2 Stockham FFT, and direct convolution.
+Vandermonde DFT, a recursive radix-2 FFT, an iterative radix-2 Stockham FFT,
+direct convolution, and the real-packing identity (paper Eq. (10)).
 Complex values are carried as complex64/complex128 tensors here; the kernels
 use split real/imag planes.
 """
@@ -31,6 +32,27 @@ def dft(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     if inverse:
         y = y / n
     return y
+
+
+def fft_recursive(x: torch.Tensor) -> torch.Tensor:
+    """Recursive decimation-in-time FFT (paper Eq. (3)); x shape (..., n),
+    n a power of two. Twiddles in fp32 phases, as the reference's."""
+    n = x.shape[-1]
+    if n == 1:
+        return x.to(torch.complex64)
+    if n % 2:
+        raise ValueError(f"n={n} is not a power of two")
+    even = fft_recursive(x[..., 0::2])
+    odd = fft_recursive(x[..., 1::2])
+    k = torch.arange(n // 2, device=x.device)
+    w = torch.exp(-2j * math.pi * k / n).to(torch.complex64)
+    t = w * odd
+    return torch.cat([even + t, even - t], dim=-1)
+
+
+def ifft_recursive(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
+    return torch.conj(fft_recursive(torch.conj(x))) / n
 
 
 def fft_stockham(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
@@ -63,6 +85,10 @@ def fft_stockham(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     return y
 
 
+def ifft_stockham(x: torch.Tensor) -> torch.Tensor:
+    return fft_stockham(x, inverse=True)
+
+
 def convolve_direct(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full linear convolution, O(n m), via explicit sum; a, b shape (..., n)."""
     n = a.shape[-1]
@@ -90,3 +116,22 @@ def polymul_linear_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = a.shape[-1]
     pad = torch.nn.functional.pad
     return polymul_circular_ref(pad(a, (0, n)), pad(b, (0, n)))
+
+
+def realpack_fft_ref(x: torch.Tensor, y: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FFTs of two real sequences via one complex DFT of z = x + i y
+    (paper Eq. (10)):
+    X_k = (conj(Z_{n-k}) + Z_k) / 2,  Y_k = i (conj(Z_{n-k}) - Z_k) / 2,
+    indices mod n."""
+    z = torch.complex(x.to(torch.float32), y.to(torch.float32))
+    zf = dft(z)
+    zrev = torch.roll(torch.flip(zf, dims=[-1]), 1, dims=-1)   # Z_{n-k}
+    return 0.5 * (torch.conj(zrev) + zf), 0.5j * (torch.conj(zrev) - zf)
+
+
+def fft_causal_conv_ref(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise convolution y[t] = sum_{s<=t} k[s] x[t-s], by direct
+    summation; x (..., T), k (..., K)."""
+    T = x.shape[-1]
+    return convolve_direct(x, k)[..., :T].to(x.dtype)

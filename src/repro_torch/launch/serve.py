@@ -15,8 +15,10 @@
 --service lm     : LM serving: random weights from a seed (``--arch``, full
                    width, or ``--smoke`` for the reduced config), a
                    (batch, prompt-len) prompt, one prefill whose attention
-                   runs the flash-attention kernel in every layer, then
-                   ``--gen`` greedy decode steps (``models/lm.py``).
+                   runs the flash-attention kernel in every layer (for
+                   fourierpim-lm: whose token mixing runs the FFT kernel
+                   three times in every layer), then ``--gen`` greedy
+                   decode steps (``models/lm.py``).
 
 All run on the card unless ``--device cpu`` is given; without a card they
 raise rather than fall back to the CPU.
@@ -32,6 +34,8 @@ Example:
       --n 256 --batch 4 --requests 16
   PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
       --arch qwen3-1.7b --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
+      --arch fourierpim-lm --batch 8 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 

@@ -96,8 +96,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                  "mlp.w_gate": normal((d, f), d ** -0.5),
                  "mlp.w_up": normal((d, f), d ** -0.5),
                  "mlp.w_down": normal((f, d), f ** -0.5)}
-        block.update({f"attn.{k}": v for k, v in init_attention_params(
-            cfg, generator, pdt, device).items()})
+        if cfg.mixer == "fourier":
+            block.update({"fourier.taps": normal((cfg.fourier_taps, d), 0.02),
+                          "fourier.gate": normal((d, d), d ** -0.5)})
+        else:
+            block.update({f"attn.{k}": v for k, v in init_attention_params(
+                cfg, generator, pdt, device).items()})
         sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
     return sd
 

@@ -1,13 +1,18 @@
-"""Common layers: RMSNorm, rotary embeddings (incl. M-RoPE) and the SwiGLU
-MLP (port of ``repro.models.layers.common``).
-
-``fourier_mixing`` is not here yet: it needs ``fft_causal_conv``
-(ROADMAP queue 1, item 4).
+"""Common layers: RMSNorm, rotary embeddings (incl. M-RoPE), the SwiGLU
+MLP and the FourierPIM token-mixing layer (port of
+``repro.models.layers.common``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ops import fft_causal_conv
+
+#: Radix of the token mixer's transforms: the planner's at every n >= 4
+#: (``core.fft.plan``). The reference mixes on its radix-2 XLA Stockham;
+#: both round the same exact convolution, within fp32 rounding.
+MIXING_RADIX = 4
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -87,3 +92,24 @@ def swiglu_mlp(params, x: torch.Tensor,
     if reduce_dtype is not None:
         out = out.to(reduce_dtype)
     return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# FourierPIM token mixing (paper section 5 as a sequence-model primitive)
+# ---------------------------------------------------------------------------
+
+def fourier_mixing(params, x: torch.Tensor) -> torch.Tensor:
+    """Causal depthwise long convolution over the sequence by FFT
+    (``kernels.ops.fft_causal_conv``), then a sigmoid output gate.
+
+    params: taps (K, d) in the parameter type, gate (d, d) in x's type.
+    x: (B, S, d). The convolution runs in fp32 on (B, d, S), its result
+    goes back to x's type; the gate is sigmoid((x @ gate) in fp32) in x's
+    type, as the reference casts them."""
+    dtype = x.dtype
+    taps = params.taps.float()                          # (K, d)
+    xt = x.float().transpose(-1, -2)                    # (B, d, S)
+    y = fft_causal_conv(xt, taps.t()[None], radix=MIXING_RADIX)
+    y = y.transpose(-1, -2).to(dtype)                   # (B, S, d)
+    gate = torch.sigmoid((x @ params.gate).float()).to(dtype)
+    return y * gate

@@ -1,12 +1,13 @@
-"""Config-driven decoder LM: the dense attention family (port of
-``repro.models.lm``).
+"""Config-driven decoder LM: the dense attention family and FourierPIM
+token mixing (port of ``repro.models.lm``).
 
-``DecoderLM`` serves the architectures whose mixer is GQA attention (full,
-sliding-window or gemma3's local:global) and whose FFN is the dense SwiGLU,
-with token or precomputed-embedding input and RoPE or M-RoPE positions:
-qwen3, gemma3, starcoder2, llama3, musicgen and qwen2-vl. The other mixers
-and FFNs raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``DecoderLM`` serves the architectures whose FFN is the dense SwiGLU and
+whose mixer is GQA attention (full, sliding-window or gemma3's
+local:global), with token or precomputed-embedding input and RoPE or
+M-RoPE positions: qwen3, gemma3, starcoder2, llama3, musicgen and qwen2-vl;
+or FourierPIM's FFT convolution (``fourier_mixing``): fourierpim-lm. The
+other mixers and FFNs raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
 Entry points, as in the reference:
   forward       (B, S) tokens -> (B, S, vocab_padded) logits
@@ -28,7 +29,9 @@ Differences from the reference, none of which changes a value:
   * ``prefill`` applies ``lm_head`` to the last position only; the
     reference computes all S positions' logits and returns the last.
   * The prefill attention runs the flash-attention kernel on the card
-    (``repro_torch.kernels.attention``), once per layer.
+    (``repro_torch.kernels.attention``), once per layer; the Fourier
+    mixer's prefill runs the FFT kernel (``kernels.fft.fft_planes``) three
+    times per layer.
 
 On the card the entry points turn TF32 and reduced-precision bf16
 reductions off (``exact_matmuls``): the reference asks for its products in
@@ -44,7 +47,8 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
-from repro_torch.models.layers.common import rms_norm, swiglu_mlp
+from repro_torch.models.layers.common import (fourier_mixing, rms_norm,
+                                              swiglu_mlp)
 
 BIG_WINDOW = 1 << 30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,11 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.mixer} mixer is not ported yet "
             f"(ROADMAP queue 1, item {item})")
-    if cfg.mixer == "fourier":
-        raise NotImplementedError(
-            f"{cfg.name}: Fourier token mixing is not ported yet; it needs "
-            f"fft_causal_conv (ROADMAP queue 1, items 4 and 11e)")
-    if cfg.mixer != "attn":
+    if cfg.mixer not in ("attn", "fourier"):
         raise ValueError(f"{cfg.name}: unknown mixer {cfg.mixer!r}")
     if cfg.is_moe:
         raise NotImplementedError(
@@ -120,6 +120,18 @@ class Attention(nn.Module):
             _weights(self, {"q_norm": (hd,), "k_norm": (hd,)}, ndt, device)
 
 
+class Fourier(nn.Module):
+    """The token mixer's leaves: taps (K, d) in the parameter type (the
+    reference reads them in fp32), the gate (d, d) in the activation
+    type."""
+
+    def __init__(self, cfg: ModelConfig, wdt, ndt, device):
+        super().__init__()
+        d = cfg.d_model
+        _weights(self, {"taps": (cfg.fourier_taps, d)}, ndt, device)
+        _weights(self, {"gate": (d, d)}, wdt, device)
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: ModelConfig, wdt, device):
         super().__init__()
@@ -133,17 +145,24 @@ class Block(nn.Module):
         super().__init__()
         _weights(self, {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}, ndt,
                  device)
-        self.attn = Attention(cfg, wdt, ndt, device)
+        if cfg.mixer == "fourier":
+            self.fourier = Fourier(cfg, wdt, ndt, device)
+        else:
+            self.attn = Attention(cfg, wdt, ndt, device)
         self.mlp = MLP(cfg, wdt, device)
 
     def forward(self, cfg: ModelConfig, x: torch.Tensor, *,
-                positions: torch.Tensor, window: int,
-                cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+                positions: torch.Tensor, window: int, cache=None
                 ) -> torch.Tensor:
         """One block over the whole sequence. ``cache``: this layer's
-        (cache_k, cache_v) to receive its k, v (prefill)."""
+        decode state to fill (prefill): (cache_k, cache_v) to receive its
+        k, v, or the Fourier mixer's ring to receive its last inputs."""
         h = rms_norm(x, self.ln1)
-        if cache is None:
+        if cfg.mixer == "fourier":
+            y = fourier_mixing(self.fourier, h)
+            if cache is not None:
+                _fill_cache((cache,), h)
+        elif cache is None:
             y = attn_lib.attention_train(self.attn, h, cfg,
                                          positions=positions, window=window)
         else:
@@ -155,14 +174,16 @@ class Block(nn.Module):
         return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
                               _reduce_dtype(cfg))
 
-    def decode(self, cfg: ModelConfig, x: torch.Tensor,
-               cache: tuple[torch.Tensor, torch.Tensor], *, pos: int,
-               window: int, positions: Optional[torch.Tensor]
+    def decode(self, cfg: ModelConfig, x: torch.Tensor, cache, *,
+               pos: int, window: int, positions: Optional[torch.Tensor]
                ) -> torch.Tensor:
         h = rms_norm(x, self.ln1)
-        y = attn_lib.attention_decode(
-            self.attn, h, cfg, cache_k=cache[0], cache_v=cache[1], pos=pos,
-            window=window, positions=positions)
+        if cfg.mixer == "fourier":
+            y = _fourier_decode(self.fourier, h, cache, pos=pos).to(x.dtype)
+        else:
+            y = attn_lib.attention_decode(
+                self.attn, h, cfg, cache_k=cache[0], cache_v=cache[1],
+                pos=pos, window=window, positions=positions)
         x = x + y
         return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
                               _reduce_dtype(cfg))
@@ -174,21 +195,43 @@ def _reduce_dtype(cfg: ModelConfig) -> torch.dtype | None:
     return torch.bfloat16 if cfg.reduce_dtype == "bfloat16" else None
 
 
-def _fill_cache(cache, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Write a prefill's k, v (B, S, KV, hd) into a layer's cache
-    (B, C, KV, hd): slots p % C == p while S <= C, else the ring of the
-    last C positions, whose slots line up when S % C == 0."""
-    cache_k, cache_v = cache
-    C, S = cache_k.shape[1], k.shape[1]
-    if C >= S:
-        cache_k[:, :S] = k
-        cache_v[:, :S] = v
-    elif S % C:
+def _fill_cache(cache, *values: torch.Tensor) -> None:
+    """Write a prefill's values (B, S, ...) into a layer's caches
+    (B, C, ...), pairwise: k, v into (cache_k, cache_v), or the Fourier
+    mixer's inputs into its ring. Slots p % C == p while S <= C, else the
+    ring of the last C positions, whose slots line up when S % C == 0."""
+    C, S = cache[0].shape[1], values[0].shape[1]
+    if C < S and S % C:
         raise ValueError(f"prefill of {S} positions into a ring of {C} "
                          f"slots: the slots line up only when S % C == 0")
-    else:
-        cache_k.copy_(k[:, -C:])
-        cache_v.copy_(v[:, -C:])
+    for slots, value in zip(cache, values):
+        if C >= S:
+            slots[:, :S] = value
+        else:
+            slots.copy_(value[:, -C:])
+
+
+def _fourier_decode(params, h: torch.Tensor, ring: torch.Tensor, *,
+                    pos: int) -> torch.Tensor:
+    """One token of the Fourier mixer, in fp32: write h (B, 1, d) into
+    slot pos % K of the ring, weight each slot by the tap of its age (zero
+    where the age exceeds pos), sum, and gate."""
+    K = ring.shape[1]
+    slot = pos % K
+    ring[:, slot] = h[:, 0].to(ring.dtype)
+    taps = params.taps.float()                                   # (K, d)
+    lag = torch.remainder(slot - torch.arange(K, device=ring.device), K)
+    w = torch.where((lag <= pos)[:, None], taps[lag], 0.0)
+    y = torch.einsum("bkd,kd->bd", ring.float(), w)[:, None]
+    return y * torch.sigmoid((h @ params.gate).float())
+
+
+def _layer_state(state: dict, i: int):
+    """Layer i's part of the decode state: its ring, or (cache_k,
+    cache_v)."""
+    if "ring" in state:
+        return state["ring"][i]
+    return state["cache_k"][i], state["cache_v"][i]
 
 
 class DecoderLM(nn.Module):
@@ -239,8 +282,7 @@ class DecoderLM(nn.Module):
                state: Optional[dict] = None) -> torch.Tensor:
         windows = _layer_windows(self.cfg)
         for i, block in enumerate(self.blocks):
-            cache = None if state is None else (state["cache_k"][i],
-                                                state["cache_v"][i])
+            cache = None if state is None else _layer_state(state, i)
             x = block(self.cfg, x, positions=positions, window=windows[i],
                       cache=cache)
         return rms_norm(x, self.final_norm)
@@ -255,11 +297,17 @@ class DecoderLM(nn.Module):
         return x @ self.lm_head
 
     def init_decode_state(self, batch: int, seq_len: int) -> dict:
-        """Zeroed KV caches (L, batch, C, KV, hd) in the activation type."""
+        """Zeroed KV caches (L, batch, C, KV, hd), or for the Fourier mixer
+        its rings of the last inputs (L, batch, K, d), in the activation
+        type."""
         cfg = self.cfg
+        adt = dtype_of(cfg.dtype)
+        if cfg.mixer == "fourier":
+            shape = (cfg.num_layers, batch, cfg.fourier_taps, cfg.d_model)
+            return {"ring": torch.zeros(shape, dtype=adt,
+                                        device=self.device)}
         C = cache_len(cfg, seq_len)
         shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.head_dim)
-        adt = dtype_of(cfg.dtype)
         return {"cache_k": torch.zeros(shape, dtype=adt, device=self.device),
                 "cache_v": torch.zeros(shape, dtype=adt, device=self.device)}
 
@@ -295,9 +343,8 @@ class DecoderLM(nn.Module):
             x = self._embed(token, None)[:, None]
         windows = _layer_windows(self.cfg)
         for i, block in enumerate(self.blocks):
-            x = block.decode(self.cfg, x, (state["cache_k"][i],
-                                           state["cache_v"][i]),
-                             pos=pos, window=windows[i], positions=positions)
+            x = block.decode(self.cfg, x, _layer_state(state, i), pos=pos,
+                             window=windows[i], positions=positions)
         x = rms_norm(x, self.final_norm)
         return (x @ self.lm_head)[:, 0].float(), state
 

@@ -889,3 +889,129 @@ def test_generate_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention"] == cfg.num_layers
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The FFT compositions and fourierpim-lm: every transform a launch of
+# fft_planes (three per causal convolution), none of torch.fft
+# ---------------------------------------------------------------------------
+
+def _plain_fft_planes(xr, xi, *, inverse=False, radix=2, block_b=None):
+    """``fft_planes`` with its plain version on the card (the two-pass
+    mirror equals the whole-row sweeps bit for bit)."""
+    return tfft.fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
+
+
+def _causal_numpy(x, k):
+    T = x.shape[-1]
+    lead = np.broadcast_shapes(x.shape[:-1], k.shape[:-1])
+    xb = np.broadcast_to(x, lead + (T,)).reshape(-1, T).astype(np.float64)
+    kb = np.broadcast_to(k, lead + k.shape[-1:]).reshape(-1, k.shape[-1])
+    return np.stack([np.convolve(a, b)[:T] for a, b in zip(xb, kb)]
+                    ).reshape(lead + (T,))
+
+
+def test_fourier_ops_on_card_match_numpy(cuda, rng):
+    """realpack_fft, fft2 forward and inverse, fft_conv2d and
+    fft_causal_conv on card tensors against float64 numpy, at the
+    reference tests' rtol 1e-3, atol 1e-3; each transform one launch."""
+    from repro_torch.kernels import ops as tops
+    x, y = (rng.standard_normal((4, 256)).astype(np.float32)
+            for _ in range(2))
+    _build.reset_launches()
+    gx, gy = tops.realpack_fft(torch.from_numpy(x).to(cuda),
+                               torch.from_numpy(y).to(cuda), radix=4)
+    assert _build.LAUNCHES["fft_planes"] == 1
+    _close([gx, gy], [torch.from_numpy(np.fft.fft(x)),
+                      torch.from_numpy(np.fft.fft(y))], 1e-3, 1e-3 * 256)
+    z = (rng.standard_normal((2, 32, 64))
+         + 1j * rng.standard_normal((2, 32, 64))).astype(np.complex64)
+    f = tops.fft2(torch.from_numpy(z).to(cuda), radix=4)
+    back = tops.fft2(f, inverse=True, radix=4)
+    assert _build.LAUNCHES["fft_planes"] == 5
+    np.testing.assert_allclose(f.cpu().numpy(), np.fft.fft2(z), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(back.cpu().numpy(), z, rtol=1e-3, atol=1e-4)
+    img = rng.standard_normal((2, 12, 20)).astype(np.float32)
+    kern = rng.standard_normal((3, 5)).astype(np.float32)
+    got = tops.fft_conv2d(torch.from_numpy(img).to(cuda),
+                          torch.from_numpy(kern).to(cuda))
+    want = tops.fft_conv2d(torch.from_numpy(img), torch.from_numpy(kern))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    xs = rng.standard_normal((2, 8, 100)).astype(np.float32)
+    ks = rng.standard_normal((1, 8, 17)).astype(np.float32)
+    before = _build.LAUNCHES["fft_planes"]
+    got = tops.fft_causal_conv(torch.from_numpy(xs).to(cuda),
+                               torch.from_numpy(ks).to(cuda), radix=4)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fft_planes"] == before + 3
+    np.testing.assert_allclose(got.cpu().numpy(), _causal_numpy(xs, ks),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("xs,K", [((2, 768, 2048), 256),
+                                  ((1, 64, 8192), 256)])
+def test_fft_causal_conv_kernel_equals_plain(cuda, monkeypatch, xs, K):
+    """fourierpim-lm's convolution at n = 4096 (resident, one kernel a
+    transform) and n = 16384 (two passes, two kernels a transform, one
+    counted launch): through the kernel == with the plain version swapped
+    in for ``fft_planes`` on the card, bit for bit, and within 1e-3 of
+    float64 numpy on a few rows."""
+    from repro_torch.kernels import ops as tops
+    g = torch.Generator(device=cuda).manual_seed(K)
+    x = torch.randn(*xs, device=cuda, generator=g)
+    k = torch.randn(1, xs[1], K, device=cuda, generator=g) * 0.02
+    _build.reset_launches()
+    got = tops.fft_causal_conv(x, k, radix=4)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "fft_planes": 3}
+    monkeypatch.setattr(tfft, "fft_planes", _plain_fft_planes)
+    want = tops.fft_causal_conv(x, k, radix=4)
+    assert torch.equal(got, want)
+    rows = _causal_numpy(x[0, :4].cpu().numpy(), k[0, :4].cpu().numpy())
+    np.testing.assert_allclose(got[0, :4].cpu().numpy(), rows, rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_fourierpim_prefill_launches_fft_planes_three_times_per_layer(cuda):
+    """fourierpim-lm at full width in bf16 (12 layers, d 768, K 256): one
+    prefill of B 2 x S 512 launches fft_planes 36 times and nothing else;
+    its last logits are finite."""
+    cfg = dataclasses.replace(get_config("fourierpim-lm"), dtype="bfloat16")
+    model = convert.build(cfg, convert.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0)), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda,
+                           generator=torch.Generator(
+                               device=cuda).manual_seed(1))
+    _build.reset_launches()
+    last, state = model.prefill(tokens)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "fft_planes": 3 * cfg.num_layers}
+    assert last.shape == (2, cfg.vocab_padded)
+    assert torch.isfinite(last.float()).all()
+    assert state["ring"].shape == (cfg.num_layers, 2, cfg.fourier_taps,
+                                   cfg.d_model)
+
+
+def test_fourierpim_on_card_matches_cpu(cuda):
+    """The reduced fourierpim-lm in fp32 with the same weights on the card
+    and on the CPU: prefill and three decode steps' logits within 2e-3."""
+    cfg = get_config("fourierpim-lm").scaled_down()
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 35),
+                           generator=torch.Generator().manual_seed(1))
+    outs = []
+    for dev in ("cpu", cuda):
+        model = convert.build(cfg, sd, dev)
+        t = tokens.to(dev)
+        last, state = model.prefill(t[:, :32], cache_capacity=35)
+        steps = [last]
+        for pos in range(32, 35):
+            logits, state = model.decode_step(state, t[:, pos], pos)
+            steps.append(logits)
+        outs.append(torch.stack([s.float().cpu() for s in steps]))
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), rtol=2e-3,
+                               atol=2e-3)

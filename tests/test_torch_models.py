@@ -35,8 +35,10 @@ ALL_ARCHS = list(jreg.ARCH_MODULES)
 #: the dense attention family this slice serves
 DENSE = ["qwen3-1.7b", "gemma3-4b", "starcoder2-15b", "llama3-405b",
          "musicgen-medium", "qwen2-vl-72b"]
+#: ... and the Fourier token mixer
+SERVED = DENSE + ["fourierpim-lm"]
 UNPORTED = {"granite-moe-3b-a800m": "11b", "mixtral-8x22b": "11b",
-            "rwkv6-7b": "11c", "hymba-1.5b": "11d", "fourierpim-lm": "11e"}
+            "rwkv6-7b": "11c", "hymba-1.5b": "11d"}
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
@@ -235,7 +237,7 @@ def _as(fn, arrs):
     return [None if a is None else fn(a) for a in arrs]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_forward_logits_match_reference(arch):
     """gemma3 runs 96 positions, past its smoke window of 64, so the local
     layers' window masks keys."""
@@ -252,7 +254,7 @@ def test_forward_logits_match_reference(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_parity(arch):
     """decode_step(token S | prefill(tokens[:S])) == forward(tokens[:S+1])
     in the port alone, as tests/test_arch_smoke.py pins the reference; the
@@ -404,16 +406,19 @@ REDUCE_LOGITS_TOL = dict(rtol=0, atol=4e-3)
 # Weights
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "starcoder2-15b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "starcoder2-15b",
+                                  "fourierpim-lm"])
 def test_params_from_jax_uses_every_leaf(arch):
     _, tc, tree = _reference(arch)
     sd = convert.params_from_jax(tc, tree)
     n_leaves = sum(np.asarray(x).size for x in jax.tree.leaves(tree))
     assert sum(t.numel() for t in sd.values()) == n_leaves
     assert set(sd) == set(convert.expected_shapes(tc))
+    mixer, leaf = (("fourier", "gate") if tc.mixer == "fourier"
+                   else ("attn", "wq"))
     np.testing.assert_array_equal(
-        sd[f"blocks.{tc.num_layers - 1}.attn.wq"].numpy(),
-        tree["blocks"]["attn"]["wq"][-1])
+        sd[f"blocks.{tc.num_layers - 1}.{mixer}.{leaf}"].numpy(),
+        tree["blocks"][mixer][leaf][-1])
     extra = dict(tree, blocks=dict(tree["blocks"],
                                    extra=tree["blocks"]["ln1"]))
     with pytest.raises(ValueError, match="unused"):
@@ -439,6 +444,93 @@ def test_init_params_follow_reference_distributions():
     # the same generator seed gives the same weights on every call
     again = convert.init_params(tc, torch.Generator().manual_seed(0))
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+def test_fourier_init_params_follow_reference_distributions():
+    """fourierpim-lm's leaves: taps N(0, 1) * 0.02, gate N(0, 1) * d^-0.5,
+    and no attention weights."""
+    _, tc, tree = _reference("fourierpim-lm")
+    sd = convert.init_params(tc, torch.Generator().manual_seed(0))
+    want = convert.params_from_jax(tc, tree)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == \
+        {k: tuple(v.shape) for k, v in want.items()}
+    assert not any(".attn." in k for k in sd)
+    for name in ("embed", "lm_head", "blocks.0.fourier.taps",
+                 "blocks.1.fourier.gate", "blocks.0.mlp.w_up"):
+        assert abs(sd[name].std().item() / want[name].std().item() - 1) \
+            < 0.05, name
+    assert abs(sd["blocks.0.fourier.taps"].std().item() - 0.02) < 0.002
+    assert abs(sd["blocks.0.fourier.gate"].std().item()
+               - tc.d_model ** -0.5) < 0.01
+
+
+def test_fourier_prefill_rejects_unaligned_ring():
+    """A prefill longer than the taps fills the ring only when S % K == 0
+    (the reference asserts it)."""
+    _, tc, _ = _reference("fourierpim-lm")
+    model = _port_model("fourierpim-lm")
+    K = tc.fourier_taps
+    tokens = torch.zeros((1, K + K // 2), dtype=torch.long)
+    with pytest.raises(ValueError, match="only when S % C == 0"):
+        model.prefill(tokens)
+    model.prefill(tokens[:, :K // 2])                 # S < K: padded ring
+    model.prefill(torch.zeros((1, 2 * K), dtype=torch.long))
+
+
+def test_fourier_prefill_and_decode_match_reference():
+    """fourierpim-lm's prefill of S == K positions and 20 decode steps fed
+    the prompt's continuation, past one wrap of the ring, against the
+    reference's prefill and decode_step: every step's logits and the ring
+    state at the fp32 tolerance."""
+    jc, tc, tree = _reference("fourierpim-lm")
+    K, steps = tc.fourier_taps, 20
+    tokens, _, _ = _inputs(tc, 2, K + steps, seed=5)
+    params = jax.tree.map(jnp.asarray, tree)
+    want, jstate = jlm.prefill(jc, params, jnp.asarray(tokens[:, :K]),
+                               cache_capacity=K + steps)
+    model = _port_model("fourierpim-lm")
+    t = torch.from_numpy(tokens).long()
+    got, state = model.prefill(t[:, :K], cache_capacity=K + steps)
+    assert set(state) == set(jstate) == {"ring"}
+    assert state["ring"].shape == (tc.num_layers, 2, K, tc.d_model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for i in range(steps):
+        pos = K + i
+        want, jstate = jlm.decode_step(jc, params, jstate,
+                                       jnp.asarray(tokens[:, pos]),
+                                       jnp.int32(pos))
+        got, state = model.decode_step(state, t[:, pos], pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(state["ring"].numpy(),
+                               np.asarray(jstate["ring"]), **TOL)
+
+
+def test_fourier_bf16_forward_matches_reference():
+    """fourierpim-lm in the served type, bf16 activations: the mixer's
+    output within one bf16 step (BF16_TOL) of the reference's on the same
+    bf16 input, the logits within four bf16 steps, as for qwen3 in
+    ``test_bf16_forward_matches_reference``."""
+    jc, tc, tree = _reference("fourierpim-lm")
+    jc = dataclasses.replace(jc, dtype="bfloat16")
+    tc = dataclasses.replace(tc, dtype="bfloat16")
+    model = convert.build(tc, convert.params_from_jax(tc, tree), "cpu")
+    rng = np.random.default_rng(6)
+    h = torch.from_numpy(rng.standard_normal((2, 32, tc.d_model)).astype(
+        np.float32)).bfloat16()
+    got = tcommon.fourier_mixing(model.blocks[0].fourier, h)
+    want = jcommon.fourier_mixing(
+        {k: jnp.asarray(v[0]) for k, v in tree["blocks"]["fourier"].items()},
+        jnp.asarray(h.float().numpy()).astype(jnp.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+    tokens, _, _ = _inputs(tc, 2, 32)
+    want, _, _ = jlm.forward(jc, jax.tree.map(jnp.asarray, tree),
+                             jnp.asarray(tokens))
+    got = model(torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=0.125)
 
 
 def test_weights_held_in_the_activation_type():

@@ -479,6 +479,26 @@ def test_cli_lm_service_subprocess():
            "device=cpu" in res.stdout
 
 
+def test_lm_service_serves_fourierpim_on_cpu():
+    """fourierpim-lm's reduced config (K 16 taps, prompt 16): greedy tokens
+    of the served shape in the vocabulary, no kernel launched on the CPU."""
+    _build.reset_launches()
+    got = serve.main(LM_ARGS + ["--arch", "fourierpim-lm", "--device", "cpu"])
+    assert got["generated"].shape == (4, 2)
+    assert ((0 <= got["generated"]) & (got["generated"] < 512)).all()
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_cli_lm_service_fourierpim_subprocess():
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LM_ARGS,
+         "--arch", "fourierpim-lm", "--device", "cpu"],
+        capture_output=True, text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[serve:lm] arch=fourierpim-lm-smoke batch=2 prompt=16 gen=4 " \
+           "device=cpu" in res.stdout
+
+
 def test_cli_lm_service_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 11b"):
         serve.main(["--service", "lm", "--smoke", "--arch", "mixtral-8x22b",
