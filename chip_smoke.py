@@ -142,6 +142,25 @@ Phases (any failure exits non-zero):
      in, with each kernel's share of a traced prefill. Each LM timing
      first counts one prefill's launches, the counters zeroed just before:
      the kernel ``kernel_for`` picks, once per layer, and nothing else.
+  5. The cost model on the card (lines ``[cost model]``), each line with
+     the card's name and power limit: (a) the paper's cuFFT model
+     (``core/pim/gpu_model.py`` on the H100 config of
+     ``core/pim/hopper.py``) beside phase 4's ``torch.fft.fft``,
+     ``fft_planes`` and product times (batch 64, n = 4096 and 65536;
+     6144 x 4096), and FourierPIM-8/40's modelled fp32 throughput over the
+     card's measured ``torch.fft.fft`` and over ``fft_planes`` (phase 4's
+     numbers, not timed again); (b) for each of the five workloads at
+     batch 64 and both lengths, ``plan(n, 64, workload=...)``'s predicted
+     seconds for each candidate on both backends, each candidate's route
+     as auto mode binds it (the complex-packing routes ``rfft-complex``
+     and ``polymul-real-complex`` among them) checked against the numpy
+     oracle and timed by CUDA events around a CUDA-graph replay, and
+     whether the predicted-best packing is the measured best (a
+     disagreement is printed, not raised); (c) ``serve --service engine
+     --auto`` over the five ops at both lengths, 400 requests, the
+     counters zeroed just before: every result verified, each route
+     kernel's launches == its dispatched batches, each bucket's predicted
+     against observed seconds per request.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -3027,6 +3046,230 @@ def fourier_timing(torch, build, convert, lm, kfft, kops, get_config,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the cost model on the card
+# ---------------------------------------------------------------------------
+
+#: the kernel (launch counter) each served route runs: the routes of
+#: TRANSFORM_KERNELS, and the two complex-packing routes auto mode binds
+#: where the cost model picks complex packing for a real op
+ROUTE_COUNTER = {**{route: name
+                    for name, (route, _, _) in TRANSFORM_KERNELS.items()
+                    if route is not None},
+                 "rfft-complex": "fft_planes",
+                 "polymul-real-complex": "polymul_complex_planes"}
+#: the kernel whose phase-4 bound each workload's candidates are read beside
+WORKLOAD_KERNEL = {"fft": "fft_planes", "rfft": "rfft_planes",
+                   "polymul": "polymul_complex_planes",
+                   "polymul-real": "polymul_real_planes",
+                   "polymul-mod": "ntt_polymul"}
+#: requests of the auto engine run (the five ops at both serve lengths)
+AUTO_REQUESTS = 400
+#: rows of each timed candidate's first input set checked against the
+#: registry's numpy oracle (every row for the complex-packing routes, which
+#: the engine run below does not serve)
+AUTO_CHECK_ROWS = 8
+
+
+def paper_gpu_model(times: dict, fourier_times: dict, card: str) -> dict:
+    """(a) The paper's cuFFT model (``gpu_model``, bandwidth-bound passes
+    at 0.90 of the peak) on the H100 config beside what phase 4 measured:
+    ``torch.fft.fft`` and ``fft_planes`` at batch 64 and at fourierpim-lm's
+    6144 x 4096, the products against their cuFFT composites, and
+    FourierPIM-8/40's modelled throughput over the card's measured
+    ``torch.fft.fft`` and over the port's kernel. No timing here: the
+    measured numbers are phase 4's."""
+    from repro_torch.core import pim
+    from repro_torch.core.pim import gpu_model
+    from repro_torch.core.pim.hopper import H100
+    word = pim.FULL_COMPLEX_BITS // 8
+    b = SERVE_BATCH
+    out: dict = {"gpu": dataclasses.asdict(H100)}
+
+    def row(label, model_ms, lib_ms, lib_graph_ms, kern_ms, kern_graph_ms,
+            lib_name):
+        entry = {"model_ms": model_ms, "library_ms": lib_ms,
+                 "library_graph_ms": lib_graph_ms, "kernel_ms": kern_ms,
+                 "kernel_graph_ms": kern_graph_ms,
+                 "library_over_model": lib_ms / model_ms,
+                 "kernel_over_model": kern_ms / model_ms}
+        print(f"[cost model] (a) {label}: the paper's cuFFT model on the "
+              f"H100 config {model_ms:.4f} ms; measured {lib_name} "
+              f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f}) = "
+              f"{entry['library_over_model']:.2f}x the model; the port's "
+              f"kernel {kern_ms:.4f} ms (graph replay {kern_graph_ms:.4f})"
+              f" = {entry['kernel_over_model']:.2f}x; on {card}",
+              flush=True)
+        return entry
+
+    for n in SERVE_NS:
+        t = times["fft_planes"][n]
+        out[f"fft n={n}"] = row(
+            f"fft batch {b} n={n} ({H100.fft_passes(n, word)} pass(es))",
+            gpu_model.fft_time_s(n, H100, word) * b * 1e3,
+            t["library_ms"], t["library_graph_event_ms"], t["ms"],
+            t["graph_event_ms"], "torch.fft.fft")
+        for name, real in (("polymul_complex_planes", False),
+                           ("polymul_real_planes", True)):
+            t = times[name][n]
+            out[f"{name} n={n}"] = row(
+                f"{'real' if real else 'complex'} product batch {b} n={n}",
+                gpu_model.polymul_time_s(n, H100, word, real=real) * b
+                * 1e3, t["library_ms"], t["library_graph_event_ms"],
+                t["ms"], t["graph_event_ms"], t["library"])
+    (rows, n), _ = FOURIER_FFT_SHAPES
+    s = fourier_times["fft_at_lm_shapes"][f"{rows}x{n}"]
+    out[f"fft {rows}x{n}"] = row(
+        f"fft {rows} x {n} (fourierpim-lm's rows)",
+        gpu_model.fft_time_s(n, H100, word) * rows * 1e3,
+        s["library_graph_ms"], s["library_graph_ms"], s["graph_ms"],
+        s["graph_ms"], "torch.fft.fft (graph replay)")
+    for n in SERVE_NS:
+        t = times["fft_planes"][n]
+        card_rate = b / (t["library_ms"] / 1e3)
+        kernel_rate = b / (t["ms"] / 1e3)
+        model_rate = gpu_model.fft_throughput_per_s(n, H100, word)
+        for cfg in (pim.FOURIERPIM_8, pim.FOURIERPIM_40):
+            rate = pim.fft_throughput_per_s(n, cfg, pim.FP32)
+            entry = out[f"{cfg.name} n={n}"] = {
+                "pim_per_s": rate, "torch_fft_per_s": card_rate,
+                "fft_planes_per_s": kernel_rate,
+                "h100_model_per_s": model_rate,
+                "over_torch_fft": rate / card_rate,
+                "over_fft_planes": rate / kernel_rate,
+                "over_h100_model": rate / model_rate}
+            print(f"[cost model] (a) {cfg.name} fft n={n} fp32: "
+                  f"{rate:.4g} transforms/s (the paper's closed forms) = "
+                  f"{entry['over_torch_fft']:.3f}x the card's measured "
+                  f"torch.fft.fft ({card_rate:.4g}/s), "
+                  f"{entry['over_fft_planes']:.3f}x the port's fft_planes "
+                  f"({kernel_rate:.4g}/s), {entry['over_h100_model']:.3f}x "
+                  f"the H100 model ({model_rate:.4g}/s); the paper reports "
+                  f"5-15x over the RTX 3070 and the A100; on {card}",
+                  flush=True)
+    return out
+
+
+def auto_vs_card(torch, op_registry, core_fft, times: dict,
+                 card: str) -> dict:
+    """(b) For each workload at batch 64 and both serve lengths: the cost
+    model's predicted seconds for each candidate on both backends, and the
+    candidate's route as auto mode binds it, checked against the
+    registry's numpy oracle and timed on the card by CUDA events around a
+    CUDA-graph replay; whether the predicted-best packing is the measured
+    best (a disagreement is printed, not raised); the model's card term
+    beside the kernel's phase-4 bound."""
+    rng = np.random.default_rng(21)
+    b = SERVE_BATCH
+    out: dict = {}
+    for wl in WORKLOAD_KERNEL:
+        spec = op_registry.get_op(wl)
+        for n in SERVE_NS:
+            cost = core_fft.plan(n, b, workload=wl).cost
+            measured = {}
+            for c in cost["candidates"]:
+                ctx = op_registry.OpContext(auto=True, packings=(c["real"],))
+                bound = spec.bind(n, ctx, batch=b, device="cuda")
+                itemsize = np.dtype(bound.payload_dtype).itemsize
+                n_sets = max(2, math.ceil(
+                    128e6 / (spec.arity * b * n * itemsize)))
+                payloads = [[bound.random_payload(rng) for _ in range(b)]
+                            for _ in range(n_sets)]
+                sets = [bound.stack(p) for p in payloads]
+                rows = bound.to_numpy(bound.fn(*sets[0]))
+                checked = (b if bound.route.endswith("complex")
+                           else AUTO_CHECK_ROWS)
+                for payload, got in zip(payloads[0][:checked], rows):
+                    bound.verify(payload, got)
+                ms = graph_ms(torch, bound.fn, sets, max(len(sets), 20))
+                cuda = c["backends"]["cuda"]["total_s"]
+                pim = c["backends"]["pim"].get("total_s")
+                packing = ("real" if c["real"] else "complex"
+                           if len(cost["candidates"]) > 1 else "its one")
+                measured[c["real"]] = ms
+                out[f"{wl} n={n} {packing}"] = entry = {
+                    "route": bound.route, "graph_ms": ms,
+                    "predicted_cuda_s": cuda, "predicted_pim_s": pim,
+                    "pim_infeasible": c["backends"]["pim"].get("infeasible"),
+                    "predicted_s": c["total_s"],
+                    "backend_best": c["backend_best"],
+                    "measured_over_cuda_model": ms / 1e3 / cuda,
+                    "rows_checked": checked}
+                print(f"[cost model] (b) {wl} n={n} batch {b} {packing} "
+                      f"packing, route {bound.route}: predicted "
+                      f"cuda {cuda:.6g} s, pim "
+                      + (f"{pim:.6g} s" if pim is not None
+                         else "infeasible")
+                      + f" (best {c['backend_best']}); measured "
+                      f"{ms:.4f} ms a batch (graph replay) = "
+                      f"{entry['measured_over_cuda_model']:.2f}x the card "
+                      f"term; {checked} rows == the numpy oracle; on {card}",
+                      flush=True)
+                del sets
+            predicted = cost["best"]["real"]
+            best = min(measured, key=measured.get)
+            kernel = times[WORKLOAD_KERNEL[wl]][n]
+            model_ms = cost["best"]["backends"]["cuda"]["total_s"] * 1e3
+            out[f"{wl} n={n}"] = summary = {
+                "predicted_best_real": predicted,
+                "measured_best_real": best, "agree": predicted == best,
+                "cuda_model_ms": model_ms,
+                "kernel_bound_ms": kernel["bound_ms"],
+                "model_over_bound": model_ms / kernel["bound_ms"]}
+            print(f"[cost model] (b) {wl} n={n}: predicted-best packing "
+                  f"{'real' if predicted else 'complex'}, measured best "
+                  f"{'real' if best else 'complex'}: "
+                  f"{'agree' if summary['agree'] else 'DISAGREE'}; the "
+                  f"model's card term {model_ms:.4f} ms against the "
+                  f"kernel's bound {kernel['bound_ms']:.4f} ms "
+                  f"({summary['model_over_bound']:.3f}); on {card}",
+                  flush=True)
+            torch.cuda.empty_cache()
+    return out
+
+
+def auto_engine(torch, build, serve, card: str) -> dict:
+    """(c) ``serve --service engine --auto`` over the five ops at both
+    serve lengths: the CLI's engine (``serve.engine_for``), warmed up, the
+    launch counters zeroed just before AUTO_REQUESTS requests; every
+    result checked against its numpy oracle (``polymul-mod`` bit for bit),
+    each route kernel's launches == its dispatched batches and no other
+    kernel launched, and each bucket's predicted against observed
+    seconds per request."""
+    args = serve.parse_args([
+        "--service", "engine", "--auto", "--ops",
+        ",".join(WORKLOAD_KERNEL), "--ns", ",".join(map(str, SERVE_NS)),
+        "--batch", str(SERVE_BATCH), "--requests", str(AUTO_REQUESTS),
+        "--device", "cuda"])
+    engine, combos = serve.engine_for(args)
+    engine.warmup()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    kept, stats = serve.produce(engine, combos, args.requests,
+                                np.random.default_rng(5))
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    for rid, (op, n, payload) in kept.items():
+        engine.bound(op, n).verify(payload, engine.results[rid])
+    expected = collections.Counter()
+    for bucket in stats["buckets"].values():
+        expected[ROUTE_COUNTER[bucket["route"]]] += bucket["batches"]
+    if stats["served"] != AUTO_REQUESTS or launches != dict(expected):
+        raise SystemExit(f"auto engine: served {stats['served']} of "
+                         f"{AUTO_REQUESTS}; launches {launches}, expected "
+                         f"one per dispatched batch of each route "
+                         f"{dict(expected)}")
+    serve.print_engine_stats(stats)
+    print(f"[cost model] (c) serve --service engine --auto: "
+          f"{stats['served']} requests, every result verified, launches "
+          f"{launches} == dispatched batches per route kernel; on {card}",
+          flush=True)
+    return {"launches": launches, "stats": {
+        k: v for k, v in stats.items() if k != "buckets"},
+        "buckets": {name: {k: v for k, v in bucket.items()
+                           if k != "batch_sizes"}
+                    for name, bucket in stats["buckets"].items()}}
+
+
 def start_ptxas_report(build, source: str):
     """A second nvcc of ``source`` with ``-Xptxas -v``, started beside the
     build: ptxas's registers, shared memory and spills per kernel."""
@@ -3185,6 +3428,7 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import attention as kattn
     from repro_torch.launch import engine as engine_mod
+    from repro_torch.launch import ops as op_registry
     from repro_torch.launch import serve
     from repro_torch.models import convert, lm
     from repro_torch.models.layers.common import MIXING_RADIX
@@ -3315,6 +3559,15 @@ def main() -> int:
     fourier_times = fourier_timing(torch, _build, convert, lm, kfft, kops,
                                    get_config, card, MIXING_RADIX)
     clock("phase 4, fourierpim-lm")
+
+    # -- phase 5: the cost model on the card -------------------------------
+    cost_model = {"paper_gpu_model": paper_gpu_model(times, fourier_times,
+                                                     card),
+                  "auto_vs_card": auto_vs_card(torch, op_registry, core_fft,
+                                               times, card),
+                  "auto_engine": auto_engine(torch, _build, serve, card)}
+    print(f"[cost model json] {json.dumps(cost_model)}", flush=True)
+    clock("phase 5, cost model on the card")
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])

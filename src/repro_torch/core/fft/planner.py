@@ -9,13 +9,21 @@ FFT, three or four for the products' split-pass schedule, three for the
 exact products'), the RNS product's register-step schedule (one CTA per
 row and limb, its sweeps in registers), or one CTA per row staging its
 sweeps through a device-memory scratch. Only the local tiers exist in
-this package, float and exact (NTT): the distributed four-step tiers and
-the cost-model auto mode raise and name the slice that ports them.
+this package, float and exact (NTT): the distributed four-step tiers
+raise and name the slice that ports them.
+
+``plan(..., workload=)`` is the auto mode (port of the reference's
+``_plan_auto``): the cost model (``core.cost``) scores every (tier,
+packing) candidate the kernels execute on the PIM twin and the card's
+roofline, and the predicted-cheapest comes back as the plan the legacy
+mode gives for that candidate, field for field, with the breakdown on
+``FFTPlan.cost``.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core import cost as cost_model
 from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
 from repro_torch.kernels.ntt import (RNSRegisterSteps, ntt_resident,
                                      ntt_two_pass_plan, plan_ntt_block,
@@ -24,9 +32,6 @@ from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block,
                                          product_two_pass_plan)
 
-#: Where the tiers this package does not run yet are ported.
-_DIST_SLICE = "the multi-device slice (the distributed four-step tiers)"
-_AUTO_SLICE = "the cost-model slice (the PIM model and planner auto mode)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +69,12 @@ class FFTPlan:
     #: too, and the middle launch runs the inverse's first pass; always 3
     #: on the exact tier, whose radix-2 sweeps put every split on it).
     launches: int = 1
+    #: machine-readable cost breakdown from ``core.cost.workload_cost``
+    #: when the plan was auto-chosen (``plan(..., workload=...)``); None
+    #: for explicit-knob plans. Excluded from eq/hash so an auto plan and
+    #: the legacy plan of the same candidate compare equal (the serve
+    #: engine keys buckets on plans).
+    cost: dict | None = dataclasses.field(default=None, compare=False)
 
     def describe(self) -> str:
         kind = ("NTT (exact mod-q) fused product" if self.exact else
@@ -94,7 +105,9 @@ class FFTPlan:
 
 def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
          real: bool = False, product: bool = False, rns: bool = False,
-         workload: str | None = None) -> FFTPlan:
+         workload: str | None = None,
+         packings: tuple[bool, ...] | None = None,
+         verified: bool = False, pim_ok: bool = True) -> FFTPlan:
     """Execution plan for a batch of n-point transforms.
 
     ``real=True`` plans the two-for-one packed kernels; ``product=True`` the
@@ -121,10 +134,23 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     picks its distributed tier when model_shards > 1); rows past the
     splits are staged.
 
+    ``workload=`` switches to AUTO mode: the cost model
+    (``core.cost.workload_cost``) scores every executable (tier, packing)
+    candidate on the PIM twin and the card's roofline, and the plan of the
+    predicted-cheapest comes back, equal field for field to this function's
+    legacy plan of that candidate (``real`` from the candidate, ``product``
+    and ``exact`` from the workload, ``rns`` as passed: the registry's
+    ``polymul-mod`` route takes it from the modulus), with the breakdown on
+    ``FFTPlan.cost``. ``real=True`` keeps only real-packed candidates and
+    ``packings`` any subset of the packings (the ``real`` values) the
+    workload has; ``pim_ok=False`` plans with the PIM backend off the
+    table. A workload with no executable candidate raises ValueError
+    naming every pruned candidate's constraint.
+
     Raises ValueError on a non-power-of-two n, a negative batch,
-    ``exact`` with ``real``, ``rns`` without ``exact``, and on what this
-    package does not run yet:
-    ``model_shards > 1`` and ``workload=``.
+    ``exact`` with ``real``, ``rns`` without ``exact`` (or, in auto mode,
+    without the ``polymul-mod`` workload), and on what this package does
+    not run yet: ``model_shards > 1`` and ``verified=True``.
     """
     if n <= 0 or n & (n - 1):
         raise ValueError(f"n={n} must be a power of two")
@@ -133,15 +159,19 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     if exact and real:
         raise ValueError("exact (mod-q) and real (Hermitian) tiers are "
                          "mutually exclusive")
+    if model_shards != 1:
+        raise ValueError(f"model_shards={model_shards}: distributed tier not "
+                         f"yet ported; it comes with {cost_model.DIST_SLICE}")
+    if verified:
+        raise ValueError(f"verified=True: ABFT-priced planning not yet "
+                         f"ported; it comes with {cost_model.FT_SLICE}")
+    if workload is not None:
+        return _plan_auto(n, batch, workload, exact=exact, real=real,
+                          product=product, rns=rns, packings=packings,
+                          pim_ok=pim_ok)
     if rns and not exact:
         raise ValueError("rns plans the exact tier's multi-limb product: "
                          "pass exact=True")
-    if model_shards != 1:
-        raise ValueError(f"model_shards={model_shards}: distributed tier not "
-                         f"yet ported; it comes with {_DIST_SLICE}")
-    if workload is not None:
-        raise ValueError(f"workload={workload!r}: auto planning not yet "
-                         f"ported; it comes with {_AUTO_SLICE}")
     if exact:      # the fused NTT product of polymul-mod, radix 2
         radix, product = 2, True
         block, res = plan_ntt_block(n), ntt_resident(n)
@@ -173,3 +203,51 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
                    product=product, resident=res, exact=exact,
                    two_pass=two_pass, launches=launches,
                    register_steps=steps)
+
+
+def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
+               real: bool, product: bool, rns: bool,
+               packings: tuple[bool, ...] | None, pim_ok: bool) -> FFTPlan:
+    """Cost-model-driven choice (the reference's ``_plan_auto``, one
+    device). Explicit knobs narrow the candidate space rather than being
+    ignored; ``exact=``, ``product=`` and ``rns=`` must agree with the
+    workload: the modular route is the ``polymul-mod`` workload, the fused
+    products its three product workloads."""
+    if workload not in cost_model.WORKLOADS:
+        raise ValueError(f"unknown workload {workload!r}; "
+                         f"expected one of {cost_model.WORKLOADS}")
+    wl_exact = workload == "polymul-mod"
+    if exact and not wl_exact:
+        raise ValueError(f"exact=True conflicts with workload="
+                         f"{workload!r}: the exact mod-q route is the "
+                         f"'polymul-mod' workload")
+    if rns and not wl_exact:
+        raise ValueError(f"rns=True conflicts with workload={workload!r}: "
+                         f"the RNS product is the 'polymul-mod' workload's")
+    if product and workload not in cost_model.PRODUCTS:
+        raise ValueError(f"product=True conflicts with workload="
+                         f"{workload!r}: the fused products are the "
+                         f"{', '.join(cost_model.PRODUCTS)} workloads")
+    if real and workload not in ("rfft", "polymul-real"):
+        raise ValueError(f"real=True conflicts with workload="
+                         f"{workload!r}: only 'rfft'/'polymul-real' "
+                         f"have a real-packed route")
+    if real:
+        packings = (True,)
+    breakdown = cost_model.workload_cost(
+        workload, n, batch,
+        packings=None if packings is None else list(packings),
+        pim_ok=pim_ok)
+    best = breakdown["best"]
+    if best is None:
+        lines = [
+            f"  - tier={p['tier']}"
+            f"{', real-packed' if p['real'] else ''}: {p['reason']}"
+            for p in breakdown["pruned"]]
+        raise ValueError(
+            f"no executable tier for workload={workload!r} n={n} over "
+            f"1 shard(s); every candidate was pruned:\n"
+            + "\n".join(lines))
+    chosen = plan(n, batch, exact=wl_exact, real=best["real"],
+                  product=workload in cost_model.PRODUCTS, rns=rns)
+    return dataclasses.replace(chosen, cost=breakdown)

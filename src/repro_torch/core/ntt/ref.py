@@ -157,6 +157,27 @@ class NTTParams:
                    psi=psi, psi_inv=pow(psi, -1, q), n_inv=pow(n, -1, q),
                    qinv=(-pow(q, -1, _R)) % _R, r2=_R * _R % q)
 
+    def subparams(self, m: int) -> "NTTParams":
+        """Parameters for the length-m sub-transform (m | n) over the SAME q.
+
+        Roots are the originals raised to the (n/m)-th power: the per-shard
+        twiddle roots of the four-step decomposition (the PIM model's
+        distributed NTT, ``core.pim.ntt_pim.pim_ntt_distributed``): psi has
+        order 2n, so psi^(n/m) is a primitive 2m-th root and
+        (psi^(n/m))^2 = w^(n/m) generates the length-m cyclic transform.
+        q = 1 (mod 2n) implies q = 1 (mod 2m), so the result is a valid
+        NTTParams without re-searching moduli.
+        """
+        if m <= 1 or self.n % m:
+            raise ValueError(f"m={m} must divide n={self.n} and exceed 1")
+        f = self.n // m
+        psi = pow(self.psi, f, self.q)
+        w = psi * psi % self.q
+        return NTTParams(n=m, q=self.q, w=w, w_inv=pow(w, -1, self.q),
+                         psi=psi, psi_inv=pow(psi, -1, self.q),
+                         n_inv=pow(m, -1, self.q), qinv=self.qinv,
+                         r2=self.r2)
+
     # -- twiddle tables (numpy, normal domain) ------------------------------
     def powers(self, base: int) -> np.ndarray:
         """[base^0, base^1, ..., base^(n-1)] mod q as uint64 (a fresh array;

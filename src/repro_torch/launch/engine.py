@@ -24,7 +24,10 @@ per-``(op, n)`` shape bucket. A single scheduler loop drains the buckets:
 
 Metrics: per-request latency (submit -> result on the host) percentiles
 p50/p90/p99, end-to-end and busy-only throughput, and per-bucket batch
-sizes with utilization (mean dispatched batch / block cap).
+sizes with utilization (mean dispatched batch / block cap). With
+``auto=True`` the cost model picks each bucket's route, and each bucket
+reports the model's predicted seconds per request, tier and backend beside
+the observed ones.
 
 Verified serving, fault injection, snapshot and warm restart, the
 straggler watchdog and request deadlines come with the fault-tolerance
@@ -86,13 +89,16 @@ class ServeEngine:
 
     ``max_batch`` caps one dispatch; ``max_pending`` bounds the admission
     queue across all buckets. The process-level ``modulus_bits`` /
-    ``model_shards`` context feeds each op through ``OpSpec.narrow`` unless
-    a bucket is registered with ``strict=True``. Every bucket runs on
-    ``device``: CUDA unless the caller passes the CPU.
+    ``model_shards`` / ``auto`` context feeds each op through
+    ``OpSpec.narrow`` unless a bucket is registered with ``strict=True``;
+    ``auto=True`` lets the cost model choose each bucket's route, costed at
+    the ``max_batch`` block. Every bucket runs on ``device``: CUDA unless
+    the caller passes the CPU.
     """
 
     def __init__(self, *, max_batch: int = 64, max_pending: int = 1024,
                  modulus_bits: int | None = None, model_shards: int = 1,
+                 auto: bool = False,
                  device: str | torch.device | None = None):
         if max_batch < 1:
             raise ValueError(f"max_batch={max_batch} must be >= 1")
@@ -102,7 +108,8 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_pending = max_pending
         self.ctx = op_registry.OpContext(modulus_bits=modulus_bits,
-                                         model_shards=model_shards)
+                                         model_shards=model_shards,
+                                         auto=auto)
         self._bound: dict[tuple[str, int], op_registry.BoundOp] = {}
         self._bucket_stats: dict[tuple[str, int], _BucketStats] = {}
         self._buckets: dict[tuple[str, int], deque[_Request]] = {}
@@ -285,7 +292,7 @@ class ServeEngine:
         buckets = {}
         for (op, n), bs in self._bucket_stats.items():
             sizes = bs.batch_sizes
-            buckets[f"{op}/n={n}"] = {
+            entry = buckets[f"{op}/n={n}"] = {
                 "op": op, "n": n, "served": bs.served,
                 "batches": bs.batches,
                 "route": self._bound[(op, n)].route,
@@ -299,6 +306,14 @@ class ServeEngine:
                 "observed_s_per_req": (bs.service_s / bs.served
                                        if bs.served else None),
             }
+            cost = self._bound[(op, n)].plan.cost
+            if cost is not None and cost["best"] is not None:
+                best = cost["best"]
+                # the bind-time batch the plan was costed at
+                per = max(1, cost["batch"])
+                entry["predicted_s_per_req"] = best["total_s"] / per
+                entry["predicted_tier"] = best["tier"]
+                entry["predicted_backend"] = best["backend_best"]
         return {
             "device": str(self.device),
             "served": self._served,

@@ -22,7 +22,12 @@ The OpSpec contract:
 This package serves the float ops ``fft``, ``rfft``, ``polymul`` and
 ``polymul-real`` and the exact ``polymul-mod`` (single-limb and RNS) on the
 local tier. Knobs an op does not consume are rejected by ``bind`` (strict
-mode) or stripped by ``OpSpec.narrow`` (the mixed engine).
+mode) or stripped by ``OpSpec.narrow`` (the mixed engine). With
+``OpContext.auto`` each bind lets the cost model choose among the routes
+the op has: where it picks complex packing for a real op, ``rfft`` binds
+``rfft-complex`` (the fft kernel on cast-up rows, then the half spectrum)
+and ``polymul-real`` binds ``polymul-real-complex`` (the complex product
+kernel on cast-up rows, then the real part).
 """
 from __future__ import annotations
 
@@ -66,9 +71,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class OpContext:
     """Process-level route parameterization shared by every op of a serve
-    process (CLI flags); ``OpSpec.narrow`` strips the knobs an op ignores."""
+    process (CLI flags); ``OpSpec.narrow`` strips the knobs an op ignores.
+
+    ``auto=True`` hands the packing choice to the cost model: each bind
+    asks ``plan(n, batch, workload=<op name>, ...)`` for the
+    predicted-cheapest executable route, and the plan carries the cost
+    breakdown (``FFTPlan.cost``). ``packings`` narrows the candidates the
+    model may choose from (the ``real`` values: ``(False,)`` binds the
+    complex-packing route of a real op), ``pim_ok=False`` plans with the
+    PIM backend off the table. All three apply to every op, so ``narrow``
+    keeps them."""
     modulus_bits: int | None = None
     model_shards: int = 1
+    auto: bool = False
+    packings: tuple[bool, ...] | None = None
+    pim_ok: bool = True
 
 
 @dataclasses.dataclass
@@ -213,7 +230,8 @@ class OpSpec:
         process-level context against ops with different routes."""
         return OpContext(
             modulus_bits=ctx.modulus_bits if self.uses_modulus_bits else None,
-            model_shards=ctx.model_shards if self.uses_model_shards else 1)
+            model_shards=ctx.model_shards if self.uses_model_shards else 1,
+            auto=ctx.auto, packings=ctx.packings, pim_ok=ctx.pim_ok)
 
     def bind(self, n: int, ctx: OpContext = OpContext(), *, batch: int = 0,
              strict: bool = True,
@@ -320,13 +338,29 @@ def _plan_or_config_error(**kw) -> fft_core.FFTPlan:
         raise OpConfigError(str(e)) from e
 
 
+def _route_plan(spec: OpSpec, n: int, batch: int, ctx: OpContext,
+                **legacy) -> fft_core.FFTPlan:
+    """The plan a bind executes: in auto mode the cost model's choice for
+    the op's workload (``rns`` passes through to the planner), else the
+    legacy plan of the knobs ``legacy`` names."""
+    if ctx.auto:
+        return _plan_or_config_error(
+            n=n, batch=batch, workload=spec.name,
+            rns=legacy.get("rns", False), packings=ctx.packings,
+            pim_ok=ctx.pim_ok)
+    if ctx.packings is not None:
+        raise OpConfigError("packings narrows the cost model's choice: it "
+                            "needs auto mode (--auto)")
+    return _plan_or_config_error(n=n, batch=batch, **legacy)
+
+
 # ---------------------------------------------------------------------------
 # fft -- complex transform endpoint
 # ---------------------------------------------------------------------------
 
 def _bind_fft(spec: OpSpec, n: int, batch: int,
               device: torch.device, ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch)
+    plan = _route_plan(spec, n, batch, ctx)
     return BoundOp(spec=spec, n=n, plan=plan, route="fft",
                    fn=lambda x: fft_core.fft(x, radix=plan.radix,
                                              block_b=plan.block_b),
@@ -350,7 +384,16 @@ register_op(
 
 def _bind_rfft(spec: OpSpec, n: int, batch: int,
                device: torch.device, ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch, real=True)
+    plan = _route_plan(spec, n, batch, ctx, real=True)
+    if not plan.real:
+        # the cost model chose complex packing: the fft kernel on cast-up
+        # rows, then the half spectrum (the same payload/result contract)
+        return BoundOp(
+            spec=spec, n=n, plan=plan, route="rfft-complex",
+            fn=lambda x: fft_core.fft(
+                x.to(torch.complex64), radix=plan.radix,
+                block_b=plan.block_b)[..., :n // 2 + 1],
+            payload_dtype=np.float32, device=device)
     return BoundOp(spec=spec, n=n, plan=plan, route="rfft-real",
                    fn=lambda x: fft_core.rfft(x, radix=plan.radix,
                                               block_b=plan.block_b),
@@ -374,7 +417,7 @@ register_op(
 
 def _bind_polymul(spec: OpSpec, n: int, batch: int,
                   device: torch.device, ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch, product=True)
+    plan = _route_plan(spec, n, batch, ctx, product=True)
     return BoundOp(
         spec=spec, n=n, plan=plan, route="polymul",
         fn=lambda a, b: fft_core.polymul(a, b, mode="circular",
@@ -407,7 +450,17 @@ def _validate_polymul_real(spec: OpSpec, n: int, ctx: OpContext) -> None:
 
 def _bind_polymul_real(spec: OpSpec, n: int, batch: int,
                        device: torch.device, ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch, real=True, product=True)
+    plan = _route_plan(spec, n, batch, ctx, real=True, product=True)
+    if not plan.real:
+        # the cost model chose complex packing: the complex product kernel
+        # on cast-up rows, then the real part
+        return BoundOp(
+            spec=spec, n=n, plan=plan, route="polymul-real-complex",
+            fn=lambda a, b: fft_core.polymul(
+                a.to(torch.complex64), b.to(torch.complex64),
+                mode="circular", radix=plan.radix,
+                block_b=plan.block_b).real,
+            payload_dtype=np.float32, device=device)
     return BoundOp(
         spec=spec, n=n, plan=plan, route="polymul-real-packed",
         fn=lambda a, b: fft_core.polymul_real(a, b, mode="circular",
@@ -463,8 +516,7 @@ def _validate_polymul_mod(spec: OpSpec, n: int, ctx: OpContext) -> None:
 
 def _bind_polymul_mod(spec: OpSpec, n: int, batch: int, device: torch.device,
                       ctx: OpContext) -> BoundOp:
-    plan = _plan_or_config_error(n=n, batch=batch, exact=True,
-                                 rns=_rns_route(ctx))
+    plan = _route_plan(spec, n, batch, ctx, exact=True, rns=_rns_route(ctx))
     if _rns_route(ctx):
         rns = ntt_core.RNSParams.make(n, modulus_bits=ctx.modulus_bits)
         return BoundOp(

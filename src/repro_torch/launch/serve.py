@@ -21,7 +21,9 @@
                    decode steps (``models/lm.py``).
 
 All run on the card unless ``--device cpu`` is given; without a card they
-raise rather than fall back to the CPU.
+raise rather than fall back to the CPU. ``--auto`` (fft and engine
+services) lets the cost model (``core.cost``) choose each bucket's route
+and prints its predicted seconds per request beside the observed ones.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --service fft \
@@ -32,6 +34,9 @@ Example:
       --n 4096 --batch 64 --op polymul-mod --modulus-bits 109
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --n 256 --batch 4 --requests 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --service engine \
+      --auto --ops fft,rfft,polymul,polymul-real,polymul-mod \
+      --ns 4096,65536 --batch 64 --requests 400
   PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
       --arch qwen3-1.7b --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
@@ -62,13 +67,14 @@ class FFTService:
 
     def __init__(self, n: int, batch: int, op: str = "fft",
                  modulus_bits: int | None = None, model_shards: int = 1,
-                 max_pending: int = 1024,
+                 max_pending: int = 1024, auto: bool = False,
                  device: str | torch.device | None = None):
         self.n = n
         self.op = op
         self.engine = ServeEngine(max_batch=batch, max_pending=max_pending,
                                   modulus_bits=modulus_bits,
-                                  model_shards=model_shards, device=device)
+                                  model_shards=model_shards, auto=auto,
+                                  device=device)
         self.bound = self.engine.register(op, n, strict=True)
         self.plan = self.bound.plan
         self.route = self.bound.route
@@ -106,11 +112,23 @@ def produce(engine: ServeEngine, combos: list[tuple[str, int]],
     return kept, stats
 
 
+def cost_text(bucket: dict) -> str:
+    """A bucket's predicted against observed seconds per request, where the
+    cost model chose its route (``--auto``); else nothing."""
+    pred = bucket.get("predicted_s_per_req")
+    if pred is None:
+        return ""
+    return (f" predicted={pred:.6g}s/req "
+            f"({bucket['predicted_tier']}/{bucket['predicted_backend']}) "
+            f"observed={bucket['observed_s_per_req']:.6g}s/req")
+
+
 def run_fft_service(args) -> dict:
     svc = FFTService(args.n, args.batch, args.op,
                      modulus_bits=args.modulus_bits,
                      model_shards=args.model_shards,
-                     max_pending=args.max_pending, device=args.device)
+                     max_pending=args.max_pending, auto=args.auto,
+                     device=args.device)
     svc.warmup()
     kept, stats = produce(svc.engine, [(args.op, args.n)], args.requests,
                           np.random.default_rng(0))
@@ -124,30 +142,27 @@ def run_fft_service(args) -> dict:
           f"-> {stats['throughput_per_s']:.1f} req/s "
           f"(compute-only {stats['compute_throughput_per_s']:.1f} req/s) "
           f"p50={lat['p50']:.2f}ms p99={lat['p99']:.2f}ms "
-          f"[{svc.plan.describe()}]")
+          f"[{svc.plan.describe()}]"
+          + cost_text(next(iter(stats["buckets"].values()))))
     return stats
 
 
-def run_engine_service(args) -> dict:
-    """Serve a mixed (op, n) stream from one engine process. Buckets come
-    from the cross product of ``--ops`` and ``--ns``; one result per bucket
-    is verified against the registry's numpy oracle after the drain."""
+def engine_for(args) -> tuple[ServeEngine, list[tuple[str, int]]]:
+    """The engine service's engine, every (op, n) bucket of the cross
+    product of ``--ops`` and ``--ns`` registered, not yet warmed up."""
     ops = [s.strip() for s in args.ops.split(",") if s.strip()]
-    ns = [int(s) for s in args.ns.split(",") if s.strip()]
+    ns = [int(s) for s in (args.ns or str(args.n)).split(",") if s.strip()]
     engine = ServeEngine(max_batch=args.batch, max_pending=args.max_pending,
                          modulus_bits=args.modulus_bits,
-                         model_shards=args.model_shards, device=args.device)
+                         model_shards=args.model_shards, auto=args.auto,
+                         device=args.device)
     combos = [(op, n) for op in ops for n in ns]
     for op, n in combos:
         engine.register(op, n)
-    engine.warmup()
-    kept, stats = produce(engine, combos, args.requests,
-                          np.random.default_rng(0))
-    first: dict[tuple[str, int], int] = {}
-    for rid, (op, n, _) in sorted(kept.items()):
-        first.setdefault((op, n), rid)
-    for (op, n), rid in first.items():
-        engine.bound(op, n).verify(kept[rid][2], engine.results[rid])
+    return engine, combos
+
+
+def print_engine_stats(stats: dict) -> None:
     lat = stats["latency_ms"]
     print(f"[serve:engine] buckets={len(stats['buckets'])} "
           f"device={stats['device']} served={stats['served']} in "
@@ -160,7 +175,23 @@ def run_engine_service(args) -> dict:
         print(f"[serve:engine]   {name} route={b['route']} "
               f"served={b['served']} batches={b['batches']} "
               f"mean_batch={b['mean_batch']:.1f} "
-              f"utilization={b['utilization']:.2f}")
+              f"utilization={b['utilization']:.2f}{cost_text(b)}")
+
+
+def run_engine_service(args) -> dict:
+    """Serve a mixed (op, n) stream from one engine process. Buckets come
+    from the cross product of ``--ops`` and ``--ns``; one result per bucket
+    is verified against the registry's numpy oracle after the drain."""
+    engine, combos = engine_for(args)
+    engine.warmup()
+    kept, stats = produce(engine, combos, args.requests,
+                          np.random.default_rng(0))
+    first: dict[tuple[str, int], int] = {}
+    for rid, (op, n, _) in sorted(kept.items()):
+        first.setdefault((op, n), rid)
+    for (op, n), rid in first.items():
+        engine.bound(op, n).verify(kept[rid][2], engine.results[rid])
+    print_engine_stats(stats)
     return stats
 
 
@@ -191,7 +222,11 @@ def run_lm_service(args) -> dict:
     return {"tokens_per_s": toks / dt, "generated": out}
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
+    return _parser().parse_args(argv)
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--service", choices=["fft", "engine", "lm"],
                     default="fft")
@@ -219,6 +254,11 @@ def main(argv=None) -> dict:
                     help=op_registry.cli_knob_help(
                         "model_shards",
                         "shard the sequence over this many devices"))
+    ap.add_argument("--auto", action="store_true",
+                    help="fft and engine services: the cost model chooses "
+                         "each bucket's route (core/cost.py), and each "
+                         "bucket prints its predicted against its "
+                         "observed seconds per request")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the kernels run; cuda raises when no card "
                          "is present")
@@ -228,11 +268,14 @@ def main(argv=None) -> dict:
                     help="lm service: the arch's reduced config")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
+    return ap
+
+
+def main(argv=None) -> dict:
+    ap = _parser()
     args = ap.parse_args(argv)
     if args.service == "lm":
         return run_lm_service(args)
-    if args.ns is None:
-        args.ns = str(args.n)
     try:
         if args.service == "engine":
             return run_engine_service(args)

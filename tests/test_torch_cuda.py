@@ -1015,3 +1015,62 @@ def test_fourierpim_on_card_matches_cpu(cuda):
         outs.append(torch.stack([s.float().cpu() for s in steps]))
     np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(), rtol=2e-3,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Auto mode on the card: the complex-packing routes and an auto engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op,route,counter", [
+    ("rfft", "rfft-complex", "fft_planes"),
+    ("polymul-real", "polymul-real-complex", "polymul_complex_planes"),
+])
+@pytest.mark.parametrize("n", [256, 4096, 65536])
+def test_complex_packing_routes_match_numpy(cuda, rng, op, route, counter,
+                                            n):
+    """The routes auto mode binds where the cost model picks complex
+    packing for a real op: one launch of the complex kernel a batch on
+    cast-up rows, every row within the op's oracle tolerance (rel 1e-3)
+    of numpy."""
+    from repro_torch.launch import ops as tops
+    ctx = tops.OpContext(auto=True, packings=(False,))
+    bound = tops.get_op(op).bind(n, ctx, batch=5, device="cuda")
+    assert bound.route == route and not bound.plan.real
+    payloads = [bound.random_payload(rng) for _ in range(5)]
+    before = _build.LAUNCHES[counter]
+    out = bound.to_numpy(bound.execute(payloads))
+    assert _build.LAUNCHES[counter] == before + 1
+    for payload, row in zip(payloads, out):
+        bound.verify(payload, row)
+
+
+def test_auto_engine_serves_the_five_ops_on_card(cuda, rng):
+    """``ServeEngine(auto=True)`` at n = 4096: every op binds the cost
+    model's route, serves on the card, equals its numpy oracle
+    (``polymul-mod`` bit for bit), launches its route's kernel once a
+    dispatched batch, and reports predicted against observed cost."""
+    ops = ("fft", "rfft", "polymul", "polymul-real", "polymul-mod")
+    counters = {"fft": "fft_planes", "rfft-real": "rfft_planes",
+                "polymul": "polymul_complex_planes",
+                "polymul-real-packed": "polymul_real_planes",
+                "polymul-mod-single": "ntt_polymul"}
+    eng = engine.ServeEngine(max_batch=8, auto=True, device="cuda")
+    for op in ops:
+        eng.register(op, 4096)
+    eng.warmup()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    kept = {}
+    for i in range(40):
+        op = ops[i % len(ops)]
+        payload = eng.bound(op, 4096).random_payload(rng)
+        kept[eng.submit(op, 4096, payload)] = (op, payload)
+    stats = eng.run(40)
+    for rid, (op, payload) in kept.items():
+        eng.bound(op, 4096).verify(payload, eng.results[rid])
+    want = {counters[b["route"]]: b["batches"]
+            for b in stats["buckets"].values()}
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+    for b in stats["buckets"].values():
+        assert b["predicted_tier"] == "local"
+        assert b["predicted_s_per_req"] > 0 and b["observed_s_per_req"] > 0

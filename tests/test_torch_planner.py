@@ -183,7 +183,7 @@ def test_rns_plan_keeps_one_cta_per_row_block(n):
 
 @pytest.mark.parametrize("kw,slice_name", [
     ({"model_shards": 4}, "multi-device slice"),
-    ({"workload": "fft"}, "cost-model slice"),
+    ({"workload": "fft", "verified": True}, "fault-tolerance slice"),
 ])
 def test_unported_tiers_name_their_slice(kw, slice_name):
     """The reference plans these; the port raises and names the slice that
@@ -192,3 +192,15 @@ def test_unported_tiers_name_their_slice(kw, slice_name):
     with pytest.raises(ValueError, match="not yet ported") as exc:
         tcore.plan(1024, 8, **kw)
     assert slice_name in str(exc.value)
+
+
+@pytest.mark.parametrize("workload", ["fft", "rfft", "polymul",
+                                      "polymul-real", "polymul-mod"])
+def test_auto_mode_plans_every_workload(workload):
+    """``workload=`` plans, as the reference's auto mode does: the plan of
+    the cost model's choice, with its breakdown on ``FFTPlan.cost``."""
+    want = jcore.plan(1024, 8, workload=workload)
+    got = tcore.plan(1024, 8, workload=workload)
+    assert (got.tier, got.real, got.exact) == \
+        (want.tier, want.real, want.exact)
+    assert got.cost["workload"] == workload and got.cost["best"] is not None

@@ -420,7 +420,9 @@ def test_port_never_imports_jax_or_the_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('repro_torch.core.ntt', 'repro_torch.core.ntt.rns', "
-        "'repro_torch.kernels.ntt'):\n"
+        "'repro_torch.kernels.ntt', 'repro_torch.core.cost', "
+        "'repro_torch.core.pim.ntt_pim', 'repro_torch.core.pim.hopper', "
+        "'repro_torch.dist.batching'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
