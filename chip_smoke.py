@@ -161,6 +161,30 @@ Phases (any failure exits non-zero):
      counters zeroed just before: every result verified, each route
      kernel's launches == its dispatched batches, each bucket's predicted
      against observed seconds per request.
+  6. Fault tolerance on the card (lines ``[ft]``, then one ``[ft json]``
+     line), each number beside the card's name and power limit:
+     (a) ``ServeEngine(verified=True)`` over the five ops at n = 4096 and
+     65536 and ``polymul-mod`` RNS (109 bits) at 4096, batch 64, every
+     request submitted before the run (full batches), in turns with the
+     unverified engine on the same traffic (verified, unverified,
+     unverified, verified): every batch checked, no detection, every
+     result of the first verified turn equal to its oracle, each route
+     kernel's launches == its batches in every turn (counters zeroed
+     before each), req/s and p50/p99 of each turn, and per bucket the
+     check's host ms per batch (``BoundOp.integrity`` timed alone over the
+     delivered batches) and the worst float residual against
+     ``abft.FLOAT_TOL``; (b) ``serve --service engine --verify
+     --inject-faults --inject-stuck 1`` over three ops through
+     ``serve.main``: every result equal to its oracle, detected, retried
+     and fell_back >= 1, each route kernel's launches == batches +
+     retries + fallback re-runs besides the warmups'; (c) the CLI as a
+     subprocess with ``--snapshot-dir``, SIGTERM after its sync marker: it
+     exits 0 with a snapshot, the time from SIGTERM to exit printed, and a
+     second run warm-restarts (``warm restart #1``) with the lifetime
+     counters carried; (d) a request with a 1e-4 s deadline queued behind
+     a full batch gets ``deadline_exceeded``, and ``--inject-straggler-ms``
+     with ``--watchdog-*`` and ``--elastic`` records an eviction and
+     warm-restarts at one shard.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -170,15 +194,19 @@ and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3409,6 +3437,338 @@ def tc_kernel_report(ptxas, library) -> dict:
     return {"ptxas": report, "instances": instances, "sass": counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: fault tolerance on the card
+# ---------------------------------------------------------------------------
+
+#: (a): requests a bucket (three full batches of 64), two batches for RNS
+FT_REQUESTS, FT_RNS_REQUESTS = 3 * SERVE_BATCH, 2 * SERVE_BATCH
+#: (b): the chaos run's ops at n = 4096, its requests, transient rate and
+#: seed; ``--inject-stuck 1`` makes every array's fault permanent
+FT_CHAOS_OPS = ("fft", "polymul-real", "polymul-mod")
+FT_CHAOS_REQUESTS, FT_CHAOS_RATE, FT_CHAOS_SEED = 600, 1e-9, 11
+#: (c): the drain's snapshot directory (``build/`` is not committed)
+FT_SNAPSHOTS = os.path.join(ROOT, "build", "chip_smoke_snapshots")
+FT_SUBPROCESS_S = 300
+#: (d): the elastic run's watchdog flags and straggler. A batch of four
+#: rows at n = 4096 takes a fraction of a millisecond, and the host's own
+#: jitter (the producer thread holds the GIL for milliseconds at a time) is
+#: many times that, so the threshold is 50x the EWMA and an eviction needs
+#: three flags in a row; each straggling launch sleeps a second, far above
+#: 50x any clean batch.
+FT_ELASTIC_FLAGS = ("--watchdog-threshold", "50", "--watchdog-evict-after",
+                    "3", "--watchdog-warmup", "5", "--inject-straggler-ms",
+                    "1000", "--inject-straggler-after", "6")
+
+
+def ft_traffic(engine, combos, per_bucket: int, seed: int) -> list[tuple]:
+    """per_bucket payloads for each bucket, round-robin, made once so that
+    every turn serves the same traffic."""
+    rng = np.random.default_rng(seed)
+    return [(op, n, engine.bound(op, n).random_payload(rng))
+            for _ in range(per_bucket) for op, n in combos]
+
+
+def ft_turn(torch, build, engine, traffic, label: str, card: str,
+            check_all: bool) -> dict:
+    """Serve ``traffic`` once, every request submitted before the run, the
+    launch counters zeroed just before; check the results (all of them, or
+    the first of each bucket), the launches against the batches and, when
+    verified, that every batch was checked and none failed. The engine
+    keeps this turn's results only."""
+    before = engine.stats(seconds=1, busy_s=1)["buckets"]
+    engine.results.clear()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    rids = [engine.submit(op, n, payload) for op, n, payload in traffic]
+    stats = engine.run(engine._served + len(traffic))
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    lat = np.asarray(list(engine._latencies_s)[-len(traffic):]) * 1e3
+    seen = set()
+    for rid, (op, n, payload) in zip(rids, traffic):
+        if check_all or (op, n) not in seen:
+            engine.bound(op, n).verify(payload, engine.results[rid])
+            seen.add((op, n))
+    expected = collections.Counter()
+    for name, b in stats["buckets"].items():
+        batches = b["batches"] - before[name]["batches"]
+        expected[ROUTE_COUNTER[b["route"]]] += batches
+        integ, was = b["integrity"], before[name]["integrity"]
+        if engine.verified and (
+                integ["checked"] - was["checked"] != batches
+                or integ["corrupted"] or integ["retried"]
+                or integ["fell_back"]):
+            raise SystemExit(f"[ft] {label} {name}: {batches} batches but "
+                             f"integrity {integ} (before {was}): a clean "
+                             f"verified run must check every batch once "
+                             f"and detect nothing")
+    if launches != dict(expected):
+        raise SystemExit(f"[ft] {label}: launches {launches}, expected one "
+                         f"per dispatched batch {dict(expected)}")
+    turn = {"requests": len(traffic), "seconds": stats["seconds"],
+            "req_per_s": len(traffic) / stats["seconds"],
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "launches": launches}
+    print(f"[ft] (a) {label}: {len(traffic)} requests, "
+          f"{'every result' if check_all else 'one result a bucket'} == its "
+          f"oracle, launches {launches} == batches; "
+          f"{turn['req_per_s']:.1f} req/s p50={turn['p50_ms']:.3f}ms "
+          f"p99={turn['p99_ms']:.3f}ms; on {card}", flush=True)
+    return turn
+
+
+def ft_check_cost(engine, traffic, card: str) -> dict:
+    """Per bucket, ``BoundOp.integrity`` timed alone over each delivered
+    batch of 64 rows (the rows of the engine's last turn), the worst
+    residual over them against its tolerance (``abft.FLOAT_TOL``; 0 for
+    the exact checks)."""
+    rows: dict[tuple, list] = collections.defaultdict(list)
+    for rid, (op, n, payload) in zip(sorted(engine.results), traffic):
+        rows[op, n].append((payload, engine.results[rid]))
+    out = {}
+    for (op, n), items in rows.items():
+        bound = engine.bound(op, n)
+        ms, worst = [], 0.0
+        for i in range(0, len(items), SERVE_BATCH):
+            payloads = [p for p, _ in items[i:i + SERVE_BATCH]]
+            batch = np.stack([r for _, r in items[i:i + SERVE_BATCH]])
+            t = time.perf_counter()
+            verdict = bound.integrity(payloads, batch)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if not verdict.ok:
+                raise SystemExit(f"[ft] {op} n={n}: clean rows fail their "
+                                 f"check: {verdict}")
+            worst = max(worst, verdict.residual)
+        out[f"{bound.route}/n={n}"] = {
+            "check": verdict.check, "ms_per_batch": float(np.mean(ms)),
+            "batches": len(ms), "worst_residual": worst, "tol": verdict.tol}
+        print(f"[ft] (a) check {verdict.check} {bound.route} n={n}: "
+              f"{np.mean(ms):.3f} ms per batch of {SERVE_BATCH} on the host "
+              f"(mean of {len(ms)}); worst residual {worst:.3e} against tol "
+              f"{verdict.tol if verdict.tol else 'exact (0)'}; on {card}",
+              flush=True)
+    return out
+
+
+def ft_verified(torch, build, engine_mod, card: str) -> dict:
+    """(a) Verified against unverified serving of the same traffic."""
+    cells = {"float and single-limb": (None, [(op, n) for op in
+                                              WORKLOAD_KERNEL
+                                              for n in SERVE_NS],
+                                       FT_REQUESTS),
+             "rns": (RNS_BITS, [("polymul-mod", RNS_N)], FT_RNS_REQUESTS)}
+    out = {}
+    for cell, (bits, combos, per_bucket) in cells.items():
+        engines = {}
+        for verified in (True, False):
+            eng = engine_mod.ServeEngine(
+                max_batch=SERVE_BATCH, modulus_bits=bits, verified=verified,
+                max_pending=per_bucket * len(combos), device="cuda")
+            for op, n in combos:
+                eng.register(op, n)
+            eng.warmup()
+            engines[verified] = eng
+        traffic = ft_traffic(engines[True], combos, per_bucket, 7)
+        turns = {True: [], False: []}
+        for i, verified in enumerate((True, False, False, True)):
+            label = (f"{cell} {'verified' if verified else 'unverified'} "
+                     f"turn {i + 1}")
+            turns[verified].append(ft_turn(torch, build, engines[verified],
+                                           traffic, label, card,
+                                           check_all=i == 0))
+        checks = ft_check_cost(engines[True], traffic, card)
+        ratio = (np.mean([t["req_per_s"] for t in turns[True]])
+                 / np.mean([t["req_per_s"] for t in turns[False]]))
+        print(f"[ft] (a) {cell}: verified / unverified req/s {ratio:.3f} "
+              f"(means of two turns each); on {card}", flush=True)
+        out[cell] = {"turns": {"verified": turns[True],
+                               "unverified": turns[False]},
+                     "verified_over_unverified": ratio, "checks": checks}
+    return out
+
+
+def ft_chaos(torch, build, engine_mod, serve, card: str) -> dict:
+    """(b) The chaos CLI through ``serve.main``: every result checked
+    against its oracle by the CLI, the recovery counters, and the route
+    kernels' launches == batches + retries + fallback re-runs besides the
+    warmups' (counted around ``ServeEngine.warmup``)."""
+    warm = collections.Counter()
+    warmup = engine_mod.ServeEngine.warmup
+
+    def counted(self):
+        before = dict(build.LAUNCHES)
+        warmup(self)
+        warm.update({k: v - before[k] for k, v in build.LAUNCHES.items()})
+
+    argv = ["--service", "engine", "--verify", "--inject-faults",
+            str(FT_CHAOS_RATE), "--inject-stuck", "1", "--inject-fault-seed",
+            str(FT_CHAOS_SEED), "--ops", ",".join(FT_CHAOS_OPS), "--ns",
+            str(SERVE_NS[0]), "--batch", str(SERVE_BATCH), "--requests",
+            str(FT_CHAOS_REQUESTS), "--device", "cuda"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    engine_mod.ServeEngine.warmup = counted
+    try:
+        stats = serve.main(argv)
+    finally:
+        engine_mod.ServeEngine.warmup = warmup
+    torch.cuda.synchronize()
+    served = {k: v - warm[k] for k, v in build.LAUNCHES.items()
+              if v - warm[k]}
+    expected = collections.Counter()
+    totals = collections.Counter()
+    for b in stats["buckets"].values():
+        integ = b["integrity"]
+        expected[ROUTE_COUNTER[b["route"]]] += (
+            b["batches"] + integ["retried"] + integ["fell_back"])
+        totals.update({k: integ[k] for k in ("corrupted", "retried",
+                                              "fell_back")})
+    if stats["served"] != FT_CHAOS_REQUESTS or min(
+            totals[k] for k in ("corrupted", "retried", "fell_back")) < 1:
+        raise SystemExit(f"[ft] (b) chaos: served {stats['served']} of "
+                         f"{FT_CHAOS_REQUESTS}, recovery {dict(totals)}: "
+                         f"expected detected, retried and fell_back >= 1")
+    if served != dict(expected):
+        raise SystemExit(f"[ft] (b) chaos: launches while serving {served}, "
+                         f"expected batches + retries + fallback re-runs "
+                         f"{dict(expected)}")
+    print(f"[ft] (b) serve --verify --inject-faults {FT_CHAOS_RATE} "
+          f"--inject-stuck 1 over {','.join(FT_CHAOS_OPS)} at "
+          f"n={SERVE_NS[0]}: {stats['served']} requests, every result == its "
+          f"oracle; detected={totals['corrupted']} "
+          f"retried={totals['retried']} fell_back={totals['fell_back']}; "
+          f"launches {served} == batches + retries + fallback re-runs "
+          f"(warmups {dict(+warm)} apart); on {card}", flush=True)
+    return {"recovery": dict(totals), "launches": served,
+            "warmup_launches": dict(+warm),
+            "req_per_s": stats["throughput_per_s"],
+            "buckets": {k: b["integrity"] for k, b in
+                        stats["buckets"].items()}}
+
+
+def ft_cli(requests: int) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.serve", "--service",
+            "engine", "--ops", "fft", "--ns", str(SERVE_NS[0]), "--batch",
+            str(SERVE_BATCH), "--requests", str(requests), "--snapshot-dir",
+            FT_SNAPSHOTS, "--device", "cuda"]
+
+
+def ft_drain_restart(engine_mod, ckpt_lib, card: str) -> dict:
+    """(c) SIGTERM drain, snapshot and warm restart of the CLI."""
+    shutil.rmtree(FT_SNAPSHOTS, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    marker = "serving 2000000 requests"
+    proc = subprocess.Popen(ft_cli(2_000_000), cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    guard = threading.Timer(FT_SUBPROCESS_S, proc.kill)
+    guard.start()
+    try:
+        lines = []
+        while marker not in (lines[-1] if lines else ""):
+            line = proc.stdout.readline()
+            if not line:
+                raise SystemExit("[ft] (c) the CLI exited before its sync "
+                                 "marker:\n" + "".join(lines))
+            lines.append(line)
+        time.sleep(1.0)
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=FT_SUBPROCESS_S)[0]
+        exit_s = time.perf_counter() - t
+    finally:
+        guard.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    step = ckpt_lib.latest_step(FT_SNAPSHOTS)
+    if proc.returncode != 0 or "snapshot ->" not in out or not step:
+        raise SystemExit(f"[ft] (c) SIGTERM: exit {proc.returncode}, "
+                         f"snapshot step {step}:\n{''.join(lines)}{out}")
+    second = subprocess.run(ft_cli(SERVE_REQUESTS), cwd=ROOT, env=env,
+                            capture_output=True, text=True,
+                            timeout=FT_SUBPROCESS_S)
+    want = f"warm restart #1 from {FT_SNAPSHOTS} (lifetime served: {step})"
+    final = ckpt_lib.latest_step(FT_SNAPSHOTS)
+    restored = engine_mod.ServeEngine.from_snapshot(FT_SNAPSHOTS,
+                                                    device="cuda")
+    if (second.returncode != 0 or want not in second.stdout
+            or final != step + SERVE_REQUESTS or restored.restarts != 2
+            or restored._prev_served != final):
+        raise SystemExit(f"[ft] (c) warm restart: exit {second.returncode}, "
+                         f"snapshot steps {step} -> {final}, restarts "
+                         f"{restored.restarts}:\n{second.stdout}"
+                         f"{second.stderr}")
+    print(f"[ft] (c) SIGTERM after the sync marker: drained and snapshotted "
+          f"{step} served requests, exit 0, {exit_s:.3f}s from SIGTERM to "
+          f"exit; the second run printed '{want}' and served "
+          f"{SERVE_REQUESTS} more (lifetime {final}); on {card}", flush=True)
+    return {"sigterm_to_exit_s": exit_s, "drained_served": step,
+            "lifetime_after_restart": final}
+
+
+def ft_deadline_watchdog(engine_mod, serve, card: str) -> dict:
+    """(d) A deadline-expired request and a watchdog eviction that
+    warm-restarts the CLI's engine at one shard."""
+    n = SERVE_NS[0]
+    eng = engine_mod.ServeEngine(max_batch=SERVE_BATCH, device="cuda")
+    bound = eng.register("fft", n)
+    eng.warmup()
+    rng = np.random.default_rng(13)
+    kept = {eng.submit("fft", n, p): p for p in
+            [bound.random_payload(rng) for _ in range(SERVE_BATCH)]}
+    late = eng.submit("fft", n, bound.random_payload(rng), deadline_s=1e-4)
+    time.sleep(0.01)
+    stats = eng.run(SERVE_BATCH + 1)
+    err = eng.errors.get(late, {})
+    if (err.get("error") != "deadline_exceeded" or late in eng.results
+            or stats["expired"] != 1):
+        raise SystemExit(f"[ft] (d) deadline: error {err}, expired "
+                         f"{stats['expired']}")
+    for rid, payload in kept.items():
+        bound.verify(payload, eng.results[rid])
+    snap = FT_SNAPSHOTS + "_elastic"
+    shutil.rmtree(snap, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--service", "engine", "--ops", "fft", "--ns", str(n),
+                    "--requests", "96", "--batch", "4", "--max-pending", "8",
+                    "--model-shards", "2", "--snapshot-dir", snap,
+                    "--elastic", *FT_ELASTIC_FLAGS, "--device", "cuda"])
+    out = buf.getvalue()
+    restored = engine_mod.ServeEngine.from_snapshot(snap, device="cuda")
+    if ("watchdog evicted batch" not in out
+            or "elastic restart: model_shards 2 -> 1" not in out
+            or restored._prev_served != 96 or restored.restarts != 2
+            or restored.ctx.model_shards != 1):
+        raise SystemExit(f"[ft] (d) elastic: served "
+                         f"{restored._prev_served}, restarts "
+                         f"{restored.restarts}:\n{out}")
+    evicted = [ln for ln in out.splitlines() if "evicted" in ln]
+    flagged = ", ".join(f"batch {e['step']} {e['dt'] * 1e3:.3f} ms "
+                        f"(EWMA {e['ewma'] * 1e3:.3f} ms)"
+                        for e in restored.watchdog.events)
+    print(f"[ft] (d) a request with a 1e-4 s deadline behind a full batch: "
+          f"{err['error']} after {err['waited_s'] * 1e3:.3f} ms; stragglers: "
+          f"{evicted[0].split('] ')[1]}, warm restart at 1 shard served the "
+          f"rest (96 lifetime); flagged: {flagged}; EWMA at the end "
+          f"{restored.watchdog.ewma * 1e3:.3f} ms; on {card}", flush=True)
+    return {"deadline_error": err, "evicted": evicted,
+            "watchdog_events": restored.watchdog.events,
+            "watchdog_ewma_s": restored.watchdog.ewma,
+            "elastic_lifetime_served": restored._prev_served}
+
+
+def ft_phase(torch, build, engine_mod, serve, card: str) -> dict:
+    from repro_torch.ft import checkpoint as ckpt_lib
+    return {"verified": ft_verified(torch, build, engine_mod, card),
+            "chaos": ft_chaos(torch, build, engine_mod, serve, card),
+            "drain_restart": ft_drain_restart(engine_mod, ckpt_lib, card),
+            "deadline_watchdog": ft_deadline_watchdog(engine_mod, serve,
+                                                      card)}
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -3568,6 +3928,10 @@ def main() -> int:
                   "auto_engine": auto_engine(torch, _build, serve, card)}
     print(f"[cost model json] {json.dumps(cost_model)}", flush=True)
     clock("phase 5, cost model on the card")
+    # -- phase 6: fault tolerance on the card --------------------------------
+    ft = ft_phase(torch, _build, engine_mod, serve, card)
+    print(f"[ft json] {json.dumps(ft)}", flush=True)
+    clock("phase 6, fault tolerance")
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])

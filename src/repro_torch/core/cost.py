@@ -25,9 +25,9 @@ tier's device count.
 
 This package runs one card: ``n_devices > 1`` raises and names the slice
 that ports the distributed four-step tiers, so no interconnect constant
-comes in; ``verified=True`` raises and names the slice that ports the ABFT
-checks it prices. ``pim_ok=False`` (the PIM backend off the table) is
-ported.
+comes in. ``verified=True`` prices the ABFT integrity check
+(``ft/abft.py``) on both backends, as the reference does, and
+``pim_ok=False`` takes the PIM backend off the table.
 
 Accounting conventions:
 
@@ -69,6 +69,7 @@ from repro_torch.core.pim.polymul_pim import (
 )
 from repro_torch.kernels.fft import (SMEM_MAX_BYTES, TWO_PASS_MAX_SUB,
                                      resident, two_pass_split)
+from repro_torch.ft import abft
 from repro_torch.kernels.ntt import ntt_resident
 
 # The card's rates (NVIDIA H100 SXM data sheet), as PERF.md's kernel table
@@ -89,8 +90,6 @@ PRODUCTS = ("polymul", "polymul-real", "polymul-mod")
 #: Where what this module does not price yet is ported (ROADMAP queue 1).
 DIST_SLICE = ("the multi-device slice (the distributed four-step tiers; "
               "ROADMAP queue 1, item 9)")
-FT_SLICE = ("the fault-tolerance slice (ABFT-verified serving; ROADMAP "
-            "queue 1, item 8)")
 
 _PIM_CFG = FOURIERPIM_8
 _FP = aritpim.FP32
@@ -284,10 +283,17 @@ def _cuda_local_terms(workload: str, n: int, batch: int, *,
 
 
 def cuda_cost(workload: str, n: int, batch: int, *,
-              real: bool = False) -> TierCost:
-    """The card's roofline time of one local batched call."""
+              real: bool = False, verified: bool = False) -> TierCost:
+    """The card's roofline time of one local batched call; ``verified``
+    adds the reference's price of the ABFT check (its ``xla_cost`` term)."""
     exact = workload == "polymul-mod"
     flops, nbytes = _cuda_local_terms(workload, n, max(batch, 1), real=real)
+    if verified:
+        # Host-side integrity check (ft/abft.py): O(n) reductions over
+        # each operand/result row plus one more pass over the result.
+        ops = {"fft": 2, "rfft": 2}.get(workload, 3)
+        flops += max(batch, 1) * ops * 4.0 * n
+        nbytes += max(batch, 1) * n * 8
     t_comp = flops / (PEAK_INT_OPS if exact else PEAK_FLOPS)
     t_mem = nbytes / HBM_BW
     return TierCost(tier="local", backend="cuda", real=real, exact=exact,
@@ -298,6 +304,15 @@ def cuda_cost(workload: str, n: int, batch: int, *,
 # ---------------------------------------------------------------------------
 # PIM cost-twin estimates
 # ---------------------------------------------------------------------------
+
+def abft_check_cycles(workload: str, n: int, *,
+                      cfg: PIMConfig = _PIM_CFG) -> int:
+    """Closed-form cycles of one ABFT integrity check (ft/abft.py) at the
+    planner's default device model: the quantity ``verified=True`` pricing
+    adds per work unit."""
+    spec = _INT if workload == "polymul-mod" else _FP
+    return abft.check_cycles(workload, n, cfg, spec)
+
 
 def pim_local_unit_cycles(workload: str, n: int, *, batch: int = 2,
                           cfg: PIMConfig = _PIM_CFG) -> int:
@@ -402,6 +417,7 @@ def _pim_workload(workload: str, real: bool) -> str:
 
 
 def pim_cost(workload: str, n: int, batch: int, *, real: bool = False,
+             verified: bool = False,
              cfg: PIMConfig = _PIM_CFG) -> TierCost:
     """The PIM twin's time of one local batched call: ``batch`` units at
     the crossbars' steady-state throughput."""
@@ -410,6 +426,13 @@ def pim_cost(workload: str, n: int, batch: int, *, real: bool = False,
     wl = _pim_workload(workload, real)
     unit_cycles = pim_local_unit_cycles(wl, n, batch=batch, cfg=cfg)
     t = batch / _pim_local_throughput(wl, n, cfg)
+    if verified:
+        # The check rides the same vectored column ops as the transform
+        # (batch rows in parallel), so throughput scales by the per-unit
+        # cycle stretch.
+        check = abft_check_cycles(wl, n, cfg=cfg)
+        t *= (unit_cycles + check) / unit_cycles
+        unit_cycles += check
     return TierCost(tier="local", backend="pim", real=real, exact=exact,
                     seq_shards=1, total_s=t, t_compute_s=t,
                     pim_cycles=unit_cycles)
@@ -436,10 +459,13 @@ def workload_cost(workload: str, n: int, batch: int, *,
                   verified: bool = False, pim_ok: bool = True) -> dict:
     """Score every executable (tier, packing) candidate on both backends.
 
-    ``pim_ok=False`` marks the PIM backend infeasible on every candidate
-    (a serve bucket whose crossbar array is quarantined re-plans with the
-    PIM placement off the table). ``n_devices > 1`` and ``verified=True``
-    raise and name the slice that ports them.
+    ``verified=True`` prices the ABFT integrity check on both backends
+    (``abft_check_cycles`` on PIM, the O(n) host reductions on the card),
+    so a verified serve bucket's predicted costs include the checksum
+    overhead. ``pim_ok=False`` marks the PIM backend infeasible on every
+    candidate (a serve bucket whose crossbar array is quarantined re-plans
+    with the PIM placement off the table). ``n_devices > 1`` raises and
+    names the slice that ports it.
 
     Returns a machine-readable breakdown::
 
@@ -461,9 +487,6 @@ def workload_cost(workload: str, n: int, batch: int, *,
         raise ValueError(f"unknown workload {workload!r}; "
                          f"expected one of {WORKLOADS}")
     _require_one_device(n_devices)
-    if verified:
-        raise ValueError(f"verified=True: the ABFT check's price is not yet "
-                         f"ported; it comes with {FT_SLICE}")
     exact = workload == "polymul-mod"
     candidates, pruned = [], []
     for tier in tiers:
@@ -476,7 +499,7 @@ def workload_cost(workload: str, n: int, batch: int, *,
                                "reason": reason})
                 continue
             backends = {}
-            cc = cuda_cost(workload, n, batch, real=real)
+            cc = cuda_cost(workload, n, batch, real=real, verified=verified)
             backends["cuda"] = cc.as_dict()
             if not pim_ok:
                 pim_bad = ("quarantined (circuit breaker): pim backend "
@@ -485,7 +508,8 @@ def workload_cost(workload: str, n: int, batch: int, *,
                 pim_bad = pim_local_infeasible(
                     _pim_workload(workload, real), n)
             if pim_bad is None:
-                pc = pim_cost(workload, n, batch, real=real)
+                pc = pim_cost(workload, n, batch, real=real,
+                              verified=verified)
                 backends["pim"] = pc.as_dict()
                 best_backend = ("pim" if pc.total_s <= cc.total_s
                                 else "cuda")

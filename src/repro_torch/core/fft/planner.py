@@ -143,14 +143,18 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     ``polymul-mod`` route takes it from the modulus), with the breakdown on
     ``FFTPlan.cost``. ``real=True`` keeps only real-packed candidates and
     ``packings`` any subset of the packings (the ``real`` values) the
-    workload has; ``pim_ok=False`` plans with the PIM backend off the
-    table. A workload with no executable candidate raises ValueError
-    naming every pruned candidate's constraint.
+    workload has; ``verified=True`` prices the ABFT integrity check
+    (``core.cost.abft_check_cycles``) into every candidate on both
+    backends, and ``pim_ok=False`` plans with the PIM backend off the
+    table (the circuit-breaker re-bind of a quarantined serve bucket).
+    Both are auto mode's: the legacy plan ignores them, as the reference's
+    does. A workload with no executable candidate raises ValueError naming
+    every pruned candidate's constraint.
 
     Raises ValueError on a non-power-of-two n, a negative batch,
     ``exact`` with ``real``, ``rns`` without ``exact`` (or, in auto mode,
     without the ``polymul-mod`` workload), and on what this package does
-    not run yet: ``model_shards > 1`` and ``verified=True``.
+    not run yet: ``model_shards > 1``.
     """
     if n <= 0 or n & (n - 1):
         raise ValueError(f"n={n} must be a power of two")
@@ -162,13 +166,10 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     if model_shards != 1:
         raise ValueError(f"model_shards={model_shards}: distributed tier not "
                          f"yet ported; it comes with {cost_model.DIST_SLICE}")
-    if verified:
-        raise ValueError(f"verified=True: ABFT-priced planning not yet "
-                         f"ported; it comes with {cost_model.FT_SLICE}")
     if workload is not None:
         return _plan_auto(n, batch, workload, exact=exact, real=real,
                           product=product, rns=rns, packings=packings,
-                          pim_ok=pim_ok)
+                          verified=verified, pim_ok=pim_ok)
     if rns and not exact:
         raise ValueError("rns plans the exact tier's multi-limb product: "
                          "pass exact=True")
@@ -207,7 +208,8 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
 
 def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
                real: bool, product: bool, rns: bool,
-               packings: tuple[bool, ...] | None, pim_ok: bool) -> FFTPlan:
+               packings: tuple[bool, ...] | None, verified: bool,
+               pim_ok: bool) -> FFTPlan:
     """Cost-model-driven choice (the reference's ``_plan_auto``, one
     device). Explicit knobs narrow the candidate space rather than being
     ignored; ``exact=``, ``product=`` and ``rns=`` must agree with the
@@ -237,7 +239,7 @@ def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
     breakdown = cost_model.workload_cost(
         workload, n, batch,
         packings=None if packings is None else list(packings),
-        pim_ok=pim_ok)
+        verified=verified, pim_ok=pim_ok)
     best = breakdown["best"]
     if best is None:
         lines = [

@@ -18,6 +18,10 @@ The OpSpec contract:
   * ``warmup`` payload   -- one request of zeros in the payload dtype.
   * ``random_payload``   -- the traffic generator the producers draw from.
   * ``verify``           -- a numpy-oracle check of one served result.
+  * ``integrity``        -- the batch-level ABFT check (``ft/abft.py``) the
+                            verified engine runs on the rows a batch
+                            delivers, after its host step, before any
+                            client sees them.
 
 This package serves the float ops ``fft``, ``rfft``, ``polymul`` and
 ``polymul-real`` and the exact ``polymul-mod`` (single-limb and RNS) on the
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.core import fft as fft_core
 from repro_torch.core import ntt as ntt_core
+from repro_torch.ft import abft
 from repro_torch.kernels import ntt as kntt
 
 
@@ -79,12 +84,19 @@ class OpContext:
     breakdown (``FFTPlan.cost``). ``packings`` narrows the candidates the
     model may choose from (the ``real`` values: ``(False,)`` binds the
     complex-packing route of a real op), ``pim_ok=False`` plans with the
-    PIM backend off the table. All three apply to every op, so ``narrow``
-    keeps them."""
+    PIM backend off the table (the circuit-breaker context: the re-bind a
+    serve bucket gets after its simulated crossbar array is quarantined).
+
+    ``verified=True`` binds the route with ABFT integrity pricing: auto
+    plans carry the check's overhead in their cost breakdown, and the RNS
+    route proves its modulus is checkable (it factors over the limb
+    primes) at bind time. All four apply to every op, so ``narrow`` keeps
+    them."""
     modulus_bits: int | None = None
     model_shards: int = 1
     auto: bool = False
     packings: tuple[bool, ...] | None = None
+    verified: bool = False
     pim_ok: bool = True
 
 
@@ -179,6 +191,12 @@ class BoundOp:
     def verify(self, payload, result: np.ndarray) -> None:
         self.spec.verify(self, payload, result)
 
+    def integrity(self, payloads: Sequence[Any],
+                  rows: np.ndarray) -> abft.IntegrityVerdict:
+        """Run the op's ABFT check on one deliverable batch: the result
+        rows (after ``host_step``) against the request payloads."""
+        return self.spec.integrity(self, payloads, rows)
+
     def check_payload(self, payload) -> None:
         """Admission guard: reject non-finite float/complex operands with
         an :class:`OpConfigError` BEFORE they join a batch -- a NaN poisons
@@ -210,6 +228,11 @@ class OpSpec:
     warmup_payload: Callable[[BoundOp], Any]
     random_payload: Callable[[BoundOp, np.random.Generator], Any]
     verify: Callable[[BoundOp, Any, np.ndarray], None]
+    #: batch-level ABFT check: ``integrity(bound, payloads, rows) ->
+    #: IntegrityVerdict``, O(n) a row, the gate the verified serve engine
+    #: runs before delivering any result
+    integrity: Callable[[BoundOp, Sequence[Any], np.ndarray],
+                        abft.IntegrityVerdict]
 
     def validate(self, n: int, ctx: OpContext = OpContext()) -> None:
         """Raise :class:`OpConfigError` unless (n, ctx) is serveable."""
@@ -231,7 +254,8 @@ class OpSpec:
         return OpContext(
             modulus_bits=ctx.modulus_bits if self.uses_modulus_bits else None,
             model_shards=ctx.model_shards if self.uses_model_shards else 1,
-            auto=ctx.auto, packings=ctx.packings, pim_ok=ctx.pim_ok)
+            auto=ctx.auto, packings=ctx.packings, verified=ctx.verified,
+            pim_ok=ctx.pim_ok)
 
     def bind(self, n: int, ctx: OpContext = OpContext(), *, batch: int = 0,
              strict: bool = True,
@@ -325,6 +349,45 @@ def _circular_complex(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.fft.ifft(np.fft.fft(a) * np.fft.fft(b))
 
 
+def _stack_operands(bound: BoundOp,
+                    payloads: Sequence[Any]) -> tuple[np.ndarray, ...]:
+    """Host-side numpy stacking for the integrity checks: ``stack``
+    without the encoding and the copy to the device."""
+    if bound.spec.arity == 1:
+        return (np.stack([np.asarray(p, bound.payload_dtype)
+                          for p in payloads]),)
+    return tuple(
+        np.stack([np.asarray(p[i], bound.payload_dtype) for p in payloads])
+        for i in range(bound.spec.arity))
+
+
+def _integrity_fft(bound: BoundOp, payloads, rows):
+    (x,) = _stack_operands(bound, payloads)
+    return abft.check_fft(x, rows)
+
+
+def _integrity_rfft(bound: BoundOp, payloads, rows):
+    (x,) = _stack_operands(bound, payloads)
+    return abft.check_rfft(x, rows)
+
+
+def _integrity_polymul(bound: BoundOp, payloads, rows):
+    a, b = _stack_operands(bound, payloads)
+    return abft.check_polymul(a, b, rows)
+
+
+def _integrity_polymul_real(bound: BoundOp, payloads, rows):
+    a, b = _stack_operands(bound, payloads)
+    return abft.check_polymul_real(a, b, rows)
+
+
+def _integrity_polymul_mod(bound: BoundOp, payloads, rows):
+    a, b = _stack_operands(bound, payloads)
+    if bound.rns is not None:
+        return abft.check_polymul_rns(a, b, rows, bound.rns)
+    return abft.check_polymul_mod(a, b, rows, bound.ntt_params)
+
+
 def _local_only(spec: OpSpec, n: int, ctx: OpContext) -> None:
     pass
 
@@ -347,7 +410,7 @@ def _route_plan(spec: OpSpec, n: int, batch: int, ctx: OpContext,
         return _plan_or_config_error(
             n=n, batch=batch, workload=spec.name,
             rns=legacy.get("rns", False), packings=ctx.packings,
-            pim_ok=ctx.pim_ok)
+            verified=ctx.verified, pim_ok=ctx.pim_ok)
     if ctx.packings is not None:
         raise OpConfigError("packings narrows the cost model's choice: it "
                             "needs auto mode (--auto)")
@@ -375,6 +438,7 @@ register_op(
     warmup_payload=_zeros,
     random_payload=lambda b, rng: _cnormal(rng, b.n),
     verify=functools.partial(_float_verify, np.fft.fft, 1e-3),
+    integrity=_integrity_fft,
 )
 
 
@@ -408,6 +472,7 @@ register_op(
     warmup_payload=_zeros,
     random_payload=lambda b, rng: rng.standard_normal(b.n).astype(np.float32),
     verify=functools.partial(_float_verify, np.fft.rfft, 1e-3),
+    integrity=_integrity_rfft,
 )
 
 
@@ -434,6 +499,7 @@ register_op(
     warmup_payload=_zeros,
     random_payload=lambda b, rng: (_cnormal(rng, b.n), _cnormal(rng, b.n)),
     verify=functools.partial(_float_verify, _circular_complex, 1e-3),
+    integrity=_integrity_polymul,
 )
 
 
@@ -480,6 +546,7 @@ register_op(
         rng.standard_normal(b.n).astype(np.float32),
         rng.standard_normal(b.n).astype(np.float32)),
     verify=functools.partial(_float_verify, _circular_real, 1e-3),
+    integrity=_integrity_polymul_real,
 )
 
 
@@ -519,6 +586,16 @@ def _bind_polymul_mod(spec: OpSpec, n: int, batch: int, device: torch.device,
     plan = _route_plan(spec, n, batch, ctx, exact=True, rns=_rns_route(ctx))
     if _rns_route(ctx):
         rns = ntt_core.RNSParams.make(n, modulus_bits=ctx.modulus_bits)
+        if ctx.verified:
+            # A verified bind must be CHECKABLE: the per-factor
+            # eval-at-psi check needs Q to factor over the limb primes.
+            # Prove it here, not on the first served batch.
+            try:
+                abft.check_limbs_for(rns)
+            except abft.ABFTUnsupportedModulus as e:
+                raise OpConfigError(
+                    f"verified polymul-mod (RNS) bind rejected: {e}"
+                ) from e
         return BoundOp(
             spec=spec, n=n, plan=plan, route="polymul-mod-rns",
             fn=lambda a, b: kntt.rns_ntt_polymul(a, b, rns,
@@ -568,4 +645,5 @@ register_op(
     warmup_payload=_zeros,
     random_payload=_random_mod_payload,
     verify=_verify_mod,
+    integrity=_integrity_polymul_mod,
 )

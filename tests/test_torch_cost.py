@@ -205,12 +205,27 @@ def test_auto_knob_conflicts_raise_as_the_reference(kw, match):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tcore.plan(1024, 8, workload="fft", verified=True), "item 8"),
+    (lambda: tcore.plan(1024, 8, workload="fft", verified=True).cost,
+     "item 8"),
     (lambda: tcost.workload_cost("fft", 1024, 8, verified=True), "item 8"),
     (lambda: tcore.plan(1024, 8, workload="fft", model_shards=2), "item 9"),
     (lambda: tcost.workload_cost("fft", 1024, 8, n_devices=4), "item 9"),
 ])
 def test_unported_slices_raise_naming_their_roadmap_item(call, item):
+    """Item 9's tiers raise and name their item; item 8's verified pricing
+    is ported: both calls give the breakdown priced with the ABFT check,
+    its PIM backend the reference's."""
+    if item == "item 8":
+        got = call()
+        want = jcost.workload_cost("fft", 1024, 8, verified=True,
+                                   tiers=("local",))
+        assert got == tcost.workload_cost("fft", 1024, 8, verified=True)
+        assert got["best"]["backends"]["pim"] == \
+            want["best"]["backends"]["pim"]
+        assert got["best"]["backends"]["pim"]["pim_cycles"] == \
+            tcost.pim_local_unit_cycles("fft", 1024, batch=8) \
+            + tcost.abft_check_cycles("fft", 1024)
+        return
     with pytest.raises(ValueError, match="not yet ported") as exc:
         call()
     assert item in str(exc.value)

@@ -1074,3 +1074,75 @@ def test_auto_engine_serves_the_five_ops_on_card(cuda, rng):
     for b in stats["buckets"].values():
         assert b["predicted_tier"] == "local"
         assert b["predicted_s_per_req"] > 0 and b["observed_s_per_req"] > 0
+
+
+ROUTE_COUNTERS = {"fft": "fft_planes", "rfft-real": "rfft_planes",
+                  "polymul": "polymul_complex_planes",
+                  "polymul-real-packed": "polymul_real_planes",
+                  "polymul-mod-single": "ntt_polymul",
+                  "polymul-mod-rns": "rns_ntt_polymul"}
+
+
+def _serve_all(eng, ops, n, rng, total):
+    """Submit ``total`` requests round-robin before the run, serve them
+    with the counters zeroed after the warmup, and check every result
+    against its oracle. Returns the stats and the launches."""
+    for op in ops:
+        eng.register(op, n)
+    eng.warmup()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    kept = {}
+    for i in range(total):
+        op = ops[i % len(ops)]
+        payload = eng.bound(op, n).random_payload(rng)
+        kept[eng.submit(op, n, payload)] = (op, payload)
+    stats = eng.run(total)
+    for rid, (op, payload) in kept.items():
+        eng.bound(op, n).verify(payload, eng.results[rid])
+    return stats, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+@pytest.mark.parametrize("ops,bits", [
+    (("fft", "rfft", "polymul", "polymul-real", "polymul-mod"), None),
+    (("polymul-mod",), 109)])
+def test_verified_engine_serves_on_card_without_detections(cuda, rng, ops,
+                                                           bits):
+    """``ServeEngine(verified=True)`` at n = 4096: every batch is checked
+    on the host after its kernel and host step, no check fails on the
+    card's fp32 (or exact) results, every result equals its oracle, and
+    each route kernel launches once a batch."""
+    eng = engine.ServeEngine(max_batch=8, verified=True, modulus_bits=bits,
+                             device="cuda")
+    stats, launches = _serve_all(eng, ops, 4096, rng, 8 * len(ops))
+    want = {}
+    for b in stats["buckets"].values():
+        integ = b["integrity"]
+        assert integ["checked"] == b["batches"] >= 1
+        assert integ["corrupted"] == integ["retried"] == 0
+        assert integ["fell_back"] == 0 and not integ["breaker_open"]
+        want[ROUTE_COUNTERS[b["route"]]] = b["batches"]
+    assert launches == want
+
+
+def test_chaos_engine_on_card_every_result_equals_its_oracle(cuda, rng):
+    """Permanent faults on every array: each bucket detects, retries,
+    trips its breaker and re-runs clean; every delivered result equals
+    its oracle, and the route kernels launch once per execution (batches
+    + retries + fallback re-runs)."""
+    from repro_torch.core.pim import FaultModel
+    fm = FaultModel(seed=3, stuck_per_array=1, bitflip_per_gate=1e-6,
+                    n_arrays=4, spares=4)
+    eng = engine.ServeEngine(max_batch=8, verified=True, fault_model=fm,
+                             device="cuda")
+    ops = ("fft", "polymul-real", "polymul-mod")
+    stats, launches = _serve_all(eng, ops, 4096, rng, 48)
+    want = {}
+    for b in stats["buckets"].values():
+        integ = b["integrity"]
+        assert integ["corrupted"] >= 1 and integ["retried"] >= 1
+        assert integ["fell_back"] == 1 and integ["breaker_open"]
+        want[ROUTE_COUNTERS[b["route"]]] = (b["batches"] + integ["retried"]
+                                            + integ["fell_back"])
+    assert launches == want
+    assert len(fm.quarantined) == len(ops)
