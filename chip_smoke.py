@@ -185,6 +185,33 @@ Phases (any failure exits non-zero):
      a full batch gets ``deadline_exceeded``, and ``--inject-straggler-ms``
      with ``--watchdog-*`` and ``--elastic`` records an eviction and
      warm-restarts at one shard.
+  7. The multi-device tier (lines ``[dist]``, then one ``[dist json]``
+     line), each number beside the card's name and power limit: (a) the
+     device map of an 8-shard mesh (every shard on ``cuda:0`` on a
+     one-card host: the exchanges are copies in device memory, not
+     NVLink); (b) for D = 2, 4, 8 at n = 65536 (batch 1) and 2^20 (batch
+     4; the real tier 1 and 3 rows, odd): the sharded fft
+     (ordered and Z-order, forward and inverse), the complex product, the
+     real tier (rfft, irfft, product; odd batches) and the NTT (forward,
+     Z-order, inverse; negacyclic and cyclic products), each through the
+     kernels ``==`` the same call with the plain versions swapped in
+     (``swapped_fft_planes``, ``swapped_ntt_batched``), launching
+     ``fft_planes`` / ``ntt_batched`` the calls' local transforms' times;
+     the float results within 1e-3 of the local route at 65536 and within
+     2e-6 (relative) of fp64 numpy at 2^20, the NTT ``==`` the local
+     ``ntt_polymul`` and the numpy reference; (c) each call's ledger
+     counts and bytes ``==`` ``four_step_collective_stats``; (d)
+     ``FFTService`` with ``model_shards=8``: ``polymul-real`` at 2^20,
+     batch 16, and single-limb ``polymul-mod`` at 65536, batch 16, 64
+     requests each, counters zeroed just before, every result checked,
+     req/s, p50/p99, device ms a call against the local route's and the
+     cost model's prediction, and a traced call split into local
+     transforms, exchanges and glue; one ``polymul-real`` call at 2^24
+     (past the real product's on-chip ceiling) on 8 shards against the
+     local ``polymul-real-complex`` route within 2e-6; (e) an engine on
+     ``polymul-real`` at 8 shards evicted by the watchdog (injected
+     stragglers) restarts at 4 and serves the rest, every result checked;
+     (f) the phase's ``[clock]`` line.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -208,6 +235,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -3769,6 +3797,542 @@ def ft_phase(torch, build, engine_mod, serve, card: str) -> dict:
                                                       card)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-device tier
+# ---------------------------------------------------------------------------
+
+#: (b): the shard counts, and the lengths with the rows the complex and
+#: exact calls take there (the real tier one fewer, at least one: odd, so
+#: its zero-row pad runs); one row merges the batch into the transposed
+#: rows of the first local transform
+DIST_SHARDS = (2, 4, 8)
+DIST_NS = {65536: 1, 1 << 20: 4}
+#: the reference tests' bounds: 1e-3 against the local route at small n
+#: (tests/test_distributed_fft.py:24; relative to max(1, |want|), as the
+#: registry's checks take it), 2e-6 relative against fp64 numpy at 2^20
+#: (tests/test_distributed_fft.py:89, tests/test_dist_real.py:274)
+DIST_LOCAL_TOL, DIST_ORACLE_TOL = 1e-3, 2e-6
+#: (d): the served cells (op, n, batch), DIST_REQUESTS each on
+#: DIST_SERVE_SHARDS shards
+DIST_SERVE_SHARDS, DIST_REQUESTS = 8, 64
+DIST_SERVE = (("polymul-real", 1 << 20, 16), ("polymul-mod", 65536, 16))
+#: the one polymul-real call past the real product's on-chip ceiling
+DIST_LONG_N, DIST_LONG_BATCH = 1 << 24, 2
+#: calls a CUDA-event timing of a route averages
+DIST_TIMED_REPS = 10
+#: (e): the elastic engine's cell (op, n, batch, requests), snapshot
+#: directory, watchdog threshold (x EWMA; three flags evict) and
+#: straggler. A clean distributed batch of four rows at 4096 takes some
+#: 10 ms of host time (its sample also holds the producer's share of the
+#: interpreter), so 10x sits above its jitter and far below a two-second
+#: straggler.
+DIST_ELASTIC = ("polymul-real", 4096, 4, 96)
+DIST_ELASTIC_THRESHOLD, DIST_STRAGGLER_MS = 10.0, 2000.0
+DIST_SNAPSHOTS = os.path.join(ROOT, "build", "chip_smoke_dist_snapshots")
+#: the kernel a distributed route's local transforms launch
+DIST_COUNTER = {"polymul-real": "fft_planes", "polymul-mod": "ntt_batched"}
+
+
+def plain_ntt_batched(kntt):
+    """``kernels.ntt.ntt_batched`` with its plain version in place of the
+    kernel on the card."""
+    def ntt_batched(x, params, *, inverse=False, block_b=None):
+        del block_b
+        return kntt.ntt_batched_plain(kntt._as_residues(x, params.q), params,
+                                      inverse=inverse)
+    return ntt_batched
+
+
+def swapped_ntt_batched(kntt, fn):
+    """Run ``fn`` with ``plain_ntt_batched`` swapped in for
+    ``kernels.ntt.ntt_batched``."""
+    kernel = kntt.ntt_batched
+    kntt.ntt_batched = plain_ntt_batched(kntt)
+    try:
+        return fn()
+    finally:
+        kntt.ntt_batched = kernel
+
+
+def zorder(x, d: int):
+    """The joined Z-order layout of ``d`` shards of a natural-order last
+    axis: shard k holds x[k::d]."""
+    n = x.shape[-1]
+    return x.reshape(*x.shape[:-1], n // d, d).swapaxes(-1, -2).reshape(
+        x.shape)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max(1, max |want|): the registry's checks'."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want))
+                 / max(1.0, float(np.max(np.abs(want)))))
+
+
+def _oracle_rel(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want)) / float(np.max(np.abs(want))))
+
+
+#: rows of the exact calls held against the numpy NTT reference at 2^20
+#: (about 5 s of host time a row; every row is == the local kernels)
+DIST_EXACT_ORACLE_ROWS = 1
+
+
+def dist_oracles(host: dict, n: int, params, exact_rows: int) -> dict:
+    """fp64 numpy of each float call, and the numpy NTT reference of the
+    first ``exact_rows`` rows of each exact call, on the phase's inputs."""
+    from repro_torch.core.ntt.ref import (cyclic_polymul, negacyclic_polymul,
+                                          ntt)
+    f64 = {k: v.astype(np.complex128 if np.iscomplexobj(v) else np.float64)
+           for k, v in host.items() if k not in ("u", "v")}
+    full = np.fft.rfft(f64["a"])
+    packed = full[:, :n // 2].copy()
+    packed[:, 0] = full[:, 0].real + 1j * full[:, n // 2].real
+    half = np.concatenate([f64["p"], f64["p"][:, :1].imag + 0j], axis=1)
+    half[:, 0] = f64["p"][:, 0].real
+    u, v = host["u"], host["v"]
+    rows = range(exact_rows)
+    return {
+        "fft": np.fft.fft(f64["x"]), "ifft": np.fft.ifft(f64["x"]),
+        "polymul": np.fft.ifft(np.fft.fft(f64["x"]) * np.fft.fft(f64["y"])),
+        "rfft": packed, "irfft": np.fft.irfft(half, n),
+        "polymul_real": np.fft.ifft(np.fft.fft(f64["a"])
+                                    * np.fft.fft(f64["c"])).real,
+        "ntt": np.stack([ntt(u[i], params) for i in rows]),
+        "ntt_polymul": np.stack([negacyclic_polymul(u[i], v[i], params)
+                                 for i in rows]),
+        "ntt_polymul_cyclic": np.stack([cyclic_polymul(u[i], v[i], params)
+                                        for i in rows])}
+
+
+def dist_parity(torch, build, card: str, *, device: str = "cuda",
+                ns=None, shards=DIST_SHARDS) -> dict:
+    """(b) and (c): every sharded call through the kernels == with the
+    plain versions swapped in, within the local route's / fp64 numpy's
+    bounds (``==`` the local kernels and numpy on the exact tier), its
+    local transforms' launches counted, its ledger == the closed form."""
+    from repro_torch.core.fft import distributed as dfft
+    from repro_torch.core.ntt import distributed as dntt
+    from repro_torch.core.ntt.ref import NTTParams
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.kernels import fft as kfft
+    from repro_torch.kernels import ntt as kntt
+    from repro_torch.kernels import ops as kops
+    dev = torch.device(device)
+    rng = np.random.default_rng(23)
+    report: dict = {}
+
+    def cplx(*shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    for n, b in (DIST_NS if ns is None else ns).items():
+        params = NTTParams.make(n)
+        br = max(1, b - 1)
+        host = {"x": cplx(b, n), "y": cplx(b, n),
+                "a": rng.standard_normal((br, n)).astype(np.float32),
+                "c": rng.standard_normal((br, n)).astype(np.float32),
+                "p": cplx(br, n // 2),
+                "u": rng.integers(0, params.q, (b, n)).astype(np.uint32),
+                "v": rng.integers(0, params.q, (b, n)).astype(np.uint32)}
+        t = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        oracle = dist_oracles(host, n, params, DIST_EXACT_ORACLE_ROWS) \
+            if n >= 1 << 20 else None
+        exact_oracle = oracle or dist_oracles(
+            {**host, **{k: host[k][:1] for k in ("x", "y", "a", "c", "p")}},
+            n, params, b)
+        p_planes = (t["p"].real.contiguous(), t["p"].imag.contiguous())
+        local = {
+            "fft": kops.fft(t["x"]), "ifft": kops.fft(t["x"], inverse=True),
+            "polymul": kops.polymul(t["x"], t["y"], mode="circular"),
+            "rfft": torch.complex(*kops.rfft(t["a"], packed=True)),
+            "irfft": kops.irfft(p_planes, packed=True),
+            "polymul_real": kops.polymul_real(t["a"], t["c"],
+                                              mode="circular"),
+            "ntt": kntt.ntt_batched(t["u"], params),
+            "intt": kntt.ntt_batched(t["u"], params, inverse=True),
+            "ntt_polymul": kntt.ntt_polymul(t["u"], t["v"], params),
+            "ntt_polymul_cyclic": kntt.ntt_polymul(t["u"], t["v"], params,
+                                                   negacyclic=False)}
+        for name in ("ntt", "ntt_polymul", "ntt_polymul_cyclic"):
+            ref = exact_oracle[name]
+            if not (kntt.residues_to_numpy(local[name])[:len(ref)]
+                    == ref).all():
+                raise SystemExit(f"[dist] local {name} at n={n} is not the "
+                                 f"numpy reference")
+        for d in shards:
+            mm = sharding.make_mesh((d,), ("model",), device=device)
+            md = sharding.make_mesh((d,), ("data",), device=device)
+            pz = zorder(t["p"], d)
+            real_rows = br + br % 2
+            # name -> (sharded call, operands, local value it equals,
+            #          counter, local transforms a shard, ledger closed form)
+            calls = {
+                "fft": (dfft.make_sharded_fft(mm), (t["x"],), local["fft"],
+                        "fft_planes", 1, ("fft", b, True)),
+                "fft_z": (dfft.make_sharded_fft(mm, ordered=False),
+                          (t["x"],), zorder(local["fft"], d), "fft_planes",
+                          1, ("fft", b, False)),
+                "ifft": (dfft.make_sharded_fft(mm, inverse=True), (t["x"],),
+                         local["ifft"], "fft_planes", 1, ("ifft", b, True)),
+                "polymul": (dfft.make_sharded_polymul(mm),
+                            (t["x"], t["y"]), local["polymul"],
+                            "fft_planes", 3, ("polymul", b, True)),
+                "rfft": (dfft.make_sharded_rfft(mm), (t["a"],),
+                         local["rfft"], "fft_planes", 1,
+                         ("rfft", real_rows, True)),
+                "rfft_z": (dfft.make_sharded_rfft(mm, ordered=False),
+                           (t["a"],), zorder(local["rfft"], d),
+                           "fft_planes", 1, ("rfft", real_rows, False)),
+                "irfft": (dfft.make_sharded_irfft(mm), (t["p"],),
+                          local["irfft"], "fft_planes", 1,
+                          ("irfft", real_rows, True)),
+                "irfft_z": (dfft.make_sharded_irfft(mm, ordered=False),
+                            (pz,), local["irfft"], "fft_planes", 1,
+                            ("irfft", real_rows, False)),
+                "polymul_real": (dfft.make_sharded_polymul_real(mm),
+                                 (t["a"], t["c"]), local["polymul_real"],
+                                 "fft_planes", 2,
+                                 ("polymul_real", real_rows, True)),
+                "ntt": (dntt.make_sharded_ntt(md, params), (t["u"],),
+                        local["ntt"], "ntt_batched", 1, ("ntt", b, True)),
+                "ntt_z": (dntt.make_sharded_ntt(md, params, ordered=False),
+                          (t["u"],), zorder(local["ntt"], d), "ntt_batched",
+                          1, ("ntt", b, False)),
+                "intt": (dntt.make_sharded_ntt(md, params, inverse=True),
+                         (t["u"],), local["intt"], "ntt_batched", 1,
+                         ("intt", b, True)),
+                "ntt_polymul": (dntt.make_sharded_ntt_polymul(md, params),
+                                (t["u"], t["v"]), local["ntt_polymul"],
+                                "ntt_batched", 3, ("polymul", b, True)),
+                "ntt_polymul_cyclic": (
+                    dntt.make_sharded_ntt_polymul(md, params,
+                                                  negacyclic=False),
+                    (t["u"], t["v"]), local["ntt_polymul_cyclic"],
+                    "ntt_batched", 3, ("polymul", b, True))}
+            for name, (fn, args, want, counter, per_shard,
+                       (op, rows, ordered)) in calls.items():
+                exact = counter == "ntt_batched"
+                build.reset_launches()
+                with collectives.ledger() as led:
+                    got = fn(*args)
+                launched = dict(build.LAUNCHES)
+                swap = swapped_ntt_batched if exact else swapped_fft_planes
+                plain = swap(kntt if exact else kfft, lambda: fn(*args))
+                if not torch.equal(got, plain):
+                    raise SystemExit(f"[dist] {name} n={n} D={d}: the "
+                                     f"kernels' result is not the plain "
+                                     f"versions' bit for bit")
+                calls_made = d * 2 * per_shard
+                others = {k: v for k, v in launched.items()
+                          if k != counter and v}
+                # (the CPU runs the plain versions: no launch to count)
+                if dev.type == "cuda" and (launched[counter] != calls_made
+                                           or others):
+                    raise SystemExit(f"[dist] {name} n={n} D={d}: launches "
+                                     f"{launched}, expected {calls_made} "
+                                     f"of {counter} and nothing else")
+                if exact:
+                    stats = dntt.four_step_collective_stats(
+                        n, rows, d, op=op, ordered=ordered)
+                    ledger_want = [stats["count"], stats["bytes"], 0, 0]
+                else:
+                    stats = dfft.four_step_collective_stats(
+                        n, rows, d, op=op, ordered=ordered)
+                    ledger_want = [stats["a2a_count"], stats["a2a_bytes"],
+                                   stats["ppermute_count"],
+                                   stats["ppermute_bytes"]]
+                ledger = [led.counts["all-to-all"],
+                          led.bytes_by_kind["all-to-all"],
+                          led.counts["ppermute"],
+                          led.bytes_by_kind["ppermute"]]
+                if ledger != ledger_want:
+                    raise SystemExit(f"[dist] {name} n={n} D={d}: ledger "
+                                     f"{ledger} != closed form "
+                                     f"{ledger_want}")
+                entry = {"launches": launched[counter], "ledger": ledger}
+                if exact:
+                    if not torch.equal(got, want):
+                        raise SystemExit(f"[dist] {name} n={n} D={d}: not "
+                                         f"== the local kernel")
+                    entry["equal_local"] = True
+                else:
+                    entry["rel_local"] = _rel(got.cpu().numpy(),
+                                              want.cpu().numpy())
+                    if oracle is None and not \
+                            entry["rel_local"] < DIST_LOCAL_TOL:
+                        raise SystemExit(f"[dist] {name} n={n} D={d}: "
+                                         f"{entry['rel_local']:.3e} from "
+                                         f"the local route")
+                ref = None if oracle is None else oracle.get(
+                    name.removesuffix("_z"))
+                if ref is not None:
+                    if name.endswith("_z") and name != "irfft_z":
+                        ref = zorder(ref, d)
+                    g = got.cpu().numpy()
+                    if exact:
+                        if not (kntt.residues_to_numpy(got)[:len(ref)]
+                                == ref).all():
+                            raise SystemExit(f"[dist] {name} n={n} D={d}: "
+                                             f"not == the numpy reference")
+                    else:
+                        entry["rel_oracle"] = _oracle_rel(g, ref)
+                        if not entry["rel_oracle"] < DIST_ORACLE_TOL:
+                            raise SystemExit(
+                                f"[dist] {name} n={n} D={d}: "
+                                f"{entry['rel_oracle']:.3e} from fp64 "
+                                f"numpy (bound {DIST_ORACLE_TOL})")
+                report[f"{name}/n={n}/D={d}"] = entry
+            worst = max(report[f"{name}/n={n}/D={d}"].get(
+                "rel_oracle", report[f"{name}/n={n}/D={d}"].get(
+                    "rel_local", 0.0)) for name in calls)
+            against = ("fp64 numpy, bound 2e-6; NTT == the local kernels "
+                       "and numpy" if oracle else
+                       "the local route, bound 1e-3; NTT == the local "
+                       "kernels")
+            print(f"[dist] (b, c) n={n} D={d}: {len(calls)} sharded calls "
+                  f"== their plain-swapped runs bit for bit, each launching "
+                  f"its {d} shards x 2 local calls a transform and nothing "
+                  f"else, ledgers == the closed forms; worst float error "
+                  f"{worst:.3e} against {against}; on {card}", flush=True)
+    return report
+
+
+def traced_split(torch, fn, args) -> dict:
+    """One traced call split by device time into the local transforms,
+    the exchanges (all-to-alls and ppermutes) and the glue: the kernels
+    under ``record_function`` ranges around each local transform and each
+    collective, the rest of the call's kernels glue. The trace may drop
+    device events of the ctypes-launched kernels; the kernel events it
+    holds are counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core.fft import distributed as dfft
+    from repro_torch.core.ntt import distributed as dntt
+    from repro_torch.dist import collectives
+
+    def ranged(label, f):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return wrapped
+
+    saved = [(collectives, name, getattr(collectives, name))
+             for name in ("all_to_all", "ppermute")]
+    saved += [(dfft, "_local_fft", dfft._local_fft),
+              (dntt, "_local_ntt", dntt._local_ntt)]
+    fn(*args)
+    torch.cuda.synchronize()
+    try:
+        for mod, name, f in saved:
+            setattr(mod, name, ranged(
+                "exchange" if mod is collectives else "local transform", f))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    events = prof.events()
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    part = {label: sum(e.device_time_total for e in events
+                       if e.name == label)
+            for label in ("local transform", "exchange")}
+    ms = {k.replace(" ", "_") + "_ms": v / 1e3 for k, v in part.items()}
+    return {"traced_ms": total / 1e3, **ms,
+            "glue_ms": (total - sum(part.values())) / 1e3,
+            "kernel_events": kernels}
+
+
+def dist_serve(torch, build, serve, op_registry, card: str, *,
+               device: str = "cuda", cells=DIST_SERVE,
+               shards: int = DIST_SERVE_SHARDS,
+               requests: int = DIST_REQUESTS,
+               long_cell=(DIST_LONG_N, DIST_LONG_BATCH)) -> dict:
+    """(d): the distributed routes served and timed, and the call past
+    the real product's on-chip ceiling."""
+    from repro_torch.core import cost as core_cost
+    out: dict = {"cells": {}}
+    for op, n, batch in cells:
+        svc = serve.FFTService(n, batch, op, model_shards=shards,
+                               device=device)
+        svc.warmup()
+        counter = DIST_COUNTER[op]
+        # every request submitted before the run: full batches of `batch`
+        rng = np.random.default_rng(n)
+        kept = {svc.engine.submit(op, n, p): (op, n, p) for p in
+                [svc.bound.random_payload(rng) for _ in range(requests)]}
+        build.reset_launches()
+        stats = svc.engine.run(requests)
+        launched = dict(build.LAUNCHES)
+        bucket = next(iter(stats["buckets"].values()))
+        per_call = shards * 2 * (2 if svc.plan.real else 3)
+        others = {k: v for k, v in launched.items() if k != counter and v}
+        if torch.device(device).type == "cuda" and (
+                launched[counter] != bucket["batches"] * per_call or others):
+            raise SystemExit(f"[dist] (d) {op}: launches {launched}, "
+                             f"expected {bucket['batches']} batches x "
+                             f"{per_call} of {counter} and nothing else")
+        for rid, (_, _, payload) in kept.items():
+            svc.bound.verify(payload, svc.results[rid])
+        rng = np.random.default_rng(n + 1)
+        payloads = [svc.bound.random_payload(rng) for _ in range(batch)]
+        local = op_registry.get_op(op).bind(n, batch=batch, device=device)
+        fns = {"distributed": (svc.bound.fn, svc.bound.stack(payloads)),
+               "local": (local.fn, local.stack(payloads))}
+        timed: dict = {"distributed": [], "local": []}
+        for which in ("distributed", "local", "local", "distributed"):
+            fn, args = fns[which]
+            timed[which].append(time_ms(torch, fn, [args], DIST_TIMED_REPS))
+        split = traced_split(torch, *fns["distributed"])
+        pred = core_cost.cuda_cost(op, n, batch, tier="distributed",
+                                   n_devices=shards, real=svc.plan.real)
+        pred_local = core_cost.cuda_cost(op, n, batch, real=local.plan.real)
+        lat = stats["latency_ms"]
+        entry = {"op": op, "route": svc.route,
+                 "plan": svc.plan.describe(),
+                 "mesh": svc.bound.mesh.describe(), "n": n, "batch": batch,
+                 "requests": stats["served"], "verified": len(kept),
+                 "req_per_s": stats["throughput_per_s"],
+                 "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+                 "launches": launched[counter], "batches": bucket["batches"],
+                 "launches_per_call": per_call,
+                 "ms_per_call": timed["distributed"],
+                 "local_route": local.route,
+                 "local_ms_per_call": timed["local"], "traced": split,
+                 "predicted_ms": pred.total_s * 1e3,
+                 "predicted_exchange_ms": pred.t_collective_s * 1e3,
+                 "predicted_local_route_ms": pred_local.total_s * 1e3}
+        out["cells"][f"{op}/{n}"] = entry
+        print(f"[dist] (d) op={op} n={n} batch={batch} model_shards="
+              f"{shards} route={svc.route} [{entry['plan']}]: "
+              f"{stats['served']} requests, all verified, "
+              f"{entry['req_per_s']:.1f} req/s p50={lat['p50']:.3f}ms "
+              f"p99={lat['p99']:.3f}ms; {counter} launched "
+              f"{launched[counter]} times ({bucket['batches']} batches x "
+              f"{per_call}); device ms a call by CUDA events (in turns "
+              f"d, l, l, d) {timed['distributed']} against the local "
+              f"route {local.route} {timed['local']}; traced call "
+              f"{split['traced_ms']:.4f} ms = local transforms "
+              f"{split['local_transform_ms']:.4f} + exchanges "
+              f"{split['exchange_ms']:.4f} + glue {split['glue_ms']:.4f} "
+              f"({split['kernel_events']} kernel events); cost model "
+              f"{entry['predicted_ms']:.4f} ms (exchanges "
+              f"{entry['predicted_exchange_ms']:.4f}, copies in device "
+              f"memory), local route {entry['predicted_local_route_ms']:.4f}"
+              f" ms; on {card}", flush=True)
+    n, batch = long_cell
+    spec = op_registry.get_op("polymul-real")
+    dist = spec.bind(n, op_registry.OpContext(model_shards=shards),
+                     batch=batch, device=device)
+    local = spec.bind(n, op_registry.OpContext(auto=True, packings=(False,)),
+                      batch=batch, device=device)
+    if (dist.route, local.route) != ("polymul-real-distributed",
+                                     "polymul-real-complex"):
+        raise SystemExit(f"[dist] (d) n={n}: routes {dist.route}, "
+                         f"{local.route}")
+    payloads = [dist.random_payload(np.random.default_rng(29))
+                for _ in range(batch)]
+    got = dist.to_numpy(dist.execute(payloads))
+    want = local.to_numpy(local.execute(payloads))
+    rel = _oracle_rel(got, want)
+    if not rel < DIST_ORACLE_TOL:
+        raise SystemExit(f"[dist] (d) polymul-real n={n} on {shards} "
+                         f"shards: {rel:.3e} from the local complex route "
+                         f"(bound {DIST_ORACLE_TOL})")
+    ms = time_ms(torch, dist.fn, [dist.stack(payloads)], 3)
+    local_ms = time_ms(torch, local.fn, [local.stack(payloads)], 3)
+    ceiling = core_cost.local_ceiling(True, True, False)
+    out["long"] = {"n": n, "batch": batch, "rel_local_complex": rel,
+                   "ms": ms, "local_complex_ms": local_ms,
+                   "ceiling": ceiling}
+    print(f"[dist] (d) polymul-real n={n} (past the real product's on-chip "
+          f"ceiling {ceiling}) batch "
+          f"{batch} on {shards} shards: {rel:.3e} from the local "
+          f"polymul-real-complex route (bound {DIST_ORACLE_TOL}); "
+          f"{ms:.4f} ms a call against {local_ms:.4f}; on {card}",
+          flush=True)
+    return out
+
+
+def dist_elastic(serve, engine_mod, card: str, *, device: str = "cuda",
+                 cell=DIST_ELASTIC,
+                 straggler_ms: float = DIST_STRAGGLER_MS) -> dict:
+    """(e): an engine on the distributed route at 8 shards, stragglers
+    injected after the warmup, evicted by the watchdog; it drains,
+    snapshots and warm-restarts at 4 shards and serves the rest. Every
+    result of both generations is checked."""
+    from repro_torch.ft.watchdog import WatchdogConfig
+    op, n, batch, requests = cell
+    shutil.rmtree(DIST_SNAPSHOTS, ignore_errors=True)
+    cfg = WatchdogConfig(threshold=DIST_ELASTIC_THRESHOLD, evict_after=3,
+                         warmup_steps=5)
+    evicted: list[int] = []
+
+    def on_evict(eng, batch_idx):
+        evicted.append(batch_idx)
+        threading.Thread(target=eng.request_stop, daemon=True).start()
+
+    engine = engine_mod.ServeEngine(max_batch=batch, max_pending=2 * batch,
+                                    model_shards=8, watchdog_cfg=cfg,
+                                    on_evict=on_evict, device=device)
+    engine.register(op, n)
+    rng = np.random.default_rng(31)
+    chaos = types.SimpleNamespace(inject_straggler_ms=straggler_ms,
+                                  inject_straggler_after=6)
+    generations, remaining = [], requests
+    while remaining > 0:
+        bound = engine.bound(op, n)
+        engine.warmup()
+        serve.arm_chaos(engine, chaos)
+        kept, stats = serve.produce(engine, [(op, n)], remaining, rng)
+        for rid, (_, _, payload) in kept.items():
+            bound.verify(payload, engine.results[rid])
+        generations.append({"model_shards": engine.ctx.model_shards,
+                            "route": bound.route,
+                            "mesh": bound.mesh.size if bound.mesh else 1,
+                            "served": stats["served"],
+                            "verified": len(kept)})
+        remaining -= stats["served"]
+        if remaining > 0:
+            engine = engine.elastic_restart(
+                DIST_SNAPSHOTS, model_shards=engine.ctx.model_shards // 2)
+    shards = [g["model_shards"] for g in generations]
+    wd = engine.watchdog
+    if not evicted or shards[:2] != [8, 4] or \
+            sum(g["served"] for g in generations) != requests:
+        raise SystemExit(f"[dist] (e) elastic: evictions {evicted}, "
+                         f"generations {generations}, watchdog EWMA "
+                         f"{wd.ewma}, flags {wd.events}")
+    print(f"[dist] (e) {op} n={n} batch {batch}: evicted at batch "
+          f"{evicted[0]} ({straggler_ms:.0f} ms stragglers, watchdog "
+          f"{DIST_ELASTIC_THRESHOLD:g}x, 3 flags; EWMA at the end "
+          f"{wd.ewma * 1e3:.3f} ms), generations {generations}: every "
+          f"result verified; on {card}", flush=True)
+    return {"evicted": evicted, "generations": generations,
+            "watchdog_events": wd.events, "watchdog_ewma_s": wd.ewma}
+
+
+def dist_phase(torch, build, serve, engine_mod, op_registry,
+               card: str) -> dict:
+    from repro_torch.dist import sharding
+    mesh = sharding.make_mesh((8,), ("model",))
+    print(f"[dist] (a) {mesh.describe()}: on a one-card host every shard "
+          f"shares the card, so each exchange is a copy in its device "
+          f"memory, not an NVLink transfer, and no time below is "
+          f"interconnect time; {torch.cuda.device_count()} card(s): "
+          f"{card}", flush=True)
+    return {"mesh": mesh.describe(),
+            "parity": dist_parity(torch, build, card),
+            "served": dist_serve(torch, build, serve, op_registry, card),
+            "elastic": dist_elastic(serve, engine_mod, card)}
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -3932,6 +4496,16 @@ def main() -> int:
     ft = ft_phase(torch, _build, engine_mod, serve, card)
     print(f"[ft json] {json.dumps(ft)}", flush=True)
     clock("phase 6, fault tolerance")
+    # -- phase 7: the multi-device tier --------------------------------------
+    t7 = time.perf_counter()
+    dist = dist_phase(torch, _build, serve, engine_mod, op_registry, card)
+    print(f"[dist json] {json.dumps(dist)}", flush=True)
+    clock(f"phase 7, multi-device tier ({time.perf_counter() - t7:.1f}s)")
+    dist_runs: dict = collections.defaultdict(dict)
+    for key, entry in dist["served"]["cells"].items():
+        dist_runs[DIST_COUNTER[entry["op"]]][key] = {
+            k: entry[k] for k in ("route", "launches", "batches",
+                                  "launches_per_call", "ms_per_call")}
     report = []
     for name, (route, source, replaces) in TRANSFORM_KERNELS.items():
         shapes = sorted(times[name])
@@ -3953,6 +4527,10 @@ def main() -> int:
             **({"ptxas": {k: registers[source].get(k) for n in shapes
                           for k in times[name][n].get("by_kernel") or {}}}
                if source in registers else {}),
+            # phase 7: the distributed route's served run, counters zeroed
+            # just before it
+            **({"distributed": dist_runs[name]} if name in dist_runs
+               else {}),
             # the LM path: fourierpim-lm's prefill, 3 calls a layer
             **({FOURIER_ARCH: {
                 "launches_per_prefill": fourier_run["launches"],

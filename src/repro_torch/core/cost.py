@@ -20,28 +20,40 @@ returns plans the kernels accept), scores each on both backends (PIM
 cost twin and the card's roofline), and returns the predicted-cheapest
 candidate plus a machine-readable breakdown. Every pruned candidate
 carries the NAME of the constraint that pruned it: the port's on-chip
-ceiling (``local_prune_reason``) and, on one device, the distributed
-tier's device count.
-
-This package runs one card: ``n_devices > 1`` raises and names the slice
-that ports the distributed four-step tiers, so no interconnect constant
-comes in. ``verified=True`` prices the ABFT integrity check
-(``ft/abft.py``) on both backends, as the reference does, and
-``pim_ok=False`` takes the PIM backend off the table.
+ceiling (``local_prune_reason``), and for the distributed four-step tier
+the device count and the ``D^2 | n`` tilings (``dist_prune_reason``).
+``verified=True`` prices the ABFT integrity check (``ft/abft.py``) on both
+backends, as the reference does, and ``pim_ok=False`` takes the PIM
+backend off the table.
 
 Accounting conventions:
 
-  * Card: ``total = max(t_compute, t_memory)``, the roofline max of the
-    on-chip terms, at ``HBM_BW`` and, for the operations, ``PEAK_FLOPS``
-    (the float workloads run fp32 on the CUDA cores) or ``PEAK_INT_OPS``
-    (``polymul-mod``'s Montgomery arithmetic on 32-bit integers).
+  * Card: ``total = max(t_compute, t_memory) + t_collective``, the
+    roofline max of the on-chip terms, at ``HBM_BW`` and, for the
+    operations, ``PEAK_FLOPS`` (the float workloads run fp32 on the CUDA
+    cores) or ``PEAK_INT_OPS`` (``polymul-mod``'s Montgomery arithmetic on
+    32-bit integers), plus the exchanges. The distributed tier charges the
+    ledger bytes of ``four_step_collective_stats`` (``_cuda_collective_
+    bytes``), priced by where the mesh puts its shards (``mesh_cards``):
+    one shard a card splits the on-chip work D ways and sends each shard's
+    ledger bytes over NVLink at ``LINK_BW``; shards sharing a card do all
+    the work on it and copy every shard's block in device memory (read
+    and written: 2 bytes of HBM traffic a ledger byte a shard).
   * PIM local: steady-state batched throughput (every crossbar runs the
     schedule in parallel, net of scratch area: the paper's §6 model).
+  * PIM distributed: one in-flight transform holds one crossbar on each
+    of the D shards, so ``num_crossbars * concurrency`` units pipeline;
+    inter-shard transpose bytes cross each shard's link at
+    ``bytes/D / LINK_BW``. Only valid under the ``n1 = D`` cap
+    (``n == D * crossbar_rows``) that the closed forms assert.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+
+import torch
 
 from repro_torch.core.pim import aritpim
 from repro_torch.core.pim.device_model import FOURIERPIM_8, PIMConfig
@@ -80,16 +92,16 @@ PEAK_FLOPS = 67e12         # fp32 FLOP/s on the CUDA cores (no tensor cores)
 #: a clock (the CUDA programming guide's throughput table for compute
 #: capability 9.0) x 1.98 GHz, as ``chip_smoke.py``'s ``INT32_OPS_PER_S``.
 PEAK_INT_OPS = 132 * 64 * 1.98e9
+#: bytes/s one H100 SXM sends to another over NVLink 4, one direction
+#: (900 GB/s both ways; NVIDIA's data sheet). Unmeasured: the card the
+#: port is measured on is alone on its host.
+LINK_BW = 450e9
 
 #: Workloads the chooser understands: exactly the ``OpSpec`` registry names
 #: (launch/ops.py), so serve buckets can ask for costs verbatim.
 WORKLOADS = ("fft", "rfft", "polymul", "polymul-real", "polymul-mod")
 #: the workloads whose route is a fused product (``plan(product=True)``)
 PRODUCTS = ("polymul", "polymul-real", "polymul-mod")
-
-#: Where what this module does not price yet is ported (ROADMAP queue 1).
-DIST_SLICE = ("the multi-device slice (the distributed four-step tiers; "
-              "ROADMAP queue 1, item 9)")
 
 _PIM_CFG = FOURIERPIM_8
 _FP = aritpim.FP32
@@ -121,12 +133,6 @@ class TierCost:
 def _require_pow2(n: int) -> None:
     if n <= 0 or n & (n - 1):
         raise ValueError(f"n={n} must be a power of two")
-
-
-def _require_one_device(n_devices: int) -> None:
-    if n_devices != 1:
-        raise ValueError(f"n_devices={n_devices}: the distributed tier is "
-                         f"not yet ported; it comes with {DIST_SLICE}")
 
 
 def _word_bits(*, real: bool, exact: bool) -> int:
@@ -197,10 +203,21 @@ def local_prune_reason(workload: str, n: int, *, real: bool) -> str | None:
     return None
 
 
-def dist_prune_reason(n_devices: int) -> str:
-    """Distributed tier on one device: the four-step tier needs shards."""
-    return ("distributed tier: four-step needs model_shards > 1 "
-            f"(have {n_devices})")
+def dist_prune_reason(workload: str, n: int, n_devices: int, *,
+                      real: bool) -> str | None:
+    """Four-step tier: device count and transpose tiling."""
+    if n_devices <= 1:
+        return ("distributed tier: four-step needs model_shards > 1 "
+                f"(have {n_devices})")
+    d2 = n_devices * n_devices
+    if n % d2:
+        return (f"distributed tier: four-step tiling needs D^2 | n "
+                f"(transposes + twiddle blocks): n={n}, D^2={d2}")
+    if real and workload == "rfft" and n % (2 * d2):
+        return (f"distributed real tier: the ordered rfft's half-width "
+                f"ordering all-to-all needs 2*D^2 | n: n={n}, "
+                f"2*D^2={2 * d2}")
+    return None
 
 
 def pim_local_infeasible(workload: str, n: int,
@@ -282,10 +299,55 @@ def _cuda_local_terms(workload: str, n: int, batch: int, *,
     return flops, nbytes
 
 
-def cuda_cost(workload: str, n: int, batch: int, *,
-              real: bool = False, verified: bool = False) -> TierCost:
-    """The card's roofline time of one local batched call; ``verified``
-    adds the reference's price of the ABFT check (its ``xla_cost`` term)."""
+#: the ``four_step_collective_stats`` op of each (workload, real packing)
+#: candidate: the complex-packing candidates of the real workloads run the
+#: complex routes
+_LEDGER_OP = {("fft", False): "fft", ("rfft", True): "rfft",
+              ("rfft", False): "fft", ("polymul", False): "polymul",
+              ("polymul-real", True): "polymul_real",
+              ("polymul-real", False): "polymul"}
+
+
+def _cuda_collective_bytes(workload: str, n: int, batch: int,
+                           n_devices: int, *, real: bool) -> int:
+    """Ledger bytes of one distributed call: the
+    ``four_step_collective_stats`` closed forms (pinned against the live
+    ledger), with the zero row the real tiers pair an odd batch's last
+    row with (``pad_pairs``) folded in."""
+    # lazy: the distributed tiers import ``core.fft``, whose planner
+    # imports this module
+    if workload == "polymul-mod":
+        from repro_torch.core.ntt.distributed import \
+            four_step_collective_stats as ntt_stats
+        return ntt_stats(n, batch, n_devices, op="polymul")["bytes"]
+    from repro_torch.core.fft.distributed import four_step_collective_stats
+    op = _LEDGER_OP[workload, real]
+    if op in ("rfft", "polymul_real") and batch % 2:
+        batch += 1                      # the real tiers pad odd batches
+    return four_step_collective_stats(n, batch, n_devices,
+                                      op=op)["total_bytes"]
+
+
+def mesh_cards(n_devices: int) -> int:
+    """Cards a mesh of ``n_devices`` shards spans: ``dist.sharding.
+    make_mesh`` deals shards round-robin over the visible cards (one
+    where none is visible, as on the CPU)."""
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return max(1, min(n_devices, visible))
+
+
+def cuda_cost(workload: str, n: int, batch: int, *, tier: str = "local",
+              n_devices: int = 1, real: bool = False,
+              verified: bool = False) -> TierCost:
+    """The card's roofline time of one batched call; ``verified`` adds the
+    reference's price of the ABFT check (its ``xla_cost`` term).
+
+    The distributed tier runs ``n_devices`` shards on the ``mesh_cards``
+    cards the mesh spans, ``s = ceil(D / cards)`` shards a card: each card
+    does s/D of the on-chip work, and the exchanges move s shards' ledger
+    bytes a card, over NVLink at ``LINK_BW`` where the mesh spans cards,
+    else as copies in device memory (each byte read and written at
+    ``HBM_BW``)."""
     exact = workload == "polymul-mod"
     flops, nbytes = _cuda_local_terms(workload, n, max(batch, 1), real=real)
     if verified:
@@ -294,11 +356,23 @@ def cuda_cost(workload: str, n: int, batch: int, *,
         ops = {"fft": 2, "rfft": 2}.get(workload, 3)
         flops += max(batch, 1) * ops * 4.0 * n
         nbytes += max(batch, 1) * n * 8
+    coll, t_coll, shards = 0, 0.0, 1
+    if tier == "distributed":
+        shards = n_devices
+        cards = mesh_cards(n_devices)
+        per_card = math.ceil(n_devices / cards)
+        flops *= per_card / n_devices
+        nbytes *= per_card / n_devices
+        coll = _cuda_collective_bytes(workload, n, max(batch, 1),
+                                      n_devices, real=real)
+        t_coll = per_card * coll * (1 / LINK_BW if cards > 1
+                                    else 2 / HBM_BW)
     t_comp = flops / (PEAK_INT_OPS if exact else PEAK_FLOPS)
     t_mem = nbytes / HBM_BW
-    return TierCost(tier="local", backend="cuda", real=real, exact=exact,
-                    seq_shards=1, total_s=max(t_comp, t_mem),
-                    t_compute_s=t_comp, t_memory_s=t_mem)
+    return TierCost(tier=tier, backend="cuda", real=real, exact=exact,
+                    seq_shards=shards, total_s=max(t_comp, t_mem) + t_coll,
+                    t_compute_s=t_comp, t_memory_s=t_mem,
+                    t_collective_s=t_coll, collective_bytes=coll)
 
 
 # ---------------------------------------------------------------------------
@@ -416,26 +490,57 @@ def _pim_workload(workload: str, real: bool) -> str:
     return workload
 
 
-def pim_cost(workload: str, n: int, batch: int, *, real: bool = False,
+def _pim_units(workload: str, batch: int, *, real: bool) -> int:
+    """Work units in a batch: packed real transforms carry two rows per
+    run; real products pair per-call (pairs already amortized inside the
+    closed forms, so units = calls of the batch form)."""
+    if workload == "rfft" and real:
+        return max(1, math.ceil(batch / 2))
+    if workload == "polymul-real" and real:
+        return 1            # one batched call; cycles already batch-wide
+    return max(batch, 1)
+
+
+def pim_cost(workload: str, n: int, batch: int, *, tier: str = "local",
+             n_devices: int = 1, real: bool = False,
              verified: bool = False,
              cfg: PIMConfig = _PIM_CFG) -> TierCost:
-    """The PIM twin's time of one local batched call: ``batch`` units at
-    the crossbars' steady-state throughput."""
+    """The PIM twin's time of one batched call: on the local tier
+    ``batch`` units at the crossbars' steady-state throughput, on the
+    distributed tier waves of units over the D shards' crossbars plus the
+    transposes over the link (the reference's terms; its link is the
+    TPU's, this one the card's ``LINK_BW``)."""
     exact = workload == "polymul-mod"
     batch = max(batch, 1)
     wl = _pim_workload(workload, real)
-    unit_cycles = pim_local_unit_cycles(wl, n, batch=batch, cfg=cfg)
-    t = batch / _pim_local_throughput(wl, n, cfg)
-    if verified:
-        # The check rides the same vectored column ops as the transform
-        # (batch rows in parallel), so throughput scales by the per-unit
-        # cycle stretch.
-        check = abft_check_cycles(wl, n, cfg=cfg)
-        t *= (unit_cycles + check) / unit_cycles
-        unit_cycles += check
-    return TierCost(tier="local", backend="pim", real=real, exact=exact,
-                    seq_shards=1, total_s=t, t_compute_s=t,
-                    pim_cycles=unit_cycles)
+    check = abft_check_cycles(wl, n, cfg=cfg) if verified else 0
+    if tier == "local":
+        unit_cycles = pim_local_unit_cycles(wl, n, batch=batch, cfg=cfg)
+        t = batch / _pim_local_throughput(wl, n, cfg)
+        if verified:
+            # The check rides the same vectored column ops as the
+            # transform (batch rows in parallel), so throughput scales by
+            # the per-unit cycle stretch.
+            t *= (unit_cycles + check) / unit_cycles
+            unit_cycles += check
+        return TierCost(tier="local", backend="pim", real=real, exact=exact,
+                        seq_shards=1, total_s=t, t_compute_s=t,
+                        pim_cycles=unit_cycles)
+    unit_cycles = pim_dist_unit_cycles(wl, n, n_devices, cfg=cfg) + check
+    unit_bytes = pim_dist_unit_bytes(wl, n, n_devices)
+    units = _pim_units(workload, batch, real=real)
+    if workload == "polymul-real" and real:
+        units = max(1, math.ceil(batch / 2))    # dist form is per pair
+    capacity = max(1, int(cfg.num_crossbars * cfg.concurrency))
+    waves = math.ceil(units / capacity)
+    t_comp = waves * unit_cycles / cfg.clock_hz
+    coll = units * unit_bytes
+    t_coll = (coll / n_devices) / LINK_BW
+    return TierCost(tier="distributed", backend="pim", real=real,
+                    exact=exact, seq_shards=n_devices,
+                    total_s=t_comp + t_coll, t_compute_s=t_comp,
+                    t_collective_s=t_coll, pim_cycles=unit_cycles,
+                    collective_bytes=coll)
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +569,9 @@ def workload_cost(workload: str, n: int, batch: int, *,
     so a verified serve bucket's predicted costs include the checksum
     overhead. ``pim_ok=False`` marks the PIM backend infeasible on every
     candidate (a serve bucket whose crossbar array is quarantined re-plans
-    with the PIM placement off the table). ``n_devices > 1`` raises and
-    names the slice that ports it.
+    with the PIM placement off the table). ``n_devices`` is the shard
+    count the distributed candidates run on (``tiers`` names the tiers
+    to score).
 
     Returns a machine-readable breakdown::
 
@@ -474,41 +580,47 @@ def workload_cost(workload: str, n: int, batch: int, *,
                          "backend_best", "backends": {...}}, ...],
          "pruned":     [{"tier", "real", "exact", "reason"}, ...],
          "best":       <cheapest candidate or None>,
-         "constants":  {"peak_flops", "peak_int_ops", "hbm_bw"}}
+         "constants":  {"peak_flops", "peak_int_ops", "hbm_bw",
+                        "link_bw", "cards"}}
 
     A candidate is listed iff the card can execute it (the planner never
     returns a plan ``bind()`` rejects); the PIM backend may be marked
-    infeasible per candidate (crossbar columns) without pruning the
-    candidate itself: the plan still runs on the card, it just doesn't
-    win a PIM placement.
+    infeasible per candidate (crossbar columns, the ``n1 = D`` cap)
+    without pruning the candidate itself: the plan still runs on the card,
+    it just doesn't win a PIM placement.
     """
     _require_pow2(n)
     if workload not in WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; "
                          f"expected one of {WORKLOADS}")
-    _require_one_device(n_devices)
     exact = workload == "polymul-mod"
     candidates, pruned = [], []
     for tier in tiers:
         for real in (packings if packings is not None
                      else _packings(workload)):
             reason = (local_prune_reason(workload, n, real=real)
-                      if tier == "local" else dist_prune_reason(n_devices))
+                      if tier == "local" else
+                      dist_prune_reason(workload, n, n_devices, real=real))
             if reason is not None:
                 pruned.append({"tier": tier, "real": real, "exact": exact,
                                "reason": reason})
                 continue
             backends = {}
-            cc = cuda_cost(workload, n, batch, real=real, verified=verified)
+            cc = cuda_cost(workload, n, batch, tier=tier,
+                           n_devices=n_devices, real=real,
+                           verified=verified)
             backends["cuda"] = cc.as_dict()
             if not pim_ok:
                 pim_bad = ("quarantined (circuit breaker): pim backend "
                            "disabled for this bucket")
-            else:
+            elif tier == "local":
                 pim_bad = pim_local_infeasible(
                     _pim_workload(workload, real), n)
+            else:
+                pim_bad = pim_dist_infeasible(n, n_devices)
             if pim_bad is None:
-                pc = pim_cost(workload, n, batch, real=real,
+                pc = pim_cost(workload, n, batch, tier=tier,
+                              n_devices=n_devices, real=real,
                               verified=verified)
                 backends["pim"] = pc.as_dict()
                 best_backend = ("pim" if pc.total_s <= cc.total_s
@@ -518,7 +630,10 @@ def workload_cost(workload: str, n: int, batch: int, *,
                 backends["pim"] = {"infeasible": pim_bad}
                 best_backend, total = "cuda", cc.total_s
             candidates.append({"tier": tier, "real": real, "exact": exact,
-                               "seq_shards": 1, "total_s": total,
+                               "seq_shards": (n_devices
+                                              if tier == "distributed"
+                                              else 1),
+                               "total_s": total,
                                "backend_best": best_backend,
                                "backends": backends})
     # Deterministic tie-break: cheapest first; on ties prefer local over
@@ -533,4 +648,6 @@ def workload_cost(workload: str, n: int, batch: int, *,
             "candidates": candidates, "pruned": pruned,
             "best": candidates[0] if candidates else None,
             "constants": {"peak_flops": PEAK_FLOPS,
-                          "peak_int_ops": PEAK_INT_OPS, "hbm_bw": HBM_BW}}
+                          "peak_int_ops": PEAK_INT_OPS, "hbm_bw": HBM_BW,
+                          "link_bw": LINK_BW,
+                          "cards": mesh_cards(n_devices)}}

@@ -8,9 +8,10 @@ sub-problems of a split n = n1 x n2: two launches for the FFT and the real
 FFT, three or four for the products' split-pass schedule, three for the
 exact products'), the RNS product's register-step schedule (one CTA per
 row and limb, its sweeps in registers), or one CTA per row staging its
-sweeps through a device-memory scratch. Only the local tiers exist in
-this package, float and exact (NTT): the distributed four-step tiers
-raise and name the slice that ports them.
+sweeps through a device-memory scratch. With ``model_shards > 1`` it plans
+the distributed four-step tier (``core/fft/distributed.py``,
+``core/ntt/distributed.py``): the sequence sharded over a mesh of that
+many shards, each shard's local transforms one kernel call at radix 2.
 
 ``plan(..., workload=)`` is the auto mode (port of the reference's
 ``_plan_auto``): the cost model (``core.cost``) scores every (tier,
@@ -25,9 +26,10 @@ import dataclasses
 
 from repro_torch.core import cost as cost_model
 from repro_torch.kernels.fft import plan_batch_block, resident, two_pass_plan
-from repro_torch.kernels.ntt import (RNSRegisterSteps, ntt_resident,
-                                     ntt_two_pass_plan, plan_ntt_block,
-                                     rns_schedule)
+from repro_torch.kernels.ntt import (RNSRegisterSteps,
+                                     ntt_batched_two_pass_plan,
+                                     ntt_resident, ntt_two_pass_plan,
+                                     plan_ntt_block, rns_schedule)
 from repro_torch.kernels.polymul import (default_complex_block,
                                          default_real_block,
                                          product_two_pass_plan)
@@ -36,9 +38,10 @@ from repro_torch.kernels.polymul import (default_complex_block,
 
 @dataclasses.dataclass(frozen=True)
 class FFTPlan:
-    tier: str           # "local" (the only tier this package runs)
-    radix: int          # 2 or 4 (2 on the exact tier)
+    tier: str           # "local" | "distributed"
+    radix: int          # 2 or 4 (2 on the exact and distributed tiers)
     block_b: int        # rows per CTA at most (a cap; fitted to each batch)
+    seq_shards: int = 1  # mesh shards of the sequence (distributed tier)
     #: real-Hermitian route: the two-for-one packed rfft kernel and the
     #: paired-inverse real product, with the doubled block the halved
     #: working set buys.
@@ -67,7 +70,9 @@ class FFTPlan:
     #: for the transforms' two passes, 3 or 4 for the products' split-pass
     #: schedule (3 where the mirrored split n2 x n1 is on the sweep sequence
     #: too, and the middle launch runs the inverse's first pass; always 3
-    #: on the exact tier, whose radix-2 sweeps put every split on it).
+    #: on the exact tier, whose radix-2 sweeps put every split on it). On
+    #: the distributed tier, its shards' local transforms' launches
+    #: (``four_step_launches``).
     launches: int = 1
     #: machine-readable cost breakdown from ``core.cost.workload_cost``
     #: when the plan was auto-chosen (``plan(..., workload=...)``); None
@@ -77,6 +82,18 @@ class FFTPlan:
     cost: dict | None = dataclasses.field(default=None, compare=False)
 
     def describe(self) -> str:
+        if self.tier == "distributed":
+            kind = ("NTT (exact mod-q) product" if self.exact else
+                    {(False, False): "FFT",
+                     (True, False): "real-packed FFT (two-for-one "
+                                    "Hermitian)",
+                     (False, True): "complex product",
+                     (True, True): "real product (paired inverse)",
+                     }[(self.real, self.product)])
+            local = "NTT" if self.exact else "FFT"
+            return (f"four-step distributed {kind} over {self.seq_shards} "
+                    f"shards, radix-{self.radix} local {local} kernel calls "
+                    f"({self.launches} launches a call)")
         kind = ("NTT (exact mod-q) fused product" if self.exact else
                 {(False, False): "FFT",
                  (True, False): "real-packed FFT (two-for-one Hermitian)",
@@ -105,7 +122,7 @@ class FFTPlan:
 
 def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
          real: bool = False, product: bool = False, rns: bool = False,
-         workload: str | None = None,
+         force_distributed: bool = False, workload: str | None = None,
          packings: tuple[bool, ...] | None = None,
          verified: bool = False, pim_ok: bool = True) -> FFTPlan:
     """Execution plan for a batch of n-point transforms.
@@ -129,10 +146,18 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     limb as grid row y from ``TWO_PASS_FROM["rns_ntt_polymul"]`` points,
     below that the register-step kernel (one row and limb per CTA, block
     1) from ``REGISTER_STEPS_FROM["rns_ntt_polymul"]``, else one CTA per
-    row block and limb. As in the reference, one device
-    plans every n locally (the reference's 512K-point exact ceiling only
-    picks its distributed tier when model_shards > 1); rows past the
+    row block and limb. One device plans every n locally; rows past the
     splits are staged.
+
+    ``model_shards > 1`` plans the distributed four-step tier where the
+    kernels do not keep a row on chip (past ``core.cost.local_ceiling``),
+    or always with ``force_distributed=True`` (serve's ``--model-shards``):
+    the reference's plan, radix 2, block 1, ``seq_shards=model_shards``,
+    with ``exact``, ``real`` and ``product`` as passed and the launches
+    of its shards' local kernel calls. Its shape guard is the kernel
+    layer's (``D^2 | n``), so the plan returned is one the distributed
+    builders execute. The RNS product shards limbs, not the sequence: it
+    has no distributed plan.
 
     ``workload=`` switches to AUTO mode: the cost model
     (``core.cost.workload_cost``) scores every executable (tier, packing)
@@ -151,10 +176,13 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     does. A workload with no executable candidate raises ValueError naming
     every pruned candidate's constraint.
 
+    In auto mode ``model_shards`` is the shard count the distributed
+    candidates may use, and ``force_distributed=True`` keeps only them.
+
     Raises ValueError on a non-power-of-two n, a negative batch,
     ``exact`` with ``real``, ``rns`` without ``exact`` (or, in auto mode,
-    without the ``polymul-mod`` workload), and on what this package does
-    not run yet: ``model_shards > 1``.
+    without the ``polymul-mod`` workload), ``force_distributed`` without
+    shards, and a distributed ``rns`` plan.
     """
     if n <= 0 or n & (n - 1):
         raise ValueError(f"n={n} must be a power of two")
@@ -163,16 +191,22 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
     if exact and real:
         raise ValueError("exact (mod-q) and real (Hermitian) tiers are "
                          "mutually exclusive")
-    if model_shards != 1:
-        raise ValueError(f"model_shards={model_shards}: distributed tier not "
-                         f"yet ported; it comes with {cost_model.DIST_SLICE}")
+    if force_distributed and model_shards == 1:
+        raise ValueError("force_distributed needs model_shards > 1")
     if workload is not None:
-        return _plan_auto(n, batch, workload, exact=exact, real=real,
-                          product=product, rns=rns, packings=packings,
-                          verified=verified, pim_ok=pim_ok)
+        return _plan_auto(n, batch, workload, model_shards, exact=exact,
+                          real=real, product=product, rns=rns,
+                          force_distributed=force_distributed,
+                          packings=packings, verified=verified,
+                          pim_ok=pim_ok)
     if rns and not exact:
         raise ValueError("rns plans the exact tier's multi-limb product: "
                          "pass exact=True")
+    on_chip = n <= cost_model.local_ceiling(real and not exact, product,
+                                            exact)
+    if model_shards > 1 and (force_distributed or not on_chip):
+        return _distributed_plan(n, model_shards, exact=exact, real=real,
+                                 product=product, rns=rns)
     if exact:      # the fused NTT product of polymul-mod, radix 2
         radix, product = 2, True
         block, res = plan_ntt_block(n), ntt_resident(n)
@@ -206,15 +240,57 @@ def plan(n: int, batch: int, *, model_shards: int = 1, exact: bool = False,
                    register_steps=steps)
 
 
-def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
-               real: bool, product: bool, rns: bool,
+def four_step_launches(n: int, shards: int, *, exact: bool, real: bool,
+                       product: bool) -> int:
+    """Kernel launches of one distributed call: each shard runs each
+    four-step transform as two local kernel calls, over rows of ``shards``
+    points and of n / shards points (``fft_planes``; ``ntt_batched`` on
+    the exact tier), each one launch or its two passes. A product makes
+    three transforms (the real product two: its pairs share the
+    inverse), a transform one."""
+    def calls(m: int) -> int:
+        split = (ntt_batched_two_pass_plan(m) if exact
+                 else two_pass_plan(m, 2))
+        return 1 if split is None else split.launches
+    transforms = (3 if exact or (product and not real)
+                  else 2 if product else 1)
+    return shards * transforms * (calls(shards) + calls(n // shards))
+
+
+def _distributed_plan(n: int, shards: int, *, exact: bool, real: bool,
+                      product: bool, rns: bool) -> FFTPlan:
+    """The distributed four-step plan, after the kernel layer's shape
+    guard."""
+    # lazy: the distributed tier imports the kernels' ops surface
+    from repro_torch.core.fft.distributed import check_four_step_shape
+    if rns:
+        raise ValueError("the RNS product shards limbs, not the sequence: "
+                         "it has no distributed plan")
+    try:
+        check_four_step_shape(n, shards)
+    except ValueError as e:
+        raise ValueError(
+            f"cannot plan a distributed {'real ' if real else ''}FFT for "
+            f"n={n} over {shards} shards: {e}") from e
+    # repro: noqa[bare-plan-literal]: this is the port's planner, the one module that builds plans
+    return FFTPlan(tier="distributed", radix=2, block_b=1,
+                   seq_shards=shards, real=real, product=product,
+                   resident=False, exact=exact,
+                   launches=four_step_launches(n, shards, exact=exact,
+                                               real=real, product=product))
+
+
+def _plan_auto(n: int, batch: int, workload: str, model_shards: int, *,
+               exact: bool, real: bool, product: bool, rns: bool,
+               force_distributed: bool,
                packings: tuple[bool, ...] | None, verified: bool,
                pim_ok: bool) -> FFTPlan:
-    """Cost-model-driven choice (the reference's ``_plan_auto``, one
-    device). Explicit knobs narrow the candidate space rather than being
-    ignored; ``exact=``, ``product=`` and ``rns=`` must agree with the
-    workload: the modular route is the ``polymul-mod`` workload, the fused
-    products its three product workloads."""
+    """Cost-model-driven choice (the reference's ``_plan_auto``). Explicit
+    knobs narrow the candidate space rather than being ignored:
+    ``force_distributed=True`` keeps only distributed candidates, and
+    ``exact=``, ``product=`` and ``rns=`` must agree with the workload: the
+    modular route is the ``polymul-mod`` workload, the fused products its
+    three product workloads."""
     if workload not in cost_model.WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; "
                          f"expected one of {cost_model.WORKLOADS}")
@@ -236,8 +312,10 @@ def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
                          f"have a real-packed route")
     if real:
         packings = (True,)
+    tiers = (("distributed",) if force_distributed
+             else ("local", "distributed"))
     breakdown = cost_model.workload_cost(
-        workload, n, batch,
+        workload, n, batch, n_devices=model_shards, tiers=tiers,
         packings=None if packings is None else list(packings),
         verified=verified, pim_ok=pim_ok)
     best = breakdown["best"]
@@ -248,8 +326,11 @@ def _plan_auto(n: int, batch: int, workload: str, *, exact: bool,
             for p in breakdown["pruned"]]
         raise ValueError(
             f"no executable tier for workload={workload!r} n={n} over "
-            f"1 shard(s); every candidate was pruned:\n"
+            f"{model_shards} shard(s); every candidate was pruned:\n"
             + "\n".join(lines))
+    dist = best["tier"] == "distributed"
     chosen = plan(n, batch, exact=wl_exact, real=best["real"],
-                  product=workload in cost_model.PRODUCTS, rns=rns)
+                  product=workload in cost_model.PRODUCTS, rns=rns,
+                  model_shards=model_shards if dist else 1,
+                  force_distributed=dist)
     return dataclasses.replace(chosen, cost=breakdown)

@@ -1,4 +1,4 @@
-"""Exact modular transforms of the local tier (port of ``repro.core.ntt``).
+"""Exact modular transforms (port of ``repro.core.ntt``).
 
 Public surface:
   NTTParams / choose_modulus / root_of_unity        (parameter selection)
@@ -6,9 +6,9 @@ Public surface:
   schoolbook_polymul                                (independent O(n^2) oracle)
   RNSParams / rns_polymul / crt_to_modulus          (multi-limb RNS/CRT layer
       for 100+ bit moduli; big-int oracle in rns.schoolbook_polymul_mod)
+  make_sharded_ntt / make_sharded_ntt_polymul       (distributed four-step NTT)
 
-The kernels live in ``repro_torch.kernels.ntt``. The distributed four-step
-NTT comes with the multi-device slice.
+The kernels live in ``repro_torch.kernels.ntt``.
 """
 from repro_torch.core.ntt.ref import (NTTParams, as_residues,
                                       bit_reverse_indices, choose_modulus,
@@ -22,6 +22,10 @@ from repro_torch.core.ntt.rns import (RNSParams, crt_reconstruct,
                                       random_poly, rns_polymul,
                                       rns_polymul_reference,
                                       schoolbook_polymul_mod, to_rns)
+from repro_torch.core.ntt.distributed import (four_step_collective_stats,
+                                              make_sharded_ntt,
+                                              make_sharded_ntt_polymul,
+                                              ntt_distributed)
 
 __all__ = [
     "NTTParams", "as_residues", "bit_reverse_indices", "choose_modulus",
@@ -30,4 +34,6 @@ __all__ = [
     "RNSParams", "crt_reconstruct", "crt_reconstruct_u64", "crt_to_modulus",
     "garner_digits", "ntt_limb_primes", "random_poly", "rns_polymul",
     "rns_polymul_reference", "schoolbook_polymul_mod", "to_rns",
+    "four_step_collective_stats", "make_sharded_ntt",
+    "make_sharded_ntt_polymul", "ntt_distributed",
 ]

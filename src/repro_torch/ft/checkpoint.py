@@ -24,11 +24,12 @@ no leaf) whose leaves are numpy arrays, torch tensors or scalars. A leaf's
 key is its path, dict keys and sequence indices joined by ``/``, dict keys
 in sorted order, as the reference's jax pytree paths are. ``restore``
 returns ``like``'s structure; a tensor leaf comes back with that leaf's
-dtype and on its device. One card holds every leaf, so the reference's
-``shardings`` argument (elastic re-sharding over a mesh) has no
-counterpart here: it comes with the multi-device slice (ROADMAP queue 1,
-item 9). numpy has no bfloat16, so a bf16 tensor leaf raises; training
-checkpoints come with ROADMAP queue 1, item 11f.
+dtype and on its device. With ``shardings`` (the reference's elastic
+re-shard) a leaf that has a ``dist.sharding.NamedSharding`` there comes
+back placed on that mesh by its spec: the list of its blocks, one a
+shard. The data is stored unsharded per leaf, so the saved mesh size is
+irrelevant. numpy has no bfloat16, so a bf16 tensor leaf raises;
+training checkpoints come with ROADMAP queue 1, item 11f.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.dist import sharding
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 #: where the dtypes numpy lacks are handled
@@ -234,14 +237,19 @@ def read_extra(ckpt_dir: str, step: int) -> dict:
     return read_manifest(ckpt_dir, step).get("extra", {})
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``like``: a tensor leaf comes back as a
     tensor of that leaf's dtype on its device, any other leaf as a numpy
-    array of its dtype (or the saved dtype, where it has none)."""
+    array of its dtype (or the saved dtype, where it has none). Where
+    ``shardings`` (a tree of ``like``'s structure, ``None`` where a leaf
+    is not placed) holds a ``NamedSharding`` for a leaf, the leaf comes
+    back as its blocks on that mesh (``dist.sharding.device_put``)."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     manifest = _load_manifest(final)
     data = np.load(os.path.join(final, "arrays.npz"))
     by_key = {e["key"]: data[e["name"]] for e in manifest["arrays"]}
+    placed = dict(_flatten_with_paths(shardings))
     out = {}
     for key, leaf in _flatten_with_paths(like):
         if key not in by_key:
@@ -258,11 +266,15 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
         else:
             out[key] = np.asarray(
                 arr, leaf.dtype if hasattr(leaf, "dtype") else arr.dtype)
+        if key in placed:
+            out[key] = sharding.device_put(torch.as_tensor(out[key]),
+                                           placed[key])
     return _unflatten(like, out)
 
 
-def restore_latest(ckpt_dir: str, like: Any) -> tuple[Optional[int], Any]:
+def restore_latest(ckpt_dir: str, like: Any, shardings: Any = None
+                   ) -> tuple[Optional[int], Any]:
     step = latest_step(ckpt_dir)
     if step is None:
         return None, like
-    return step, restore(ckpt_dir, step, like)
+    return step, restore(ckpt_dir, step, like, shardings)

@@ -529,13 +529,17 @@ def _as_residues(x: torch.Tensor, q: int) -> torch.Tensor:
     """Integer coefficients -> the words the kernels read, with the
     reference's contract: floats raise, negatives wrap Python-style
     ((-1) % q == q - 1). ``torch.uint32`` passes as it is (the load reduces
-    it); other integer types reduce here into int32 residues."""
+    it); other integer types reduce here into int32 residues. Either way
+    the words come back contiguous, as the kernels read them: ``to`` keeps
+    a transposed view's strides, so a (rows, m) view of a transpose (a
+    reshape that merges a size-1 batch) would reach the kernel column by
+    column without the final copy."""
     if x.dtype.is_floating_point or x.dtype.is_complex or \
             x.dtype == torch.bool:
         raise TypeError(f"NTT needs integer residues, got {x.dtype}")
     if x.dtype == torch.uint32:
         return x.contiguous()
-    return torch.remainder(x.to(torch.int64), q).to(torch.int32)
+    return torch.remainder(x.to(torch.int64), q).to(torch.int32).contiguous()
 
 
 def _check_rows(name: str, shape: tuple[int, ...], *xs: torch.Tensor

@@ -25,8 +25,12 @@ The OpSpec contract:
 
 This package serves the float ops ``fft``, ``rfft``, ``polymul`` and
 ``polymul-real`` and the exact ``polymul-mod`` (single-limb and RNS) on the
-local tier. Knobs an op does not consume are rejected by ``bind`` (strict
-mode) or stripped by ``OpSpec.narrow`` (the mixed engine). With
+local tier, and ``polymul-real`` and single-limb ``polymul-mod`` on the
+distributed four-step tier with ``model_shards > 1``
+(``polymul-real-distributed``, ``polymul-mod-distributed``: the sequence
+sharded over a mesh of that many shards, ``BoundOp.mesh``). Knobs an op
+does not consume are rejected by ``bind`` (strict mode) or stripped by
+``OpSpec.narrow`` (the mixed engine). With
 ``OpContext.auto`` each bind lets the cost model choose among the routes
 the op has: where it picks complex packing for a real op, ``rfft`` binds
 ``rfft-complex`` (the fft kernel on cast-up rows, then the half spectrum)
@@ -44,6 +48,9 @@ import torch
 
 from repro_torch.core import fft as fft_core
 from repro_torch.core import ntt as ntt_core
+from repro_torch.core.fft import distributed as dfft
+from repro_torch.core.ntt import distributed as dntt
+from repro_torch.dist import sharding
 from repro_torch.ft import abft
 from repro_torch.kernels import ntt as kntt
 
@@ -78,14 +85,17 @@ class OpContext:
     """Process-level route parameterization shared by every op of a serve
     process (CLI flags); ``OpSpec.narrow`` strips the knobs an op ignores.
 
-    ``auto=True`` hands the packing choice to the cost model: each bind
-    asks ``plan(n, batch, workload=<op name>, ...)`` for the
-    predicted-cheapest executable route, and the plan carries the cost
-    breakdown (``FFTPlan.cost``). ``packings`` narrows the candidates the
-    model may choose from (the ``real`` values: ``(False,)`` binds the
-    complex-packing route of a real op), ``pim_ok=False`` plans with the
-    PIM backend off the table (the circuit-breaker context: the re-bind a
-    serve bucket gets after its simulated crossbar array is quarantined).
+    ``model_shards > 1`` binds the distributed four-step route of the ops
+    that have one. ``auto=True`` hands the tier and packing choice to the
+    cost model: ``model_shards`` becomes the AVAILABLE shard count rather
+    than a demand, each bind asks ``plan(n, batch, workload=<op name>,
+    ...)`` for the predicted-cheapest executable route, and the plan
+    carries the cost breakdown (``FFTPlan.cost``). ``packings`` narrows the
+    candidates the model may choose from (the ``real`` values: ``(False,)``
+    binds the complex-packing route of a real op), ``pim_ok=False`` plans
+    with the PIM backend off the table (the circuit-breaker context: the
+    re-bind a serve bucket gets after its simulated crossbar array is
+    quarantined).
 
     ``verified=True`` binds the route with ABFT integrity pricing: auto
     plans carry the check's overhead in their cost breakdown, and the RNS
@@ -125,6 +135,7 @@ class BoundOp:
     host_step: Callable[[np.ndarray], np.ndarray] = lambda rows: rows
     ntt_params: ntt_core.NTTParams | None = None   # single-limb modulus
     rns: ntt_core.RNSParams | None = None          # multi-limb RNS route
+    mesh: sharding.Mesh | None = None              # distributed routes
 
     @property
     def key(self) -> tuple[str, int]:
@@ -404,17 +415,30 @@ def _plan_or_config_error(**kw) -> fft_core.FFTPlan:
 def _route_plan(spec: OpSpec, n: int, batch: int, ctx: OpContext,
                 **legacy) -> fft_core.FFTPlan:
     """The plan a bind executes: in auto mode the cost model's choice for
-    the op's workload (``rns`` passes through to the planner), else the
-    legacy plan of the knobs ``legacy`` names."""
+    the op's workload over ``ctx.model_shards`` available shards (``rns``
+    passes through to the planner), else the legacy plan of the knobs
+    ``legacy`` names, pinned to the distributed tier where the context
+    asks for shards (``force_distributed``)."""
     if ctx.auto:
         return _plan_or_config_error(
             n=n, batch=batch, workload=spec.name,
+            model_shards=ctx.model_shards,
             rns=legacy.get("rns", False), packings=ctx.packings,
             verified=ctx.verified, pim_ok=ctx.pim_ok)
     if ctx.packings is not None:
         raise OpConfigError("packings narrows the cost model's choice: it "
                             "needs auto mode (--auto)")
+    if ctx.model_shards > 1:
+        legacy.update(model_shards=ctx.model_shards, force_distributed=True)
     return _plan_or_config_error(n=n, batch=batch, **legacy)
+
+
+def _mesh(plan: fft_core.FFTPlan, axis_name: str,
+          device: torch.device) -> sharding.Mesh:
+    """The mesh a distributed plan runs on: ``plan.seq_shards`` shards
+    round-robin over the cards, or on the CPU."""
+    return sharding.make_mesh((plan.seq_shards,), (axis_name,),
+                              device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -504,19 +528,26 @@ register_op(
 
 
 # ---------------------------------------------------------------------------
-# polymul-real -- paired-inverse real product. Its distributed four-step
-# route (model_shards > 1) comes with a later slice.
+# polymul-real -- paired-inverse real product; the distributed four-step
+# route with model_shards > 1 (odd batches padded internally)
 # ---------------------------------------------------------------------------
 
 def _validate_polymul_real(spec: OpSpec, n: int, ctx: OpContext) -> None:
-    if ctx.model_shards > 1:
-        _plan_or_config_error(n=n, batch=0, real=True, product=True,
-                              model_shards=ctx.model_shards)
+    if ctx.model_shards > 1 or ctx.auto:
+        _route_plan(spec, n, 0, ctx, real=True, product=True)
 
 
 def _bind_polymul_real(spec: OpSpec, n: int, batch: int,
                        device: torch.device, ctx: OpContext) -> BoundOp:
     plan = _route_plan(spec, n, batch, ctx, real=True, product=True)
+    if plan.tier == "distributed":
+        # the distributed tier serves the real packing, as the reference's
+        # does (its real candidate is always the cheaper distributed one)
+        mesh = _mesh(plan, "model", device)
+        return BoundOp(
+            spec=spec, n=n, plan=plan, route="polymul-real-distributed",
+            fn=dfft.make_sharded_polymul_real(mesh, radix=plan.radix),
+            payload_dtype=np.float32, device=device, mesh=mesh)
     if not plan.real:
         # the cost model chose complex packing: the complex product kernel
         # on cast-up rows, then the real part
@@ -538,7 +569,7 @@ def _bind_polymul_real(spec: OpSpec, n: int, batch: int,
 register_op(
     name="polymul-real", arity=2,
     summary="real circular product via the paired-inverse Hermitian fast "
-            "path",
+            "path; --model-shards > 1 runs the distributed four-step tier",
     uses_modulus_bits=False, uses_model_shards=True,
     _validate=_validate_polymul_real, _bind=_bind_polymul_real,
     warmup_payload=_zeros,
@@ -552,9 +583,9 @@ register_op(
 
 # ---------------------------------------------------------------------------
 # polymul-mod -- exact negacyclic product mod (x^n + 1, q): the single-limb
-# fused NTT kernel (modulus_bits <= 30), or multi-limb RNS with the CRT on
-# the host (modulus_bits > 30). Its distributed four-step route
-# (model_shards > 1) comes with a later slice.
+# fused NTT kernel (modulus_bits <= 30), multi-limb RNS with the CRT on
+# the host (modulus_bits > 30), or the distributed four-step NTT
+# (model_shards > 1, single-limb only).
 # ---------------------------------------------------------------------------
 
 def _rns_route(ctx: OpContext) -> bool:
@@ -568,9 +599,8 @@ def _validate_polymul_mod(spec: OpSpec, n: int, ctx: OpContext) -> None:
             "distributed polymul-mod is single-limb: RNS "
             "(modulus_bits > 30) shards limbs, not the sequence — drop "
             "--model-shards or use modulus_bits <= 30")
-    if ctx.model_shards > 1:
-        _plan_or_config_error(n=n, batch=0, exact=True,
-                              model_shards=ctx.model_shards)
+    if ctx.model_shards > 1 or ctx.auto:
+        _route_plan(spec, n, 0, ctx, exact=True, rns=_rns_route(ctx))
     try:
         if _rns_route(ctx):
             ntt_core.RNSParams.make(n, modulus_bits=bits)
@@ -607,6 +637,13 @@ def _bind_polymul_mod(spec: OpSpec, n: int, batch: int, device: torch.device,
                 res.view(np.uint32), rns))
     bits = ctx.modulus_bits
     params = ntt_core.NTTParams.make(n, bits=30 if bits is None else bits)
+    if plan.tier == "distributed":
+        mesh = _mesh(plan, "data", device)
+        return BoundOp(
+            spec=spec, n=n, plan=plan, route="polymul-mod-distributed",
+            fn=dntt.make_sharded_ntt_polymul(mesh, params),
+            payload_dtype=np.uint32, device=device, ntt_params=params,
+            mesh=mesh, host_step=lambda res: res.view(np.uint32))
     return BoundOp(
         spec=spec, n=n, plan=plan, route="polymul-mod-single",
         fn=lambda a, b: kntt.ntt_polymul(a, b, params, block_b=plan.block_b),
@@ -639,7 +676,8 @@ def _verify_mod(bound: BoundOp, payload, result: np.ndarray) -> None:
 register_op(
     name="polymul-mod", arity=2,
     summary="exact negacyclic product mod (x^n+1, q); --modulus-bits > 30 "
-            "routes through multi-limb RNS/CRT",
+            "routes through multi-limb RNS/CRT, --model-shards > 1 the "
+            "distributed four-step NTT",
     uses_modulus_bits=True, uses_model_shards=True,
     _validate=_validate_polymul_mod, _bind=_bind_polymul_mod,
     warmup_payload=_zeros,

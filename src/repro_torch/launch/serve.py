@@ -152,13 +152,14 @@ def run_fft_service(args) -> dict:
     svc.warmup()
     kept, stats = produce(svc.engine, [(args.op, args.n)], args.requests,
                           np.random.default_rng(0))
-    # verify one served result against the registry's numpy oracle
-    rid = min(kept)
-    svc.bound.verify(kept[rid][2], svc.results[rid])
+    # verify every served result against the registry's numpy oracle
+    for rid, (_, _, payload) in kept.items():
+        svc.bound.verify(payload, svc.results[rid])
     lat = stats["latency_ms"]
     print(f"[serve:fft] op={args.op} route={svc.route} n={args.n} "
           f"batch={args.batch} device={stats['device']} "
-          f"served={stats['served']} in {stats['seconds']:.2f}s "
+          f"served={stats['served']} verified={len(kept)} in "
+          f"{stats['seconds']:.2f}s "
           f"-> {stats['throughput_per_s']:.1f} req/s "
           f"(compute-only {stats['compute_throughput_per_s']:.1f} req/s) "
           f"p50={lat['p50']:.2f}ms p99={lat['p99']:.2f}ms "

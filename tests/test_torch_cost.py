@@ -212,9 +212,12 @@ def test_auto_knob_conflicts_raise_as_the_reference(kw, match):
     (lambda: tcost.workload_cost("fft", 1024, 8, n_devices=4), "item 9"),
 ])
 def test_unported_slices_raise_naming_their_roadmap_item(call, item):
-    """Item 9's tiers raise and name their item; item 8's verified pricing
-    is ported: both calls give the breakdown priced with the ABFT check,
-    its PIM backend the reference's."""
+    """Both items are ported. Item 8's verified pricing: both calls give
+    the breakdown priced with the ABFT check, its PIM backend the
+    reference's. Item 9's distributed candidates: the auto plan over two
+    shards is the reference's choice, and the four-shard breakdown lists
+    the reference's candidates and prunes, its PIM terms the reference's
+    but for the link."""
     if item == "item 8":
         got = call()
         want = jcost.workload_cost("fft", 1024, 8, verified=True,
@@ -226,9 +229,22 @@ def test_unported_slices_raise_naming_their_roadmap_item(call, item):
             tcost.pim_local_unit_cycles("fft", 1024, batch=8) \
             + tcost.abft_check_cycles("fft", 1024)
         return
-    with pytest.raises(ValueError, match="not yet ported") as exc:
-        call()
-    assert item in str(exc.value)
+    got = call()
+    if isinstance(got, dict):
+        want = jcost.workload_cost("fft", 1024, 8, n_devices=4)
+        assert [(c["tier"], c["real"], c["seq_shards"])
+                for c in got["candidates"]] == \
+            [(c["tier"], c["real"], c["seq_shards"])
+             for c in want["candidates"]]
+        assert got["pruned"] == want["pruned"]
+        dist = [c for c in got["candidates"] if c["tier"] == "distributed"]
+        assert dist and dist[0]["backends"]["cuda"]["collective_bytes"] == \
+            tcost._cuda_collective_bytes("fft", 1024, 8, 4, real=False)
+        return
+    want = jplanner.plan(1024, 8, workload="fft", model_shards=2)
+    assert (got.tier, got.real, got.exact, got.seq_shards) == \
+        (want.tier, want.real, want.exact, want.seq_shards)
+    assert got == tcore.plan(1024, 8)
 
 
 def test_local_ceiling_is_the_kernels_and_the_error_names_every_prune():

@@ -1146,3 +1146,51 @@ def test_chaos_engine_on_card_every_result_equals_its_oracle(cuda, rng):
                                             + integ["fell_back"])
     assert launches == want
     assert len(fm.quarantined) == len(ops)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_kernels_read_transposed_views_as_rows(cuda, rng, inverse):
+    """A (rows, m) view of a transpose (what a reshape that merges a
+    size-1 batch gives) reaches the kernels as rows: ``ntt_batched`` and
+    ``ntt_polymul`` on such a view equal their plain versions on the
+    contiguous copy. The four-step NTT's first transform at batch 1 is
+    this case."""
+    m = 8
+    p = tntt.NTTParams.make(m)
+    x = torch.from_numpy(rng.integers(0, p.q, (1, m, 1024)).astype(
+        np.int32)).to(cuda).swapaxes(-1, -2).reshape(-1, m)
+    assert not x.is_contiguous()
+    want = tknt.ntt_batched_plain(x.contiguous(), p, inverse=inverse)
+    assert torch.equal(tknt.ntt_batched(x, p, inverse=inverse), want)
+    y = x.flip(0)
+    assert torch.equal(tknt.ntt_polymul(x, y, p),
+                       tknt.ntt_polymul_plain(x.contiguous(),
+                                              y.contiguous(), p))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("shards", [2, 8])
+def test_distributed_routes_on_card_equal_the_local_routes(cuda, rng, batch,
+                                                           shards):
+    """The distributed routes at every batch shape the engine dispatches
+    (1, odd, full): ``polymul-mod-distributed`` == the local kernel,
+    ``polymul-real-distributed`` within the op's tolerance of the local
+    route, every result equal to its oracle."""
+    from repro_torch.launch import ops as op_registry
+    n = 65536
+    for op in ("polymul-mod", "polymul-real"):
+        spec = op_registry.get_op(op)
+        dist = spec.bind(n, op_registry.OpContext(model_shards=shards),
+                         batch=batch, device="cuda")
+        local = spec.bind(n, batch=batch, device="cuda")
+        assert dist.route == f"{op}-distributed"
+        payloads = [dist.random_payload(rng) for _ in range(batch)]
+        got = dist.to_numpy(dist.execute(payloads))
+        want = local.to_numpy(local.execute(payloads))
+        for payload, row in zip(payloads, got):
+            dist.verify(payload, row)
+        if op == "polymul-mod":
+            assert (got == want).all()
+        else:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-3 * np.abs(want).max())

@@ -145,8 +145,24 @@ def test_exact_plan_is_the_fused_ntt_product(n):
         assert not got.resident
         assert (f"two-pass {launch.n1} x {launch.n2} (3 launches"
                 in got.describe())
-    with pytest.raises(ValueError, match="multi-device slice"):
-        tcore.plan(n, 64, exact=True, model_shards=8)
+    # the distributed exact plan: the reference's where 8^2 | n, else both
+    # refuse the tiling
+    if n % 64:
+        with pytest.raises(ValueError, match="cannot plan a distributed"):
+            jcore.plan(n, 64, exact=True, model_shards=8,
+                       force_distributed=True)
+        with pytest.raises(ValueError, match="cannot plan a distributed"):
+            tcore.plan(n, 64, exact=True, model_shards=8,
+                       force_distributed=True)
+        return
+    dist = tcore.plan(n, 64, exact=True, model_shards=8,
+                      force_distributed=True)
+    want = jcore.plan(n, 64, exact=True, model_shards=8,
+                      force_distributed=True)
+    assert (dist.tier, dist.radix, dist.block_b, dist.seq_shards,
+            dist.exact, dist.real) == \
+        (want.tier, want.radix, want.block_b, want.seq_shards, want.exact,
+         want.real)
 
 
 @pytest.mark.parametrize("n", [4096, 65536])
@@ -186,9 +202,10 @@ def test_rns_plan_keeps_one_cta_per_row_block(n):
     ({"workload": "fft", "verified": True}, "fault-tolerance slice"),
 ])
 def test_unported_tiers_name_their_slice(kw, slice_name):
-    """The reference plans these; the port raises for the multi-device
-    slice's and names it. The fault-tolerance slice's verified plan is
-    ported: the reference's choice, its breakdown priced with the check."""
+    """The reference plans these, and so does the port. The multi-device
+    slice's legacy plan over four shards keeps n = 1024 local, as the
+    reference's does; the fault-tolerance slice's verified plan is the
+    reference's choice, its breakdown priced with the check."""
     want = jcore.plan(1024, 8, **kw)
     if slice_name == "fault-tolerance slice":
         got = tcore.plan(1024, 8, **kw)
@@ -197,9 +214,10 @@ def test_unported_tiers_name_their_slice(kw, slice_name):
         assert got.cost["best"]["backends"]["pim"] == \
             want.cost["best"]["backends"]["pim"]
         return
-    with pytest.raises(ValueError, match="not yet ported") as exc:
-        tcore.plan(1024, 8, **kw)
-    assert slice_name in str(exc.value)
+    got = tcore.plan(1024, 8, **kw)
+    assert (got.tier, got.radix, got.real, got.exact, got.seq_shards) == \
+        (want.tier, want.radix, want.real, want.exact, want.seq_shards)
+    assert got == tcore.plan(1024, 8)
 
 
 @pytest.mark.parametrize("workload", ["fft", "rfft", "polymul",

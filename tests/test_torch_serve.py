@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import fft as jcore_fft
 from repro.launch import ops as jops_registry
 from repro.launch import serve as jserve
 from repro_torch.kernels import _build
@@ -77,17 +78,45 @@ def test_foreign_knob_messages_match_reference(op, kw):
 
 
 def test_unknown_op_and_unported_routes_are_config_errors():
+    """An unknown op and an untileable shard count are config errors; the
+    distributed routes bind, as the reference's do, and serve what the
+    local route serves (``==`` on the exact tier, within the ops'
+    tolerance on the float one)."""
     with pytest.raises(op_registry.OpConfigError, match="unknown op"):
         op_registry.get_op("polymul-nope")
     with pytest.raises(op_registry.OpConfigError,
-                       match="model_shards=8: distributed tier not yet "
-                             "ported; it comes with the multi-device slice"):
+                       match="cannot plan a distributed FFT for n=1024 over "
+                             "3 shards"):
         op_registry.get_op("polymul-mod").bind(
-            1024, op_registry.OpContext(model_shards=8), device="cpu")
-    with pytest.raises(op_registry.OpConfigError,
-                       match="distributed tier not yet ported"):
-        op_registry.get_op("polymul-real").bind(
-            1024, op_registry.OpContext(model_shards=8), device="cpu")
+            1024, op_registry.OpContext(model_shards=3), device="cpu")
+    rng = np.random.default_rng(3)
+    for op, route in (("polymul-mod", "polymul-mod-distributed"),
+                      ("polymul-real", "polymul-real-distributed")):
+        spec = op_registry.get_op(op)
+        dist = spec.bind(1024, op_registry.OpContext(model_shards=8),
+                         device="cpu")
+        # the reference's bind of this route builds an 8-device jax mesh,
+        # so its plan is taken from the planner call that bind makes
+        want = jcore_fft.plan(1024, 0, real=op == "polymul-real",
+                              exact=op == "polymul-mod", model_shards=8,
+                              force_distributed=True)
+        assert dist.route == route
+        assert (dist.plan.tier, dist.plan.seq_shards, dist.plan.real,
+                dist.plan.exact) == \
+            (want.tier, want.seq_shards, want.real, want.exact) == \
+            ("distributed", 8, op == "polymul-real", op == "polymul-mod")
+        assert dist.mesh.shape == {"model" if op == "polymul-real"
+                                   else "data": 8}
+        local = spec.bind(1024, device="cpu")
+        payloads = [dist.random_payload(rng) for _ in range(3)]
+        got = dist.to_numpy(dist.execute(payloads))
+        ref = local.to_numpy(local.execute(payloads))
+        for p, row, ref_row in zip(payloads, got, ref):
+            dist.verify(p, row)
+            if op == "polymul-mod":
+                assert (row == ref_row).all()
+            else:
+                np.testing.assert_allclose(row, ref_row, atol=1e-3)
     ctx = op_registry.OpContext(modulus_bits=100, model_shards=8)
     assert op_registry.get_op("fft").narrow(ctx) == op_registry.OpContext()
     assert op_registry.get_op("polymul-real").narrow(ctx) == \
@@ -372,7 +401,7 @@ def test_cli_modulus_bits_reaches_the_route_subprocess(bits, route):
 
 def test_cli_exits_with_registry_validation_error(capsys):
     for argv in (["--op", "fft", "--modulus-bits", "40"],
-                 ["--op", "polymul-real", "--model-shards", "8"],
+                 ["--op", "polymul-real", "--model-shards", "3"],
                  ["--op", "polymul-mod", "--modulus-bits", "109",
                   "--model-shards", "2"],
                  ["--service", "engine", "--ops", "fft,nope", "--ns", "64"]):
@@ -381,7 +410,7 @@ def test_cli_exits_with_registry_validation_error(capsys):
         assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "has no modular route" in err
-    assert "distributed tier not yet ported" in err
+    assert "cannot plan a distributed real FFT for n=1024 over 3" in err
     assert "distributed polymul-mod is single-limb" in err
 
 
