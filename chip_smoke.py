@@ -3,7 +3,10 @@
 
 Run from the repository root, on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, the result lines
+    python3 chip_smoke.py --phases 1,3    # only those phases, no result
+
+Phase 1 always runs; phase 5 reads phase 4's times and brings it along.
 
 Phases (any failure exits non-zero):
   1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
@@ -50,7 +53,10 @@ Phases (any failure exits non-zero):
      cases and gemma3-4b's local and global shapes; the CUDA-core kernel
      at fp32 head_dim 32 and, launched directly (``CUDA_CORE_DIRECT``,
      the in-turn baseline of phase 4), at fp32 head_dim 128 and 320 and
-     bf16 head_dim 32; bf16 within one bf16 step and fp32 within 2e-4; and
+     bf16 head_dim 32; hymba-1.5b's heads (25 over 5 kv heads: G = 5, H
+     odd; hd 64; window 2048) at its served shape and past the window and
+     mixtral-8x22b's (48 over 8, hd 128) past its window of 4096, in bf16
+     and fp32; bf16 within one bf16 step and fp32 within 2e-4; and
      the public (H, S, hd) layout against the naive oracle. Then the two-pass
      schedules of the fft, rfft and irfft kernels and the products'
      split-pass schedule (``check_two_pass``; three launches, four at odd
@@ -95,7 +101,22 @@ Phases (any failure exits non-zero):
      2e-3. Then the reduced qwen3-1.7b config (head_dim 32) the same way
      at B = 2, S = ``REDUCED_PROMPT``: in bf16 on the wgmma kernel's hd-32
      instance (2 launches, nothing else), in fp32 on the CUDA-core kernel
-     (2 launches, nothing else).
+     (2 launches, nothing else). Then fourierpim-lm (``fourier_phase``).
+     Then the MoE FFN and the recurrent mixers (``mixer_phase``), each
+     step with the counters zeroed just before: ``--service lm`` at full
+     width and depth (bf16, batch 8, prompt 2048, gen 32) for
+     granite-moe-3b-a800m and hymba-1.5b (32 launches each of the wgmma
+     kernel, nothing else) and rwkv6-7b (no launch); mixtral-8x22b at full
+     width on 2 of its 56 layers, a cut of depth (2 launches); 2
+     full-width fp32 layers of granite, hymba and rwkv6 with the same
+     weights on the card and on the CPU (B 1 x S 128) within 2e-3, the
+     card launching the 3xTF32 kernel once a layer (none for rwkv6), and
+     for granite each token's chosen experts and kept slots equal on both,
+     each token's k-th to (k+1)-th probability margin above the two runs'
+     rounding of the probabilities; and prefill/decode parity on the card
+     at full width in fp32 for the four (granite, rwkv6 all 32 layers at
+     B 2 x 512; hymba B 1 x 2048, its window; mixtral 2 layers; the MoE
+     archs at capacity factor E / k) within 2e-3.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -133,15 +154,19 @@ Phases (any failure exits non-zero):
      thresholds.
      The flash kernels' shapes are ``ATTN_TIMED``. Then the LM cells,
      qwen3-1.7b and gemma3-4b: prefill ms, decode ms per token and tok/s,
-     and a traced run for the card's idle share and the wgmma flash
-     kernel's share of the prefill; for gemma3-4b also the prefill with
-     the CUDA-core kernel swapped in, in turns with the wgmma kernel; and
+     a traced prefill for the wgmma flash kernel's share of it, and 4
+     traced decode steps (``LM_TRACED_STEPS``) for the card's idle share;
      the full-width fp32 qwen3-1.7b and gemma3-4b prefills (batch 8 x
      2048; gemma3-4b's 34 layers through the head_dim-split instance)
-     through the 3xTF32 kernel, in turns with the CUDA-core kernel swapped
-     in, with each kernel's share of a traced prefill. Each LM timing
+     through the 3xTF32 kernel, with its share of a traced prefill;
+     fourierpim-lm; then granite-moe-3b, hymba-1.5b, rwkv6-7b and the
+     2-layer mixtral-8x22b the same way,
+     granite's traced prefill split by the MoE's stages (routing, scatter,
+     expert products, gather: ``MOE_STAGES``) and rwkv6-7b's by its scan
+     (``SCAN_STAGES``) against the matmuls outside them. Each LM timing
      first counts one prefill's launches, the counters zeroed just before:
-     the kernel ``kernel_for`` picks, once per layer, and nothing else.
+     the kernel ``kernel_for`` picks, once per layer (none for rwkv6-7b),
+     and nothing else.
   5. The cost model on the card (lines ``[cost model]``), each line with
      the card's name and power limit: (a) the paper's cuFFT model
      (``core/pim/gpu_model.py`` on the H100 config of
@@ -215,8 +240,8 @@ Phases (any failure exits non-zero):
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 1
-and prints no result.
+{"ok": true, "device": {...}}, all three on a full run only. Without a
+CUDA device the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -299,6 +324,16 @@ TF32_FLOPS_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 #: the served LM cells: qwen3-1.7b and gemma3-4b at full width, bf16
 #: activations, the same batch, prompt and generated tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 8, 2048, 32
+#: decode steps of the traced decode that gives an LM cell's idle share
+#: (PR 21-25 traced a whole generate of LM_GEN tokens: its post-processing
+#: took about a minute a cell on the host)
+LM_TRACED_STEPS = 4
+#: timed prefills of an LM cell, after a warm one (3 until PR 25; the
+#: recurrent archs' take seconds on the host)
+LM_PREFILL_RUNS = 2
+#: layers of rwkv6-7b's traced prefill (its scan puts 2,200 kernels a
+#: layer in the trace)
+SCAN_TRACE_LAYERS = 4
 GEMMA_ARCH = "gemma3-4b"
 #: gemma3-4b's kernel-vs-plain prefill: 6 layers at full width (five local
 #: layers, then the global layer 5), batch 2, the served prompt
@@ -1334,11 +1369,12 @@ def ntt_work(name: str, n: int, b: int, k: int = 1) -> tuple[float, float]:
     return 4 * k * (3 * b * n + 4 * n + 4), k * b * per_row
 
 
-def time_ms(torch, fn, arg_sets, reps: int) -> float:
+def time_ms(torch, fn, arg_sets, reps: int, *, warm=None) -> float:
     """Mean ms of one call, by CUDA events around ``reps`` calls that cycle
     through ``arg_sets`` (together larger than the 50 MB L2, so each call
-    finds its inputs in device memory, as a freshly copied batch may)."""
-    for args in arg_sets[:2]:
+    finds its inputs in device memory, as a freshly copied batch may),
+    after warm calls on ``warm`` (default: the first two sets)."""
+    for args in arg_sets[:2] if warm is None else warm:
         fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1382,7 +1418,7 @@ def graph_ms(torch, fn, arg_sets, reps: int) -> float:
 
 def device_ms(torch, fn, arg_sets, reps: int, *,
               launches_per_call: int | None = None,
-              tries: int = 5, required: bool = True
+              tries: int = 5, required: bool = True, warm=None
               ) -> tuple[float | None, int]:
     """Mean device time of one call in ms, and the device events traced:
     the summed duration of the kernels the calls ran, traced by
@@ -1395,10 +1431,11 @@ def device_ms(torch, fn, arg_sets, reps: int, *,
     trace without device time is reported and taken again, up to
     ``tries`` times in all; if none holds any, the run fails, or, where
     the caller times the call by CUDA events and the trace is only a
-    side figure (``required=False``), None is returned."""
+    side figure (``required=False``), None is returned. The warm calls
+    are on ``warm`` (default: the first two sets), as ``time_ms``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for args in arg_sets[:2]:
+    for args in arg_sets[:2] if warm is None else warm:
         fn(*args)
     torch.cuda.synchronize()
     for attempt in range(tries):
@@ -1555,6 +1592,23 @@ def by_kernel(torch, fn, arg_sets, reps: int) -> dict[str, dict]:
     return out
 
 
+#: calls of a plain version each timing of ``measure`` runs (20 for the
+#: kernels): the plain NTT and RNS products run hundreds of small torch ops
+#: a call, whose traces took minutes to read (cut in PR 26 for run time)
+PLAIN_REPS = 5
+
+
+def spread_sets(sets: list) -> list:
+    """PLAIN_REPS of ``sets`` spread evenly over the whole pool, in its
+    order, leaving out the first two (which the check and the kernel's
+    warm calls read last): each is then in device memory when the plain
+    version reads it, as each set is for the kernel, which cycles through
+    them all. Sets 0 and 1 only where the pool has no others."""
+    rest = sets[2:] or sets
+    step = max(1, len(rest) // PLAIN_REPS)
+    return rest[::step][:PLAIN_REPS]
+
+
 def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
             *, exact: bool, bound: tuple[float, float, str],
             launches_per_call: int = 1, graph: bool = False) -> dict:
@@ -1570,6 +1624,10 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
     ``graph`` adds the kernel's CUDA-graph replay time (``graph_ms``)
     beside the others, and the trace by kernel even of a single launch."""
     reps = max(len(sets), 20)
+    plain_reps = min(reps, PLAIN_REPS)
+    # the plain version's inputs: spread over the pool, its warm call on
+    # the set the check has just read
+    plain_sets, plain_warm = spread_sets(sets), sets[:1]
     got, want = (torch.cat([t.flatten() for t in _as_tuple(f(*sets[0]))])
                  for f in (kern, plain))
     if not got.is_floating_point():
@@ -1584,16 +1642,19 @@ def measure(torch, name: str, n: int, kern, plain, sets, lib, lib_sets,
                          f"(max abs difference {err})")
     # wall time per call (CUDA events, host launch gaps included): plain,
     # kernel, kernel, plain within this call; best of two
-    plain_ev = time_ms(torch, plain, sets, reps)
+    plain_ev = time_ms(torch, plain, plain_sets, plain_reps,
+                       warm=plain_warm)
     kern_ev = min(time_ms(torch, kern, sets, reps),
                   time_ms(torch, kern, sets, reps))
-    plain_ev = min(plain_ev, time_ms(torch, plain, sets, reps))
+    plain_ev = min(plain_ev, time_ms(torch, plain, plain_sets, plain_reps,
+                                     warm=plain_warm))
     t_bytes, t_ops, ops_kind = bound
     ms, traced = device_ms(torch, kern, sets, reps,
                            launches_per_call=launches_per_call)
     return {"ms": ms,
             "traced_launches": f"{traced} of {reps * launches_per_call}",
-            "plain_ms": device_ms(torch, plain, sets, reps)[0],
+            "plain_ms": device_ms(torch, plain, plain_sets, plain_reps,
+                                  warm=plain_warm)[0],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes_ms": t_bytes, "operations_ms": t_ops,
@@ -2039,6 +2100,45 @@ ATTN_CASES = [
     ("fp32 gemma3-4b global", 2, LM_PROMPT, 8, 4, 320, "float32", 1 << 30,
      True),
     ("fp32 hd 32", 2, 1000, 16, 8, 32, "float32", 1 << 30, True),
+    # hymba-1.5b's heads (25 over 5 kv heads: G = 5, H odd; hd 64; window
+    # 2048) at its served batch and prompt, and past the window; and
+    # mixtral-8x22b's (48 over 8: G = 6; hd 128; window 4096), past it
+    ("hymba-1.5b served", LM_BATCH, LM_PROMPT, 25, 5, 64, "bfloat16", 2048,
+     True),
+    ("hymba-1.5b past the window", 1, 2304, 25, 5, 64, "bfloat16", 2048,
+     True),
+    ("mixtral-8x22b past the window", 1, 4224, 48, 8, 128, "bfloat16",
+     4096, True),
+    ("fp32 hymba-1.5b", 2, LM_PROMPT, 25, 5, 64, "float32", 2048, True),
+    ("fp32 hymba-1.5b past the window", 1, 2304, 25, 5, 64, "float32",
+     2048, True),
+    ("fp32 mixtral-8x22b past the window", 1, 4224, 48, 8, 128, "float32",
+     4096, True),
+    # the shapes phase 3's main path launches the kernels with: the served
+    # bf16 prefills of granite-moe-3b (24 over 8, hd 64) and mixtral-8x22b
+    # (48 over 8, hd 128, window 4096 > S); the fp32 card-vs-CPU prefills
+    # (MIXER_CPU) and the parity runs' prefills (S) and forwards (S + 1)
+    # (MIXER_PARITY)
+    ("granite-moe-3b served", LM_BATCH, LM_PROMPT, 24, 8, 64, "bfloat16",
+     1 << 30, True),
+    ("mixtral-8x22b served", LM_BATCH, LM_PROMPT, 48, 8, 128, "bfloat16",
+     4096, True),
+    ("fp32 granite-moe-3b card vs CPU", 1, 128, 24, 8, 64, "float32",
+     1 << 30, True),
+    ("fp32 hymba-1.5b card vs CPU", 1, 128, 25, 5, 64, "float32", 2048,
+     True),
+    ("fp32 granite-moe-3b parity prefill", 2, 512, 24, 8, 64, "float32",
+     1 << 30, True),
+    ("fp32 granite-moe-3b parity forward", 2, 513, 24, 8, 64, "float32",
+     1 << 30, True),
+    ("fp32 hymba-1.5b parity prefill", 1, 2048, 25, 5, 64, "float32", 2048,
+     True),
+    ("fp32 hymba-1.5b parity forward", 1, 2049, 25, 5, 64, "float32", 2048,
+     True),
+    ("fp32 mixtral-8x22b parity prefill", 2, 512, 48, 8, 128, "float32",
+     4096, True),
+    ("fp32 mixtral-8x22b parity forward", 2, 513, 48, 8, 128, "float32",
+     4096, True),
 ]
 #: the CUDA-core kernel launched directly on inputs the wrappers send to a
 #: tensor-core kernel, against its own plain version: (label, B, S, H, KV,
@@ -2151,44 +2251,48 @@ def full_width_state(torch, convert, cfg):
 
 
 def serve_lm(torch, build, serve, get_config, arch: str,
-             counter: str = "flash_attention_wgmma",
-             per_layer: int = 1) -> dict:
+             counter: str | None = "flash_attention_wgmma",
+             per_layer: int = 1, layers: int | None = None) -> dict:
     """The serve CLI's ``--service lm`` for ``arch`` at full width (batch 8,
-    prompt 2048, gen 32), the launch counters zeroed just before:
-    ``per_layer`` launches of ``counter`` per layer (one prefill: the wgmma
-    flash kernel once, or for fourierpim-lm fft_planes three times) and
-    nothing else, and LM_GEN tokens in the vocabulary for each prompt."""
+    prompt 2048, gen 32; ``layers``: a cut of depth, ``--layers``), the
+    launch counters zeroed just before: ``per_layer`` launches of
+    ``counter`` per layer (one prefill: the wgmma flash kernel once, or for
+    fourierpim-lm fft_planes three times; ``counter`` None: rwkv6-7b, no
+    kernel of the port) and nothing else, and LM_GEN tokens in the
+    vocabulary for each prompt."""
     build.reset_launches()
     t0 = time.perf_counter()
     res = serve.main(["--service", "lm", "--arch", arch, "--batch",
                       str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--gen",
-                      str(LM_GEN)])
+                      str(LM_GEN)]
+                     + ([] if layers is None else ["--layers", str(layers)]))
     wall = time.perf_counter() - t0
     torch.cuda.empty_cache()
     launches = dict(build.LAUNCHES)
     cfg = get_config(arch)
+    L = layers or cfg.num_layers
     gen = res["generated"]
-    if launches[counter] != per_layer * cfg.num_layers:
-        raise SystemExit(f"served {arch} run: {counter} launched "
-                         f"{launches[counter]} times, expected "
-                         f"{per_layer * cfg.num_layers} ({per_layer} per "
-                         f"layer, one prefill)")
-    if others := {k: n for k, n in launches.items()
-                  if n and k != counter}:
-        raise SystemExit(f"served {arch} run launched other kernels: "
-                         f"{others}")
+    want = {counter: per_layer * L} if counter else {}
+    if {k: n for k, n in launches.items() if n} != want:
+        raise SystemExit(f"served {arch} run: launches {launches}, "
+                         f"expected {want or 'none'} ({per_layer} per "
+                         f"layer, one prefill) and nothing else")
     if gen.shape != (LM_GEN, LM_BATCH) or not (
             (gen >= 0) & (gen < cfg.vocab_size)).all():
         raise SystemExit(f"served {arch} run: generated {gen.shape} "
                          f"{gen.min()}..{gen.max()}")
     shape = (f"{cfg.fourier_taps} taps" if cfg.mixer == "fourier"
+             else "no attention" if cfg.mixer == "rwkv6"
              else f"head_dim {cfg.head_dim}")
-    print(f"[lm] served {arch} (full width, {cfg.num_layers} layers, "
-          f"{shape}, bf16) batch={LM_BATCH} "
+    depth = (f"{L} layers" if layers is None
+             else f"{L} of {cfg.num_layers} layers: a cut of depth")
+    print(f"[lm] served {arch} (full width, {depth}, {shape}, bf16) "
+          f"batch={LM_BATCH} "
           f"prompt={LM_PROMPT} gen={LM_GEN}: generated {gen.shape}, "
           f"{res['tokens_per_s']:.1f} tok/s (first call, incl. prefill) in "
           f"{wall:.1f}s with set-up; launches {launches}", flush=True)
-    return {"launches": launches, "tokens_per_s": res["tokens_per_s"]}
+    return {"launches": launches, "tokens_per_s": res["tokens_per_s"],
+            "layers": L}
 
 
 def lm_phase(torch, build, serve, convert, lm, get_config) -> dict:
@@ -2483,6 +2587,229 @@ def fourier_phase(torch, build, serve, convert, kfft, kops, get_config,
                                  "kernel_equals_plain": True}}
 
 
+# ---------------------------------------------------------------------------
+# The MoE FFN and the recurrent mixers: granite-moe-3b, hymba-1.5b and
+# rwkv6-7b at full width and depth, mixtral-8x22b cut to 2 of its 56 layers
+# ---------------------------------------------------------------------------
+
+#: the archs served at full width and depth, each with the kernel its
+#: prefill launches once a layer (None: no kernel of the port runs)
+MIXER_ARCHS = {"granite-moe-3b-a800m": "flash_attention_wgmma",
+               "hymba-1.5b": "flash_attention_wgmma",
+               "rwkv6-7b": None}
+#: mixtral-8x22b (1.4e11 parameters) is served at full width on this many
+#: of its 56 layers: a cut of depth
+MIXTRAL_ARCH, MIXTRAL_LAYERS = "mixtral-8x22b", 2
+#: the card against the CPU: (layers, batch, prompt), fp32, full width
+MIXER_CPU = (2, 1, 128)
+#: prefill/decode parity on the card, fp32, full width: arch -> (layers
+#: (None: all), batch, prompt). hymba's prompt is its window, so its ring
+#: fills and the decode step's window leaves out key 0.
+MIXER_PARITY = {"granite-moe-3b-a800m": (None, 2, 512),
+                "hymba-1.5b": (None, 1, 2048),
+                "rwkv6-7b": (None, 2, 512),
+                MIXTRAL_ARCH: (MIXTRAL_LAYERS, 2, 512)}
+
+
+def attention_counter(torch, kattn, cfg) -> str | None:
+    """The flash kernel a prefill of ``cfg`` launches once a layer, or None
+    where its mixer has no attention."""
+    if cfg.mixer not in ("attn", "hymba"):
+        return None
+    return flash_counter(kattn, getattr(torch, cfg.dtype), cfg.head_dim)
+
+
+@contextlib.contextmanager
+def recorded_routing(moe_mod):
+    """Every ``moe.route`` call's ``Routing``, in order, while the block
+    runs (one a layer a forward)."""
+    calls = []
+    route = moe_mod.route
+
+    def recording(*args, **kwargs):
+        calls.append(route(*args, **kwargs))
+        return calls[-1]
+
+    moe_mod.route = recording
+    try:
+        yield calls
+    finally:
+        moe_mod.route = route
+
+
+def routing_check(torch, cfg, S: int, cpu_calls, card_calls) -> dict:
+    """The card's routing against the CPU's, layer by layer. The rounding
+    is the largest difference of the two runs' probabilities; each of the
+    S tokens' margin between its k-th and (k+1)-th probability (on the
+    CPU) must be above twice it (each of the two may move by the
+    rounding), so that equal routing is what the logits' tolerance
+    implies, and then each token's chosen experts and kept slots
+    must be equal. A margin at or under twice the rounding fails as
+    such. (A
+    group's padding rows are zero on both: their probabilities tie exactly
+    and both take the lower experts.)"""
+    k = cfg.experts_per_token
+    if len(cpu_calls) != len(card_calls) or not cpu_calls:
+        raise SystemExit(f"{cfg.name}: {len(cpu_calls)} routings on the "
+                         f"CPU, {len(card_calls)} on the card")
+    rounding = max(float((a.probs - b.probs.cpu()).abs().max())
+                   for a, b in zip(cpu_calls, card_calls))
+    margins = []
+    for layer, (a, b) in enumerate(zip(cpu_calls, card_calls)):
+        top = torch.sort(a.probs.flatten(1, 2)[:, :S], dim=-1,
+                         descending=True).values
+        margins.append(float((top[..., k - 1] - top[..., k]).min()))
+        if margins[-1] <= 2 * rounding:
+            raise SystemExit(
+                f"{cfg.name} layer {layer}: a token's margin between its "
+                f"{k}th and {k + 1}th probability, {margins[-1]:.3g}, is not "
+                f"above twice the card-CPU rounding of the probabilities "
+                f"{rounding:.3g}: equal routing is not implied")
+        if not (torch.equal(a.expert, b.expert.cpu())
+                and torch.equal(a.kept, b.kept.cpu())):
+            raise SystemExit(f"{cfg.name} layer {layer}: the card's chosen "
+                             f"experts or kept slots differ from the CPU's")
+    kept = sum(int(a.kept.sum()) for a in cpu_calls)
+    slots = sum(a.kept.numel() for a in cpu_calls)
+    return {"layers": len(cpu_calls), "min_margin": min(margins),
+            "probs_rounding": rounding, "kept_slots": kept,
+            "slots": slots, "capacity": cpu_calls[0].capacity}
+
+
+def mixer_card_vs_cpu(torch, build, convert, kattn, moe_mod, get_config,
+                      arch: str) -> dict:
+    """MIXER_CPU's full-width fp32 layers of ``arch`` with the same weights
+    (seed 3, drawn on the CPU) on the card and on the CPU (plain versions):
+    the logits within LM_TOL, the card launching the fp32 flash kernel once
+    a layer (3xTF32 at head_dim 64; none for rwkv6-7b) and the CPU nothing;
+    for a MoE arch the routing first (``routing_check``)."""
+    layers, B, S = MIXER_CPU
+    cfg = get_config(arch)
+    cfg32 = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    counter = attention_counter(torch, kattn, cfg32)
+    sd = convert.init_params(cfg32, torch.Generator().manual_seed(3))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(4))
+    outs = {}
+    for where, place in (("cpu", torch.device("cpu")),
+                         ("cuda", torch.device("cuda"))):
+        model = convert.build(cfg32, sd, place)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with recorded_routing(moe_mod) as calls:
+            logits = model(tokens.to(place))
+        torch.cuda.synchronize()
+        outs[where] = (logits.float().cpu(),
+                       {k: n for k, n in build.LAUNCHES.items() if n}, calls)
+        del model, logits
+    want = {counter: layers} if counter else {}
+    if outs["cpu"][1] or outs["cuda"][1] != want:
+        raise SystemExit(f"{arch} card vs CPU: launches {outs['cuda'][1]} "
+                         f"on the card, {outs['cpu'][1]} on the CPU; "
+                         f"expected {want or 'none'} and none")
+    out = {"launches": outs["cuda"][1]}
+    text = ""
+    if cfg.is_moe:
+        out["routing"] = r = routing_check(torch, cfg, S, outs["cpu"][2],
+                                           outs["cuda"][2])
+        text = (f"; routing equal in {r['layers']} layers ({r['kept_slots']} "
+                f"of {r['slots']} slots kept, C {r['capacity']}), smallest "
+                f"k-th to (k+1)-th margin {r['min_margin']:.3g} above twice the "
+                f"probabilities' card-CPU rounding {r['probs_rounding']:.3g}")
+    got, ref = outs["cuda"][0], outs["cpu"][0]
+    out["max_abs"] = err = float((got - ref).abs().max())
+    if got.shape != (B, S, cfg.vocab_padded) or not (
+            torch.isfinite(got).all() and torch.allclose(got, ref, **LM_TOL)):
+        raise SystemExit(f"{arch} {layers}-layer full width fp32: card and "
+                         f"CPU logits {tuple(got.shape)} differ by {err}")
+    print(f"[lm] {arch} full width, {layers} layers, fp32, B={B} S={S}: "
+          f"card vs CPU (plain) logits |diff|max={err:.3g} within {LM_TOL}; "
+          f"card launches {outs['cuda'][1]}{text}", flush=True)
+    return out
+
+
+def mixer_parity(torch, build, convert, kattn, get_config, arch: str
+                 ) -> dict:
+    """Prefill/decode parity of ``arch`` on the card at full width in fp32
+    (MIXER_PARITY; seed-0 weights drawn on the card; a MoE arch at its
+    no-drop capacity factor E / k, as the reference's own parity test
+    takes it), the counters zeroed just before: decode_step(S) after
+    prefill(S) against forward(S + 1)[-1], and the prefill's last logits
+    against forward's row S - 1, within LM_TOL; the fp32 flash kernel
+    launched once a layer in each of the forward and the prefill, and
+    nothing else."""
+    dev = torch.device("cuda")
+    layers, B, S = MIXER_PARITY[arch]
+    cfg = get_config(arch)
+    cut = {} if layers is None else {"num_layers": layers}
+    if cfg.is_moe:
+        cut["capacity_factor"] = cfg.num_experts / cfg.experts_per_token
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **cut)
+    counter = attention_counter(torch, kattn, cfg32)
+    sd = full_width_state(torch, convert, cfg32)
+    model = convert.build(cfg32, sd, dev)
+    del sd
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    full = model(tokens)
+    last, state = model.prefill(tokens[:, :S], cache_capacity=S + 1)
+    step, _ = model.decode_step(state, tokens[:, S], S)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    want = {counter: 2 * cfg32.num_layers} if counter else {}
+    if launches != want:
+        raise SystemExit(f"{arch} fp32 parity: launches {launches}, "
+                         f"expected {want or 'none'} (one forward, one "
+                         f"prefill) and nothing else")
+    errs = (float((last - full[:, S - 1]).abs().max()),
+            float((step - full[:, -1]).abs().max()))
+    if not (torch.isfinite(full).all()
+            and torch.allclose(last, full[:, S - 1], **LM_TOL)
+            and torch.allclose(step, full[:, -1], **LM_TOL)):
+        raise SystemExit(f"{arch} full-width prefill/decode parity failed: "
+                         f"|prefill - forward| {errs[0]}, |decode - "
+                         f"forward| {errs[1]}")
+    print(f"[lm] parity {arch} full width fp32, {cfg32.num_layers}"
+          f"{'' if layers is None else f' of {cfg.num_layers}'} layers"
+          f"{' (capacity factor E / k: no drops)' if cfg.is_moe else ''}, "
+          f"B={B} S={S}: prefill last logits vs forward |diff|max="
+          f"{errs[0]:.3g}, decode_step(S) vs forward(S+1)[-1] |diff|max="
+          f"{errs[1]:.3g}, within {LM_TOL}; launches {launches}", flush=True)
+    del model, full, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "parity_max_abs": errs, "batch": B,
+            "prompt": S, "layers": cfg32.num_layers}
+
+
+def mixer_phase(torch, build, serve, convert, kattn, moe_mod, get_config
+                ) -> dict:
+    """Phase 3 for the MoE FFN and the recurrent mixers, each step with
+    the counters zeroed just before: (a) the served runs at full width and
+    depth (``serve_lm``): granite-moe-3b and hymba-1.5b 32 launches each of
+    the wgmma kernel, rwkv6-7b none, and nothing else; (b) mixtral-8x22b
+    served at full width on MIXTRAL_LAYERS of its 56 layers (a cut of
+    depth): 2 launches; (c) the card against the CPU
+    (``mixer_card_vs_cpu``) for the three; (d) prefill/decode parity on
+    the card (``mixer_parity``) for all four."""
+    out = {}
+    for arch, counter in MIXER_ARCHS.items():
+        out[arch] = {"served": serve_lm(torch, build, serve, get_config,
+                                        arch, counter=counter)}
+    out[MIXTRAL_ARCH] = {"served": serve_lm(
+        torch, build, serve, get_config, MIXTRAL_ARCH,
+        layers=MIXTRAL_LAYERS)}
+    for arch in MIXER_ARCHS:
+        out[arch]["card_vs_cpu"] = mixer_card_vs_cpu(
+            torch, build, convert, kattn, moe_mod, get_config, arch)
+    for arch in MIXER_PARITY:
+        out[arch]["parity"] = mixer_parity(torch, build, convert, kattn,
+                                           get_config, arch)
+    return out
+
+
 #: Device-side names of the flash kernels in a profiler trace, by launch
 #: counter (every instance of each).
 FLASH_TRACE_NAMES = {
@@ -2676,37 +3003,91 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
     return entry
 
 
-def cuda_core_attention(torch, build):
-    """``kernels.attention.attention`` with the CUDA-core kernel in place of
-    a tensor-core kernel: the prefill as it ran before the tensor-core
-    kernel took its type and head_dim (causal, any window)."""
-    def attention(q, k, v, *, window, causal=True, scale, kv_block=None):
-        del kv_block
-        if not causal:
-            raise ValueError("cuda_core_on launches causal attention only")
-        return cuda_core_on(torch, build, q, k, v, scale, window)
-    return attention
+#: Stages of a prefill labelled in its trace (``labelled``): functions of
+#: granite-moe-3b's MoE FFN (``models/layers/moe.py``: routing, scatter,
+#: the experts' products, gather) and rwkv6-7b's scan
+#: (``models/layers/recurrent.py``)
+MOE_STAGES = ("route", "dispatch", "experts", "combine")
+SCAN_STAGES = ("_wkv_scan",)
+
+
+def stage_labels(stages) -> list[str]:
+    """``stages`` = (module, function names): each function's label."""
+    if not stages:
+        return []
+    module, names = stages
+    return [f"{module.__name__.rsplit('.', 1)[-1]}.{n}" for n in names]
+
+
+@contextlib.contextmanager
+def labelled(torch, stages):
+    """Each of ``stages``' functions (module, names) wrapped in a
+    ``record_function`` of its label (``stage_labels``) while the block
+    runs; the module looks them up at call time."""
+    saved = []
+    if stages:
+        module, names = stages
+        for name, label in zip(names, stage_labels(stages)):
+            original = getattr(module, name)
+
+            def wrapper(*args, _original=original, _label=label, **kwargs):
+                with torch.profiler.record_function(_label):
+                    return _original(*args, **kwargs)
+
+            saved.append((name, original))
+            setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        for name, original in saved:
+            setattr(stages[0], name, original)
+
+
+def stage_split(prof, labels) -> dict:
+    """Device ms and kernel launches under each label's ranges (their
+    kernels and their children's), and the matmul kernels' share."""
+    out = {label: {"ms": 0.0, "launches": 0, "matmul_ms": 0.0}
+           for label in labels}
+
+    def walk(ev, entry):
+        for kernel in ev.kernels:
+            entry["ms"] += kernel.duration / 1e3
+            entry["launches"] += 1
+            if MATMUL_TRACE_NAME.search(kernel.name):
+                entry["matmul_ms"] += kernel.duration / 1e3
+        for child in ev.cpu_children:
+            walk(child, entry)
+
+    for ev in prof.events():
+        if ev.name in out:
+            walk(ev, out[ev.name])
+    return out
 
 
 def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
               arch: str, dtype: str = "bfloat16", decode: bool = True,
-              cuda_core=None) -> dict:
+              layers: int | None = None, trace: bool = True,
+              trace_layers: int | None = None,
+              stages: tuple | None = None) -> dict:
     """The cell's prefill ms (batch LM_BATCH x LM_PROMPT, activations in
-    ``dtype``; host clock around work that ends in a synchronize, after one
-    warm call, which must launch the kernel ``kernel_for`` picks once per
-    layer and nothing else, the counters zeroed just before it) and a
-    traced prefill: the flash kernel's share of its device time. With ``decode``, decode ms per token and tok/s, and a traced
-    generate for the card's idle share. With ``cuda_core`` (a
-    ``cuda_core_attention``) also the prefill with it swapped in, in turns
-    with the kernel ``kernel_for`` picks (kernel, CUDA core, CUDA core,
-    kernel; best of 3 each), and that kernel's share of its own traced
-    prefill."""
+    ``dtype``, ``layers`` a cut of depth; host clock around work that ends
+    in a synchronize, best of LM_PREFILL_RUNS after one warm call, which
+    must launch the kernel ``kernel_for`` picks once per layer, or none for
+    a mixer without attention, and nothing else, the counters zeroed just
+    before it). With ``trace``, a traced prefill (of its first ``trace_layers`` layers
+    where given): the flash kernel's share of its device time, the
+    matmuls', and with ``stages`` (module, functions: ``labelled``) each
+    stage's. With ``decode``, decode ms per token and tok/s, and a traced
+    decode of LM_TRACED_STEPS steps for the card's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-    counter = flash_counter(kattn, getattr(torch, dtype), cfg.head_dim)
-    flash = FLASH_TRACE_NAMES[counter]
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              **({} if layers is None
+                                 else {"num_layers": layers}))
+    counter = attention_counter(torch, kattn, cfg)
+    flash = FLASH_TRACE_NAMES[counter] if counter else None
+    labels = stage_labels(stages)
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
     torch.cuda.empty_cache()
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -2716,7 +3097,7 @@ def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
 
     def prefills() -> list[float]:
         runs = []
-        for _ in range(3):
+        for _ in range(LM_PREFILL_RUNS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = model.prefill(tokens, cache_capacity=cap)
@@ -2724,47 +3105,39 @@ def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
             runs.append((time.perf_counter() - t0) * 1e3)
         return runs, out
 
-    def swapped(attention, fn):
-        kernel = kattn.attention
-        kattn.attention = attention
-        try:
-            return fn()
-        finally:
-            kattn.attention = kernel
-
-    def device_time(prof, kernel_name):
-        """(device ms, flash kernel ms, flash launches traced)"""
-        total = flash_ms = 0.0
+    def device_time(prof):
+        """(device ms, flash kernel ms, flash launches traced, matmul ms)
+        over the kernels; a ``record_function`` range also shows as a
+        device-side span of its label, which is not a kernel."""
+        total = flash_ms = matmul_ms = 0.0
         seen = 0
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                total += e.self_device_time_total / 1e3
-                if kernel_name.search(e.key):
-                    flash_ms += e.self_device_time_total / 1e3
+            if e.device_type == DeviceType.CUDA and e.key not in labels:
+                ms = e.self_device_time_total / 1e3
+                total += ms
+                if flash is not None and flash.search(e.key):
+                    flash_ms += ms
                     seen += e.count
-        return total, flash_ms, seen
-
-    def traced_prefill(kernel_name):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.prefill(tokens, cache_capacity=cap)
-            torch.cuda.synchronize()
-        return device_time(prof, kernel_name)
+                elif MATMUL_TRACE_NAME.search(e.key):
+                    matmul_ms += ms
+        return total, flash_ms, seen, matmul_ms
 
     torch.cuda.synchronize()
     build.reset_launches()
     model.prefill(tokens, cache_capacity=cap)
     torch.cuda.synchronize()
     launches = {k: n for k, n in build.LAUNCHES.items() if n}
-    if launches != {counter: cfg.num_layers}:
+    want = {counter: cfg.num_layers} if counter else {}
+    if launches != want:
         raise SystemExit(f"{arch} {dtype} prefill (B={LM_BATCH}, "
                          f"S={LM_PROMPT}): launches {launches}, expected "
-                         f"{counter} {cfg.num_layers} times and nothing else")
+                         f"{want or 'none'} and nothing else")
     prefill_ms, (logits, state) = prefills()
     pre = min(prefill_ms)
-    out = {"arch": arch, "dtype": dtype, "launches": launches,
-           "prefill_ms": pre, "prefill_ms_runs": prefill_ms}
-    text = ""
+    out = {"arch": arch, "dtype": dtype, "layers": cfg.num_layers,
+           "launches": launches, "prefill_ms": pre,
+           "prefill_ms_runs": prefill_ms}
+    text = traced = ""
     if decode:
         tok = logits.argmax(dim=-1)
         model.decode_step(state, tok, LM_PROMPT)      # warm
@@ -2775,61 +3148,82 @@ def lm_timing(torch, build, convert, lm, kattn, get_config, card: str,
             tok = logits.argmax(dim=-1)
         torch.cuda.synchronize()
         out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / LM_GEN
-    del state, logits
-
-    pre_dev, pre_flash, flash_seen = traced_prefill(flash)
-    out.update(prefill_device_ms=pre_dev, prefill_flash_ms=pre_flash,
-               prefill_flash_launches_traced=flash_seen,
-               flash_share_of_prefill=pre_flash / pre_dev if pre_dev else None)
+        out["tokens_per_s"] = LM_BATCH * LM_GEN / (
+            (pre + LM_GEN * out["decode_ms_per_token"]) / 1e3)
+        text = (f"decode {out['decode_ms_per_token']:.3f} ms/token, "
+                f"{out['tokens_per_s']:.1f} tok/s incl. prefill")
     if decode:
+        # the card's idle share while decoding: the first positions again,
+        # their slots of the state written anew
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            lm.generate(model, tokens, LM_GEN)
+            for i in range(LM_TRACED_STEPS):
+                logits, state = model.decode_step(state, tok,
+                                                   LM_PROMPT + i)
+                tok = logits.argmax(dim=-1)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms, _, _ = device_time(prof, flash)
+        busy_ms = device_time(prof)[0]
+        del prof
         out.update(idle_share=1 - busy_ms / wall_ms,
-                   traced_generate_wall_ms=wall_ms, traced_busy_ms=busy_ms)
-    extra = ""
-    if cuda_core is not None:
-        core_runs = (swapped(cuda_core, prefills)[0]
-                     + swapped(cuda_core, prefills)[0])
-        again = prefills()[0]
-        out["prefill_ms_runs"] = prefill_ms + again
-        out["prefill_ms"] = pre = min(pre, min(again))
-        c_dev, c_flash, c_seen = swapped(
-            cuda_core,
-            lambda: traced_prefill(FLASH_TRACE_NAMES["flash_attention"]))
-        out["cuda_core"] = {
-            "prefill_ms": min(core_runs), "prefill_ms_runs": core_runs,
-            "prefill_device_ms": c_dev, "prefill_flash_ms": c_flash,
-            "prefill_flash_launches_traced": c_seen,
-            "flash_share_of_prefill": c_flash / c_dev if c_dev else None}
-        extra = (f"; with the CUDA-core kernel swapped in (turns kernel, "
-                 f"CUDA core, CUDA core, kernel): prefill "
-                 f"{min(core_runs):.2f} ms (runs "
-                 f"{', '.join(f'{t:.2f}' for t in core_runs)}), traced "
-                 f"device {c_dev:.2f} ms, flash kernel {c_flash:.2f} ms in "
-                 f"{c_seen} of {cfg.num_layers} launches traced "
-                 f"({out['cuda_core']['flash_share_of_prefill'] or 0:.3f})")
-    if decode:
-        out["tokens_per_s"] = LM_BATCH * LM_GEN / (
-            (pre + LM_GEN * out["decode_ms_per_token"]) / 1e3)
-        text = (f"decode {out['decode_ms_per_token']:.3f} ms/token, "
-                f"{out['tokens_per_s']:.1f} tok/s incl. prefill; ")
-    print(f"[time] lm {arch} batch={LM_BATCH} prompt={LM_PROMPT} "
+                   traced_decode_steps=LM_TRACED_STEPS,
+                   traced_decode_wall_ms=wall_ms, traced_busy_ms=busy_ms)
+        traced = (f"; traced decode ({LM_TRACED_STEPS} steps): device busy "
+                  f"{busy_ms:.2f} of {wall_ms:.2f} ms wall -> idle share "
+                  f"{out['idle_share']:.4f}")
+    del state, logits
+    if trace:
+        blocks = model.blocks
+        if trace_layers is not None:
+            model.blocks = blocks[:trace_layers]
+        try:
+            with labelled(torch, stages):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    model.prefill(tokens, cache_capacity=cap)
+                    torch.cuda.synchronize()
+        finally:
+            model.blocks = blocks
+        pre_dev, pre_flash, flash_seen, pre_mm = device_time(prof)
+        n_traced = trace_layers or cfg.num_layers
+        out.update(prefill_device_ms=pre_dev, prefill_flash_ms=pre_flash,
+                   prefill_flash_launches_traced=flash_seen,
+                   prefill_matmul_ms=pre_mm, traced_layers=n_traced,
+                   flash_share_of_prefill=pre_flash / pre_dev if pre_dev
+                   else None)
+        split = ""
+        if labels:
+            out["prefill_stages"] = parts = stage_split(prof, labels)
+            outside = pre_mm - sum(p["matmul_ms"] for p in parts.values())
+            out["prefill_matmul_outside_stages_ms"] = outside
+            out["prefill_rest_ms"] = rest = (
+                pre_dev - pre_flash - outside
+                - sum(p["ms"] for p in parts.values()))
+            split = ("; by stage: " + ", ".join(
+                f"{label} {p['ms']:.2f} ms in {p['launches']} launches "
+                f"(matmuls {p['matmul_ms']:.2f})"
+                for label, p in parts.items())
+                + f", matmuls outside them {outside:.2f} ms, the rest "
+                f"{rest:.2f} ms")
+        del prof
+        flash_text = (f"{flash.pattern} {pre_flash:.2f} ms in {flash_seen} "
+                      f"of {n_traced} launches traced "
+                      f"({out['flash_share_of_prefill'] or 0:.3f}), "
+                      if flash else "no flash kernel, ")
+        of = ("" if trace_layers is None
+              else f" of its first {trace_layers} layers")
+        traced = (f"traced prefill{of}: device {pre_dev:.2f} ms, "
+                  f"{flash_text}matmuls {pre_mm:.2f} ms{split}" + traced)
+    depth = "" if layers is None else f" ({layers} layers: a cut of depth)"
+    print(f"[time] lm {arch}{depth} batch={LM_BATCH} prompt={LM_PROMPT} "
           f"gen={LM_GEN if decode else 0} {dtype}: one prefill launched "
-          f"{launches}; prefill {pre:.2f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])}), {text}"
-          f"traced prefill: device {pre_dev:.2f} ms, {flash.pattern} "
-          f"{pre_flash:.2f} ms in {flash_seen} of {cfg.num_layers} "
-          f"launches traced ({out['flash_share_of_prefill'] or 0:.3f})"
-          + (f"; traced generate: device busy {out['traced_busy_ms']:.2f} of "
-             f"{out['traced_generate_wall_ms']:.2f} ms wall -> idle share "
-             f"{out['idle_share']:.4f}" if decode else "")
-          + f"{extra}; on {card}", flush=True)
+          f"{launches or 'no kernel of the port'}; prefill {pre:.2f} ms "
+          f"(runs {', '.join(f'{t:.2f}' for t in out['prefill_ms_runs'])})"
+          + "".join(f"; {part}" for part in (text, traced.lstrip("; "))
+                    if part)
+          + f"; on {card}", flush=True)
     del model
     torch.cuda.empty_cache()
     return out
@@ -4337,7 +4731,33 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def main() -> int:
+#: the phases, in order; phase 1 (the build) always runs
+PHASES = (1, 2, 3, 4, 5, 6, 7)
+
+
+def parse_phases(argv=None) -> set[int]:
+    """``--phases 1,3``: the phases to run, for a card call that needs only
+    some (phase 1 always runs; phase 5 reads phase 4's times, so it brings
+    phase 4). With no argument every phase runs, and only such a full run
+    prints the result lines."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all)")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    try:
+        phases = {int(p) for p in args.phases.split(",")}
+    except ValueError:
+        ap.error(f"--phases {args.phases!r}: comma-separated integers")
+    if not phases <= set(PHASES):
+        ap.error(f"--phases {args.phases!r}: phases are {list(PHASES)}")
+    return phases | {1} | ({4} if 5 in phases else set())
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4355,6 +4775,8 @@ def main() -> int:
     from repro_torch.launch import ops as op_registry
     from repro_torch.launch import serve
     from repro_torch.models import convert, lm
+    from repro_torch.models.layers import moe as moe_mod
+    from repro_torch.models.layers import recurrent as rec_mod
     from repro_torch.models.layers.common import MIXING_RADIX
 
     start = time.perf_counter()
@@ -4383,124 +4805,141 @@ def main() -> int:
 
     clock("phase 1, build")
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
-    _build.reset_launches()
-    worst = check_kernels(torch, kfft, kpoly, core_fft)
-    worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
-    worst.update(check_attention(torch, kattn, _build))
-    two_pass_held = check_two_pass(torch, kfft, kpoly)
-    two_pass_held.update(check_ntt_two_pass(torch, kntt, ntt_core, kfft))
-    clock("phase 2, kernels and schedules")
-    worst.update(check_fourier_ops(torch, _build, kfft, kops, MIXING_RADIX))
-    clock("phase 2, FFT compositions")
-    moved = dict(_build.LAUNCHES)
-    if not all(moved.values()):
-        raise SystemExit(f"a kernel never launched in the sweep: {moved}")
-    print(f"[kernels] all eleven held against their plain versions (the "
-          f"transform kernels against numpy too; fft, rfft, irfft, both "
-          f"products and the three NTT kernels bit for bit under every "
-          f"schedule in {two_pass_held} cases); launches {moved}; worst "
-          f"|kernel-plain| {worst}", flush=True)
+    if 2 in phases:
+        _build.reset_launches()
+        worst = check_kernels(torch, kfft, kpoly, core_fft)
+        worst.update(check_ntt_kernels(torch, kntt, ntt_core, core_fft))
+        worst.update(check_attention(torch, kattn, _build))
+        two_pass_held = check_two_pass(torch, kfft, kpoly)
+        two_pass_held.update(check_ntt_two_pass(torch, kntt, ntt_core, kfft))
+        clock("phase 2, kernels and schedules")
+        worst.update(check_fourier_ops(torch, _build, kfft, kops,
+                                       MIXING_RADIX))
+        clock("phase 2, FFT compositions")
+        moved = dict(_build.LAUNCHES)
+        if not all(moved.values()):
+            raise SystemExit(f"a kernel never launched in the sweep: {moved}")
+        print(f"[kernels] all eleven held against their plain versions (the "
+              f"transform kernels against numpy too; fft, rfft, irfft, both "
+              f"products and the three NTT kernels bit for bit under every "
+              f"schedule in {two_pass_held} cases); launches {moved}; worst "
+              f"|kernel-plain| {worst}", flush=True)
 
-    clock("phase 2, kernels vs plain")
+        clock("phase 2, kernels vs plain")
     # -- phase 3: serve, launch counters zeroed just before --------------------
-    _build.reset_launches()
-    expected, warm, warm_schedules = serve_phase(serve, engine_mod, _build)
-    launches = dict(_build.LAUNCHES)
-    for name, (route, _, _) in TRANSFORM_KERNELS.items():
-        served = launches[name] - warm[name]
-        want = expected.get(route, 0)
-        if route is not None and (served == 0 or served != want):
-            raise SystemExit(f"{name}: {served} launches while serving, "
-                             f"expected {want} (one per dispatched batch "
-                             f"of route {route})")
-    print(f"[serve] launch counters {launches}: warmups {warm}, the rest "
-          f"== dispatched batches per route {expected}", flush=True)
-    # the RNS route's calls while serving, by schedule: each dispatched
-    # batch under the planned one (its kernel launches: the plan's)
-    served = collections.Counter(_build.SCHEDULES) - warm_schedules
-    rns_route = TRANSFORM_KERNELS["rns_ntt_polymul"][0]
-    planned = kntt.rns_schedule(RNS_N)
-    took = {sched: c for (name, sched), c in served.items()
-            if name == "rns_ntt_polymul"}
-    if took != {kntt.schedule_name(planned): expected[rns_route]}:
-        raise SystemExit(f"rns_ntt_polymul: calls by schedule while "
-                         f"serving {took}, expected "
-                         f"{expected[rns_route]} under the planned "
-                         f"{kntt.schedule_name(planned)}")
-    print(f"[serve] calls by schedule while serving {dict(served)}: the RNS "
-          f"route's {expected[rns_route]} batches all under its planned "
-          f"{kntt.schedule_name(planned)} schedule "
-          f"({1 if planned is None else planned.launches} kernel "
-          f"launch(es) each)", flush=True)
-    # the library path, counters zeroed just before
-    _build.reset_launches()
-    library_phase(torch, core_fft, kntt, ntt_core)
-    for name, (route, _, _) in TRANSFORM_KERNELS.items():
-        if route is None:
-            if _build.LAUNCHES[name] == 0:
-                raise SystemExit(f"{name}: never launched on the library "
-                                 f"path")
-            launches[name] = _build.LAUNCHES[name]
-    print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
-    clock("phase 3, serve and library path")
-    traced = idle_shares(torch, serve, card)
-    clock("phase 3, traced serve cells")
-    # the LMs: each served run zeroes the counters just before
-    lm_run = lm_phase(torch, _build, serve, convert, lm, get_config)
-    clock("phase 3, qwen3-1.7b")
-    gemma_run = gemma_phase(torch, _build, serve, convert, kattn, get_config)
-    clock("phase 3, gemma3-4b")
-    reduced_run = reduced_phase(torch, _build, convert, kattn, get_config)
-    clock("phase 3, reduced config")
-    fourier_run = fourier_phase(torch, _build, serve, convert, kfft, kops,
-                                get_config, MIXING_RADIX)
-    clock("phase 3, fourierpim-lm")
-
+    if 3 in phases:
+        _build.reset_launches()
+        expected, warm, warm_schedules = serve_phase(serve, engine_mod, _build)
+        launches = dict(_build.LAUNCHES)
+        for name, (route, _, _) in TRANSFORM_KERNELS.items():
+            served = launches[name] - warm[name]
+            want = expected.get(route, 0)
+            if route is not None and (served == 0 or served != want):
+                raise SystemExit(f"{name}: {served} launches while serving, "
+                                 f"expected {want} (one per dispatched batch "
+                                 f"of route {route})")
+        print(f"[serve] launch counters {launches}: warmups {warm}, the rest "
+              f"== dispatched batches per route {expected}", flush=True)
+        # the RNS route's calls while serving, by schedule: each dispatched
+        # batch under the planned one (its kernel launches: the plan's)
+        served = collections.Counter(_build.SCHEDULES) - warm_schedules
+        rns_route = TRANSFORM_KERNELS["rns_ntt_polymul"][0]
+        planned = kntt.rns_schedule(RNS_N)
+        took = {sched: c for (name, sched), c in served.items()
+                if name == "rns_ntt_polymul"}
+        if took != {kntt.schedule_name(planned): expected[rns_route]}:
+            raise SystemExit(f"rns_ntt_polymul: calls by schedule while "
+                             f"serving {took}, expected "
+                             f"{expected[rns_route]} under the planned "
+                             f"{kntt.schedule_name(planned)}")
+        print(f"[serve] calls by schedule while serving {dict(served)}: "
+              f"the RNS route's {expected[rns_route]} batches all under its "
+              f"planned {kntt.schedule_name(planned)} schedule "
+              f"({1 if planned is None else planned.launches} kernel "
+              f"launch(es) each)", flush=True)
+        # the library path, counters zeroed just before
+        _build.reset_launches()
+        library_phase(torch, core_fft, kntt, ntt_core)
+        for name, (route, _, _) in TRANSFORM_KERNELS.items():
+            if route is None:
+                if _build.LAUNCHES[name] == 0:
+                    raise SystemExit(f"{name}: never launched on the library "
+                                     f"path")
+                launches[name] = _build.LAUNCHES[name]
+        print(f"[library] launch counters {dict(_build.LAUNCHES)}", flush=True)
+        clock("phase 3, serve and library path")
+        traced = idle_shares(torch, serve, card)
+        clock("phase 3, traced serve cells")
+        # the LMs: each served run zeroes the counters just before
+        lm_run = lm_phase(torch, _build, serve, convert, lm, get_config)
+        clock("phase 3, qwen3-1.7b")
+        gemma_run = gemma_phase(torch, _build, serve, convert, kattn,
+                                get_config)
+        clock("phase 3, gemma3-4b")
+        reduced_run = reduced_phase(torch, _build, convert, kattn, get_config)
+        clock("phase 3, reduced config")
+        fourier_run = fourier_phase(torch, _build, serve, convert, kfft, kops,
+                                    get_config, MIXING_RADIX)
+        clock("phase 3, fourierpim-lm")
+        mixer_run = mixer_phase(torch, _build, serve, convert, kattn, moe_mod,
+                                get_config)
+        clock("phase 3, the MoE and recurrent archs")
     # -- phase 4: timings ----------------------------------------------------
-    times = timings(torch, kfft, kpoly, core_fft, _build, card)
-    clock("phase 4, transform timings")
-    ab = schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card)
-    clock("phase 4, schedule A/B")
-    times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build, card))
-    clock("phase 4, NTT timings")
-    attn = {label: attention_timing(torch, kattn, _build, card, label)
-            for label in ATTN_TIMED}
-    clock("phase 4, flash attention timings")
-    lm_times = lm_timing(torch, _build, convert, lm, kattn, get_config, card,
-                         LM_ARCH)
-    gemma_times = lm_timing(torch, _build, convert, lm, kattn, get_config,
-                            card, GEMMA_ARCH,
-                            cuda_core=cuda_core_attention(torch, _build))
-    fp32_times = lm_timing(torch, _build, convert, lm, kattn, get_config,
-                           card, LM_ARCH, dtype="float32", decode=False,
-                           cuda_core=cuda_core_attention(torch, _build))
-    clock("phase 4, qwen3-1.7b and gemma3-4b bf16, qwen3-1.7b fp32")
-    gemma_fp32_times = lm_timing(
-        torch, _build, convert, lm, kattn, get_config, card, GEMMA_ARCH,
-        dtype="float32", decode=False,
-        cuda_core=cuda_core_attention(torch, _build))
-    clock("phase 4, gemma3-4b fp32")
-    fourier_times = fourier_timing(torch, _build, convert, lm, kfft, kops,
-                                   get_config, card, MIXING_RADIX)
-    clock("phase 4, fourierpim-lm")
-
+    if 4 in phases:
+        times = timings(torch, kfft, kpoly, core_fft, _build, card)
+        clock("phase 4, transform timings")
+        ab = schedule_ab(torch, kfft, kpoly, kntt, ntt_core, card)
+        clock("phase 4, schedule A/B")
+        times.update(ntt_timings(torch, kntt, ntt_core, core_fft, _build,
+                                 card))
+        clock("phase 4, NTT timings")
+        attn = {label: attention_timing(torch, kattn, _build, card, label)
+                for label in ATTN_TIMED}
+        clock("phase 4, flash attention timings")
+        timed = functools.partial(lm_timing, torch, _build, convert, lm,
+                                  kattn, get_config, card)
+        lm_times = timed(LM_ARCH)
+        gemma_times = timed(GEMMA_ARCH)
+        fp32_times = timed(LM_ARCH, dtype="float32", decode=False)
+        clock("phase 4, qwen3-1.7b and gemma3-4b bf16, qwen3-1.7b fp32")
+        gemma_fp32_times = timed(GEMMA_ARCH, dtype="float32", decode=False)
+        clock("phase 4, gemma3-4b fp32")
+        fourier_times = fourier_timing(torch, _build, convert, lm, kfft, kops,
+                                       get_config, card, MIXING_RADIX)
+        clock("phase 4, fourierpim-lm")
+        mixer_times = {
+            "granite-moe-3b-a800m": timed("granite-moe-3b-a800m",
+                                          stages=(moe_mod, MOE_STAGES)),
+            "hymba-1.5b": timed("hymba-1.5b", trace=False),
+            "rwkv6-7b": timed("rwkv6-7b", trace_layers=SCAN_TRACE_LAYERS,
+                              stages=(rec_mod, SCAN_STAGES)),
+            MIXTRAL_ARCH: timed(MIXTRAL_ARCH, layers=MIXTRAL_LAYERS,
+                                trace=False)}
+        clock("phase 4, the MoE and recurrent archs")
     # -- phase 5: the cost model on the card -------------------------------
-    cost_model = {"paper_gpu_model": paper_gpu_model(times, fourier_times,
-                                                     card),
-                  "auto_vs_card": auto_vs_card(torch, op_registry, core_fft,
-                                               times, card),
-                  "auto_engine": auto_engine(torch, _build, serve, card)}
-    print(f"[cost model json] {json.dumps(cost_model)}", flush=True)
-    clock("phase 5, cost model on the card")
+    if 5 in phases:
+        cost_model = {"paper_gpu_model": paper_gpu_model(times, fourier_times,
+                                                         card),
+                      "auto_vs_card": auto_vs_card(torch, op_registry,
+                                                   core_fft, times, card),
+                      "auto_engine": auto_engine(torch, _build, serve, card)}
+        print(f"[cost model json] {json.dumps(cost_model)}", flush=True)
+        clock("phase 5, cost model on the card")
     # -- phase 6: fault tolerance on the card --------------------------------
-    ft = ft_phase(torch, _build, engine_mod, serve, card)
-    print(f"[ft json] {json.dumps(ft)}", flush=True)
-    clock("phase 6, fault tolerance")
+    if 6 in phases:
+        ft = ft_phase(torch, _build, engine_mod, serve, card)
+        print(f"[ft json] {json.dumps(ft)}", flush=True)
+        clock("phase 6, fault tolerance")
     # -- phase 7: the multi-device tier --------------------------------------
-    t7 = time.perf_counter()
-    dist = dist_phase(torch, _build, serve, engine_mod, op_registry, card)
-    print(f"[dist json] {json.dumps(dist)}", flush=True)
-    clock(f"phase 7, multi-device tier ({time.perf_counter() - t7:.1f}s)")
+    if 7 in phases:
+        t7 = time.perf_counter()
+        dist = dist_phase(torch, _build, serve, engine_mod, op_registry, card)
+        print(f"[dist json] {json.dumps(dist)}", flush=True)
+        clock(f"phase 7, multi-device tier ({time.perf_counter() - t7:.1f}s)")
+    if phases != set(PHASES):
+        print(f"[phases] ran {sorted(phases)} of {list(PHASES)}: a partial "
+              f"run prints no result lines", flush=True)
+        return 0
     dist_runs: dict = collections.defaultdict(dict)
     for key, entry in dist["served"]["cells"].items():
         dist_runs[DIST_COUNTER[entry["op"]]][key] = {
@@ -4550,10 +4989,20 @@ def main() -> int:
 
     entries = {
         "flash_attention_wgmma": (
-            "flash_attention_wgmma", lm_run["launches"]["flash_attention_wgmma"],
+            "flash_attention_wgmma",
+            lm_run["launches"]["flash_attention_wgmma"],
             "one served qwen3-1.7b prefill (28 layers)", ["served prefill"],
             {"build": built("bf16 hd 64,", "bf16 hd 128,"),
-             "lm": {**lm_run, **lm_times}}),
+             "lm": {**lm_run, **lm_times},
+             # the MoE and hybrid archs' served prefills (mixtral cut to
+             # MIXTRAL_LAYERS layers), one launch a layer
+             "moe_and_hybrid": {
+                 arch: {"launches_per_served_prefill":
+                        run["served"]["launches"]["flash_attention_wgmma"],
+                        "layers": run["served"]["layers"],
+                        "lm": mixer_times[arch]}
+                 for arch, run in mixer_run.items()
+                 if arch != "rwkv6-7b"}}),
         "flash_attention_wgmma[hd320]": (
             "flash_attention_wgmma", gemma_run["launches"],
             "one served gemma3-4b prefill (34 layers: 29 local, window "
@@ -4572,7 +5021,15 @@ def main() -> int:
             "the full-width fp32 parity path: one forward and one prefill "
             "(28 layers each)", ["fp32"],
             {"build": built("tf32 hd 64,", "tf32 hd 128,"),
-             "lm_fp32_prefill": fp32_times}),
+             "lm_fp32_prefill": fp32_times,
+             # the MoE and hybrid archs' fp32 checks: parity (a forward
+             # and a prefill) and the 2 layers held against the CPU
+             "moe_and_hybrid": {
+                 arch: {"parity": run["parity"],
+                        **({"card_vs_cpu": run["card_vs_cpu"]}
+                           if "card_vs_cpu" in run else {})}
+                 for arch, run in mixer_run.items()
+                 if arch != "rwkv6-7b"}}),
         "flash_attention_tf32[hd320]": (
             "flash_attention_tf32",
             gemma_fp32_times["launches"]["flash_attention_tf32"],

@@ -19,12 +19,16 @@
                    straggler watchdog's loop at the CLI.
 
 --service lm     : LM serving: random weights from a seed (``--arch``, full
-                   width, or ``--smoke`` for the reduced config), a
+                   width, or ``--smoke`` for the reduced config; every
+                   arch of the registry; ``--layers`` cuts the depth), a
                    (batch, prompt-len) prompt, one prefill whose attention
                    runs the flash-attention kernel in every layer (for
                    fourierpim-lm: whose token mixing runs the FFT kernel
-                   three times in every layer), then ``--gen`` greedy
-                   decode steps (``models/lm.py``).
+                   three times in every layer; rwkv6-7b has no attention
+                   and runs no kernel of the port), then ``--gen`` greedy
+                   decode steps (``models/lm.py``). An arch whose weights
+                   do not fit the card (mixtral-8x22b: 1.4e11 parameters)
+                   raises unless cut.
 
 All run on the card unless ``--device cpu`` is given; without a card they
 raise rather than fall back to the CPU. ``--auto`` (fft and engine
@@ -53,10 +57,13 @@ Example:
       --arch qwen3-1.7b --batch 8 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
       --arch fourierpim-lm --batch 8 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --service lm \
+      --arch mixtral-8x22b --layers 2 --batch 8 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import threading
 import time
@@ -400,9 +407,22 @@ def run_lm_service(args) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.scaled_down()
-    weights = convert.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0))
-    model = convert.build(cfg, weights, device)
+    cut = ""
+    if args.layers is not None:
+        if not 0 < args.layers <= cfg.num_layers:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.num_layers} layers")
+        cut = f" layers={args.layers} of {cfg.num_layers} (cut)"
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    try:
+        weights = convert.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0))
+        model = convert.build(cfg, weights, device)
+    except torch.cuda.OutOfMemoryError as exc:
+        raise torch.cuda.OutOfMemoryError(
+            f"{cfg.name}: {cfg.param_count():.3g} parameters do not fit "
+            f"{device} in {cfg.param_dtype}: serve it --smoke or cut its "
+            f"depth (--layers)") from exc
     del weights
     B, S = args.batch, args.prompt_len
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=device,
@@ -414,7 +434,8 @@ def run_lm_service(args) -> dict:
     dt = time.perf_counter() - t0
     toks = B * args.gen
     print(f"[serve:lm] arch={cfg.name} batch={B} prompt={S} gen={args.gen} "
-          f"device={device.type} -> {toks / dt:.1f} tok/s (incl. prefill)")
+          f"device={device.type}{cut} -> {toks / dt:.1f} tok/s (incl. "
+          f"prefill)")
     return {"tokens_per_s": toks / dt, "generated": out}
 
 
@@ -506,6 +527,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="lm service: architecture (configs/registry.py)")
     ap.add_argument("--smoke", action="store_true",
                     help="lm service: the arch's reduced config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="lm service: serve only the first N layers (a cut "
+                         "of depth, printed as such)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     return ap

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import recurrent as rec_lib
 from repro_torch.models.layers.attention import init_attention_params
+from repro_torch.models.layers.moe import init_moe_params
 from repro_torch.models.lm import DecoderLM, check_supported, dtype_of
 
 
@@ -74,7 +76,9 @@ def params_from_jax(cfg: ModelConfig,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict[str, torch.Tensor]:
     """Random weights of the reference's distributions (``init_params`` and
-    ``init_block_params``, lm.py), in ``cfg.param_dtype``, drawn from
+    ``init_block_params``, lm.py, and the layers' ``init_*_params``), each
+    leaf in the type the reference creates it in (``cfg.param_dtype``, or
+    fp32 for the MoE router and the recurrences' fp32 leaves), drawn from
     ``generator`` on ``device`` (the generator's device by default)."""
     check_supported(cfg)
     device = generator.device if device is None else device
@@ -88,21 +92,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(shape):
         return torch.zeros(shape, dtype=pdt, device=device)
 
+    def leaves(prefix: str, params: dict) -> dict[str, torch.Tensor]:
+        return {f"{prefix}.{k}": v for k, v in params.items()}
+
     sd = {"embed": normal((cfg.vocab_padded, d), 0.02),
           "lm_head": normal((d, cfg.vocab_padded), d ** -0.5),
           "final_norm": zeros((d,))}
     for i in range(cfg.num_layers):
-        block = {"ln1": zeros((d,)), "ln2": zeros((d,)),
-                 "mlp.w_gate": normal((d, f), d ** -0.5),
-                 "mlp.w_up": normal((d, f), d ** -0.5),
-                 "mlp.w_down": normal((f, d), f ** -0.5)}
+        block = {"ln1": zeros((d,)), "ln2": zeros((d,))}
+        if cfg.mixer in ("attn", "hymba"):
+            block.update(leaves("attn", init_attention_params(
+                cfg, generator, pdt, device)))
+        if cfg.mixer == "hymba":
+            block.update(leaves("ssm", rec_lib.init_ssm_params(
+                cfg, generator, pdt, device)))
+            block.update({"ln_attn_out": zeros((d,)),
+                          "ln_ssm_out": zeros((d,))})
+        if cfg.mixer == "rwkv6":
+            block.update(leaves("rwkv_t", rec_lib.init_rwkv_params(
+                cfg, generator, pdt, device)))
+            block.update(leaves("rwkv_c", rec_lib.init_rwkv_channel_params(
+                cfg, generator, pdt, device)))
         if cfg.mixer == "fourier":
             block.update({"fourier.taps": normal((cfg.fourier_taps, d), 0.02),
                           "fourier.gate": normal((d, d), d ** -0.5)})
-        else:
-            block.update({f"attn.{k}": v for k, v in init_attention_params(
-                cfg, generator, pdt, device).items()})
-        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+        if cfg.mixer != "rwkv6":
+            if cfg.is_moe:
+                block.update(leaves("moe", init_moe_params(
+                    cfg, generator, pdt, device)))
+            else:
+                block.update({"mlp.w_gate": normal((d, f), d ** -0.5),
+                              "mlp.w_up": normal((d, f), d ** -0.5),
+                              "mlp.w_down": normal((f, d), f ** -0.5)})
+        sd.update(leaves(f"blocks.{i}", block))
     return sd
 
 

@@ -1,13 +1,14 @@
-"""Config-driven decoder LM: the dense attention family and FourierPIM
-token mixing (port of ``repro.models.lm``).
+"""Config-driven decoder LM covering the whole architecture zoo (port of
+``repro.models.lm``).
 
-``DecoderLM`` serves the architectures whose FFN is the dense SwiGLU and
-whose mixer is GQA attention (full, sliding-window or gemma3's
-local:global), with token or precomputed-embedding input and RoPE or
-M-RoPE positions: qwen3, gemma3, starcoder2, llama3, musicgen and qwen2-vl;
-or FourierPIM's FFT convolution (``fourier_mixing``): fourierpim-lm. The
-other mixers and FFNs raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+One implementation serves all eleven architectures of the registry:
+  * mixer: GQA attention (full, sliding-window or gemma3's local:global),
+    RWKV6, Hymba's parallel attention + SSM heads, or FourierPIM's FFT
+    convolution (``fourier_mixing``);
+  * FFN: the dense SwiGLU or the grouped top-k MoE (``layers/moe.py``);
+    RWKV6 has its channel mix in the FFN's place;
+  * embeddings: token table or precomputed frontend embeddings;
+  * positions: RoPE or M-RoPE.
 
 Entry points, as in the reference:
   forward       (B, S) tokens -> (B, S, vocab_padded) logits
@@ -15,7 +16,8 @@ Entry points, as in the reference:
   decode_step   one token with the caches (serve_step)
 and ``generate``, the serve CLI's greedy loop.
 
-Differences from the reference, none of which changes a value:
+Differences from the reference, none of which changes a value beyond the
+order of an fp32 sum, but the last, which changes served tokens:
   * The reference stacks every block's leaves on a leading layer axis and
     runs ``lax.scan``; here the blocks are an ``nn.ModuleList`` and a
     Python loop.
@@ -24,14 +26,25 @@ Differences from the reference, none of which changes a value:
   * The weight matrices are cast to the activation type once, at load; the
     reference casts its fp32 parameters at every use, to the same values.
     Norm scales stay in the parameter type, as the reference reads them.
-  * The decode caches are updated in place; the reference returns updated
-    copies.
+  * The decode state (KV caches, rings, the recurrences' states) is
+    updated in place; the reference returns updated copies.
   * ``prefill`` applies ``lm_head`` to the last position only; the
     reference computes all S positions' logits and returns the last.
+  * The MoE FFN scatters and gathers its kept slots where the reference
+    multiplies one-hot tensors, and the recurrences form their terms in
+    another order (``layers/moe.py``, ``layers/recurrent.py``): fp32 sums
+    in other orders. The MoE's aux load-balance loss is not surfaced (no
+    training yet).
   * The prefill attention runs the flash-attention kernel on the card
     (``repro_torch.kernels.attention``), once per layer; the Fourier
     mixer's prefill runs the FFT kernel (``kernels.fft.fft_planes``) three
-    times per layer.
+    times per layer. The recurrences and the MoE are PyTorch ops: the
+    reference's are ``lax.scan``s and einsums outside any Pallas kernel.
+
+  * ``generate`` takes its greedy argmax over the ``vocab_size`` logits;
+    the reference's serve loop takes it over all ``vocab_padded`` ones, and
+    so emits a padding id (which is no token) wherever a padding logit is
+    the largest. Where the reference's argmax is a token the two agree.
 
 On the card the entry points turn TF32 and reduced-precision bf16
 reductions off (``exact_matmuls``): the reference asks for its products in
@@ -47,6 +60,8 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import moe as moe_lib
+from repro_torch.models.layers import recurrent as rec_lib
 from repro_torch.models.layers.common import (fourier_mixing, rms_norm,
                                               swiglu_mlp)
 
@@ -58,19 +73,14 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+MIXERS = ("attn", "hymba", "rwkv6", "fourier")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for an architecture this slice of the port does not serve."""
-    if cfg.mixer in ("rwkv6", "hymba"):
-        item = "11c" if cfg.mixer == "rwkv6" else "11d"
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.mixer} mixer is not ported yet "
-            f"(ROADMAP queue 1, item {item})")
-    if cfg.mixer not in ("attn", "fourier"):
+    """Raise for a mixer the model does not know (the reference raises in
+    ``block_forward``)."""
+    if cfg.mixer not in MIXERS:
         raise ValueError(f"{cfg.name}: unknown mixer {cfg.mixer!r}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP queue 1, "
-            f"item 11b)")
 
 
 def exact_matmuls() -> None:
@@ -140,53 +150,164 @@ class MLP(nn.Module):
                         "w_down": (f, d)}, wdt, device)
 
 
+class MoE(nn.Module):
+    """The experts in the activation type; the router in fp32, as the
+    reference creates and reads it whatever the parameter type."""
+
+    def __init__(self, cfg: ModelConfig, wdt, device):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        _weights(self, {"router": (d, E)}, torch.float32, device)
+        _weights(self, {"w_gate": (E, d, f), "w_up": (E, d, f),
+                        "w_down": (E, f, d)}, wdt, device)
+
+
+class RWKVTime(nn.Module):
+    """RWKV6 time mixing: the token-shift mix and the projections in the
+    activation type; the decay bias ``w0`` and bonus ``u`` in fp32 and the
+    decay's low-rank pair ``ww1``, ``ww2`` in the parameter type, which the
+    reference reads in fp32."""
+
+    def __init__(self, cfg: ModelConfig, wdt, ndt, device):
+        super().__init__()
+        d, lora = cfg.d_model, rec_lib.RWKV_LORA
+        _weights(self, {"mu": (5, d), **dict.fromkeys(
+            ("wr", "wk", "wv", "wg", "wo"), (d, d))}, wdt, device)
+        _weights(self, {"w0": (d,), "u": (d // rec_lib.RWKV_HEAD_DIM,
+                                          rec_lib.RWKV_HEAD_DIM)},
+                 torch.float32, device)
+        _weights(self, {"ww1": (d, lora), "ww2": (lora, d)}, ndt, device)
+
+
+class RWKVChannel(nn.Module):
+    def __init__(self, cfg: ModelConfig, wdt, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        _weights(self, {"mu_c": (2, d), "wk": (d, f), "wv": (f, d),
+                        "wr": (d, d)}, wdt, device)
+
+
+class SSM(nn.Module):
+    """Hymba's SSM branch, all read in fp32 as the reference reads it: the
+    projections in the parameter type, ``a_log``, ``d_skip`` and
+    ``dt_bias`` in fp32."""
+
+    def __init__(self, cfg: ModelConfig, ndt, device):
+        super().__init__()
+        d, n = cfg.d_model, cfg.ssm_state
+        _weights(self, {"w_dt": (d, d), "w_b": (d, n), "w_c": (d, n)}, ndt,
+                 device)
+        _weights(self, {"a_log": (d, n), "d_skip": (d,), "dt_bias": (d,)},
+                 torch.float32, device)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, wdt, ndt, device):
         super().__init__()
-        _weights(self, {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,)}, ndt,
-                 device)
+        d = cfg.d_model
+        _weights(self, {"ln1": (d,), "ln2": (d,)}, ndt, device)
+        if cfg.mixer in ("attn", "hymba"):
+            self.attn = Attention(cfg, wdt, ndt, device)
+        if cfg.mixer == "hymba":
+            self.ssm = SSM(cfg, ndt, device)
+            _weights(self, {"ln_attn_out": (d,), "ln_ssm_out": (d,)}, ndt,
+                     device)
+        if cfg.mixer == "rwkv6":
+            self.rwkv_t = RWKVTime(cfg, wdt, ndt, device)
+            self.rwkv_c = RWKVChannel(cfg, wdt, device)
         if cfg.mixer == "fourier":
             self.fourier = Fourier(cfg, wdt, ndt, device)
-        else:
-            self.attn = Attention(cfg, wdt, ndt, device)
-        self.mlp = MLP(cfg, wdt, device)
+        if cfg.mixer != "rwkv6":
+            if cfg.is_moe:
+                self.moe = MoE(cfg, wdt, device)
+            else:
+                self.mlp = MLP(cfg, wdt, device)
 
     def forward(self, cfg: ModelConfig, x: torch.Tensor, *,
-                positions: torch.Tensor, window: int, cache=None
-                ) -> torch.Tensor:
-        """One block over the whole sequence. ``cache``: this layer's
-        decode state to fill (prefill): (cache_k, cache_v) to receive its
-        k, v, or the Fourier mixer's ring to receive its last inputs."""
+                positions: torch.Tensor, window: int,
+                state: Optional[dict] = None) -> torch.Tensor:
+        """One block over the whole sequence. ``state``: this layer's
+        decode state to fill (prefill; ``_layer_state``): the attention's
+        k, v, the Fourier mixer's ring of its last inputs, the recurrences'
+        final states and last inputs."""
         h = rms_norm(x, self.ln1)
         if cfg.mixer == "fourier":
             y = fourier_mixing(self.fourier, h)
-            if cache is not None:
-                _fill_cache((cache,), h)
-        elif cache is None:
-            y = attn_lib.attention_train(self.attn, h, cfg,
-                                         positions=positions, window=window)
+            if state is not None:
+                _fill_cache((state["ring"],), h)
+        elif cfg.mixer == "rwkv6":
+            y, new = rec_lib.rwkv_time_mix(self.rwkv_t, h)
+            if state is not None:
+                state["prev_x"].copy_(new["prev_x"])
+                state["S"].copy_(new["S"])
         else:
-            y, (k, v) = attn_lib.attention_train(
-                self.attn, h, cfg, positions=positions, window=window,
-                want_cache=True)
-            _fill_cache(cache, k, v)
+            if state is None:
+                y = attn_lib.attention_train(self.attn, h, cfg,
+                                             positions=positions,
+                                             window=window)
+            else:
+                y, (k, v) = attn_lib.attention_train(
+                    self.attn, h, cfg, positions=positions, window=window,
+                    want_cache=True)
+                _fill_cache((state["cache_k"], state["cache_v"]), k, v)
+            if cfg.mixer == "hymba":
+                y_ssm, h_fin = rec_lib.ssm_mix(self.ssm, h)
+                if state is not None:
+                    state["ssm_h"].copy_(h_fin)
+                y = self._hymba_out(y, y_ssm)
         x = x + y
-        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
-                              _reduce_dtype(cfg))
+        h2 = rms_norm(x, self.ln2)
+        if cfg.mixer == "rwkv6":
+            y2, last = rec_lib.rwkv_channel_mix(self.rwkv_c, h2,
+                                                torch.zeros_like(h2[:, 0]))
+            if state is not None:
+                state["prev_x_c"].copy_(last)
+            return x + y2
+        return x + self._ffn(cfg, h2)
 
-    def decode(self, cfg: ModelConfig, x: torch.Tensor, cache, *,
+    def decode(self, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
                pos: int, window: int, positions: Optional[torch.Tensor]
                ) -> torch.Tensor:
+        """One token (B, 1, d); ``state`` is this layer's decode state,
+        updated in place."""
         h = rms_norm(x, self.ln1)
         if cfg.mixer == "fourier":
-            y = _fourier_decode(self.fourier, h, cache, pos=pos).to(x.dtype)
+            y = _fourier_decode(self.fourier, h, state["ring"],
+                                pos=pos).to(x.dtype)
+        elif cfg.mixer == "rwkv6":
+            y, new = rec_lib.rwkv_time_mix(self.rwkv_t, h, state=state)
+            state["prev_x"].copy_(new["prev_x"])
+            state["S"].copy_(new["S"])
         else:
             y = attn_lib.attention_decode(
-                self.attn, h, cfg, cache_k=cache[0], cache_v=cache[1],
-                pos=pos, window=window, positions=positions)
+                self.attn, h, cfg, cache_k=state["cache_k"],
+                cache_v=state["cache_v"], pos=pos, window=window,
+                positions=positions)
+            if cfg.mixer == "hymba":
+                y_ssm, h_new = rec_lib.ssm_mix(self.ssm, h,
+                                               state=state["ssm_h"])
+                state["ssm_h"].copy_(h_new)
+                y = self._hymba_out(y, y_ssm)
         x = x + y
-        return x + swiglu_mlp(self.mlp, rms_norm(x, self.ln2),
-                              _reduce_dtype(cfg))
+        h2 = rms_norm(x, self.ln2)
+        if cfg.mixer == "rwkv6":
+            y2, last = rec_lib.rwkv_channel_mix(self.rwkv_c, h2,
+                                                state["prev_x_c"])
+            state["prev_x_c"].copy_(last)
+            return x + y2
+        return x + self._ffn(cfg, h2)
+
+    def _hymba_out(self, y_attn: torch.Tensor,
+                   y_ssm: torch.Tensor) -> torch.Tensor:
+        """Hymba's parallel heads: the mean of the two branches, each
+        normed."""
+        return 0.5 * (rms_norm(y_attn, self.ln_attn_out)
+                      + rms_norm(y_ssm, self.ln_ssm_out))
+
+    def _ffn(self, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+        if cfg.is_moe:
+            return moe_lib.moe_ffn(self.moe, h, cfg, _reduce_dtype(cfg))[0]
+        return swiglu_mlp(self.mlp, h, _reduce_dtype(cfg))
 
 
 def _reduce_dtype(cfg: ModelConfig) -> torch.dtype | None:
@@ -226,19 +347,18 @@ def _fourier_decode(params, h: torch.Tensor, ring: torch.Tensor, *,
     return y * torch.sigmoid((h @ params.gate).float())
 
 
-def _layer_state(state: dict, i: int):
-    """Layer i's part of the decode state: its ring, or (cache_k,
-    cache_v)."""
-    if "ring" in state:
-        return state["ring"][i]
-    return state["cache_k"][i], state["cache_v"][i]
+def _layer_state(state: dict, i: int) -> dict:
+    """Layer i's part of the decode state: a view of each entry."""
+    return {name: value[i] for name, value in state.items()}
 
 
 class DecoderLM(nn.Module):
     """The decoder LM for one config. Parameters are created empty on
     ``device`` (``load_state_dict`` fills them; see ``models/convert.py``):
     matrices and the embedding in the activation type ``cfg.dtype``, norm
-    scales in ``cfg.param_dtype``."""
+    scales and the leaves the reference reads in fp32 in
+    ``cfg.param_dtype`` or fp32, as it creates them (see ``MoE``,
+    ``RWKVTime``, ``SSM``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -282,9 +402,9 @@ class DecoderLM(nn.Module):
                state: Optional[dict] = None) -> torch.Tensor:
         windows = _layer_windows(self.cfg)
         for i, block in enumerate(self.blocks):
-            cache = None if state is None else _layer_state(state, i)
             x = block(self.cfg, x, positions=positions, window=windows[i],
-                      cache=cache)
+                      state=None if state is None else _layer_state(state,
+                                                                    i))
         return rms_norm(x, self.final_norm)
 
     @torch.no_grad()
@@ -297,19 +417,34 @@ class DecoderLM(nn.Module):
         return x @ self.lm_head
 
     def init_decode_state(self, batch: int, seq_len: int) -> dict:
-        """Zeroed KV caches (L, batch, C, KV, hd), or for the Fourier mixer
-        its rings of the last inputs (L, batch, K, d), in the activation
-        type."""
+        """The reference's zeroed decode state, each entry stacked over the
+        layers: KV caches (L, batch, C, KV, hd) for attention and hymba;
+        hymba's SSM state ``ssm_h`` (L, batch, d, n) in fp32; RWKV's last
+        inputs ``prev_x``, ``prev_x_c`` (L, batch, d) and state ``S``
+        (L, batch, H, 64, 64) in fp32; the Fourier mixer's rings of its
+        last inputs (L, batch, K, d). The rest in the activation type."""
         cfg = self.cfg
-        adt = dtype_of(cfg.dtype)
+        L, d = cfg.num_layers, cfg.d_model
+
+        def zeros(*shape, dtype=dtype_of(cfg.dtype)):
+            return torch.zeros((L, batch, *shape), dtype=dtype,
+                               device=self.device)
+
+        st = {}
+        if cfg.mixer in ("attn", "hymba"):
+            C = cache_len(cfg, seq_len)
+            st["cache_k"] = zeros(C, cfg.num_kv_heads, cfg.head_dim)
+            st["cache_v"] = zeros(C, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.mixer == "hymba":
+            st["ssm_h"] = zeros(d, cfg.ssm_state, dtype=torch.float32)
+        if cfg.mixer == "rwkv6":
+            hd = rec_lib.RWKV_HEAD_DIM
+            st["prev_x"] = zeros(d)
+            st["S"] = zeros(d // hd, hd, hd, dtype=torch.float32)
+            st["prev_x_c"] = zeros(d)
         if cfg.mixer == "fourier":
-            shape = (cfg.num_layers, batch, cfg.fourier_taps, cfg.d_model)
-            return {"ring": torch.zeros(shape, dtype=adt,
-                                        device=self.device)}
-        C = cache_len(cfg, seq_len)
-        shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.head_dim)
-        return {"cache_k": torch.zeros(shape, dtype=adt, device=self.device),
-                "cache_v": torch.zeros(shape, dtype=adt, device=self.device)}
+            st["ring"] = zeros(cfg.fourier_taps, d)
+        return st
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor] = None, *,
@@ -354,17 +489,22 @@ def generate(model: DecoderLM, tokens: torch.Tensor,
              gen: int) -> torch.Tensor:
     """Greedy generation, the reference serve CLI's loop: prefill the
     (B, S) prompt with room for ``gen`` more positions, then ``gen`` decode
-    steps, each fed the argmax of the previous logits. Returns the (gen, B)
-    tokens, the first from the prefill's logits."""
+    steps, each fed the argmax of the previous logits over the vocabulary.
+    Returns the (gen, B) tokens, the first from the prefill's logits.
+
+    The reference's loop takes the argmax over all ``vocab_padded`` logits,
+    so it can emit a padding id, which is no token; here the padding
+    columns are left out. Where the reference's argmax is a token the two
+    agree."""
     if model.cfg.frontend == "embeddings":
         raise ValueError(f"{model.cfg.name} takes embeddings; generate "
                          f"feeds back tokens")
-    S = tokens.shape[1]
+    S, V = tokens.shape[1], model.cfg.vocab_size
     logits, state = model.prefill(tokens, cache_capacity=S + gen)
-    tok = logits.argmax(dim=-1)
+    tok = logits[:, :V].argmax(dim=-1)
     out = []
     for i in range(gen):
         out.append(tok)
         logits, state = model.decode_step(state, tok, S + i)
-        tok = logits.argmax(dim=-1)
+        tok = logits[:, :V].argmax(dim=-1)
     return torch.stack(out)

@@ -32,13 +32,14 @@ from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import common as tcommon
 
 ALL_ARCHS = list(jreg.ARCH_MODULES)
-#: the dense attention family this slice serves
+#: the dense attention family
 DENSE = ["qwen3-1.7b", "gemma3-4b", "starcoder2-15b", "llama3-405b",
          "musicgen-medium", "qwen2-vl-72b"]
-#: ... and the Fourier token mixer
-SERVED = DENSE + ["fourierpim-lm"]
-UNPORTED = {"granite-moe-3b-a800m": "11b", "mixtral-8x22b": "11b",
-            "rwkv6-7b": "11c", "hymba-1.5b": "11d"}
+#: the MoE FFN, the recurrent mixers
+MOE = ["granite-moe-3b-a800m", "mixtral-8x22b"]
+RECURRENT = ["rwkv6-7b", "hymba-1.5b"]
+#: ... and the Fourier token mixer: every arch of the registry
+SERVED = DENSE + ["fourierpim-lm"] + MOE + RECURRENT
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
@@ -212,9 +213,20 @@ def test_attention_decode_matches_reference(rng, pos, C, window):
 # The model
 # ---------------------------------------------------------------------------
 
-def _port_model(arch):
+def _port_model(arch, **replace):
     _, tc, tree = _reference(arch)
+    tc = dataclasses.replace(tc, **replace)
     return convert.build(tc, convert.params_from_jax(tc, tree), "cpu")
+
+
+def _no_drops(cfg) -> dict:
+    """A MoE config's no-drop capacity factor (E / k), as the reference's
+    ``tests/test_arch_smoke.py`` takes for its parity check: the drops
+    depend on a group's members, so a prefill and a longer forward differ
+    by design otherwise."""
+    if not cfg.is_moe:
+        return {}
+    return {"capacity_factor": cfg.num_experts / cfg.experts_per_token}
 
 
 def _inputs(cfg, B, S, seed=1):
@@ -259,9 +271,11 @@ def test_prefill_decode_parity(arch):
     """decode_step(token S | prefill(tokens[:S])) == forward(tokens[:S+1])
     in the port alone, as tests/test_arch_smoke.py pins the reference; the
     prefill's last logits (lm_head on the last position only) equal the
-    full forward's row S - 1."""
+    full forward's row S - 1. The MoE archs take the no-drop capacity
+    (``_no_drops``); S = 64 is the smoke window, so hymba's ring slots line
+    up."""
     _, tc, _ = _reference(arch)
-    model = _port_model(arch)
+    model = _port_model(arch, **_no_drops(tc))
     B, S = 2, 64
     tokens, embeds, positions = _as(torch.from_numpy,
                                     _inputs(tc, B, S + 1))
@@ -310,6 +324,55 @@ def test_generate_matches_reference_greedy_loop():
     assert got.shape == (gen, B)
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
     assert _build.LAUNCHES["flash_attention"] == 0   # the CPU runs plain
+
+
+def test_generate_emits_only_vocabulary_ids():
+    """A vocabulary of 500 padded to 512, the padding columns of lm_head
+    made to win every argmax: the reference's loop would emit padding ids;
+    ``generate`` takes the argmax over the 500 tokens."""
+    cfg = dataclasses.replace(treg.get_config("hymba-1.5b").scaled_down(),
+                              vocab_size=500)
+    assert cfg.vocab_padded == 512
+    sd = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    sd["lm_head"][:, 500:] = 100.0
+    model = convert.build(cfg, sd, "cpu")
+    tokens = torch.randint(0, 500, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    logits, _ = model.prefill(tokens)
+    assert (logits.argmax(dim=-1) >= 500).all()
+    got = tlm.generate(model, tokens, 4)
+    assert ((0 <= got) & (got < 500)).all()
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-7b",
+                                  "hymba-1.5b"])
+def test_generate_new_mixers_match_reference_greedy_loop(arch):
+    """8 greedy tokens of ``generate`` for a MoE arch and the recurrent
+    archs == the reference's prefill + decode_step loop with the same
+    weights, each step's top-two margin above the logits' tolerance.
+    granite's prefill routes its 16-token group with drops (capacity factor
+    1.25), its decode steps one token at a time, as the reference's do."""
+    jc, tc, tree = _reference(arch)
+    B, S, gen = 2, 16, 8
+    tokens, _, _ = _inputs(tc, B, S, seed=3)
+    params = jax.tree.map(jnp.asarray, tree)
+    logits, state = jlm.prefill(jc, params, jnp.asarray(tokens),
+                                cache_capacity=S + gen)
+    decode = jax.jit(lambda p, st, tok, pos: jlm.decode_step(
+        jc, p, st, tok, pos))
+    want, margins = [], []
+    for i in range(gen):
+        top2 = np.sort(np.asarray(logits, np.float32), axis=-1)[:, -2:]
+        margins.append(float((top2[:, 1] - top2[:, 0]).min()))
+        tok = jnp.argmax(logits, axis=-1)
+        want.append(np.asarray(tok))
+        logits, state = decode(params, state, tok, jnp.int32(S + i))
+    assert min(margins) > 10 * TOL["atol"]
+    _build.reset_launches()
+    got = tlm.generate(_port_model(arch), torch.from_numpy(tokens).long(),
+                       gen)
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
+    assert not any(_build.LAUNCHES.values())        # the CPU runs plain
 
 
 # ---------------------------------------------------------------------------
@@ -566,14 +629,109 @@ def test_bf16_forward_matches_reference():
                                atol=0.125)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_archs_raise_with_their_roadmap_item(arch):
-    cfg = treg.get_config(arch).scaled_down()
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1, items? .*{UNPORTED[arch]}"):
+def test_unknown_mixer_raises():
+    """Every mixer of the registry is served; another raises, as the
+    reference's ``block_forward`` does."""
+    cfg = dataclasses.replace(treg.get_config("qwen3-1.7b").scaled_down(),
+                              mixer="nope")
+    with pytest.raises(ValueError, match="unknown mixer 'nope'"):
         tlm.DecoderLM(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown mixer"):
         convert.init_params(cfg, torch.Generator())
+    with pytest.raises(ValueError, match="unknown mixer"):
+        convert.params_from_jax(cfg, {})
+
+
+#: each new family's subtree and one of its leaves
+FAMILY_LEAF = {"granite-moe-3b-a800m": ("moe", "router"),
+               "mixtral-8x22b": ("moe", "w_down"),
+               "rwkv6-7b": ("rwkv_c", "wk"),
+               "hymba-1.5b": ("ssm", "a_log")}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LEAF))
+def test_params_from_jax_new_families(arch):
+    """The MoE, RWKV and SSM leaves (and hymba's ln_attn_out, ln_ssm_out)
+    are carried over, every one used; a missing leaf of the family or an
+    extra one in its subtree raises."""
+    _, tc, tree = _reference(arch)
+    sd = convert.params_from_jax(tc, tree)
+    n_leaves = sum(np.asarray(x).size for x in jax.tree.leaves(tree))
+    assert sum(t.numel() for t in sd.values()) == n_leaves
+    family, leaf = FAMILY_LEAF[arch]
+    np.testing.assert_array_equal(
+        sd[f"blocks.{tc.num_layers - 1}.{family}.{leaf}"].numpy(),
+        tree["blocks"][family][leaf][-1])
+    if arch == "hymba-1.5b":
+        assert "blocks.0.ln_ssm_out" in sd and "blocks.0.attn.wq" in sd
+    sub = tree["blocks"][family]
+    missing = dict(tree, blocks=dict(
+        tree["blocks"], **{family: {k: v for k, v in sub.items()
+                                    if k != leaf}}))
+    with pytest.raises(ValueError, match=rf"missing .*{family}\.{leaf}"):
+        convert.params_from_jax(tc, missing)
+    extra = dict(tree, blocks=dict(
+        tree["blocks"], **{family: dict(sub, spare=sub[leaf])}))
+    with pytest.raises(ValueError, match=rf"unused .*{family}\.spare"):
+        convert.params_from_jax(tc, extra)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LEAF))
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_init_params_dtypes_and_shapes_match_reference(arch, param_dtype):
+    """``convert.init_params`` gives every leaf the type and shape of the
+    reference's ``init_params`` (``jax.eval_shape``, no allocation): the
+    MoE router and the recurrences' fp32 leaves in fp32 whatever the
+    parameter type; and a model holds them in the same types, the matrices
+    the reference casts in the activation type."""
+    jc = dataclasses.replace(jreg.get_config(arch).scaled_down(),
+                             param_dtype=param_dtype)
+    tc = dataclasses.replace(treg.get_config(arch).scaled_down(),
+                             param_dtype=param_dtype, dtype="bfloat16")
+    shapes = jax.eval_shape(lambda k: jlm.init_params(jc, k),
+                            jax.random.key(0))
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        name = ".".join(p.key for p in path)
+        if name.startswith("blocks."):
+            for i in range(jc.num_layers):
+                want[f"blocks.{i}.{name[7:]}"] = (leaf.shape[1:],
+                                                  str(leaf.dtype))
+        else:
+            want[name] = (leaf.shape, str(leaf.dtype))
+    sd = convert.init_params(tc, torch.Generator().manual_seed(0))
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in sd.items()} == want
+    model = convert.build(tc, sd, "cpu")
+    fp32 = {"moe.router", "rwkv_t.w0", "rwkv_t.u", "ssm.a_log",
+            "ssm.d_skip", "ssm.dt_bias"}
+    in_param_type = {"rwkv_t.ww1", "rwkv_t.ww2", "ssm.w_dt", "ssm.w_b",
+                     "ssm.w_c", "ln1", "ln2", "ln_attn_out", "ln_ssm_out"}
+    for name, p in model.blocks[0].named_parameters():
+        want_dt = (torch.float32 if name in fp32
+                   else tlm.dtype_of(param_dtype) if name in in_param_type
+                   else torch.bfloat16)
+        assert p.dtype == want_dt, name
+
+
+def test_recurrent_init_constants():
+    """The reference's constant leaves: mu 0.5, w0 -6, u 0.1 N(0, 1) in
+    fp32; a_log log(1 .. n) on every row, d_skip 1, dt_bias -4."""
+    for arch in ("rwkv6-7b", "hymba-1.5b"):
+        tc = treg.get_config(arch).scaled_down()
+        sd = convert.init_params(tc, torch.Generator().manual_seed(0))
+        if arch == "rwkv6-7b":
+            assert (sd["blocks.1.rwkv_t.mu"] == 0.5).all()
+            assert (sd["blocks.1.rwkv_c.mu_c"] == 0.5).all()
+            assert (sd["blocks.0.rwkv_t.w0"] == -6).all()
+            assert abs(sd["blocks.0.rwkv_t.u"].std().item() - 0.1) < 0.02
+        else:
+            n = tc.ssm_state
+            want = torch.log(torch.linspace(1.0, float(n), n))
+            assert torch.equal(sd["blocks.0.ssm.a_log"],
+                               want.expand(tc.d_model, n))
+            assert (sd["blocks.0.ssm.d_skip"] == 1).all()
+            assert (sd["blocks.1.ssm.dt_bias"] == -4).all()
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ reference tests' bounds; the reference serves its XLA Stockham at radix 2
 with fp32 phases, the port its kernels at the plan's radix 4) -- except
 the exact ``polymul-mod``, which equals the reference bit for bit.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,6 +21,7 @@ import torch
 from repro.core import fft as jcore_fft
 from repro.launch import ops as jops_registry
 from repro.launch import serve as jserve
+from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tkops
 from repro_torch.launch import ops as op_registry
@@ -530,7 +532,47 @@ def test_cli_lm_service_fourierpim_subprocess():
            "device=cpu" in res.stdout
 
 
-def test_cli_lm_service_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        serve.main(["--service", "lm", "--smoke", "--arch", "mixtral-8x22b",
-                    "--device", "cpu"])
+def test_cli_lm_service_unknown_mixer_raises(monkeypatch):
+    """Every arch of the registry is served; a config with another mixer
+    raises."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), mixer="nope")
+    monkeypatch.setattr(serve, "get_config", lambda arch: cfg)
+    with pytest.raises(ValueError, match="unknown mixer 'nope'"):
+        serve.main(LM_ARGS + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b",
+                                  "rwkv6-7b", "hymba-1.5b"])
+def test_lm_service_serves_moe_and_recurrent_archs_on_cpu(arch):
+    """The MoE and recurrent archs' reduced configs: greedy tokens of the
+    served shape in the vocabulary, no kernel launched on the CPU."""
+    _build.reset_launches()
+    got = serve.main(LM_ARGS + ["--arch", arch, "--device", "cpu"])
+    assert got["generated"].shape == (4, 2)
+    assert ((0 <= got["generated"]) & (got["generated"] < 512)).all()
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_cli_lm_service_cut_depth(capsys):
+    """--layers serves the first N layers and prints the cut; more layers
+    than the arch has raise."""
+    serve.main(LM_ARGS + ["--arch", "mixtral-8x22b", "--layers", "1",
+                          "--device", "cpu"])
+    assert "device=cpu layers=1 of 2 (cut)" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="has 2 layers"):
+        serve.main(LM_ARGS + ["--arch", "mixtral-8x22b", "--layers", "3",
+                              "--device", "cpu"])
+
+
+def test_lm_service_refuses_weights_that_do_not_fit(monkeypatch):
+    """Weights that do not fit the device (mixtral-8x22b at full depth,
+    1.4e11 parameters, on one card) end the service with the allocator's
+    out-of-memory error, re-raised naming the arch and --layers."""
+    def out_of_memory(*args, **kwargs):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(serve.convert, "init_params", out_of_memory)
+    with pytest.raises(torch.cuda.OutOfMemoryError,
+                       match="mixtral-8x22b.*--layers") as err:
+        serve.main(LM_ARGS + ["--arch", "mixtral-8x22b", "--device", "cpu"])
+    assert "CUDA out of memory" in str(err.value.__cause__)
