@@ -237,6 +237,29 @@ Phases (any failure exits non-zero):
      ``polymul-real`` at 8 shards evicted by the watchdog (injected
      stragglers) restarts at 4 and serves the rest, every result checked;
      (f) the phase's ``[clock]`` line.
+  8. Training (lines ``[train]``, then one ``[train json]`` line), each
+     number beside the card's name and power limit: (a) ``fft_causal_conv``
+     forward and backward at fourierpim-lm's shapes (x (8, 768, 2048),
+     taps (1, 768, 256), n = 4096) and at a two-pass length (T = 6000,
+     n = 8192): three ``fft_planes`` launches forward and three backward,
+     y, dx and dk == the same with the plain version swapped in (bit for
+     bit), dx and dk within 1e-4 of float64 numpy's correlation; (b) one
+     training step (``lm.value_and_grad``) of 2 full-width fp32 layers of
+     fourierpim-lm and of the reduced qwen3-1.7b config on the card
+     against the CPU: loss, gradient norm and each leaf within 1e-4 (a
+     sound step reads about 2e-6), the card's launches exactly
+     ``fft_planes`` 9 a layer and ``flash_attention`` 2 a layer; then the
+     control, the same card step with the model's matmuls in TF32, which
+     must read outside 1e-4; (c) ``python -m repro_torch.launch.train
+     --arch fourierpim-lm --batch 8 --seq 2048`` for 20 steps (through its
+     ``run``, the counters zeroed just before): ``fft_planes`` 9 times a
+     layer a step and nothing else, the loss falls, step ms, tokens/s and
+     peak memory; then a run resumed from its step-10 checkpoint, whose
+     losses must equal the uninterrupted run's within 1e-3 (and the line
+     says whether bit for bit); (d) one traced full-width step split into
+     the fft kernel (graph replays at the step's shapes), the
+     convolution's glue, matmuls, the optimizer and the rest, with the
+     card's idle share; (e) the phase's ``[clock]`` line.
 
 The line before the last is the card's name and power limit; the line
 before that a JSON object with one entry per kernel; the last line is
@@ -4727,12 +4750,441 @@ def dist_phase(torch, build, serve, engine_mod, op_registry,
             "elastic": dist_elastic(serve, engine_mod, card)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training
+# ---------------------------------------------------------------------------
+
+#: fft_causal_conv's forward and backward at fourierpim-lm's shapes, x (B,
+#: d, T) and taps (1, d, K): the full-width training step's (n = 4096,
+#: one kernel a transform) and one two-pass length (T = 6000: n = 8192, two
+#: kernels a transform)
+TRAIN_CONV_SHAPES = (((8, 768, 2048), 256), ((2, 768, 6000), 256))
+#: dx and dk held against float64 numpy on their first channels, within
+#: this share of the largest magnitude: fp32 transforms at n = 4096 and
+#: 8192 round the correlation to about 1e-6 of it
+TRAIN_CONV_CHANNELS = 4
+TRAIN_GRAD_TOL = 1e-4
+#: one training step of 2 full-width fp32 layers of fourierpim-lm (B 1 x
+#: S 512) and of the reduced qwen3-1.7b config (B 2 x S 128), on the card
+#: against the CPU: the loss and the gradients' global norm within rtol
+#: TRAIN_STEP_TOL, each leaf's gradient within TRAIN_STEP_TOL of its
+#: largest magnitude. A sound fp32 step reads about 2e-6 (fp32 sums in
+#: other orders); the same step with TF32 matmuls, the control run after
+#: it, must read above the bound, so a step that fell back to TF32 or to
+#: lower-precision products fails
+TRAIN_PARITY = {FOURIER_ARCH: (2, 1, 512), LM_ARCH: (None, 2, 128)}
+TRAIN_STEP_TOL = 1e-4
+#: the kernel each parity step launches, and its launches a layer:
+#: fourierpim-lm's convolution 3 forward, 3 again under remat and 3
+#: backward; the reduced qwen3-1.7b's flash kernel forward and again under
+#: remat (its backward recomputes the plain attention)
+TRAIN_PARITY_LAUNCHES = {FOURIER_ARCH: ("fft_planes", 9),
+                         LM_ARCH: ("flash_attention", 2)}
+#: the full-width run: ``python -m repro_torch.launch.train`` through its
+#: ``run``, in this process so the launch counters see it
+TRAIN_ARGS = ["--arch", FOURIER_ARCH, "--batch", str(LM_BATCH),
+              "--seq", str(LM_PROMPT)]
+TRAIN_STEPS = 20
+#: the checkpoint the resumed run starts from
+TRAIN_RESUME_AT = 10
+#: the resumed run's losses against the uninterrupted run's: equal bit for
+#: bit is what the card gave (the run prints which); the bound, if not
+TRAIN_RESUME_RTOL = 1e-3
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+#: fourierpim-lm's transforms a layer in a training step under remat
+#: "block": rows and direction of each fft_planes call (x's 8 x 768 channel
+#: rows, the 768 tap rows), n = 4096. Forward: X, K, Y back; the forward
+#: again in the backward; then G, dx back and dk back (its batch summed)
+TRAIN_FFT_CALLS = ((LM_BATCH * 768, False), (768, False),
+                   (LM_BATCH * 768, True)) * 2 + (
+    (LM_BATCH * 768, False), (LM_BATCH * 768, True), (768, True))
+
+
+def correlate_numpy(g, x, k):
+    """The convolution's gradients in float64: dx[b, c, u] = sum_s k[c, s]
+    g[b, c, u + s] and dk[c, s] = sum_b sum_u g[b, c, u + s] x[b, c, u],
+    for x, g (B, C, T) and taps k (C, K)."""
+    g, x, k = (a.astype(np.float64) for a in (g, x, k))
+    T, K = g.shape[-1], k.shape[-1]
+    dx = np.zeros_like(x)
+    dk = np.zeros(k.shape)
+    for s in range(K):
+        dx[..., :T - s] += k[None, :, s:s + 1] * g[..., s:]
+        dk[:, s] = np.sum(g[..., s:] * x[..., :T - s], axis=(0, 2))
+    return dx, dk
+
+
+def train_conv_check(torch, build, kfft, kops, radix: int, card: str
+                     ) -> dict:
+    """(a) ``fft_causal_conv``'s forward and backward at
+    TRAIN_CONV_SHAPES through the kernel: three ``fft_planes`` launches
+    forward and three backward, y, dx and dk == the same with the plain
+    version swapped in (bit for bit), dx and dk on the first channels
+    within TRAIN_GRAD_TOL of float64 numpy."""
+    dev = torch.device("cuda")
+    out = {}
+    for xs, K in TRAIN_CONV_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(xs[-1] + K)
+        x = torch.randn(*xs, device=dev, generator=g)
+        k = torch.randn(1, xs[1], K, device=dev, generator=g) * 0.02
+        gy = torch.randn(*xs, device=dev, generator=g)
+        n = kops._next_pow2(xs[-1] + K)
+        counts = []
+
+        def run():
+            xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+            before = build.LAUNCHES["fft_planes"]
+            y = kops.fft_causal_conv(xr, kr, radix=radix)
+            torch.cuda.synchronize()
+            mid = build.LAUNCHES["fft_planes"]
+            y.backward(gy)
+            torch.cuda.synchronize()
+            counts.append((mid - before, build.LAUNCHES["fft_planes"] - mid))
+            return y.detach(), xr.grad, kr.grad
+
+        got = run()
+        want = swapped_fft_planes(kfft, run)
+        if counts != [(3, 3), (0, 0)]:
+            raise SystemExit(f"fft_causal_conv x {xs} taps {K}: fft_planes "
+                             f"launches (forward, backward) {counts[0]}, "
+                             f"expected (3, 3), and none with the plain "
+                             f"version swapped in ({counts[1]})")
+        for name, a, b in zip(("y", "dx", "dk"), got, want):
+            if not torch.equal(a, b):
+                raise SystemExit(
+                    f"fft_causal_conv x {xs} taps {K} (n = {n}): {name} "
+                    f"through the kernel and the plain version differ by "
+                    f"{float((a - b).abs().max())}")
+        c = TRAIN_CONV_CHANNELS
+        dx, dk = correlate_numpy(gy[:, :c].cpu().numpy(),
+                                 x[:, :c].cpu().numpy(),
+                                 k[0, :c].cpu().numpy())
+        errs = {}
+        for name, a, b in (("dx", got[1][:, :c], dx), ("dk", got[2][0, :c],
+                                                       dk)):
+            err = float(np.max(np.abs(a.cpu().numpy() - b)))
+            scale = float(np.max(np.abs(b)))
+            if err > TRAIN_GRAD_TOL * scale:
+                raise SystemExit(f"fft_causal_conv x {xs} taps {K}: {name} "
+                                 f"off float64 numpy by {err} (largest "
+                                 f"{scale}, bound {TRAIN_GRAD_TOL} of it)")
+            errs[name] = err / scale
+        per = 1 if kfft.two_pass_plan(n, radix) is None else 2
+        out[f"x {xs} taps {K}"] = {
+            "n": n, "kernels_per_transform": per,
+            "launches_forward": counts[0][0],
+            "launches_backward": counts[0][1],
+            "vs_numpy_rel": errs}
+        print(f"[train] fft_causal_conv x {xs} taps {K} (n = {n}, {per} "
+              f"kernel(s) a transform): fft_planes launched "
+              f"{counts[0][0]} times forward and {counts[0][1]} backward; "
+              f"y, dx and dk == the plain version swapped in, bit for bit; "
+              f"dx, dk against float64 numpy on {c} channels: "
+              f"{errs['dx']:.3g}, {errs['dk']:.3g} of the largest "
+              f"(bound {TRAIN_GRAD_TOL}); on {card}", flush=True)
+        del x, k, gy, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(torch, build, convert, lm, adamw, pipeline,
+                      get_config, arch: str, card: str,
+                      device: str = "cuda") -> dict:
+    """(b) one training step's loss and gradients (``lm.value_and_grad``,
+    the step's remat) with the same weights and batch on the card and on
+    the CPU (plain versions), within TRAIN_STEP_TOL; the card's launches
+    of the step, the counters zeroed just before, exactly
+    TRAIN_PARITY_LAUNCHES. Then the control: the card's step again with
+    the model's matmuls in TF32, which must fall outside the bound.
+    (``device="cpu"`` rehearses it on the CPU, up to the control.)"""
+    layers, B, S = TRAIN_PARITY[arch]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers, dtype="float32") \
+        if layers else cfg.scaled_down()
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    raw = pipeline.SyntheticLM(cfg.vocab_size, S, B, seed=0).batch_at(0)
+    model = lm.DecoderLM(cfg, device="meta")      # the structure only
+
+    def step_on(dev: str):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        build.reset_launches()
+        loss, grads = lm.value_and_grad(
+            model, {k: v.to(dev) for k, v in params.items()}, batch)
+        torch.cuda.synchronize()
+        return (float(loss), float(adamw.global_norm(grads)),
+                {k: g.cpu() for k, g in grads.items()},
+                {k: c for k, c in build.LAUNCHES.items() if c})
+
+    def off(run) -> tuple[float, float, float]:
+        """(loss, gradient norm, worst leaf) relative to the CPU's."""
+        return (abs(run[0] - l0) / abs(l0), abs(run[1] - n0) / abs(n0),
+                max(float((run[2][k] - g0[k]).abs().max())
+                    / max(float(g0[k].abs().max()), 1e-30) for k in g0))
+
+    l0, n0, g0, _ = step_on("cpu")
+    card_run = step_on(device)
+    l1, n1, _, launches = card_run
+    errs = off(card_run)
+    if max(errs) > TRAIN_STEP_TOL:
+        raise SystemExit(f"{cfg.name} training step, card against CPU: loss "
+                         f"{l1} vs {l0}, gradient norm {n1} vs {n0}; "
+                         f"relative (loss, norm, worst leaf) {errs} (bound "
+                         f"{TRAIN_STEP_TOL})")
+    kernel, per_layer = TRAIN_PARITY_LAUNCHES[arch]
+    want = {kernel: per_layer * cfg.num_layers}
+    if launches != want:
+        raise SystemExit(f"{cfg.name} training step on the card launched "
+                         f"{launches}, expected {want}")
+    # the model sets its matmuls' precision at each forward
+    # (``lm.exact_matmuls``), so the control sets TF32 in its place
+    exact = lm.exact_matmuls
+
+    def tf32_matmuls() -> None:
+        exact()
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    lm.exact_matmuls = tf32_matmuls
+    try:
+        control = off(step_on(device))
+    finally:
+        lm.exact_matmuls = exact
+        exact()
+    if max(control) <= TRAIN_STEP_TOL:
+        raise SystemExit(f"{cfg.name} training step with TF32 matmuls, the "
+                         f"control: relative (loss, norm, worst leaf) "
+                         f"{control} within the bound {TRAIN_STEP_TOL}, "
+                         f"which so does not tell fp32 from TF32")
+    out = {"config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "batch": B, "seq": S, "remat": cfg.remat,
+           "loss_card": l1, "loss_cpu": l0, "grad_norm_card": n1,
+           "grad_norm_cpu": n0, "loss_rel": errs[0], "grad_norm_rel": errs[1],
+           "worst_leaf_rel": errs[2], "bound": TRAIN_STEP_TOL,
+           "tf32_control": dict(zip(("loss_rel", "grad_norm_rel",
+                                     "worst_leaf_rel"), control)),
+           "launches": launches}
+    print(f"[train] one step of {cfg.name} ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, fp32, B {B} x S {S}, remat {cfg.remat}), card "
+          f"against CPU: loss {l1:.6f} vs {l0:.6f}, gradient norm {n1:.6f} "
+          f"vs {n0:.6f}; relative loss {errs[0]:.3g}, norm {errs[1]:.3g}, "
+          f"worst leaf {errs[2]:.3g} of its largest (bound "
+          f"{TRAIN_STEP_TOL}); the TF32 control reads {control[0]:.3g}, "
+          f"{control[1]:.3g}, {control[2]:.3g}, outside it; the card's step "
+          f"launched {launches}; on {card}", flush=True)
+    return out
+
+
+def train_full_width(torch, build, train, get_config, card: str) -> dict:
+    """(c) ``python -m repro_torch.launch.train --arch fourierpim-lm
+    --batch 8 --seq 2048`` for TRAIN_STEPS steps, the counters zeroed just
+    before: fft_planes and nothing else, the loss falls, the step ms,
+    tokens/s and peak memory; then a run resumed from its step
+    TRAIN_RESUME_AT checkpoint, its losses held to the uninterrupted
+    run's."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    first, second = (os.path.join(TRAIN_DIR, d) for d in ("run", "resume"))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run = train.run(TRAIN_ARGS + [
+        "--steps", str(TRAIN_STEPS), "--ckpt-dir", first,
+        "--ckpt-every", str(TRAIN_RESUME_AT), "--log-every", "5"])
+    wall = time.perf_counter() - t0
+    launches = {k: c for k, c in build.LAUNCHES.items() if c}
+    per_step = launches.get("fft_planes", 0) / TRAIN_STEPS
+    want = len(TRAIN_FFT_CALLS) * get_config(FOURIER_ARCH).num_layers
+    if set(launches) != {"fft_planes"} or per_step != want:
+        raise SystemExit(f"full-width training: launches {launches} in "
+                         f"{TRAIN_STEPS} steps, expected fft_planes {want} "
+                         f"a step and nothing else")
+    losses = run.losses
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"full-width training: loss {losses[0]} -> "
+                         f"{losses[-1]} did not fall")
+    steady = sorted(run.step_ms[2:])
+    step_ms = steady[len(steady) // 2]
+    os.makedirs(second)
+    shutil.copytree(os.path.join(first, f"step_{TRAIN_RESUME_AT}"),
+                    os.path.join(second, f"step_{TRAIN_RESUME_AT}"))
+    resumed = train.run(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS),
+                                      "--ckpt-dir", second,
+                                      "--log-every", "5"])
+    if resumed.start_step != TRAIN_RESUME_AT:
+        raise SystemExit(f"the resumed run started at step "
+                         f"{resumed.start_step}, not {TRAIN_RESUME_AT}")
+    tail = losses[TRAIN_RESUME_AT:]
+    bitwise = resumed.losses == tail
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, tail))
+    if worst > TRAIN_RESUME_RTOL:
+        raise SystemExit(f"resumed losses {resumed.losses} off the "
+                         f"uninterrupted run's {tail} by {worst} (bound "
+                         f"{TRAIN_RESUME_RTOL})")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out = {"args": TRAIN_ARGS, "steps": TRAIN_STEPS, "wall_s": wall,
+           "launches": launches, "fft_planes_per_step": per_step,
+           "step_ms_median": step_ms, "step_ms": run.step_ms,
+           "tokens_per_step": run.tokens_per_step,
+           "tokens_per_s": run.tokens_per_step / step_ms * 1e3,
+           "peak_gib": run.peak_bytes / 2**30, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": losses,
+           "resumed_from": TRAIN_RESUME_AT,
+           "resumed_bitwise": bitwise, "resumed_worst_rel": worst}
+    print(f"[train] full width: {' '.join(TRAIN_ARGS)} --steps "
+          f"{TRAIN_STEPS}: step {step_ms:.2f} ms (median of steps 2 on; "
+          f"first two {run.step_ms[0]:.1f}, {run.step_ms[1]:.1f} ms), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{out['peak_gib']:.2f} GiB, fft_planes {per_step:.0f} launches a "
+          f"step and nothing else; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; resumed from step {TRAIN_RESUME_AT}: losses "
+          f"{'equal bit for bit' if bitwise else f'within {worst:.3g}'} "
+          f"of the uninterrupted run's; on {card}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def conv_labelled(torch, common, kops):
+    """The Fourier mixer's convolution under a ``record_function`` label
+    "conv": its forward (looked up by ``fourier_mixing`` in ``common``)
+    and its backward (``kops._CausalConv.backward``), while the block
+    runs."""
+    forward, backward = common.fft_causal_conv, kops._CausalConv.backward
+
+    def fwd(*args, **kwargs):
+        with torch.profiler.record_function("conv"):
+            return forward(*args, **kwargs)
+
+    def bwd(ctx, *grads):
+        with torch.profiler.record_function("conv"):
+            return backward(ctx, *grads)
+
+    common.fft_causal_conv = fwd
+    kops._CausalConv.backward = staticmethod(bwd)
+    try:
+        yield
+    finally:
+        common.fft_causal_conv = forward
+        kops._CausalConv.backward = staticmethod(backward)
+
+
+def train_traced_step(torch, build, convert, kfft, kops, common, adamw,
+                      step_mod, pipeline, get_config, card: str,
+                      radix: int) -> dict:
+    """(d) One traced full-width training step of fourierpim-lm (B 8 x S
+    2048), after a warm one: its device time split into the fft kernel
+    (graph replays of fft_planes at the step's TRAIN_FFT_CALLS shapes:
+    the trace drops events of the ctypes-launched kernels), the
+    convolution's glue (the other kernels under the "conv" label), the
+    matmuls, the optimizer (``adamw.apply`` and ``clip_by_global_norm``)
+    and the rest; and the card's idle share of the step's wall time."""
+    dev = torch.device("cuda")
+    cfg = get_config(FOURIER_ARCH)
+    opt_cfg = adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    step = step_mod.make_train_step(cfg, opt_cfg)
+    params = full_width_state(torch, convert, cfg)
+    state = adamw.init_state(params, opt_cfg)
+    raw = pipeline.SyntheticLM(cfg.vocab_size, LM_PROMPT, LM_BATCH,
+                               seed=0).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    params, state, metrics = step(params, state, batch)        # warm
+    float(metrics["loss"])
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    stages = (adamw, ("apply", "clip_by_global_norm"))
+    labels = ["conv"] + stage_labels(stages)
+    torch.cuda.synchronize()
+    with conv_labelled(torch, common, kops), labelled(torch, stages), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        float(metrics["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    del params, state, batch
+    torch.cuda.empty_cache()
+    split = stage_split(prof, labels)
+    traced, fft_traced, fft_count, matmul = 0.0, 0.0, 0, 0.0
+    kernels = []
+    for e in prof.key_averages():
+        # a record_function range also shows as a device-side span of its
+        # label, which is not a kernel
+        if e.device_type != DeviceType.CUDA or e.key in labels:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if FFT_TRACE_NAME.search(e.key):
+            fft_traced += ms
+            fft_count += e.count
+            continue
+        traced += ms
+        if MATMUL_TRACE_NAME.search(e.key):
+            matmul += ms
+        else:
+            kernels.append((ms, e.count, e.key[:100]))
+    # the fft kernel's time from graph replays at the step's shapes
+    rng = np.random.default_rng(19)
+    n = kops._next_pow2(LM_PROMPT + cfg.fourier_taps)
+    replay = {}
+    for rows, inverse in sorted(set(TRAIN_FFT_CALLS)):
+        planes = [torch.from_numpy(rng.standard_normal((rows, n)).astype(
+            np.float32)).to(dev) for _ in range(2)]
+        replay[f"{rows}x{n}{' inverse' if inverse else ''}"] = graph_ms(
+            torch, lambda p, q, inv=inverse: kfft.fft_planes(
+                p, q, inverse=inv, radix=radix), [planes], 10)
+        del planes
+    fft = cfg.num_layers * sum(
+        replay[f"{rows}x{n}{' inverse' if inverse else ''}"]
+        for rows, inverse in TRAIN_FFT_CALLS)
+    # the conv label's kernels less the fft kernel's traced launches
+    conv_glue = split["conv"]["ms"] - fft_traced
+    optimizer = sum(split[label]["ms"] for label in labels[1:])
+    matmul_outside = matmul - split["conv"]["matmul_ms"] - sum(
+        split[label]["matmul_ms"] for label in labels[1:])
+    device = traced + fft
+    rest = device - fft - conv_glue - matmul_outside - optimizer
+    out = {"device_ms": device, "wall_ms": wall, "fft_ms": fft,
+           "fft_graph_ms": replay, "fft_launches_traced": fft_count,
+           "fft_ms_traced": fft_traced, "conv_glue_ms": conv_glue,
+           "matmul_ms": matmul_outside, "optimizer_ms": optimizer,
+           "rest_ms": rest, "idle_share": max(0.0, 1 - device / wall),
+           "top_other_kernels": sorted(kernels, reverse=True)[:8]}
+    print(f"[train] one traced full-width step (B {LM_BATCH} x S "
+          f"{LM_PROMPT}): wall {wall:.2f} ms, device {device:.2f} ms -> idle "
+          f"share {out['idle_share']:.4f}; the fft kernel {fft:.2f} ms "
+          f"(graph replays at the step's {len(TRAIN_FFT_CALLS)} calls a "
+          f"layer; the trace held {fft_count} launches, "
+          f"{fft_traced:.2f} ms), the convolution's glue {conv_glue:.2f} "
+          f"ms, matmuls {matmul_outside:.2f} ms, the optimizer "
+          f"{optimizer:.2f} ms, the rest {rest:.2f} ms; the largest kernels "
+          f"but the fft and the matmuls (ms, launches, name) "
+          f"{[(round(ms, 2), c, k) for ms, c, k in out['top_other_kernels']]}"
+          f"; on {card}", flush=True)
+    return out
+
+
+def train_phase(torch, build, convert, lm, kfft, kops, common, adamw,
+                step_mod, pipeline, train, get_config, card: str,
+                radix: int) -> dict:
+    """Phase 8: (a) the convolution's gradient on the kernel, (b) card
+    against CPU, (c) the slice at full width with a resume, (d) one traced
+    step. Each LM step zeroes the counters just before it."""
+    out = {"conv": train_conv_check(torch, build, kfft, kops, radix, card)}
+    out["card_vs_cpu"] = {
+        arch: train_card_vs_cpu(torch, build, convert, lm, adamw, pipeline,
+                                get_config, arch, card)
+        for arch in TRAIN_PARITY}
+    torch.cuda.empty_cache()
+    out["full_width"] = train_full_width(torch, build, train, get_config,
+                                         card)
+    torch.cuda.empty_cache()
+    out["traced_step"] = train_traced_step(
+        torch, build, convert, kfft, kops, common, adamw, step_mod, pipeline,
+        get_config, card, radix)
+    return out
+
+
 def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
 #: the phases, in order; phase 1 (the build) always runs
-PHASES = (1, 2, 3, 4, 5, 6, 7)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def parse_phases(argv=None) -> set[int]:
@@ -4775,9 +5227,14 @@ def main(argv=None) -> int:
     from repro_torch.launch import ops as op_registry
     from repro_torch.launch import serve
     from repro_torch.models import convert, lm
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.layers import common
     from repro_torch.models.layers import moe as moe_mod
     from repro_torch.models.layers import recurrent as rec_mod
     from repro_torch.models.layers.common import MIXING_RADIX
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
 
     start = time.perf_counter()
 
@@ -4936,6 +5393,14 @@ def main(argv=None) -> int:
         dist = dist_phase(torch, _build, serve, engine_mod, op_registry, card)
         print(f"[dist json] {json.dumps(dist)}", flush=True)
         clock(f"phase 7, multi-device tier ({time.perf_counter() - t7:.1f}s)")
+    # -- phase 8: training ---------------------------------------------------
+    if 8 in phases:
+        t8 = time.perf_counter()
+        training = train_phase(torch, _build, convert, lm, kfft, kops, common,
+                               adamw, step_mod, pipeline, train, get_config,
+                               card, MIXING_RADIX)
+        print(f"[train json] {json.dumps(training)}", flush=True)
+        clock(f"phase 8, training ({time.perf_counter() - t8:.1f}s)")
     if phases != set(PHASES):
         print(f"[phases] ran {sorted(phases)} of {list(PHASES)}: a partial "
               f"run prints no result lines", flush=True)
@@ -4970,10 +5435,17 @@ def main(argv=None) -> int:
             # just before it
             **({"distributed": dist_runs[name]} if name in dist_runs
                else {}),
-            # the LM path: fourierpim-lm's prefill, 3 calls a layer
+            # the LM path: fourierpim-lm's prefill, 3 calls a layer; its
+            # training step (phase 8), 9 calls a layer under remat
             **({FOURIER_ARCH: {
                 "launches_per_prefill": fourier_run["launches"],
-                **fourier_run, "lm": fourier_times}}
+                **fourier_run, "lm": fourier_times},
+                f"{FOURIER_ARCH} training": {
+                    "launches_per_step":
+                        training["full_width"]["fft_planes_per_step"],
+                    "full_width": training["full_width"],
+                    "traced_step": training["traced_step"],
+                    "conv_forward_backward": training["conv"]}}
                if name == "fft_planes" else {}),
             **{f"at_n{n}": times[name][n] for n in shapes[1:]}})
     # kernel 9's entries, each at its ATTN_TIMED labels (the first is the
@@ -5045,7 +5517,10 @@ def main(argv=None) -> int:
             "flash_attention", reduced_run["float32"]["launches"],
             f"one fp32 prefill of the reduced qwen3-1.7b config (2 layers, "
             f"head_dim 32; B {GEMMA_PARITY_BATCH} x {REDUCED_PROMPT})",
-            ["fp32 hd 32"], {})}
+            ["fp32 hd 32"],
+            # phase 8: one training step of the same config, card against
+            # CPU (the forward and its recomputation under remat)
+            {"training_step": training["card_vs_cpu"][LM_ARCH]})}
     for entry_name, (name, launched, per, labels, more) in entries.items():
         first = attn[labels[0]]
         report.append({

@@ -98,10 +98,18 @@ def psum(xs: Blocks) -> list[torch.Tensor]:
     return [_sum_on(xs, x.device) for x in xs]
 
 
-def pmean(xs: Blocks) -> list[torch.Tensor]:
-    """Every shard gets the mean of all blocks."""
+def pmean(xs: Blocks, *, group: int | None = None) -> list[torch.Tensor]:
+    """Every shard gets the mean of all blocks, or with ``group``, of the
+    blocks of its run of ``group`` consecutive shards (a mean over a
+    mesh's last batch axis, the reference's ``pmean`` over that axis:
+    recorded once, as one call)."""
     _record("psum", _nbytes(xs[0]))
-    return [_sum_on(xs, x.device) / len(xs) for x in xs]
+    g = len(xs) if group is None else group
+    if len(xs) % g:
+        raise ValueError(f"pmean: {len(xs)} blocks do not form runs of "
+                         f"{g}")
+    return [_sum_on(xs[i - i % g:i - i % g + g], x.device) / g
+            for i, x in enumerate(xs)]
 
 
 def _sum_on(xs: Blocks, device: torch.device) -> torch.Tensor:

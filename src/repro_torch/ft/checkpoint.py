@@ -28,8 +28,15 @@ dtype and on its device. With ``shardings`` (the reference's elastic
 re-shard) a leaf that has a ``dist.sharding.NamedSharding`` there comes
 back placed on that mesh by its spec: the list of its blocks, one a
 shard. The data is stored unsharded per leaf, so the saved mesh size is
-irrelevant. numpy has no bfloat16, so a bf16 tensor leaf raises;
-training checkpoints come with ROADMAP queue 1, item 11f.
+irrelevant.
+
+numpy has no bfloat16: a bf16 tensor leaf is stored losslessly as its
+uint16 bit patterns, with ``"bfloat16"`` as its dtype in the manifest,
+and comes back bit for bit. (The reference's reader sees those leaves as
+uint16.) A training checkpoint (``launch/train.py``) holds the fp32
+master parameters, the fp32 or int8 optimizer state, the error-feedback
+residual ``grad_err`` under ``--compress-grads``, and the watchdog state
+and data cursor in ``extra``.
 """
 from __future__ import annotations
 
@@ -45,8 +52,8 @@ import torch
 from repro_torch.dist import sharding
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
-#: where the dtypes numpy lacks are handled
-BF16_ITEM = "ROADMAP queue 1, item 11f (training checkpoints)"
+#: the manifest's dtype of a bf16 leaf, stored as its uint16 bits
+BF16 = "bfloat16"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -135,20 +142,29 @@ def _unflatten(like: Any, leaves: dict[str, Any], prefix: tuple = ()) -> Any:
     return leaves["/".join(str(p) for p in prefix)]
 
 
-def _numpy_dtype(dtype: torch.dtype, key: str) -> np.dtype:
-    try:
-        return torch.empty(0, dtype=dtype).numpy().dtype
-    except TypeError as e:
-        raise TypeError(
-            f"checkpoint leaf {key!r} is a {dtype} tensor, which numpy "
-            f"cannot hold; it comes with {BF16_ITEM}") from e
+def _is_bf16(leaf: Any) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
 
 
 def _to_numpy(key: str, leaf: Any) -> np.ndarray:
+    """The array stored for a leaf: a bf16 tensor as its uint16 bits."""
     if isinstance(leaf, torch.Tensor):
-        _numpy_dtype(leaf.dtype, key)
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if _is_bf16(t):
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _to_tensor(arr: np.ndarray, saved: str, like: torch.Tensor
+               ) -> torch.Tensor:
+    """A stored array as a tensor of ``like``'s dtype on its device."""
+    if saved == BF16:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
@@ -167,7 +183,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
         name = f"a{i}"
         manifest["arrays"].append({"key": key, "name": name,
                                    "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)})
+                                   "dtype": BF16 if _is_bf16(leaf)
+                                   else str(arr.dtype)})
         arrays[name] = arr
     # Arrays first, manifest LAST, every file fsynced before its rename:
     # a manifest that exists implies its arrays are already durable, so
@@ -249,6 +266,7 @@ def restore(ckpt_dir: str, step: int, like: Any,
     manifest = _load_manifest(final)
     data = np.load(os.path.join(final, "arrays.npz"))
     by_key = {e["key"]: data[e["name"]] for e in manifest["arrays"]}
+    saved = {e["key"]: e["dtype"] for e in manifest["arrays"]}
     placed = dict(_flatten_with_paths(shardings))
     out = {}
     for key, leaf in _flatten_with_paths(like):
@@ -261,9 +279,11 @@ def restore(ckpt_dir: str, step: int, like: Any,
                 f"{sorted(by_key)[:8]}...")
         arr = by_key[key]
         if isinstance(leaf, torch.Tensor):
-            out[key] = torch.from_numpy(np.array(
-                arr, _numpy_dtype(leaf.dtype, key))).to(leaf.device)
+            out[key] = _to_tensor(arr, saved[key], leaf)
         else:
+            if saved[key] == BF16:
+                raise TypeError(f"checkpoint leaf {key!r} is bfloat16; "
+                                f"restore it into a tensor leaf")
             out[key] = np.asarray(
                 arr, leaf.dtype if hasattr(leaf, "dtype") else arr.dtype)
         if key in placed:

@@ -208,6 +208,22 @@ def _error(stem: str, err: int) -> str:
     return getattr(load(stem), f"{stem}_error_string")(err).decode()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel would drop a gradient: a launch reads the
+    tensors' memory, so autograd cannot see through it. Inside an
+    ``autograd.Function``'s forward grad mode is off, so the kernels'
+    differentiable routes (``kernels/ops.py::fft_causal_conv``,
+    ``models/layers/attention.py::blockwise_attention``) pass."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and a kernel launch has no "
+            f"backward; call it under torch.no_grad() or through a "
+            f"differentiable route (kernels.ops.fft_causal_conv, "
+            f"models.layers.attention.blockwise_attention)")
+
+
 def launch(name: str, counter: str, *args, schedule: str | None = None
            ) -> None:
     """Call C launcher ``name`` on PyTorch's current stream, raise if the

@@ -266,6 +266,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                scale=scale, kv_block=kv_block)
     if q.device.type != "cuda":
         raise ValueError(f"attention: no kernel for device {q.device}")
+    _build.refuse_grad("attention", q, k, v)
     return _launch(q, k, v, window=window, causal=causal, scale=scale)
 
 
@@ -306,6 +307,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      bq=bq, bk=bk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     out = _launch(q4, k4, v4, window=window, causal=causal,
                   scale=q.shape[-1] ** -0.5)
     return out[0].permute(1, 0, 2)

@@ -5,6 +5,9 @@ Each public ``*_planes`` function is a wrapper: for tensors on the card it
 launches its hand-written CUDA kernel (``csrc/stockham.cu``), for tensors on
 the CPU it runs the plain PyTorch version beside it, which performs the same
 sweeps, twiddles, split and packing as torch ops. Any other device raises.
+A launch has no backward, so on the card a wrapper raises for an input that
+requires grad under grad mode (``_build.refuse_grad``); the plain versions
+are torch ops that autograd records.
 
 Complex data is carried as split fp32 planes (B, n). Stockham invariant: the
 state of a row is A(L, r) with L * r = n, and column q of A is the length-L
@@ -721,6 +724,7 @@ def fft_planes(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
             return stockham_two_pass(xr, xi, wr, wi, n=n, inverse=inverse,
                                      radix=radix, n1=two_pass.n1)
         return fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
+    _build.refuse_grad("fft_planes", xr, xi)
     return _launch_fft(xr, xi, inverse, radix, block_b or plan_batch_block(n),
                        two_pass)
 
@@ -795,6 +799,7 @@ def rfft_planes(x: torch.Tensor, *, radix: int = 2,
         if two_pass is not None:
             return rfft_two_pass(x, radix=radix, plan=two_pass)
         return rfft_planes_plain(x, radix=radix)
+    _build.refuse_grad("rfft_planes", x)
     return _launch_rfft(x, radix, block_b or plan_batch_block(n, real=True),
                         two_pass)
 
@@ -869,6 +874,7 @@ def irfft_planes(xr: torch.Tensor, xi: torch.Tensor, *, radix: int = 2,
         if two_pass is not None:
             return irfft_two_pass(xr, xi, radix=radix, plan=two_pass)
         return irfft_planes_plain(xr, xi, radix=radix)
+    _build.refuse_grad("irfft_planes", xr, xi)
     return _launch_irfft(xr, xi, radix,
                          block_b or plan_batch_block(n, real=True), two_pass)
 

@@ -210,17 +210,67 @@ def fft_causal_conv(x: torch.Tensor, k: torch.Tensor, *,
     are multiplied, the product is transformed back, and the real part of
     the first T points is returned in x's type. Three calls of
     ``fft_planes``, each one kernel below ``TWO_PASS_FROM["fft"]`` points
-    and two passes from there on."""
-    T, K = x.shape[-1], k.shape[-1]
-    n = _next_pow2(T + K)
-    pad = torch.nn.functional.pad
-    xp, x_lead = _as2d(pad(_real(x), (0, n - T)))
-    kp, k_lead = _as2d(pad(_real(k), (0, n - K)))
-    ar, ai = _kfft.fft_planes(xp, torch.zeros_like(xp), radix=radix)
-    br, bi = _kfft.fft_planes(kp, torch.zeros_like(kp), radix=radix)
-    ar, ai = ar.reshape(*x_lead, n), ai.reshape(*x_lead, n)
-    br, bi = br.reshape(*k_lead, n), bi.reshape(*k_lead, n)
-    cr, lead = _as2d(ar * br - ai * bi)
-    ci, _ = _as2d(ar * bi + ai * br)
-    yr, _ = _kfft.fft_planes(cr, ci, inverse=True, radix=radix)
-    return yr.reshape(*lead, n)[..., :T].to(x.dtype)
+    and two passes from there on.
+
+    Differentiable (``_CausalConv``): the backward makes three more calls
+    of ``fft_planes``, so on the card the gradient runs on the kernel too.
+    """
+    return _CausalConv.apply(_real(x), _real(k), radix).to(x.dtype)
+
+
+def _fft_rows(re: torch.Tensor, im: torch.Tensor | None, *, radix: int,
+              inverse: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fft_planes`` over the last axis of (..., n) planes (a zero
+    imaginary plane where ``im`` is None), in their shape."""
+    r2, lead = _as2d(re.contiguous())
+    i2 = torch.zeros_like(r2) if im is None else im.contiguous().reshape(
+        r2.shape)
+    yr, yi = _kfft.fft_planes(r2, i2, inverse=inverse, radix=radix)
+    return yr.reshape(*lead, -1), yi.reshape(*lead, -1)
+
+
+class _CausalConv(torch.autograd.Function):
+    """``fft_causal_conv`` on fp32 x (..., T) and k (..., K).
+
+    Forward: X = FFT(x padded), Kf = FFT(k padded), y = Re IFFT(X Kf)[:T];
+    the spectra X and Kf are saved. Backward, with G = FFT(g padded to n):
+    dx = Re IFFT(G conj Kf)[:T] and dk = Re IFFT(G conj X)[:K], each
+    product summed over the dims its operand broadcast over before the
+    inverse (linear, so the same function: dk's inverse runs on k's rows,
+    not on the batch's). No term wraps: n >= T + K, so a lag t - s < 0
+    lands at n + t - s, past both operands' supports. Under activation
+    recomputation the forward runs again and saves its spectra again."""
+
+    @staticmethod
+    def forward(ctx, x, k, radix: int):
+        T, K = x.shape[-1], k.shape[-1]
+        n = _next_pow2(T + K)
+        pad = torch.nn.functional.pad
+        ar, ai = _fft_rows(pad(x, (0, n - T)), None, radix=radix)
+        br, bi = _fft_rows(pad(k, (0, n - K)), None, radix=radix)
+        yr, _ = _fft_rows(ar * br - ai * bi, ar * bi + ai * br, radix=radix,
+                          inverse=True)
+        ctx.save_for_backward(ar, ai, br, bi)
+        ctx.radix, ctx.T, ctx.K = radix, T, K
+        ctx.x_lead, ctx.k_lead = x.shape[:-1], k.shape[:-1]
+        return yr[..., :T]
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, ai, br, bi = ctx.saved_tensors
+        radix, T, K = ctx.radix, ctx.T, ctx.K
+        n = ar.shape[-1]
+        gr, gi = _fft_rows(torch.nn.functional.pad(g.float(), (0, n - T)),
+                           None, radix=radix)
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            # G conj(Kf)
+            pr = (gr * br + gi * bi).sum_to_size(*ctx.x_lead, n)
+            pi = (gi * br - gr * bi).sum_to_size(*ctx.x_lead, n)
+            dx = _fft_rows(pr, pi, radix=radix, inverse=True)[0][..., :T]
+        if ctx.needs_input_grad[1]:
+            # G conj(X), summed over the batch before the inverse
+            pr = (gr * ar + gi * ai).sum_to_size(*ctx.k_lead, n)
+            pi = (gi * ar - gr * ai).sum_to_size(*ctx.k_lead, n)
+            dk = _fft_rows(pr, pi, radix=radix, inverse=True)[0][..., :K]
+        return dx, dk, None

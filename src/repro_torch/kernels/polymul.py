@@ -184,6 +184,7 @@ def polymul_complex_planes(ar: torch.Tensor, ai: torch.Tensor,
             return polymul_complex_two_pass(ar, ai, br, bi, radix=radix,
                                             plan=two_pass)
         return polymul_complex_planes_plain(ar, ai, br, bi, radix=radix)
+    _build.refuse_grad("polymul_complex_planes", ar, ai, br, bi)
     return _launch_polymul_complex(ar, ai, br, bi, radix,
                                    block_b or default_complex_block(n),
                                    two_pass)
@@ -326,6 +327,7 @@ def polymul_real_planes(a: torch.Tensor, b: torch.Tensor, *, radix: int = 2,
         if two_pass is not None:
             return polymul_real_two_pass(a, b, radix=radix, plan=two_pass)
         return polymul_real_planes_plain(a, b, radix=radix)
+    _build.refuse_grad("polymul_real_planes", a, b)
     return _launch_polymul_real(a, b, radix, block_b or default_real_block(n),
                                 two_pass)
 

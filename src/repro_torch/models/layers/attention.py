@@ -66,9 +66,45 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its own type and the kernel takes scale 1.0, as the reference scales
     before the fp32 cast. The reference's ``q_start`` (always 0 there) is
     not taken: queries and keys cover the same positions.
+
+    Differentiable (``_Attention``): the forward is the flash kernel (its
+    plain version on the CPU), the backward differentiates the plain
+    version.
     """
-    return kattn.attention(_scale_q(q), k, v, window=window, causal=True,
-                           scale=1.0, kv_block=kv_block)
+    return _Attention.apply(_scale_q(q), k, v, window, kv_block)
+
+
+class _Attention(torch.autograd.Function):
+    """Flash attention with a gradient. The forward launches the kernel
+    ``kernels.attention.kernel_for`` picks (on the CPU its plain version)
+    and saves only q, k and v. The backward recomputes the attention as
+    the plain version with fp32 products (``kernel="cuda_core"``: the
+    reference's fp32 einsums, without the kernels' bf16 or TF32 splits of
+    the operands) over key blocks of ``kv_block``, the reference's, under
+    autograd, and backpropagates through it. The reference trains through
+    its pure-JAX blockwise attention; no backward kernel exists on either
+    side."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, kv_block: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.kv_block = window, kv_block
+        return kattn.attention(q, k, v, window=window, causal=True,
+                               scale=1.0, kv_block=kv_block)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = kattn.attention_plain(*inputs, window=ctx.window,
+                                        causal=True, scale=1.0,
+                                        kv_block=ctx.kv_block,
+                                        kernel="cuda_core")
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(got) if t.requires_grad else None for t in inputs),
+                None, None)
 
 
 def attention_train(params, x: torch.Tensor, cfg, *,

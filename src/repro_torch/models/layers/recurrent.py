@@ -89,14 +89,32 @@ def _wkv_scan(r, k, v, w, u, S0):
         t1 = min(T, t0 + SCAN_CHUNK)
         kv = k[t0:t1, ..., :, None] * v[t0:t1, ..., None, :]
         wt = w[t0:t1, ..., None]
-        states = kv.new_empty((t1 - t0 + 1, *S.shape))
-        states[0] = S
-        for t in range(t1 - t0):
-            torch.addcmul(kv[t], wt[t], states[t], out=states[t + 1])
+        states = _chunk_states(kv, wt, S)
         out[t0:t1] += torch.einsum("tbhi,tbhij->tbhj", r[t0:t1],
                                    states[:-1])
         S = states[-1]
     return out, S
+
+
+def _chunk_states(inp: torch.Tensor, decay: torch.Tensor,
+                  h: torch.Tensor) -> torch.Tensor:
+    """The states h_0 = h, h_{t+1} = inp_t + decay_t h_t over a chunk
+    (T, ...), stacked: (T + 1, ...). Each step is one ``addcmul``, written
+    into a preallocated stack; where autograd records (grad mode on and an
+    input that requires grad) the steps are kept as separate tensors and
+    stacked, since an ``out=`` write has no backward. The same values
+    either way."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (inp, decay, h)):
+        states = [h]
+        for t in range(inp.shape[0]):
+            states.append(torch.addcmul(inp[t], decay[t], states[-1]))
+        return torch.stack(states)
+    states = inp.new_empty((inp.shape[0] + 1, *h.shape))
+    states[0] = h
+    for t in range(inp.shape[0]):
+        torch.addcmul(inp[t], decay[t], states[t], out=states[t + 1])
+    return states
 
 
 def rwkv_time_mix(params, x: torch.Tensor, state: dict | None = None):
@@ -186,10 +204,7 @@ def _ssm_scan(dt, xf, bt, ct, a, h0):
         t1 = min(T, t0 + SCAN_CHUNK)
         decay = torch.exp(dt[t0:t1, ..., None] * a)
         inp = (dt[t0:t1] * xf[t0:t1])[..., None] * bt[t0:t1, :, None, :]
-        states = decay.new_empty((t1 - t0 + 1, *h.shape))
-        states[0] = h
-        for t in range(t1 - t0):
-            torch.addcmul(inp[t], decay[t], states[t], out=states[t + 1])
+        states = _chunk_states(inp, decay, h)
         ys.append(torch.einsum("tbdn,tbn->tbd", states[1:], ct[t0:t1]))
         h = states[-1]
     return torch.cat(ys), h

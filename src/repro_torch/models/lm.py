@@ -14,18 +14,28 @@ Entry points, as in the reference:
   forward       (B, S) tokens -> (B, S, vocab_padded) logits
   prefill       builds the KV caches at full sequence length
   decode_step   one token with the caches (serve_step)
-and ``generate``, the serve CLI's greedy loop.
+  loss_fn       (B, S) tokens and labels -> scalar loss, differentiable
+and ``generate``, the serve CLI's greedy loop. The serving entry points
+run under ``torch.no_grad`` on the module's own weights, which never
+require grad. Training goes through ``loss_fn`` / ``value_and_grad`` with
+the fp32 master parameters of ``convert.init_params`` (or
+``params_from_jax``), cast to each parameter's type at every step
+(``cast_params``) and handed to each block with its call
+(``forward_train``), so the module may live on the ``meta`` device.
 
 Differences from the reference, none of which changes a value beyond the
 order of an fp32 sum, but the last, which changes served tokens:
   * The reference stacks every block's leaves on a leading layer axis and
     runs ``lax.scan``; here the blocks are an ``nn.ModuleList`` and a
     Python loop.
-  * Remat and the sharding constraints have no meaning for inference on
-    one card and are dropped.
-  * The weight matrices are cast to the activation type once, at load; the
-    reference casts its fp32 parameters at every use, to the same values.
-    Norm scales stay in the parameter type, as the reference reads them.
+  * The sharding constraints are dropped. Remat (``cfg.remat``) applies
+    to the training forward: ``torch.utils.checkpoint`` around each block
+    (``block`` keeps the blocks' matmul outputs, ``full`` nothing) or
+    around about sqrt(L) groups of blocks (``sqrt``).
+  * For serving the weight matrices are cast to the activation type once,
+    at load; the reference casts its fp32 parameters at every use, to the
+    same values (training casts the masters at every step). Norm scales
+    stay in the parameter type, as the reference reads them.
   * The decode state (KV caches, rings, the recurrences' states) is
     updated in place; the reference returns updated copies.
   * ``prefill`` applies ``lm_head`` to the last position only; the
@@ -33,13 +43,14 @@ order of an fp32 sum, but the last, which changes served tokens:
   * The MoE FFN scatters and gathers its kept slots where the reference
     multiplies one-hot tensors, and the recurrences form their terms in
     another order (``layers/moe.py``, ``layers/recurrent.py``): fp32 sums
-    in other orders. The MoE's aux load-balance loss is not surfaced (no
-    training yet).
+    in other orders.
   * The prefill attention runs the flash-attention kernel on the card
     (``repro_torch.kernels.attention``), once per layer; the Fourier
-    mixer's prefill runs the FFT kernel (``kernels.fft.fft_planes``) three
-    times per layer. The recurrences and the MoE are PyTorch ops: the
-    reference's are ``lax.scan``s and einsums outside any Pallas kernel.
+    mixer runs the FFT kernel (``kernels.fft.fft_planes``) three
+    times per layer, and in training three more in its backward. The
+    attention's backward differentiates its plain version. The
+    recurrences and the MoE are PyTorch ops: the reference's are
+    ``lax.scan``s and einsums outside any Pallas kernel.
 
   * ``generate`` takes its greedy argmax over the ``vocab_size`` logits;
     the reference's serve loop takes it over all ``vocab_padded`` ones, and
@@ -52,11 +63,13 @@ fp32 (``preferred_element_type``).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
@@ -225,11 +238,15 @@ class Block(nn.Module):
 
     def forward(self, cfg: ModelConfig, x: torch.Tensor, *,
                 positions: torch.Tensor, window: int,
-                state: Optional[dict] = None) -> torch.Tensor:
-        """One block over the whole sequence. ``state``: this layer's
+                state: Optional[dict] = None
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One block over the whole sequence: (x, the MoE's aux
+        load-balance loss, None without a MoE). ``state``: this layer's
         decode state to fill (prefill; ``_layer_state``): the attention's
         k, v, the Fourier mixer's ring of its last inputs, the recurrences'
-        final states and last inputs."""
+        final states and last inputs. Without a state the block writes
+        nothing in place, so autograd can record it (the training
+        forward)."""
         h = rms_norm(x, self.ln1)
         if cfg.mixer == "fourier":
             y = fourier_mixing(self.fourier, h)
@@ -262,8 +279,9 @@ class Block(nn.Module):
                                                 torch.zeros_like(h2[:, 0]))
             if state is not None:
                 state["prev_x_c"].copy_(last)
-            return x + y2
-        return x + self._ffn(cfg, h2)
+            return x + y2, None
+        y2, aux = self._ffn(cfg, h2)
+        return x + y2, aux
 
     def decode(self, cfg: ModelConfig, x: torch.Tensor, state: dict, *,
                pos: int, window: int, positions: Optional[torch.Tensor]
@@ -295,7 +313,7 @@ class Block(nn.Module):
                                                 state["prev_x_c"])
             state["prev_x_c"].copy_(last)
             return x + y2
-        return x + self._ffn(cfg, h2)
+        return x + self._ffn(cfg, h2)[0]
 
     def _hymba_out(self, y_attn: torch.Tensor,
                    y_ssm: torch.Tensor) -> torch.Tensor:
@@ -304,10 +322,12 @@ class Block(nn.Module):
         return 0.5 * (rms_norm(y_attn, self.ln_attn_out)
                       + rms_norm(y_ssm, self.ln_ssm_out))
 
-    def _ffn(self, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, cfg: ModelConfig, h: torch.Tensor
+             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the FFN's output, the MoE's aux loss or None)."""
         if cfg.is_moe:
-            return moe_lib.moe_ffn(self.moe, h, cfg, _reduce_dtype(cfg))[0]
-        return swiglu_mlp(self.mlp, h, _reduce_dtype(cfg))
+            return moe_lib.moe_ffn(self.moe, h, cfg, _reduce_dtype(cfg))
+        return swiglu_mlp(self.mlp, h, _reduce_dtype(cfg)), None
 
 
 def _reduce_dtype(cfg: ModelConfig) -> torch.dtype | None:
@@ -376,8 +396,12 @@ class DecoderLM(nn.Module):
         return self.embed.device
 
     def _embed(self, tokens: Optional[torch.Tensor],
-               embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        if self.device.type == "cuda":
+               embeds: Optional[torch.Tensor],
+               table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The first activations: the embeddings given, or the rows of
+        ``table`` (default: the module's ``embed``) scaled by sqrt(d)."""
+        table = self.embed if table is None else table
+        if table.device.type == "cuda":
             exact_matmuls()
         adt = dtype_of(self.cfg.dtype)
         if self.cfg.frontend == "embeddings":
@@ -387,7 +411,7 @@ class DecoderLM(nn.Module):
             return embeds.to(adt)
         scale = torch.tensor(math.sqrt(float(self.cfg.d_model)),
                              dtype=torch.float32).to(adt)
-        return self.embed[tokens] * scale
+        return table[tokens] * scale
 
     @staticmethod
     def _positions(x: torch.Tensor,
@@ -402,9 +426,9 @@ class DecoderLM(nn.Module):
                state: Optional[dict] = None) -> torch.Tensor:
         windows = _layer_windows(self.cfg)
         for i, block in enumerate(self.blocks):
-            x = block(self.cfg, x, positions=positions, window=windows[i],
-                      state=None if state is None else _layer_state(state,
-                                                                    i))
+            x, _ = block(self.cfg, x, positions=positions, window=windows[i],
+                         state=None if state is None else _layer_state(state,
+                                                                       i))
         return rms_norm(x, self.final_norm)
 
     @torch.no_grad()
@@ -482,6 +506,172 @@ class DecoderLM(nn.Module):
                              window=windows[i], positions=positions)
         x = rms_norm(x, self.final_norm)
         return (x @ self.lm_head)[:, 0].float(), state
+
+
+# ---------------------------------------------------------------------------
+# Training: the differentiable forward with the fp32 master parameters, the
+# loss, and the reference's remat policies
+# ---------------------------------------------------------------------------
+
+REMATS = ("none", "block", "full", "sqrt")
+#: What ``remat="block"`` keeps of a block's forward for the backward: the
+#: products without batch dims (the reference's
+#: ``dots_with_no_batch_dims_saveable``; ``x @ W`` is one ``mm``). The rest
+#: is recomputed; ``"full"`` keeps nothing.
+_BLOCK_SAVES = (torch.ops.aten.mm.default,)
+
+
+def cast_params(model: DecoderLM, params: Mapping[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+    """The master parameters (``convert.init_params``' dict, fp32) cast to
+    each parameter's type in ``model``: the matrices to the activation
+    type, as the reference casts at every use. The casts are recorded by
+    autograd, so gradients come back in the masters' type."""
+    return {name: params[name].to(p.dtype)
+            for name, p in model.named_parameters()}
+
+
+def _block_call(block: Block, params: dict, cfg: ModelConfig,
+                x: torch.Tensor, *, positions: torch.Tensor, window: int):
+    """One block's training forward with ``params`` in place of its own
+    weights. The weights go in with the call, so a recomputation under
+    ``torch.utils.checkpoint`` reads them too."""
+    return torch.func.functional_call(block, params, (cfg, x), {
+        "positions": positions, "window": window})
+
+
+def _checkpointed(fn, saves=None):
+    """``fn`` under ``torch.utils.checkpoint`` (not reentrant): nothing of
+    its forward kept for the backward, or the outputs of the ops in
+    ``saves``."""
+    kw = {}
+    if saves is not None:
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, list(saves))
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _best_outer(L: int) -> int:
+    """Largest divisor of L closest to sqrt(L) (the reference's)."""
+    for d in range(math.isqrt(L), 0, -1):
+        if L % d == 0:
+            return d
+    return 1
+
+
+def _add_aux(total: torch.Tensor, aux: Optional[torch.Tensor]
+             ) -> torch.Tensor:
+    return total if aux is None else total + aux
+
+
+def _run_blocks(calls: list, x: torch.Tensor, remat: str
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blocks' training forward under the reference's remat policy
+    (``_scan_blocks``): ``none``; ``block`` and ``full``, one checkpoint a
+    block; ``sqrt``, a checkpoint around each of about sqrt(L) groups of
+    blocks, each block inside checkpointed again. Returns (x, aux summed
+    over the blocks)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}: one of {REMATS}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat == "sqrt":
+        Li = len(calls) // _best_outer(len(calls))
+
+        def group(fns, xc, acc):
+            for fn in fns:
+                xc, a = fn(xc)
+                acc = _add_aux(acc, a)
+            return xc, acc
+
+        inner = [_checkpointed(fn) for fn in calls]
+        for g in range(0, len(calls), Li):
+            x, aux = _checkpointed(functools.partial(
+                group, inner[g:g + Li]))(x, aux)
+        return x, aux
+    if remat != "none":
+        calls = [_checkpointed(fn, _BLOCK_SAVES if remat == "block"
+                               else None) for fn in calls]
+    for fn in calls:
+        x, a = fn(x)
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+def forward_train(model: DecoderLM, params: Mapping[str, torch.Tensor],
+                  tokens: Optional[torch.Tensor] = None, *,
+                  positions: Optional[torch.Tensor] = None,
+                  embeds: Optional[torch.Tensor] = None,
+                  remat: Optional[str] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``forward`` for training, differentiable: (B, S,
+    vocab_padded) logits in the activation type and the aux loss summed
+    over the blocks (fp32), with ``params`` (``cast_params``: each in its
+    parameter's type) in place of the module's weights. ``model`` gives
+    the structure only and may live on the ``meta`` device. ``remat``
+    defaults to ``model.cfg.remat``."""
+    cfg = model.cfg
+    x = model._embed(tokens, embeds, params["embed"])
+    positions = model._positions(x, positions)
+    windows = _layer_windows(cfg)
+    calls = []
+    for i, block in enumerate(model.blocks):
+        prefix = f"blocks.{i}."
+        own = {name[len(prefix):]: value for name, value in params.items()
+               if name.startswith(prefix)}
+        calls.append(functools.partial(_block_call, block, own, cfg,
+                                       positions=positions,
+                                       window=windows[i]))
+    x, aux = _run_blocks(calls, x, cfg.remat if remat is None else remat)
+    x = rms_norm(x, params["final_norm"])
+    return x @ params["lm_head"], aux
+
+
+def loss_fn(model: DecoderLM, params: Mapping[str, torch.Tensor],
+            batch: Mapping[str, torch.Tensor], *,
+            remat: Optional[str] = None) -> torch.Tensor:
+    """The reference's ``loss_fn``: next-token cross entropy over
+    ``batch["labels"]`` (-1 = ignore) in fp32, the padded vocabulary
+    masked by an additive -1e9 bias, plus 0.01 x the MoE's aux loss.
+    ``params`` are the fp32 masters, cast here (``cast_params``). The
+    label's logit is picked by a gather, not the reference's one-hot
+    contraction (a (B, S, vocab) one-hot is 2.1 GB at fourierpim-lm's
+    full width): the same value."""
+    cfg = model.cfg
+    logits, aux = forward_train(
+        model, cast_params(model, params), batch.get("tokens"),
+        positions=batch.get("positions"), embeds=batch.get("embeds"),
+        remat=remat)
+    labels = batch["labels"].long()
+    logits = logits.float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device)
+        logits = logits + torch.where(pad >= cfg.vocab_size, -1e9, 0.0)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = torch.sum((lse - picked) * mask) / torch.clamp(mask.sum(),
+                                                          min=1.0)
+    return loss + 0.01 * aux
+
+
+def value_and_grad(model: DecoderLM, params: Mapping[str, torch.Tensor],
+                   batch: Mapping[str, torch.Tensor], *,
+                   remat: Optional[str] = None
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(loss, the gradient of every master parameter, in its type): the
+    reference's ``jax.value_and_grad(lambda p: loss_fn(cfg, p, batch))``.
+    ``params`` need not require grad."""
+    leaves = {name: p.detach().requires_grad_(True)
+              for name, p in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(model, leaves, batch, remat=remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    # a leaf the loss does not read (the token table of an arch that takes
+    # embeddings) has a zero gradient, as under jax.grad
+    return loss.detach(), {
+        name: torch.zeros_like(leaves[name]) if g is None else g
+        for name, g in zip(leaves, grads)}
 
 
 @torch.no_grad()

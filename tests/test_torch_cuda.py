@@ -1194,3 +1194,71 @@ def test_distributed_routes_on_card_equal_the_local_routes(cuda, rng, batch,
         else:
             np.testing.assert_allclose(got, want, rtol=0,
                                        atol=1e-3 * np.abs(want).max())
+
+
+def test_kernel_wrappers_refuse_gradients_they_would_drop(cuda):
+    """A bare wrapper call under grad mode with an input that requires grad
+    raises on the card (a launch has no backward); under ``no_grad`` it
+    runs, and the differentiable routes (``fft_causal_conv``,
+    ``blockwise_attention``) give every input its gradient."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import attention as layer_attn
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def leaf(*shape):
+        return torch.randn(*shape, device=cuda, generator=g
+                           ).requires_grad_()
+
+    x, z = leaf(4, 64), torch.zeros(4, 64, device=cuda)
+    z32 = torch.zeros(4, 32, device=cuda)
+    q, k, v = leaf(1, 64, 2, 64), leaf(1, 64, 2, 64), leaf(1, 64, 2, 64)
+    bare = [lambda: tfft.fft_planes(x, z),
+            lambda: tfft.rfft_planes(x),
+            lambda: tfft.irfft_planes(x[:, :32].contiguous(), z32),
+            lambda: tpoly.polymul_complex_planes(x, z, z, z),
+            lambda: tpoly.polymul_real_planes(x, z),
+            lambda: tattn.attention(q, k, v, window=1 << 30, scale=1.0),
+            lambda: tattn.flash_attention(q[0].transpose(0, 1),
+                                          k[0].transpose(0, 1),
+                                          v[0].transpose(0, 1))]
+    for call in bare:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    xs, ks = leaf(2, 8, 100), leaf(1, 8, 16)
+    before = _build.LAUNCHES["fft_planes"]
+    ops.fft_causal_conv(xs, ks, radix=4).square().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fft_planes"] == before + 6
+    out = layer_attn.blockwise_attention(q, k, v, window=1 << 30)
+    out.square().sum().backward()
+    for t in (xs, ks, q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+
+
+def test_training_step_on_card_matches_cpu(cuda):
+    """One ``lm.value_and_grad`` of the reduced fourierpim-lm config on the
+    card (its convolution's forward, recomputation and backward on the
+    kernel: 9 launches a layer) against the CPU: the loss rtol 1e-4, each
+    leaf's gradient within 1e-4 of its largest magnitude (a sound fp32
+    step reads about 2e-6; one with TF32 matmuls falls outside)."""
+    cfg = get_config("fourierpim-lm").scaled_down()
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                             "labels")}
+    model = lm.DecoderLM(cfg, device="meta")
+    want_loss, want = lm.value_and_grad(model, params, batch)
+    before = _build.LAUNCHES["fft_planes"]
+    loss, grads = lm.value_and_grad(
+        model, {k: v.to(cuda) for k, v in params.items()},
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fft_planes"] == before + 9 * cfg.num_layers
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    for name, g in grads.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))

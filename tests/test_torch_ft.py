@@ -421,12 +421,22 @@ def test_restore_keeps_like_structure_dtype_and_device(tmp_path):
 
 
 def test_bf16_leaf_names_its_roadmap_item(tmp_path):
+    """Item 11f (training checkpoints) stores a bf16 leaf as its uint16
+    bits with dtype "bfloat16" in the manifest: it comes back bit for bit,
+    and an fp32 leaf restores into a bf16 one by a cast."""
     d = str(tmp_path)
-    with pytest.raises(TypeError, match="item 11f"):
-        ckpt_lib.save(d, 1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
-    ckpt_lib.save(d, 1, {"w": np.zeros(2, np.float32)})
-    with pytest.raises(TypeError, match="item 11f"):
-        ckpt_lib.restore(d, 1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    w = torch.randn(3, 5, generator=torch.Generator().manual_seed(0)).to(
+        torch.bfloat16)
+    ckpt_lib.save(d, 1, {"w": w})
+    assert [e["dtype"] for e in ckpt_lib.read_manifest(d, 1)["arrays"]] \
+        == ["bfloat16"]
+    got = ckpt_lib.restore(d, 1, {"w": torch.zeros(3, 5,
+                                                   dtype=torch.bfloat16)})
+    assert got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16))
+    ckpt_lib.save(d, 2, {"w": np.full(2, 1.5, np.float32)})
+    got = ckpt_lib.restore(d, 2, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    assert torch.equal(got["w"], torch.full((2,), 1.5, dtype=torch.bfloat16))
 
 
 def test_checkpoint_cross_reads_with_the_reference(tmp_path):
