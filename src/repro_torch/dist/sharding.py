@@ -7,8 +7,9 @@ its own, held by one process:
 
   * a :class:`Mesh` is axis names, their sizes and one ``torch.device`` a
     shard. Shards go round-robin over the cards ``torch.cuda.device_count``
-    reports, or all onto the CPU where the caller asks for it, so on a host
-    with one card every shard lives on ``cuda:0``;
+    reports, or all onto the CPU, or all onto the ``meta`` device (the
+    dry-run's: shapes, no values) where the caller asks for it, so on a
+    host with one card every shard lives on ``cuda:0``;
   * a sharded value is the list of its blocks, in shard order, each on its
     shard's device. ``shard_map`` splits a global tensor's last axis into
     those blocks, calls a per-shard body with the lists and the shards'
@@ -25,7 +26,11 @@ reference's, unchanged, over the port's own :class:`PartitionSpec`.
 tensor unchanged as the reference's does; inside a mesh it checks that the
 tensor lies on one of the mesh's devices. ``device_put`` places a tensor
 on a mesh by spec (the blocks of a :class:`NamedSharding`), as
-``ft/checkpoint.restore(..., shardings=)`` does for each restored leaf.
+``ft/checkpoint.restore(..., shardings=)`` does for each restored leaf;
+``shard_tree`` and ``join_tree`` cut a named-leaf dict into one dict of
+blocks a shard by specs and join it again (``models/convert.py``'s
+``shard_params`` / ``gather_params``); ``axis_groups`` gives the shards
+that differ only in some axes (a collective's groups).
 """
 from __future__ import annotations
 
@@ -141,12 +146,13 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
               device: str | torch.device | None = None) -> Mesh:
     """A mesh of ``prod(axis_shapes)`` shards: round-robin over the visible
-    cards (``device`` None or CUDA), or all on the CPU (``device="cpu"``).
-    Raises when CUDA is wanted and absent."""
+    cards (``device`` None or CUDA), or all on the CPU (``device="cpu"``),
+    or all on the ``meta`` device (``device="meta"``: shapes without
+    values, the dry-run's). Raises when CUDA is wanted and absent."""
     kind = torch.device("cuda" if device is None else device).type
     n = math.prod(axis_shapes)
-    if kind == "cpu":
-        devices = (torch.device("cpu"),) * n
+    if kind in ("cpu", "meta"):
+        devices = (torch.device(kind),) * n
     elif kind == "cuda":
         cards = torch.cuda.device_count() if torch.cuda.is_available() \
             else 0
@@ -155,7 +161,8 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,
                                "device='cpu' for a mesh on the CPU")
         devices = tuple(torch.device("cuda", i % cards) for i in range(n))
     else:
-        raise ValueError(f"device {device}: a mesh runs on cuda or cpu")
+        raise ValueError(f"device {device}: a mesh runs on cuda, cpu or "
+                         f"meta")
     return Mesh(tuple(axis_names), tuple(int(s) for s in axis_shapes),
                 devices)
 
@@ -339,17 +346,19 @@ class NamedSharding:
     spec: P
 
 
-def device_put(x: torch.Tensor, sharding: NamedSharding
-               ) -> list[torch.Tensor]:
+def device_put(x: torch.Tensor, sharding: NamedSharding, *,
+               shards: Sequence[int] | None = None) -> list[torch.Tensor]:
     """Place ``x`` on the mesh by spec: one block a shard, in mesh order,
     each on its shard's device. A dimension sharded over axes (a, b) is
     cut into size(a) * size(b) slices, shard (.., i_a, .., i_b, ..) taking
     slice i_a * size(b) + i_b; axes the spec does not name replicate.
-    The spec is sanitized against ``x``'s shape first."""
+    The spec is sanitized against ``x``'s shape first. ``shards``: only
+    those shards' blocks, in that order."""
     mesh = sharding.mesh
     spec = sanitize_spec(sharding.spec, tuple(x.shape), mesh)
     blocks = []
-    for shard, device in enumerate(mesh.devices):
+    for shard in range(mesh.size) if shards is None else shards:
+        device = mesh.devices[shard]
         coord = dict(zip(mesh.axis_names,
                          _unravel(shard, mesh.axis_sizes)))
         block = x
@@ -373,6 +382,97 @@ def _unravel(i: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
         coord.append(i % s)
         i //= s
     return tuple(reversed(coord))
+
+
+def coords(mesh: Mesh, shard: int) -> dict[str, int]:
+    """Shard ``shard``'s index on each axis."""
+    return dict(zip(mesh.axis_names, _unravel(shard, mesh.axis_sizes)))
+
+
+def axis_groups(mesh: Mesh, axes: Sequence[str]) -> list[tuple[int, ...]]:
+    """The shards in groups that differ only in ``axes`` (the axes the mesh
+    lacks are left out): each group ordered by its shards' index over
+    ``axes`` in that order (row-major, as ``device_put`` numbers the
+    slices of a dimension sharded over several axes), the groups by the
+    other axes' indices."""
+    axes = [a for a in axes if a in mesh.shape]
+    groups: dict[tuple, list[tuple[int, int]]] = {}
+    for shard in range(mesh.size):
+        c = coords(mesh, shard)
+        rest = tuple(c[a] for a in mesh.axis_names if a not in axes)
+        index = 0
+        for a in axes:
+            index = index * mesh.shape[a] + c[a]
+        groups.setdefault(rest, []).append((index, shard))
+    return [tuple(s for _, s in sorted(v)) for _, v in sorted(groups.items())]
+
+
+def spec_axes(spec: P) -> list[str]:
+    """The mesh axes a (sanitized) spec names, in order."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend(entry if isinstance(entry, tuple) else (entry,))
+    return out
+
+
+def sanitize_tree(specs: dict, shapes: dict, mesh) -> dict:
+    """``sanitize_spec`` leaf by leaf: ``specs`` and ``shapes`` map the same
+    names to a spec and to a shape (or a tensor)."""
+    return {name: sanitize_spec(spec, tuple(getattr(shapes[name], "shape",
+                                                    shapes[name])), mesh)
+            for name, spec in specs.items()}
+
+
+def shard_tree(tree: dict, specs: dict, mesh: Mesh, *,
+               shards: Sequence[int] | None = None) -> list[dict]:
+    """A named-leaf dict placed on ``mesh`` by spec (``device_put`` leaf by
+    leaf): one dict of blocks a shard, in mesh order (or for ``shards``
+    only, in that order). The specs are sanitized against the leaves'
+    shapes first."""
+    n = mesh.size if shards is None else len(shards)
+    blocks = [dict() for _ in range(n)]
+    for name, x in tree.items():
+        for i, block in enumerate(device_put(x, NamedSharding(
+                mesh, specs[name]), shards=shards)):
+            blocks[i][name] = block
+    return blocks
+
+
+def join_tree(blocks: Sequence[dict], specs: dict, mesh: Mesh, *,
+              device=None) -> dict:
+    """The inverse of ``shard_tree``: each leaf whole again from its blocks,
+    on ``device`` (the first block's by default). ``specs`` are the
+    sanitized specs the blocks were cut by (``sanitize_tree``); a block
+    replicated over an axis is read from the axis's index 0."""
+    out = {}
+    for name, first in blocks[0].items():
+        spec = tuple(specs[name]) + (None,) * (first.ndim - len(specs[name]))
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                shape[dim] *= math.prod(mesh.shape[a] for a in axes)
+        dev = first.device if device is None else device
+        full = first.new_empty(shape, device=dev)
+        named = set(spec_axes(P(*spec)))
+        for shard, block in enumerate(blocks):
+            c = coords(mesh, shard)
+            if any(c[a] for a in mesh.axis_names if a not in named):
+                continue
+            view = full
+            for dim, entry in enumerate(spec):
+                if entry is None:
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                index = 0
+                for a in axes:
+                    index = index * mesh.shape[a] + c[a]
+                width = block[name].shape[dim]
+                view = view.narrow(dim, index * width, width)
+            view.copy_(block[name])
+        out[name] = full
+    return out
 
 
 # ---------------------------------------------------------------------------

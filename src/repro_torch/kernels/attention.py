@@ -258,10 +258,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card: one launch of the kernel ``kernel_for`` picks, no copies
     of q, k or v. On the CPU: ``attention_plain`` with key blocks of
-    ``kv_block`` (default: that kernel's key tile).
+    ``kv_block`` (default: that kernel's key tile); on the ``meta`` device
+    the same ops, which compute nothing (the dry-run counts their
+    products).
     """
     _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_plain(q, k, v, window=window, causal=causal,
                                scale=scale, kv_block=kv_block)
     if q.device.type != "cuda":
@@ -302,7 +304,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     q4, k4, v4 = (_heads_as_batch(x) for x in (q, k, v))
     _check(q4, k4, v4, window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, window=window, causal=causal,
                                      bq=bq, bk=bk)
     if q.device.type != "cuda":

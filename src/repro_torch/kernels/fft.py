@@ -12,6 +12,11 @@ are torch ops that autograd records.
 Complex data is carried as split fp32 planes (B, n). Stockham invariant: the
 state of a row is A(L, r) with L * r = n, and column q of A is the length-L
 FFT of x[q :: r]; no bit-reversal permutation is ever applied.
+
+On the ``meta`` device (the dry-run's) a wrapper runs its plain
+version's ops, which compute nothing and give the result's shape and
+type (``fft_planes`` returns planes of its input's shape at
+once); nothing is launched.
 """
 from __future__ import annotations
 
@@ -668,7 +673,7 @@ def check_planes(name: str, *planes: torch.Tensor) -> tuple[int, int]:
                              f"{tuple(ref.shape)} differ")
         if not p.is_contiguous():
             raise ValueError(f"{name}: planes must be contiguous")
-    if ref.device.type not in ("cpu", "cuda"):
+    if ref.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {ref.device}")
     b, n = ref.shape
     _log2(n)
@@ -712,12 +717,15 @@ def fft_planes(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
     points on, its two-pass schedule (``two_pass_plan``: two launches, an
     intermediate row per row), below that one CTA per ``block_b`` rows at
     most (default ``plan_batch_block``), fitted to the batch. On the CPU the
-    plain version of the same schedule. Replaces
+    plain version of the same schedule; on the ``meta`` device planes of the
+    result's shape, nothing computed. Replaces
     ``repro/kernels/fft.py::fft_planes``.
     """
     b, n = check_planes("fft_planes", xr, xi)
     check_radix(radix)
     two_pass = two_pass_plan(n, radix)
+    if xr.device.type == "meta":
+        return torch.empty_like(xr), torch.empty_like(xi)
     if xr.device.type == "cpu":
         if two_pass is not None:
             wr, wi = device_twiddles(n, inverse, xr.device)
@@ -795,7 +803,7 @@ def rfft_planes(x: torch.Tensor, *, radix: int = 2,
         raise ValueError(f"rfft_planes: n={n} must be >= 2")
     check_radix(radix)
     two_pass = two_pass_plan(n, radix, real=True)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return rfft_two_pass(x, radix=radix, plan=two_pass)
         return rfft_planes_plain(x, radix=radix)
@@ -870,7 +878,7 @@ def irfft_planes(xr: torch.Tensor, xi: torch.Tensor, *, radix: int = 2,
     n = 2 * nh
     check_radix(radix)
     two_pass = irfft_two_pass_plan(n, radix)
-    if xr.device.type == "cpu":
+    if xr.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return irfft_two_pass(xr, xi, radix=radix, plan=two_pass)
         return irfft_planes_plain(xr, xi, radix=radix)

@@ -22,6 +22,10 @@ Storage: residues are ``torch.int32`` tensors on both devices (values < q <
 2^31, so the bits are those of uint32); the kernels read them as
 ``uint32_t``. Inputs may also be ``torch.uint32`` words of any value: the
 load reduces them mod q, as the reference's ``_as_residues`` does.
+
+On the ``meta`` device (the dry-run's) a wrapper runs its plain
+version's ops, which compute nothing and give the result's shape and
+type; nothing is launched.
 """
 from __future__ import annotations
 
@@ -552,7 +556,7 @@ def _check_rows(name: str, shape: tuple[int, ...], *xs: torch.Tensor
         if x.device != ref.device:
             raise ValueError(f"{name}: tensors on {x.device} and "
                              f"{ref.device}")
-    if ref.device.type not in ("cpu", "cuda"):
+    if ref.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {ref.device}")
 
 
@@ -601,7 +605,7 @@ def ntt_batched(x: torch.Tensor, params: NTTParams, *,
     _check_rows("ntt_batched", (x.shape[0], n), x)
     x = _as_residues(x, params.q)
     two_pass = ntt_batched_two_pass_plan(n)
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return ntt_batched_two_pass(x, params, inverse=inverse,
                                         plan=two_pass)
@@ -670,7 +674,7 @@ def ntt_polymul(a: torch.Tensor, b: torch.Tensor, params: NTTParams, *,
     a = _as_residues(a, params.q)
     b = _as_residues(b, params.q)
     two_pass = ntt_two_pass_plan(n)
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return ntt_polymul_two_pass(a, b, params, negacyclic=negacyclic,
                                         plan=two_pass)
@@ -766,7 +770,7 @@ def rns_ntt_polymul(ar: torch.Tensor, br: torch.Tensor, rns, *,
     bsz, n = _check_rns(ar, br, rns)
     ar, br = ar.contiguous(), br.contiguous()
     schedule = rns_schedule(n)
-    if ar.device.type == "cpu":
+    if ar.device.type in ("cpu", "meta"):
         if isinstance(schedule, NTTTwoPass):
             return rns_ntt_polymul_two_pass(ar, br, rns,
                                             negacyclic=negacyclic,

@@ -7,6 +7,10 @@ launches whose CTAs hold whole sub-problems of a split n = n1 x n2.
 As in ``kernels.fft``, each ``*_planes`` function launches its CUDA kernel
 for tensors on the card and runs its plain PyTorch version for tensors on
 the CPU.
+
+On the ``meta`` device (the dry-run's) a wrapper runs its plain
+version's ops, which compute nothing and give the result's shape and
+type; nothing is launched.
 """
 from __future__ import annotations
 
@@ -179,7 +183,7 @@ def polymul_complex_planes(ar: torch.Tensor, ai: torch.Tensor,
     b, n = check_planes("polymul_complex_planes", ar, ai, br, bi)
     check_radix(radix)
     two_pass = product_two_pass_plan(n, radix)
-    if ar.device.type == "cpu":
+    if ar.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return polymul_complex_two_pass(ar, ai, br, bi, radix=radix,
                                             plan=two_pass)
@@ -323,7 +327,7 @@ def polymul_real_planes(a: torch.Tensor, b: torch.Tensor, *, radix: int = 2,
     bsz, n = check_planes("polymul_real_planes", a, b)
     check_radix(radix)
     two_pass = product_two_pass_plan(n, radix, real=True)
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         if two_pass is not None:
             return polymul_real_two_pass(a, b, radix=radix, plan=two_pass)
         return polymul_real_planes_plain(a, b, radix=radix)

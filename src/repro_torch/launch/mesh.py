@@ -1,9 +1,8 @@
-"""Mesh construction for the training CLI (port of ``repro.launch.mesh``'s
-``make_dev_mesh``).
+"""Mesh construction (port of ``repro.launch.mesh``): the training CLI's
+``make_dev_mesh`` and the dry-run's ``make_production_mesh``.
 
-A function, not a module-level constant: importing this module touches no
-device. The reference's ``make_production_mesh`` (the 256- and 512-chip
-dry-run meshes) comes with the dry-run tools, ROADMAP queue 1, item 11g.
+Functions, not module-level constants: importing this module touches no
+device.
 """
 from __future__ import annotations
 
@@ -24,3 +23,15 @@ def make_dev_mesh(n_data: int = 2, n_model: int = 4, *,
                                   device=device)
     return sharding.make_mesh((n_pods, n_data, n_model),
                               ("pod", "data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> sharding.Mesh:
+    """The dry-run's meshes, as the reference's: 16 x 16 = 256 shards
+    (data, model), or with ``multi_pod`` 2 x 16 x 16 = 512 (pod, data,
+    model; FSDP extends over (pod, data)). On the ``meta`` device by
+    default: shapes without values, nothing allocated."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return sharding.make_mesh(shape, axes, device=device)
+

@@ -31,9 +31,13 @@ process (``dist/sharding.py``); the step is the same function. With
 shard's gradients on its slice of the batch, the data shards' mean, and
 the pods' mean through the int8 error-feedback compressed psum, with the
 quantization residual ``grad_err`` carried step to step (a leading pod
-axis on every leaf) and saved in the checkpoint. A model axis M > 1 needs
-the LM sharded across shards, which the port does not do yet (ROADMAP
-queue 1, item 11g): it raises.
+axis on every leaf) and saved in the checkpoint. A model axis M > 1
+(``--mesh 1x2``, ``2x4``) splits the LM over M shards of the process
+(``models/sharded.py``): each shard's heads, hidden columns, channels and
+vocabulary block, its own kernel launches on them, and the collectives
+between them in the byte ledger; the parameters, the optimizer state and
+the checkpoints stay whole. ``--compress-grads`` with a model axis is
+refused, as the reference's CLI refuses it.
 
 ``--loss-log`` appends one ``step <float.hex>`` line a step, flushed, so
 a SIGKILLed run resumed from its last checkpoint can be compared bit for
@@ -116,8 +120,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DxM|PxDxM",
                     help="enter a (data, model) mesh of this process, e.g. "
-                         "2x1; a three-part PxDxM spec adds a leading pod "
-                         "axis (e.g. 2x1x1) for --compress-grads")
+                         "2x1; a model axis M > 1 splits the LM over M "
+                         "shards (e.g. 1x2); a three-part PxDxM spec adds "
+                         "a leading pod axis (e.g. 2x1x1) for "
+                         "--compress-grads")
     ap.add_argument("--compress-grads", action="store_true",
                     help="reduce gradients across the pod axis through the "
                          "int8 error-feedback compressed psum "
@@ -142,11 +148,9 @@ def _mesh(ap, args, device: torch.device) -> Optional[sharding.Mesh]:
     except ValueError:
         ap.error(f"--mesh wants DxM or PxDxM (e.g. 2x1 or 2x1x1), got "
                  f"{args.mesh!r}")
-    if sizes[-1] > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: a model axis of {sizes[-1]} shards the LM "
-            f"itself, which the port does not do yet (ROADMAP queue 1, item "
-            f"11g); use a model axis of 1")
+    if sizes[-1] > 1 and args.compress_grads:
+        ap.error(f"--mesh {args.mesh} --compress-grads: the pod-mesh step "
+                 f"shards the batch only; use a model axis of 1")
     mesh = make_dev_mesh(*sizes[-2:], device=device,
                          n_pods=sizes[0] if len(sizes) == 3 else None)
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
@@ -254,7 +258,7 @@ def _run(args, mesh, device) -> TrainRun:
             cfg, opt_cfg, pod_axis="pod", mesh=mesh,
             data_axis="data" if "data" in mesh.shape else None)
     else:
-        train_step = step_lib.make_train_step(cfg, opt_cfg)
+        train_step = step_lib.make_train_step(cfg, opt_cfg, mesh=mesh)
 
     def save_ckpt(at_step: int) -> None:
         tree = {"params": params, "opt": opt_state}

@@ -9,6 +9,7 @@ reference's tree stacks every block leaf on a leading layer axis
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -18,7 +19,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import recurrent as rec_lib
 from repro_torch.models.layers.attention import init_attention_params
 from repro_torch.models.layers.moe import init_moe_params
+from repro_torch.dist import sharding
 from repro_torch.models.lm import DecoderLM, check_supported, dtype_of
+from repro_torch.models.lm import param_specs as lm_param_specs
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -32,8 +35,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+@functools.lru_cache(maxsize=32)
 def expected_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """Name -> shape of every parameter of ``DecoderLM(cfg)``."""
+    """Name -> shape of every parameter of ``DecoderLM(cfg)`` (cached by
+    config; read it, do not change it)."""
     model = DecoderLM(cfg, device="meta")
     return {name: tuple(p.shape) for name, p in model.state_dict().items()}
 
@@ -134,3 +139,29 @@ def build(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor],
     model = DecoderLM(cfg, device=device)
     model.load_state_dict(state_dict)
     return model
+
+
+def shard_params(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
+                 mesh, *, shards=None) -> list[dict[str, torch.Tensor]]:
+    """The masters (``init_params`` or ``params_from_jax``) placed on
+    ``mesh`` by the sanitized ``lm.param_specs``: one dict of blocks a
+    shard (the ``specs`` layout of ``models/sharded.py``), or for
+    ``shards`` only."""
+    return sharding.shard_tree(dict(params), _specs(cfg, params, mesh), mesh,
+                               shards=shards)
+
+
+def gather_params(cfg: ModelConfig, blocks, mesh, *,
+                  device=None) -> dict[str, torch.Tensor]:
+    """The inverse of ``shard_params``: each leaf whole, on ``device``."""
+    return sharding.join_tree(blocks, _specs(cfg, blocks[0], mesh), mesh,
+                              device=device)
+
+
+def _specs(cfg: ModelConfig, leaves, mesh) -> dict:
+    """The sanitized ``param_specs`` of the named leaves."""
+    shapes = expected_shapes(cfg)
+    return sharding.sanitize_tree(
+        {k: v for k, v in lm_param_specs(cfg).items() if k in leaves},
+        shapes, mesh)
+

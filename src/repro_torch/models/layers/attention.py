@@ -19,33 +19,38 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import attention as kattn
-from repro_torch.models.layers.common import apply_mrope, apply_rope, rms_norm
+from repro_torch.models.layers.common import (apply_mrope, apply_rope,
+                                              partial_product, rms_norm)
 
 NEG = kattn.NEG
 
 
 def _qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor):
     """Project + rope. Returns q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params.wq).reshape(B, S, H, hd)
-    k = (x @ params.wk).reshape(B, S, KV, hd)
-    v = (x @ params.wv).reshape(B, S, KV, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, params.q_norm)
-        k = rms_norm(k, params.k_norm)
+    norms = (params.q_norm, params.k_norm) if cfg.qk_norm else (None, None)
+    q = _rotated(_heads(x @ params.wq, cfg), norms[0], cfg, positions)
+    k = _rotated(_heads(x @ params.wk, cfg), norms[1], cfg, positions)
+    return q, k, _heads(x @ params.wv, cfg)
+
+
+def _heads(y: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, S, n hd) -> (B, S, n, hd)."""
+    return y.reshape(*y.shape[:2], -1, cfg.head_dim)
+
+
+def _rotated(t: torch.Tensor, norm: Optional[torch.Tensor], cfg,
+             positions: torch.Tensor) -> torch.Tensor:
+    """q or k (B, S, n, hd): the qk-norm (with its scale), then the rotary
+    embedding. Both act on each head alone."""
+    if norm is not None:
+        t = rms_norm(t, norm)
     if cfg.mrope_sections is not None:
         if positions.ndim != 3:
             raise ValueError("M-RoPE needs (B, S, 3) positions")
-        q = apply_mrope(q, positions, sections=cfg.mrope_sections,
-                        theta=cfg.rope_theta)
-        k = apply_mrope(k, positions, sections=cfg.mrope_sections,
-                        theta=cfg.rope_theta)
-    else:
-        pos2 = positions if positions.ndim == 2 else positions[..., 0]
-        q = apply_rope(q, pos2, theta=cfg.rope_theta)
-        k = apply_rope(k, pos2, theta=cfg.rope_theta)
-    return q, k, v
+        return apply_mrope(t, positions, sections=cfg.mrope_sections,
+                           theta=cfg.rope_theta)
+    pos2 = positions if positions.ndim == 2 else positions[..., 0]
+    return apply_rope(t, pos2, theta=cfg.rope_theta)
 
 
 def _scale_q(q: torch.Tensor) -> torch.Tensor:
@@ -136,28 +141,176 @@ def attention_decode(params, x: torch.Tensor, cfg, *,
     the caches in place (the reference returns updated copies).
     Returns y (B, 1, d).
     """
-    B = x.shape[0]
-    C = cache_k.shape[1]
-    if positions is None:
-        positions = torch.full((B, 1), pos, dtype=torch.int32,
-                               device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions)
-    slot = pos % C
+    q, k, v = _qkv(params, x, cfg, _decode_positions(x, pos, positions))
+    _write_slot(cache_k, cache_v, k, v, pos)
+    return _cached(q, cache_k, cache_v, pos=pos, window=window) @ params.wo
+
+
+def _decode_positions(x: torch.Tensor, pos: int,
+                      positions: Optional[torch.Tensor]) -> torch.Tensor:
+    if positions is not None:
+        return positions
+    return torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                      device=x.device)
+
+
+def _write_slot(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, pos: int) -> None:
+    """The new token's k, v (B, 1, KV, hd) into slot pos % C."""
+    slot = pos % cache_k.shape[1]
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    KV, hd, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
-    G = H // KV
-    qh = _scale_q(q.reshape(B, KV, G, hd)).float()
+
+
+def _cached(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+            *, pos: int, window: int) -> torch.Tensor:
+    """One token's attention over the cache: q (B, 1, H, hd), caches
+    (B, C, KV, hd) -> (B, 1, H hd) in q's type."""
+    B, _, H, hd = q.shape
+    C, KV = cache_k.shape[1], cache_k.shape[2]
+    qh = _scale_q(q.reshape(B, KV, H // KV, hd)).float()
     s = torch.einsum("bkgh,bckh->bkgc", qh, cache_k.float())
     # ring position of slot c holds absolute index: for pos < C it is c;
     # for a full ring, absolute = pos - ((slot - c) mod C)
-    cidx = torch.arange(C, device=x.device)
+    slot = pos % C
+    cidx = torch.arange(C, device=q.device)
     absolute = pos - torch.remainder(slot - cidx, C)
     valid = (absolute >= 0) & (absolute <= pos) & (absolute > pos - window)
     s = torch.where(valid, s, NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckh->bkgh", p, cache_v.float())
-    return out.reshape(B, 1, H * hd).to(x.dtype) @ params.wo
+    return out.reshape(B, 1, H * hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The model axis: heads over the shards (``models/sharded.py``)
+# ---------------------------------------------------------------------------
+
+def head_plan(cfg, shards: int) -> tuple[str, int, int]:
+    """How ``shards`` model shards split the attention: ("split", q heads,
+    kv heads a shard) when the q heads divide and each shard's q heads
+    read a whole number of kv heads (k and v split too when the kv heads
+    divide; else each shard computes them whole and keeps the ones its q
+    heads read: "select"), or ("whole", H, KV) when the q heads do not
+    divide (hymba's 25 at 2 or 4 shards): each shard computes the whole
+    mixer, with the weights gathered whole."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if shards == 1 or H % shards:
+        return "whole", H, KV
+    h = H // shards
+    G = H // KV
+    if KV % shards == 0:
+        return "split", h, KV // shards
+    if h % G == 0 or G % h == 0:
+        return "select", h, max(1, h // G)
+    return "whole", H, KV
+
+
+def _own_kv(t: torch.Tensor, cfg, shard: int, shards: int) -> torch.Tensor:
+    """The kv heads (B, S, KV, hd) -> the ones shard ``shard``'s q heads
+    read."""
+    h = cfg.num_heads // shards
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = shard * h // G
+    return t[:, :, first:first + max(1, h // G)]
+
+
+def attention_sharded(sh, prefix: str, hs: list, cfg, *,
+                      positions: list, window: int,
+                      want_cache: bool = False):
+    """``attention_train`` over the model axis of ``sh`` (a
+    ``models.sharded.Shards``), ``hs`` the replicated input (one (B, S, d)
+    tensor a shard). Each shard projects its q heads (``wq``'s column
+    block), its kv heads (``wk``, ``wv``'s blocks, or k and v whole and its
+    heads taken), runs the flash attention on them, and its rows of ``wo``
+    give a partial sum; the psum of the partial sums (in the reduce type)
+    is the output on every shard. Under ``head_plan``'s "whole" every
+    shard runs the unsharded layer. Returns the outputs, and with
+    ``want_cache`` each shard's (k, v) for its cache."""
+    plan, h, kv = head_plan(cfg, sh.shards)
+    if plan == "whole":
+        params = sh.namespaces(prefix, ("wq", "wk", "wv", "wo", "q_norm",
+                                        "k_norm"))
+        outs = [attention_train(p, x, cfg, positions=pos, window=window,
+                                want_cache=want_cache)
+                for p, x, pos in zip(params, hs, positions)]
+        return ([y for y, _ in outs], [c for _, c in outs]) \
+            if want_cache else outs
+    norms = ([None] * len(hs),) * 2
+    if cfg.qk_norm:
+        # replicated scales acting on each shard's own heads: their
+        # gradients are partial, psummed (the select plan's k is whole)
+        norms = (sh.enter(sh.view(prefix + "q_norm")),
+                 sh.view(prefix + "k_norm"))
+        if plan == "split":
+            norms = (norms[0], sh.enter(norms[1]))
+    entered = sh.enter(hs)
+    q = [_rotated(_heads(x @ w, cfg), n, cfg, pos) for x, w, n, pos in zip(
+        entered, sh.view(prefix + "wq", 1), norms[0], positions)]
+    if plan == "split":
+        wk, wv = sh.view(prefix + "wk", 1), sh.view(prefix + "wv", 1)
+        k = [_rotated(_heads(x @ w, cfg), n, cfg, pos)
+             for x, w, n, pos in zip(entered, wk, norms[1], positions)]
+        v = [_heads(x @ w, cfg) for x, w in zip(entered, wv)]
+    else:
+        wk, wv = sh.view(prefix + "wk"), sh.view(prefix + "wv")
+        k = sh.enter([_rotated(_heads(x @ w, cfg), n, cfg, pos)
+                      for x, w, n, pos in zip(hs, wk, norms[1], positions)])
+        v = sh.enter([_heads(x @ w, cfg) for x, w in zip(hs, wv)])
+    cache = list(zip(k, v))
+    if plan == "select":
+        k = [_own_kv(t, cfg, m, sh.shards) for t, m in zip(k, sh.model_index)]
+        v = [_own_kv(t, cfg, m, sh.shards) for t, m in zip(v, sh.model_index)]
+    B, S = hs[0].shape[:2]
+    blk = cfg.attn_kv_block or min(1024, S)
+    rdt = torch.bfloat16 if cfg.reduce_dtype == "bfloat16" else None
+    parts = []
+    for qi, ki, vi, wo in zip(q, k, v, sh.view(prefix + "wo", 0)):
+        out = blockwise_attention(qi, ki, vi, window=window, kv_block=blk)
+        parts.append(partial_product(out.reshape(B, S, -1), wo, rdt))
+    ys = [y.to(x.dtype) for y, x in zip(sh.psum(parts), hs)]
+    return (ys, cache) if want_cache else ys
+
+
+def attention_decode_sharded(sh, prefix: str, hs: list, cfg, *,
+                             caches: list, pos: int, window: int,
+                             positions: Optional[list] = None) -> list:
+    """``attention_decode`` over the model axis: each shard's q heads
+    against its cache (its kv heads under "split", all of them under
+    "select" and "whole"; ``caches`` one (cache_k, cache_v) a shard, written
+    in place; ``positions`` one a shard, or None), its rows of ``wo``, and
+    the psum of the partial products in the activation type (the
+    reference's decode product)."""
+    plan, h, kv = head_plan(cfg, sh.shards)
+    if plan == "whole":
+        params = sh.namespaces(prefix, ("wq", "wk", "wv", "wo", "q_norm",
+                                        "k_norm"))
+        return [attention_decode(p, x, cfg, cache_k=ck, cache_v=cv,
+                                 pos=pos, window=window,
+                                 positions=None if positions is None
+                                 else positions[i])
+                for i, (p, x, (ck, cv)) in enumerate(zip(params, hs,
+                                                         caches))]
+    norms = ([None] * len(hs),) * 2
+    if cfg.qk_norm:
+        norms = (sh.view(prefix + "q_norm"), sh.view(prefix + "k_norm"))
+    split_kv = plan == "split"
+    wq = sh.view(prefix + "wq", 1)
+    wk = sh.view(prefix + "wk", 1 if split_kv else None)
+    wv = sh.view(prefix + "wv", 1 if split_kv else None)
+    parts = []
+    for i, (x, wo) in enumerate(zip(hs, sh.view(prefix + "wo", 0))):
+        at = _decode_positions(x, pos, None if positions is None
+                               else positions[i])
+        q = _rotated(_heads(x @ wq[i], cfg), norms[0][i], cfg, at)
+        k = _rotated(_heads(x @ wk[i], cfg), norms[1][i], cfg, at)
+        ck, cv = caches[i]
+        _write_slot(ck, cv, k, _heads(x @ wv[i], cfg), pos)
+        if plan == "select":
+            ck = _own_kv(ck, cfg, sh.model_index[i], sh.shards)
+            cv = _own_kv(cv, cfg, sh.model_index[i], sh.shards)
+        parts.append(_cached(q, ck, cv, pos=pos, window=window) @ wo)
+    return sh.psum(parts)
 
 
 def init_attention_params(cfg, generator: torch.Generator, dtype: torch.dtype,

@@ -113,3 +113,53 @@ def fourier_mixing(params, x: torch.Tensor) -> torch.Tensor:
     y = y.transpose(-1, -2).to(dtype)                   # (B, S, d)
     gate = torch.sigmoid((x @ params.gate).float()).to(dtype)
     return y * gate
+
+
+# ---------------------------------------------------------------------------
+# The model axis (``models/sharded.py``): ``sh`` is the run's ``Shards``,
+# ``hs`` the replicated input, one tensor a shard
+# ---------------------------------------------------------------------------
+
+def partial_product(h: torch.Tensor, w: torch.Tensor,
+                    reduce_dtype: torch.dtype | None) -> torch.Tensor:
+    """A row-parallel product, one shard's partial sum, in the type the
+    partial sums are reduced in (the reference's ``preferred_element_type``:
+    fp32 unless ``reduce_dtype``). bf16 operands are widened to fp32 for an
+    fp32 partial: their products are exact and their sum fp32, as the
+    reference's."""
+    if reduce_dtype is not None:
+        return (h @ w).to(reduce_dtype)
+    if h.dtype != torch.float32:
+        return h.float() @ w.float()
+    return h @ w
+
+
+def swiglu_mlp_sharded(sh, prefix: str, hs: list,
+                       reduce_dtype: torch.dtype | None = None) -> list:
+    """``swiglu_mlp`` over the model axis: ``w_gate`` and ``w_up`` by
+    column blocks, ``w_down`` by row blocks; each shard's partial sum in
+    ``reduce_dtype`` (fp32 by default), their psum, then x's type."""
+    parts = []
+    for x, wg, wu, wd in zip(sh.enter(hs), sh.view(prefix + "w_gate", 1),
+                             sh.view(prefix + "w_up", 1),
+                             sh.view(prefix + "w_down", 0)):
+        h = F.silu((x @ wg).float()).to(x.dtype) * (x @ wu)
+        parts.append(partial_product(h, wd, reduce_dtype))
+    return [y.to(x.dtype) for y, x in zip(sh.psum(parts), hs)]
+
+
+def fourier_mixing_sharded(sh, prefix: str, hs: list) -> list:
+    """``fourier_mixing`` over the model axis: the depthwise convolution by
+    channel blocks (each shard's ``fft_causal_conv`` on its B d/M rows), the
+    gate by column blocks, and the gated channel blocks all-gathered into
+    the output every shard holds."""
+    outs = []
+    for x, xc, taps, gate in zip(sh.enter(hs), sh.split(hs, -1),
+                                 sh.view(prefix + "taps", 1),
+                                 sh.view(prefix + "gate", 1)):
+        y = fft_causal_conv(xc.float().transpose(-1, -2),
+                            taps.float().t()[None], radix=MIXING_RADIX)
+        y = y.transpose(-1, -2).to(x.dtype)
+        outs.append(y * torch.sigmoid((x @ gate).float()).to(x.dtype))
+    return sh.gather(outs, -1)
+

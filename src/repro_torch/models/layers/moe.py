@@ -41,6 +41,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers.common import partial_product
+
 _DISPATCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: fp32's smallest normal number: a gate below it is 0 in the reference
 _TINY = torch.finfo(torch.float32).tiny
@@ -135,16 +137,22 @@ def experts(xe: torch.Tensor, params, reduce_dtype: torch.dtype | None
     """The SwiGLU experts over xe (E, N, d) in its type, each product
     rounded to ``reduce_dtype`` (None: fp32) before that type, as the
     reference's ``preferred_element_type``."""
-    dtype = xe.dtype
+    h = experts_hidden(xe, params.w_gate, params.w_up, reduce_dtype)
+    return _rounded(h, params.w_down, reduce_dtype)
 
-    def rounded(a, b):
-        out = torch.bmm(a, b)
-        return out if reduce_dtype is None else out.to(reduce_dtype).to(dtype)
 
-    gate = rounded(xe, params.w_gate)
-    up = rounded(xe, params.w_up)
-    h = F.silu(gate.float()).to(dtype) * up
-    return rounded(h, params.w_down)
+def _rounded(a: torch.Tensor, b: torch.Tensor,
+             reduce_dtype: torch.dtype | None) -> torch.Tensor:
+    out = torch.bmm(a, b)
+    return out if reduce_dtype is None else out.to(reduce_dtype).to(a.dtype)
+
+
+def experts_hidden(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                   reduce_dtype: torch.dtype | None) -> torch.Tensor:
+    """The experts' SwiGLU hidden layer (E, N, f) in xe's type."""
+    gate = _rounded(xe, w_gate, reduce_dtype)
+    return F.silu(gate.float()).to(xe.dtype) * _rounded(xe, w_up,
+                                                        reduce_dtype)
 
 
 def combine(ye: torch.Tensor, r: Routing, dtype: torch.dtype,
@@ -186,3 +194,42 @@ def moe_ffn(params, x: torch.Tensor, cfg,
     ye = experts(dispatch(xg, r, reduce_dtype), params, reduce_dtype)
     y = combine(ye, r, x.dtype, reduce_dtype).reshape(B, -1, d)
     return y[:, :S], r.aux
+
+
+def moe_ffn_sharded(sh, prefix: str, hs: list, cfg,
+                    reduce_dtype: torch.dtype | None = None
+                    ) -> tuple[list, list]:
+    """``moe_ffn`` over the model axis of ``sh`` (``models/sharded.py``),
+    ``hs`` the replicated input, one (B, S, d) tensor a shard. The routing,
+    the queue positions and the kept slots are computed on every shard
+    from its copy of the input, alike (the router is replicated), and so
+    is the dispatch; the experts' hidden width goes over the shards
+    (``w_gate``, ``w_up`` by column blocks, ``w_down`` by row blocks), each
+    shard's partial sums in ``reduce_dtype`` (fp32 by default) are psummed,
+    and each shard combines its copy. The aux loss's means over the batch
+    go over the data shards (``sh.data_mean``). Returns (outputs, aux
+    losses), one a shard."""
+    routed = []
+    for x, router in zip(hs, sh.view(prefix + "router")):
+        B, S, d = x.shape
+        g = min(cfg.moe_group_size, S)
+        xg = F.pad(x, (0, 0, 0, (-S) % g)).reshape(B, -1, g, d)
+        routed.append((xg, route(router, xg, cfg)))
+    xe = sh.enter([dispatch(xg, r, reduce_dtype) for xg, r in routed])
+    parts = []
+    for x, wg, wu, wd in zip(xe, sh.view(prefix + "w_gate", 2),
+                             sh.view(prefix + "w_up", 2),
+                             sh.view(prefix + "w_down", 1)):
+        h = experts_hidden(x, wg, wu, reduce_dtype)
+        parts.append(partial_product(h, wd, reduce_dtype))
+    ys, auxs = [], []
+    E = cfg.num_experts
+    me = sh.data_mean([r.probs.mean(dim=(0, 1, 2)) for _, r in routed])
+    fe = sh.data_mean([F.one_hot(r.expert[..., 0], E).float().mean(
+        dim=(0, 1, 2)) for _, r in routed])
+    for (xg, r), ye, x, m, f in zip(routed, sh.psum(parts), hs, me, fe):
+        y = combine(ye.to(x.dtype), r, x.dtype, reduce_dtype)
+        ys.append(y.reshape(x.shape[0], -1, x.shape[-1])[:, :x.shape[1]])
+        auxs.append(E * torch.sum(m * f))
+    return ys, auxs
+

@@ -25,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers.common import partial_product
+
 RWKV_HEAD_DIM = 64
 RWKV_LORA = 64
 #: Steps whose state-independent terms are formed at once: the (B, H, 64,
@@ -103,7 +105,11 @@ def _chunk_states(inp: torch.Tensor, decay: torch.Tensor,
     into a preallocated stack; where autograd records (grad mode on and an
     input that requires grad) the steps are kept as separate tensors and
     stacked, since an ``out=`` write has no backward. The same values
-    either way."""
+    either way. On the ``meta`` device (the dry-run) the states' shapes
+    come from one ``addcmul`` over the chunk, which depends on the same
+    inputs: no values, and no loop of T ops."""
+    if inp.device.type == "meta":
+        return torch.cat([h[None], torch.addcmul(inp, decay, h)])
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (inp, decay, h)):
         states = [h]
@@ -230,3 +236,124 @@ def ssm_mix(params, x: torch.Tensor, state: torch.Tensor | None = None):
     ys, h = _ssm_scan(steps(dt), steps(xf), steps(bt), steps(ct), a, state)
     y = ys.transpose(0, 1) + xf * params.d_skip
     return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# The model axis (``models/sharded.py``): ``sh`` is the run's ``Shards``,
+# ``hs`` the replicated input, one tensor a shard
+# ---------------------------------------------------------------------------
+
+def rwkv_heads_split(cfg, shards: int) -> bool:
+    """Whether the RWKV6 time-mix heads go over ``shards`` model shards
+    (else every shard runs the whole mixer)."""
+    return shards > 1 and (cfg.d_model // RWKV_HEAD_DIM) % shards == 0
+
+
+def rwkv_time_mix_sharded(sh, prefix: str, hs: list, cfg,
+                          states: list | None = None) -> tuple[list, list]:
+    """``rwkv_time_mix`` over the model axis: the heads go over the shards
+    (``wr``, ``wk``, ``wv``, ``wg`` by column blocks, ``u`` and the state S
+    by heads, ``wo`` by row blocks with a psum) and the decay's low-rank
+    pair by rank (``ww1`` columns, ``ww2`` rows, a psum); the token-shift
+    mixes are computed on every shard alike. ``states``: one {"prev_x"
+    (B, d), "S" (B, H/M, 64, 64)} a shard, or None. Returns (outputs, new
+    states). Where the heads do not divide every shard runs the whole
+    mixer (``rwkv_heads_split``)."""
+    if not rwkv_heads_split(cfg, sh.shards):
+        params = sh.namespaces(prefix, ("mu", "wr", "wk", "wv", "wg", "wo",
+                                        "w0", "ww1", "ww2", "u"))
+        outs = [rwkv_time_mix(p, x, None if states is None else st)
+                for p, x, st in zip(params, hs, states or [None] * len(hs))]
+        return [y for y, _ in outs], [st for _, st in outs]
+    B, S, d = hs[0].shape
+    hd = RWKV_HEAD_DIM
+    if states is None:
+        states = [{"prev_x": x.new_zeros((B, d)),
+                   "S": x.new_zeros((B, d // hd // sh.shards, hd, hd),
+                                    dtype=torch.float32)} for x in hs]
+    mixes = []
+    for x, mu, st in zip(hs, sh.view(prefix + "mu"), states):
+        shifted = _shifted(x, st["prev_x"])
+        mixes.append([x + mu[i] * (shifted - x) for i in range(5)])
+    entered = [sh.enter([m[i] for m in mixes]) for i in range(5)]
+
+    def cols(name, i):
+        return [x @ w for x, w in zip(entered[i],
+                                      sh.view(prefix + name, 1))]
+
+    r, k, v, g = cols("wr", 0), cols("wk", 1), cols("wv", 2), cols("wg", 3)
+    low = [partial_product(x.float() @ w1.float(), w2, None)
+           for x, w1, w2 in zip(entered[4], sh.view(prefix + "ww1", 1),
+                                sh.view(prefix + "ww2", 0))]
+    w = sh.split([torch.exp(-torch.exp(y + w0)) for y, w0 in zip(
+        sh.psum(low), sh.view(prefix + "w0"))], -1)
+    parts, new = [], []
+    for i, (x, u, st) in enumerate(zip(hs, sh.view(prefix + "u", 0),
+                                       states)):
+        def heads(a):                               # (S, B, H/M, hd) fp32
+            return a.float().reshape(B, S, -1, hd).transpose(0, 1)
+
+        out, S_fin = _wkv_scan(heads(r[i]), heads(k[i]), heads(v[i]),
+                               heads(w[i]), u.float(), st["S"])
+        y = out.transpose(0, 1).reshape(B, S, -1).to(x.dtype)
+        parts.append(y * F.silu(g[i].float()).to(x.dtype))
+        new.append({"prev_x": x[:, -1], "S": S_fin})
+    parts = [partial_product(y, wo, None) for y, wo in zip(parts,
+                                               sh.view(prefix + "wo", 0))]
+    return [y.to(x.dtype) for y, x in zip(sh.psum(parts), hs)], new
+
+
+def rwkv_channel_mix_sharded(sh, prefix: str, hs: list,
+                             prev: list) -> tuple[list, list]:
+    """``rwkv_channel_mix`` over the model axis: ``wk`` by column blocks,
+    ``wv`` by row blocks with a psum, ``wr`` by column blocks with an
+    all-gather. Returns (outputs, each shard's last token)."""
+    xk, xr = [], []
+    for x, mu, p in zip(hs, sh.view(prefix + "mu_c"), prev):
+        shifted = _shifted(x, p)
+        xk.append(x + mu[0] * (shifted - x))
+        xr.append(x + mu[1] * (shifted - x))
+    parts, rs = [], []
+    for x, a, b, wk, wv, wr in zip(hs, sh.enter(xk), sh.enter(xr),
+                                   sh.view(prefix + "wk", 1),
+                                   sh.view(prefix + "wv", 0),
+                                   sh.view(prefix + "wr", 1)):
+        k = torch.square(torch.relu((a @ wk).float())).to(x.dtype)
+        parts.append(partial_product(k, wv, None))
+        rs.append(torch.sigmoid((b @ wr).float()).to(x.dtype))
+    return ([r * kv.to(x.dtype) for r, kv, x in zip(
+        sh.gather(rs, -1), sh.psum(parts), hs)], [x[:, -1] for x in hs])
+
+
+def ssm_mix_sharded(sh, prefix: str, hs: list,
+                    states: list | None = None) -> tuple[list, list]:
+    """``ssm_mix`` over the model axis: the channels go over the shards
+    (``w_dt`` by column blocks; ``dt_bias``, ``a_log``, ``d_skip`` and the
+    state by channel), ``w_b`` and ``w_c`` stay whole on every shard, and
+    each shard's output channels are all-gathered. ``states``: one
+    (B, d/M, n) fp32 state a shard, or None. Returns (outputs, final
+    states)."""
+    xf = [x.float() for x in hs]
+    bt = sh.enter([x @ w.float() for x, w in zip(xf,
+                                                 sh.view(prefix + "w_b"))])
+    ct = sh.enter([x @ w.float() for x, w in zip(xf,
+                                                 sh.view(prefix + "w_c"))])
+    outs, new = [], []
+    for i, (x, xc, w_dt, bias, a_log, skip) in enumerate(zip(
+            sh.enter(xf), sh.split(xf, -1), sh.view(prefix + "w_dt", 1),
+            sh.view(prefix + "dt_bias", 0), sh.view(prefix + "a_log", 0),
+            sh.view(prefix + "d_skip", 0))):
+        B, S, dm = xc.shape
+        h0 = xc.new_zeros((B, dm, a_log.shape[-1])) if states is None \
+            else states[i]
+        dt = F.softplus(x @ w_dt.float() + bias)
+
+        def steps(t):
+            return t.transpose(0, 1)
+
+        ys, h = _ssm_scan(steps(dt), steps(xc), steps(bt[i]), steps(ct[i]),
+                          -torch.exp(a_log), h0)
+        outs.append((ys.transpose(0, 1) + xc * skip).to(hs[i].dtype))
+        new.append(h)
+    return sh.gather(outs, -1), new
+

@@ -28,8 +28,12 @@ order of an fp32 sum, but the last, which changes served tokens:
   * The reference stacks every block's leaves on a leading layer axis and
     runs ``lax.scan``; here the blocks are an ``nn.ModuleList`` and a
     Python loop.
-  * The sharding constraints are dropped. Remat (``cfg.remat``) applies
-    to the training forward: ``torch.utils.checkpoint`` around each block
+  * The sharding constraints are not calls inside the model: the model
+    split over a mesh's ``model`` axis is ``models/sharded.py``, which
+    runs each ``constrain``'s split as per-shard work over this module's
+    layers; ``param_specs`` and ``decode_state_specs`` are the reference's
+    specs. Remat (``cfg.remat``) applies to the training forward:
+    ``torch.utils.checkpoint`` around each block
     (``block`` keeps the blocks' matmul outputs, ``full`` nothing) or
     around about sqrt(L) groups of blocks (``sqrt``).
   * For serving the weight matrices are cast to the activation type once,
@@ -71,6 +75,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.dist.sharding import PartitionSpec as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import moe as moe_lib
@@ -353,10 +358,13 @@ def _fill_cache(cache, *values: torch.Tensor) -> None:
 
 
 def _fourier_decode(params, h: torch.Tensor, ring: torch.Tensor, *,
-                    pos: int) -> torch.Tensor:
+                    pos: int, gate_input: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """One token of the Fourier mixer, in fp32: write h (B, 1, d) into
     slot pos % K of the ring, weight each slot by the tap of its age (zero
-    where the age exceeds pos), sum, and gate."""
+    where the age exceeds pos), sum, and gate. ``gate_input``: the gate's
+    input where it is not h (a model shard's h is its channels, the gate's
+    input the whole token)."""
     K = ring.shape[1]
     slot = pos % K
     ring[:, slot] = h[:, 0].to(ring.dtype)
@@ -364,7 +372,8 @@ def _fourier_decode(params, h: torch.Tensor, ring: torch.Tensor, *,
     lag = torch.remainder(slot - torch.arange(K, device=ring.device), K)
     w = torch.where((lag <= pos)[:, None], taps[lag], 0.0)
     y = torch.einsum("bkd,kd->bd", ring.float(), w)[:, None]
-    return y * torch.sigmoid((h @ params.gate).float())
+    gate_input = h if gate_input is None else gate_input
+    return y * torch.sigmoid((gate_input @ params.gate).float())
 
 
 def _layer_state(state: dict, i: int) -> dict:
@@ -506,6 +515,85 @@ class DecoderLM(nn.Module):
                              window=windows[i], positions=positions)
         x = rms_norm(x, self.final_norm)
         return (x @ self.lm_head)[:, 0].float(), state
+
+
+# ---------------------------------------------------------------------------
+# Sharding specs (the reference's logical rules, over the port's names;
+# sanitized against a mesh where they are used)
+# ---------------------------------------------------------------------------
+
+FSDP = ("pod", "data")
+TP = "model"
+
+
+def _block_specs(cfg: ModelConfig) -> dict:
+    """One block's specs by the name under ``blocks.<i>.``: the reference's
+    ``param_specs`` without its leading layer entry."""
+    b = {"ln1": P(FSDP), "ln2": P(FSDP)}
+    if cfg.mixer in ("attn", "hymba"):
+        b.update({"attn.wq": P(FSDP, TP), "attn.wk": P(FSDP, TP),
+                  "attn.wv": P(FSDP, TP), "attn.wo": P(TP, FSDP)})
+        if cfg.qk_norm:
+            b.update({"attn.q_norm": P(None), "attn.k_norm": P(None)})
+    if cfg.mixer == "hymba":
+        b.update({"ssm.w_dt": P(FSDP, TP), "ssm.w_b": P(FSDP, None),
+                  "ssm.w_c": P(FSDP, None), "ssm.a_log": P(FSDP, None),
+                  "ssm.d_skip": P(FSDP), "ssm.dt_bias": P(FSDP),
+                  "ln_attn_out": P(FSDP), "ln_ssm_out": P(FSDP)})
+    if cfg.mixer == "rwkv6":
+        b.update({"rwkv_t.mu": P(None, FSDP), "rwkv_t.wr": P(FSDP, TP),
+                  "rwkv_t.wk": P(FSDP, TP), "rwkv_t.wv": P(FSDP, TP),
+                  "rwkv_t.wg": P(FSDP, TP), "rwkv_t.wo": P(TP, FSDP),
+                  "rwkv_t.w0": P(FSDP), "rwkv_t.ww1": P(FSDP, TP),
+                  "rwkv_t.ww2": P(TP, FSDP), "rwkv_t.u": P(TP, None),
+                  "rwkv_c.mu_c": P(None, FSDP), "rwkv_c.wk": P(FSDP, TP),
+                  "rwkv_c.wv": P(TP, FSDP), "rwkv_c.wr": P(FSDP, TP)})
+    if cfg.mixer == "fourier":
+        b.update({"fourier.taps": P(None, FSDP),
+                  "fourier.gate": P(FSDP, TP)})
+    if cfg.mixer != "rwkv6":
+        if cfg.is_moe:
+            b.update({"moe.router": P(FSDP, None),
+                      "moe.w_gate": P(None, FSDP, TP),
+                      "moe.w_up": P(None, FSDP, TP),
+                      "moe.w_down": P(None, TP, FSDP)})
+        else:
+            b.update({"mlp.w_gate": P(FSDP, TP), "mlp.w_up": P(FSDP, TP),
+                      "mlp.w_down": P(TP, FSDP)})
+    return b
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's ``param_specs`` (FSDP over (pod, data), TP over
+    model) by the port's parameter names: a block leaf's spec is the
+    reference's without its leading layer ``None`` (the port keeps a leaf
+    a layer)."""
+    check_supported(cfg)
+    specs = {"embed": P(TP, FSDP), "final_norm": P(FSDP),
+             "lm_head": P(FSDP, TP)}
+    block = _block_specs(cfg)
+    for i in range(cfg.num_layers):
+        specs.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+    return specs
+
+
+def decode_state_specs(cfg: ModelConfig) -> dict:
+    """The reference's ``decode_state_specs``: the port's decode state is
+    stacked over the layers as the reference's is, so the specs are the
+    same, leading layer ``None`` included."""
+    sp = {}
+    if cfg.mixer in ("attn", "hymba"):
+        sp["cache_k"] = P(None, FSDP, None, None, TP)
+        sp["cache_v"] = P(None, FSDP, None, None, TP)
+    if cfg.mixer == "hymba":
+        sp["ssm_h"] = P(None, FSDP, TP, None)
+    if cfg.mixer == "rwkv6":
+        sp["prev_x"] = P(None, FSDP, TP)
+        sp["S"] = P(None, FSDP, TP, None, None)
+        sp["prev_x_c"] = P(None, FSDP, TP)
+    if cfg.mixer == "fourier":
+        sp["ring"] = P(None, FSDP, None, TP)
+    return sp
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ reference's, op for op, in fp32; ``torch.round`` rounds half to even, as
 ``jnp.round`` does. Leaves of fewer than 2 dims (norm scales, biases) get
 no weight decay.
 
-The reference's ``state_specs`` (partition specs of the state) waits for
-the sharded model (ROADMAP queue 1, item 11g).
+``state_specs`` gives the state's partition specs from the parameters'
+(``models/lm.py::param_specs``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -57,6 +57,19 @@ def _quantize(x: torch.Tensor) -> dict:
             "orig_last": torch.tensor(last, dtype=torch.int32)}
 
 
+def _quantized_meta(p: torch.Tensor) -> dict:
+    """``_quantize``'s layout for a moment of ``p`` on the meta device,
+    without running it (the dry-run's abstract state)."""
+    shape = tuple(p.shape) or (1,)
+    blocks = -(-shape[-1] // BLOCK)
+    lead = shape[:-1]
+    return {"q": torch.empty((*lead, blocks, BLOCK), dtype=torch.int8,
+                             device=p.device),
+            "scale": torch.empty((*lead, blocks, 1), dtype=torch.float32,
+                                 device=p.device),
+            "orig_last": torch.tensor(shape[-1], dtype=torch.int32)}
+
+
 def _dequantize(d: dict, last: int, scalar: bool = False) -> torch.Tensor:
     x = d["q"].to(torch.float32) * d["scale"]
     x = x.reshape(*x.shape[:-2], -1)[..., :last]
@@ -74,6 +87,8 @@ def init_state(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> dict:
     _check(cfg)
 
     def zero_like(p):
+        if cfg.state_dtype == "int8" and p.device.type == "meta":
+            return _quantized_meta(p)
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return _quantize(z) if cfg.state_dtype == "int8" else z
 
@@ -144,3 +159,23 @@ def apply(params: Mapping[str, torch.Tensor],
         new_m[name] = _quantize(mf) if int8 else mf
         new_v[name] = _quantize(vf) if int8 else vf
     return new_p, {"m": new_m, "v": new_v, "step": step}
+
+
+def state_specs(param_specs: Mapping, cfg: OptConfig) -> dict:
+    """Partition specs for the optimizer state mirroring the parameters'
+    (the reference's ``state_specs``): the moments take their parameter's
+    spec; int8 moments put the last axis's sharding on the BLOCK axis of
+    ``q`` (the block count often does not divide a 32-way FSDP axis) and
+    none on ``scale``; ``orig_last`` and ``step`` are replicated."""
+    from repro_torch.dist.sharding import PartitionSpec as P
+    if cfg.state_dtype == "int8":
+        def qspec(ps):
+            parts = list(ps) if ps else []
+            last = parts[-1] if parts else None
+            lead = parts[:-1] if parts else []
+            return {"q": P(*lead, None, last), "scale": P(*lead, None, None),
+                    "orig_last": P()}
+        m = {name: qspec(ps) for name, ps in param_specs.items()}
+        return {"m": m, "v": m, "step": P()}
+    return {"m": dict(param_specs), "v": dict(param_specs), "step": P()}
+

@@ -26,8 +26,18 @@ opt_state, grad_err, batch) -> (params, opt_state, grad_err, metrics),
 The reduced gradients are the same for every pod, so one update serves
 them all; the metrics are the pods' means.
 
+With a ``mesh`` whose ``model`` axis is larger than 1 (and no
+``pod_axis``), the loss and gradients come from the LM split over that
+axis (``models/sharded.py``, its ``replicated`` layout): the fp32 masters
+stay whole, each model shard computes its part, and the collectives'
+backward assembles the whole gradients, so the clip and the update are
+the unsharded step's. The data axis does not cut the batch, as without a
+model axis. The pod-mesh step refuses a model axis, as the reference's CLI
+does.
+
 The prefill and decode steps of the reference are the model's own entry
-points here (``DecoderLM.prefill``, ``DecoderLM.decode_step``).
+points here (``DecoderLM.prefill``, ``DecoderLM.decode_step``), and
+``models/sharded.py``'s on a mesh.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ import torch
 
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import Mesh
-from repro_torch.models import lm
+from repro_torch.models import lm, sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 
@@ -100,16 +110,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
     microbatches and averages their losses and fp32 gradients, as the
     reference's scan does. ``pod_axis`` (with ``mesh``, whose ``pod_axis``
     and optional ``data_axis`` shard the batch, every other axis of size
-    1) selects the pod-mesh variant (see the module docstring)."""
+    1) selects the pod-mesh variant; without it, a ``mesh`` with a
+    ``model`` axis larger than 1 splits the LM over that axis (see the
+    module docstring)."""
     model = structure(cfg)
     accum = max(1, cfg.grad_accum_steps)
+    split_model = pod_axis is None and mesh is not None and \
+        mesh.shape.get("model", 1) > 1
+    run = sharded.Shards(cfg, mesh, None) if split_model else None
+
+    def value_and_grad(params: Params, batch):
+        if run is not None:
+            return sharded.value_and_grad(run.bound(params), batch)
+        return lm.value_and_grad(model, params, batch)
 
     def compute_grads(params: Params, batch) -> tuple[torch.Tensor, dict]:
         if accum == 1:
-            return lm.value_and_grad(model, params, batch)
+            return value_and_grad(params, batch)
         lsum, gsum = None, None
         for mb in _split(batch, accum):
-            loss, grads = lm.value_and_grad(model, params, mb)
+            loss, grads = value_and_grad(params, mb)
             if gsum is None:
                 lsum = torch.zeros((), dtype=torch.float32,
                                    device=loss.device)

@@ -1262,3 +1262,43 @@ def test_training_step_on_card_matches_cpu(cuda):
         w = want[name].numpy()
         np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("arch,kernel,per_layer", [
+    ("fourierpim-lm", "fft_planes", 9), ("qwen3-1.7b", "flash_attention", 2)])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_training_step_on_card_matches_cpu(cuda, arch, kernel,
+                                                   per_layer, shards):
+    """One training step of the reduced config split over ``shards`` model
+    shards on the card (``models/sharded.py``; every shard on the card)
+    against the same split step on the CPU: the loss rtol 1e-4, each
+    leaf's gradient within 1e-4 of its largest magnitude; each shard
+    launches its own kernel, ``per_layer`` times a layer."""
+    from repro_torch.dist import sharding
+    from repro_torch.models import sharded
+    cfg = get_config(arch).scaled_down()
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                                 .astype(np.int32)) for k in ("tokens",
+                                                             "labels")}
+
+    def run(device):
+        mesh = sharding.make_mesh((1, shards), ("data", "model"),
+                                  device=device)
+        sh = sharded.Shards(cfg, mesh, {k: v.to(device)
+                                        for k, v in params.items()})
+        return sharded.value_and_grad(sh, {k: v.to(device)
+                                           for k, v in batch.items()})
+
+    want_loss, want = run("cpu")
+    before = _build.LAUNCHES[kernel]
+    loss, grads = run("cuda")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == \
+        before + shards * per_layer * cfg.num_layers
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4)
+    for name, g in grads.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))

@@ -119,8 +119,10 @@ def test_mesh_places_and_describes_its_shards():
         mesh.axis_devices("seq")
     with pytest.raises(ValueError, match="devices for a mesh"):
         tsharding.Mesh(("a",), (2,), (torch.device("cpu"),))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tsharding.make_mesh((2,), ("a",), device="meta")
+    meta = tsharding.make_mesh((2,), ("a",), device="meta")
+    assert all(d.type == "meta" for d in meta.devices)
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        tsharding.make_mesh((2,), ("a",), device="mps")
 
 
 def test_cuda_mesh_needs_a_card():

@@ -95,12 +95,18 @@ def test_train_resume_refuses_stream_mismatch(tmp_path):
 
 
 def test_train_refuses_a_model_axis_and_bad_meshes():
-    base = CPU + ["--arch", "qwen3-1.7b", "--smoke", "--steps", "1",
+    """``--mesh 2x2`` trains the LM split over a model axis of 2: its
+    losses within rtol 1e-5 of the unsharded run's (the model shards' fp32
+    partial sums in another order). Bad meshes are refused, and so is a
+    model axis with ``--compress-grads`` (the reference's CLI refuses
+    ``--mesh 2x2 --compress-grads`` too)."""
+    base = CPU + ["--arch", "qwen3-1.7b", "--smoke", "--steps", "3",
                   "--batch", "4", "--seq", "16"]
-    with pytest.raises(NotImplementedError, match="item 11g"):
-        train_mod.main(base + ["--mesh", "2x2"])
+    np.testing.assert_allclose(train_mod.main(base + ["--mesh", "2x2"]),
+                               train_mod.main(base), rtol=1e-5)
     for bad in (["--mesh", "2"], ["--mesh", "3x1"], ["--compress-grads"],
-                ["--mesh", "2x1", "--compress-grads"]):
+                ["--mesh", "2x1", "--compress-grads"],
+                ["--mesh", "1x1x2", "--compress-grads"]):
         with pytest.raises(SystemExit):
             train_mod.main(base + bad)
 
