@@ -5,8 +5,19 @@ Run from the repository root, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                 # every phase, the result lines
     python3 chip_smoke.py --phases 1,3    # only those phases, no result
+    python3 chip_smoke.py --tile-ab       # phase 1, then the A/B of tiles
 
 Phase 1 always runs; phase 5 reads phase 4's times and brings it along.
+``--tile-ab`` (not taken by the default run; alone it runs phase 1 and
+the A/B, and no other phase unless ``--phases`` names it) builds
+``kernels/csrc/attention.cu`` once per ``TILE_AB`` choice of the fp32
+hd-32 instance's key tile and stages (``-DTF32_HD32_KEYS``,
+``-DTF32_HD32_STAGES``, one nvcc each with ``-Xptxas -v``, all started
+together), holds each against the plain version folded at its tile, and
+times them, the ``TILE_PROBES`` builds (``-DTF32_PROBE``: the shipped tile
+without the softmax and split of p, without the prep of K and V, or both:
+where the time goes) and the CUDA-core kernel in turns on the same inputs
+at ``ATTN_TIMED["fp32 hd 32"]``'s shape (lines ``[tile ab]``).
 
 Phases (any failure exits non-zero):
   1. Build: compile ``kernels/csrc/stockham.cu``, ``kernels/csrc/ntt.cu``
@@ -15,9 +26,9 @@ Phases (any failure exits non-zero):
      each with ``-Xptxas -v``), and print the build time, the card's name
      and its power limit; then ptxas's registers and spills for every
      Stockham and NTT kernel, and its
-     registers, shared memory and spills for each of the seven instances
+     registers, shared memory and spills for each of the eight instances
      of the two tensor-core flash kernels (wgmma on bf16 at head_dim 32,
-     64, 128 and 320; 3xTF32 on fp32 at 64, 128 and 320) and the count of
+     64, 128 and 320; 3xTF32 on fp32 at 32, 64, 128 and 320) and the count of
      HGMMA and UTMALDG instructions in its SASS (``cuobjdump -sass``),
      which must hold HGMMA.
   2. Kernels vs plain: each of the five float kernels against its plain
@@ -47,13 +58,14 @@ Phases (any failure exits non-zero):
      S = 1 and S < 64, at gemma3-4b's heads (hd 320, 8 heads over 4 kv
      heads, S = 2048, window 1024 and global) and at head_dim 32 (the
      reduced configs') at the served batch and prompt and the same edge
-     cases; the 3xTF32 kernel (fp32, head_dim 64, 128 and 320) at the
+     cases; the 3xTF32 kernel (fp32, head_dim 32, 64, 128 and 320) at the
      served shape, window 24, non-causal, ragged S, S = 1, S < 64, G = 1,
-     hd 64, and hd 320 (the head_dim-split instance) at the same edge
-     cases and gemma3-4b's local and global shapes; the CUDA-core kernel
-     at fp32 head_dim 32 and, launched directly (``CUDA_CORE_DIRECT``,
-     the in-turn baseline of phase 4), at fp32 head_dim 128 and 320 and
-     bf16 head_dim 32; hymba-1.5b's heads (25 over 5 kv heads: G = 5, H
+     hd 64, and hd 320 (the head_dim-split instance) and hd 32 (the
+     reduced configs') at the same edge cases, and gemma3-4b's local and
+     global shapes; the CUDA-core kernel, which no (type, head_dim)
+     dispatches to, launched directly (``CUDA_CORE_DIRECT``, the in-turn
+     baseline of phase 4) at fp32 head_dim 32, 128 and 320 and bf16
+     head_dim 32; hymba-1.5b's heads (25 over 5 kv heads: G = 5, H
      odd; hd 64; window 2048) at its served shape and past the window and
      mixtral-8x22b's (48 over 8, hd 128) past its window of 4096, in bf16
      and fp32; bf16 within one bf16 step and fp32 within 2e-4; and
@@ -100,8 +112,8 @@ Phases (any failure exits non-zero):
      kernel's head_dim-split instance (6 launches, nothing else), within
      2e-3. Then the reduced qwen3-1.7b config (head_dim 32) the same way
      at B = 2, S = ``REDUCED_PROMPT``: in bf16 on the wgmma kernel's hd-32
-     instance (2 launches, nothing else), in fp32 on the CUDA-core kernel
-     (2 launches, nothing else). Then fourierpim-lm (``fourier_phase``).
+     instance (2 launches, nothing else), in fp32 on the 3xTF32 kernel's
+     hd-32 instance (2 launches, nothing else). Then fourierpim-lm (``fourier_phase``).
      Then the MoE FFN and the recurrent mixers (``mixer_phase``), each
      step with the counters zeroed just before: ``--service lm`` at full
      width and depth (bf16, batch 8, prompt 2048, gen 32) for
@@ -129,10 +141,10 @@ Phases (any failure exits non-zero):
      kernels, and over 989 TFLOP/s bf16 (the wgmma kernel, at the served
      prefill shape, at gemma3-4b's local and global shapes and at head_dim
      32), three times the flops over 495 TFLOP/s TF32 (the 3xTF32 kernel,
-     at the served shape in fp32 and at gemma3-4b's global and local
-     shapes in fp32; beside each tensor-core kernel, in turns on the same
-     inputs, the CUDA-core kernel) or 67 TFLOP/s fp32 (the CUDA-core
-     kernel, at fp32 head_dim 32) for flash
+     at the served shape in fp32, at gemma3-4b's global and local
+     shapes in fp32 and at head_dim 32 in fp32; beside each tensor-core
+     kernel, in turns on the same inputs, the CUDA-core kernel, whose
+     bound is its fp32 flops over 67 TFLOP/s) for flash
      attention, whose yardstick is ``scaled_dot_product_attention``
      (causal, GQA; the flash kernels, their plain versions and SDPA timed
      by CUDA events over back-to-back calls, as their traces drop events;
@@ -248,7 +260,8 @@ Phases (any failure exits non-zero):
      fourierpim-lm and of the reduced qwen3-1.7b config on the card
      against the CPU: loss, gradient norm and each leaf within 1e-4 (a
      sound step reads about 2e-6), the card's launches exactly
-     ``fft_planes`` 9 a layer and ``flash_attention`` 2 a layer; then the
+     ``fft_planes`` 9 a layer and ``flash_attention_tf32`` 2 a layer; then
+     the
      control, the same card step with the model's matmuls in TF32, which
      must read outside 1e-4; (c) ``python -m repro_torch.launch.train
      --arch fourierpim-lm --batch 8 --seq 2048`` for 20 steps (through its
@@ -269,7 +282,8 @@ Phases (any failure exits non-zero):
      of 2 and of 4 (``models/sharded.py``), against the same step
      unsharded on the card: loss, gradient norm and each leaf within
      TRAIN_STEP_TOL, the launches exactly M x the unsharded step's
-     (``fft_planes`` 9 a layer a shard, ``flash_attention`` 2), the byte
+     (``fft_planes`` 9 a layer a shard, ``flash_attention_tf32`` 2), the
+     byte
      ledger == ``sharded.collective_form``; (b) ``python -m
      repro_torch.launch.train --arch fourierpim-lm --batch 8 --seq 2048
      --mesh 1x2`` for 20 steps and a resume from step 10: step ms,
@@ -295,6 +309,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import io
@@ -363,7 +378,8 @@ TRANSFORM_KERNELS = {
 #: the LM's three Hopper kernels for TPU kernel 9, by launch counter: the
 #: bf16 tensor-core kernel (head_dim 32, 64, 128 and 320: the served
 #: prefills and the reduced configs'), the 3xTF32 tensor-core kernel (fp32
-#: at head_dim 64, 128 and 320) and the CUDA-core kernel (fp32 at 32)
+#: at the same head_dims) and the CUDA-core kernel (none: the yardstick
+#: timed in turns on the same inputs)
 FLASH_REPLACES = "src/repro/kernels/attention.py:30"
 FLASH_KERNELS = ("flash_attention_wgmma", "flash_attention_tf32",
                  "flash_attention")
@@ -2173,7 +2189,18 @@ ATTN_CASES = [
      True),
     ("fp32 gemma3-4b global", 2, LM_PROMPT, 8, 4, 320, "float32", 1 << 30,
      True),
+    # the reduced configs' head_dim in fp32: the tf32 kernel's hd-32
+    # instance at bf16 hd 32's cases
     ("fp32 hd 32", 2, 1000, 16, 8, 32, "float32", 1 << 30, True),
+    ("fp32 hd 32 served heads", LM_BATCH, LM_PROMPT, 16, 8, 32, "float32",
+     1 << 30, True),
+    ("fp32 hd 32 window 24", 2, LM_PROMPT, 16, 8, 32, "float32", 24, True),
+    ("fp32 hd 32 non-causal", 2, 1024, 16, 8, 32, "float32", 1 << 30,
+     False),
+    ("fp32 hd 32 ragged S", 2, 1000, 16, 8, 32, "float32", 1 << 30, True),
+    ("fp32 hd 32 S = 1", 2, 1, 16, 8, 32, "float32", 1 << 30, True),
+    ("fp32 hd 32 S < 64", 3, 37, 16, 8, 32, "float32", 1 << 30, True),
+    ("fp32 hd 32 G = 1", 2, 1024, 8, 8, 32, "float32", 1 << 30, True),
     # hymba-1.5b's heads (25 over 5 kv heads: G = 5, H odd; hd 64; window
     # 2048) at its served batch and prompt, and past the window; and
     # mixtral-8x22b's (48 over 8: G = 6; hd 128; window 4096), past it
@@ -2216,8 +2243,12 @@ ATTN_CASES = [
 ]
 #: the CUDA-core kernel launched directly on inputs the wrappers send to a
 #: tensor-core kernel, against its own plain version: (label, B, S, H, KV,
-#: hd, dtype, window)
+#: hd, dtype, window); fp32 hd 32 first, the case it served until the tf32
+#: kernel's hd-32 instance took it
 CUDA_CORE_DIRECT = [
+    ("fp32 hd 32 (the tf32 kernel's)", 2, 1000, 16, 8, 32, "float32",
+     1 << 30),
+    ("fp32 hd 32 window 24", 2, 700, 16, 8, 32, "float32", 24),
     ("fp32 hd 128 (the tf32 kernel's)", 2, 1000, 16, 8, 128, "float32",
      1 << 30),
     ("fp32 hd 128 window 24", 2, 700, 16, 8, 128, "float32", 24),
@@ -2535,13 +2566,13 @@ def reduced_phase(torch, build, convert, kattn, get_config) -> dict:
     qwen3-1.7b: 2 layers, 4 heads over 4 kv heads, head_dim 32):
     ``prefill_vs_plain`` at batch GEMMA_PARITY_BATCH x REDUCED_PROMPT, in
     bf16 (the wgmma kernel's hd-32 instance, one launch per layer, nothing
-    else; within GEMMA_PARITY_TOL) and in fp32 (the CUDA-core kernel,
-    which serves only fp32 at head_dim 32; within LM_TOL)."""
+    else; within GEMMA_PARITY_TOL) and in fp32 (the tf32 kernel's hd-32
+    instance, likewise; within LM_TOL)."""
     cfg = get_config(LM_ARCH).scaled_down()
     out = {}
     for dtype, counter, tol in (("bfloat16", "flash_attention_wgmma",
                                  GEMMA_PARITY_TOL),
-                                ("float32", "flash_attention", LM_TOL)):
+                                ("float32", "flash_attention_tf32", LM_TOL)):
         err, launched = prefill_vs_plain(
             torch, build, convert, kattn,
             dataclasses.replace(cfg, dtype=dtype), counter, tol,
@@ -2896,8 +2927,10 @@ FLASH_TRACE_NAMES = {
 #: (8 heads, 4 kv heads, head_dim 320) at its local layers' window 1024 and
 #: at its global layers, and at the reduced configs' head_dim 32 (at qwen3's
 #: 16 heads, 8 kv heads); the tf32 kernel at the qwen3 shape in fp32 (the
-#: fp32 parity path's) and at gemma3-4b's in fp32, global and local; the
-#: CUDA-core kernel on what it still serves, fp32 at head_dim 32.
+#: fp32 parity path's), at gemma3-4b's in fp32, global and local, and at
+#: head_dim 32 in fp32 (the reduced configs'). Beside each tensor-core
+#: kernel the CUDA-core kernel runs in turns on the same inputs; at
+#: CUDA_CORE_TIMED its plain version is timed too, for its own entry.
 ATTN_TIMED = {
     "served prefill": ("flash_attention_wgmma",
                        (LM_BATCH, LM_PROMPT, 16, 8, 128, "bfloat16",
@@ -2917,8 +2950,10 @@ ATTN_TIMED = {
                                  1024)),
     "bf16 hd 32": ("flash_attention_wgmma",
                    (LM_BATCH, LM_PROMPT, 16, 8, 32, "bfloat16", 1 << 30)),
-    "fp32 hd 32": ("flash_attention",
+    "fp32 hd 32": ("flash_attention_tf32",
                    (LM_BATCH, LM_PROMPT, 16, 8, 32, "float32", 1 << 30))}
+#: the ATTN_TIMED label whose CUDA-core turns give that kernel's entry
+CUDA_CORE_TIMED = "fp32 hd 32"
 
 
 def cuda_core_on(torch, build, q, k, v, scale: float, window: int = 1 << 30):
@@ -3052,6 +3087,15 @@ def attention_timing(torch, kattn, build, card: str, label: str) -> dict:
                      cuda_core_max_abs_err=core_err,
                      cuda_core_same_inputs_event_ms=min(core_turns),
                      cuda_core_turns=core_turns)
+        if label == CUDA_CORE_TIMED:
+            core_plain = functools.partial(kattn.attention_plain,
+                                           window=window, scale=scale,
+                                           kernel="cuda_core")
+            entry.update(cuda_core_plain_ms=time_ms(torch, core_plain, sets,
+                                                    4),
+                         cuda_core_bound_ms=max(t_bytes, t_fp32),
+                         cuda_core_bound_by="bytes" if t_bytes >= t_fp32
+                         else "operations")
         extra = ("; on the same inputs, in turns (this kernel, CUDA core, "
                  "CUDA core, this kernel): kernel "
                  + ", ".join(f"{t:.4f}" for t in kernel_turns)
@@ -3849,9 +3893,9 @@ def kernel_report(ptxas, source: str) -> dict[str, dict]:
 #: keys per tile, stages, head_dim split> (fp32).
 TC_INSTANCE = re.compile(
     r"(WgCfg|Tf32Cfg)ILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?E")
-#: tensor-core instances in attention.cu: bf16 at hd 32, 64, 128 and 320,
-#: fp32 at hd 64, 128 and 320
-TC_INSTANCES = 7
+#: tensor-core instances in attention.cu: bf16 and fp32 at hd 32, 64, 128
+#: and 320
+TC_INSTANCES = 8
 TC_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_tf32_kernel")
 
 
@@ -3931,6 +3975,173 @@ def tc_kernel_report(ptxas, library) -> dict:
         raise SystemExit(f"tensor-core flash kernels: an instance without "
                          f"HGMMA in its SASS ({counts})")
     return {"ptxas": report, "instances": instances, "sass": counts}
+
+
+# ---------------------------------------------------------------------------
+# --tile-ab: the fp32 hd-32 instance's key tile and stages, in turns
+# ---------------------------------------------------------------------------
+
+#: (keys per tile, stages) of the tf32 kernel's hd-32 instance: 64 keys at
+#: 2, 3 and 4 stages and 128 at 2 (Q_lo takes 16 KB and a stage 640 bytes
+#: a key, so 128 keys leave no room for a third), and 32 keys at 4
+TILE_AB = ((64, 2), (64, 3), (64, 4), (128, 2), (32, 4))
+#: builds of the shipped tile with attention.cu's TF32_PROBE bits, which
+#: drop work and so give wrong results (not checked): where the time goes
+TILE_PROBES = {"products and prep, no softmax or split of p": 1,
+               "no prep of K and V": 2, "products alone": 3}
+#: timed calls a turn; the order is the builds, the CUDA-core kernel
+#: twice, then the builds backwards
+TILE_AB_REPS = 20
+#: beside the timed shape, each TILE_AB choice is held against its plain
+#: version at a ragged S under window 24 and at S < 64: (B, S, H, KV,
+#: window)
+TILE_AB_CHECKS = ((2, 1000, 16, 8, 24), (3, 37, 16, 8, 1 << 30))
+
+
+def build_tile_variants(build, variants: dict) -> dict:
+    """``attention.cu`` built once per entry of ``variants`` (label -> its
+    ``-D`` flags), with ``-Xptxas -v``, into ``build/``, every nvcc started
+    together: {label: (its ``flash_attention_tf32``, its
+    ``attention_occupancy``, ptxas's registers and spill bytes of its tf32
+    hd-32 instance, that instance's name)}."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, (label, flags) in enumerate(variants.items()):
+        out = build.BUILD_DIR / f"attention-tile-{n}-{os.getpid()}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", *flags,
+               "-o", str(out), os.path.join(ROOT, ATTENTION)]
+        procs[label] = (out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    built = {}
+    for label, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc of {ATTENTION} for {label} failed:\n"
+                             f"{stdout}\n{stderr}")
+        ptxas, instance, keep = {}, None, False
+        for line in (stdout + stderr).splitlines():
+            if "Compiling entry function" in line:
+                name = tc_instance(line)
+                keep = bool(name) and name.startswith("tf32 hd 32,")
+                instance = name if keep else instance
+            elif keep and (m := re.search(r"(\d+) bytes spill stores, "
+                                          r"(\d+) bytes spill loads", line)):
+                ptxas.update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+            elif keep and (m := re.search(r"Used (\d+) registers", line)):
+                ptxas["registers"] = int(m.group(1))
+        lib = ctypes.CDLL(str(out))
+        fn = lib.flash_attention_tf32
+        fn.argtypes = build.LIBRARIES["attention"]["flash_attention_tf32"][1]
+        fn.restype = ctypes.c_int
+        occ = lib.attention_occupancy
+        occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+        occ.restype = ctypes.c_int
+        built[label] = (fn, occ, ptxas, instance)
+    return built
+
+
+def tile_launch(torch, fn, q, k, v, *, window: int, scale: float):
+    """One causal launch of a ``build_tile_variants`` build's tf32 launcher
+    on (B, S, H, 32) fp32 q and (B, S, KV, 32) k, v; raises if the launch is
+    refused."""
+    B, S, H, hd = q.shape
+    o = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+             H, k.shape[2], hd, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], *o.stride()[:3], min(window, 1 << 30), 1,
+             float(scale), 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"flash_attention_tf32 of a --tile-ab build: launch "
+                         f"failed with CUDA error {err}")
+    return o
+
+
+def tile_ab(torch, kattn, build, card: str) -> dict:
+    """The A/B of TILE_AB at ATTN_TIMED["fp32 hd 32"]'s shape: each choice
+    held against the plain version folded at its key tile (within
+    ATTN_TOL, at that shape and at TILE_AB_CHECKS); then every choice, the
+    TILE_PROBES builds and the CUDA-core kernel timed by CUDA events on the
+    same inputs in turns, each beside its registers, spills, shared memory
+    and CTAs an SM, and the bound (three times the pairs' flops over 495
+    TFLOP/s TF32)."""
+    t0 = time.perf_counter()
+    variants = {f"{keys} keys, {stages} stages":
+                [f"-DTF32_HD32_KEYS={keys}", f"-DTF32_HD32_STAGES={stages}"]
+                for keys, stages in TILE_AB}
+    variants.update({f"probe: {label}": [f"-DTF32_PROBE={bits}"]
+                     for label, bits in TILE_PROBES.items()})
+    built = build_tile_variants(build, variants)
+    print(f"[tile ab] {len(built)} builds of {ATTENTION} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    _, (B, S, H, KV, hd, dtype, window) = ATTN_TIMED["fp32 hd 32"]
+    scale = hd ** -0.5
+    sets = [attention_inputs(torch, B, S, H, KV, hd, dtype, 200 + i)
+            for i in range(2)]
+    results = {}
+    for label, (fn, occ, ptxas, instance) in built.items():
+        errs = []
+        if not label.startswith("probe"):
+            keys = int(label.split()[0])
+            for i, (b, s, h, kv, w) in enumerate(((B, S, H, KV, window),)
+                                                 + TILE_AB_CHECKS):
+                q, k, v = sets[0] if i == 0 else attention_inputs(
+                    torch, b, s, h, kv, hd, dtype, 300 + i)
+                got = tile_launch(torch, fn, q, k, v, window=w, scale=scale)
+                want = kattn.attention_plain(q, k, v, window=w, scale=scale,
+                                             kv_block=keys, kernel="tf32")
+                torch.cuda.synchronize()
+                errs.append(float((got - want).abs().max()))
+                if not torch.allclose(got, want, **ATTN_TOL[dtype]):
+                    raise SystemExit(f"tf32 hd 32, {label}, B={b} S={s} "
+                                     f"window={w}: kernel and plain version "
+                                     f"differ by {errs[-1]}")
+        out = [ctypes.c_int() for _ in range(4)]
+        err = occ(2, hd, 0, 0, *(ctypes.byref(x) for x in out))
+        if err:
+            raise SystemExit(f"attention_occupancy of {label}: CUDA error "
+                             f"{err}")
+        results[label] = {
+            "instance": instance, "max_abs_err": max(errs, default=None),
+            **ptxas, **dict(zip(("threads", "smem_bytes", "regs",
+                                 "ctas_per_sm"), (x.value for x in out))),
+            "turns": []}
+    calls = {label: functools.partial(tile_launch, torch, built[label][0],
+                                      window=window, scale=scale)
+             for label in results}
+    core = functools.partial(cuda_core_on, torch, build, scale=scale,
+                             window=window)
+    core_turns = []
+    order = list(calls)
+    for label in order + [None, None] + order[::-1]:
+        fn = core if label is None else calls[label]
+        t = time_ms(torch, fn, sets, TILE_AB_REPS)
+        (core_turns if label is None else results[label]["turns"]).append(t)
+    pairs = sum(min(q + 1, window) for q in range(S))
+    bound = 3 * 4 * hd * pairs * B * H / TF32_FLOPS_PER_S * 1e3
+    for label, r in results.items():
+        r.update(ms=min(r["turns"]), bound_ms=bound,
+                 over_bound=min(r["turns"]) / bound)
+        err = ("not checked (a probe)" if r["max_abs_err"] is None
+               else f"{r['max_abs_err']:.3g}")
+        print(f"[tile ab] {r['instance']} ({label}): event ms "
+              + ", ".join(f"{t:.4f}" for t in r["turns"])
+              + f" (best {r['ms']:.4f}; bound {bound:.4f}, 3 x TF32 flops: "
+              f"{r['over_bound']:.2f}x); |kernel-plain|max {err}; "
+              f"{r.get('registers')} registers, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spill stores / loads, "
+              f"{r['smem_bytes']} B shared, {r['ctas_per_sm']} CTA/SM; B={B} "
+              f"S={S} H={H} KV={KV} causal; on {card}", flush=True)
+    best = min((label for label in results if not label.startswith("probe")),
+               key=lambda label: results[label]["ms"])
+    print(f"[tile ab] CUDA-core kernel on the same inputs: event ms "
+          + ", ".join(f"{t:.4f}" for t in core_turns) + f"; fastest tile: "
+          f"{best}; on {card}", flush=True)
+    return {"card": card, "shape": {"B": B, "S": S, "H": H, "KV": KV,
+                                    "hd": hd, "dtype": dtype,
+                                    "causal": True, "window": window},
+            "builds": results, "cuda_core_turns": core_turns,
+            "fastest": best}
 
 
 # ---------------------------------------------------------------------------
@@ -4827,10 +5038,11 @@ TRAIN_PARITY = {FOURIER_ARCH: (2, 1, 512), LM_ARCH: (None, 2, 128)}
 TRAIN_STEP_TOL = 1e-4
 #: the kernel each parity step launches, and its launches a layer:
 #: fourierpim-lm's convolution 3 forward, 3 again under remat and 3
-#: backward; the reduced qwen3-1.7b's flash kernel forward and again under
-#: remat (its backward recomputes the plain attention)
+#: backward; the reduced qwen3-1.7b's flash kernel (the tf32 kernel's hd-32
+#: instance) forward and again under remat (its backward recomputes the
+#: plain attention)
 TRAIN_PARITY_LAUNCHES = {FOURIER_ARCH: ("fft_planes", 9),
-                         LM_ARCH: ("flash_attention", 2)}
+                         LM_ARCH: ("flash_attention_tf32", 2)}
 #: the full-width run: ``python -m repro_torch.launch.train`` through its
 #: ``run``, in this process so the launch counters see it
 TRAIN_ARGS = ["--arch", FOURIER_ARCH, "--batch", str(LM_BATCH),
@@ -5537,29 +5749,34 @@ def _as_tuple(x):
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 
 
-def parse_phases(argv=None) -> set[int]:
+def parse_phases(argv=None) -> tuple[set[int], bool]:
     """``--phases 1,3``: the phases to run, for a card call that needs only
     some (phase 1 always runs; phase 5 reads phase 4's times, so it brings
     phase 4). With no argument every phase runs, and only such a full run
-    prints the result lines."""
+    prints the result lines. ``--tile-ab``: the A/B of the fp32 hd-32
+    instance's tiles after phase 1 (``tile_ab``); without ``--phases`` it
+    runs no other phase. Returns the phases and whether to run the A/B."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all)")
+    ap.add_argument("--tile-ab", action="store_true",
+                    help="after phase 1, the A/B of the fp32 head_dim-32 "
+                         "instance's key tile and stages (TILE_AB)")
     args = ap.parse_args(argv)
     if args.phases is None:
-        return set(PHASES)
+        return ({1} if args.tile_ab else set(PHASES)), args.tile_ab
     try:
         phases = {int(p) for p in args.phases.split(",")}
     except ValueError:
         ap.error(f"--phases {args.phases!r}: comma-separated integers")
     if not phases <= set(PHASES):
         ap.error(f"--phases {args.phases!r}: phases are {list(PHASES)}")
-    return phases | {1} | ({4} if 5 in phases else set())
+    return phases | {1} | ({4} if 5 in phases else set()), args.tile_ab
 
 
 def main(argv=None) -> int:
-    phases = parse_phases(argv)
+    phases, run_tile_ab = parse_phases(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5611,6 +5828,11 @@ def main(argv=None) -> int:
                  for src, proc in kernel_ptxas.items()}
 
     clock("phase 1, build")
+    if run_tile_ab:
+        print(f"[tile ab json] "
+              f"{json.dumps(tile_ab(torch, kattn, _build, card))}",
+              flush=True)
+        clock("the A/B of the fp32 hd-32 tiles")
     # -- phase 2: kernels vs plain vs numpy ----------------------------------
     if 2 in phases:
         _build.reset_launches()
@@ -5822,9 +6044,10 @@ def main(argv=None) -> int:
     # kernel 9's entries, each at its ATTN_TIMED labels (the first is the
     # entry's numbers): the wgmma kernel at hd 64/128 (qwen3-1.7b's served
     # prefill), at hd 320 (gemma3-4b's) and at hd 32 (the reduced configs'
-    # bf16 prefill), the tf32 kernel at hd 64/128 (the fp32 parity path)
-    # and at hd 320 (the full-width fp32 gemma3-4b prefill), the CUDA-core
-    # kernel (the reduced configs' fp32 prefill)
+    # bf16 prefill), the tf32 kernel at hd 64/128 (the fp32 parity path),
+    # at hd 320 (the full-width fp32 gemma3-4b prefill) and at hd 32 (the
+    # reduced configs' fp32 prefill and training step); then the CUDA-core
+    # kernel, which no path launches, from its turns at CUDA_CORE_TIMED
     instances = tc_build["instances"]
 
     def built(*prefixes):
@@ -5893,14 +6116,15 @@ def main(argv=None) -> int:
                  "last_logits_max_abs":
                      gemma_run["fp32_kernel_vs_plain_last_logits_max_abs"]},
              "lm_fp32_prefill": gemma_fp32_times}),
-        "flash_attention": (
-            "flash_attention", reduced_run["float32"]["launches"],
+        "flash_attention_tf32[hd32]": (
+            "flash_attention_tf32", reduced_run["float32"]["launches"],
             f"one fp32 prefill of the reduced qwen3-1.7b config (2 layers, "
             f"head_dim 32; B {GEMMA_PARITY_BATCH} x {REDUCED_PROMPT})",
             ["fp32 hd 32"],
-            # phase 8: one training step of the same config, card against
-            # CPU (the forward and its recomputation under remat)
-            {"training_step": training["card_vs_cpu"][LM_ARCH],
+            {"build": built("tf32 hd 32,"), "reduced": reduced_run,
+             # phase 8: one training step of the same config, card against
+             # CPU (the forward and its recomputation under remat)
+             "training_step": training["card_vs_cpu"][LM_ARCH],
              # phase 9: the same step on model axes of 2 and 4
              "training_step_model_axis": axis["steps"][LM_ARCH]})}
     for entry_name, (name, launched, per, labels, more) in entries.items():
@@ -5912,6 +6136,23 @@ def main(argv=None) -> int:
                                      "bound_ms", "bound_by", "library_ms")},
             "launches_per": per, "at_timed_shape": first,
             **{f"at {label}": attn[label] for label in labels[1:]}, **more})
+    # the CUDA-core kernel: phase 3's runs each require the launches of
+    # their own kernel and none of another, so none of it
+    core = attn[CUDA_CORE_TIMED]
+    report.append({
+        "name": "flash_attention", "route": "cuda", "source": ATTENTION,
+        "replaces": FLASH_REPLACES, "launches": 0,
+        "max_abs_err": core["cuda_core_max_abs_err"],
+        "ms": core["cuda_core_same_inputs_event_ms"],
+        "plain_ms": core["cuda_core_plain_ms"],
+        "bound_ms": core["cuda_core_bound_ms"],
+        "bound_by": core["cuda_core_bound_by"],
+        "library_ms": core["library_ms"],
+        "launches_per": "no path: every (type, head_dim) goes to a "
+                        "tensor-core kernel; launched directly on "
+                        "CUDA_CORE_DIRECT and in turns beside them",
+        "at_timed_shape": {"label": CUDA_CORE_TIMED, **core["shape"],
+                           "turns": core["cuda_core_turns"]}})
     torch.cuda.synchronize()
     print(json.dumps({"kernels": report}))
     print(card)

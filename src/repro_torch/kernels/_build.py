@@ -99,11 +99,12 @@ LIBRARIES = {
         "flash_attention": ("flash_attention",
                             [_P] * 4 + [_I] * 5 + [_L] * 12 + [_I] * 2
                             + [_F, _I, _P]),
-        # the same arguments; bf16 must be 1 and head_dim 64, 128 or 320
+        # the same arguments; bf16 must be 1 and head_dim 32, 64, 128 or 320
         "flash_attention_wgmma": ("flash_attention_wgmma",
                                   [_P] * 4 + [_I] * 5 + [_L] * 12
                                   + [_I] * 2 + [_F, _I, _P]),
-        # the same arguments; bf16 must be 0 and head_dim 64 or 128
+        # the same arguments; bf16 must be 0 and head_dim 32, 64, 128 or
+        # 320
         "flash_attention_tf32": ("flash_attention_tf32",
                                  [_P] * 4 + [_I] * 5 + [_L] * 12
                                  + [_I] * 2 + [_F, _I, _P]),

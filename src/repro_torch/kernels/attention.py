@@ -15,14 +15,16 @@ type and head_dim, and nothing falls back from one to another:
   p.V runs as two bf16 products, ``p_hi = bf16(p)`` and
   ``p_lo = bf16(p - p_hi)``, into one fp32 accumulator. Its key tile
   depends on head_dim (``WGMMA_KERNEL_KEYS``).
-- ``flash_attention_tf32_kernel`` (fp32 at head_dim 64, 128 and 320): the
-  same design on TF32 tiles; every fp32 operand of q.k^T and p.V is split
+- ``flash_attention_tf32_kernel`` (fp32 at head_dim 32, 64, 128 and 320):
+  the same design on TF32 tiles; every fp32 operand of q.k^T and p.V is split
   in two TF32 parts (``split_tf32``) and each product is formed as three
   TF32 products, hi.hi + hi.lo + lo.hi (3xTF32). Key tile:
   ``TF32_KERNEL_KEYS``. At head_dim 320 its two consumer warpgroups split
   head_dim, and s is the sum of their two halves (``TF32_SPLIT_HEAD_DIMS``).
-- ``flash_attention_kernel`` (fp32 at head_dim 32): fp32 products on the
-  CUDA cores.
+- ``flash_attention_kernel``: fp32 products on the CUDA cores. It serves
+  no (type, head_dim) of ``HEAD_DIMS``; it is kept, with its plain version
+  (``kernel="cuda_core"``), as the yardstick the tensor-core kernels are
+  timed against on the same inputs.
 
 For tensors on the CPU they run the plain PyTorch version beside them,
 which has the chosen kernel's dataflow: a running max, normalizer and
@@ -60,8 +62,11 @@ WGMMA_HEAD_DIMS = tuple(WGMMA_KERNEL_KEYS)
 #: (fp32 only): 32 at 128, where Q_lo and two stages of K_hi, K_lo, V,
 #: V^T_hi and V^T_lo fill 224 KB of shared memory; 64 at 64; 8 at 320
 #: (gemma3-4b), where 64 query rows a CTA, Q_lo and three stages of K_hi,
-#: K_lo, V^T_hi and V^T_lo fill 209 KB.
-TF32_KERNEL_KEYS = {64: 64, 128: 32, 320: 8}
+#: K_lo, V^T_hi and V^T_lo fill 209 KB; 64 at 32 (every reduced config),
+#: with 4 stages, the fastest in an A/B of 64 keys at 2, 3 and 4 stages
+#: (within 1% of each other), 128 keys at 2 (which spill) and 32 at 4 on the
+#: card (``chip_smoke.py --tile-ab``; PERF.md).
+TF32_KERNEL_KEYS = {32: 64, 64: 64, 128: 32, 320: 8}
 TF32_HEAD_DIMS = tuple(TF32_KERNEL_KEYS)
 #: head_dims at which the tf32 kernel's two consumer warpgroups split
 #: head_dim in halves, each forming s over its own: s is half 0 + half 1,
@@ -75,9 +80,9 @@ _TYPES = (torch.float32, torch.bfloat16)
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel serves (dtype, head_dim): ``"wgmma"`` for bf16 at
-    head_dim 32, 64, 128 or 320, ``"tf32"`` for fp32 at head_dim 64, 128
-    or 320, else ``"cuda_core"`` (fp32 at 32). The wrappers and the plain
-    version both follow it."""
+    head_dim 32, 64, 128 or 320, ``"tf32"`` for fp32 at the same head_dims,
+    else ``"cuda_core"`` (a head_dim the launcher then refuses). The
+    wrappers and the plain version both follow it."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     if dtype == torch.float32 and head_dim in TF32_HEAD_DIMS:

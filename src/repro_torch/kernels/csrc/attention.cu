@@ -44,18 +44,20 @@
 // at the tensor cores' 989 TFLOP/s bf16, against ~201 MB of q, k, v and o,
 // 0.060 ms at 3.35 TB/s: the operations bind. This kernel runs them on the
 // fp32 CUDA cores (67 TFLOP/s), so it cannot take less than about 2 ms a
-// call. It serves fp32 at head_dim 32 (the reduced configs in fp32).
+// call. No (type, head_dim) is served by it any more: it stays as the
+// yardstick that chip_smoke.py times in turns with the tensor-core kernels
+// on the same inputs, and holds against its own plain version.
 //
 // Two tensor-core kernels follow, each with a header that says how:
 // flash_attention_wgmma_kernel serves bf16 at head_dim 32, 64, 128 and 320
 // -- the served LMs' prefills (qwen3-1.7b at 128, gemma3-4b at 320) and
 // the reduced configs' (32) -- with wgmma on bf16 tiles;
-// flash_attention_tf32_kernel serves fp32 at head_dim 64, 128 and 320 with
-// wgmma on TF32 tiles, each fp32 product formed as three TF32 products
-// (3xTF32). Both bring K and V in by TMA through a ring of shared-memory
-// stages, one producer warp feeding two consumer warpgroups of 64 query
-// rows each (at fp32 head_dim 320: the same 64 rows, half of head_dim
-// each).
+// flash_attention_tf32_kernel serves fp32 at head_dim 32, 64, 128 and 320
+// with wgmma on TF32 tiles, each fp32 product formed as three TF32
+// products (3xTF32). Both bring K and V in by TMA through a ring of
+// shared-memory stages, one producer warp feeding two consumer warpgroups
+// of 64 query rows each (at fp32 head_dim 320: the same 64 rows, half of
+// head_dim each).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached
                    // through cudaGetDriverEntryPoint, so no -lcuda
 #include <cuda_bf16.h>
@@ -977,6 +979,16 @@ __device__ __forceinline__ void load_tiles(const CUtensorMap* tq,
   }
 }
 
+// Probes of the tf32 kernel, for chip_smoke.py --tile-ab's account of where
+// the hd-32 instance's time goes; set at build time only, and wrong by
+// design: bit 0 drops the consumers' softmax and split of p on every tile
+// after a warpgroup's first (the fragments and acc keep their values, corr
+// = 1), bit 1 the prep warps' splits of K and V (they only signal).
+#ifndef TF32_PROBE
+#define TF32_PROBE 0
+#endif
+constexpr int kProbe = TF32_PROBE;
+
 // One consumer warpgroup (cw = 0 or 1, query rows q0 + 64 cw ..; with
 // C::kSplit both take rows q0 .. q0 + 63, and columns cw * HD / 2 ..) of
 // either tensor-core kernel, after its Q tile landed: the online softmax
@@ -1095,8 +1107,12 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
       fence_regs(sc);
       mbar_arrive(r.k_empty(s));
       prod.combine(sc, (t - w_begin) & 1);
-      softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq, causal,
-                       window, scale_log2);
+      constexpr bool kBare = C::kFp32 && (kProbe & 1);
+      if constexpr (kBare)
+        corr[0] = corr[1] = 1.f;
+      else
+        softmax_step<BN>(sc, m, l, corr, f, t * BN, full_tile(t), seq,
+                         causal, window, scale_log2);
       wgmma_wait<0>();  // the previous p.V
       fence_regs(acc);
       mbar_arrive(r.v_empty(sp));
@@ -1104,7 +1120,7 @@ __device__ __forceinline__ void consume(Products& prod, const Ring<C>& r,
       for (int j = 0; j < C::kAcc / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
-      prod.split(sc);
+      if constexpr (!kBare) prod.split(sc);
     }
     // the last tile's p.V
     const int s = i % kStages;
@@ -1187,14 +1203,14 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention_tf32_kernel: fp32 at head_dim 64, 128 and 320, on the
-// tensor cores as three TF32 products (3xTF32)
+// flash_attention_tf32_kernel: fp32 at head_dim 32, 64, 128 and 320, on
+// the tensor cores as three TF32 products (3xTF32)
 // ---------------------------------------------------------------------------
 //
 // Computes what flash_attention_kernel computes (same masks, same
 // `valid ? exp(s - m) : 0`, same acc / max(l, 1e-20), scale on the fp32
 // scores, GQA by h / G, (batch, seq, head) element strides) for fp32 q, k,
-// v and o at head_dim 64, 128 and 320, and replaces the same TPU kernel
+// v and o at head_dim 32, 64, 128 and 320, and replaces the same TPU kernel
 // (src/repro/kernels/attention.py: _flash_kernel, whose products take fp32
 // operands).
 //
@@ -1247,13 +1263,33 @@ __global__ void __launch_bounds__(C::kThreads, 1)
 //   d2, d1, d3 of s, split into p_hi and p_lo, with no shuffle. Per k8
 //   step: RS(p_hi, V^T_hi) + RS(p_hi, V^T_lo) + RS(p_lo, V^T_hi), m64nHDk8.
 //
-// Budget (Tf32Cfg). Shared memory: Q_lo, 128 rows x HD floats; 2 stages of
-// K_hi, K_lo, raw V, V^T_hi and V^T_lo, BN x HD floats each; 13 mbarriers.
-// At hd 128 with 32-key tiles 64 KB + 2 x 80 KB = 224 KB (230,504 bytes
-// with the barriers and the swizzle alignment, of 232,448); at hd 64 with
-// 64-key tiles 32 KB + 2 x 80 KB = 192 KB. Consumer registers (setmaxnreg
+// Budget (Tf32Cfg). Shared memory: Q_lo, 128 rows x HD floats; STAGES (2;
+// 4 at hd 32) stages of K_hi, K_lo, raw V, V^T_hi and V^T_lo, BN x HD
+// floats each; 1 + 6 STAGES mbarriers. At hd 128 with 32-key tiles 64 KB +
+// 2 x 80 KB = 224 KB (230,504 bytes with the barriers and the swizzle
+// alignment, of 232,448); at hd 64 with 64-key tiles 32 KB + 2 x 80 KB =
+// 192 KB; at hd 32 16 KB + 4 x 40 KB = 176 KB. Consumer registers (setmaxnreg
 // 232, warpgroups 0 and 3 24): Q_hi HD / 2, acc HD / 2, s BN / 2 and the
-// p_hi and p_lo fragments BN / 2 -- 176 at hd 128, 160 at hd 64.
+// p_hi and p_lo fragments BN / 2 each (s of a tile is formed while the
+// previous tile's fragments feed p.V) -- 176 at hd 128, 160 at hd 64,
+// 128 at hd 32.
+//
+// Head_dim 32 (the reduced configs in fp32). A row of 32 floats is one
+// 128-byte box, the swizzle atom Q and K land in; Q_hi is 16 registers a
+// thread (kQSteps = 4 k8 steps), acc 16, and p.V runs at m64n32k8. Q_lo
+// takes 16 KB and a stage BN x 640 bytes (five planes of BN rows of 128
+// bytes; V^T's key boxes, HD rows of 32 keys, fill one plane), so the
+// tile and the ring's depth can be traded: BN = 64 at 2, 3 or 4 stages,
+// or 128 at 2 (TF32_HD32_KEYS, TF32_HD32_STAGES; chip_smoke.py
+// --tile-ab builds each and times them in turns). 64 keys at 4 stages
+// ran fastest, 2 and 3 stages within 1% of it; 128 keys spill (s, p_hi
+// and p_lo alone take 192 registers) and 32 keys ran 20% slower (PERF.md).
+// Per score the consumers do as much CUDA-core work (mask, max, exp, the
+// split of p) as at hd 128 against a quarter of the tensor work, and here
+// that work adds to the products' time instead of hiding behind them: a
+// build without the softmax and split of p (TF32_PROBE) takes 60% of the
+// time, and without the prep of K and V too 49%, its products then at 1.2
+// x the 3xTF32 bound (PERF.md).
 //
 // Head_dim 320 (gemma3-4b; kSplit). Q_hi of 64 rows (160 registers a
 // thread) beside a 64 x 320 accumulator (160 more) does not fit a thread,
@@ -1340,12 +1376,24 @@ struct Tf32Cfg {
                 "setmaxnreg takes multiples of 8");
 };
 
+// The hd-32 instance's tile (keys per tile and stages), set at build time
+// only by the A/B of tiles (chip_smoke.py --tile-ab); the default is the
+// A/B's fastest and kernels/attention.py's TF32_KERNEL_KEYS[32].
+#ifndef TF32_HD32_KEYS
+#define TF32_HD32_KEYS 64
+#endif
+#ifndef TF32_HD32_STAGES
+#define TF32_HD32_STAGES 4
+#endif
+
+using Tf32Hd32 = Tf32Cfg<32, TF32_HD32_KEYS, TF32_HD32_STAGES>;
 using Tf32Hd64 = Tf32Cfg<64, 64>;
 using Tf32Hd128 = Tf32Cfg<128, 32>;
 using Tf32Hd320 = Tf32Cfg<320, 8, 3, true>;
 
 // Calls F<C>(...) for the instance C of head_dim hd.
 #define TF32_DISPATCH(F, hd, ...)                   \
+  if ((hd) == 32) return F<Tf32Hd32>(__VA_ARGS__);   \
   if ((hd) == 64) return F<Tf32Hd64>(__VA_ARGS__);   \
   if ((hd) == 128) return F<Tf32Hd128>(__VA_ARGS__); \
   if ((hd) == 320) return F<Tf32Hd320>(__VA_ARGS__); \
@@ -1410,6 +1458,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 TF_SS(8, WG_D4, WG_F4, 4, 5, 6)
 TF_SS(32, WG_D16, WG_F16, 16, 17, 18)
 TF_SS(64, WG_D32, WG_F32, 32, 33, 34)
+TF_SS(128, WG_D64, WG_F64, 64, 65, 66)
 
 // d (+)= A.B^T on TF32 operands, m64nNk8: A (64 x 8) from registers, the
 // fragment of rows lane / 4 and lane / 4 + 8 of each warp's 16, columns
@@ -1706,7 +1755,8 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       for (int i = 0; i < tiles.t_end - tiles.t_begin; ++i) {
         const int s = i % C::kStages;
         mbar_wait(ring.k_full(s), (uint32_t)(i / C::kStages) & 1u);
-        prep_k<C>(ring.stage(s), threadIdx.x - 32);
+        if constexpr (!(kProbe & 2))
+          prep_k<C>(ring.stage(s), threadIdx.x - 32);
         fence_proxy_async();
         mbar_arrive(ring.k_ready(s));
       }
@@ -1719,7 +1769,9 @@ __global__ void __launch_bounds__(C::kThreads, 1)
       const int s = i % C::kStages;
       const uint32_t st = ring.stage(s);
       mbar_wait(ring.v_full(s), (uint32_t)(i / C::kStages) & 1u);
-      if constexpr (C::kSplit)
+      if constexpr (kProbe & 2)
+        ;
+      else if constexpr (C::kSplit)
         prep_v8<C>(st + C::kVOffset, st + C::kVTOffset,
                    (threadIdx.x >> 5) & 3, threadIdx.x & 31);
       else
@@ -1936,8 +1988,8 @@ int flash_attention_wgmma(const void* q, const void* k, const void* v,
 }
 
 // The 3xTF32 tensor-core kernel: fp32 q, k, v and o (bf16 must be 0) at
-// head_dim 64, 128 or 320, the arguments as for flash_attention. Every stride
-// must be a multiple of 4 elements (16 bytes) and every base 16-byte
+// head_dim 32, 64, 128 or 320, the arguments as for flash_attention. Every
+// stride must be a multiple of 4 elements (16 bytes) and every base 16-byte
 // aligned, as TMA needs; a tensor map that cuTensorMapEncodeTiled refuses
 // returns cudaErrorInvalidValue.
 int flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
@@ -1961,8 +2013,8 @@ int flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
 
 // Launch configuration of kernel 0 (flash_attention_kernel, any head_dim,
 // bf16 or fp32), 1 (flash_attention_wgmma_kernel, head_dim 32, 64, 128 or
-// 320, bf16 == 1) or 2 (flash_attention_tf32_kernel, head_dim 64, 128 or
-// 320, bf16 == 0): threads per CTA, dynamic shared memory in bytes,
+// 320, bf16 == 1) or 2 (flash_attention_tf32_kernel, head_dim 32, 64, 128
+// or 320, bf16 == 0): threads per CTA, dynamic shared memory in bytes,
 // registers per thread, CTAs per SM.
 int attention_occupancy(int kernel, int head_dim, int bf16, int unused,
                         int* threads, int* smem, int* regs, int* ctas) {

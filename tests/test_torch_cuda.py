@@ -592,10 +592,9 @@ def _counter(dtype, hd):
 def test_flash_kernel_matches_plain(cuda, hd, dtype, S, H, KV, window,
                                     causal):
     """Each (dtype, hd) against the plain version of the kernel it
-    dispatches to, whose counter alone moves: bf16 at hd 64, 128 and 320
-    on the wgmma kernel, fp32 at hd 64 and 128 on the 3xTF32 kernel, the
-    rest on the CUDA-core kernel; S ragged against the kernels' tiles,
-    S = 1 and S < 64."""
+    dispatches to, whose counter alone moves: bf16 on the wgmma kernel,
+    fp32 on the 3xTF32 kernel, at every head_dim; S ragged against the
+    kernels' tiles, S = 1 and S < 64."""
     g = torch.Generator(device=cuda).manual_seed(hd + S)
     q = torch.randn(2, S, H, hd, device=cuda, generator=g).to(dtype)
     k, v = (torch.randn(2, S, KV, hd, device=cuda, generator=g).to(dtype)
@@ -646,11 +645,12 @@ def _wgmma_smem(hd, keys=128):
     return 2 * 128 * hd + 2 * 2 * 2 * keys * hd + 8 * 9 + 1024
 
 
-def _tf32_smem(hd, keys):
-    """Q_lo (128 rows of fp32), two stages of five fp32 planes (K_hi,
-    K_lo, V, V^T_hi, V^T_lo) of ``keys`` keys, 13 mbarriers, and 1024 bytes
-    to align the tiles to the swizzle atom."""
-    return 4 * 128 * hd + 2 * 5 * 4 * keys * hd + 8 * 13 + 1024
+def _tf32_smem(hd, keys, stages=2):
+    """Q_lo (128 rows of fp32), ``stages`` stages of five fp32 planes
+    (K_hi, K_lo, V, V^T_hi, V^T_lo) of ``keys`` keys, 1 + 6 stages
+    mbarriers, and 1024 bytes to align the tiles to the swizzle atom."""
+    return (4 * 128 * hd + stages * 5 * 4 * keys * hd + 8 * (1 + 6 * stages)
+            + 1024)
 
 
 def _tf32_split_smem(hd, keys=8, stages=3):
@@ -674,6 +674,8 @@ def _tf32_split_smem(hd, keys=8, stages=3):
     # fp32: 512 threads (loads and K prep, V prep, two consumers)
     ("flash_attention_tf32", 64, 0, 512, _tf32_smem(64, 64), 1),
     ("flash_attention_tf32", 128, 0, 512, _tf32_smem(128, 32), 1),
+    # the reduced configs' head_dim in fp32: one 128-byte box a row
+    ("flash_attention_tf32", 32, 0, 512, _tf32_smem(32, 64, 4), 1),
     # gemma3-4b in fp32: 64 query rows, head_dim split, 8-key tiles
     ("flash_attention_tf32", 320, 0, 512, _tf32_split_smem(320), 1)])
 def test_attention_occupancy(cuda, name, hd, bf16, threads, smem, ctas):
@@ -767,6 +769,32 @@ def test_tf32_hd320_matches_plain(cuda, B, S, window, causal, H, KV):
                                **ATTN_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("B,S,window,causal,H,KV", [
+    (2, 1, 1 << 30, True, 16, 8), (3, 37, 1 << 30, True, 16, 8),
+    (2, 300, 24, True, 16, 8), (2, 200, 1 << 30, False, 16, 8),
+    (2, 1000, 1 << 30, True, 16, 8), (2, 1024, 1 << 30, True, 8, 8),
+    (2, 2048, 1 << 30, True, 16, 8)])
+def test_tf32_hd32_matches_plain(cuda, B, S, window, causal, H, KV):
+    """The fp32 hd-32 instance (one 128-byte box a row, its key tile)
+    against the plain version folded at that tile, both products as three
+    TF32 products, within the reference tests' 2e-4: S = 1, S < 64, window
+    24, non-causal, ragged S, G = 1 and the served prompt; only its counter
+    moves."""
+    g = torch.Generator(device=cuda).manual_seed(S + 3232)
+    q = torch.randn(B, S, H, 32, device=cuda, generator=g)
+    k, v = (torch.randn(B, S, KV, 32, device=cuda, generator=g)
+            for _ in range(2))
+    kw = dict(window=window, causal=causal, scale=32 ** -0.5)
+    before = dict(_build.LAUNCHES)
+    got = tattn.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in _build.LAUNCHES.items()
+            if c != before[n]} == {"flash_attention_tf32": 1}
+    want = tattn.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **ATTN_TOL[torch.float32])
+
+
 def test_wgmma_launcher_refuses_an_instance_it_lacks(cuda):
     """A head_dim with no instance (96) is refused by the launcher, and the
     wrapper counts no launch."""
@@ -816,13 +844,13 @@ def test_tf32_kernel_matches_plain(cuda, hd, B, S, H, KV, window, causal):
                                **ATTN_TOL[torch.float32])
 
 
-@pytest.mark.parametrize("hd,counter", [(32, "flash_attention"),
+@pytest.mark.parametrize("hd,counter", [(32, "flash_attention_tf32"),
                                         (64, "flash_attention_tf32"),
                                         (128, "flash_attention_tf32"),
                                         (320, "flash_attention_tf32")])
 def test_fp32_reaches_one_kernel(cuda, hd, counter):
-    """fp32 at head_dim 64, 128 and 320 launches the 3xTF32 kernel and
-    nothing else; at 32 the CUDA-core kernel and nothing else."""
+    """fp32 at head_dim 32, 64, 128 and 320 launches the 3xTF32 kernel
+    and nothing else."""
     x = torch.randn(1, 70, 4, hd, device=cuda)
     _build.reset_launches()
     tattn.attention(x, x, x, window=1 << 30, scale=hd ** -0.5)
@@ -887,7 +915,7 @@ def test_generate_on_card_matches_cpu(cuda):
     _build.reset_launches()
     got = lm.generate(convert.build(cfg, sd, cuda), tokens.to(cuda), 6)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert _build.LAUNCHES["flash_attention_tf32"] == cfg.num_layers
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
@@ -1265,7 +1293,8 @@ def test_training_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch,kernel,per_layer", [
-    ("fourierpim-lm", "fft_planes", 9), ("qwen3-1.7b", "flash_attention", 2)])
+    ("fourierpim-lm", "fft_planes", 9),
+    ("qwen3-1.7b", "flash_attention_tf32", 2)])
 @pytest.mark.parametrize("shards", [2, 4])
 def test_sharded_training_step_on_card_matches_cpu(cuda, arch, kernel,
                                                    per_layer, shards):

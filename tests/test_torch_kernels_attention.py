@@ -228,18 +228,13 @@ def test_launcher_rejects_what_the_kernel_does_not_take(fake_launch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_kernel_for_every_type_and_head_dim(dtype, hd):
-    """bf16 at 32, 64, 128 and 320 on the wgmma kernel, fp32 at 64, 128
-    and 320 on the 3xTF32 kernel, fp32 at 32 on the CUDA-core kernel; each
-    with its key tile."""
-    if dtype == torch.bfloat16:
-        want = "wgmma"
-    elif hd in (64, 128, 320):
-        want = "tf32"
-    else:
-        want = "cuda_core"
+    """bf16 at 32, 64, 128 and 320 on the wgmma kernel, fp32 at the same
+    head_dims on the 3xTF32 kernel (the CUDA-core kernel serves none);
+    each with its key tile."""
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32"
     assert tattn.kernel_for(dtype, hd) == want
-    keys = {"wgmma": {32: 128, 64: 128, 128: 128, 320: 48}.get(hd),
-            "tf32": {64: 64, 128: 32, 320: 8}.get(hd), "cuda_core": 64}[want]
+    keys = {"wgmma": {32: 128, 64: 128, 128: 128, 320: 48},
+            "tf32": {32: 64, 64: 64, 128: 32, 320: 8}}[want][hd]
     assert tattn.kernel_keys(dtype, hd) == keys
 
 
@@ -461,7 +456,7 @@ def test_wgmma_hd32_launcher_arguments(fake_named_launch):
     """bf16 at head_dim 32 reaches the wgmma launcher in the model's layout
     and, as strided (1, S, H, hd) views, in the public one, with no copy;
     TMA's 16-byte strides refuse a row of hd + 4 elements before any
-    launch; fp32 at head_dim 32 stays on the CUDA-core kernel."""
+    launch; fp32 at head_dim 32 goes to the 3xTF32 kernel."""
     B, S, H, KV, hd = 2, 40, 4, 2, 32
     q = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
     k = torch.zeros(B, S, KV, hd, dtype=torch.bfloat16)
@@ -487,11 +482,11 @@ def test_wgmma_hd32_launcher_arguments(fake_named_launch):
     assert fake_named_launch == []
     y = torch.zeros(1, 8, 2, hd + 4)[..., :hd]
     tattn._launch(y, y, y, window=4, causal=True, scale=1.0)
-    assert [c[0] for c in fake_named_launch] == ["flash_attention"]
+    assert [c[0] for c in fake_named_launch] == ["flash_attention_tf32"]
 
 
 # ---------------------------------------------------------------------------
-# The 3xTF32 kernel's route: fp32 at head_dim 64, 128 and 320
+# The 3xTF32 kernel's route: fp32 at head_dim 32, 64, 128 and 320
 # ---------------------------------------------------------------------------
 
 def _tf32_reference(x: np.ndarray) -> np.ndarray:
@@ -540,7 +535,7 @@ def test_split_tf32_rounds_as_cvt_rna():
     assert low[:2].tolist() == [0.0, 0.0]
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
 @pytest.mark.parametrize("S,window,causal", [(160, 1 << 30, True),
                                              (96, 24, True),
                                              (150, 1 << 30, True),
@@ -548,7 +543,7 @@ def test_split_tf32_rounds_as_cvt_rna():
 def test_tf32_plain_matches_pallas_kernel(rng, hd, S, window, causal):
     """fp32 at the tf32 kernel's head_dims: the plain version (both
     products as three TF32 products, the kernel's key tile: 64 keys at hd
-    64, 32 at 128) against the Pallas kernel in interpret mode and the
+    32 and 64, 32 at 128) against the Pallas kernel in interpret mode and the
     naive oracle within the reference tests' 2e-4; causal, window 24,
     non-causal, and S = 150 ragged against both tiles."""
     arrs = _qkv(rng, 2, S, hd)
@@ -561,7 +556,7 @@ def test_tf32_plain_matches_pallas_kernel(rng, hd, S, window, causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
 @pytest.mark.parametrize("H,KV,window", [(4, 2, 1 << 30), (4, 4, 24),
                                          (6, 2, 1 << 30)])
 def test_tf32_plain_matches_reference_layer(rng, hd, H, KV, window):
@@ -580,10 +575,10 @@ def test_tf32_plain_matches_reference_layer(rng, hd, H, KV, window):
     np.testing.assert_allclose(plain.numpy(), want, **TOL)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_tf32_plain_folds_the_kernels_key_tile(rng, hd):
     """By default the fp32 plain version folds the tf32 kernel's key tile
-    (64 keys at hd 64, 32 at 128) with both products as three TF32
+    (64 keys at hd 32 and 64, 32 at 128) with both products as three TF32
     products: that is not the CUDA-core kernel's dataflow (fp32 products,
     64-key tiles), though both stay within 2e-4 of each other."""
     q, k, v = _torch(_gqa(rng, 1, 200, 4, 2, hd))
@@ -618,7 +613,8 @@ def test_cpu_path_launches_no_tf32_kernel(rng):
     assert not any(_build.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (24, 8, 64), (8, 4, 320)])
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (24, 8, 64), (8, 4, 320),
+                                     (4, 4, 32)])
 def test_tf32_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
     """fp32 in the model's layout reaches the tf32 launcher, counted under
     its own counter, with its element strides and bf16 = 0."""
@@ -637,7 +633,7 @@ def test_tf32_launcher_arguments_model_layout(fake_named_launch, H, KV, hd):
     assert args[21:] == (1 << 30, 1, 0.5, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_tf32_launcher_arguments_public_layout(fake_named_launch, hd):
     """(H, S, hd) fp32 reaches the tf32 kernel as strided (1, S, H, hd)
     views of the same storage, with no copy."""
@@ -654,7 +650,7 @@ def test_tf32_launcher_arguments_public_layout(fake_named_launch, hd):
     assert args[21:] == (7, 0, hd ** -0.5, 0)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 320])
+@pytest.mark.parametrize("hd", [32, 64, 128, 320])
 def test_tf32_launcher_rejects_what_tma_does_not_take(fake_named_launch, hd):
     """TMA takes a base on 16 bytes and strides of 16 bytes, 4 fp32
     elements: a row stride of hd + 2 or a base 8 bytes off is refused
