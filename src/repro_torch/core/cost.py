@@ -269,7 +269,7 @@ def _cuda_local_terms(workload: str, n: int, batch: int, *,
     lg = n.bit_length() - 1
     fft_flops = 5.0 * n * lg
     # repro: noqa[dispatch-ladder]: per-workload closed-form flop/byte FORMULAS (cost-model data, not op dispatch) — executable routes bind through the launch/ops.py registry
-    if workload == "fft":
+    if workload == "fft":  # repro_torch: noqa[dispatch-ladder]: per-workload closed-form flop/byte FORMULAS (cost-model data, not op dispatch); served ops bind through the launch/ops.py registry
         flops = batch * fft_flops
         nbytes = batch * 2 * n * 8                      # c64 in + out
     elif workload == "rfft":

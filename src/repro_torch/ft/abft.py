@@ -288,7 +288,7 @@ def _schedule(workload: str, n: int,
         reduce_tree(m, "modadd")
 
     # repro: noqa[dispatch-ladder]: per-workload check-SCHEDULE construction (cost data, not op dispatch) — serving binds these checks through the launch/ops.py registry
-    if workload == "fft":
+    if workload == "fft":  # repro_torch: noqa[dispatch-ladder]: per-workload check-SCHEDULE construction (cost data, not op dispatch); serving binds these checks through the launch/ops.py registry
         energy(n, True)                  # input energy
         energy(n, True)                  # output energy
         s.append(("col", "fmul", 1, 1))  # scale lhs by n
