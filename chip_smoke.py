@@ -68,7 +68,11 @@ Phases (any failure exits non-zero):
      head_dim 32; hymba-1.5b's heads (25 over 5 kv heads: G = 5, H
      odd; hd 64; window 2048) at its served shape and past the window and
      mixtral-8x22b's (48 over 8, hd 128) past its window of 4096, in bf16
-     and fp32; bf16 within one bf16 step and fp32 within 2e-4; and
+     and fp32; the heads of ``rest_phase``'s archs, musicgen-medium's (24
+     over 24: G = 1 at hd 64), starcoder2-15b's (48 over 4: G = 12),
+     qwen2-vl-72b's (64 over 8) and llama3-405b's (128 over 8: G = 16),
+     at the served batch and prompt in bf16 (llama3-405b at B 2) and at
+     B 2 x 2048 in fp32; bf16 within one bf16 step and fp32 within 2e-4; and
      the public (H, S, hd) layout against the naive oracle. Then the two-pass
      schedules of the fft, rfft and irfft kernels and the products'
      split-pass schedule (``check_two_pass``; three launches, four at odd
@@ -128,7 +132,25 @@ Phases (any failure exits non-zero):
      rounding of the probabilities; and prefill/decode parity on the card
      at full width in fp32 for the four (granite, rwkv6 all 32 layers at
      B 2 x 512; hymba B 1 x 2048, its window; mixtral 2 layers; the MoE
-     archs at capacity factor E / k) within 2e-3.
+     archs at capacity factor E / k) within 2e-3. Then the registry's
+     other four archs (``rest_phase``, ``REST_ARCHS``), each step with the
+     counters zeroed just before: at full width (bf16, batch 8, prompt
+     2048, gen 32, seed-0 weights drawn on the card) starcoder2-15b on 8 of
+     its 40 layers and llama3-405b on 4 of its 126 (cuts of depth) through
+     ``--service lm --layers``, musicgen-medium (all 48 layers) and
+     qwen2-vl-72b (8 of 80, with (B, S, 3) M-RoPE streams) through
+     ``prefill(embeds=)`` and 32 ``decode_step(embed=)`` calls over seeded
+     embeddings (``drive_embeddings``): one launch of the wgmma kernel a
+     layer and nothing else, ids in the vocabulary, tok/s, prefill ms and
+     decode ms per token (CUDA events) and peak device memory; a bf16
+     prefill (B 2 x 2048) of 2 to 6 full-width layers through the kernel
+     against the plain version swapped in, within ``GEMMA_PARITY_TOL``;
+     2 full-width fp32 layers (llama3-405b 1) on the card against the CPU
+     (B 1 x S 128) within 2e-3, the host's MemAvailable printed before;
+     and prefill/decode parity on 2 full-width fp32 layers at B 2 x 512
+     within 2e-3, the embeddings archs' decode step fed the forward's own
+     embeddings and positions; the fp32 steps launch the 3xTF32 kernel
+     once a layer and nothing else.
   4. Timings at the serve shapes: kernel, plain version and, where one
      exists, the PyTorch library call on the same inputs -- device time per
      call from torch.profiler, for a kernel the mean over the launches
@@ -2240,6 +2262,27 @@ ATTN_CASES = [
      4096, True),
     ("fp32 mixtral-8x22b parity forward", 2, 513, 48, 8, 128, "float32",
      4096, True),
+    # the heads of REST_ARCHS (phase 3's rest_phase), at the served batch
+    # and prompt in bf16 (llama3-405b at B 2) and at B 2 in fp32:
+    # musicgen-medium's MHA (24 over 24: G = 1 at hd 64), starcoder2-15b's
+    # (48 over 4: G = 12), qwen2-vl-72b's (64 over 8: G = 8) and
+    # llama3-405b's (128 over 8: G = 16), hd 128
+    ("musicgen-medium served", LM_BATCH, LM_PROMPT, 24, 24, 64, "bfloat16",
+     1 << 30, True),
+    ("starcoder2-15b served", LM_BATCH, LM_PROMPT, 48, 4, 128, "bfloat16",
+     1 << 30, True),
+    ("qwen2-vl-72b served", LM_BATCH, LM_PROMPT, 64, 8, 128, "bfloat16",
+     1 << 30, True),
+    ("llama3-405b served heads", 2, LM_PROMPT, 128, 8, 128, "bfloat16",
+     1 << 30, True),
+    ("fp32 musicgen-medium", 2, LM_PROMPT, 24, 24, 64, "float32", 1 << 30,
+     True),
+    ("fp32 starcoder2-15b", 2, LM_PROMPT, 48, 4, 128, "float32", 1 << 30,
+     True),
+    ("fp32 qwen2-vl-72b", 2, LM_PROMPT, 64, 8, 128, "float32", 1 << 30,
+     True),
+    ("fp32 llama3-405b", 2, LM_PROMPT, 128, 8, 128, "float32", 1 << 30,
+     True),
 ]
 #: the CUDA-core kernel launched directly on inputs the wrappers send to a
 #: tensor-core kernel, against its own plain version: (label, B, S, H, KV,
@@ -2485,7 +2528,8 @@ def plain_attention(kattn):
 def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
                      tol: dict, prompt: int = LM_PROMPT) -> tuple[float, int]:
     """A prefill of ``cfg`` (seed-0 weights, batch GEMMA_PARITY_BATCH,
-    ``prompt`` tokens: the served prompt), counters zeroed just before:
+    ``prompt`` tokens, the served prompt, or embeddings and M-RoPE
+    positions: ``lm_inputs``), counters zeroed just before:
     once through the kernel (one launch of ``counter`` per layer, nothing
     else) and once with ``plain_attention`` swapped in for
     ``kernels.attention.attention`` (no launch); the last logits finite, of
@@ -2493,18 +2537,16 @@ def prefill_vs_plain(torch, build, convert, kattn, cfg, counter: str,
     largest difference and the launches of ``counter``."""
     dev = torch.device("cuda")
     model = convert.build(cfg, full_width_state(torch, convert, cfg), dev)
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (GEMMA_PARITY_BATCH, prompt), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(5))
+    inputs = lm_inputs(torch, cfg, GEMMA_PARITY_BATCH, prompt, dev, seed=5)
     torch.cuda.synchronize()
     build.reset_launches()
-    with_kernel, _ = model.prefill(tokens)
+    with_kernel, _ = model.prefill(**inputs)
     torch.cuda.synchronize()
     kernel_launches = dict(build.LAUNCHES)
     kernel = kattn.attention
     kattn.attention = plain_attention(kattn)
     try:
-        with_plain, _ = model.prefill(tokens)
+        with_plain, _ = model.prefill(**inputs)
         torch.cuda.synchronize()
     finally:
         kattn.attention = kernel
@@ -2833,18 +2875,19 @@ def mixer_card_vs_cpu(torch, build, convert, kattn, moe_mod, get_config,
     return out
 
 
-def mixer_parity(torch, build, convert, kattn, get_config, arch: str
-                 ) -> dict:
+def mixer_parity(torch, build, convert, kattn, get_config, arch: str,
+                 layers: int | None, B: int, S: int) -> dict:
     """Prefill/decode parity of ``arch`` on the card at full width in fp32
-    (MIXER_PARITY; seed-0 weights drawn on the card; a MoE arch at its
-    no-drop capacity factor E / k, as the reference's own parity test
-    takes it), the counters zeroed just before: decode_step(S) after
-    prefill(S) against forward(S + 1)[-1], and the prefill's last logits
-    against forward's row S - 1, within LM_TOL; the fp32 flash kernel
-    launched once a layer in each of the forward and the prefill, and
-    nothing else."""
+    (``layers`` (None: all), batch B, prompt S; seed-0 weights drawn on
+    the card; a MoE arch at its no-drop capacity factor E / k, as the
+    reference's own parity test takes it), the counters zeroed just
+    before: decode_step(S) after prefill(S) against forward(S + 1)[-1],
+    and the prefill's last logits against forward's row S - 1, within
+    LM_TOL; the decode step takes position S of the forward's own tokens,
+    or its embeddings and M-RoPE positions (``lm_inputs``,
+    ``step_inputs``); the fp32 flash kernel launched once a layer in each
+    of the forward and the prefill, and nothing else."""
     dev = torch.device("cuda")
-    layers, B, S = MIXER_PARITY[arch]
     cfg = get_config(arch)
     cut = {} if layers is None else {"num_layers": layers}
     if cfg.is_moe:
@@ -2855,13 +2898,14 @@ def mixer_parity(torch, build, convert, kattn, get_config, arch: str
     model = convert.build(cfg32, sd, dev)
     del sd
     torch.cuda.empty_cache()
-    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(2))
+    inputs = lm_inputs(torch, cfg32, B, S + 1, dev, seed=2)
+    token, kw = step_inputs(inputs, S)
     torch.cuda.synchronize()
     build.reset_launches()
-    full = model(tokens)
-    last, state = model.prefill(tokens[:, :S], cache_capacity=S + 1)
-    step, _ = model.decode_step(state, tokens[:, S], S)
+    full = model(**inputs)
+    last, state = model.prefill(**{k: v[:, :S] for k, v in inputs.items()},
+                                cache_capacity=S + 1)
+    step, _ = model.decode_step(state, token, S, **kw)
     torch.cuda.synchronize()
     launches = {k: n for k, n in build.LAUNCHES.items() if n}
     want = {counter: 2 * cfg32.num_layers} if counter else {}
@@ -2909,9 +2953,303 @@ def mixer_phase(torch, build, serve, convert, kattn, moe_mod, get_config
     for arch in MIXER_ARCHS:
         out[arch]["card_vs_cpu"] = mixer_card_vs_cpu(
             torch, build, convert, kattn, moe_mod, get_config, arch)
-    for arch in MIXER_PARITY:
+    for arch, (layers, B, S) in MIXER_PARITY.items():
         out[arch]["parity"] = mixer_parity(torch, build, convert, kattn,
-                                           get_config, arch)
+                                           get_config, arch, layers, B, S)
+    return out
+
+
+#: the registry's four archs no other step runs: each served at full width
+#: (bf16, batch 8, prompt 2048, gen 32) on this many of its layers (None:
+#: all), a cut of depth where its weights would not fit the card beside
+#: the rest. The embeddings archs (musicgen-medium, qwen2-vl-72b) take
+#: seeded frame or patch embeddings, and qwen2-vl-72b (B, S, 3) M-RoPE
+#: streams, through ``prefill(embeds=)`` and ``decode_step(embed=)``: no
+#: serve CLI of either package serves them (their ``generate`` feeds back
+#: tokens). Weights a served run draws: starcoder2-15b 8 x 535 M + 604 M
+#: fp32 (19.5 GB), llama3-405b 4 x 3.19 G + 4.2 G bf16 (34 GB),
+#: musicgen-medium 48 x 37.8 M + 6.3 M fp32 (7.3 GB), qwen2-vl-72b 8 x
+#: 878 M + 2.49 G bf16 (19 GB).
+REST_ARCHS = {"starcoder2-15b": 8, "llama3-405b": 4, "musicgen-medium": None,
+              "qwen2-vl-72b": 8}
+#: the bf16 prefill through the kernel against the plain version swapped
+#: in (``prefill_vs_plain``, B GEMMA_PARITY_BATCH x LM_PROMPT): layers
+REST_PLAIN_LAYERS = {"starcoder2-15b": 4, "llama3-405b": 2,
+                     "musicgen-medium": 6, "qwen2-vl-72b": 2}
+#: the card against the CPU, fp32, B 1 x S 128: layers (llama3-405b's one
+#: fp32 layer with its embeddings and head is about 30 GB of host memory)
+REST_CPU_LAYERS = {"starcoder2-15b": 2, "llama3-405b": 1,
+                   "musicgen-medium": 2, "qwen2-vl-72b": 2}
+REST_CPU = (1, 128)
+#: prefill/decode parity on the card, fp32: (layers, batch, prompt)
+REST_PARITY = (2, 2, 512)
+#: the embeddings' scale, as tests/test_torch_models.py makes them
+EMBED_SCALE = 0.02
+
+
+def lm_inputs(torch, cfg, B: int, S: int, device, seed: int) -> dict:
+    """A prompt of ``cfg``'s kind as keyword arguments of ``forward`` and
+    ``prefill``, drawn from ``seed`` on ``device``: (B, S) tokens, or for
+    an embeddings arch (B, S, d_model) embeddings of scale EMBED_SCALE, and
+    for an M-RoPE arch (B, S, 3) position streams, each stream 0 .. S - 1
+    (as tests/test_torch_models.py makes them)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.frontend != "embeddings":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        device=device, generator=g)}
+    out = {"embeds": torch.randn(B, S, cfg.d_model, device=device,
+                                 generator=g) * EMBED_SCALE}
+    if cfg.mrope_sections is not None:
+        out["positions"] = torch.arange(
+            S, dtype=torch.int32, device=device)[None, :, None].expand(
+                B, S, 3).contiguous()
+    return out
+
+
+def step_inputs(inputs: dict, i: int) -> tuple:
+    """Position ``i`` of ``lm_inputs``'s prompt as ``decode_step``'s token
+    and keyword arguments: the token, or its embedding row and M-RoPE
+    positions."""
+    if "tokens" in inputs:
+        return inputs["tokens"][:, i], {}
+    out = {"embed": inputs["embeds"][:, i:i + 1]}
+    if "positions" in inputs:
+        out["positions"] = inputs["positions"][:, i:i + 1]
+    return None, out
+
+
+def drive_embeddings(torch, model, B: int, S: int, gen: int, seed: int
+                     ) -> dict:
+    """An embeddings arch's serving path: a prefill of S seeded embeddings
+    (``lm_inputs``) with room for ``gen`` more positions, then ``gen``
+    ``decode_step`` calls, step i fed the seeded embedding row of position
+    S + i (and M-RoPE positions S + i); each step's greedy id is the
+    argmax over the vocabulary. Returns the inputs, the prefill's last
+    logits, each step's logits, the (gen, B) ids and the prefill's and the
+    decode loop's host ms, each ending in a synchronize on the card. Runs
+    on the CPU too (the tests hold it against the reference there)."""
+    cfg = model.cfg
+
+    def sync():
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    inputs = lm_inputs(torch, cfg, B, S + gen, model.device, seed)
+    prompt = {k: v[:, :S] for k, v in inputs.items()}
+    sync()
+    t0 = time.perf_counter()
+    last, state = model.prefill(**prompt, cache_capacity=S + gen)
+    sync()
+    t1 = time.perf_counter()
+    steps = []
+    for i in range(gen):
+        token, kw = step_inputs(inputs, S + i)
+        logits, state = model.decode_step(state, token, S + i, **kw)
+        steps.append(logits)
+    ids = torch.stack([s[:, :cfg.vocab_size].argmax(dim=-1) for s in steps])
+    sync()
+    t2 = time.perf_counter()
+    return {"inputs": inputs, "prefill_logits": last, "step_logits": steps,
+            "ids": ids, "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / gen}
+
+
+@contextlib.contextmanager
+def timed_calls(torch, lm):
+    """CUDA events recorded around every ``DecoderLM.prefill`` and
+    ``decode_step`` call while the block runs, so a served run is timed
+    on the card's clock without a synchronize of its own: the prefill's
+    ms, and the decode loop's from its first step's start to its last
+    step's end (host gaps included) over the steps."""
+    marks: dict[str, list] = {"prefill": [], "decode_step": []}
+    originals = {name: getattr(lm.DecoderLM, name) for name in marks}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(lm.DecoderLM, name, timed(name, fn))
+    try:
+        yield marks
+    finally:
+        for name, fn in originals.items():
+            setattr(lm.DecoderLM, name, fn)
+
+
+def rest_served(torch, build, serve, convert, lm, get_config, arch: str,
+                card: str) -> dict:
+    """REST_ARCHS's served run of ``arch``, the counters zeroed just
+    before: a token arch through the serve CLI (``serve_lm``, ``--layers``
+    for a cut), an embeddings arch through ``drive_embeddings`` on weights
+    drawn on the card from seed 0 as the CLI draws them. Either launches
+    the wgmma kernel once a layer (one prefill) and nothing else and gives
+    (LM_GEN, LM_BATCH) ids in the vocabulary. Prints tok/s, prefill ms,
+    decode ms per token (CUDA events, ``timed_calls``) and peak device
+    memory beside the card."""
+    layers = REST_ARCHS[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    L = cfg.num_layers
+    weight_bytes = cfg.param_count() * torch.finfo(
+        getattr(torch, cfg.param_dtype)).bits // 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(torch, lm) as marks:
+        if cfg.frontend != "embeddings":
+            res = serve_lm(torch, build, serve, get_config, arch,
+                           layers=layers)
+            launches, tokens_per_s = res["launches"], res["tokens_per_s"]
+        else:
+            dev = torch.device("cuda")
+            sd = full_width_state(torch, convert, cfg)
+            model = convert.build(cfg, sd, dev)
+            del sd
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            out = drive_embeddings(torch, model, LM_BATCH, LM_PROMPT, LM_GEN,
+                                   seed=1)
+            tokens_per_s = LM_BATCH * LM_GEN / (time.perf_counter() - t0)
+            launches = dict(build.LAUNCHES)
+            ids = out["ids"].cpu()
+            del model, out
+            want = {"flash_attention_wgmma": L}
+            if {k: n for k, n in launches.items() if n} != want:
+                raise SystemExit(f"driven {arch} run: launches {launches}, "
+                                 f"expected {want} (one prefill) and "
+                                 f"nothing else")
+            if ids.shape != (LM_GEN, LM_BATCH) or not (
+                    (ids >= 0) & (ids < cfg.vocab_size)).all():
+                raise SystemExit(f"driven {arch} run: ids {tuple(ids.shape)} "
+                                 f"{int(ids.min())}..{int(ids.max())}")
+    torch.cuda.synchronize()
+    (p0, p1), = marks["prefill"]
+    steps = marks["decode_step"]
+    prefill_ms = p0.elapsed_time(p1)
+    decode_ms = steps[0][0].elapsed_time(steps[-1][1]) / len(steps)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    depth = (f"{L} layers" if layers is None
+             else f"{L} of {full.num_layers} layers: a cut of depth")
+    how = ("serve --service lm" if cfg.frontend != "embeddings" else
+           "prefill(embeds=) + decode_step(embed=)"
+           + (", M-RoPE (B, S, 3)" if cfg.mrope_sections else ""))
+    print(f"[lm] {arch} (full width, {depth}; {how}; heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim}; bf16; "
+          f"weights {weight_bytes / 1e9:.2f} GB {cfg.param_dtype}) batch="
+          f"{LM_BATCH} prompt={LM_PROMPT} gen={LM_GEN}: {tokens_per_s:.1f} "
+          f"tok/s (first call, incl. prefill); prefill {prefill_ms:.2f} ms, "
+          f"decode {decode_ms:.3f} ms/token (CUDA events); peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches "
+          f"{ {k: n for k, n in launches.items() if n} }; on {card}",
+          flush=True)
+    return {"layers": L, "of": full.num_layers,
+            "launches": {k: n for k, n in launches.items() if n},
+            "tokens_per_s": tokens_per_s, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": decode_ms, "peak_bytes": peak,
+            "weight_bytes": weight_bytes, "driven_by": how}
+
+
+def host_available_bytes() -> int:
+    """The host's MemAvailable (``/proc/meminfo``), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def rest_card_vs_cpu(torch, build, convert, get_config, arch: str,
+                     card: str) -> dict:
+    """REST_CPU_LAYERS's full-width fp32 layers of ``arch`` with the same
+    weights (seed 3, drawn on the card, the CPU's a copy) on the CPU
+    (plain versions) and on the card, B 1 x S 128 (``lm_inputs``, seed 4,
+    made on the CPU): the logits within LM_TOL, the card launching the
+    3xTF32 kernel once a layer and nothing else, the CPU nothing. The
+    host's MemAvailable and the bytes the step holds on the host (the
+    drawn weights and the fp32 model) are printed before the CPU run."""
+    B, S = REST_CPU
+    layers = REST_CPU_LAYERS[arch]
+    cfg32 = dataclasses.replace(get_config(arch), num_layers=layers,
+                                dtype="float32")
+    dev = torch.device("cuda")
+    sd = convert.init_params(cfg32,
+                             torch.Generator(device=dev).manual_seed(3))
+    drawn = sum(v.numel() * v.element_size() for v in sd.values())
+    reckoned = drawn + 4 * cfg32.param_count()
+    print(f"[lm] {arch} card vs CPU: host MemAvailable "
+          f"{host_available_bytes() / 2**30:.1f} GiB, the step holds "
+          f"{reckoned / 2**30:.1f} GiB on the host ({drawn / 2**30:.1f} GiB "
+          f"of drawn {cfg32.param_dtype} weights, {4 * cfg32.param_count() / 2**30:.1f} "
+          f"GiB of the fp32 model)", flush=True)
+    inputs = lm_inputs(torch, cfg32, B, S, "cpu", seed=4)
+    model = convert.build(cfg32, {k: v.cpu() for k, v in sd.items()}, "cpu")
+    build.reset_launches()
+    on_cpu = model(**inputs).float()
+    cpu_launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    del model
+    model = convert.build(cfg32, sd, dev)
+    del sd
+    torch.cuda.synchronize()
+    build.reset_launches()
+    on_card = model(**{k: v.to(dev) for k, v in inputs.items()}).float().cpu()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    del model
+    torch.cuda.empty_cache()
+    want = {"flash_attention_tf32": layers}
+    if cpu_launches or launches != want:
+        raise SystemExit(f"{arch} card vs CPU: launches {launches} on the "
+                         f"card, {cpu_launches} on the CPU; expected {want} "
+                         f"and none")
+    err = float((on_card - on_cpu).abs().max())
+    if on_card.shape != (B, S, cfg32.vocab_padded) or not (
+            torch.isfinite(on_card).all()
+            and torch.allclose(on_card, on_cpu, **LM_TOL)):
+        raise SystemExit(f"{arch} {layers}-layer full width fp32: card and "
+                         f"CPU logits {tuple(on_card.shape)} differ by {err}")
+    print(f"[lm] {arch} full width, {layers} of {get_config(arch).num_layers} "
+          f"layers, fp32, B={B} S={S}: card vs CPU (plain) logits "
+          f"|diff|max={err:.3g} within {LM_TOL}; card launches {launches}; "
+          f"on {card}", flush=True)
+    return {"layers": layers, "max_abs": err, "launches": launches,
+            "host_bytes": reckoned}
+
+
+def rest_phase(torch, build, serve, convert, lm, kattn, get_config,
+               card: str) -> dict:
+    """Phase 3 for REST_ARCHS, each step with the counters zeroed just
+    before: (a) the served runs at full width (``rest_served``): L
+    launches of the wgmma kernel each and nothing else; (b) the bf16
+    prefill through the kernel against the plain version swapped in
+    (``prefill_vs_plain``, REST_PLAIN_LAYERS) within GEMMA_PARITY_TOL;
+    (c) the card against the CPU in fp32 (``rest_card_vs_cpu``); (d)
+    prefill/decode parity on the card in fp32 (``mixer_parity``,
+    REST_PARITY)."""
+    out = {arch: {"served": rest_served(torch, build, serve, convert, lm,
+                                        get_config, arch, card)}
+           for arch in REST_ARCHS}
+    for arch, layers in REST_PLAIN_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        err, launched = prefill_vs_plain(torch, build, convert, kattn, cfg,
+                                         "flash_attention_wgmma",
+                                         GEMMA_PARITY_TOL)
+        out[arch]["kernel_vs_plain"] = {
+            "layers": layers, "launches": launched,
+            "last_logits_max_abs": err}
+    for arch in REST_ARCHS:
+        out[arch]["card_vs_cpu"] = rest_card_vs_cpu(
+            torch, build, convert, get_config, arch, card)
+        out[arch]["parity"] = mixer_parity(torch, build, convert, kattn,
+                                           get_config, arch, *REST_PARITY)
     return out
 
 
@@ -4162,10 +4500,12 @@ FT_SUBPROCESS_S = 300
 #: jitter (the producer thread holds the GIL for milliseconds at a time) is
 #: many times that, so the threshold is 50x the EWMA and an eviction needs
 #: three flags in a row; each straggling launch sleeps a second, far above
-#: 50x any clean batch.
+#: 50x any clean batch. The first straggler is served batch 7 (K less the
+#: one bucket, plus 1): a batch's sample holds the next batch's launch, so
+#: batch 6 would put a sleep into the watchdog's fifth warmup sample.
 FT_ELASTIC_FLAGS = ("--watchdog-threshold", "50", "--watchdog-evict-after",
                     "3", "--watchdog-warmup", "5", "--inject-straggler-ms",
-                    "1000", "--inject-straggler-after", "6")
+                    "1000", "--inject-straggler-after", "7")
 
 
 def ft_traffic(engine, combos, per_bucket: int, seed: int) -> list[tuple]:
@@ -4504,7 +4844,7 @@ DIST_TIMED_REPS = 10
 #: straggler. A clean distributed batch of four rows at 4096 takes some
 #: 10 ms of host time (its sample also holds the producer's share of the
 #: interpreter), so 10x sits above its jitter and far below a two-second
-#: straggler.
+#: straggler. Stragglers start at served batch 7, as FT_ELASTIC_FLAGS's.
 DIST_ELASTIC = ("polymul-real", 4096, 4, 96)
 DIST_ELASTIC_THRESHOLD, DIST_STRAGGLER_MS = 10.0, 2000.0
 DIST_SNAPSHOTS = os.path.join(ROOT, "build", "chip_smoke_dist_snapshots")
@@ -4963,7 +5303,7 @@ def dist_elastic(serve, engine_mod, card: str, *, device: str = "cuda",
     engine.register(op, n)
     rng = np.random.default_rng(31)
     chaos = types.SimpleNamespace(inject_straggler_ms=straggler_ms,
-                                  inject_straggler_after=6)
+                                  inject_straggler_after=7)
     generations, remaining = [], requests
     while remaining > 0:
         bound = engine.bound(op, n)
@@ -5917,6 +6257,10 @@ def main(argv=None) -> int:
         mixer_run = mixer_phase(torch, _build, serve, convert, kattn, moe_mod,
                                 get_config)
         clock("phase 3, the MoE and recurrent archs")
+        rest_run = rest_phase(torch, _build, serve, convert, lm, kattn,
+                              get_config, card)
+        clock("phase 3, starcoder2-15b, llama3-405b, musicgen-medium and "
+              "qwen2-vl-72b")
     # -- phase 4: timings ----------------------------------------------------
     if 4 in phases:
         times = timings(torch, kfft, kpoly, core_fft, _build, card)
@@ -6075,7 +6419,16 @@ def main(argv=None) -> int:
                         "layers": run["served"]["layers"],
                         "lm": mixer_times[arch]}
                  for arch, run in mixer_run.items()
-                 if arch != "rwkv6-7b"}}),
+                 if arch != "rwkv6-7b"},
+             # REST_ARCHS's served or driven prefills (cut in depth where
+             # REST_ARCHS says), one launch a layer, and the bf16 prefills
+             # against the plain version swapped in
+             "rest_archs": {
+                 arch: {"launches_per_served_prefill":
+                        run["served"]["launches"]["flash_attention_wgmma"],
+                        "served": run["served"],
+                        "kernel_vs_plain": run["kernel_vs_plain"]}
+                 for arch, run in rest_run.items()}}),
         "flash_attention_wgmma[hd320]": (
             "flash_attention_wgmma", gemma_run["launches"],
             "one served gemma3-4b prefill (34 layers: 29 local, window "
@@ -6104,7 +6457,13 @@ def main(argv=None) -> int:
                         **({"card_vs_cpu": run["card_vs_cpu"]}
                            if "card_vs_cpu" in run else {})}
                  for arch, run in mixer_run.items()
-                 if arch != "rwkv6-7b"}}),
+                 if arch != "rwkv6-7b"},
+             # REST_ARCHS's fp32 checks: the card against the CPU and
+             # parity (a forward and a prefill)
+             "rest_archs": {
+                 arch: {"card_vs_cpu": run["card_vs_cpu"],
+                        "parity": run["parity"]}
+                 for arch, run in rest_run.items()}}),
         "flash_attention_tf32[hd320]": (
             "flash_attention_tf32",
             gemma_fp32_times["launches"]["flash_attention_tf32"],

@@ -245,12 +245,16 @@ def arm_chaos(engine: ServeEngine, args) -> None:
     """Deterministic straggler injection for exercising the elastic path
     at the CLI: each launch after ``--inject-straggler-after`` sleeps
     ``--inject-straggler-ms`` first, so the watchdog sees a run of
-    breaches. Armed after the warmup (whose launches the reference's
-    counter sees, the port's many more of them) and only on the FIRST
-    generation: after an elastic restart the engine serves cleanly."""
+    breaches. Armed after the warmup, with the counter started at the
+    reference's warmup count, one launch per registered bucket (its
+    counter sees its warmup; the port's warmup runs many more launches,
+    which it does not count), so the same served batches sleep as in the
+    reference: the first is served batch K - buckets + 1. Armed only on
+    the FIRST generation: after an elastic restart the engine serves
+    cleanly."""
     if not args.inject_straggler_ms or engine.restarts > 0:
         return
-    counter = {"i": 0}
+    counter = {"i": len(engine._bound)}
 
     def make_slow(fn):
         def slow(*a):

@@ -19,11 +19,13 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
 
 from repro.core.pim import FaultModel as JFaultModel
+from repro.launch import serve as jserve
 from repro.launch.engine import ServeEngine as JServeEngine
 from repro_torch.core.pim import FaultModel
 from repro_torch.ft import abft
@@ -203,7 +205,8 @@ def test_verified_rns_bind_refuses_an_uncheckable_modulus(monkeypatch):
 # Replay against the reference engine
 # ---------------------------------------------------------------------------
 
-def _replay(Engine, Model, combos, seed, rate, stuck, per_bucket, **kw):
+def _replay(Engine, Model, combos, seed, rate, stuck, per_bucket, *,
+            warm=False, **kw):
     fm = Model(seed=seed, bitflip_per_gate=rate, stuck_per_array=stuck,
                n_arrays=4, spares=4)
     engine = Engine(max_batch=4, verified=True, fault_model=fm,
@@ -212,6 +215,8 @@ def _replay(Engine, Model, combos, seed, rate, stuck, per_bucket, **kw):
     kept = {}
     for op, n in combos:
         engine.register(op, n)
+    if warm:
+        engine.warmup()
     for i in range(per_bucket * len(combos)):
         op, n = combos[i % len(combos)]
         payload = engine.bound(op, n).random_payload(rng)
@@ -222,7 +227,7 @@ def _replay(Engine, Model, combos, seed, rate, stuck, per_bucket, **kw):
     return engine, fm, kept, ledger, sizes
 
 
-@pytest.mark.parametrize("combos,seed,rate,stuck,kw", [
+REPLAY_CASES = pytest.mark.parametrize("combos,seed,rate,stuck,kw", [
     ([(op, 64) for op in ("fft", "rfft", "polymul", "polymul-real",
                           "polymul-mod")], 2, 1e-3, 0, {}),
     ([("fft", 128)], 5, 0.0, 1, {}),
@@ -231,16 +236,36 @@ def _replay(Engine, Model, combos, seed, rate, stuck, per_bucket, **kw):
      {"modulus_bits": 109}),
 ], ids=["five-ops-transient", "stuck-one-bucket", "rns-transient",
         "rns-stuck"])
+
+
+@REPLAY_CASES
 def test_replay_equals_the_reference_engine(combos, seed, rate, stuck, kw):
     """Every request submitted before ``run``, so both engines form the
     same batches: the same fault seed gives the same per-bucket ledger and
     quarantined arrays (a batch launched behind a tripped breaker's is
     detected and retried in both), and every delivered result agrees with
     the reference's and with its oracle."""
+    _assert_replays_equal(combos, seed, rate, stuck, kw)
+
+
+@REPLAY_CASES
+def test_warmed_replay_equals_the_reference_engine(combos, seed, rate, stuck,
+                                                   kw):
+    """Both engines warmed up before the replay, as the serve CLI warms
+    its engine: the reference's warmup runs each bucket once through its
+    injector, and the port's throws one draw away for it, so the served
+    batches draw the same executions' faults and the ledgers, quarantined
+    arrays and results are equal."""
+    _assert_replays_equal(combos, seed, rate, stuck, kw, warm=True)
+
+
+def _assert_replays_equal(combos, seed, rate, stuck, kw, warm=False):
     jeng, jfm, jkept, jledger, jsizes = _replay(
-        JServeEngine, JFaultModel, combos, seed, rate, stuck, 10, **kw)
+        JServeEngine, JFaultModel, combos, seed, rate, stuck, 10, warm=warm,
+        **kw)
     teng, tfm, tkept, tledger, tsizes = _replay(
-        ServeEngine, FaultModel, combos, seed, rate, stuck, 10, **kw, **CPU)
+        ServeEngine, FaultModel, combos, seed, rate, stuck, 10, warm=warm,
+        **kw, **CPU)
     assert tsizes == jsizes
     assert tledger == jledger
     assert sum(v["corrupted"] for v in tledger.values()) >= 1
@@ -524,7 +549,10 @@ def test_cli_engine_elastic_restart_at_one_shard(tmp_path):
     """Injected stragglers trip the watchdog; the CLI drains, snapshots and
     warm-restarts at half the shards (floor 1: one card), and the second
     generation serves the rest without another eviction. The threshold and
-    the straggler's sleep sit far from a clean batch's host jitter."""
+    the straggler's sleep sit far from a clean batch's host jitter. The
+    first straggler is served batch 7 (K - 1 bucket + 1): a batch's sample
+    holds the next batch's launch, so batch 6 would put a sleep into the
+    watchdog's fifth warmup sample."""
     d = str(tmp_path / "snap")
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--service",
@@ -532,7 +560,7 @@ def test_cli_engine_elastic_restart_at_one_shard(tmp_path):
          "--batch", "4", "--max-pending", "8", "--model-shards", "2",
          "--snapshot-dir", d, "--elastic", "--watchdog-threshold", "50",
          "--watchdog-evict-after", "3", "--watchdog-warmup", "5",
-         "--inject-straggler-ms", "1000", "--inject-straggler-after", "6",
+         "--inject-straggler-ms", "1000", "--inject-straggler-after", "7",
          "--device", "cpu"],
         env=_env(), capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -541,3 +569,68 @@ def test_cli_engine_elastic_restart_at_one_shard(tmp_path):
     eng = ServeEngine.from_snapshot(d, **CPU)
     assert eng._prev_served == 48 and eng.restarts == 2
     assert eng.ctx.model_shards == 1
+
+
+def _slowed_batches(monkeypatch, cli, Engine, arm: str, argv) -> list[bool]:
+    """Run ``cli.main(argv)`` with its straggler injector's ``time.sleep``
+    recorded instead of slept: for each launch after the warmup, in order,
+    whether it was slowed. The launches are recorded from outside the
+    injector (``arm`` wraps each bucket once it has armed), and the
+    engine's warmup is marked, since the reference arms before it."""
+    state = {"warm": False, "slept": False}
+    served: list[bool] = []
+    fake = types.ModuleType("time")
+    fake.__dict__.update(vars(time))
+    fake.sleep = lambda s: state.update(slept=True)
+    monkeypatch.setattr(cli, "time", fake)
+    warmup = Engine.warmup
+
+    def marked(engine):
+        state["warm"] = True
+        try:
+            warmup(engine)
+        finally:
+            state["warm"] = False
+
+    def record(fn):
+        def launch(*a):
+            state["slept"] = False
+            out = fn(*a)
+            if not state["warm"]:
+                served.append(state["slept"])
+            return out
+        return launch
+
+    armed = getattr(cli, arm)
+
+    def arm_and_record(engine, args):
+        armed(engine, args)
+        for bound in engine._bound.values():
+            bound.fn = record(bound.fn)
+
+    monkeypatch.setattr(Engine, "warmup", marked)
+    monkeypatch.setattr(cli, arm, arm_and_record)
+    cli.main(argv)
+    monkeypatch.undo()
+    return served
+
+
+@pytest.mark.parametrize("after", [1, 4])
+def test_cli_straggler_slows_the_reference_batches(monkeypatch, after):
+    """``--inject-straggler-after K`` slows the same served batches in both
+    packages' CLIs on the same two buckets: the first is served batch
+    K - 2 + 1 (the reference's counter counts its warmup, one launch a
+    bucket; at K = 1 a warmup launch sleeps there too) and every one
+    after it."""
+    argv = ["--service", "engine", "--ops", "fft,rfft", "--ns", "64",
+            "--requests", "32", "--batch", "4",
+            "--inject-straggler-ms", "1",
+            "--inject-straggler-after", str(after)]
+    want = _slowed_batches(monkeypatch, jserve, JServeEngine, "_arm_chaos",
+                           argv)
+    got = _slowed_batches(monkeypatch, serve, ServeEngine, "arm_chaos",
+                          argv + ["--device", "cpu"])
+    first = max(after - 2, 0)
+    assert len(got) >= first + 2 and len(want) >= first + 2
+    assert want == [False] * first + [True] * (len(want) - first)
+    assert got == [False] * first + [True] * (len(got) - first)

@@ -300,7 +300,7 @@ def test_cli_engine_elastic_resize_8_to_4(tmp_path):
          "--batch", "4", "--max-pending", "8", "--model-shards", "8",
          "--snapshot-dir", d, "--elastic", "--watchdog-threshold", "5",
          "--watchdog-evict-after", "3", "--watchdog-warmup", "5",
-         "--inject-straggler-ms", "300", "--inject-straggler-after", "6",
+         "--inject-straggler-ms", "300", "--inject-straggler-after", "7",
          "--device", "cpu"],
         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
