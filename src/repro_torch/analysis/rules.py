@@ -504,6 +504,69 @@ class BarePlanLiteralRule(Rule):
                        "(PR 5, serve literal-plan bug)")
 
 
+class OneTracerRule(Rule):
+    """Profiler ranges or ``gc.callbacks`` hooks in a module of the port
+    other than ``repro_torch/spans.py`` — the port's own rule, with no
+    counterpart in the reference: the benchmark that first traced the port
+    counted the device-side mirrors of its user-scope profiler labels as
+    device work (two and four "launches" a request), and one more path
+    into the profiler brings that back. ``spans.py`` opens function-scope
+    ranges, which get no mirror, checks the profiler's flag before each,
+    and hooks the collector once. Flags imports of ``torch.profiler``,
+    ``torch.autograd.profiler`` and ``torch._C._profiler`` (and of names
+    from them), ``record_function`` and ``_RecordFunctionFast`` by any
+    spelling, and ``gc.callbacks``."""
+
+    id = "one-tracer"
+    _SCOPE = "repro_torch/"
+    _ALLOWED = ("repro_torch/spans.py",)
+    _MODULES = ("torch.profiler", "torch.autograd.profiler",
+                "torch._C._profiler")
+    _NAMES = frozenset({"record_function", "_RecordFunctionFast",
+                        "RecordFunctionFast"})
+
+    def _profiler_module(self, dotted: str) -> bool:
+        return any(dotted == m or dotted.startswith(m + ".")
+                   for m in self._MODULES)
+
+    def _what(self, node: ast.AST) -> str | None:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if self._profiler_module(alias.name):
+                    return f"import {alias.name}"
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = {a.name for a in node.names}
+            if (self._profiler_module(node.module)
+                    or names & self._NAMES
+                    or (node.module == "gc" and "callbacks" in names)
+                    or any(self._profiler_module(f"{node.module}.{n}")
+                           for n in names)):
+                return f"from {node.module} import " + ", ".join(
+                    sorted(names))
+        elif isinstance(node, ast.Attribute):
+            d = _dotted(node)
+            if d and (d == "gc.callbacks" or node.attr in self._NAMES
+                      or any(d == m for m in self._MODULES)):
+                return d
+        elif isinstance(node, ast.Name) and node.id in self._NAMES:
+            return node.id
+        return None
+
+    def check(self, ctx) -> Iterable[RawFinding]:
+        if self._SCOPE not in ctx.path or ctx.path.endswith(self._ALLOWED):
+            return
+        seen = set()            # torch.profiler.x flags once, not twice
+        for node in ast.walk(ctx.tree):
+            what = self._what(node)
+            if what is not None and (node.lineno, node.col_offset) not in seen:
+                seen.add((node.lineno, node.col_offset))
+                yield (node.lineno, node.col_offset,
+                       f"{what} outside repro_torch/spans.py: the port has "
+                       "one tracing system; open a range with spans.span "
+                       "or spans.spanned (a user-scope range's device "
+                       "mirror reads as device work)")
+
+
 class NoqaReasonRule(Rule):
     """Suppression without a reason (or naming an unknown/meta rule) —
     PR 10's own contract: every ``# repro_torch: noqa[rule]`` must carry
@@ -534,6 +597,7 @@ RULES: tuple[Rule, ...] = (
     SignalLockRule(),
     DurableWriteRule(),
     BarePlanLiteralRule(),
+    OneTracerRule(),
     NoqaReasonRule(),
     UnusedNoqaRule(),
 )

@@ -12,7 +12,8 @@ Every kernel wrapper adds one to its entry in ``LAUNCHES`` each time it
 launches its kernel, and nowhere else, so a run can show that the serve
 path really went through the kernels. Where a wrapper has several
 schedules, the call is also counted under (wrapper, schedule) in
-``SCHEDULES``, so a run can show which one it took.
+``SCHEDULES``, so a run can show which one it took. The launch is a span
+of its own, ``repro_torch.launch/<launcher>``, counted at the same place.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from repro_torch import spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -123,6 +126,8 @@ _KERNEL_IDS = {wrapper: (stem, i) for stem, lib in LIBRARIES.items()
 #: C launcher -> library
 _LAUNCHER_LIB = {name: stem for stem, lib in LIBRARIES.items()
                  for name in lib}
+#: C launcher -> its span (``repro_torch/spans.py``)
+_LAUNCH_SPANS = {name: f"repro_torch.launch/{name}" for name in _LAUNCHER_LIB}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -229,17 +234,19 @@ def launch(name: str, counter: str, *args, schedule: str | None = None
            ) -> None:
     """Call C launcher ``name`` on PyTorch's current stream, raise if the
     launch was refused, and count it under ``counter`` (and under
-    (``counter``, ``schedule``) where the wrapper names one)."""
+    (``counter``, ``schedule``) where the wrapper names one), all inside
+    the span ``repro_torch.launch/<name>``."""
     import torch
-    stem = _LAUNCHER_LIB[name]
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(load(stem), name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           f"({_error(stem, err)})")
-    LAUNCHES[counter] += 1
-    if schedule is not None:
-        SCHEDULES[counter, schedule] += 1
+    with spans.span(_LAUNCH_SPANS[name]):
+        stem = _LAUNCHER_LIB[name]
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(load(stem), name)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error "
+                               f"{err} ({_error(stem, err)})")
+        LAUNCHES[counter] += 1
+        if schedule is not None:
+            SCHEDULES[counter, schedule] += 1
 
 
 def occupancy(counter: str, a: int, b: int, c: int) -> dict[str, int]:

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 
@@ -721,20 +722,21 @@ def fft_planes(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
     result's shape, nothing computed. Replaces
     ``repro/kernels/fft.py::fft_planes``.
     """
-    b, n = check_planes("fft_planes", xr, xi)
-    check_radix(radix)
-    two_pass = two_pass_plan(n, radix)
-    if xr.device.type == "meta":
-        return torch.empty_like(xr), torch.empty_like(xi)
-    if xr.device.type == "cpu":
-        if two_pass is not None:
-            wr, wi = device_twiddles(n, inverse, xr.device)
-            return stockham_two_pass(xr, xi, wr, wi, n=n, inverse=inverse,
-                                     radix=radix, n1=two_pass.n1)
-        return fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
-    _build.refuse_grad("fft_planes", xr, xi)
-    return _launch_fft(xr, xi, inverse, radix, block_b or plan_batch_block(n),
-                       two_pass)
+    with spans.span("repro_torch.glue/fft_planes"):
+        b, n = check_planes("fft_planes", xr, xi)
+        check_radix(radix)
+        two_pass = two_pass_plan(n, radix)
+        if xr.device.type == "meta":
+            return torch.empty_like(xr), torch.empty_like(xi)
+        if xr.device.type == "cpu":
+            if two_pass is not None:
+                wr, wi = device_twiddles(n, inverse, xr.device)
+                return stockham_two_pass(xr, xi, wr, wi, n=n, inverse=inverse,
+                                         radix=radix, n1=two_pass.n1)
+            return fft_planes_plain(xr, xi, inverse=inverse, radix=radix)
+        _build.refuse_grad("fft_planes", xr, xi)
+        return _launch_fft(xr, xi, inverse, radix,
+                           block_b or plan_batch_block(n), two_pass)
 
 
 def _launch_fft(xr, xi, inverse: bool, radix: int, block: int,
@@ -798,18 +800,20 @@ def rfft_planes(x: torch.Tensor, *, radix: int = 2,
     with a zero row. On the CPU the plain version of the same schedule.
     Replaces ``repro/kernels/fft.py::rfft_planes``.
     """
-    b, n = check_planes("rfft_planes", x)
-    if n < 2:
-        raise ValueError(f"rfft_planes: n={n} must be >= 2")
-    check_radix(radix)
-    two_pass = two_pass_plan(n, radix, real=True)
-    if x.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return rfft_two_pass(x, radix=radix, plan=two_pass)
-        return rfft_planes_plain(x, radix=radix)
-    _build.refuse_grad("rfft_planes", x)
-    return _launch_rfft(x, radix, block_b or plan_batch_block(n, real=True),
-                        two_pass)
+    with spans.span("repro_torch.glue/rfft_planes"):
+        b, n = check_planes("rfft_planes", x)
+        if n < 2:
+            raise ValueError(f"rfft_planes: n={n} must be >= 2")
+        check_radix(radix)
+        two_pass = two_pass_plan(n, radix, real=True)
+        if x.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return rfft_two_pass(x, radix=radix, plan=two_pass)
+            return rfft_planes_plain(x, radix=radix)
+        _build.refuse_grad("rfft_planes", x)
+        return _launch_rfft(x, radix,
+                            block_b or plan_batch_block(n, real=True),
+                            two_pass)
 
 
 def _launch_rfft(x, radix: int, block: int, two_pass: TwoPass | None):
@@ -874,17 +878,19 @@ def irfft_planes(xr: torch.Tensor, xi: torch.Tensor, *, radix: int = 2,
     plain version of the same schedule. Replaces
     ``repro/kernels/fft.py::irfft_planes``.
     """
-    b, nh = check_planes("irfft_planes", xr, xi)
-    n = 2 * nh
-    check_radix(radix)
-    two_pass = irfft_two_pass_plan(n, radix)
-    if xr.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return irfft_two_pass(xr, xi, radix=radix, plan=two_pass)
-        return irfft_planes_plain(xr, xi, radix=radix)
-    _build.refuse_grad("irfft_planes", xr, xi)
-    return _launch_irfft(xr, xi, radix,
-                         block_b or plan_batch_block(n, real=True), two_pass)
+    with spans.span("repro_torch.glue/irfft_planes"):
+        b, nh = check_planes("irfft_planes", xr, xi)
+        n = 2 * nh
+        check_radix(radix)
+        two_pass = irfft_two_pass_plan(n, radix)
+        if xr.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return irfft_two_pass(xr, xi, radix=radix, plan=two_pass)
+            return irfft_planes_plain(xr, xi, radix=radix)
+        _build.refuse_grad("irfft_planes", xr, xi)
+        return _launch_irfft(xr, xi, radix,
+                             block_b or plan_batch_block(n, real=True),
+                             two_pass)
 
 
 def _launch_irfft(xr, xi, radix: int, block: int, two_pass: TwoPass | None):

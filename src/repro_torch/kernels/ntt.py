@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.ntt.ref import NTTParams
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import (MAX_BLOCK, REGISTER_STEPS_FROM,
@@ -601,17 +602,19 @@ def ntt_batched(x: torch.Tensor, params: NTTParams, *,
     the batch. On the CPU the plain version of the same schedule.
     Replaces ``repro/kernels/ntt.py::ntt_batched``.
     """
-    n = params.n
-    _check_rows("ntt_batched", (x.shape[0], n), x)
-    x = _as_residues(x, params.q)
-    two_pass = ntt_batched_two_pass_plan(n)
-    if x.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return ntt_batched_two_pass(x, params, inverse=inverse,
-                                        plan=two_pass)
-        return ntt_batched_plain(x, params, inverse=inverse)
-    return _launch_ntt_batched(x, params, inverse, block_b or plan_ntt_block(
-        n, product=False), two_pass)
+    with spans.span("repro_torch.glue/ntt_batched"):
+        n = params.n
+        _check_rows("ntt_batched", (x.shape[0], n), x)
+        x = _as_residues(x, params.q)
+        two_pass = ntt_batched_two_pass_plan(n)
+        if x.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return ntt_batched_two_pass(x, params, inverse=inverse,
+                                            plan=two_pass)
+            return ntt_batched_plain(x, params, inverse=inverse)
+        return _launch_ntt_batched(
+            x, params, inverse, block_b or plan_ntt_block(n, product=False),
+            two_pass)
 
 
 def _launch_ntt_batched(x, params: NTTParams, inverse: bool, block: int,
@@ -669,18 +672,20 @@ def ntt_polymul(a: torch.Tensor, b: torch.Tensor, params: NTTParams, *,
     the plain version of the same schedule. Replaces
     ``repro/kernels/ntt.py::ntt_polymul``.
     """
-    n = params.n
-    _check_rows("ntt_polymul", (a.shape[0], n), a, b)
-    a = _as_residues(a, params.q)
-    b = _as_residues(b, params.q)
-    two_pass = ntt_two_pass_plan(n)
-    if a.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return ntt_polymul_two_pass(a, b, params, negacyclic=negacyclic,
-                                        plan=two_pass)
-        return ntt_polymul_plain(a, b, params, negacyclic=negacyclic)
-    return _launch_ntt_polymul(a, b, params, negacyclic,
-                               block_b or plan_ntt_block(n), two_pass)
+    with spans.span("repro_torch.glue/ntt_polymul"):
+        n = params.n
+        _check_rows("ntt_polymul", (a.shape[0], n), a, b)
+        a = _as_residues(a, params.q)
+        b = _as_residues(b, params.q)
+        two_pass = ntt_two_pass_plan(n)
+        if a.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return ntt_polymul_two_pass(a, b, params,
+                                            negacyclic=negacyclic,
+                                            plan=two_pass)
+            return ntt_polymul_plain(a, b, params, negacyclic=negacyclic)
+        return _launch_ntt_polymul(a, b, params, negacyclic,
+                                   block_b or plan_ntt_block(n), two_pass)
 
 
 def _launch_ntt_polymul(a, b, params: NTTParams, negacyclic: bool,
@@ -767,19 +772,21 @@ def rns_ntt_polymul(ar: torch.Tensor, br: torch.Tensor, rns, *,
     (default ``plan_ntt_block(n)``). On the CPU the plain version of the
     same schedule. Replaces ``repro/kernels/ntt.py::rns_ntt_polymul``.
     """
-    bsz, n = _check_rns(ar, br, rns)
-    ar, br = ar.contiguous(), br.contiguous()
-    schedule = rns_schedule(n)
-    if ar.device.type in ("cpu", "meta"):
-        if isinstance(schedule, NTTTwoPass):
-            return rns_ntt_polymul_two_pass(ar, br, rns,
-                                            negacyclic=negacyclic,
-                                            plan=schedule)
-        if isinstance(schedule, RNSRegisterSteps):
-            return rns_ntt_polymul_steps(ar, br, rns, negacyclic=negacyclic)
-        return rns_ntt_polymul_plain(ar, br, rns, negacyclic=negacyclic)
-    return _launch_rns_ntt_polymul(ar, br, rns, negacyclic,
-                                   block_b or plan_ntt_block(n), schedule)
+    with spans.span("repro_torch.glue/rns_ntt_polymul"):
+        bsz, n = _check_rns(ar, br, rns)
+        ar, br = ar.contiguous(), br.contiguous()
+        schedule = rns_schedule(n)
+        if ar.device.type in ("cpu", "meta"):
+            if isinstance(schedule, NTTTwoPass):
+                return rns_ntt_polymul_two_pass(ar, br, rns,
+                                                negacyclic=negacyclic,
+                                                plan=schedule)
+            if isinstance(schedule, RNSRegisterSteps):
+                return rns_ntt_polymul_steps(ar, br, rns,
+                                             negacyclic=negacyclic)
+            return rns_ntt_polymul_plain(ar, br, rns, negacyclic=negacyclic)
+        return _launch_rns_ntt_polymul(ar, br, rns, negacyclic,
+                                       block_b or plan_ntt_block(n), schedule)
 
 
 def _launch_rns_ntt_polymul(ar, br, rns, negacyclic: bool, block: int,

@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 from repro_torch.kernels.fft import (TWO_PASS_FROM, _log2, _sweeps,
                                      check_planes, check_radix, cta_rows,
@@ -180,18 +181,19 @@ def polymul_complex_planes(ar: torch.Tensor, ai: torch.Tensor,
     version of the same schedule. Replaces
     ``repro/kernels/polymul.py::polymul_complex_planes``.
     """
-    b, n = check_planes("polymul_complex_planes", ar, ai, br, bi)
-    check_radix(radix)
-    two_pass = product_two_pass_plan(n, radix)
-    if ar.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return polymul_complex_two_pass(ar, ai, br, bi, radix=radix,
-                                            plan=two_pass)
-        return polymul_complex_planes_plain(ar, ai, br, bi, radix=radix)
-    _build.refuse_grad("polymul_complex_planes", ar, ai, br, bi)
-    return _launch_polymul_complex(ar, ai, br, bi, radix,
-                                   block_b or default_complex_block(n),
-                                   two_pass)
+    with spans.span("repro_torch.glue/polymul_complex_planes"):
+        b, n = check_planes("polymul_complex_planes", ar, ai, br, bi)
+        check_radix(radix)
+        two_pass = product_two_pass_plan(n, radix)
+        if ar.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return polymul_complex_two_pass(ar, ai, br, bi, radix=radix,
+                                                plan=two_pass)
+            return polymul_complex_planes_plain(ar, ai, br, bi, radix=radix)
+        _build.refuse_grad("polymul_complex_planes", ar, ai, br, bi)
+        return _launch_polymul_complex(ar, ai, br, bi, radix,
+                                       block_b or default_complex_block(n),
+                                       two_pass)
 
 
 def _split_args(plan: ProductTwoPass | None) -> tuple[int, ...]:
@@ -324,16 +326,18 @@ def polymul_real_planes(a: torch.Tensor, b: torch.Tensor, *, radix: int = 2,
     CPU the plain version of the same schedule. Replaces
     ``repro/kernels/polymul.py::polymul_real_planes``.
     """
-    bsz, n = check_planes("polymul_real_planes", a, b)
-    check_radix(radix)
-    two_pass = product_two_pass_plan(n, radix, real=True)
-    if a.device.type in ("cpu", "meta"):
-        if two_pass is not None:
-            return polymul_real_two_pass(a, b, radix=radix, plan=two_pass)
-        return polymul_real_planes_plain(a, b, radix=radix)
-    _build.refuse_grad("polymul_real_planes", a, b)
-    return _launch_polymul_real(a, b, radix, block_b or default_real_block(n),
-                                two_pass)
+    with spans.span("repro_torch.glue/polymul_real_planes"):
+        bsz, n = check_planes("polymul_real_planes", a, b)
+        check_radix(radix)
+        two_pass = product_two_pass_plan(n, radix, real=True)
+        if a.device.type in ("cpu", "meta"):
+            if two_pass is not None:
+                return polymul_real_two_pass(a, b, radix=radix, plan=two_pass)
+            return polymul_real_planes_plain(a, b, radix=radix)
+        _build.refuse_grad("polymul_real_planes", a, b)
+        return _launch_polymul_real(a, b, radix,
+                                    block_b or default_real_block(n),
+                                    two_pass)
 
 
 def _launch_polymul_real(a, b, radix: int, block: int,

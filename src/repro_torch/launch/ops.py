@@ -46,6 +46,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import fft as fft_core
 from repro_torch.core import ntt as ntt_core
 from repro_torch.core.fft import distributed as dfft
@@ -276,12 +277,15 @@ class OpSpec:
 
         ``strict=True`` (the single-op CLI path) rejects knobs this op does
         not consume; ``strict=False`` narrows them away first (the mixed
-        engine's per-bucket bind).
+        engine's per-bucket bind). Every call of the bound ``fn`` is a span
+        ``repro_torch.op/<route>`` (``repro_torch/spans.py``).
         """
         if not strict:
             ctx = self.narrow(ctx)
         self.validate(n, ctx)
-        return self._bind(self, n, batch, resolve_device(device), ctx)
+        bound = self._bind(self, n, batch, resolve_device(device), ctx)
+        bound.fn = spans.spanned(f"repro_torch.op/{bound.route}", bound.fn)
+        return bound
 
 
 _REGISTRY: dict[str, OpSpec] = {}

@@ -47,6 +47,8 @@ GATE = ["src/repro_torch", "chip_smoke.py",
 
 _P = "src/repro_torch/somepkg/snippet.py"
 _P_FT = "src/repro_torch/ft/snippet.py"
+#: rules of the port's own, with no counterpart in the reference's table
+PORT_ONLY = {"one-tracer"}
 
 FIXTURES: dict[str, dict[str, tuple[str, str]]] = {
     "device-cache": {
@@ -206,6 +208,24 @@ def forced_plan(n):
     return plan(n, 8, force_distributed=True)
 """, _P),
     },
+    "one-tracer": {
+        "flag": ("""\
+import torch
+
+
+def run(fn):
+    with torch.profiler.record_function("repro_torch.op/x"):
+        return fn()
+""", _P),
+        "ok": ("""\
+from repro_torch import spans
+
+
+def run(fn):
+    with spans.span("repro_torch.op/x"):
+        return fn()
+""", _P),
+    },
     "noqa-reason": {
         "flag": ("""\
 import torch.distributed as dist
@@ -251,8 +271,14 @@ def test_rule_fixture_pair(rule_id):
     hits = [f for f in res.findings if f.rule == rule_id]
     assert hits, (f"rule {rule_id} missed its must-flag fixture; got "
                   f"{[f.format() for f in res.findings]}")
-    assert re.search(r"PR \d|noqa", hits[0].message), \
-        f"finding message must name the historical bug: {hits[0].message}"
+    if rule_id in PORT_ONLY:
+        assert "repro_torch/spans.py" in hits[0].message, \
+            f"finding message must name the one allowed place: " \
+            f"{hits[0].message}"
+    else:
+        assert re.search(r"PR \d|noqa", hits[0].message), \
+            f"finding message must name the historical bug: " \
+            f"{hits[0].message}"
     ok_src, ok_path = FIXTURES[rule_id]["ok"]
     res_ok = analysis.analyze_source(ok_src, ok_path)
     assert res_ok.findings == [], \
@@ -262,7 +288,8 @@ def test_rule_fixture_pair(rule_id):
 
 def test_meta_every_rule_has_fixtures_and_docstring():
     """>= 10 rules, unique ids, every registered rule carries BOTH
-    fixtures and a docstring naming the PR it encodes; no orphan
+    fixtures and a docstring naming the PR it encodes (the port's own
+    rules, which encode no PR of the reference, say so); no orphan
     fixtures."""
     ids = list(analysis.RULE_IDS)
     assert len(ids) == len(set(ids)), "duplicate rule ids"
@@ -272,8 +299,13 @@ def test_meta_every_rule_has_fixtures_and_docstring():
         assert {"flag", "ok"} <= set(FIXTURES[rule.id]), \
             f"rule {rule.id} needs both a must-flag and a must-pass fixture"
         doc = type(rule).__doc__ or ""
-        assert re.search(r"PR \d", doc), \
-            f"rule {rule.id} docstring must name the PR/bug it encodes"
+        if rule.id in PORT_ONLY:
+            assert "no counterpart in the reference" in " ".join(
+                doc.split()), \
+                f"rule {rule.id} docstring must say it is the port's own"
+        else:
+            assert re.search(r"PR \d", doc), \
+                f"rule {rule.id} docstring must name the PR/bug it encodes"
         assert rule.summary, f"rule {rule.id} has no summary line"
     assert set(FIXTURES) == set(ids), \
         f"orphan fixtures: {set(FIXTURES) - set(ids)}"
@@ -281,13 +313,17 @@ def test_meta_every_rule_has_fixtures_and_docstring():
 
 def test_one_rule_for_each_of_the_reference():
     """The port keeps the reference's rule table: the same count and kinds,
-    the same ids except tracer-leak, whose port form is device-cache."""
-    assert len(analysis.RULES) == len(ref_analysis.RULES)
+    the same ids except tracer-leak, whose port form is device-cache, in
+    the same order, with the port's own rules (``PORT_ONLY``) beside
+    them."""
+    kept = [r for r in analysis.RULES if r.id not in PORT_ONLY]
+    assert len(kept) == len(ref_analysis.RULES)
     renamed = {"tracer-leak": "device-cache"}
     assert [renamed.get(i, i) for i in ref_analysis.RULE_IDS] == \
-        list(analysis.RULE_IDS)
-    assert [r.kind for r in ref_analysis.RULES] == \
-        [r.kind for r in analysis.RULES]
+        [r.id for r in kept]
+    assert [r.kind for r in ref_analysis.RULES] == [r.kind for r in kept]
+    assert PORT_ONLY <= set(analysis.RULE_IDS)
+    assert not PORT_ONLY & set(ref_analysis.RULE_IDS)
 
 
 def test_op_name_set_matches_registry():
@@ -370,6 +406,42 @@ def test_raw_collective_leaves_the_ledger_wrappers_alone():
     src = ("from repro_torch.dist import collectives as dist\n\n\n"
            "def f(xs):\n    return dist.all_gather(xs, axis=0)\n")
     assert _rules_hit(src) == []
+
+
+TRACER_FLAG = {
+    "import": "import torch.profiler\n",
+    "from-import": "from torch.profiler import record_function\n",
+    "from-torch": "from torch import profiler\n",
+    "autograd": "from torch.autograd import profiler as p\n",
+    "dotted": ("import torch\n\n\ndef f():\n"
+               "    with torch.autograd.profiler.record_function('x'):\n"
+               "        pass\n"),
+    "fast": ("import torch\n\n\ndef f():\n"
+             "    return torch._C._profiler._RecordFunctionFast('x')\n"),
+    "gc-hook": "import gc\n\ngc.callbacks.append(print)\n",
+    "gc-name": "from gc import callbacks\n",
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACER_FLAG))
+def test_one_tracer_sees_every_spelling(case):
+    """Each path into the profiler or the collector's hooks is one finding
+    anywhere in the port, none in the span helper, and none outside the
+    port (its tests and ``chip_smoke.py`` time with the profiler)."""
+    res = analysis.analyze_source(TRACER_FLAG[case], _P)
+    assert [f.rule for f in res.findings] == ["one-tracer"]
+    for path in ("src/repro_torch/spans.py", "chip_smoke.py",
+                 "tests/test_torch_spans.py"):
+        assert analysis.analyze_source(TRACER_FLAG[case], path).findings \
+            == []
+
+
+def test_one_tracer_would_flag_the_helper_itself():
+    """The helper holds what the rule forbids elsewhere: moved anywhere
+    else in the port, it is flagged."""
+    src = (ROOT / "src" / "repro_torch" / "spans.py").read_text()
+    hits = analysis.analyze_source(src, _P).findings
+    assert {f.rule for f in hits} == {"one-tracer"} and len(hits) >= 2
 
 
 FP32_FLAG = {
@@ -629,7 +701,7 @@ def test_cli_exit_codes_and_json(tmp_path):
     assert _run_cli(str(tmp_path / "nope")).returncode == 2  # missing path
     res = _run_cli("--list-rules")
     assert res.returncode == 0
-    assert res.stdout.splitlines()[-1] == "10 rules"
+    assert res.stdout.splitlines()[-1] == "11 rules"
 
 
 def test_port_tree_is_clean_and_suppressions_carry_reasons():
