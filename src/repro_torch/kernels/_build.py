@@ -62,10 +62,11 @@ LIBRARIES = {
         # and inverse pass-2 twiddles)
         "stockham_polymul_complex": ("polymul_complex_planes",
                                      [_P] * 11 + [_I] * 8 + [_P]),
-        # a, b, c, wr, wi, wir, wii, scratch, tw2f, tw2i, batch, log2n,
-        # radix, block, log2 n1, log2 c1, log2 cm, log2 ci
+        # a, b, c, wr, wi, wir, wii, scratch, tw2f, tw2i, twi (M's inverse
+        # twiddles), batch, log2n, radix, block, log2 n1, log2 c1, log2 cm,
+        # log2 ci
         "stockham_polymul_real": ("polymul_real_planes",
-                                  [_P] * 10 + [_I] * 8 + [_P]),
+                                  [_P] * 11 + [_I] * 8 + [_P]),
         # xr, xi, y, wr, wi, scratch, tw2, batch, log2n, radix, block,
         # log2 n1, log2 c1, log2 c2 (log2 n1 = 0: one CTA per block of
         # rows; else scratch holds the intermediate and tw2 the inverse

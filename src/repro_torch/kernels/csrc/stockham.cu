@@ -582,17 +582,16 @@ __device__ __forceinline__ void run_step(int R, Subs<Tw> sp, bool by_sub,
 // grouped into steps. The first step reads `in` (device memory) where
 // `from_global`, else shared buffer `a` (filled and synchronised by the
 // caller); the last step writes `out` (device memory) where `to_global`,
-// else the shared buffer it returns. Steps ping-pong between a and b with a
-// barrier after each.
-template <class Tw, class In, class Out>
-__device__ __forceinline__ SmemIO sub_steps(Subs<Tw> sp, int radix,
-                                            In in, bool from_global, Out out,
-                                            bool to_global, SmemIO a,
-                                            SmemIO b) {
+// else the shared buffer it returns. Steps ping-pong between a and b (two
+// SmemIO, or two of another shared layout) with a barrier after each.
+template <class Tw, class In, class Out, class Buf>
+__device__ __forceinline__ Buf sub_steps(Subs<Tw> sp, int radix, In in,
+                                         bool from_global, Out out,
+                                         bool to_global, Buf a, Buf b) {
   int L = 1;
   int lr = sp.lm;
   bool global_in = from_global;
-  SmemIO cur = a, oth = b;
+  Buf cur = a, oth = b;
   while (lr > 0) {
     const int R = next_step(radix, sp.lm, L, lr);
     const int lg = R == 16 ? 4 : R == 4 ? 2 : 1;
@@ -605,7 +604,7 @@ __device__ __forceinline__ SmemIO sub_steps(Subs<Tw> sp, int radix,
       run_step(R, sp, false, L, lr, cur, out);
     } else {
       run_step(R, sp, false, L, lr, cur, oth);
-      const SmemIO t = cur; cur = oth; oth = t;
+      const Buf t = cur; cur = oth; oth = t;
     }
     global_in = false;
     __syncthreads();
@@ -1124,6 +1123,22 @@ polymul_real_kernel(const float* __restrict__ a_in,
 // launches. Every operation is the plain version's, in its order, on the
 // master tables' own fp32 values, so the result equals it bit for bit.
 //
+// Kernel 4's M binds the real product: at n = 16384 it moves 201 MB a request
+// of 1024 products (Z in, the inverse's intermediate out; 0.060 ms at 3.35
+// TB/s), and as first built it took 0.207 ms, F1 0.110 and I2 0.072 (NVIDIA
+// H100 80GB HBM3, 700 W). Its loads do not bind it: more resident CTAs of
+// fewer sub-problems were slower (c = 2: 0.261 ms; c = 1: 0.418), an M with
+// no device-memory reads at all took 0.212, and a persistent M whose bulk
+// copies loaded the next item while the current one swept was no faster than
+// one CTA an item. Its instruction stream does: its index arithmetic ran about
+// two integer instructions to each fp32 one, on the half-rate integer pipe,
+// and every shared-memory access was a generic 64-bit one. So M's buffers
+// hold interleaved complex values (one 64-bit access where split planes take
+// two) at 32-bit shared offsets, the inverse's pass-1 twiddles come from a
+// gathered table of interleaved values, and the planner's fused radix-4
+// shapes are compiled with their sizes as constants, so that the steps' index
+// arithmetic folds: 0.186 ms, 3.1 times its bytes' bound (3.4 before).
+//
 // Bound: device-memory bytes, 8 per complex point moved. Fused, kernel 5
 // moves 72 bytes per point (F1: a and b in, both spectra out; M: the
 // spectra in, the inverse's intermediate out; I2: it in, c out) against
@@ -1275,35 +1290,88 @@ polymul_complex_mid_kernel(const float* __restrict__ mr,
               log2n, log2n1, radix);
 }
 
+// ---------------------------------------------------------------------------
+// M of kernel 4 (why it is built so: the split-pass section above).
+// ---------------------------------------------------------------------------
+
+// M's two shared buffers: the CTA's dynamic shared memory, addressed by
+// offsets from it, so that every access is a 32-bit shared one.
+extern __shared__ __align__(16) float2 mid_shared[];
+
+// Element p of slot s as one interleaved complex value at row stride ld,
+// from complex value `base` of mid_shared on: one 64-bit access where
+// SmemIO's split planes take two.
+struct SmemIO2 {
+  int base;
+  int ld;
+  __device__ __forceinline__ Cplx load(int s, int p) const {
+    const float2 x = mid_shared[base + s * ld + p];
+    return Cplx{x.x, x.y};
+  }
+  __device__ __forceinline__ void store(int s, int p, Cplx c) const {
+    mid_shared[base + s * ld + p] = make_float2(c.r, c.i);
+  }
+};
+
+// Row stride of M's buffers, in complex values: n2 = 2^lm and 2, the
+// stride at which the steps' and the product's 64-bit accesses at n2 = 256
+// meet the fewest bank conflicts.
+__host__ __device__ __forceinline__ int mid_ld(int lm) {
+  return (1 << lm) + 2;
+}
+
+// The inverse's pass-1 twiddles (Pass1Twiddles at stride n1) from the
+// wrapper's gathered table: entry m is W[m n1] of the inverse table, as one
+// complex value.
+struct StrideTwiddles {
+  const float2* __restrict__ w;
+  __device__ __forceinline__ Cplx operator()(int, int l, int, int qr,
+                                             int j) const {
+    const float2 v = w[l * (j * qr)];
+    return Cplx{v.x, v.y};
+  }
+};
+
+// (log2 n2, radix, log2 cm) of every split the planner gives the real
+// product at radix 4, the radix core/fft/planner.py plans for it
+// (kernels/polymul.py: product_two_pass_plan, 4096 to 2^23 points); each
+// is fused at even log2 n and not at odd.
+#define MID_SHAPES(X) X(6, 4, 2) X(8, 4, 2) X(10, 4, 0)
+
 // M of kernel 4: CTA blockIdx.x takes row pair p = blockIdx.x / (n1 / 2c)
 // and 2c sub-problems of each row -- c low ones and their mirrors
 // (MirrorSlots) -- rows 2p in slots [0, 2c), 2p + 1 in [2c, 4c); the
 // Hermitian split and the product of each row, exactly as
 // polymul_real_kernel computes them, and Q = P_2p + i P_2p+1 for the low and
 // the mirror sub-problems alike (each is an inverse sub-problem); then,
-// `fused`, the inverse's pass 1 (inverse table) into (qr, qi), else Q
-// stored there in natural order.
-__global__ void __launch_bounds__(kPassThreads)
-polymul_real_mid_kernel(const float* __restrict__ mr,
-                        const float* __restrict__ mi,
-                        float* __restrict__ qr, float* __restrict__ qi,
-                        const float* __restrict__ tw2,
-                        const float* __restrict__ wir,
-                        const float* __restrict__ wii, int batch, int log2n,
-                        int log2n1, int radix, int lc, int fused) {
+// `fused`, the inverse's pass 1 (the gathered inverse twiddles `twi`) into
+// (qr, qi), else Q stored there in natural order.
+__device__ __forceinline__ void mid_item(
+    const float* __restrict__ mr, const float* __restrict__ mi,
+    float* __restrict__ qr, float* __restrict__ qi,
+    const float* __restrict__ tw2, const float2* __restrict__ twi,
+    int batch, int log2n, int lg2, int radix, int lc, int fused) {
   const int n = 1 << log2n;
-  const int lg2 = log2n - log2n1;
+  const int log2n1 = log2n - lg2;
+  const int n1 = 1 << log2n1;
+  const int held = 2 << lc;  // a row's sub-problems: c low, c mirrors
   const int glg = log2n1 - 1 - lc;  // CTAs per row pair: n1 / 2c
   const size_t p = blockIdx.x >> glg;
-  const MirrorSlots ms{(int)(blockIdx.x & ((1 << glg) - 1)), 1 << lc,
-                       1 << log2n1};
-  SmemIO spare;
-  const SmemIO z = mid_forward(
+  const MirrorSlots ms{(int)(blockIdx.x & ((1 << glg) - 1)), 1 << lc, n1};
+  const RowSlots<MirrorSlots> slots{ms, lc + 1};
+  const SmemIO2 a{0, mid_ld(lg2)};
+  const SmemIO2 b{2 * held * mid_ld(lg2), mid_ld(lg2)};
+  const Subs<Pass2Twiddles<RowSlots<MirrorSlots>>> sp{
+      lc + 2, lg2, -1.f,
+      Pass2Twiddles<RowSlots<MirrorSlots>>{tw2, n1 * ((1 << lg2) - 1), n1,
+                                           slots},
+      true};
+  const SmemIO2 z = sub_steps(
+      sp, radix,
       RowsIn<MirrorSlots>{mr, mi, (2 * p) << log2n, (2 * p + 1) << log2n,
-                          2 * p + 1 < (size_t)batch, lg2,
-                          RowSlots<MirrorSlots>{ms, lc + 1}},
-      lc + 2, tw2, log2n, log2n1, radix, spare);
-  const int held = 2 << lc;  // a row's sub-problems: c low, c mirrors
+                          2 * p + 1 < (size_t)batch, lg2, slots},
+      true, a, false, a, b);
+  const SmemIO2 spare = z.base == a.base ? b : a;
   const size_t off = p << log2n;
   for (int idx = threadIdx.x; idx < (held << lg2); idx += blockDim.x) {
     const int s = idx & (held - 1);
@@ -1332,8 +1400,33 @@ polymul_real_mid_kernel(const float* __restrict__ mr,
   }
   if (!fused) return;
   __syncthreads();
-  mid_inverse(spare, z, lc + 1, ms, qr, qi, off, wir, wii, 1.f, log2n,
-              log2n1, radix);
+  sub_steps(Subs<StrideTwiddles>{lc + 1, lg2, 1.f, StrideTwiddles{twi},
+                                 false},
+            radix, spare, false, Pass1Out<MirrorSlots>{qr, qi, off, log2n1, ms},
+            true, spare, z);
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+polymul_real_mid_kernel(const float* __restrict__ mr,
+                        const float* __restrict__ mi,
+                        float* __restrict__ qr, float* __restrict__ qi,
+                        const float* __restrict__ tw2,
+                        const float2* __restrict__ twi, int batch, int log2n,
+                        int log2n1, int radix, int lc, int fused) {
+  const int lg2 = log2n - log2n1;
+  // the planner's fused radix-4 shapes with their sizes as constants, so
+  // that the steps' index arithmetic folds; any other split with them at
+  // run time (unfused, the constants made M slower: 0.0093 ms against 0.0081
+  // at n = 8192, batch 64, on an H100)
+#define MID_SHAPE(LG2, RADIX, LC)                                          \
+  if (fused && lg2 == LG2 && radix == RADIX && lc == LC) {                \
+    mid_item(mr, mi, qr, qi, tw2, twi, batch, log2n, LG2, RADIX, LC,      \
+             fused);                                                      \
+    return;                                                               \
+  }
+  MID_SHAPES(MID_SHAPE)
+#undef MID_SHAPE
+  mid_item(mr, mi, qr, qi, tw2, twi, batch, log2n, lg2, radix, lc, fused);
 }
 
 // Kernel 4's output of the inverse's last pass: element k of sub-problem
@@ -1529,6 +1622,13 @@ size_t mid_smem(int slots, int lm) {
   return (size_t)2 * 2 * slots * (((size_t)1 << lm) + 1) * sizeof(float);
 }
 
+// Dynamic shared memory of the real product's M: two buffers of
+// interleaved complex values for `slots` sub-problems of 2^lm points at row
+// stride mid_ld(lm).
+size_t real_mid_smem(int slots, int lm) {
+  return (size_t)2 * slots * mid_ld(lm) * sizeof(float2);
+}
+
 // A split-pass launch the products take: n1 = 2^log2n1 and n2 at least 2;
 // F1's c1 = 2^lc1 sub-problems per CTA at most n2; M's cm = 2^lcm low ones
 // at most n1 (n1 / 2 for kernel 4, `held` = 4 sub-problems per low one,
@@ -1549,7 +1649,8 @@ bool bad_product_split(long rows, long rows_m, int log2n, int log2n1,
     return true;
   }
   return pass_smem(1 << lc1, log2n1, radix, true, true) > kMaxSmemBytes ||
-         mid_smem(held << lcm, lg2) > kMaxSmemBytes ||
+         (held == 4 ? real_mid_smem(4 << lcm, lg2)
+                    : mid_smem(2 << lcm, lg2)) > kMaxSmemBytes ||
          pass_smem(1 << lci, li2, radix, true, true) > kMaxSmemBytes ||
          (rows << (lg2 - lc1)) > 0x7fffffffL ||
          (rows_m << (log2n1 - lpair - lcm)) > 0x7fffffffL ||
@@ -1800,14 +1901,16 @@ int stockham_polymul_complex(const float* ar, const float* ai,
 // log2n1 > 0: the split-pass schedule, `scratch` two planes of batch * n
 // floats (F1's spectra of z = a + ib) and two of (batch + 1) / 2 * n (Q, or
 // the inverse's pass-1 result), `tw2f` the forward pass-2 table and `tw2i`
-// the inverse's (from the inverse table), `block` unused; each launch is
-// checked. log2n1 == 0: one CTA per `block` rows (even).
+// the inverse's (from the inverse table), `twi` (fused only) the inverse
+// table's entries W[m n1], m < n2, interleaved (re, im), `block` unused;
+// each launch is checked. log2n1 == 0: one CTA per `block` rows (even),
+// `twi` unused.
 int stockham_polymul_real(const float* a, const float* b, float* c,
                           const float* wr, const float* wi, const float* wir,
                           const float* wii, float* scratch, const float* tw2f,
-                          const float* tw2i, int batch, int log2n, int radix,
-                          int block, int log2n1, int lc1, int lcm, int lci,
-                          void* stream) {
+                          const float* tw2i, const float* twi, int batch,
+                          int log2n, int radix, int block, int log2n1,
+                          int lc1, int lcm, int lci, void* stream) {
   if (bad_args(batch, log2n, radix, block) || (block & 1)) {
     return cudaErrorInvalidValue;
   }
@@ -1815,7 +1918,8 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
   if (log2n1 != 0 &&
       (scratch == nullptr || tw2f == nullptr || tw2i == nullptr ||
        bad_product_split(batch, pairs, log2n, log2n1, radix, lc1, lcm, lci,
-                         4))) {
+                         4) ||
+       (product_fused(log2n, radix) && twi == nullptr))) {
     return cudaErrorInvalidValue;
   }
   if (batch == 0) return cudaSuccess;
@@ -1836,13 +1940,13 @@ int stockham_polymul_real(const float* a, const float* b, float* c,
                                    0, lc1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    smem = mid_smem(4 << lcm, lg2);
+    smem = real_mid_smem(4 << lcm, lg2);
     err = opt_in(polymul_real_mid_kernel, smem);
     if (err != cudaSuccess) return err;
     polymul_real_mid_kernel<<<pairs << (log2n1 - 1 - lcm),
                               pass_threads(4 << lcm, lg2), smem, st>>>(
-        fr, fi, qr, qi, tw2f, wir, wii, batch, log2n, log2n1, radix, lcm,
-        fused);
+        fr, fi, qr, qi, tw2f, reinterpret_cast<const float2*>(twi), batch,
+        log2n, log2n1, radix, lcm, fused);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const float* sr = qr;
@@ -1927,7 +2031,7 @@ int stockham_occupancy(int kernel, int log2n, int block, int staged,
       case 3 * 8 + 3:
         return launch_occupancy(polymul_real_mid_kernel,
                                 pass_threads(4 * block, log2n),
-                                mid_smem(4 * block, log2n), threads, smem,
+                                real_mid_smem(4 * block, log2n), threads, smem,
                                 regs, ctas);
       case 3 * 8 + 4:
         return pass_occupancy(polymul_real_pass2_kernel, block, log2n, 4,

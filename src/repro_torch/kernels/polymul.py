@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch import spans
@@ -27,7 +28,8 @@ from repro_torch.kernels.fft import (TWO_PASS_FROM, _log2, _sweeps,
                                      hermitian_split, mirror_slots, natural,
                                      pass1_plain, pass2_plain, pass_slots,
                                      plan_batch_block, ptr, scratch_for,
-                                     stockham_stages, two_pass_split)
+                                     stockham_stages, twiddle_table,
+                                     two_pass_split)
 
 
 def default_complex_block(n: int) -> int:
@@ -104,6 +106,17 @@ def product_two_pass_launch(n1: int, n2: int, radix: int, *,
     cm = pass_slots(n2, n1 // 2 if real else n1, held)
     ci = pass_slots(n1, n2) if fused else pass_slots(n2, n1)
     return ProductTwoPass(n1, n2, pass_slots(n1, n2), cm, ci, fused)
+
+
+@functools.lru_cache(maxsize=64)
+def mid_inverse_twiddles(n: int, n1: int, device: torch.device
+                         ) -> torch.Tensor:
+    """Every twiddle of the inverse's pass 1 that the real product's M runs
+    (split n2 x n1): the inverse table's W[m n1], m < n / n1, as (n / n1,
+    2) interleaved fp32 on ``device``, cached as ``device_twiddles`` is."""
+    wr, wi = twiddle_table(n, inverse=True)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.stack([wr[0, ::n1], wi[0, ::n1]], axis=-1))).to(device)
 
 
 def _complex_product(far, fai, fbr, fbi):
@@ -343,7 +356,8 @@ def polymul_real_planes(a: torch.Tensor, b: torch.Tensor, *, radix: int = 2,
 def _launch_polymul_real(a, b, radix: int, block: int,
                          two_pass: ProductTwoPass | None):
     """Launch ``stockham_polymul_real`` on card rows under the given
-    schedule: ``two_pass``, or one CTA per ``block`` rows at most."""
+    schedule: ``two_pass``, or one CTA per ``block`` rows at most; counted
+    in ``_build.SCHEDULES`` as "split-pass", "resident" or "staged"."""
     bsz, n = a.shape
     c = torch.empty_like(a)
     if bsz == 0:
@@ -355,7 +369,8 @@ def _launch_polymul_real(a, b, radix: int, block: int,
             rows, staged = cta_rows(n, bsz, block, real=True, product=True)
             scratch = scratch_for(n, bsz, rows, staged, a.device, real=True,
                                   product=True)
-            tw2f = tw2i = None
+            tw2f = tw2i = twi = None
+            schedule = "staged" if staged else "resident"
         else:
             # F1's spectra of z = a + ib (B rows), then Q or the inverse's
             # pass-1 result (one row per pair), as split planes
@@ -366,8 +381,12 @@ def _launch_polymul_real(a, b, radix: int, block: int,
                                          a.device)
             tw2i = device_pass2_twiddles(n, two_pass.inverse_n1, radix, True,
                                          a.device)
+            twi = (mid_inverse_twiddles(n, two_pass.n1, a.device)
+                   if two_pass.fused else None)
+            schedule = "split-pass"
         _build.launch("stockham_polymul_real", "polymul_real_planes",
                       ptr(a), ptr(b), ptr(c), ptr(wr), ptr(wi), ptr(wir),
-                      ptr(wii), ptr(scratch), ptr(tw2f), ptr(tw2i), bsz,
-                      _log2(n), radix, rows, *_split_args(two_pass))
+                      ptr(wii), ptr(scratch), ptr(tw2f), ptr(tw2i), ptr(twi),
+                      bsz, _log2(n), radix, rows, *_split_args(two_pass),
+                      schedule=schedule)
     return c

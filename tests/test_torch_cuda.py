@@ -213,6 +213,7 @@ def test_product_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
             assert torch.equal(g, w), label
     want = tpoly.polymul_real_planes_plain(ar, br, radix=radix)
     for label, sched in _product_schedules(n, radix, True).items():
+        before = _build.SCHEDULES[_real_schedule(n, batch, sched)]
         if label == "planned":
             got = _launched("polymul_real_planes",
                             lambda: tpoly.polymul_real_planes(ar, br,
@@ -223,6 +224,37 @@ def test_product_schedules_equal_plain_bitwise(cuda, rng, n, radix, batch):
                                 ar, br, radix, tpoly.default_real_block(n),
                                 sched))
         assert torch.equal(got, want), label
+        assert _build.SCHEDULES[_real_schedule(n, batch, sched)] == \
+            before + 1, label
+
+
+def _real_schedule(n, batch, sched):
+    """The key ``polymul_real_planes`` counts a call under in
+    ``_build.SCHEDULES``: the split-pass schedule, or the single-CTA
+    kernel's rows resident or staged."""
+    if sched is not None:
+        return "polymul_real_planes", "split-pass"
+    _, staged = tfft.cta_rows(n, batch, tpoly.default_real_block(n),
+                              real=True, product=True)
+    return "polymul_real_planes", "staged" if staged else "resident"
+
+
+@pytest.mark.parametrize("n", [16384, 32768])
+@pytest.mark.parametrize("radix", [2, 4])
+@pytest.mark.parametrize("batch", [1, 4, 5, 64, 1024])
+def test_real_product_split_pass_bitwise(cuda, rng, n, radix, batch):
+    """The real product at the benchmark's n and the next (three launches,
+    four at 2^15 and radix 4), odd and even batches up to the benchmark's
+    1024 products: bit for bit the plain version, one launch count and one
+    call of the split-pass schedule (``SCHEDULES``) per call."""
+    a, b = _planes(rng, batch, n, 2, cuda)
+    key = ("polymul_real_planes", "split-pass")
+    before = _build.SCHEDULES[key]
+    got = _launched("polymul_real_planes",
+                    lambda: tpoly.polymul_real_planes(a, b, radix=radix))
+    assert _build.SCHEDULES[key] == before + 1
+    assert torch.equal(got, tpoly.polymul_real_planes_plain(a, b,
+                                                            radix=radix))
 
 
 NTT_NS = [2, 8, 4096, 16384, 32768, 65536]
@@ -465,7 +497,8 @@ def test_product_two_pass_occupancy_matches_launch_configuration(cuda, name,
     sub-problem for each state a step leaves in shared memory, two at
     most); M with one thread per work item of its 2 cm (complex) or 4 cm
     (real) sub-problems and always two buffers of them (the product, Q and
-    the inverse's first pass use both); at least one CTA per SM."""
+    the inverse's first pass use both), the real product's of interleaved
+    complex values at row stride m + 2; at least one CTA per SM."""
     real = name == "polymul_real_planes"
     tp = tpoly.product_two_pass_plan(n, 4, real=real) or \
         tpoly.product_two_pass_launch(
@@ -480,7 +513,8 @@ def test_product_two_pass_occupancy_matches_launch_configuration(cuda, name,
                 li2.bit_length() - 1) - 1)))):
         occ = _build.occupancy(name, m.bit_length() - 1, c, mode)
         assert occ["threads"] == max(32, min(256, slots * max(1, m // 16)))
-        assert occ["smem_bytes"] == buffers * 8 * slots * (m + 1)
+        pad = 2 if mode == 3 and real else 1
+        assert occ["smem_bytes"] == buffers * 8 * slots * (m + pad)
         assert occ["regs"] > 0 and occ["ctas_per_sm"] >= 1
 
 

@@ -477,3 +477,56 @@ def test_product_split_fits(lg, radix, real):
     assert plan.n2 <= tfft.TWO_PASS_MAX_SUB // held
     if plan.fused and radix == 4:
         assert (plan.n1.bit_length() - 1) % 2 == 0
+
+
+@pytest.mark.parametrize("lg", range(12, 26))
+@pytest.mark.parametrize("radix", [2, 4])
+def test_real_mid_plan(lg, radix):
+    """The real product's M at every split the planner gives it: its two
+    shared buffers (4 cm rows of n2 + 2 interleaved complex values each,
+    csrc/stockham.cu ``real_mid_smem``) fit one CTA; each CTA holds whole
+    sub-problems with their mirrors; and its grid of (B + 1) / 2 row pairs
+    times n1 / 2 cm groups takes every sub-problem of every row pair
+    exactly once."""
+    n = 1 << lg
+    plan = tpoly.product_two_pass_plan(n, radix, real=True)
+    if plan is None:
+        assert tfft.two_pass_split(n, radix, real=True, product=True) is None
+        return
+    assert 2 * 4 * plan.cm * (plan.n2 + 2) * 8 <= tfft.SMEM_MAX_BYTES
+    l0, mirror = (t.numpy() for t in tfft.mirror_slots(plan.n1, plan.cm))
+    groups = plan.n1 // (2 * plan.cm)
+    assert l0.shape == mirror.shape == (groups, 2 * plan.cm)
+    for g in range(groups):
+        assert (l0[g, mirror[g]] == (plan.n1 - l0[g]) % plan.n1).all()
+    for batch in (1, 5, 64, 1024):
+        pairs = (batch + 1) // 2
+        taken = sorted((w // groups, int(q)) for w in range(pairs * groups)
+                       for q in l0[w % groups])
+        assert taken == [(p, q) for p in range(pairs)
+                         for q in range(plan.n1)]
+
+
+def test_real_mid_shapes_are_the_planners():
+    """``polymul_real_mid_kernel`` compiles the planner's real-product
+    splits at radix 4 (the radix ``plan`` takes for every local float
+    route from n = 4 on) with their sizes as constants where they are
+    fused (``MID_SHAPES`` in csrc/stockham.cu): the list is exactly the
+    (log2 n2, radix, log2 cm) of every such split ``product_two_pass_plan``
+    gives, each fused at some n, so none of the fused ones runs the
+    kernel's run-time fallback."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tpoly.__file__).parent / "csrc" /
+           "stockham.cu").read_text()
+    body = re.search(r"#define MID_SHAPES\(X\)(.*?)\n\n", src, re.S).group(1)
+    listed = {tuple(int(v) for v in m)
+              for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", body)}
+    planned = set()
+    for lg in range(12, 26):
+        assert tcore.plan(1 << lg, 64, real=True, product=True).radix == 4
+        plan = tpoly.product_two_pass_plan(1 << lg, 4, real=True)
+        if plan is not None and plan.fused:
+            planned.add((plan.n2.bit_length() - 1, 4,
+                         plan.cm.bit_length() - 1))
+    assert listed == planned
